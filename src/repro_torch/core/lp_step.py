@@ -1,0 +1,281 @@
+"""LP denoising engines: the reference loop and the step-cached fast path.
+
+One LP forward pass = dynamic rotating partition -> parallel denoising ->
+position-aware latent reconstruction (paper §3.2 workflow, Fig. 3).  A
+port of ``repro/core/lp_step.py`` for one process:
+
+* :func:`lp_denoise_reference` — the eager loop, a fresh closure per step.
+* :func:`lp_denoise` + :class:`LPStepCompiler` — the serving path.  PyTorch
+  has nothing to trace, so the compiler is a cache keyed like the
+  reference's (``lp_step.py:406-415``, without the trace signatures).  An
+  entry holds the partition plan and, for uniform windows, its blend
+  weights and normalizer already on the device; ``compiles`` counts
+  misses, at most one per rotation dim (<= 3) per denoise.
+
+The K windows of a step are denoised in ONE call, stacked on the batch
+axis (the reference vmaps over them): ``denoise_fn`` sees ``(K*B, ...)``
+and must treat samples independently, as the DiT does; the guided
+denoisers of ``diffusion/pipeline.py`` tile their conditioning to match.
+
+Not served yet, and raising ``NotImplementedError``: wire codecs and
+codec schedules (ROADMAP Queue 1 item 5), mesh-bound forward hooks
+(items 6 and 8), tp-sharded wires (item 8), the flight recorder (item 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from .partition import PartitionPlan, extract, plan_partition
+from .reconstruct import reconstruct
+from .schedule import rotation_dim, usable_dims
+from .spmd import BlendTables, blend_windows, stack_windows
+from .uniform import UniformPlan, plan_uniform
+
+DenoiseFn = Callable[[torch.Tensor], torch.Tensor]
+DenoiseStepFn = Callable[..., torch.Tensor]
+
+_NOT_SERVED = {
+    "codec": "ROADMAP Queue 1 item 5 (wire codecs)",
+    "schedule": "ROADMAP Queue 1 item 5 (wire codecs) and item 9 (step policy)",
+    "forward": "ROADMAP Queue 1 item 6 (several GPUs)",
+    "forward_factory": "ROADMAP Queue 1 items 5 and 6 (scheduled mesh-bound wires)",
+    "mesh_shape": "ROADMAP Queue 1 item 8 (hybrid LP x TP)",
+    "wire_shard": "ROADMAP Queue 1 item 8 (hybrid LP x TP)",
+    "recorder": "ROADMAP Queue 1 item 7 (observability)",
+}
+
+
+def not_served(items: Dict[str, str], **given: Any) -> None:
+    """Raise for the first argument given that this slice does not serve;
+    ``items`` names each argument's ROADMAP item."""
+    for name, value in given.items():
+        if value is not None and value is not False:
+            raise NotImplementedError(f"{name}= is not ported yet: {items[name]}")
+
+
+@dataclasses.dataclass
+class DenoiseSnapshot:
+    """Mid-denoise recovery point, recorded at dim-rotation boundaries.
+
+    After each completed run of same-dim steps the latent and the step
+    index are recorded here (a CPU copy, so it survives the loss of the
+    device that failed); a later :func:`lp_denoise` call with the same
+    snapshot resumes from that boundary instead of ``z_T``.
+    """
+
+    step: int = 0                          # last completed denoise step
+    z: Optional[torch.Tensor] = None       # CPU copy of the latent at ``step``
+    boundaries: int = 0                    # records taken
+    resumes: int = 0                       # times a denoise resumed from here
+
+    def record(self, step: int, z: torch.Tensor) -> None:
+        self.step = int(step)
+        self.z = z.detach().to("cpu", copy=True)
+        self.boundaries += 1
+
+
+def lp_forward(denoise_fn: DenoiseFn, z: torch.Tensor, plan: PartitionPlan,
+               axis: int) -> torch.Tensor:
+    """One LP forward pass with a prebuilt (paper-exact) partition plan."""
+    preds = []
+    for k in range(plan.num_partitions):
+        sub = extract(z, plan, k, axis)
+        pred = denoise_fn(sub)
+        if pred.shape != sub.shape:
+            raise ValueError(
+                f"denoise_fn changed the sub-latent shape: {tuple(sub.shape)} -> "
+                f"{tuple(pred.shape)}"
+            )
+        preds.append(pred)
+    return reconstruct(preds, plan, axis)
+
+
+def lp_forward_uniform(denoise_fn: DenoiseFn, z: torch.Tensor, plan: UniformPlan,
+                       axis: int, tables: Optional[BlendTables] = None) -> torch.Tensor:
+    """One LP forward pass on uniform windows: the K windows go through
+    ``denoise_fn`` as one batch, then ``blend_windows`` stitches them."""
+    windows = stack_windows(z, plan, axis)               # (K, B, ...)
+    K, B = windows.shape[:2]
+    preds = denoise_fn(windows.reshape((K * B,) + windows.shape[2:]))
+    preds = preds.reshape(windows.shape)
+    return blend_windows(preds, plan, axis, tables).to(z.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class _StepEntry:
+    plan: Any                       # UniformPlan or PartitionPlan
+    axis: int
+    tables: Optional[BlendTables]   # uniform plans: blend tables on the device
+
+
+class LPStepCompiler:
+    """LRU cache of LP step geometry, keyed like the reference's step cache.
+
+    Key: ``(dim, z shape, z dtype, device, K, r, uniform)``.
+    ``step(dim, z, t, scalars, extras)`` runs one LP forward with
+    ``denoise_fn(window, t, *extras)`` and applies
+    ``update_fn(z, pred, scalars)``.
+    """
+
+    def __init__(
+        self,
+        denoise_fn: DenoiseStepFn,
+        update_fn: Callable[[torch.Tensor, torch.Tensor, Any], torch.Tensor],
+        num_partitions: int,
+        overlap_ratio: float,
+        patch_sizes: Sequence[int],
+        spatial_axes: Sequence[int] = (1, 2, 3),
+        uniform: bool = False,
+        maxsize: int = 32,
+        codec=None,
+        schedule=None,
+        forward: Optional[Callable] = None,
+        forward_factory: Optional[Callable] = None,
+        mesh_shape: Optional[Tuple[int, ...]] = None,
+        wire_shard: bool = False,
+    ):
+        not_served(_NOT_SERVED, codec=codec, schedule=schedule, forward=forward,
+                   forward_factory=forward_factory, mesh_shape=mesh_shape,
+                   wire_shard=wire_shard)
+        self.denoise_fn = denoise_fn
+        self.update_fn = update_fn
+        self.num_partitions = num_partitions
+        self.overlap_ratio = overlap_ratio
+        self.patch_sizes = tuple(patch_sizes)
+        self.spatial_axes = tuple(spatial_axes)
+        self.uniform = uniform
+        self.maxsize = maxsize
+        self._cache: "OrderedDict[Tuple, _StepEntry]" = OrderedDict()
+        self.compiles = 0
+        self.hits = 0
+
+    def _plan(self, dim: int, extent: int):
+        planner = plan_uniform if self.uniform else plan_partition
+        return planner(extent, self.patch_sizes[dim], self.num_partitions,
+                       self.overlap_ratio, dim)
+
+    def entry(self, dim: int, z: torch.Tensor) -> _StepEntry:
+        key = (dim, tuple(z.shape), z.dtype, z.device, self.num_partitions,
+               self.overlap_ratio, self.uniform)
+        cached = self._cache.get(key)
+        if cached is not None:
+            self._cache.move_to_end(key)
+            self.hits += 1
+            return cached
+        axis = self.spatial_axes[dim]
+        plan = self._plan(dim, z.shape[axis])
+        tables = BlendTables.build(plan, z.device) if self.uniform else None
+        entry = _StepEntry(plan, axis, tables)
+        self._cache[key] = entry
+        if len(self._cache) > self.maxsize:
+            self._cache.popitem(last=False)
+        self.compiles += 1
+        return entry
+
+    def step(self, dim: int, z: torch.Tensor, t, scalars, extras: Tuple) -> torch.Tensor:
+        e = self.entry(dim, z)
+
+        def fn(w):
+            return self.denoise_fn(w, t, *extras)
+
+        if self.uniform:
+            pred = lp_forward_uniform(fn, z, e.plan, e.axis, e.tables)
+        else:
+            pred = lp_forward(fn, z, e.plan, e.axis)
+        return self.update_fn(z, pred, scalars)
+
+
+def lp_denoise(
+    denoise_fn: Optional[DenoiseStepFn],
+    z_T: torch.Tensor,
+    sampler,
+    num_steps: int,
+    num_partitions: int,
+    overlap_ratio: float,
+    patch_sizes: Sequence[int],
+    spatial_axes: Sequence[int],
+    uniform: bool = False,
+    extras: Tuple = (),
+    compiler: Optional[LPStepCompiler] = None,
+    step_hook: Optional[Callable[[int], None]] = None,
+    codec=None,
+    schedule=None,
+    snapshot: Optional[DenoiseSnapshot] = None,
+    recorder=None,
+) -> torch.Tensor:
+    """Full T-step LP denoising through the step cache.
+
+    ``denoise_fn(window, t, *extras)`` takes the timestep as a float;
+    ``sampler`` gives ``timestep(i)``, ``step_scalars(i)`` and ``update``.
+    ``step_hook(i)`` fires before step ``i``.  ``snapshot`` arms boundary
+    checkpointing exactly where the reference records
+    (``lp_step.py:670``): after the last step of every run of same-dim
+    steps but the final one; a snapshot that already holds a step
+    resumes from it.
+    """
+    not_served(_NOT_SERVED, codec=codec, schedule=schedule, recorder=recorder)
+    comp = compiler
+    if comp is None:
+        if denoise_fn is None:
+            raise ValueError("need denoise_fn when no compiler is given")
+        comp = LPStepCompiler(denoise_fn, sampler.update, num_partitions,
+                              overlap_ratio, patch_sizes, spatial_axes,
+                              uniform=uniform)
+    dims = usable_dims([z_T.shape[comp.spatial_axes[d]] for d in range(3)],
+                       comp.patch_sizes, comp.num_partitions)
+    if not dims:
+        raise ValueError(f"no latent dim has >= {comp.num_partitions} patches; reduce K")
+
+    start = 0
+    z = z_T
+    if snapshot is not None and snapshot.z is not None and snapshot.step > 0:
+        start = min(int(snapshot.step), num_steps)
+        snapshot.resumes += 1
+        z = snapshot.z.to(device=z_T.device, dtype=z_T.dtype)
+
+    for i in range(start + 1, num_steps + 1):
+        if step_hook is not None:
+            step_hook(i)
+        dim = rotation_dim(i, dims)
+        z = comp.step(dim, z, sampler.timestep(i), sampler.step_scalars(i), extras)
+        if snapshot is not None and i < num_steps and rotation_dim(i + 1, dims) != dim:
+            snapshot.record(i, z)
+    return z
+
+
+def lp_denoise_reference(
+    denoise_fn_for_step: Callable[[int, int], DenoiseFn],
+    z_T: torch.Tensor,
+    scheduler_update: Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor],
+    num_steps: int,
+    num_partitions: int,
+    overlap_ratio: float,
+    patch_sizes: Sequence[int],
+    spatial_axes: Sequence[int],
+    uniform: bool = False,
+) -> torch.Tensor:
+    """The eager T-step loop (paper Fig. 3, Eqs. 3-6): a fresh denoiser
+    closure and a fresh plan every step; the semantics oracle."""
+    dims = usable_dims([z_T.shape[spatial_axes[d]] for d in range(3)],
+                       patch_sizes, num_partitions)
+    if not dims:
+        raise ValueError(f"no latent dim has >= {num_partitions} patches; reduce K")
+    z = z_T
+    for i in range(1, num_steps + 1):
+        dim = rotation_dim(i, dims)
+        axis = spatial_axes[dim]
+        fn = denoise_fn_for_step(i, dim)
+        if uniform:
+            plan = plan_uniform(z.shape[axis], patch_sizes[dim], num_partitions,
+                                overlap_ratio, dim)
+            pred = lp_forward_uniform(fn, z, plan, axis)
+        else:
+            plan = plan_partition(z.shape[axis], patch_sizes[dim], num_partitions,
+                                  overlap_ratio, dim)
+            pred = lp_forward(fn, z, plan, axis)
+        z = scheduler_update(z, pred, i)
+    return z

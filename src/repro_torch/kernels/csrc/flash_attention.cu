@@ -1,0 +1,467 @@
+// Flash attention (tiled online softmax) for Hopper, sm_90a.
+//
+// Replaces: src/repro/kernels/flash_attention.py:flash_attention, the
+// Pallas TPU kernel (grid (B, H, q blocks, kv blocks) with the kv axis
+// run in order and m, l, acc carried in VMEM scratch).
+//
+// Same function: scores q.k / sqrt(D) in f32; a key is attended when its
+// position is not int32-max (padded slot), and, if asked, causal
+// (kv_pos <= q_pos) and inside a sliding window (kv_pos > q_pos - window);
+// query head h reads kv head h / (H / KV) (GQA); m, l and acc are f32;
+// out = acc / max(l, 1e-37) in the input type.
+//
+// Design.  Blocks run in parallel and in no order on the GPU, so one
+// block owns one (batch, head, q tile) and the TPU's sequential kv grid
+// axis becomes a loop inside the block: K and V tiles are staged in shared
+// memory and the online-softmax state stays in registers.
+//
+// What bounds it.  At the DiT's shapes (S ~ 2.5k-5k tokens, D = 128) the
+// work is ~4*S*Skv*D operations against ~4*S*D bytes per head, far above
+// the card's ~295 operations per byte: tensor-core throughput bounds it.
+// bf16 therefore runs on mma.sync m16n8k16 tensor-core products (f32
+// accumulate): four warps, 16 query rows each, 32-key tiles, P converted
+// to bf16 in registers for the P.V product, K/V fragments read with
+// ldmatrix, and the next K/V tile loaded by cp.async while the current
+// one is multiplied.  The softmax's elementwise work competes with the
+// mma.sync issue slots, so a tile that needs no mask skips it.  No TMA
+// and no wgmma yet: those are later work.  f32 runs on a plain FMA
+// kernel (the f32 path is for checks, not serving).
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <cmath>
+
+namespace {
+
+constexpr float kNegInf = -1.0e30f;
+constexpr int kPadPos = 2147483647;  // int32 max: padded kv slot
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* qpos;
+  const int* kvpos;
+  void* out;
+  int B, Sq, Skv, H, KV;
+  long long qpos_bs, kvpos_bs;  // batch strides of the position arrays
+  int causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ bool attend(int qp, int kp, int causal, int window) {
+  bool ok = kp != kPadPos;
+  if (causal) ok = ok && kp <= qp;
+  if (window > 0) ok = ok && (long long)kp > (long long)qp - window;
+  return ok;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// 16 bytes global -> shared without a register round trip; zero-filled
+// when ``valid`` is false (``src`` must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------- bf16
+// Fragment layouts of mma m16n8k16 (g = lane / 4, c = lane % 4):
+//   A (16x16): a0 (g, 2c..2c+1), a1 (g+8, 2c..), a2 (g, 2c+8..), a3 (g+8, 2c+8..)
+//   B (16x8):  b0 (k = 2c..2c+1, n = g), b1 (k = 2c+8.., n = g)
+//   C (16x8):  c0,c1 (g, 2c..2c+1), c2,c3 (g+8, 2c..2c+1)
+// The C layout of a 16x16 slice of S equals the A layout of P, so P
+// never leaves registers.  K is stored [key][dim], which is B's layout
+// for S = Q K^T (plain ldmatrix); V is stored [key][dim] too and
+// ldmatrix.trans turns it into B's layout for O = P V.  K/V tiles go
+// through two shared-memory stages: tile t+1 is in flight (cp.async)
+// while tile t is multiplied.
+constexpr int kWarps = 4, kThreads = 32 * kWarps;  // 16 query rows per warp
+constexpr int kBN = 32;                             // keys per tile
+
+template <int D>
+constexpr int bf16_smem_bytes() {
+  return 2 * 2 * kBN * (D + 8) * 2 + 2 * kBN * 4;  // 2 stages x (K, V) + kv positions
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
+  constexpr int BM = 16 * kWarps, BN = kBN, LD = D + 8;  // +8: no bank conflicts
+  constexpr int KSTEPS = D / 16, DB = D / 8, NB = BN / 8, TILE = BN * LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BN][LD]
+  __nv_bfloat16* Vs = Ks + 2 * TILE;                            // [2][BN][LD]
+  int* kvp_s = reinterpret_cast<int*>(Vs + 2 * TILE);           // [2][BN]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.H / p.KV);
+  const long long qrs = (long long)p.H * D;   // row strides, elements
+  const long long kvrs = (long long)p.KV * D;
+  const __nv_bfloat16* Q =
+      static_cast<const __nv_bfloat16*>(p.q) + (long long)b * p.Sq * qrs + (long long)h * D;
+  const __nv_bfloat16* Kg =
+      static_cast<const __nv_bfloat16*>(p.k) + (long long)b * p.Skv * kvrs + (long long)hk * D;
+  const __nv_bfloat16* Vg =
+      static_cast<const __nv_bfloat16*>(p.v) + (long long)b * p.Skv * kvrs + (long long)hk * D;
+
+  const int r0 = blockIdx.x * BM + warp * 16 + g, r1 = r0 + 8;
+  const bool ok_r0 = r0 < p.Sq, ok_r1 = r1 < p.Sq;
+  const int qp0 = ok_r0 ? p.qpos[b * p.qpos_bs + r0] : 0;
+  const int qp1 = ok_r1 ? p.qpos[b * p.qpos_bs + r1] : 0;
+
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const int col = kk * 16 + 2 * c;
+    qf[kk][0] = ok_r0 ? ld32(Q + r0 * qrs + col) : 0u;
+    qf[kk][1] = ok_r1 ? ld32(Q + r1 * qrs + col) : 0u;
+    qf[kk][2] = ok_r0 ? ld32(Q + r0 * qrs + col + 8) : 0u;
+    qf[kk][3] = ok_r1 ? ld32(Q + r1 * qrs + col + 8) : 0u;
+  }
+
+  float o[DB][4];
+#pragma unroll
+  for (int db = 0; db < DB; ++db) o[db][0] = o[db][1] = o[db][2] = o[db][3] = 0.f;
+  // scores are kept unscaled; the softmax runs in base 2 with
+  // log2(e) / sqrt(D) folded into one FMA per element
+  const float sl2 = p.scale * 1.4426950408889634f;
+  const bool plain_mask = !p.causal && p.window <= 0;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  auto load_tile = [&](int n0, int st) {
+    __nv_bfloat16* ks = Ks + st * TILE;
+    __nv_bfloat16* vs = Vs + st * TILE;
+    for (int i = tid; i < BN * D / 8; i += kThreads) {
+      const int row = i / (D / 8), cc = (i % (D / 8)) * 8;
+      const int n = n0 + row;
+      const long long off = n < p.Skv ? n * kvrs + cc : 0;
+      cp_async16(ks + row * LD + cc, Kg + off, n < p.Skv);
+      cp_async16(vs + row * LD + cc, Vg + off, n < p.Skv);
+    }
+    if (tid < BN) {
+      const int n = n0 + tid;
+      kvp_s[st * BN + tid] = n < p.Skv ? p.kvpos[b * p.kvpos_bs + n] : kPadPos;
+    }
+  };
+
+  const int ntiles = (p.Skv + BN - 1) / BN;
+  load_tile(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < ntiles) load_tile((t + 1) * BN, st ^ 1);
+    cp_async_commit();  // possibly empty: keeps "all but the newest" = tile t
+    cp_async_wait_one();
+    // the barrier also tells whether every key of the tile is attendable
+    // by every row (no padding, no causal or window mask): then the
+    // per-element mask is skipped
+    const bool full =
+        __syncthreads_and(tid >= BN || kvp_s[st * BN + tid] != kPadPos) && plain_mask;
+    const __nv_bfloat16* ks = Ks + st * TILE;
+    const __nv_bfloat16* vs = Vs + st * TILE;
+    const int* kvp = kvp_s + st * BN;
+
+    // S = Q K^T for this warp's 16 rows x BN keys (one ldmatrix.x4 feeds
+    // two k-steps of one 8-key block)
+    float s[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; kk += 2) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + (nb * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
+        mma_bf16(s[nb], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[nb], qf[kk + 1], kb[2], kb[3]);
+      }
+    }
+
+    // mask, row max (a row's BN values live in the 4 lanes of a quad)
+    bool ok[NB][4];
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (full) {
+          ok[nb][j] = ok[nb][2 + j] = true;
+        } else {
+          const int kp = kvp[nb * 8 + 2 * c + j];
+          ok[nb][j] = attend(qp0, kp, p.causal, p.window);
+          ok[nb][2 + j] = attend(qp1, kp, p.causal, p.window);
+          if (!ok[nb][j]) s[nb][j] = kNegInf;
+          if (!ok[nb][2 + j]) s[nb][2 + j] = kNegInf;
+        }
+        mx0 = fmaxf(mx0, s[nb][j]);
+        mx1 = fmaxf(mx1, s[nb][2 + j]);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float corr0 = exp2_approx((m0 - mx0) * sl2), corr1 = exp2_approx((m1 - mx1) * sl2);
+    const float ms0 = mx0 * sl2, ms1 = mx1 * sl2;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[nb][j] = ok[nb][j] ? exp2_approx(fmaf(s[nb][j], sl2, -ms0)) : 0.f;
+        s[nb][2 + j] = ok[nb][2 + j] ? exp2_approx(fmaf(s[nb][2 + j], sl2, -ms1)) : 0.f;
+        sum0 += s[nb][j];
+        sum1 += s[nb][2 + j];
+      }
+    }
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+    m0 = mx0;
+    m1 = mx1;
+#pragma unroll
+    for (int db = 0; db < DB; ++db) {
+      o[db][0] *= corr0;
+      o[db][1] *= corr0;
+      o[db][2] *= corr1;
+      o[db][3] *= corr1;
+    }
+
+    // O += P V, P as the A operand straight from the S registers
+#pragma unroll
+    for (int k2 = 0; k2 < BN / 16; ++k2) {
+      uint32_t a[4];
+      a[0] = pack_f32(s[2 * k2][0], s[2 * k2][1]);
+      a[1] = pack_f32(s[2 * k2][2], s[2 * k2][3]);
+      a[2] = pack_f32(s[2 * k2 + 1][0], s[2 * k2 + 1][1]);
+      a[3] = pack_f32(s[2 * k2 + 1][2], s[2 * k2 + 1][3]);
+      // matrices: (keys +0, dims db), (keys +8, db), (+0, db+1), (+8, db+1)
+      const __nv_bfloat16* vrow =
+          vs + (k2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int db = 0; db < DB; db += 2) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vrow + db * 8);
+        mma_bf16(o[db], a, vb[0], vb[1]);
+        mma_bf16(o[db + 1], a, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's prefetch
+  }
+
+  const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
+  __nv_bfloat16* O =
+      static_cast<__nv_bfloat16*>(p.out) + (long long)b * p.Sq * qrs + (long long)h * D;
+#pragma unroll
+  for (int db = 0; db < DB; ++db) {
+    const int col = db * 8 + 2 * c;
+    if (ok_r0)
+      *reinterpret_cast<__nv_bfloat162*>(O + r0 * qrs + col) =
+          __floats2bfloat162_rn(o[db][0] * inv0, o[db][1] * inv0);
+    if (ok_r1)
+      *reinterpret_cast<__nv_bfloat162*>(O + r1 * qrs + col) =
+          __floats2bfloat162_rn(o[db][2] * inv1, o[db][3] * inv1);
+  }
+}
+
+// ----------------------------------------------------------------- f32
+// Four threads per query row, each owning D/4 dims (interleaved by 4 so
+// a quad reads 64 contiguous bytes of a K/V row); dot products are
+// finished with two quad shuffles.  32 rows and 32 keys per tile.
+template <int D>
+__global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
+  constexpr int BM = 32, BN = 32, DT = D / 4, DI = D / 16;
+  __shared__ __align__(16) float Ks[BN][D];
+  __shared__ __align__(16) float Vs[BN][D];
+  __shared__ int kvp_s[BN];
+
+  const int tid = threadIdx.x, row = tid >> 2, j = tid & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.H / p.KV);
+  const long long qrs = (long long)p.H * D, kvrs = (long long)p.KV * D;
+  const float* Q = static_cast<const float*>(p.q) + (long long)b * p.Sq * qrs + (long long)h * D;
+  const float* Kg = static_cast<const float*>(p.k) + (long long)b * p.Skv * kvrs + (long long)hk * D;
+  const float* Vg = static_cast<const float*>(p.v) + (long long)b * p.Skv * kvrs + (long long)hk * D;
+  const int r = blockIdx.x * BM + row;
+  const bool ok_r = r < p.Sq;
+  const int qp = ok_r ? p.qpos[b * p.qpos_bs + r] : 0;
+
+  float q[DT], acc[DT];
+#pragma unroll
+  for (int i = 0; i < DI; ++i) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok_r) x = *reinterpret_cast<const float4*>(Q + r * qrs + 16 * i + 4 * j);
+    q[4 * i] = x.x; q[4 * i + 1] = x.y; q[4 * i + 2] = x.z; q[4 * i + 3] = x.w;
+  }
+#pragma unroll
+  for (int d = 0; d < DT; ++d) acc[d] = 0.f;
+  float m = kNegInf, l = 0.f;
+
+  for (int n0 = 0; n0 < p.Skv; n0 += BN) {
+    __syncthreads();
+    for (int i = tid; i < BN * D / 4; i += 128) {
+      const int kr = i / (D / 4), cc = (i % (D / 4)) * 4;
+      const int n = n0 + kr;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+      if (n < p.Skv) {
+        kx = *reinterpret_cast<const float4*>(Kg + n * kvrs + cc);
+        vx = *reinterpret_cast<const float4*>(Vg + n * kvrs + cc);
+      }
+      *reinterpret_cast<float4*>(&Ks[kr][cc]) = kx;
+      *reinterpret_cast<float4*>(&Vs[kr][cc]) = vx;
+    }
+    if (tid < BN) {
+      const int n = n0 + tid;
+      kvp_s[tid] = n < p.Skv ? p.kvpos[b * p.kvpos_bs + n] : kPadPos;
+    }
+    __syncthreads();
+
+    float s[BN];
+    unsigned okbits = 0u;
+    float mx = m;
+#pragma unroll
+    for (int n = 0; n < BN; ++n) {
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < DI; ++i) {
+        const float4 kx = *reinterpret_cast<const float4*>(&Ks[n][16 * i + 4 * j]);
+        part += q[4 * i] * kx.x + q[4 * i + 1] * kx.y + q[4 * i + 2] * kx.z + q[4 * i + 3] * kx.w;
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      const bool ok = attend(qp, kvp_s[n], p.causal, p.window);
+      okbits |= (ok ? 1u : 0u) << n;
+      s[n] = ok ? part * p.scale : kNegInf;
+      mx = fmaxf(mx, s[n]);
+    }
+    const float corr = expf(m - mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < BN; ++n) {
+      s[n] = (okbits >> n) & 1u ? expf(s[n] - mx) : 0.f;
+      sum += s[n];
+    }
+    l = l * corr + sum;
+    m = mx;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) acc[d] *= corr;
+#pragma unroll
+    for (int n = 0; n < BN; ++n) {
+#pragma unroll
+      for (int i = 0; i < DI; ++i) {
+        const float4 vx = *reinterpret_cast<const float4*>(&Vs[n][16 * i + 4 * j]);
+        acc[4 * i] += s[n] * vx.x;
+        acc[4 * i + 1] += s[n] * vx.y;
+        acc[4 * i + 2] += s[n] * vx.z;
+        acc[4 * i + 3] += s[n] * vx.w;
+      }
+    }
+  }
+
+  if (ok_r) {
+    const float inv = 1.f / fmaxf(l, 1e-37f);
+    float* O = static_cast<float*>(p.out) + (long long)b * p.Sq * qrs + (long long)h * D;
+#pragma unroll
+    for (int i = 0; i < DI; ++i)
+      *reinterpret_cast<float4*>(O + r * qrs + 16 * i + 4 * j) =
+          make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv,
+                      acc[4 * i + 3] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const Params& p, cudaStream_t st) {
+  constexpr int smem = bf16_smem_bytes<D>();  // dynamic: may pass the 48 KiB default
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Sq + 16 * kWarps - 1) / (16 * kWarps), p.H, p.B);
+  flash_fwd_bf16<D><<<grid, kThreads, smem, st>>>(p);
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// launch, or -1 for a dtype / head dim this file has no kernel for.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
+                                   const void* qpos, const void* kvpos, void* out,
+                                   int B, int Sq, int Skv, int H, int KV, int D,
+                                   long long qpos_bs, long long kvpos_bs, int causal,
+                                   int window, int dtype, void* stream) {
+  Params p{q, k, v, static_cast<const int*>(qpos), static_cast<const int*>(kvpos), out,
+           B, Sq, Skv, H, KV, qpos_bs, kvpos_bs, causal, window, 1.0f / sqrtf((float)D)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    cudaError_t e;
+    if (D == 128) e = launch_bf16<128>(p, st);
+    else if (D == 64) e = launch_bf16<64>(p, st);
+    else return -1;
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (dtype == 0) {
+    const dim3 grid((Sq + 31) / 32, H, B);
+    if (D == 128) flash_fwd_f32<128><<<grid, 128, 0, st>>>(p);
+    else if (D == 64) flash_fwd_f32<64><<<grid, 128, 0, st>>>(p);
+    else return -1;
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* flash_attention_error_string(int code) {
+  if (code < 0) return "unsupported dtype or head dim";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

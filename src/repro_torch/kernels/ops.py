@@ -1,0 +1,157 @@
+"""Wrappers of the port's CUDA kernels, with their launch counters.
+
+Each wrapper takes its plain version (``kernels/ref.py``) for CPU
+tensors only.  A CUDA tensor launches the kernel or raises: there is no
+fallback.  ``<wrapper>.launches`` counts kernel launches, so a run can
+show that the main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import torch
+
+from . import build, ref
+
+INT32_MAX = ref.INT32_MAX
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_PARTITIONS = 32                 # latent_blend.cu: kMaxK
+
+
+def _dtype_code(t: torch.Tensor, what: str) -> int:
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {t.dtype} not supported (float32 or bfloat16)")
+    return _DTYPE_CODES[t.dtype]
+
+
+def _require_device(tensors: Dict[str, torch.Tensor], device: torch.device) -> None:
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _require_aligned(tensors: Dict[str, torch.Tensor]) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
+                    window: int = 0, kv_len=None) -> torch.Tensor:
+    """Softmax attention: q ``(B,Sq,H,D)``, k/v ``(B,Skv,KV,D)``, int
+    positions ``(B,S)`` (int32-max marks a padded kv slot); ``kv_len``
+    ``(B,)`` masks keys at positions ``>= kv_len``.
+
+    CUDA: ``csrc/flash_attention.cu``, bf16 or f32, D in {64, 128}.
+    """
+    if kv_len is not None:
+        kv_positions = torch.where(kv_positions < kv_len[:, None],
+                                   kv_positions, INT32_MAX)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, q_positions, kv_positions,
+                                       causal, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, KV, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if H % KV:
+        raise ValueError(f"flash_attention: {H} heads not divisible by {KV} kv heads")
+    if D not in (64, 128):
+        raise ValueError(f"flash_attention: head dim {D} not supported (64 or 128)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k and v must share one dtype")
+    code = _dtype_code(q, "flash_attention")
+    if q_positions.shape != (B, Sq) or kv_positions.shape != (B, Skv):
+        raise ValueError("flash_attention: positions must be (B, Sq) and (B, Skv)")
+    qp = q_positions.to(torch.int32)
+    kp = kv_positions.to(torch.int32)
+    if qp.stride(1) != 1:
+        qp = qp.contiguous()
+    if kp.stride(1) != 1:
+        kp = kp.contiguous()
+    out = torch.empty_like(q)
+    _require_device({"k": k, "v": v, "q_positions": qp, "kv_positions": kp}, q.device)
+    _require_aligned({"q": q, "k": k, "v": v, "out": out})
+    if out.numel() == 0:
+        return out
+    lib = build.library("flash_attention")
+    rc = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+        out.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0), kp.stride(0),
+        int(bool(causal)), int(window), code, _stream(q.device),
+    )
+    build.check("flash_attention", rc)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def latent_blend(preds: torch.Tensor, weights: torch.Tensor,
+                 normalizer: torch.Tensor, starts: Sequence[int],
+                 window: int, extent: int) -> torch.Tensor:
+    """Stitch K window predictions ``(K, W, F)`` into ``(E, F)``:
+    ``out[x,f] = sum_k W_k[x-s_k] preds[k,x-s_k,f] / Z[x]`` with an f32
+    accumulator.  ``weights`` ``(K, W)`` and ``normalizer`` ``(E,)`` are
+    f32; ``starts`` are the K window offsets.
+
+    CUDA: ``csrc/latent_blend.cu``, f32 preds (the serving path's type).
+    """
+    if preds.device.type == "cpu":
+        return ref.latent_blend_ref(preds, weights, normalizer, starts,
+                                    window, extent)
+    if preds.device.type != "cuda":
+        raise ValueError(f"latent_blend: no kernel for device {preds.device}")
+    K, W, F = preds.shape
+    starts = [int(s) for s in starts]
+    if W != window or len(starts) != K or not 1 <= K <= _MAX_PARTITIONS:
+        raise ValueError(f"latent_blend: preds {tuple(preds.shape)} do not match "
+                         f"window {window} and {len(starts)} starts (K <= {_MAX_PARTITIONS})")
+    if any(s < 0 or s + window > extent for s in starts):
+        raise ValueError(f"latent_blend: starts {starts} leave [0, {extent})")
+    if weights.shape != (K, W) or weights.dtype != torch.float32:
+        raise ValueError("latent_blend: weights must be float32 (K, W)")
+    if normalizer.shape != (extent,) or normalizer.dtype != torch.float32:
+        raise ValueError("latent_blend: normalizer must be float32 (E,)")
+    if preds.dtype != torch.float32:
+        raise TypeError(f"latent_blend: dtype {preds.dtype} not supported (float32)")
+    out = torch.empty((extent, F), dtype=preds.dtype, device=preds.device)
+    _require_device({"weights": weights, "normalizer": normalizer}, preds.device)
+    _require_aligned({"preds": preds, "weights": weights,
+                      "normalizer": normalizer, "out": out})
+    if out.numel() == 0:
+        return out
+    lib = build.library("latent_blend")
+    c_starts = (ctypes.c_int * K)(*starts)
+    rc = lib.latent_blend_fwd(
+        preds.data_ptr(), weights.data_ptr(), normalizer.data_ptr(),
+        out.data_ptr(), c_starts, K, W, extent, F, _stream(preds.device),
+    )
+    build.check("latent_blend", rc)
+    latent_blend.launches += 1
+    return out
+
+
+latent_blend.launches = 0
+
+WRAPPERS = {"flash_attention": flash_attention, "latent_blend": latent_blend}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

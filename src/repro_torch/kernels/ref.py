@@ -1,0 +1,88 @@
+"""Plain PyTorch versions of the port's kernels.
+
+They serve CPU tensors (``kernels/ops.py`` picks them only there) and are
+what ``chip_smoke.py`` holds each CUDA kernel against on the card.  They
+compute in float32 whatever the input type, like the TPU kernels did.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+NEG_INF = -1.0e30
+INT32_MAX = 2**31 - 1          # marks a padded kv slot: always masked
+
+
+def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+                   window: int) -> torch.Tensor:
+    """(B, Sq, Skv) bool: True where query ``i`` may attend key ``j``."""
+    qp = q_pos[:, :, None].long()
+    kp = kv_pos[:, None, :].long()
+    ok = kp < INT32_MAX
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        ok = ok & (kp > qp - window)
+    return ok
+
+
+def flash_attention_ref(q, k, v, q_positions, kv_positions,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Softmax attention with the flash kernel's semantics.
+
+    q ``(B, Sq, H, D)``, k/v ``(B, Skv, KV, D)``; query head ``h`` reads kv
+    head ``h // (H // KV)``.  Scores, softmax and the value sum are f32;
+    the output is cast to q's dtype.  A query row with no key it may
+    attend yields zeros (the online-softmax kernel's ``acc / max(l, 1e-37)``).
+    One batch element at a time, so the score matrix stays one
+    ``(H, Sq, Skv)`` slab.
+    """
+    B, Sq, H, D = q.shape
+    G = H // k.shape[2]
+    out = torch.empty_like(q)
+    ok_all = attention_mask(q_positions, kv_positions, causal, window)
+    for b in range(B):
+        qb = q[b].float().transpose(0, 1)                          # (H, Sq, D)
+        kb = k[b].float().transpose(0, 1).repeat_interleave(G, 0)  # (H, Skv, D)
+        vb = v[b].float().transpose(0, 1).repeat_interleave(G, 0)
+        s = torch.matmul(qb, kb.transpose(1, 2)) / math.sqrt(D)
+        ok = ok_all[b][None]
+        s = torch.where(ok, s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * ok
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
+        out[b] = (torch.matmul(p, vb) / l).transpose(0, 1).to(q.dtype)
+    return out
+
+
+def flash_bf16_tolerance(q, k, v, q_positions, kv_positions, causal: bool,
+                         window: int, plain: torch.Tensor) -> torch.Tensor:
+    """Per-element limit on ``|bf16 kernel - plain|`` for the same inputs.
+
+    The bf16 kernel differs from the plain version in two roundings: its
+    probabilities P go to bf16 for the tensor-core P.V product (relative
+    error <= 2^-8 each, so <= 2^-8 * sum_j p_j |v_j| / l in the output),
+    and both outputs are rounded to bf16 (<= 2^-8 |out| each).  Hence
+    ``|kernel - plain| <= 2^-8 * attention(q, k, |v|) + 2^-7 * |plain|``;
+    the factor 1.01 and 1e-6 cover the f32 arithmetic around them.
+    """
+    mean_abs_v = flash_attention_ref(q.float(), k.float(), v.float().abs(), q_positions,
+                                     kv_positions, causal, window)
+    return 1.01 * (2.0 ** -8 * mean_abs_v + 2.0 ** -7 * plain.float().abs()) + 1e-6
+
+
+def latent_blend_ref(preds: torch.Tensor, weights: torch.Tensor,
+                     normalizer: torch.Tensor, starts: Sequence[int],
+                     window: int, extent: int) -> torch.Tensor:
+    """Position-aware reconstruction (paper Eqs. 15-17) as K slice-adds.
+
+    ``out[x, f] = sum_k W_k[x - s_k] * preds[k, x - s_k, f] / Z[x]`` with
+    an f32 accumulator, cast back to preds' dtype.
+    """
+    K, W, F = preds.shape
+    acc = torch.zeros((extent, F), dtype=torch.float32, device=preds.device)
+    for kk in range(K):
+        s = int(starts[kk])
+        acc[s:s + window] += preds[kk].float() * weights[kk][:, None]
+    return (acc / normalizer[:, None]).to(preds.dtype)

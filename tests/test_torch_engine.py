@@ -1,0 +1,155 @@
+"""The port's serving engine against the JAX engine, on the CPU.
+
+Same reduced DiT weights (``params_from_numpy``), same prompts, and the
+port's ``initial_noise`` patched to hand out the JAX engine's noise:
+3 requests in 2 (shape, guidance) buckets must come back equal to the
+reference within 1e-4 (f32, 3 steps at guidance 5-6).  Plus admission,
+DeviceFailure retry, the resolved engine name and the arguments that are
+not ported yet.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import models as jmodels
+from repro.configs import get_config as jget_config
+from repro.models import dit as jdit
+from repro.models import frontends as jfrontends
+from repro.serving.engine import LPServingEngine as JEngine
+from repro.serving.engine import VideoRequest as JRequest
+from repro_torch.configs import get_config
+from repro_torch.launch import serve
+from repro_torch.models import dit as tdit
+from repro_torch.runtime.ft import DeviceFailure
+from repro_torch.serving import engine as teng
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+SHAPE = (4, 8, 12)
+GUIDANCE = (5.0, 5.0, 6.0)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = jget_config("wan21-dit-1.3b").reduced()
+    params = jmodels.build(jcfg).init(jax.random.PRNGKey(0))
+    tcfg = get_config("wan21-dit-1.3b").reduced()
+    model = tdit.params_from_numpy(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    contexts = [np.array(jfrontends.text_context(jax.random.PRNGKey(100 + i), 1, jcfg))
+                for i in range(3)]
+    return jcfg, params, tcfg, model, contexts
+
+
+def _port_engine(models, **kw):
+    _, _, tcfg, model, _ = models
+    args = dict(num_partitions=2, overlap_ratio=0.5, num_steps=3, max_batch=2,
+                device="cpu")
+    args.update(kw)
+    return teng.LPServingEngine(model, tcfg, **args)
+
+
+def _port_requests(models, n=3):
+    contexts = models[4]
+    return [teng.VideoRequest(i, torch.from_numpy(contexts[i]), SHAPE, seed=i,
+                              guidance=GUIDANCE[i]) for i in range(n)]
+
+
+def _jax_noise(shape, seed, device):
+    return torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(seed), shape)))
+
+
+def test_engine_matches_reference_engine(models, monkeypatch):
+    jcfg, params, tcfg, _, contexts = models
+
+    def fwd(p, z, t, c, cfg_model):
+        return jdit.forward(p, z, t, c, cfg_model)
+
+    jeng = JEngine(fwd, params, jcfg, num_partitions=2, overlap_ratio=0.5, num_steps=3,
+                   max_batch=2)
+    for i in range(3):
+        jeng.submit(JRequest(i, jax.numpy.asarray(contexts[i]), SHAPE, seed=i,
+                             guidance=GUIDANCE[i]))
+    jres = {r.request_id: r for r in jeng.run()}
+
+    monkeypatch.setattr(teng, "initial_noise", _jax_noise)
+    eng = _port_engine(models)
+    assert eng.lp_impl == jeng.lp_impl
+    for r in _port_requests(models):
+        eng.submit(r)
+    tres = {r.request_id: r for r in eng.run()}
+    assert sorted(tres) == sorted(jres) == [0, 1, 2]
+    for i in range(3):
+        assert tres[i].batch_size == jres[i].batch_size == (2 if i < 2 else 1)
+        assert tuple(tres[i].latent.shape) == (1, *SHAPE, tcfg.latent_channels)
+        np.testing.assert_allclose(tres[i].latent.numpy(), np.asarray(jres[i].latent), **TOL)
+    assert eng._compiler.compiles == 6     # 3 dims x 2 batch geometries (sizes 2 and 1)
+
+
+def test_queue_full_and_admission(models):
+    eng = _port_engine(models, max_queue=2)
+    reqs = _port_requests(models)
+    eng.submit(reqs[0])
+    eng.submit(reqs[1])
+    with pytest.raises(teng.QueueFull) as exc:
+        eng.submit(reqs[2])
+    assert exc.value.request_id == 2 and exc.value.depth == 2
+    assert [r.request_id for r in eng._next_batch()] == [0, 1]     # a full bucket
+    with pytest.raises(ValueError, match="max_queue"):
+        _port_engine(models, max_queue=1)
+
+
+def test_device_failure_retries_from_snapshot(models):
+    clean = _port_engine(models)
+    clean.submit(_port_requests(models, 1)[0])
+    want = clean.run()[0].latent
+
+    eng = _port_engine(models)
+    eng.submit(_port_requests(models, 1)[0])
+    fired = []
+
+    def fault(step):
+        if step == 3 and not fired:
+            fired.append(step)
+            raise DeviceFailure("injected device loss")
+
+    eng._step_fault = fault
+    res = eng.run()[0]
+    assert res.restarts == 1 and res.resumed_from_step == 2
+    assert torch.equal(res.latent, want)
+
+    eng = _port_engine(models)
+    eng.submit(_port_requests(models, 1)[0])
+
+    def bug(step):
+        raise RuntimeError("not a device failure")
+
+    eng._step_fault = bug
+    with pytest.raises(RuntimeError, match="not a device failure"):
+        eng.run()
+
+
+@pytest.mark.parametrize("K", [2, 3, 4])
+def test_lp_impl_name_matches_reference(models, K):
+    jcfg, params, _, _, _ = models
+    jeng = JEngine(lambda *a: None, params, jcfg, num_partitions=K)
+    assert _port_engine(models, num_partitions=K).lp_impl == jeng.lp_impl
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(wire_codec="int8"),
+                                dict(codec_schedule="auto"), dict(psnr_floor=40.0),
+                                dict(elastic=True), dict(inject_fault="dead:1@2"),
+                                dict(recorder=object()), dict(slo="interactive:20"),
+                                dict(lp_impl="halo")])
+def test_unported_engine_arguments_raise(models, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        _port_engine(models, **kw)
+
+
+def test_serve_cli_on_cpu(capsys, monkeypatch):
+    # the CLI serves the full width; the CPU test serves the reduced config
+    monkeypatch.setattr(serve, "get_config", lambda name: get_config(name).reduced())
+    serve.main(["--device", "cpu", "--requests", "2", "--steps", "2",
+                "--frames-latent", "4"])
+    out = capsys.readouterr().out
+    assert "engine: lp_impl=shard_map" in out
+    assert "request 0: latent (1, 4, 8, 12, 4)" in out and "request 1:" in out

@@ -1,0 +1,104 @@
+"""The port stands alone, and runs where it is told to.
+
+* No file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports JAX or
+  the JAX package ``repro`` (an AST scan), and the package imports and
+  serves with ``jax`` blocked in ``sys.modules`` (a subprocess).
+* Without CUDA, the entry points raise unless given ``device="cpu"``.
+* CPU tensors never reach a kernel: the launch counters stay at 0.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as tdevice
+from repro_torch.configs import get_config
+from repro_torch.diffusion import generate_lp, make_guided_denoiser
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models import dit, frontends
+from repro_torch.serving.engine import LPServingEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    return files
+
+
+def test_no_jax_or_reference_imports():
+    bad = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {r}" for r in roots
+                    if r in FORBIDDEN]
+    assert not bad, bad
+
+
+BLOCKED = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["repro"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+from repro_torch.launch import serve
+full_width = serve.get_config
+serve.get_config = lambda name: full_width(name).reduced()    # small enough for the CPU
+serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4"])
+assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
+               if sys.modules[m] is not None)
+print("imported", len(names))
+"""
+
+
+def test_package_runs_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", BLOCKED], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "request 0: latent (1, 4, 8, 12, 4)" in out.stdout
+    assert int(out.stdout.split("imported")[-1]) >= 20
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdevice.resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dit.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        frontends.text_context(None, 1, cfg)
+    model = dit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LPServingEngine(model, cfg, num_partitions=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--requests", "1"])
+    assert LPServingEngine(model, cfg, num_partitions=2, device="cpu").device.type == "cpu"
+    assert frontends.text_context(None, 1, cfg, device="cpu").shape == (1, 16, 128)
+
+
+def test_cpu_path_never_launches_a_kernel():
+    ops.reset_launch_counts()
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    model = dit.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ctx = frontends.text_context(torch.Generator().manual_seed(1), 1, cfg, device="cpu")
+    den = make_guided_denoiser(model, ctx, torch.zeros_like(ctx))
+    z = torch.randn((1, 4, 8, 12, cfg.latent_channels), generator=torch.Generator().manual_seed(2))
+    out = generate_lp(den, z, 2, 2, 0.5, cfg.patch_sizes, uniform=True)
+    assert bool(torch.isfinite(out).all())
+    assert ops.launch_counts() == {"flash_attention": 0, "latent_blend": 0}

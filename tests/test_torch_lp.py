@@ -1,0 +1,118 @@
+"""The port's LP slice end to end against the JAX reference, on the CPU.
+
+``generate_lp`` / ``lp_denoise`` with the reduced WAN DiT (f32, weights
+carried over by ``params_from_numpy``) and the same ``z_T``: K 2-4,
+uniform windows and paper-exact partitions.  Stated tolerance 1e-4 on
+latents of magnitude ~3 (f32 DiT, guidance 5 amplifies the cond/uncond
+difference).  Plus the step cache's miss bound and a bit-exact resume
+from a boundary snapshot.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.diffusion import generate_lp as jgenerate_lp
+from repro.diffusion import make_guided_denoiser as jguided
+from repro.models import dit as jdit
+from repro_torch.configs import get_config
+from repro_torch.core import DenoiseSnapshot, LPStepCompiler, lp_denoise
+from repro_torch.diffusion import FlowMatchEuler, generate_lp, make_guided_denoiser
+from repro_torch.diffusion.pipeline import make_guided_step_denoiser
+from repro_torch.models import dit as tdit
+from repro_torch.runtime.ft import DeviceFailure
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+LATENT = (1, 4, 8, 12, 4)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jget_config("wan21-dit-1.3b").reduced()
+    tcfg = get_config("wan21-dit-1.3b").reduced()
+    params = jdit.init_params(jax.random.PRNGKey(0), jcfg)
+    model = tdit.params_from_numpy(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    rng = np.random.default_rng(0)
+    ctx = (rng.normal(size=(1, 16, 128)) * 0.02).astype(np.float32)
+    z = rng.normal(size=LATENT).astype(np.float32)
+
+    def jfwd(p, zz, t, c, cm):
+        return jdit.forward(p, zz, t, c, cm)
+
+    jden = jguided(jfwd, params, jcfg, jnp.asarray(ctx), jnp.zeros_like(jnp.asarray(ctx)), 5.0)
+    tctx = torch.from_numpy(ctx)
+    tden = make_guided_denoiser(model, tctx, torch.zeros_like(tctx), 5.0)
+    return dict(jcfg=jcfg, tcfg=tcfg, model=model, jden=jden, tden=tden, z=z, ctx=tctx)
+
+
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("K", [2, 3, 4])
+def test_generate_lp_matches_reference(setup, K, uniform):
+    s = setup
+    a = np.asarray(jgenerate_lp(s["jden"], jnp.asarray(s["z"]), 2, K, 0.5,
+                                s["jcfg"].patch_sizes, uniform=uniform))
+    b = generate_lp(s["tden"], torch.from_numpy(s["z"]), 2, K, 0.5, s["tcfg"].patch_sizes,
+                    uniform=uniform)
+    assert b.shape == s["z"].shape and bool(torch.isfinite(b).all())
+    np.testing.assert_allclose(b.numpy(), a, **TOL)
+    # the step-cached loop and the eager reference loop do the same arithmetic
+    c = generate_lp(s["tden"], torch.from_numpy(s["z"]), 2, K, 0.5, s["tcfg"].patch_sizes,
+                    uniform=uniform, compiled=False)
+    assert torch.equal(b, c)
+
+
+def _step_setup(s, K=3):
+    sampler = FlowMatchEuler(6)
+    guided = make_guided_step_denoiser(s["model"])
+    comp = LPStepCompiler(guided, sampler.update, K, 0.5, s["tcfg"].patch_sizes,
+                          uniform=True)
+    extras = (s["ctx"], torch.zeros_like(s["ctx"]), 5.0)
+    return sampler, comp, extras
+
+
+def test_step_cache_misses_at_most_once_per_dim(setup):
+    sampler, comp, extras = _step_setup(setup)
+    z = torch.from_numpy(setup["z"])
+    args = (z, sampler, 6, 3, 0.5, setup["tcfg"].patch_sizes, (1, 2, 3))
+    first = lp_denoise(None, *args, uniform=True, extras=extras, compiler=comp)
+    assert comp.compiles == 3 and comp.hits == 3          # dims T H W T H W
+    second = lp_denoise(None, *args, uniform=True, extras=extras, compiler=comp)
+    assert comp.compiles == 3 and comp.hits == 9
+    assert torch.equal(first, second)
+
+
+def test_snapshot_resume_is_bit_exact(setup):
+    sampler, comp, extras = _step_setup(setup)
+    z = torch.from_numpy(setup["z"])
+    args = (z, sampler, 6, 3, 0.5, setup["tcfg"].patch_sizes, (1, 2, 3))
+    clean = lp_denoise(None, *args, uniform=True, extras=extras, compiler=comp)
+
+    def fail_at_5(i):
+        if i == 5:
+            raise DeviceFailure("injected at step 5")
+
+    snap = DenoiseSnapshot()
+    with pytest.raises(DeviceFailure):
+        lp_denoise(None, *args, uniform=True, extras=extras, compiler=comp,
+                   step_hook=fail_at_5, snapshot=snap)
+    assert snap.step == 4 and snap.boundaries == 4 and snap.z.device.type == "cpu"
+    resumed = lp_denoise(None, *args, uniform=True, extras=extras, compiler=comp,
+                         snapshot=snap)
+    assert snap.resumes == 1
+    assert torch.equal(resumed, clean)
+
+
+def test_unported_arguments_name_their_roadmap_item(setup):
+    sampler, comp, extras = _step_setup(setup)
+    z = torch.from_numpy(setup["z"])
+    for kw in (dict(codec="int8"), dict(schedule="int8@0.5,bf16"), dict(recorder=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            lp_denoise(None, z, sampler, 2, 2, 0.5, (1, 2, 2), (1, 2, 3), **kw,
+                       compiler=comp, extras=extras)
+    for kw in (dict(codec="bf16"), dict(forward=lambda *a: None),
+               dict(forward_factory=lambda c: None), dict(mesh_shape=(2, 1)),
+               dict(wire_shard=True), dict(schedule="auto")):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), **kw)
