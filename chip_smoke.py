@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
 
 Phases, one line each (any failed check exits non-zero):
-  1. device  — the card, the toolchain, the kernels' build from csrc/.
+  1. device  — the card, the toolchain, the four kernels' build from csrc/.
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card at the serving path's shapes, with kernel,
                plain, library and bound times.
@@ -13,11 +13,22 @@ Phases, one line each (any failed check exits non-zero):
                3 requests at latent (13, 30, 52) in two batches; launch
                counters must show every DiT attention and every LP stitch
                going through the kernels.
-  4. quality — PSNR of request 0's LP latent against generate_centralized
+  4. serve_codec — the same engine settings with wire_codec "int8" and
+               "displaced:int8-residual" (the halo wire mirror), one
+               2-request batch each: every wire quantize must go through
+               int8_quantize (one launch per halo round and one for the
+               cores, per step), none through latent_blend; PSNR of each
+               request against the fp32 engine's latent.
+  5. coded_stitch — blend_windows_coded(codec="int8") on the card at the
+               three dims (int8_quantize + dequant_blend) against its
+               plain version.
+  6. quality — PSNR of request 0's LP latent against generate_centralized
                on the same noise and weights (printed, no threshold).
-  5. check   — a 2-layer full-width DiT, LP-denoised on the card
+  7. check   — a 2-layer full-width DiT, LP-denoised on the card
                (kernels) and on the CPU (plain versions) from the same
-               weights and noise, must agree.
+               weights and noise, must agree; once uncoded, once through
+               the int8-residual wire on a latent with one usable dim
+               (the residual state is threaded over its 3 steps).
 Then one JSON line of every kernel, the card's name and power limit, and
 the result line.  Detailed numbers go to chiprun_out/chip_smoke.json.
 """
@@ -43,6 +54,7 @@ H100_BYTES_S = 3.35e12          # HBM3
 # flash_bf16_tolerance), about 3e-3 + 8e-3 |plain| for N(0, 1) inputs
 FLASH_F32_TOL = (1e-4, 1e-4)    # f32 throughout: summation order only
 BLEND_TOL = (1e-6, 0.0)         # same f32 operations in the same order: expect 0
+CODECS = ("int8", "displaced:int8-residual")    # phase serve_codec
 LATENT = (13, 30, 52)           # 480p/4s-class latent, cut from (13, 60, 104) for time
 K, R, STEPS = 4, 0.5, 4
 
@@ -235,6 +247,117 @@ def blend_case(dim: int, batch: int, channels: int, reps=20):
     }
 
 
+def quant_case(name: str, N: int, R: int, F: int, qmax: int = 127, reps=20, seed=0):
+    """int8_quantize vs plain on N slabs (N, R, F): codes and scales bit-equal;
+    slab 1 is all zero (scale 1e-20 / qmax), slab 2 carries half-way values
+    (``ref.plant_halfway_inputs``).  Then a NaN in slab 0 must make its
+    scale NaN (and its decoded message non-finite), no other slab's."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((N, R, F), generator=g, device="cuda")
+    x[0] *= 40.0
+    x[1] = 0.0
+    # values where dividing by the scale and multiplying by its reciprocal
+    # give other codes: a kernel that does the latter fails here
+    n_halfway = ref.plant_halfway_inputs(x[2], qmax)
+    before = ops.int8_quantize.launches
+    wire, scales = ops.int8_quantize(x, qmax)
+    pw, ps = ref.int8_quantize_ref(x, qmax)
+    torch.cuda.synchronize()
+    codes_equal = bool(torch.equal(wire, pw))
+    scales_equal = bool(torch.equal(scales.view(torch.int32), ps.view(torch.int32)))
+    err = float((wire.float() * scales[:, None, None] - pw.float() * ps[:, None, None])
+                .abs().max())
+    check(codes_equal and scales_equal,
+          f"int8_quantize {name}: kernel differs from plain (codes equal {codes_equal}, "
+          f"scales equal {scales_equal}, max decoded err {err:.3e})")
+    xn = x.clone()
+    xn[0, 0, 5] = float("nan")
+    nw, ns = ops.int8_quantize(xn, qmax)
+    torch.cuda.synchronize()
+    decoded = nw.float() * ns[:, None, None]
+    check(torch.isnan(ns).tolist() == [n == 0 for n in range(N)],
+          f"int8_quantize {name}: NaN slab scales {ns.tolist()}")
+    check(not bool(torch.isfinite(decoded[0]).any()) and bool(torch.isfinite(decoded[1:]).all()),
+          f"int8_quantize {name}: the NaN slab's decoded message is not all non-finite")
+    # ~10 us of work: device time, not events
+    kernel_ms = device_ms(lambda: ops.int8_quantize(x, qmax), reps)
+    plain_ms = device_ms(lambda: ref.int8_quantize_ref(x, qmax), reps)
+    ops.int8_quantize.launches = before     # comparison launches do not count
+    nbytes = x.numel() * 4 + wire.numel() + N * 4
+    flops = 5.0 * x.numel()                 # |x|, max, divide, round, clip
+    t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
+    return {
+        "case": f"quant_{name}", "shape": [N, R, F], "qmax": qmax, "max_abs_err": err,
+        "halfway_values": n_halfway,
+        "tol": "bit-equal codes and scales", "err_share_of_limit": 0.0,
+        "nan_slab_scale_nan": True, "ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+def dequant_case(dim: int, batch: int, channels: int, reps=20):
+    """dequant_blend vs plain on the serving path's (K, W, F) for ``dim``."""
+    import torch
+    from repro_torch.core.spmd import BlendTables
+    from repro_torch.core.uniform import plan_uniform
+    from repro_torch.kernels import ops, ref
+
+    patch = (1, 2, 2)
+    plan = plan_uniform(LATENT[dim], patch[dim], K, R, dim)
+    rest = [batch] + [LATENT[d] for d in range(3) if d != dim] + [channels]
+    F_ = int(math.prod(rest))
+    g = torch.Generator(device="cuda").manual_seed(10 + dim)
+    preds = torch.randn((K, plan.window, F_), generator=g, device="cuda")
+    wire, scales = ref.int8_quantize_ref(preds, 127)
+    tables = BlendTables.build(plan, "cuda")
+    args = (wire, scales, tables.weights, tables.normalizer, plan.starts, plan.window,
+            plan.extent)
+    before = ops.dequant_blend.launches
+    out = ops.dequant_blend(*args)
+    plain = ref.dequant_blend_ref(*args)
+    out16 = ops.dequant_blend(*args, out_dtype=torch.bfloat16)
+    plain16 = ref.dequant_blend_ref(*args, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    err, share, ok = max_err(out, plain, BLEND_TOL[0] + BLEND_TOL[1] * plain.abs())
+    check(ok and bool(torch.equal(out16, plain16)),
+          f"dequant_blend dim {dim}: kernel disagrees with plain version (max abs err "
+          f"{err:.3e}, bf16 equal {bool(torch.equal(out16, plain16))})")
+    kernel_ms = device_ms(lambda: ops.dequant_blend(*args), reps)
+    plain_ms = device_ms(lambda: ref.dequant_blend_ref(*args), reps)
+    ops.dequant_blend.launches = before
+    nbytes = (wire.numel() + (scales.numel() + tables.weights.numel()
+                              + tables.normalizer.numel() + out.numel()) * 4)
+    flops = 3.0 * wire.numel() + out.numel()
+    t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
+    return {
+        "case": f"dequant_blend_dim{dim}", "K": K, "W": plan.window, "E": plan.extent,
+        "F": F_, "max_abs_err": err, "tol": BLEND_TOL, "err_share_of_limit": share,
+        "bf16_equal": True, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+def expected_quantize_launches(cfg) -> int:
+    """int8_quantize launches of one coded denoise at the smoke's geometry:
+    per step one for each halo transfer round (its K slabs in one call)
+    and one for the K cores."""
+    from repro_torch.core.schedule import rotation_dim, usable_dims
+    from repro_torch.core.uniform import plan_uniform
+    from repro_torch.distributed.collectives import halo_spec
+
+    dims = usable_dims(LATENT, cfg.patch_sizes, K)
+    n = 0
+    for i in range(1, STEPS + 1):
+        d = rotation_dim(i, dims)
+        n += len(halo_spec(plan_uniform(LATENT[d], cfg.patch_sizes[d], K, R, d)).transfers) + 1
+    return n
+
+
 def psnr_db(a, b) -> float:
     a, b = a.double().cpu(), b.double().cpu()
     mse = float(((a - b) ** 2).mean())
@@ -255,11 +378,13 @@ def run() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core import LPStepCompiler, lp_denoise
+    from repro_torch.core.spmd import BlendTables, blend_windows_coded
     from repro_torch.core.uniform import plan_uniform
     from repro_torch.device import generator
     from repro_torch.diffusion import FlowMatchEuler, generate_centralized, generate_lp
-    from repro_torch.diffusion.pipeline import make_guided_denoiser
-    from repro_torch.kernels import build, ops
+    from repro_torch.diffusion.pipeline import make_guided_denoiser, make_guided_step_denoiser
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.models import dit, frontends
     from repro_torch.serving import engine as engine_mod
     from repro_torch.serving.engine import LPServingEngine, VideoRequest
@@ -281,7 +406,8 @@ def run() -> int:
         "sources_sha256": digest,
     }
     print(f"phase=device card=[{smi}] torch={torch.__version__} cuda={torch.version.cuda} "
-          f"build_s={build_s:.1f} sources_sha256={digest}", flush=True)
+          f"kernels={len(reports)} build_s={build_s:.1f} sources_sha256={digest}", flush=True)
+    check(sorted(reports) == sorted(build.KERNELS), f"built {sorted(reports)}")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -309,8 +435,11 @@ def run() -> int:
         flash_case("flash_self_f32_d128", 2, 300, 300, 4, 4, 128, torch.float32, reps=3),
     ]
     blend = [blend_case(d, 2, cfg.latent_channels) for d in range(3)]
-    record["kernels"] = flash + blend
-    for c in flash + blend:
+    quant = [quant_case("T_transfer", 4, 3, 49920), quant_case("T_cores", 4, 4, 49920),
+             quant_case("H_cores", 4, 8, 21632), quant_case("T_transfer_int4", 4, 3, 49920, 7)]
+    dequant = [dequant_case(d, 2, cfg.latent_channels) for d in range(3)]
+    record["kernels"] = flash + blend + quant + dequant
+    for c in flash + blend + quant + dequant:
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         print(f"phase=kernels case={c['case']} max_abs_err={c['max_abs_err']:.3e} "
               f"share_of_limit={c['err_share_of_limit']:.3f} kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} library_ms={lib} "
@@ -406,7 +535,108 @@ def run() -> int:
           f"traced_wall_s={warm[1]:.3f} device_busy={device_s / warm[1]:.3f} "
           f"device_share: {shares}", flush=True)
 
-    # ----------------------------------------------------------- 4. quality
+    # ------------------------------------------------------- 4. serve_codec
+    fp32_latent = {r.request_id: r.latent for r in results if r.request_id in (0, 1)}
+    want_quant = expected_quantize_launches(cfg)
+    coded, coded_counts = [], {}
+    for codec in CODECS:
+        ceng = LPServingEngine(model, cfg, num_partitions=K, overlap_ratio=R,
+                               num_steps=STEPS, max_batch=2, device="cuda", wire_codec=codec)
+        for i in (0, 1):
+            ceng.submit(reqs[i])
+        ops.reset_launch_counts()
+        out = ceng.run(max_batches=1)
+        counts = ops.launch_counts()
+        coded_counts[codec] = counts
+        check(counts["flash_attention"] == 2 * cfg.num_layers * STEPS,
+              f"{codec}: {counts['flash_attention']} flash launches, expected "
+              f"{2 * cfg.num_layers * STEPS}")
+        check(counts["int8_quantize"] == want_quant,
+              f"{codec}: {counts['int8_quantize']} int8_quantize launches, expected {want_quant}")
+        check(counts["latent_blend"] == 0 and counts["dequant_blend"] == 0,
+              f"{codec}: the wire mirror stitched through a blend kernel ({counts})")
+        psnr = {}
+        for r in out:
+            check(tuple(r.latent.shape) == (1, *LATENT, cfg.latent_channels),
+                  f"{codec} request {r.request_id}: latent shape {tuple(r.latent.shape)}")
+            check(bool(torch.isfinite(r.latent).all()), f"{codec} request {r.request_id}: "
+                                                         "non-finite")
+            psnr[r.request_id] = psnr_db(r.latent, fp32_latent[r.request_id])
+        # a warm batch of the same two requests, then one traced
+        walls = []
+        for traced in (False, True):
+            for i in (0, 1):
+                ceng.submit(dataclasses.replace(reqs[i], request_id=20 + i))
+            if traced:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU,
+                                    torch.profiler.ProfilerActivity.CUDA]) as cprof:
+                    res = ceng.run(max_batches=1)
+            else:
+                res = ceng.run(max_batches=1)
+            walls.append(res[0].batch_wall_s)
+        quant_us = sum(e.self_device_time_total for e in cprof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and ("amax_kernel" in e.key or "quantize_kernel" in e.key))
+        dev_us = sum(e.self_device_time_total for e in cprof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        coded.append({"codec": codec, "cold_wall_s": out[0].batch_wall_s,
+                      "warm_wall_s": walls[0], "step_s": walls[0] / STEPS,
+                      "traced_wall_s": walls[1], "device_s": dev_us / 1e6,
+                      "int8_quantize_device_s": quant_us / 1e6,
+                      "step_vs_fp32": walls[0] / warm[0],
+                      "launches": counts, "psnr_vs_fp32_db": psnr,
+                      "state_inits": ceng._compiler.state_inits, "lp_impl": ceng.lp_impl})
+        c = coded[-1]
+        print(f"phase=serve_codec codec={codec} lp_impl={ceng.lp_impl} "
+              f"cold_wall_s={c['cold_wall_s']:.3f} warm_wall_s={c['warm_wall_s']:.3f} "
+              f"step_s={c['step_s']:.3f} step_vs_fp32={c['step_vs_fp32']:.3f} "
+              f"flash_launches={counts['flash_attention']} "
+              f"int8_quantize_launches={counts['int8_quantize']} (expected {want_quant}) "
+              f"blend_launches={counts['latent_blend']} "
+              f"quantize_device_share={quant_us / max(dev_us, 1e-9):.4f} "
+              + " ".join(f"psnr_vs_fp32_req{k}_db={v:.2f}" for k, v in sorted(psnr.items())),
+              flush=True)
+        del ceng
+    record["serve_codec"] = {"expected_int8_quantize": want_quant, "fp32_warm_wall_s": warm[0],
+                             "runs": coded}
+
+    # ------------------------------------------------------ 5. coded_stitch
+    stitch = []
+    ops.reset_launch_counts()
+    stitch_inputs = []
+    for d in range(3):
+        plan = plan_uniform(LATENT[d], cfg.patch_sizes[d], K, R, d)
+        shape = [2, *LATENT, cfg.latent_channels]
+        shape[d + 1] = plan.window
+        g = torch.Generator(device="cuda").manual_seed(20 + d)
+        preds = torch.randn([K] + shape, generator=g, device="cuda")
+        stitch_inputs.append((plan, preds, blend_windows_coded(preds, plan, d + 1, codec="int8")))
+    stitch_counts = ops.launch_counts()
+    check(stitch_counts["int8_quantize"] == 3 and stitch_counts["dequant_blend"] == 3,
+          f"coded_stitch launches {stitch_counts}")
+    for d, (plan, preds, out) in enumerate(stitch_inputs):
+        p = torch.movedim(preds, d + 2, 1)                  # (K, W, rest...)
+        rest = tuple(p.shape[2:])
+        wire, scales = ref.int8_quantize_ref(p.reshape(K, plan.window, -1).contiguous(), 127)
+        tables = BlendTables.build(plan, "cuda")
+        plain = ref.dequant_blend_ref(wire, scales, tables.weights, tables.normalizer,
+                                      plan.starts, plan.window, plan.extent)
+        plain = torch.movedim(plain.reshape((plan.extent,) + rest), 0, d + 1)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        check(bool(torch.equal(out, plain)),
+              f"coded_stitch dim {d}: kernels differ from the plain versions ({err:.3e})")
+        before = ops.launch_counts()
+        ms = device_ms(lambda: blend_windows_coded(preds, plan, d + 1, codec="int8"), 10)
+        for n, v in before.items():
+            getattr(ops, n).launches = v
+        stitch.append({"dim": d, "max_abs_err": err, "ms": ms})
+        print(f"phase=coded_stitch dim={d} max_abs_err={err:.3e} device_ms={ms:.4f} "
+              f"int8_quantize_launches=1 dequant_blend_launches=1", flush=True)
+    record["coded_stitch"] = {"cases": stitch, "launches": stitch_counts}
+
+    # ----------------------------------------------------------- 6. quality
     r0 = next(r for r in results if r.request_id == 0)
     z_T = engine_mod.initial_noise((1, *LATENT, cfg.latent_channels), 0,
                                    torch.device("cuda"))
@@ -437,23 +667,59 @@ def run() -> int:
         outs.append(generate_lp(den, z_small.to(dev), 2, 2, 0.5, cfg.patch_sizes,
                                 uniform=True).cpu())
     rel = float((outs[0] - outs[1]).norm() / outs[1].norm())
-    record["check"] = {"rel_l2_cuda_vs_cpu": rel}
     print(f"phase=check small_lp rel_l2_cuda_vs_cpu={rel:.3e} (limit 5e-2)", flush=True)
     check(rel < 5e-2, f"2-layer LP on the card disagrees with the CPU ({rel:.3e})")
+    # the same through the int8-residual wire: int8_quantize on the card,
+    # its plain version on the CPU; the limit is the uncoded one (a code
+    # flipped by the bf16 DiTs' differences moves a value by one step).
+    # Only T is usable on this latent, so the 3 steps are one run and the
+    # residual state is threaded across them.
+    z_coded = torch.randn((1, 8, 2, 2, cfg.latent_channels), generator=g)
+    coded_outs, inits = [], []
+    for m, dev in ((small, "cuda"), (small_cpu, "cpu")):
+        sampler = FlowMatchEuler(3)
+        comp = LPStepCompiler(make_guided_step_denoiser(m), sampler.update, 2, 0.5,
+                              cfg.patch_sizes, uniform=True, codec="int8-residual",
+                              nan_guard=True)
+        q0 = ops.int8_quantize.launches
+        coded_outs.append(lp_denoise(None, z_coded.to(dev), sampler, 3, 2, 0.5,
+                                     cfg.patch_sizes, (1, 2, 3), uniform=True,
+                                     extras=(ctx.to(dev), torch.zeros_like(ctx).to(dev), 5.0),
+                                     compiler=comp).cpu())
+        inits.append((comp.state_inits, ops.int8_quantize.launches - q0))
+    rel_coded = float((coded_outs[0] - coded_outs[1]).norm() / coded_outs[1].norm())
+    print(f"phase=check small_lp_int8_residual rel_l2_cuda_vs_cpu={rel_coded:.3e} "
+          f"(limit 5e-2) card_quantize_launches={inits[0][1]} state_inits={inits[0][0]}",
+          flush=True)
+    check(inits[0][1] > 0 and inits[1][1] == 0 and inits[0][0] == inits[1][0] == 1,
+          f"int8-residual check: (state_inits, launches) card {inits[0]}, CPU {inits[1]}")
+    check(bool(torch.isfinite(coded_outs[0]).all()) and rel_coded < 5e-2,
+          f"2-layer coded LP on the card disagrees with the CPU ({rel_coded:.3e})")
+    record["check"] = {"rel_l2_cuda_vs_cpu": rel, "int8_residual_rel_l2_cuda_vs_cpu": rel_coded}
 
     # ------------------------------------------------------------- results
-    def kernel_row(name, source, replaces, case):
+    def kernel_row(name, source, replaces, case, launches):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": main_counts[name], "max_abs_err": case["max_abs_err"],
+                "launches": launches, "max_abs_err": case["max_abs_err"],
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"]}
 
+    # launches: each kernel's count from the run of the path it serves, set to
+    # 0 just before and read just after (serve; serve_codec; coded_stitch)
     line = {"kernels": [
         kernel_row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:101", flash[0]),
+                   "src/repro/kernels/flash_attention.py:101", flash[0],
+                   main_counts["flash_attention"]),
         kernel_row("latent_blend", "src/repro_torch/kernels/csrc/latent_blend.cu",
-                   "src/repro/kernels/latent_blend.py:63", blend[0]),
+                   "src/repro/kernels/latent_blend.py:63", blend[0],
+                   main_counts["latent_blend"]),
+        kernel_row("int8_quantize", "src/repro_torch/kernels/csrc/int8_quantize.cu",
+                   "src/repro/kernels/wire_codec.py:64", quant[0],
+                   sum(c["int8_quantize"] for c in coded_counts.values())),
+        kernel_row("dequant_blend", "src/repro_torch/kernels/csrc/dequant_blend.cu",
+                   "src/repro/kernels/wire_codec.py:131", dequant[0],
+                   stitch_counts["dequant_blend"]),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

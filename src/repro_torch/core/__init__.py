@@ -4,8 +4,10 @@
       copied from the reference (the port never imports it)
   reconstruct — paper-exact stitching (Eqs. 13-17)
   spmd        — uniform windows: slice, and stitch through the
-                ``latent_blend`` kernel
-  lp_step     — the LP loops, the step cache and boundary snapshots
+                ``latent_blend`` kernel (``blend_windows_coded``: through
+                ``int8_quantize`` + ``dequant_blend`` for an int8 wire)
+  lp_step     — the LP loops, the step cache and boundary snapshots;
+                ``codec=`` runs the halo wire mirror (``comm/wire.py``)
 """
 from .schedule import (  # noqa: F401
     DIM_NAMES,
@@ -25,6 +27,7 @@ from .partition import (  # noqa: F401
 from .weights import blend_weight_1d, global_normalizer, partition_weights  # noqa: F401
 from .reconstruct import reconstruct  # noqa: F401
 from .uniform import UniformPlan, expansion_factor, plan_uniform  # noqa: F401
+from .spmd import blend_windows, blend_windows_coded, stack_windows  # noqa: F401
 from .lp_step import (  # noqa: F401
     DenoiseSnapshot,
     LPStepCompiler,

@@ -17,9 +17,16 @@ axis (the reference vmaps over them): ``denoise_fn`` sees ``(K*B, ...)``
 and must treat samples independently, as the DiT does; the guided
 denoisers of ``diffusion/pipeline.py`` tile their conditioning to match.
 
-Not served yet, and raising ``NotImplementedError``: wire codecs and
-codec schedules (ROADMAP Queue 1 item 5), mesh-bound forward hooks
-(items 6 and 8), tp-sharded wires (item 8), the flight recorder (item 7).
+``codec=`` (a ``comm.codecs`` name or instance) runs every step through
+``comm/wire.simulate_halo_forward``, the single-process mirror of the
+halo engine.  Residual codecs thread explicit state: ``lp_denoise``
+creates it fresh at the start of every run of same-dim steps (where
+boundary snapshots are recorded, so a resume stays bit-exact) and
+carries it across the run; ``state_inits`` counts the inits.
+
+Not served yet, and raising ``NotImplementedError``: codec schedules
+(ROADMAP Queue 1 item 9), mesh-bound forward hooks (items 6 and 8),
+tp-sharded wires (item 8), the flight recorder (item 7).
 """
 from __future__ import annotations
 
@@ -39,10 +46,9 @@ DenoiseFn = Callable[[torch.Tensor], torch.Tensor]
 DenoiseStepFn = Callable[..., torch.Tensor]
 
 _NOT_SERVED = {
-    "codec": "ROADMAP Queue 1 item 5 (wire codecs)",
-    "schedule": "ROADMAP Queue 1 item 5 (wire codecs) and item 9 (step policy)",
+    "schedule": "ROADMAP Queue 1 item 9 (step policy)",
     "forward": "ROADMAP Queue 1 item 6 (several GPUs)",
-    "forward_factory": "ROADMAP Queue 1 items 5 and 6 (scheduled mesh-bound wires)",
+    "forward_factory": "ROADMAP Queue 1 items 6 and 9 (scheduled mesh-bound wires)",
     "mesh_shape": "ROADMAP Queue 1 item 8 (hybrid LP x TP)",
     "wire_shard": "ROADMAP Queue 1 item 8 (hybrid LP x TP)",
     "recorder": "ROADMAP Queue 1 item 7 (observability)",
@@ -110,15 +116,18 @@ class _StepEntry:
     plan: Any                       # UniformPlan or PartitionPlan
     axis: int
     tables: Optional[BlendTables]   # uniform plans: blend tables on the device
+    halo: Any = None                # codec steps: comm.wire.HaloTables
 
 
 class LPStepCompiler:
     """LRU cache of LP step geometry, keyed like the reference's step cache.
 
-    Key: ``(dim, z shape, z dtype, device, K, r, uniform)``.
-    ``step(dim, z, t, scalars, extras)`` runs one LP forward with
-    ``denoise_fn(window, t, *extras)`` and applies
-    ``update_fn(z, pred, scalars)``.
+    Key: ``(dim, z shape, z dtype, device, K, r, uniform, codec name)``.
+    ``step(dim, z, t, scalars, extras, state=None)`` runs one LP forward
+    with ``denoise_fn(window, t, *extras)`` and applies
+    ``update_fn(z, pred, scalars)``; with a residual codec it takes and
+    returns the wire state, ``(z, state)``.  ``nan_guard`` arms the
+    mirror's per-message NaN/Inf decode guard.
     """
 
     def __init__(
@@ -137,10 +146,20 @@ class LPStepCompiler:
         forward_factory: Optional[Callable] = None,
         mesh_shape: Optional[Tuple[int, ...]] = None,
         wire_shard: bool = False,
+        nan_guard: bool = False,
     ):
-        not_served(_NOT_SERVED, codec=codec, schedule=schedule, forward=forward,
+        not_served(_NOT_SERVED, schedule=schedule, forward=forward,
                    forward_factory=forward_factory, mesh_shape=mesh_shape,
                    wire_shard=wire_shard)
+        if codec is not None:
+            from repro_torch.comm.codecs import get_codec
+
+            codec = get_codec(codec)
+            if not uniform:
+                raise ValueError("wire codecs need the uniform-window halo geometry "
+                                 "(uniform=True)")
+        self.codec = codec
+        self.nan_guard = bool(nan_guard)
         self.denoise_fn = denoise_fn
         self.update_fn = update_fn
         self.num_partitions = num_partitions
@@ -152,6 +171,11 @@ class LPStepCompiler:
         self._cache: "OrderedDict[Tuple, _StepEntry]" = OrderedDict()
         self.compiles = 0
         self.hits = 0
+        self.state_inits = 0
+
+    @property
+    def stateful(self) -> bool:
+        return self.codec is not None and self.codec.stateful
 
     def _plan(self, dim: int, extent: int):
         planner = plan_uniform if self.uniform else plan_partition
@@ -160,7 +184,8 @@ class LPStepCompiler:
 
     def entry(self, dim: int, z: torch.Tensor) -> _StepEntry:
         key = (dim, tuple(z.shape), z.dtype, z.device, self.num_partitions,
-               self.overlap_ratio, self.uniform)
+               self.overlap_ratio, self.uniform,
+               None if self.codec is None else self.codec.name)
         cached = self._cache.get(key)
         if cached is not None:
             self._cache.move_to_end(key)
@@ -168,20 +193,49 @@ class LPStepCompiler:
             return cached
         axis = self.spatial_axes[dim]
         plan = self._plan(dim, z.shape[axis])
-        tables = BlendTables.build(plan, z.device) if self.uniform else None
-        entry = _StepEntry(plan, axis, tables)
+        if self.codec is not None:
+            from repro_torch.comm.wire import HaloTables
+
+            entry = _StepEntry(plan, axis, None, HaloTables.build(plan, z.device))
+        else:
+            tables = BlendTables.build(plan, z.device) if self.uniform else None
+            entry = _StepEntry(plan, axis, tables)
         self._cache[key] = entry
         if len(self._cache) > self.maxsize:
             self._cache.popitem(last=False)
         self.compiles += 1
         return entry
 
-    def step(self, dim: int, z: torch.Tensor, t, scalars, extras: Tuple) -> torch.Tensor:
+    def init_codec_state(self, dim: int, z: torch.Tensor):
+        """Zeroed residual-codec state for (rotation dim, latent geometry),
+        on z's device; None for stateless codecs.  Counted in
+        ``state_inits``."""
+        if not self.stateful:
+            return None
+        from repro_torch.comm.wire import init_halo_wire_state
+        from repro_torch.distributed.collectives import halo_spec
+
+        self.state_inits += 1
+        axis = self.spatial_axes[dim]
+        plan = self._plan(dim, z.shape[axis])
+        rest = tuple(s for i, s in enumerate(z.shape) if i != axis)
+        return init_halo_wire_state(self.codec, halo_spec(plan), rest, z.device)
+
+    def step(self, dim: int, z: torch.Tensor, t, scalars, extras: Tuple, state=None):
         e = self.entry(dim, z)
 
         def fn(w):
             return self.denoise_fn(w, t, *extras)
 
+        if self.codec is not None:
+            from repro_torch.comm.wire import simulate_halo_forward
+
+            out = simulate_halo_forward(fn, z, e.plan, e.axis, self.codec, state,
+                                        nan_guard=self.nan_guard, tables=e.halo)
+            if self.stateful:
+                pred, state = out
+                return self.update_fn(z, pred, scalars), state
+            return self.update_fn(z, out, scalars)
         if self.uniform:
             pred = lp_forward_uniform(fn, z, e.plan, e.axis, e.tables)
         else:
@@ -206,25 +260,30 @@ def lp_denoise(
     schedule=None,
     snapshot: Optional[DenoiseSnapshot] = None,
     recorder=None,
+    nan_guard: bool = False,
 ) -> torch.Tensor:
     """Full T-step LP denoising through the step cache.
 
     ``denoise_fn(window, t, *extras)`` takes the timestep as a float;
     ``sampler`` gives ``timestep(i)``, ``step_scalars(i)`` and ``update``.
-    ``step_hook(i)`` fires before step ``i``.  ``snapshot`` arms boundary
-    checkpointing exactly where the reference records
-    (``lp_step.py:670``): after the last step of every run of same-dim
-    steps but the final one; a snapshot that already holds a step
-    resumes from it.
+    ``step_hook(i)`` fires before step ``i``.  ``codec`` and
+    ``nan_guard`` build the compiler when none is given (a given
+    compiler owns its codec).  Residual-codec state is created fresh at
+    the start of every run of same-dim steps and threaded through the
+    run.  ``snapshot`` arms boundary checkpointing exactly where the
+    reference records (``lp_step.py:670``): after the last step of every
+    run of same-dim steps but the final one, which is where the state is
+    re-zeroed; a snapshot that already holds a step resumes from it,
+    bit-exact.
     """
-    not_served(_NOT_SERVED, codec=codec, schedule=schedule, recorder=recorder)
+    not_served(_NOT_SERVED, schedule=schedule, recorder=recorder)
     comp = compiler
     if comp is None:
         if denoise_fn is None:
             raise ValueError("need denoise_fn when no compiler is given")
         comp = LPStepCompiler(denoise_fn, sampler.update, num_partitions,
                               overlap_ratio, patch_sizes, spatial_axes,
-                              uniform=uniform)
+                              uniform=uniform, codec=codec, nan_guard=nan_guard)
     dims = usable_dims([z_T.shape[comp.spatial_axes[d]] for d in range(3)],
                        comp.patch_sizes, comp.num_partitions)
     if not dims:
@@ -237,11 +296,18 @@ def lp_denoise(
         snapshot.resumes += 1
         z = snapshot.z.to(device=z_T.device, dtype=z_T.dtype)
 
+    state, state_dim = None, None
     for i in range(start + 1, num_steps + 1):
         if step_hook is not None:
             step_hook(i)
         dim = rotation_dim(i, dims)
-        z = comp.step(dim, z, sampler.timestep(i), sampler.step_scalars(i), extras)
+        t, scalars = sampler.timestep(i), sampler.step_scalars(i)
+        if comp.stateful:
+            if state is None or dim != state_dim:      # a new run of same-dim steps
+                state, state_dim = comp.init_codec_state(dim, z), dim
+            z, state = comp.step(dim, z, t, scalars, extras, state)
+        else:
+            z = comp.step(dim, z, t, scalars, extras)
         if snapshot is not None and i < num_steps and rotation_dim(i + 1, dims) != dim:
             snapshot.record(i, z)
     return z

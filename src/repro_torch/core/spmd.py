@@ -4,8 +4,9 @@ The single-GPU part of ``repro/core/spmd.py``.  The latent lives on one
 device, so the "rotating partition" is K slices of it and "latent
 reconstruction" (paper Eqs. 15-17) is one pass of the hand-written
 ``latent_blend`` kernel (``kernels/ops.latent_blend``) for CUDA tensors,
-its plain version for CPU ones.  The multi-GPU engines (psum, halo) are
-ROADMAP Queue 1 item 6.
+its plain version for CPU ones; ``blend_windows_coded`` stitches windows
+that crossed a quantized wire (``int8_quantize`` + ``dequant_blend``).
+The multi-GPU engines (psum, halo) are ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -64,6 +65,38 @@ def blend_windows(preds: torch.Tensor, plan: UniformPlan, axis: int,
         tables.normalizer, plan.starts, plan.window, plan.extent,
     )
     return torch.movedim(out.reshape((plan.extent,) + tuple(rest)), 0, axis)
+
+
+def blend_windows_coded(preds: torch.Tensor, plan: UniformPlan, axis: int,
+                        codec="int8", tables: BlendTables | None = None) -> torch.Tensor:
+    """Blend stacked window predictions that crossed a quantized wire.
+
+    Each of the K window predictions is round-tripped through the codec
+    with one per-slab scale per window.  For int8 the round trip is two
+    kernels: ``int8_quantize`` of the K windows in one launch, then
+    ``dequant_blend``, which never writes the dequantized f32 windows to
+    device memory (their plain versions for CPU tensors).  Other codecs
+    decode and reuse :func:`blend_windows`.
+    """
+    from repro_torch.comm.codecs import get_codec
+
+    codec = get_codec(codec)
+    K = plan.num_partitions
+    if tables is None:
+        tables = BlendTables.build(plan, preds.device)
+    if codec.name == "int8":
+        p = torch.movedim(preds, axis + 1, 1)          # (K, W, rest...)
+        rest = p.shape[2:]
+        flat = int(np.prod(rest)) if rest else 1
+        wire, scales = kernel_ops.int8_quantize(
+            p.reshape(K, plan.window, flat).float().contiguous())
+        out = kernel_ops.dequant_blend(wire, scales, tables.weights, tables.normalizer,
+                                       plan.starts, plan.window, plan.extent,
+                                       out_dtype=preds.dtype)
+        return torch.movedim(out.reshape((plan.extent,) + tuple(rest)), 0, axis)
+    wire, meta = codec.encode_many(preds)
+    roundtripped = codec.decode(wire, meta, preds.shape).to(preds.dtype)
+    return blend_windows(roundtripped, plan, axis, tables)
 
 
 # ------------------------------------------------------- engine selection

@@ -19,7 +19,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "latent_blend")
+KERNELS = ("flash_attention", "latent_blend", "int8_quantize", "dequant_blend")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -43,6 +43,18 @@ _SIGNATURES = {
         "latent_blend_fwd": ([_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I, _I,
                               _L, _P], _I),
         "latent_blend_error_string": ([_I], ctypes.c_char_p),
+    },
+    "int8_quantize": {
+        # x, wire, scales, amax scratch, N, M (elements per slab), qmax, stream
+        "int8_quantize_fwd": ([_P, _P, _P, _P, _I, _L, _I, _P], _I),
+        "int8_quantize_error_string": ([_I], ctypes.c_char_p),
+    },
+    "dequant_blend": {
+        # wire, scales, weights, normalizer, out, starts (host int[K]), K, W,
+        # E, F, out dtype (0 f32, 1 bf16), stream
+        "dequant_blend_fwd": ([_P, _P, _P, _P, _P, ctypes.POINTER(_I), _I, _I,
+                               _I, _L, _I, _P], _I),
+        "dequant_blend_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

@@ -31,12 +31,12 @@ def _require_device(tensors: Dict[str, torch.Tensor], device: torch.device) -> N
             raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
-def _require_aligned(tensors: Dict[str, torch.Tensor]) -> None:
+def _require_aligned(tensors: Dict[str, torch.Tensor], align: int = 16) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must start on a {align}-byte boundary")
 
 
 def _stream(device: torch.device) -> int:
@@ -145,7 +145,101 @@ def latent_blend(preds: torch.Tensor, weights: torch.Tensor,
 
 latent_blend.launches = 0
 
-WRAPPERS = {"flash_attention": flash_attention, "latent_blend": latent_blend}
+def int8_quantize(x: torch.Tensor, qmax: int = 127):
+    """Quantize N slabs at once: ``x`` ``(N, R, F)`` f32 -> the int8 wire
+    ``(N, R, F)`` and N f32 scales, one per slab,
+    ``scale_n = max(max|x_n|, 1e-20) / qmax``; codes are
+    ``clip(round_half_even(x_n / scale_n), -qmax, qmax)``.  qmax 127 is
+    the int8 codec, 7 the int4 codes before packing.
+
+    CUDA: ``csrc/int8_quantize.cu`` (an amax pass and a quantize pass,
+    counted as one launch).
+    """
+    if x.device.type == "cpu":
+        return ref.int8_quantize_ref(x, qmax)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_quantize: no kernel for device {x.device}")
+    if x.ndim != 3 or x.dtype != torch.float32:
+        raise ValueError(f"int8_quantize: x must be float32 (N, R, F), got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if not 1 <= qmax <= 127:
+        raise ValueError(f"int8_quantize: qmax {qmax} outside [1, 127]")
+    N = x.shape[0]
+    M = x.shape[1] * x.shape[2]
+    wire = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty((N,), dtype=torch.float32, device=x.device)
+    if wire.numel() == 0:
+        return wire, scales
+    scratch = torch.empty((N,), dtype=torch.int32, device=x.device)
+    _require_aligned({"x": x}, align=1)          # scalar loads: contiguity only
+    lib = build.library("int8_quantize")
+    rc = lib.int8_quantize_fwd(x.data_ptr(), wire.data_ptr(), scales.data_ptr(),
+                               scratch.data_ptr(), N, M, int(qmax), _stream(x.device))
+    build.check("int8_quantize", rc)
+    int8_quantize.launches += 1
+    return wire, scales
+
+
+int8_quantize.launches = 0
+
+
+def dequant_blend(wire: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor,
+                  normalizer: torch.Tensor, starts: Sequence[int], window: int,
+                  extent: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``latent_blend`` of int8 windows dequantized on the fly:
+    ``out[x,f] = sum_k W_k[x-s_k] * scale_k * wire[k,x-s_k,f] / Z[x]`` with
+    an f32 accumulator, ``wire`` ``(K, W, F)`` int8, ``scales`` ``(K,)``,
+    ``weights`` ``(K, W)`` and ``normalizer`` ``(E,)`` f32; the output
+    ``(E, F)`` is ``out_dtype`` (f32 or bf16).
+
+    CUDA: ``csrc/dequant_blend.cu``.
+    """
+    if wire.device.type == "cpu":
+        return ref.dequant_blend_ref(wire, scales, weights, normalizer, starts,
+                                     window, extent, out_dtype)
+    if wire.device.type != "cuda":
+        raise ValueError(f"dequant_blend: no kernel for device {wire.device}")
+    K, W, F = wire.shape
+    starts = [int(s) for s in starts]
+    if W != window or len(starts) != K or not 1 <= K <= _MAX_PARTITIONS:
+        raise ValueError(f"dequant_blend: wire {tuple(wire.shape)} does not match "
+                         f"window {window} and {len(starts)} starts (K <= {_MAX_PARTITIONS})")
+    if any(s < 0 or s + window > extent for s in starts):
+        raise ValueError(f"dequant_blend: starts {starts} leave [0, {extent})")
+    if wire.dtype != torch.int8:
+        raise TypeError(f"dequant_blend: wire dtype {wire.dtype} not supported (int8)")
+    if scales.shape != (K,) or scales.dtype != torch.float32:
+        raise ValueError("dequant_blend: scales must be float32 (K,)")
+    if weights.shape != (K, W) or weights.dtype != torch.float32:
+        raise ValueError("dequant_blend: weights must be float32 (K, W)")
+    if normalizer.shape != (extent,) or normalizer.dtype != torch.float32:
+        raise ValueError("dequant_blend: normalizer must be float32 (E,)")
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"dequant_blend: out_dtype {out_dtype} not supported "
+                        "(float32 or bfloat16)")
+    out = torch.empty((extent, F), dtype=out_dtype, device=wire.device)
+    _require_device({"scales": scales, "weights": weights, "normalizer": normalizer},
+                    wire.device)
+    _require_aligned({"wire": wire, "scales": scales, "weights": weights,
+                      "normalizer": normalizer, "out": out}, align=1)   # scalar loads
+    if out.numel() == 0:
+        return out
+    lib = build.library("dequant_blend")
+    c_starts = (ctypes.c_int * K)(*starts)
+    rc = lib.dequant_blend_fwd(
+        wire.data_ptr(), scales.data_ptr(), weights.data_ptr(), normalizer.data_ptr(),
+        out.data_ptr(), c_starts, K, W, extent, F, _DTYPE_CODES[out_dtype],
+        _stream(wire.device),
+    )
+    build.check("dequant_blend", rc)
+    dequant_blend.launches += 1
+    return out
+
+
+dequant_blend.launches = 0
+
+WRAPPERS = {"flash_attention": flash_attention, "latent_blend": latent_blend,
+            "int8_quantize": int8_quantize, "dequant_blend": dequant_blend}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -9,6 +9,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 NEG_INF = -1.0e30
@@ -86,3 +87,66 @@ def latent_blend_ref(preds: torch.Tensor, weights: torch.Tensor,
         s = int(starts[kk])
         acc[s:s + window] += preds[kk].float() * weights[kk][:, None]
     return (acc / normalizer[:, None]).to(preds.dtype)
+
+
+def int8_quantize_ref(x: torch.Tensor, qmax: int = 127):
+    """Per-slab max-abs quantize of ``x`` ``(N, R, F)`` f32: returns the
+    int8 wire ``(N, R, F)`` and the N f32 scales.
+
+    ``scale_n = max(max|x_n|, 1e-20) / qmax`` (a NaN in the slab makes it
+    NaN), then ``clip(round_half_even(x_n / scale_n), -qmax, qmax)``:
+    ``IntCodec.encode`` per slab.  Both divisions are tensor by tensor, so
+    the card divides too (PyTorch multiplies by the reciprocal of a host
+    scalar divisor on CUDA, which would round differently).
+    """
+    amax = x.abs().amax(dim=(1, 2))
+    floor = torch.tensor(1e-20, dtype=torch.float32, device=x.device)
+    scale = torch.maximum(amax, floor) / torch.tensor(float(qmax), device=x.device)
+    q = torch.round(x / scale[:, None, None]).clamp(-qmax, qmax)
+    return q.to(torch.int8), scale
+
+
+def dequant_blend_ref(wire: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor,
+                      normalizer: torch.Tensor, starts: Sequence[int], window: int,
+                      extent: int, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``latent_blend_ref`` of the dequantized windows, in one f32 pass:
+    ``out[x, f] = sum_k W_k[x - s_k] * (scale_k * wire[k, x - s_k, f]) / Z[x]``
+    in k order, cast to ``out_dtype``."""
+    K, W, F = wire.shape
+    acc = torch.zeros((extent, F), dtype=torch.float32, device=wire.device)
+    for kk in range(K):
+        s = int(starts[kk])
+        acc[s:s + window] += wire[kk].float() * scales[kk] * weights[kk][:, None]
+    return (acc / normalizer[:, None]).to(out_dtype)
+
+
+def plant_halfway_inputs(slab: torch.Tensor, qmax: int) -> int:
+    """Overwrite the head of the contiguous f32 ``slab`` with values whose
+    quotient by the slab's scale rounds to another code than their product
+    with the scale's reciprocal (they sit at or within a few ulps of a
+    code's half-way point), so a quantize kernel that multiplies by the
+    reciprocal instead of dividing gets other codes.  ``slab[0]`` becomes
+    the slab's max-abs, raised in 1% steps until such values exist.
+    Returns how many were planted (at most ``slab.numel() - 1``)."""
+    f = np.float32
+    flat = slab.view(-1)
+    a = float(flat.abs().max())
+    for step in range(100):
+        amax = f(a * (1 + 0.01 * step))
+        s = f(max(amax, f(1e-20))) / f(qmax)
+        base = ((np.arange(-qmax, qmax, dtype=np.float64) + 0.5) * np.float64(s)).astype(f)
+        cands, lo, hi = [base], base, base
+        for _ in range(4):
+            lo, hi = np.nextafter(lo, f(-np.inf)), np.nextafter(hi, f(np.inf))
+            cands += [lo, hi]
+        x = np.concatenate(cands)
+        x = x[np.abs(x) <= amax]
+        x = x[np.clip(np.rint(x / s), -qmax, qmax) != np.clip(np.rint(x * (f(1) / s)), -qmax, qmax)]
+        x = x[:flat.numel() - 1]
+        if len(x):
+            break
+    else:
+        raise ValueError("no half-way inputs found")
+    flat[0] = float(amax)
+    flat[1:1 + len(x)] = torch.from_numpy(x).to(flat.device)
+    return len(x)

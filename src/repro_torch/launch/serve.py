@@ -1,16 +1,20 @@
 """Serving CLI of the port — LP video generation on one GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 --steps 6 \
-      --partitions 2 --overlap 0.5 [--device cuda|cpu]
+      --partitions 2 --overlap 0.5 [--lp-impl auto] [--wire-codec int8-residual] \
+      [--device cuda|cpu]
 
 Serves ``wan21-dit-1.3b`` at its published widths in bf16 with random
-weights.  The wire-codec, mesh, elastic, fault-drill and observability flags of
-the reference CLI are not ported yet (ROADMAP Queue 1 items 5-10).
+weights.  ``--wire-codec`` (or ``--lp-impl halo``) runs every step through
+the single-process halo wire mirror (``comm/wire.simulate_halo_forward``).
+The codec-schedule, mesh, elastic, fault-drill and observability flags
+of the reference CLI are not ported yet (ROADMAP Queue 1 items 6-10).
 """
 from __future__ import annotations
 
 import argparse
 
+from repro_torch.comm.codecs import CODEC_NAMES
 from repro_torch.configs import get_config
 from repro_torch.device import generator, resolve_device
 from repro_torch.models import dit, frontends
@@ -25,9 +29,17 @@ def main(argv=None):
     ap.add_argument("--overlap", type=float, default=0.5)
     ap.add_argument("--frames-latent", type=int, default=6)
     ap.add_argument("--lp-impl", default="auto",
-                    choices=["auto", "uniform", "shard_map"],
-                    help="LP engine name; on one device every choice runs the "
-                         "uniform engine, as the reference does off a mesh")
+                    choices=["auto", "uniform", "shard_map", "halo", "halo_hybrid"],
+                    help="LP engine; auto = psum math at K=2, halo beyond.  On one "
+                         "device the halo family runs the wire mirror when a codec "
+                         "is active or halo is named, the uniform engine otherwise")
+    ap.add_argument("--wire-codec", default=None, choices=list(CODEC_NAMES),
+                    help="compress LP halo wire payloads (fixed codec)")
+    ap.add_argument("--wire-nan-guard", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="absorb NaN/Inf wire payloads by falling back to the "
+                         "rank-local stale slab (bit-identical when every message "
+                         "is finite)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -37,8 +49,10 @@ def main(argv=None):
     model = dit.init_params(cfg, generator(0, device), device)
     engine = LPServingEngine(model, cfg, num_partitions=args.partitions,
                              overlap_ratio=args.overlap, num_steps=args.steps,
-                             lp_impl=args.lp_impl, device=device)
-    print(f"engine: lp_impl={engine.lp_impl} codec=fp32 tp=1 device={device}")
+                             lp_impl=args.lp_impl, wire_codec=args.wire_codec,
+                             wire_nan_guard=args.wire_nan_guard, device=device)
+    print(f"engine: lp_impl={engine.lp_impl} codec={engine.codec.name} tp=1 "
+          f"device={device}")
     for i in range(args.requests):
         engine.submit(VideoRequest(
             request_id=i,

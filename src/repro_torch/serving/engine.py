@@ -1,8 +1,8 @@
 """LP video-generation serving engine on one GPU: request queue ->
 geometry-batched LP denoising -> latents out.
 
-The subset of ``repro/serving/engine.py`` on its default path (no mesh,
-no wire codec):
+The subset of ``repro/serving/engine.py`` that runs on one process (no
+mesh):
 
   * bounded admission: ``submit`` raises :class:`QueueFull` beyond
     ``max_queue`` queued requests;
@@ -15,10 +15,15 @@ no wire codec):
     boundary snapshot, at most ``max_restarts_per_batch`` times.
 
 ``lp_impl`` resolves to the name the reference reports
-(``select_lp_impl``); off a mesh and without a codec the reference runs
-the uniform vmapped engine whatever that name is (``engine.py:565-567``),
-and so does this one.  Arguments of other paths raise
-``NotImplementedError`` naming their ROADMAP item.
+(``select_lp_impl``; a wire codec implies the halo family).  Off a mesh
+the reference runs the halo wire mirror (``comm/wire.simulate_halo_forward``)
+when ``lp_impl`` is a halo-family engine and either a codec is active or
+halo was asked for by name (``engine.py:426-437``), and the uniform
+vmapped engine otherwise (``engine.py:565-567``); so does this one.
+``wire_codec`` takes any name of ``comm.codecs.CODEC_NAMES``;
+``wire_nan_guard`` (default on) arms the mirror's per-message NaN/Inf
+decode guard.  Arguments of other paths raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.comm.codecs import get_codec
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import DenoiseSnapshot, LPStepCompiler, lp_denoise
 from repro_torch.core.lp_step import not_served
@@ -40,7 +46,6 @@ from repro_torch.runtime.ft import DeviceFailure
 
 _NOT_SERVED = {
     "mesh": "ROADMAP Queue 1 items 6 and 8 (several GPUs, hybrid LP x TP)",
-    "wire_codec": "ROADMAP Queue 1 item 5 (wire codecs)",
     "codec_schedule": "ROADMAP Queue 1 item 9 (step policy)",
     "psnr_floor": "ROADMAP Queue 1 item 9 (step policy)",
     "elastic": "ROADMAP Queue 1 item 8 (runtime/elastic re-planning)",
@@ -113,20 +118,32 @@ class LPServingEngine:
         inject_fault=None,
         recorder=None,
         slo=None,
+        wire_nan_guard: bool = True,
     ):
-        not_served(_NOT_SERVED, mesh=mesh, wire_codec=wire_codec,
-                   codec_schedule=codec_schedule, psnr_floor=psnr_floor,
-                   elastic=elastic, inject_fault=inject_fault, recorder=recorder,
-                   slo=slo)
+        not_served(_NOT_SERVED, mesh=mesh, codec_schedule=codec_schedule,
+                   psnr_floor=psnr_floor, elastic=elastic, inject_fault=inject_fault,
+                   recorder=recorder, slo=slo)
         if max_queue is not None and max_queue < max_batch:
             raise ValueError(f"max_queue={max_queue} < max_batch={max_batch}: "
                              "the queue could never fill a batch")
-        if lp_impl in ("halo", "halo_hybrid"):
-            # off a mesh the reference runs an explicit halo request through
-            # the single-process wire mirror (comm/wire.simulate_halo_forward)
-            raise NotImplementedError(
-                f"lp_impl={lp_impl!r} off a mesh runs the halo wire mirror: "
-                "ROADMAP Queue 1 item 5 (wire codecs)")
+        self.codec = get_codec(wire_codec)
+        codec_active = self.codec.name not in ("fp32", "identity")
+        explicit_halo = lp_impl in ("halo", "halo_hybrid")
+        if lp_impl == "auto":
+            lp_impl = "halo" if codec_active else select_lp_impl(num_partitions)
+        if codec_active and lp_impl not in ("halo", "halo_hybrid"):
+            what = f"wire_codec={self.codec.name!r}"
+            if self.codec.name.startswith("displaced"):
+                raise ValueError(
+                    f"{what} uses a displaced halo codec, which needs carry-resident "
+                    "slab state — only the halo family keeps one (the psum/gspmd "
+                    f"engines have no per-direction slab carry); got lp_impl={lp_impl!r}")
+            raise ValueError(f"{what} needs the halo family (the codec layer lives "
+                             f"there), got lp_impl={lp_impl!r}")
+        # off a mesh the halo family runs the single-process wire mirror, when
+        # a codec is active or halo was asked for by name
+        simulate = lp_impl in ("halo", "halo_hybrid") and (codec_active or explicit_halo)
+        self.wire_nan_guard = bool(wire_nan_guard)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.K = num_partitions
@@ -136,7 +153,7 @@ class LPServingEngine:
         self.max_wait = max_wait_requests
         self.max_queue = max_queue
         self.uniform = uniform
-        self.lp_impl = select_lp_impl(self.K) if lp_impl == "auto" else lp_impl
+        self.lp_impl = lp_impl
         self._sampler = FlowMatchEuler(num_steps)
         self._queue: List[VideoRequest] = []
         self._polls = 0
@@ -152,6 +169,8 @@ class LPServingEngine:
             patch_sizes=cfg.patch_sizes,
             spatial_axes=(1, 2, 3),
             uniform=uniform,
+            codec=self.codec if simulate else None,
+            nan_guard=self.wire_nan_guard,
         )
 
     # ------------------------------------------------------------- queue

@@ -3,9 +3,12 @@
 Same reduced DiT weights (``params_from_numpy``), same prompts, and the
 port's ``initial_noise`` patched to hand out the JAX engine's noise:
 3 requests in 2 (shape, guidance) buckets must come back equal to the
-reference within 1e-4 (f32, 3 steps at guidance 5-6).  Plus admission,
-DeviceFailure retry, the resolved engine name and the arguments that are
-not ported yet.
+reference within 1e-4 (f32, 3 steps at guidance 5-6).  The coded engine
+(``wire_codec``, the halo wire mirror) is held to the coded reference
+engine within one code step (``test_torch_lp.py`` gives the reason: the
+DiTs' ~1e-6 difference can flip a code at a rounding half-way point).
+Plus admission, DeviceFailure retry, the resolved engine name and the
+arguments that are not ported yet.
 """
 import jax
 import numpy as np
@@ -58,21 +61,24 @@ def _jax_noise(shape, seed, device):
     return torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(seed), shape)))
 
 
-def test_engine_matches_reference_engine(models, monkeypatch):
+def _both_engines(models, monkeypatch, **kw):
+    """The reference engine and the port's on the same 3 requests (2
+    buckets), the port fed the reference's noise."""
     jcfg, params, tcfg, _, contexts = models
 
     def fwd(p, z, t, c, cfg_model):
         return jdit.forward(p, z, t, c, cfg_model)
 
-    jeng = JEngine(fwd, params, jcfg, num_partitions=2, overlap_ratio=0.5, num_steps=3,
-                   max_batch=2)
+    args = dict(num_partitions=2, overlap_ratio=0.5, num_steps=3, max_batch=2)
+    args.update(kw)
+    jeng = JEngine(fwd, params, jcfg, **args)
     for i in range(3):
         jeng.submit(JRequest(i, jax.numpy.asarray(contexts[i]), SHAPE, seed=i,
                              guidance=GUIDANCE[i]))
     jres = {r.request_id: r for r in jeng.run()}
 
     monkeypatch.setattr(teng, "initial_noise", _jax_noise)
-    eng = _port_engine(models)
+    eng = _port_engine(models, **kw)
     assert eng.lp_impl == jeng.lp_impl
     for r in _port_requests(models):
         eng.submit(r)
@@ -81,8 +87,28 @@ def test_engine_matches_reference_engine(models, monkeypatch):
     for i in range(3):
         assert tres[i].batch_size == jres[i].batch_size == (2 if i < 2 else 1)
         assert tuple(tres[i].latent.shape) == (1, *SHAPE, tcfg.latent_channels)
+    return eng, jeng, tres, jres
+
+
+def test_engine_matches_reference_engine(models, monkeypatch):
+    eng, _, tres, jres = _both_engines(models, monkeypatch)
+    for i in range(3):
         np.testing.assert_allclose(tres[i].latent.numpy(), np.asarray(jres[i].latent), **TOL)
     assert eng._compiler.compiles == 6     # 3 dims x 2 batch geometries (sizes 2 and 1)
+
+
+@pytest.mark.parametrize("codec", ["int8", "int8-residual"])
+def test_coded_engine_matches_reference_engine(models, monkeypatch, codec):
+    eng, jeng, tres, jres = _both_engines(models, monkeypatch, num_partitions=3,
+                                          wire_codec=codec)
+    assert eng.lp_impl == "halo" and eng.codec.name == jeng.codec.name == codec
+    assert eng._compiler.codec.name == codec and eng._compiler.nan_guard
+    for i in range(3):
+        a, b = np.asarray(jres[i].latent), tres[i].latent.numpy()
+        d = np.abs(b - a)
+        assert d.max() <= 1e-4 + np.abs(a).max() / 127, d.max()
+        assert (d > TOL["atol"] + TOL["rtol"] * np.abs(a)).mean() <= 0.01
+    assert eng._compiler.state_inits == jeng._compiler.state_inits
 
 
 def test_queue_full_and_admission(models):
@@ -135,13 +161,37 @@ def test_lp_impl_name_matches_reference(models, K):
     assert _port_engine(models, num_partitions=K).lp_impl == jeng.lp_impl
 
 
+SERVED_NOW = ({"wire_codec": "int8"}, {"lp_impl": "halo"})
+
+
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(wire_codec="int8"),
                                 dict(codec_schedule="auto"), dict(psnr_floor=40.0),
                                 dict(elastic=True), dict(inject_fault="dead:1@2"),
                                 dict(recorder=object()), dict(slo="interactive:20"),
                                 dict(lp_impl="halo")])
 def test_unported_engine_arguments_raise(models, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    """Arguments of paths not ported yet raise, naming their ROADMAP item;
+    ``wire_codec=`` and ``lp_impl="halo"`` are served now, so their cases
+    check that the engine runs the halo wire mirror and answers."""
+    if kw not in SERVED_NOW:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            _port_engine(models, **kw)
+        return
+    eng = _port_engine(models, num_steps=2, **kw)
+    assert eng.lp_impl == "halo" and eng._compiler.codec is not None
+    eng.submit(_port_requests(models, 1)[0])
+    res = eng.run()[0]
+    assert tuple(res.latent.shape) == (1, *SHAPE, 4) and bool(torch.isfinite(res.latent).all())
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(wire_codec="int8", lp_impl="shard_map"), "needs the halo family"),
+    (dict(wire_codec="displaced", lp_impl="gspmd"), "displaced halo codec"),
+    (dict(wire_codec="int8", uniform=False), "uniform-window"),
+    (dict(wire_codec="int3"), "unknown wire codec"),
+])
+def test_coded_engine_refuses_what_the_reference_refuses(models, kw, match):
+    with pytest.raises(ValueError, match=match):
         _port_engine(models, **kw)
 
 
@@ -151,5 +201,10 @@ def test_serve_cli_on_cpu(capsys, monkeypatch):
     serve.main(["--device", "cpu", "--requests", "2", "--steps", "2",
                 "--frames-latent", "4"])
     out = capsys.readouterr().out
-    assert "engine: lp_impl=shard_map" in out
+    assert "engine: lp_impl=shard_map codec=fp32" in out
     assert "request 0: latent (1, 4, 8, 12, 4)" in out and "request 1:" in out
+    serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4",
+                "--partitions", "3", "--wire-codec", "int8-residual", "--no-wire-nan-guard"])
+    out = capsys.readouterr().out
+    assert "engine: lp_impl=halo codec=int8-residual" in out
+    assert "request 0: latent (1, 4, 8, 12, 4)" in out

@@ -4,7 +4,8 @@
   the JAX package ``repro`` (an AST scan), and the package imports and
   serves with ``jax`` blocked in ``sys.modules`` (a subprocess).
 * Without CUDA, the entry points raise unless given ``device="cpu"``.
-* CPU tensors never reach a kernel: the launch counters stay at 0.
+* CPU tensors never reach a kernel, coded requests included: the launch
+  counters stay at 0.
 """
 import ast
 import subprocess
@@ -20,7 +21,7 @@ from repro_torch.diffusion import generate_lp, make_guided_denoiser
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models import dit, frontends
-from repro_torch.serving.engine import LPServingEngine
+from repro_torch.serving.engine import LPServingEngine, VideoRequest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
@@ -59,6 +60,8 @@ from repro_torch.launch import serve
 full_width = serve.get_config
 serve.get_config = lambda name: full_width(name).reduced()    # small enough for the CPU
 serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4"])
+serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4",
+            "--partitions", "3", "--wire-codec", "displaced:int4-residual"])
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("imported", len(names))
@@ -71,7 +74,8 @@ def test_package_runs_with_jax_blocked():
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "request 0: latent (1, 4, 8, 12, 4)" in out.stdout
-    assert int(out.stdout.split("imported")[-1]) >= 20
+    assert "codec=displaced:int4-residual" in out.stdout
+    assert int(out.stdout.split("imported")[-1]) >= 25
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -101,4 +105,9 @@ def test_cpu_path_never_launches_a_kernel():
     z = torch.randn((1, 4, 8, 12, cfg.latent_channels), generator=torch.Generator().manual_seed(2))
     out = generate_lp(den, z, 2, 2, 0.5, cfg.patch_sizes, uniform=True)
     assert bool(torch.isfinite(out).all())
-    assert ops.launch_counts() == {"flash_attention": 0, "latent_blend": 0}
+    eng = LPServingEngine(model, cfg, num_partitions=3, num_steps=2, wire_codec="int8",
+                          device="cpu")
+    eng.submit(VideoRequest(0, ctx, (4, 8, 12)))
+    assert bool(torch.isfinite(eng.run()[0].latent).all())
+    assert ops.launch_counts() == {"flash_attention": 0, "latent_blend": 0,
+                                   "int8_quantize": 0, "dequant_blend": 0}

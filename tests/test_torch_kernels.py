@@ -5,7 +5,11 @@ version; these tests hold that plain version to the reference: plain
 flash against ``repro.kernels.ops.flash_attention(interpret=True)`` (the
 Pallas kernel run in interpret mode) and ``attention_dense``; plain blend
 against ``ref.latent_blend_ref`` and ``blend_windows(use_kernel=False)``
-(the Pallas blend does not run on this JAX, so it is not a reference).
+(the Pallas blend does not run on this JAX, so it is not a reference);
+plain ``int8_quantize`` bit for bit against the Pallas kernel in
+interpret mode and ``IntCodec.encode``; plain ``dequant_blend`` against
+the jnp decode-then-blend (the Pallas ``dequant_blend`` does not run on
+this JAX either).
 The CUDA kernels themselves are tested in ``test_torch_kernels_cuda.py``,
 which imports no JAX so that it runs on a GPU host.
 """
@@ -14,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.comm import codecs as jcodecs
 from repro.core import spmd as jspmd
 from repro.core import uniform as juni
 from repro.kernels import ops as jops
@@ -160,13 +165,19 @@ def test_blend_windows_matches_reference_engine(dim, K, r):
     np.testing.assert_allclose(b.numpy(), a, rtol=1e-6, atol=1e-6)
 
 
+NO_LAUNCHES = {"flash_attention": 0, "latent_blend": 0, "int8_quantize": 0,
+               "dequant_blend": 0}
+
+
 def test_cpu_tensors_leave_launch_counters_at_zero():
     ops.reset_launch_counts()
     q, k, v, qp, kp, _ = _qkv(1, 8, 8, 2, 2, 16)
     ops.flash_attention(*_t(q, k, v, qp, kp))
     preds = torch.ones((2, 4, 3))
     ops.latent_blend(preds, torch.ones(2, 4), torch.full((6,), 2.0), (0, 2), 4, 6)
-    assert ops.launch_counts() == {"flash_attention": 0, "latent_blend": 0}
+    wire, scales = ops.int8_quantize(preds)
+    ops.dequant_blend(wire, scales, torch.ones(2, 4), torch.full((6,), 2.0), (0, 2), 4, 6)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -176,4 +187,95 @@ def test_wrappers_refuse_devices_without_a_kernel():
         ops.flash_attention(q, q, q, p, p)
     with pytest.raises(ValueError, match="no kernel"):
         ops.latent_blend(torch.empty((2, 4, 3), device="meta"), None, None, (0, 2), 4, 6)
-    assert ops.launch_counts() == {"flash_attention": 0, "latent_blend": 0}
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.int8_quantize(torch.empty((2, 4, 3), device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.dequant_blend(torch.empty((2, 4, 3), dtype=torch.int8, device="meta"), None,
+                          None, None, (0, 2), 4, 6)
+    assert ops.launch_counts() == NO_LAUNCHES
+
+
+def _codec_codes(x, qmax):
+    """The reference codec's codes and scale of one slab: int8 directly,
+    the int4 codes unpacked from their packed pairs."""
+    if qmax == 127:
+        w, (s,) = jcodecs.IntCodec(name="int8", bits=8.0).encode(jnp.asarray(x))
+        return np.asarray(w), np.asarray(s).reshape(())
+    w, (s,) = jcodecs.IntCodec(name="int4", bits=4.0).encode(jnp.asarray(x))
+    p = np.asarray(w).astype(np.int32)
+    codes = np.stack([((p & 0xF) ^ 8) - 8, (((p >> 4) & 0xF) ^ 8) - 8], axis=-1)
+    return codes.reshape(p.shape[:-1] + (-1,))[..., :x.shape[-1]].astype(np.int8), \
+        np.asarray(s).reshape(())
+
+
+@pytest.mark.parametrize("qmax", [127, 7])
+@pytest.mark.parametrize("R,F", [(26, 65), (3, 200), (1, 9)])
+def test_plain_int8_quantize_matches_pallas_interpret_and_codec(R, F, qmax):
+    """Codes and scale of each slab bit for bit against ``IntCodec.encode``
+    (int8, or the int4 codec's codes at qmax 7): slabs of very different
+    ranges, one all zero (scale 1e-20 / qmax, zero codes), and values on
+    rounding half-way points.  A NaN makes its slab's scale NaN, no other.
+
+    Against the Pallas kernel in interpret mode: bit for bit wherever its
+    scale is the IEEE quotient ``amax / qmax``.  On some slabs it is not:
+    XLA evaluates the kernel's division by the constant qmax as
+    ``amax * (1 / qmax)``, one ulp away, and codes then differ by at most
+    one step.  The port follows ``IntCodec.encode``, the serving path's
+    encode (``comm/codecs.py``).
+    """
+    rng = np.random.default_rng(R + qmax)
+    x = rng.normal(size=(4, R, F)).astype(np.float32)
+    x *= np.array([1.0, 3e-4, 50.0, 0.0], np.float32)[:, None, None]
+    amax = np.abs(x[0]).max()
+    x[0, 0, :3] = np.float32([2.5, -0.5, 1.5]) * (amax / qmax)
+    # slab 2: values a reciprocal multiply would code differently
+    planted = ref.plant_halfway_inputs(torch.from_numpy(x)[2], qmax)
+    assert planted > 0
+    wire, scales = ops.int8_quantize(torch.from_numpy(x), qmax)
+    assert wire.dtype == torch.int8 and scales.dtype == torch.float32
+    assert wire.shape == x.shape and scales.shape == (4,)
+    for n in range(4):
+        cw, cs = _codec_codes(x[n], qmax)
+        assert np.array_equal(cw, wire[n].numpy())
+        assert cs.view(np.uint32) == scales[n].numpy().view(np.uint32)
+        pw, ps = jops.int8_quantize(jnp.asarray(x[n]), qmax=qmax, interpret=True)
+        pw, ps = np.asarray(pw), np.asarray(ps).reshape(())
+        if ps.view(np.uint32) == scales[n].numpy().view(np.uint32):
+            assert np.array_equal(pw, wire[n].numpy())
+        else:
+            a = np.float32(np.abs(x[n]).max())
+            assert ps == np.float32(max(a, np.float32(1e-20)) * (np.float32(1) / qmax))
+            assert np.abs(pw.astype(int) - wire[n].numpy().astype(int)).max() <= 1
+    assert int(wire.abs().max()) <= qmax and int(wire[3].abs().max()) == 0
+    reciprocal = torch.round(torch.from_numpy(x[2]) * (1 / scales[2])).clamp(-qmax, qmax)
+    assert int((reciprocal.to(torch.int8) != wire[2]).sum()) >= planted
+    nan = torch.from_numpy(x.copy())
+    nan[1, 0, 0] = float("nan")
+    _, nan_scales = ops.int8_quantize(nan, qmax)
+    assert torch.isnan(nan_scales).tolist() == [False, True, False, False]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,W,E,starts", [(3, 8, 20, (0, 6, 12)), (4, 5, 11, (0, 2, 4, 6))])
+def test_plain_dequant_blend_matches_jnp(K, W, E, starts, out_dtype):
+    """Against the jnp decode (``wire * scale``) then ``latent_blend_ref``:
+    the same products, 1e-6 for the f32 sum order; a bf16 output within
+    one bf16 rounding (2^-8 relative)."""
+    rng = np.random.default_rng(K)
+    wire = rng.integers(-127, 128, size=(K, W, 33)).astype(np.int8)
+    scales = rng.uniform(1e-3, 0.05, size=K).astype(np.float32)
+    weights = rng.uniform(0.1, 1.0, size=(K, W)).astype(np.float32)
+    norm = np.zeros(E, np.float32)
+    for kk, s in enumerate(starts):
+        norm[s:s + W] += weights[kk]
+    norm[norm == 0] = 1.0
+    dq = jnp.asarray(wire).astype(jnp.float32) * jnp.asarray(scales)[:, None, None]
+    a = np.asarray(jref.latent_blend_ref(dq, jnp.asarray(weights), jnp.asarray(norm),
+                                         starts, W, E))
+    b = ops.dequant_blend(*_t(wire, scales, weights, norm), starts, W, E,
+                          out_dtype=out_dtype)
+    assert b.dtype == out_dtype and b.shape == (E, 33)
+    if out_dtype == torch.float32:
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_allclose(b.float().numpy(), a, rtol=2.0 ** -8, atol=1e-6)

@@ -9,8 +9,8 @@ has no CPU mode.  Inputs are made with numpy from a seed.  Stated
 tolerances: bf16 flash elementwise within the bound of its two roundings,
 ``2^-8 attention(q, k, |v|) + 2^-7 |plain|`` (P to bf16 for the
 tensor-core P.V, and the bf16 output; ``ref.flash_bf16_tolerance``),
-f32 flash 1e-4 (summation order only), blend exact (the same f32
-operations in the same order).
+f32 flash 1e-4 (summation order only); blend, int8 quantize and
+dequant-blend exact (the same f32 operations in the same order).
 """
 import numpy as np
 import pytest
@@ -113,3 +113,71 @@ def test_blend_kernel_matches_plain(cuda_device, dim, extent):
     plain = ref.latent_blend_ref(preds, tables.weights, tables.normalizer, plan.starts,
                                  plan.window, plan.extent)
     assert torch.equal(out, plain)     # same f32 operations in the same order
+
+
+QUANT_CASES = [
+    # N, R, F, qmax: the serving path's slabs at latent (13, 30, 52), 2 requests
+    (4, 3, 49920, 127),      # T-dim halo transfer: the K slabs of one round
+    (4, 4, 49920, 127),      # T-dim cores, core_pad 4
+    (4, 8, 21632, 127),      # H-dim cores
+    (4, 3, 49920, 7),        # the int4 codes
+    (3, 5, 999, 127),        # a ragged slab size
+]
+
+
+@pytest.mark.parametrize("N,R,F,qmax", QUANT_CASES)
+def test_int8_quantize_kernel_matches_plain(cuda_device, N, R, F, qmax):
+    """Codes and scales bit-equal to the plain version (the same IEEE
+    division and half-to-even rounding); slab 1 is all zero (scale
+    1e-20 / qmax), slab 2 carries half-way values on which a reciprocal
+    multiply gives other codes, then a NaN: its scale is NaN, no other."""
+    rng = np.random.default_rng(N * R + qmax)
+    x = torch.from_numpy(rng.normal(size=(N, R, F)).astype(np.float32)).to(cuda_device)
+    x[0] *= 40.0
+    x[1] = 0.0
+    assert ref.plant_halfway_inputs(x[2], qmax) > 0
+    before = ops.int8_quantize.launches
+    wire, scales = ops.int8_quantize(x, qmax)
+    assert ops.int8_quantize.launches == before + 1
+    pw, ps = ref.int8_quantize_ref(x, qmax)
+    assert torch.equal(wire, pw)
+    assert torch.equal(scales.view(torch.int32), ps.view(torch.int32))
+    x[2, 0, 7] = float("nan")
+    _, nan_scales = ops.int8_quantize(x, qmax)
+    assert torch.isnan(nan_scales).tolist() == [n == 2 for n in range(N)]
+
+
+@pytest.mark.parametrize("dim,extent", [(0, 13), (1, 30), (2, 52)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_dequant_blend_kernel_matches_plain(cuda_device, dim, extent, out_dtype):
+    plan = uniform.plan_uniform(extent, (1, 2, 2)[dim], 4, 0.5, dim)
+    tables = spmd.BlendTables.build(plan, cuda_device)
+    rng = np.random.default_rng(dim)
+    wire = torch.from_numpy(rng.integers(-127, 128, size=(4, plan.window, 999))
+                            .astype(np.int8)).to(cuda_device)
+    scales = torch.from_numpy(rng.uniform(1e-3, 0.05, size=4).astype(np.float32))
+    scales = scales.to(cuda_device)
+    before = ops.dequant_blend.launches
+    out = ops.dequant_blend(wire, scales, tables.weights, tables.normalizer, plan.starts,
+                            plan.window, plan.extent, out_dtype=out_dtype)
+    assert ops.dequant_blend.launches == before + 1
+    plain = ref.dequant_blend_ref(wire, scales, tables.weights, tables.normalizer,
+                                  plan.starts, plan.window, plan.extent, out_dtype)
+    assert out.dtype == out_dtype
+    assert torch.equal(out, plain)     # same f32 operations in the same order
+
+
+@pytest.mark.parametrize("dim,extent", [(0, 13), (1, 30), (2, 52)])
+def test_coded_stitch_on_the_card_matches_plain(cuda_device, dim, extent):
+    """``blend_windows_coded(codec="int8")`` runs both kernels on CUDA
+    tensors and equals the same function on the CPU's plain versions."""
+    plan = uniform.plan_uniform(extent, (1, 2, 2)[dim], 4, 0.5, dim)
+    shape = [2, 13, 30, 52, 16]
+    shape[dim + 1] = plan.window
+    preds = torch.from_numpy(np.random.default_rng(dim).normal(size=[4] + shape)
+                             .astype(np.float32))
+    q0, d0 = ops.int8_quantize.launches, ops.dequant_blend.launches
+    out = spmd.blend_windows_coded(preds.to(cuda_device), plan, dim + 1, codec="int8")
+    assert (ops.int8_quantize.launches - q0, ops.dequant_blend.launches - d0) == (1, 1)
+    plain = spmd.blend_windows_coded(preds, plan, dim + 1, codec="int8")
+    assert torch.equal(out.cpu(), plain)

@@ -6,6 +6,14 @@ uniform windows and paper-exact partitions.  Stated tolerance 1e-4 on
 latents of magnitude ~3 (f32 DiT, guidance 5 amplifies the cond/uncond
 difference).  Plus the step cache's miss bound and a bit-exact resume
 from a boundary snapshot.
+
+Coded steps (``codec=``, the halo wire mirror) are held to the reference
+within one code step: the two frameworks' DiTs differ by ~1e-6, and when
+a value's ``x / scale`` lies that close to a rounding half-way point its
+code flips by one, which moves the output by at most one step of its
+message's scale, ``<= max|latent| / qmax``.  So every element must be
+within ``1e-4 + max|ref| / qmax`` and at most 1% of them beyond the
+plain 1e-4 tolerance; ``state_inits`` must equal the reference's.
 """
 import jax
 import jax.numpy as jnp
@@ -14,8 +22,12 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.core import LPStepCompiler as JLPStepCompiler
+from repro.core import lp_denoise as jlp_denoise
 from repro.diffusion import generate_lp as jgenerate_lp
 from repro.diffusion import make_guided_denoiser as jguided
+from repro.diffusion.pipeline import make_guided_step_denoiser as jguided_step
+from repro.diffusion.sampler import FlowMatchEuler as JFlowMatchEuler
 from repro.models import dit as jdit
 from repro_torch.configs import get_config
 from repro_torch.core import DenoiseSnapshot, LPStepCompiler, lp_denoise
@@ -44,7 +56,8 @@ def setup():
     jden = jguided(jfwd, params, jcfg, jnp.asarray(ctx), jnp.zeros_like(jnp.asarray(ctx)), 5.0)
     tctx = torch.from_numpy(ctx)
     tden = make_guided_denoiser(model, tctx, torch.zeros_like(tctx), 5.0)
-    return dict(jcfg=jcfg, tcfg=tcfg, model=model, jden=jden, tden=tden, z=z, ctx=tctx)
+    return dict(jcfg=jcfg, tcfg=tcfg, model=model, jden=jden, tden=tden, z=z, ctx=tctx,
+                params=params, jfwd=jfwd, np_ctx=ctx)
 
 
 @pytest.mark.parametrize("uniform", [True, False])
@@ -105,14 +118,66 @@ def test_snapshot_resume_is_bit_exact(setup):
 
 
 def test_unported_arguments_name_their_roadmap_item(setup):
+    """Arguments of paths not ported yet raise, naming their ROADMAP item;
+    ``codec=`` is served now, so its cases check that it runs."""
     sampler, comp, extras = _step_setup(setup)
     z = torch.from_numpy(setup["z"])
-    for kw in (dict(codec="int8"), dict(schedule="int8@0.5,bf16"), dict(recorder=object())):
+    for kw in (dict(schedule="int8@0.5,bf16"), dict(recorder=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             lp_denoise(None, z, sampler, 2, 2, 0.5, (1, 2, 2), (1, 2, 3), **kw,
                        compiler=comp, extras=extras)
-    for kw in (dict(codec="bf16"), dict(forward=lambda *a: None),
+    coded = lp_denoise(make_guided_step_denoiser(setup["model"]), z, sampler, 2, 2, 0.5,
+                       (1, 2, 2), (1, 2, 3), uniform=True, codec="int8", extras=extras)
+    assert coded.shape == z.shape and bool(torch.isfinite(coded).all())
+    for kw in (dict(forward=lambda *a: None),
                dict(forward_factory=lambda c: None), dict(mesh_shape=(2, 1)),
                dict(wire_shard=True), dict(schedule="auto")):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), **kw)
+    bf16 = LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), uniform=True,
+                          codec="bf16")
+    assert bf16.codec.name == "bf16" and not bf16.stateful
+    with pytest.raises(ValueError, match="uniform-window"):
+        LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), codec="bf16")
+
+
+CODED_CASES = [
+    # codec, K, latent: (1, 6, 4, 4, 4) has one usable dim (T), so the 3 steps
+    # are one run and residual state is threaded across them; (1, 4, 8, 12, 4)
+    # rotates dims every step, so state is re-created 3 times
+    ("int8", 3, (1, 6, 4, 4, 4)),
+    ("int8", 4, (1, 6, 4, 4, 4)),
+    ("int4-residual", 3, (1, 6, 4, 4, 4)),
+    ("int4-residual", 4, (1, 6, 4, 4, 4)),
+    ("displaced:int8-residual", 3, (1, 6, 4, 4, 4)),
+    ("displaced:int8-residual", 4, (1, 6, 4, 4, 4)),
+    ("int4-residual", 3, LATENT),
+    ("displaced:int8-residual", 4, LATENT),
+]
+
+
+@pytest.mark.parametrize("name,K,shape", CODED_CASES)
+def test_coded_lp_denoise_matches_reference(setup, name, K, shape):
+    s = setup
+    z = np.random.default_rng(K).normal(size=shape).astype(np.float32)
+    ctx = s["np_ctx"]
+    jsampler = JFlowMatchEuler(3)
+    jcomp = JLPStepCompiler(jguided_step(s["jfwd"], s["params"], s["jcfg"]), jsampler.update,
+                            K, 0.5, s["jcfg"].patch_sizes, uniform=True, codec=name)
+    a = np.asarray(jlp_denoise(None, jnp.asarray(z), jsampler, 3, K, 0.5,
+                               s["jcfg"].patch_sizes, (1, 2, 3), uniform=True,
+                               extras=(jnp.asarray(ctx), jnp.zeros_like(jnp.asarray(ctx)), 5.0),
+                               compiler=jcomp))
+    sampler = FlowMatchEuler(3)
+    comp = LPStepCompiler(make_guided_step_denoiser(s["model"]), sampler.update, K, 0.5,
+                          s["tcfg"].patch_sizes, uniform=True, codec=name)
+    b = lp_denoise(None, torch.from_numpy(z), sampler, 3, K, 0.5, s["tcfg"].patch_sizes,
+                   (1, 2, 3), uniform=True, extras=(s["ctx"], torch.zeros_like(s["ctx"]), 5.0),
+                   compiler=comp).numpy()
+    assert comp.state_inits == jcomp.state_inits == (0 if name == "int8" else
+                                                       1 if shape[1] == 6 else 3)
+    assert comp.compiles == jcomp.compiles
+    qmax = 7 if "int4" in name else 127
+    d = np.abs(b - a)
+    assert d.max() <= 1e-4 + np.abs(a).max() / qmax, d.max()
+    assert (d > TOL["atol"] + TOL["rtol"] * np.abs(a)).mean() <= 0.01
