@@ -1,15 +1,17 @@
-"""Config registry of the port: the video model only.
+"""Config registry of the port.
 
-``get_config("wan21-dit-1.3b")`` returns the exact published config;
-the LM architectures of the reference registry are not ported yet
+``get_config(arch)`` returns the exact published config of the video
+model (``wan21-dit-1.3b``) or of the hybrid LM (``zamba2-2.7b``); the
+other LM architectures of the reference registry are not ported yet
 (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
-from .base import VDM_SHAPES, ArchConfig, ShapeConfig
+from .base import LM_SHAPES, VDM_SHAPES, ArchConfig, ShapeConfig
 from .wan21_dit_1p3b import CONFIG as _WAN21
+from .zamba2_2p7b import CONFIG as _ZAMBA2
 
-_CONFIGS = {"wan21-dit-1.3b": _WAN21}
+_CONFIGS = {"wan21-dit-1.3b": _WAN21, "zamba2-2.7b": _ZAMBA2}
 
 
 def get_config(arch: str) -> ArchConfig:
@@ -19,6 +21,9 @@ def get_config(arch: str) -> ArchConfig:
 
 
 def get_shape(name: str) -> ShapeConfig:
-    if name not in VDM_SHAPES:
-        raise KeyError(f"unknown shape {name!r}; the port has: {sorted(VDM_SHAPES)}")
-    return VDM_SHAPES[name]
+    if name in LM_SHAPES:
+        return LM_SHAPES[name]
+    if name in VDM_SHAPES:
+        return VDM_SHAPES[name]
+    raise KeyError(f"unknown shape {name!r}; the port has: "
+                   f"{sorted(LM_SHAPES) + sorted(VDM_SHAPES)}")

@@ -1,9 +1,10 @@
-"""Architecture and VDM shape configs (a copy of ``repro.configs.base``).
+"""Architecture and shape configs (a copy of ``repro.configs.base``).
 
 The port keeps its own copy so that it runs without the JAX package;
-``tests/test_torch_geometry.py`` holds the two copies equal.  Only the
-parts the video model needs are kept: ``ArchConfig`` with ``reduced()``,
-``ShapeConfig`` and ``VDM_SHAPES``.
+``tests/test_torch_geometry.py`` and ``tests/test_torch_lm.py`` hold the
+two copies equal.  Kept: ``ArchConfig`` with ``reduced()`` and
+``padded_vocab_size``, ``ShapeConfig``, ``LM_SHAPES`` and ``VDM_SHAPES``
+(not the mesh-mapping ``ParallelConfig``).
 """
 from __future__ import annotations
 
@@ -83,6 +84,13 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def padded_vocab_size(self) -> int:
+        """Vocab rounded up to a multiple of 256 (the reference pads so the
+        tables shard evenly; padded logit columns are masked to -1e30 in
+        ``logits_fn``)."""
+        return -(-self.vocab_size // 256) * 256
+
     def reduced(self) -> "ArchConfig":
         """Same-family config small enough for a CPU test (f32)."""
         changes = dict(
@@ -129,7 +137,7 @@ class ShapeConfig:
     """One input-shape cell."""
 
     name: str
-    kind: str          # vdm_generate
+    kind: str          # train | prefill | decode | vdm_generate
     seq_len: int = 0
     global_batch: int = 0
     num_frames: int = 0
@@ -137,6 +145,18 @@ class ShapeConfig:
     width: int = 832
     num_steps: int = 60
 
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The four LM shapes of the reference (identical across its LM archs).
+LM_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", seq_len=4096, global_batch=256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", seq_len=32768, global_batch=128),
+    "long_500k": ShapeConfig("long_500k", "decode", seq_len=524288, global_batch=1),
+}
 
 # The paper's own workload shapes (WAN2.1 @ 480p).
 VDM_SHAPES = {

@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels of the port, for Hopper (``sm_90a``).
 
-  flash_attention — DiT self- and cross-attention (``csrc/flash_attention.cu``)
+  flash_attention — DiT and LM attention (``csrc/flash_attention.cu``)
   latent_blend    — LP's position-aware reconstruction (``csrc/latent_blend.cu``)
   int8_quantize   — per-slab max-abs int8 quantize of wire messages
                     (``csrc/int8_quantize.cu``)
   dequant_blend   — int8 dequantize fused with the LP stitch
                     (``csrc/dequant_blend.cu``)
+  mamba_ssd       — the chunked Mamba2/SSD scan of the hybrid LM
+                    (``csrc/mamba_ssd.cu``)
 
 ``ops.py`` holds the wrappers and launch counters, ``ref.py`` the plain
 PyTorch versions (CPU tensors, and the yardstick on the card),

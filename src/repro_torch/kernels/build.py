@@ -9,6 +9,7 @@ started together.  Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +20,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "latent_blend", "int8_quantize", "dequant_blend")
+KERNELS = ("flash_attention", "latent_blend", "int8_quantize", "dequant_blend",
+           "mamba_ssd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -55,6 +57,11 @@ _SIGNATURES = {
         "dequant_blend_fwd": ([_P, _P, _P, _P, _P, ctypes.POINTER(_I), _I, _I,
                                _I, _L, _I, _P], _I),
         "dequant_blend_error_string": ([_I], ctypes.c_char_p),
+    },
+    "mamba_ssd": {
+        # x, log_decay, scale, B, C, y, b, s, h, p, n, chunk, stream
+        "mamba_ssd_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "mamba_ssd_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -116,17 +123,38 @@ def report(name: str) -> str:
     return "\n".join(l for l in log.read_text().splitlines() if "ptxas" in l)
 
 
+def load(name: str, path: Path) -> ctypes.CDLL:
+    """Load the shared library at ``path`` as kernel ``name``, with the C
+    signatures of that kernel declared."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if need be."""
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _LIBS[name] = lib
+        lib = _LIBS[name] = load(name, library_path(name))
     return lib
+
+
+@contextlib.contextmanager
+def substituted(name: str, lib: ctypes.CDLL):
+    """Serve ``lib`` as kernel ``name`` inside the block (a deliberately
+    broken copy, to show that a check catches it)."""
+    saved = _LIBS.get(name)
+    _LIBS[name] = lib
+    try:
+        yield
+    finally:
+        if saved is None:
+            _LIBS.pop(name, None)
+        else:
+            _LIBS[name] = saved
 
 
 def check(name: str, code: int) -> None:

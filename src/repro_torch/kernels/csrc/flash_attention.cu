@@ -15,6 +15,13 @@
 // axis becomes a loop inside the block: K and V tiles are staged in shared
 // memory and the online-softmax state stays in registers.
 //
+// Head dims 64, 80 (Zamba2's shared attention, 2560 / 32) and 128.  D = 80
+// keeps the design: 5 k-steps of 16 dims for Q.K^T (the odd last one
+// reads its K fragment with ldmatrix.x2), 10 8-dim blocks for P.V (paired
+// by ldmatrix.x4.trans), and shared-memory rows of 88 bf16 (176 B, a
+// multiple of 16 for cp.async and ldmatrix, and conflict-free: the 8 rows
+// of one ldmatrix start in 8 distinct 4-bank groups).
+//
 // What bounds it.  At the DiT's shapes (S ~ 2.5k-5k tokens, D = 128) the
 // work is ~4*S*Skv*D operations against ~4*S*D bytes per head, far above
 // the card's ~295 operations per byte: tensor-core throughput bounds it.
@@ -86,6 +93,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
+// Two 8x8 b16 matrices; lanes 8i..8i+7 (i < 2) give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -136,6 +150,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   constexpr int BM = 16 * kWarps, BN = kBN, LD = D + 8;  // +8: no bank conflicts
   constexpr int KSTEPS = D / 16, DB = D / 8, NB = BN / 8, TILE = BN * LD;
+  static_assert(D % 16 == 0 && DB % 2 == 0, "k-steps of 16 dims, P.V dim blocks in pairs");
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BN][LD]
   __nv_bfloat16* Vs = Ks + 2 * TILE;                            // [2][BN][LD]
@@ -212,17 +227,23 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
     const int* kvp = kvp_s + st * BN;
 
     // S = Q K^T for this warp's 16 rows x BN keys (one ldmatrix.x4 feeds
-    // two k-steps of one 8-key block)
+    // two k-steps of one 8-key block; an odd last k-step, D = 80, takes
+    // an ldmatrix.x2)
     float s[NB][4];
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
       s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; kk += 2) {
+      for (int kk = 0; kk + 1 < KSTEPS; kk += 2) {
         uint32_t kb[4];
         ldsm_x4(kb, ks + (nb * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8);
         mma_bf16(s[nb], qf[kk], kb[0], kb[1]);
         mma_bf16(s[nb], qf[kk + 1], kb[2], kb[3]);
+      }
+      if constexpr (KSTEPS % 2 == 1) {
+        uint32_t kb[2];
+        ldsm_x2(kb, ks + (nb * 8 + (lane & 7)) * LD + (KSTEPS - 1) * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[nb], qf[KSTEPS - 1], kb[0], kb[1]);
       }
     }
 
@@ -323,6 +344,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
   constexpr int BM = 32, BN = 32, DT = D / 4, DI = D / 16;
+  static_assert(D % 16 == 0, "float4 groups of 4 lanes x 4 dims");
   __shared__ __align__(16) float Ks[BN][D];
   __shared__ __align__(16) float Vs[BN][D];
   __shared__ int kvp_s[BN];
@@ -447,12 +469,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1) {
     cudaError_t e;
     if (D == 128) e = launch_bf16<128>(p, st);
+    else if (D == 80) e = launch_bf16<80>(p, st);
     else if (D == 64) e = launch_bf16<64>(p, st);
     else return -1;
     if (e != cudaSuccess) return static_cast<int>(e);
   } else if (dtype == 0) {
     const dim3 grid((Sq + 31) / 32, H, B);
     if (D == 128) flash_fwd_f32<128><<<grid, 128, 0, st>>>(p);
+    else if (D == 80) flash_fwd_f32<80><<<grid, 128, 0, st>>>(p);
     else if (D == 64) flash_fwd_f32<64><<<grid, 128, 0, st>>>(p);
     else return -1;
   } else {

@@ -49,7 +49,7 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     positions ``(B,S)`` (int32-max marks a padded kv slot); ``kv_len``
     ``(B,)`` masks keys at positions ``>= kv_len``.
 
-    CUDA: ``csrc/flash_attention.cu``, bf16 or f32, D in {64, 128}.
+    CUDA: ``csrc/flash_attention.cu``, bf16 or f32, D in {64, 80, 128}.
     """
     if kv_len is not None:
         kv_positions = torch.where(kv_positions < kv_len[:, None],
@@ -66,8 +66,8 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
                          f"v {tuple(v.shape)} do not match")
     if H % KV:
         raise ValueError(f"flash_attention: {H} heads not divisible by {KV} kv heads")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention: head dim {D} not supported (64 or 128)")
+    if D not in (64, 80, 128):
+        raise ValueError(f"flash_attention: head dim {D} not supported (64, 80 or 128)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k and v must share one dtype")
     code = _dtype_code(q, "flash_attention")
@@ -238,8 +238,59 @@ def dequant_blend(wire: torch.Tensor, scales: torch.Tensor, weights: torch.Tenso
 
 dequant_blend.launches = 0
 
+def mamba_ssd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """Chunked Mamba2/SSD scan for ``ssm_groups == 1``: x ``(b, s, h, p)``,
+    log_decay and scale ``(b, s, h)``, B and C ``(b, s, n)``; returns y
+    ``(b, s, h, p)`` in x's dtype.  ``S_t = exp(log_decay_t) S_{t-1} +
+    scale_t B_t (x) x_t``, ``y_t = C_t . S_t``, computed in chunks of
+    ``chunk`` tokens in the factorized form of
+    ``models/ssm.gated_linear_scan`` (centred exponents clipped to +-60),
+    so ``chunk`` changes the result in the last bits.
+
+    CUDA: ``csrc/mamba_ssd.cu``, f32, p, n and chunk multiples of 16 in
+    [16, 128] whose block fits the card's shared memory (the launcher
+    refuses the rest).
+    """
+    if x.device.type == "cpu":
+        return ref.mamba_ssd_plain(x, log_decay, scale, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba_ssd: no kernel for device {x.device}")
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if log_decay.shape != (b, s, h) or scale.shape != (b, s, h):
+        raise ValueError(f"mamba_ssd: log_decay {tuple(log_decay.shape)} and scale "
+                         f"{tuple(scale.shape)} must be {(b, s, h)}")
+    if B.shape != (b, s, n) or C.shape != (b, s, n):
+        raise ValueError(f"mamba_ssd: B {tuple(B.shape)} and C {tuple(C.shape)} must be "
+                         f"(b, s, n) with b, s of x {tuple(x.shape)} (ssm_groups 1)")
+    tensors = {"x": x, "log_decay": log_decay, "scale": scale, "B": B, "C": C}
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"mamba_ssd: {name} dtype {t.dtype} not supported (float32)")
+    for what, v in (("head dim p", p), ("state n", n), ("chunk", chunk)):
+        if not (16 <= v <= 128 and v % 16 == 0):
+            raise ValueError(f"mamba_ssd: {what} {v} not supported (a multiple of 16 "
+                             "in [16, 128])")
+    y = torch.empty_like(x)
+    _require_device(tensors, x.device)
+    _require_aligned({**tensors, "y": y})
+    if y.numel() == 0:
+        return y
+    lib = build.library("mamba_ssd")
+    rc = lib.mamba_ssd_fwd(x.data_ptr(), log_decay.data_ptr(), scale.data_ptr(),
+                           B.data_ptr(), C.data_ptr(), y.data_ptr(), b, s, h, p, n,
+                           int(chunk), _stream(x.device))
+    build.check("mamba_ssd", rc)
+    mamba_ssd.launches += 1
+    return y
+
+
+mamba_ssd.launches = 0
+
 WRAPPERS = {"flash_attention": flash_attention, "latent_blend": latent_blend,
-            "int8_quantize": int8_quantize, "dequant_blend": dequant_blend}
+            "int8_quantize": int8_quantize, "dequant_blend": dequant_blend,
+            "mamba_ssd": mamba_ssd}
 
 
 def launch_counts() -> Dict[str, int]:

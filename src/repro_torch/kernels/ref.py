@@ -150,3 +150,85 @@ def plant_halfway_inputs(slab: torch.Tensor, qmax: int) -> int:
     flat[0] = float(amax)
     flat[1:1 + len(x)] = torch.from_numpy(x).to(flat.device)
     return len(x)
+
+
+def ssd_scan(x, log_decay, scale, B, C, chunk: int = 64,
+             factorized: bool = True) -> torch.Tensor:
+    """Chunked scan of the gated linear recurrence, in f32 (a port of
+    ``repro/models/ssm.py:gated_linear_scan``, the same formulas in the
+    same order)::
+
+        S_t = exp(log_decay_t) S_{t-1} + scale_t * B_t (x) x_t
+        y_t = C_t . S_t
+
+    x ``(b, s, h, p)``, log_decay and scale ``(b, s, h)``, B and C
+    ``(b, s, g, n)`` with ``g | h``; returns f32 ``(b, s, h, p)``.
+    ``factorized=True`` splits ``exp(cum_i - cum_j)`` at the per-chunk
+    centre, ``exp(clip(cum_i - c)) * exp(clip(c - cum_j))`` with the
+    exponents clipped to +-60, so the ``(i, j)`` coupling is the
+    group-level C.B Gram; ``factorized=False`` is the textbook form with
+    the per-head decay matrix.  The inter-chunk ``pscan`` is a loop over
+    chunks.  A ragged last chunk is padded with zero decay and input.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        log_decay = torch.nn.functional.pad(log_decay, (0, 0, 0, pad))
+        scale = torch.nn.functional.pad(scale, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
+    xq = x.reshape(b, nc, chunk, g, rep, p).float()
+    dtq = scale.reshape(b, nc, chunk, g, rep).float()
+    Bq = B.reshape(b, nc, chunk, g, n).float()
+    Cq = C.reshape(b, nc, chunk, g, n).float()
+    a = log_decay.reshape(b, nc, chunk, g, rep).float()
+    cum = torch.cumsum(a, dim=2)                    # within-chunk cumulative
+    total = cum[:, :, -1]                           # (b, nc, g, rep)
+
+    lmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    cb = torch.einsum("bcign,bcjgn->bcijg", Cq, Bq)                  # (b, nc, Q, Q, g)
+    if factorized:
+        center = 0.5 * (cum.amax(dim=2, keepdim=True) + cum.amin(dim=2, keepdim=True))
+        a_i = torch.exp(torch.clamp(cum - center, -60.0, 60.0))
+        b_j = torch.exp(torch.clamp(center - cum, -60.0, 60.0))
+        cb = torch.where(lmask[None, None, :, :, None], cb, 0.0)
+        v = xq * (dtq * b_j)[..., None]                              # (b, nc, Q, g, r, p)
+        y_intra = torch.einsum("bcijg,bcjgrp->bcigrp", cb, v) * a_i[..., None]
+    else:
+        diff = cum[:, :, :, None] - cum[:, :, None, :]               # (b, nc, i, j, g, r)
+        decay = torch.where(lmask[None, None, :, :, None, None], torch.exp(diff), 0.0)
+        dx = dtq[..., None] * xq
+        y_intra = torch.einsum("bcijgr,bcijg,bcjgrp->bcigrp", decay, cb, dx)
+
+    # chunk summaries: S_c = sum_j exp(total - cum_j) dt_j B_j (x) x_j
+    w = torch.exp(total[:, :, None] - cum)                           # (b, nc, Q, g, rep)
+    state_c = torch.einsum("bcjgn,bcjgr,bcjgrp->bcgrnp", Bq, w * dtq, xq)
+    # inter-chunk recurrence: the state entering chunk c
+    S = torch.zeros((b, g, rep, n, p), dtype=torch.float32, device=x.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(S)
+        S = torch.exp(total[:, c])[..., None, None] * S + state_c[:, c]
+    S_in = torch.stack(s_in, dim=1)                                  # (b, nc, g, rep, n, p)
+    y_inter = torch.einsum("bcign,bcgrnp->bcigrp", Cq, S_in) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(b, nc * chunk, h, p)
+    return y[:, :s]
+
+
+def mamba_ssd_plain(x, log_decay, scale, B, C, chunk: int = 64) -> torch.Tensor:
+    """The ``mamba_ssd`` kernel's function: ``ssd_scan(factorized=True)``
+    with B and C ``(b, s, n)`` given one group axis; y in x's dtype."""
+    return ssd_scan(x, log_decay, scale, B[:, :, None, :], C[:, :, None, :],
+                    chunk, True).to(x.dtype)
+
+
+def mamba_ssd_ref(x, log_decay, scale, B, C) -> torch.Tensor:
+    """The textbook SSD oracle of the reference's tests
+    (``repro/kernels/ref.py:mamba_ssd_ref``): ``factorized=False`` at
+    chunk 32, groups 1, f32 out."""
+    return ssd_scan(x, log_decay, scale, B[:, :, None, :], C[:, :, None, :],
+                    chunk=32, factorized=False)

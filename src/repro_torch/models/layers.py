@@ -1,9 +1,10 @@
-"""Building blocks of the DiT, as plain functions on tensors.
+"""Building blocks of the DiT and the hybrid LM, as plain functions on tensors.
 
 Dense weights keep the reference's ``(in, out)`` layout: ``dense`` is
 ``x @ w``, so weights carried over from the JAX package need no
 transpose.  Matmuls accumulate in f32 and cast back to the input's
-dtype (``repro/models/layers.py:dense``).
+dtype (``repro/models/layers.py:dense``); ``unembed`` keeps its f32
+logits.
 """
 from __future__ import annotations
 
@@ -71,3 +72,66 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int,
                       * torch.arange(half, dtype=torch.float32, device=t.device) / half)
     args = t.float()[..., None] * freqs
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+# ------------------------------------------------------------ LM pieces
+def embedding_init(vocab: int, d: int, generator: torch.Generator, dtype=torch.bfloat16,
+                   device: Optional[torch.device] = None) -> torch.Tensor:
+    """``(vocab, d)`` table, N(0, 1) * 0.02."""
+    w = torch.randn((vocab, d), generator=generator, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
+
+
+def embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return emb[tokens]
+
+
+def unembed(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Logits ``x @ emb^T`` in f32, not rounded to the model dtype.  The
+    reference multiplies bf16 inputs with an f32 accumulator; a product
+    of two bf16 values is exact in f32, so upcasting first computes the
+    same sum."""
+    return torch.matmul(x.float(), emb.float().t())
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """The LM's rotary embedding over split halves.  x ``(..., seq, heads,
+    head_dim)``, positions ``(..., seq)``; computed in f32, cast back."""
+    head_dim = x.shape[-1]
+    freqs = torch.as_tensor(rope_frequencies(head_dim, theta), dtype=torch.float32,
+                            device=x.device)
+    angles = positions[..., :, None].float() * freqs              # (..., s, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def causal_conv1d_init(channels: int, width: int, generator: torch.Generator,
+                       dtype=torch.bfloat16, device: Optional[torch.device] = None):
+    """Depthwise conv weights ``{"w": (width, channels), "b": (channels,)}``
+    (fan-in ``width``, as the reference's initializer reads its shape)."""
+    return {"w": dense_init(width, channels, generator, dtype, device=device),
+            "b": torch.zeros((channels,), dtype=dtype, device=device)}
+
+
+def causal_conv1d(params, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over ``(batch, seq, channels)``, in f32, cast
+    back to x's dtype."""
+    w = params["w"].float()
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x.float(), (0, 0, width - 1, 0))
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, width):
+        y = torch.addcmul(y, xp[:, i:i + s], w[i])
+    return (y + params["b"].float()).to(x.dtype)
+
+
+def causal_conv1d_update(params, x_t: torch.Tensor, conv_state: torch.Tensor):
+    """One decode token: x_t ``(b, c)``, state ``(b, width - 1, c)``.
+    Returns the conv output in x_t's dtype and the new state."""
+    window = torch.cat([conv_state, x_t[:, None, :].to(conv_state.dtype)], dim=1)
+    y = torch.einsum("bwc,wc->bc", window.float(), params["w"].float()) \
+        + params["b"].float()
+    return y.to(x_t.dtype), window[:, 1:, :]

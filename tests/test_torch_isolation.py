@@ -3,9 +3,11 @@
 * No file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports JAX or
   the JAX package ``repro`` (an AST scan), and the package imports and
   serves with ``jax`` blocked in ``sys.modules`` (a subprocess).
-* Without CUDA, the entry points raise unless given ``device="cpu"``.
-* CPU tensors never reach a kernel, coded requests included: the launch
-  counters stay at 0.
+* Without CUDA, the entry points raise unless given ``device="cpu"``,
+  the LM's (``models.build``, ``transformer.init_params``, the serve
+  steps) included.
+* CPU tensors never reach a kernel, coded requests and the hybrid LM's
+  prefill and decode included: the launch counters stay at 0.
 """
 import ast
 import subprocess
@@ -16,11 +18,13 @@ import pytest
 import torch
 
 from repro_torch import device as tdevice
+from repro_torch import models
 from repro_torch.configs import get_config
 from repro_torch.diffusion import generate_lp, make_guided_denoiser
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
-from repro_torch.models import dit, frontends
+from repro_torch.models import dit, frontends, transformer
+from repro_torch.serving import serve_step
 from repro_torch.serving.engine import LPServingEngine, VideoRequest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,6 +66,17 @@ serve.get_config = lambda name: full_width(name).reduced()    # small enough for
 serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4"])
 serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4",
             "--partitions", "3", "--wire-codec", "displaced:int4-residual"])
+from repro_torch import models
+from repro_torch.configs import get_config
+from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+import torch
+cfg = get_config("zamba2-2.7b").reduced()
+lm = models.build(cfg, device="cpu")
+params = lm.init(0)
+tok = torch.zeros((1, 5), dtype=torch.long)
+print("lm logits", tuple(make_prefill_step(lm, cfg)(params, {"tokens": tok}).shape))
+make_decode_step(lm, cfg)(params, {"token": tok[:, :1], "position": torch.zeros(1, dtype=torch.long)},
+                          lm.init_cache(1, 5))
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("imported", len(names))
@@ -75,6 +90,7 @@ def test_package_runs_with_jax_blocked():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "request 0: latent (1, 4, 8, 12, 4)" in out.stdout
     assert "codec=displaced:int4-residual" in out.stdout
+    assert "lm logits (1, 1, 512)" in out.stdout
     assert int(out.stdout.split("imported")[-1]) >= 25
 
 
@@ -110,4 +126,43 @@ def test_cpu_path_never_launches_a_kernel():
     eng.submit(VideoRequest(0, ctx, (4, 8, 12)))
     assert bool(torch.isfinite(eng.run()[0].latent).all())
     assert ops.launch_counts() == {"flash_attention": 0, "latent_blend": 0,
-                                   "int8_quantize": 0, "dequant_blend": 0}
+                                   "int8_quantize": 0, "dequant_blend": 0,
+                                   "mamba_ssd": 0}
+
+
+def test_lm_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("zamba2-2.7b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        models.build(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        models.build(get_config("wan21-dit-1.3b").reduced())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_step.make_prefill_step(models.build(cfg), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_step.make_decode_step(models.build(cfg), cfg)
+    lm = models.build(cfg, device="cpu")
+    assert lm.device.type == "cpu"
+    assert lm.init_cache(1, 4)["k"].device.type == "cpu"
+
+
+def test_cpu_lm_path_never_launches_a_kernel():
+    ops.reset_launch_counts()
+    cfg = get_config("zamba2-2.7b").reduced()
+    lm = models.build(cfg, device="cpu")
+    params = lm.init(torch.Generator().manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(1))
+    logits = serve_step.make_prefill_step(lm, cfg)(params, {"tokens": tok})
+    assert tuple(logits.shape) == (2, 1, cfg.padded_vocab_size)
+    cache = lm.init_cache(2, 4)
+    dec = serve_step.make_decode_step(lm, cfg)
+    for t in range(2):
+        logits, cache = dec(params, {"token": tok[:, t:t + 1],
+                                     "position": torch.full((2,), t)}, cache)
+    assert bool(torch.isfinite(logits).all())
+    assert set(ops.launch_counts().values()) == {0}
+    assert "mamba_ssd" in ops.launch_counts()

@@ -166,7 +166,7 @@ def test_blend_windows_matches_reference_engine(dim, K, r):
 
 
 NO_LAUNCHES = {"flash_attention": 0, "latent_blend": 0, "int8_quantize": 0,
-               "dequant_blend": 0}
+               "dequant_blend": 0, "mamba_ssd": 0}
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
@@ -177,6 +177,8 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     ops.latent_blend(preds, torch.ones(2, 4), torch.full((6,), 2.0), (0, 2), 4, 6)
     wire, scales = ops.int8_quantize(preds)
     ops.dequant_blend(wire, scales, torch.ones(2, 4), torch.full((6,), 2.0), (0, 2), 4, 6)
+    ops.mamba_ssd(torch.ones((1, 5, 2, 4)), -torch.ones((1, 5, 2)), torch.ones((1, 5, 2)),
+                  torch.ones((1, 5, 3)), torch.ones((1, 5, 3)), chunk=4)
     assert ops.launch_counts() == NO_LAUNCHES
 
 
@@ -192,6 +194,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         ops.dequant_blend(torch.empty((2, 4, 3), dtype=torch.int8, device="meta"), None,
                           None, None, (0, 2), 4, 6)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.mamba_ssd(torch.empty((1, 8, 2, 16), device="meta"), None, None, None, None)
     assert ops.launch_counts() == NO_LAUNCHES
 
 

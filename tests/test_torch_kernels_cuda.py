@@ -10,7 +10,9 @@ tolerances: bf16 flash elementwise within the bound of its two roundings,
 ``2^-8 attention(q, k, |v|) + 2^-7 |plain|`` (P to bf16 for the
 tensor-core P.V, and the bf16 output; ``ref.flash_bf16_tolerance``),
 f32 flash 1e-4 (summation order only); blend, int8 quantize and
-dequant-blend exact (the same f32 operations in the same order).
+dequant-blend exact (the same f32 operations in the same order);
+mamba_ssd ``5e-4 + 5e-4 |plain|``, the reference's own SSD tolerance
+(f32 throughout, sums in another order).
 """
 import numpy as np
 import pytest
@@ -31,6 +33,9 @@ FLASH_CASES = [
     (2, 96, 160, 4, 4, 128, False, 0, True),         # padding inside the last tiles
     (2, 130, 301, 12, 4, 128, True, 50, True),       # masks, GQA and a 13-key last tile
     (1, 3120, 3120, 2, 2, 128, False, 0, False),     # a T window's length: a 16-key last tile
+    (2, 300, 300, 4, 4, 80, True, 0, False),         # Zamba2's head dim: causal prefill
+    (2, 130, 301, 8, 2, 80, True, 50, True),         # D 80 with masks, GQA, a short tile
+    (3, 1, 500, 4, 4, 80, False, 0, True),           # D 80 decode: one query, kv_len
 ]
 
 
@@ -181,3 +186,55 @@ def test_coded_stitch_on_the_card_matches_plain(cuda_device, dim, extent):
     assert (ops.int8_quantize.launches - q0, ops.dequant_blend.launches - d0) == (1, 1)
     plain = spmd.blend_windows_coded(preds, plan, dim + 1, codec="int8")
     assert torch.equal(out.cpu(), plain)
+
+
+SSD_CASES = [
+    # b, s, h, p, n, chunk
+    (2, 200, 8, 16, 16, 64),
+    (2, 100, 16, 32, 16, 32),        # ragged: a padded last chunk
+    (1, 64, 8, 16, 16, 16),
+    (2, 4000, 8, 64, 64, 64),        # Zamba2's p, n and chunk, ragged s
+    (1, 300, 320, 16, 16, 32),       # more (batch, head) items than blocks
+]
+
+
+def _ssd_inputs(b, s, h, p, n, seed, steep=False):
+    """The reference test's distributions; ``steep`` decays reach
+    |cum - centre| > 60 inside a chunk, where the +-60 clip decides."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, size=(b, s, h)).astype(np.float32)
+    A = -rng.uniform(0.5, 8.0, size=(h,)).astype(np.float32)
+    a = dt * A[None, None, :]
+    if steep:
+        a = -rng.uniform(2.0, 6.0, size=(b, s, h)).astype(np.float32)
+    B = rng.normal(size=(b, s, n)).astype(np.float32)
+    C = rng.normal(size=(b, s, n)).astype(np.float32)
+    return [torch.from_numpy(v) for v in (x, a, dt, B, C)]
+
+
+@pytest.mark.parametrize("steep", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_mamba_ssd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk, steep):
+    args = [t.to(cuda_device) for t in _ssd_inputs(b, s, h, p, n, s + h, steep)]
+    before = ops.mamba_ssd.launches
+    out = ops.mamba_ssd(*args, chunk=chunk)
+    assert ops.mamba_ssd.launches == before + 1
+    plain = ref.mamba_ssd_plain(*args, chunk=chunk)
+    assert out.shape == (b, s, h, p) and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    err = (out - plain).abs()
+    assert bool((err <= 5e-4 + 5e-4 * plain.abs()).all()), f"max err {float(err.max()):.3e}"
+
+
+def test_mamba_ssd_kernel_refuses_what_it_has_no_kernel_for(cuda_device):
+    x, a, dt, B, C = (t.to(cuda_device) for t in _ssd_inputs(1, 40, 2, 16, 16, 0))
+    with pytest.raises(TypeError, match="not supported"):
+        ops.mamba_ssd(x.bfloat16(), a, dt, B, C)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.mamba_ssd(x, a, dt, B, C, chunk=24)
+    x8, _, _, B8, C8 = (t.to(cuda_device) for t in _ssd_inputs(1, 40, 2, 8, 8, 0))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.mamba_ssd(x8, a, dt, B, C)
+    with pytest.raises(ValueError, match="state"):
+        ops.mamba_ssd(x, a, dt, B8, C8)
