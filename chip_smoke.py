@@ -4,17 +4,22 @@
     python3 chip_smoke.py            # all phases, one card
 
 Phases, one line each (any failed check exits non-zero):
-  1. device  — the card, the toolchain, the five kernels' build from csrc/.
+  1. device  — the card, the toolchain, the seven kernels' build from csrc/.
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card at the serving paths' shapes (WAN and Zamba2),
-               with kernel, plain, library and bound times; then two
-               broken copies of mamba_ssd.cu, built outside the checkout,
-               must each fail its check.
+               with kernel, plain, library and bound times (and the
+               kernel times PERF.md records for the kernels they replaced); the
+               flash kernels also on positions that put their skipping of
+               masked key tiles at its edges, and guidance_update on the
+               480p latent.  Then broken copies, built outside the
+               checkout, must each fail a check: two of mamba_ssd.cu, and
+               two of the flash sources (a causal live-tile test with < for
+               <=; the wgmma kernel without its accumulator's correction).
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
-               counters must show every DiT attention and every LP stitch
-               going through the kernels.
+               counters must show every DiT attention going through the
+               wgmma flash kernel and every LP stitch through latent_blend.
   4. serve_codec — the same engine settings with wire_codec "int8" and
                "displaced:int8-residual" (the halo wire mirror), one
                2-request batch each: every wire quantize must go through
@@ -33,7 +38,11 @@ Phases, one line each (any failed check exits non-zero):
                make_decode_step (4 requests, 32 prompt tokens
                teacher-forced, 32 generated greedily, cache 4096: 9 flash
                launches and no mamba_ssd per step).
-  8. check   — a 2-layer full-width DiT, LP-denoised on the card
+  8. guidance — the fused CFG + Euler entry point ops.guidance_update
+               (no path of the reference calls it) driven over the 4-step
+               schedule on the 480p latent (1, 13, 60, 104, 16), f32 and
+               bf16, bit-equal to its plain version's loop.
+  9. check   — a 2-layer full-width DiT, LP-denoised on the card
                (kernels) and on the CPU (plain versions) from the same
                weights and noise, must agree; once uncoded, once through
                the int8-residual wire on a latent with one usable dim
@@ -73,6 +82,12 @@ SSD_TOL = (5e-4, 5e-4)          # the reference's own SSD tolerance: f32 through
                                 # the same formulas summed in another order
 LM_CARD_VS_CPU_REL_L2 = 1e-3    # small_lm: f32 on both sides (no TF32), sums in other orders
 LM_CONSISTENCY_TOL = 3e-2       # prefill vs stepped decode (tests/test_models_smoke.py:132)
+GUIDANCE_LATENT = (1, 13, 60, 104, 16)     # the 480p latent of the reference's test
+GUIDANCE_W = 5.0
+# the earlier mma.sync kernel's times of the cases whose kernel changed
+# (PERF.md's kernel table, on an H100 80GB HBM3 at 700 W)
+EARLIER_MS = {"flash_self_Twindow_bf16": 4.675, "flash_cross_bf16": 0.861,
+              "flash_lm_prefill_causal_bf16": 2.442, "flash_lm_decode_bf16": 0.227}
 CODECS = ("int8", "displaced:int8-residual")    # phase serve_codec
 LATENT = (13, 30, 52)           # 480p/4s-class latent, cut from (13, 60, 104) for time
 K, R, STEPS = 4, 0.5, 4
@@ -86,6 +101,14 @@ SSD_MUTANTS = {
     "no_state_reset": ("    for (int i = tid; i < N * P; i += kThreads) ss[i] = 0.f;  "
                        "// S = 0 for every (batch, head)\n", ""),
 }
+# broken copies of the flash sources: (file, source text, replacement); each
+# must fail the flash check on at least one case
+FLASH_MUTANTS = {
+    "skip_off_by_one": ("flash_common.cuh", "if (causal) live = live && kmin <= qhi;",
+                        "if (causal) live = live && kmin < qhi;"),
+    "no_rescale": ("flash_attention_sm90.cu", "o[x] *= (x & 2) ? corr1 : corr0;", ";"),
+}
+FLASH_SOURCES = ("flash_attention", "flash_attention_sm90")
 
 
 class SmokeFailure(RuntimeError):
@@ -121,21 +144,27 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, cold_l2: bool = False) -> float:
     """Device time of one call of ``fn``: the time of every kernel it
     launches, summed by ``torch.profiler`` over ``reps`` calls.  For work
     shorter than the host's launch cost, where events around a loop of
-    calls time the host."""
+    calls time the host.  ``cold_l2``: before each call, 64 MB written
+    outside ``fn`` evict its inputs from the 50 MB L2 (that fill kernel is
+    not counted), so a call reads them from device memory."""
     import torch
 
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold_l2 else None
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if cold_l2:
+                flush.fill_(1)
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not (cold_l2 and "fill" in e.key.lower()))
     check(us > 0, "the profiler shows no device time")
     return us / 1e3 / reps
 
@@ -152,7 +181,7 @@ def sources_sha256() -> str:
     Python files and its CUDA sources, in path order."""
     files = [ROOT / "chip_smoke.py"] + sorted(
         f for f in (ROOT / "src" / "repro_torch").rglob("*")
-        if f.suffix in (".py", ".cu") and "__pycache__" not in f.parts)
+        if f.suffix in (".py", ".cu", ".cuh") and "__pycache__" not in f.parts)
     h = hashlib.sha256()
     for f in files:
         h.update(str(f.relative_to(ROOT)).encode() + b"\0" + f.read_bytes() + b"\0")
@@ -165,28 +194,31 @@ def attended_pairs(q_pos, kv_pos, causal, window) -> int:
     return int(attention_mask(q_pos, kv_pos, causal, window).sum())
 
 
-def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
-               pad_kv=0, kv_len=False, reps=5, library=False, seed=0):
-    """One flash kernel check: kernel vs plain on the same inputs.
+def flash_inputs(B, Sq, Skv, H, KV, D, dtype, causal=False, window=0, pad_kv=0,
+                 kv_len=False, edge=None, seed=0):
+    """q, k, v, positions and kv_len of one flash case on the card.
     ``kv_len``: False, True (row b keeps Skv - 7(b+1) keys) or each row's
-    valid key count (a decode step's ``position + 1``); the bytes bound
-    counts only the valid keys, and the library call gets them as a
-    boolean mask."""
+    valid key count (a decode step's ``position + 1``); ``edge`` names a
+    case of ``ref.skip_edge_positions`` (its positions, causal and window
+    replace the others)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, Skv, KV, D), generator=g, device="cuda").to(dtype)
     v = torch.randn((B, Skv, KV, D), generator=g, device="cuda").to(dtype)
-    if causal or window:
+    if edge is not None:
+        qp, kp, causal, window = ref.skip_edge_positions(edge, B, Sq, Skv, seed)
+        qp, kp = torch.from_numpy(qp).cuda(), torch.from_numpy(kp).cuda()
+    elif causal or window:
         # global positions of an LP window: offset queries, keys before them
         qp = (torch.arange(Sq, device="cuda", dtype=torch.int32) + (Skv - Sq))[None]
         qp = qp.expand(B, Sq).contiguous()
     else:
         qp = torch.arange(Sq, device="cuda", dtype=torch.int32)[None].expand(B, Sq)
-    kp = torch.arange(Skv, device="cuda", dtype=torch.int32)[None].expand(B, Skv).contiguous()
+    if edge is None:
+        kp = torch.arange(Skv, device="cuda", dtype=torch.int32)[None].expand(B, Skv).contiguous()
     if pad_kv:
         kp[:, -pad_kv:] = ref.INT32_MAX
     lens = None
@@ -194,55 +226,238 @@ def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
         kv_len = [Skv - 7 * (b + 1) for b in range(B)]
     if kv_len:
         lens = torch.tensor(kv_len, device="cuda", dtype=torch.int32)
-    kp_eff = kp if lens is None else torch.where(kp < lens[:, None], kp, ref.INT32_MAX)
+    return (q, k, v, qp, kp, lens), causal, window
 
-    before = ops.flash_attention.launches
-    out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kv_len=lens)
-    torch.cuda.synchronize()
+
+def flash_agrees(out, args, causal, window):
+    """|kernel - plain| against the stated limit on the same inputs:
+    (max abs err, largest share of the limit, within it and finite)."""
+    import torch
+    from repro_torch.kernels import ref
+
+    q, k, v, qp, kp, lens = args
+    kp_eff = kp if lens is None else torch.where(kp < lens[:, None], kp, ref.INT32_MAX)
     plain = ref.flash_attention_ref(q, k, v, qp, kp_eff, causal, window)
-    if dtype == torch.bfloat16:
-        tol = "2^-8 attention(q,k,|v|) + 2^-7 |plain|"
+    if q.dtype == torch.bfloat16:
         limit = ref.flash_bf16_tolerance(q, k, v, qp, kp_eff, causal, window, plain)
     else:
-        tol = FLASH_F32_TOL
         limit = FLASH_F32_TOL[0] + FLASH_F32_TOL[1] * plain.float().abs()
     torch.cuda.synchronize()
     err, share, ok = max_err(out, plain, limit)
-    del limit
-    check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite kernel output")
+    return err, share, ok and bool(torch.isfinite(out.float()).all())
+
+
+def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
+               pad_kv=0, kv_len=False, edge=None, reps=5, library=False, seed=0,
+               short=False):
+    """One flash kernel check: kernel vs plain on the same inputs, with
+    kernel, plain, library and bound times.  The bytes bound counts only
+    the valid keys, and the library call gets them as a boolean mask.
+    ``short``: work shorter than a launch from the host, timed by the
+    profiler's device time (events around the wrapper's calls are kept
+    as ``events_ms``).  Returns the record and (name, args, causal,
+    window) for the mutation checks."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    args, causal, window = flash_inputs(B, Sq, Skv, H, KV, D, dtype, causal, window, pad_kv,
+                                        kv_len, edge, seed)
+    q, k, v, qp, kp, lens = args
+    kp_eff = kp if lens is None else torch.where(kp < lens[:, None], kp, ref.INT32_MAX)
+    kernel = ops.flash_kernel(dtype, D)
+    counter = ops.WRAPPERS[kernel]
+    before = counter.launches
+    out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kv_len=lens)
+    check(counter.launches == before + 1, f"{name}: {kernel} did not launch")
+    err, share, ok = flash_agrees(out, args, causal, window)
+    tol = ("2^-8 attention(q,k,|v|) + 2^-7 |plain|" if dtype == torch.bfloat16
+           else FLASH_F32_TOL)
     check(ok, f"{name}: kernel disagrees with plain version (max abs err {err:.3e}, "
               f"{share:.2f} of the limit {tol})")
-    kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v, qp, kp, causal=causal,
+    events_ms = time_ms(lambda: ops.flash_attention(q, k, v, qp, kp, causal=causal,
                                                     window=window, kv_len=lens), reps)
+    kernel_ms = events_ms
     plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kp_eff, causal, window),
                        max(1, reps // 5))
-    ops.flash_attention.launches = before     # comparison launches do not count
+    if short:          # the kernel alone: kv_len already folded into kp_eff
+        kernel_ms = device_ms(lambda: ops.flash_attention(q, k, v, qp, kp_eff, causal=causal,
+                                                          window=window), reps)
+        plain_ms = device_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kp_eff, causal,
+                                                             window), reps)
+    counter.launches = before                 # comparison launches do not count
     library_ms = None
     if library:
+        timer = device_ms if short else time_ms
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         if lens is not None:
             mask = (kp_eff != ref.INT32_MAX)[:, None, None, :]
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            library_ms = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask), reps)
         else:
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            library_ms = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal), reps)
-    pairs = (B * Sq * Skv if not (causal or window or pad_kv or lens is not None)
+    pairs = (B * Sq * Skv if not (causal or window or pad_kv or lens is not None or edge)
              else attended_pairs(qp, kp_eff, causal, window))
     flops = 4.0 * pairs * H * D
-    keys = int(lens.clamp(max=Skv).sum()) if lens is not None else B * Skv
+    keys = int((kp_eff != ref.INT32_MAX).sum())
     nbytes = (2 * q.numel() + 2 * keys * KV * D) * q.element_size() \
         + (qp.numel() + kp.numel()) * 4
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_S * 1e3
     return {
-        "case": name, "shape": [B, Sq, Skv, H, KV, D], "dtype": str(dtype),
-        "causal": causal, "window": window, "max_abs_err": err, "tol": tol,
-        "err_share_of_limit": share, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "case": name, "kernel": kernel, "shape": [B, Sq, Skv, H, KV, D], "dtype": str(dtype),
+        "causal": causal, "window": window, "edge": edge, "max_abs_err": err, "tol": tol,
+        "err_share_of_limit": share, "ms": kernel_ms, "events_ms": events_ms,
+        "earlier_ms": EARLIER_MS.get(name), "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "tflops": flops / kernel_ms / 1e9,
+    }, (name, args, causal, window)
+
+
+def build_mutants(prefix, mutants, sources, lib_names):
+    """Write each broken copy (source file -> replacement text) of
+    ``sources`` into a temporary directory outside the checkout and build
+    the libraries ``lib_names[m]`` of mutant m, all in parallel.  Returns
+    the directory and, per mutant, {library name: .so path}."""
+    from repro_torch.kernels import build
+
+    tmp = Path(tempfile.mkdtemp(prefix=prefix))
+    procs = {}
+    for m, (fname, old, new) in mutants.items():
+        d = tmp / m
+        d.mkdir()
+        for f in sources:
+            text = (build.CSRC / f).read_text()
+            if f == fname:
+                check(text.count(old) == 1, f"mutant {m}: its source line is not in {f} once")
+                text = text.replace(old, new)
+            (d / f).write_text(text)
+        for lib in lib_names[m]:
+            so = d / f"lib{lib}.so"
+            procs[(m, lib)] = (so, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(d / f"{lib}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {m: {} for m in mutants}
+    for (m, lib), (so, proc) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"mutant {m} ({lib}) did not build:\n{log[-2000:]}")
+        built[m][lib] = so
+    return tmp, built
+
+
+def flash_mutants(kept):
+    """Serve each broken copy of the flash sources in place of the kernels
+    and require that the flash check fails on at least one of the
+    ``kept`` cases; returns the cases that caught each."""
+    import torch
+    from repro_torch.kernels import build, ops
+
+    libs = {"skip_off_by_one": FLASH_SOURCES, "no_rescale": ("flash_attention_sm90",)}
+    tmp, built = build_mutants("flash_mutants_", FLASH_MUTANTS,
+                               ("flash_common.cuh",) + tuple(f"{n}.cu" for n in FLASH_SOURCES),
+                               libs)
+    try:
+        before, caught = ops.launch_counts(), {}
+        for m, sos in built.items():
+            caught[m] = []
+            with contextlib.ExitStack() as stack:
+                for lib, so in sos.items():
+                    stack.enter_context(build.substituted(lib, build.load(lib, so)))
+                for name, args, causal, window in kept:
+                    q, k, v, qp, kp, lens = args
+                    if ops.flash_kernel(q.dtype, q.shape[-1]) not in sos:
+                        continue
+                    out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window,
+                                              kv_len=lens)
+                    torch.cuda.synchronize()
+                    err, share, ok = flash_agrees(out, args, causal, window)
+                    if not ok:
+                        caught[m].append(f"{name} ({share:.3g} of the limit)")
+            check(caught[m], f"mutant {m} of the flash sources passed every check")
+        for n, v in before.items():
+            ops.WRAPPERS[n].launches = v
+        return caught
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def guidance_case(dtype, reps=20):
+    """guidance_update vs its plain version on the 480p latent: bit-equal."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    z, c, u = (torch.randn(GUIDANCE_LATENT, generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    before = ops.guidance_update.launches
+    out = ops.guidance_update(z, c, u, GUIDANCE_W, -0.02)
+    plain = ref.guidance_update_plain(z, c, u, GUIDANCE_W, -0.02)
+    torch.cuda.synchronize()
+    err = float((out.float() - plain.float()).abs().max())
+    check(bool(torch.equal(out, plain)),
+          f"guidance_update {dtype}: kernel differs from plain (max abs err {err:.3e})")
+    # its 3 inputs (15.6 MB in f32) would stay in L2 across back-to-back
+    # calls; a denoise step rewrites far more than L2 between two of them
+    kernel_ms = device_ms(lambda: ops.guidance_update(z, c, u, GUIDANCE_W, -0.02), reps,
+                          cold_l2=True)
+    plain_ms = device_ms(lambda: ref.guidance_update_plain(z, c, u, GUIDANCE_W, -0.02), reps,
+                         cold_l2=True)
+    ops.guidance_update.launches = before
+    nbytes = 4 * z.numel() * z.element_size()      # 3 reads and 1 write
+    flops = 5.0 * z.numel()
+    t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
+    return {
+        "case": f"guidance_update_{str(dtype).split('.')[-1]}", "shape": list(GUIDANCE_LATENT),
+        "max_abs_err": err, "tol": "bit-equal", "err_share_of_limit": 0.0, "ms": kernel_ms,
+        "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
+
+
+def guidance_path():
+    """Phase guidance: the entry point ``ops.guidance_update`` driven as a
+    caller fusing the CFG combine into the Euler step would drive it, over
+    the 4-step FlowMatch schedule at w 5.0 on the 480p latent, with seeded
+    velocity predictions, once in f32 and once in bf16; the final latent
+    must equal the plain version's loop bit for bit.  Returns the record
+    and the phase's launch counts (set to 0 at its start)."""
+    import torch
+    from repro_torch.diffusion import FlowMatchEuler
+    from repro_torch.kernels import ops, ref
+
+    sampler = FlowMatchEuler(STEPS)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    z0 = torch.randn(GUIDANCE_LATENT, generator=g, device="cuda")
+    preds = [(torch.randn(GUIDANCE_LATENT, generator=g, device="cuda"),
+              torch.randn(GUIDANCE_LATENT, generator=g, device="cuda")) for _ in range(STEPS)]
+    ops.reset_launch_counts()
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        z, zp = z0.to(dtype), z0.to(dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, STEPS + 1):
+            c, u = (x.to(dtype) for x in preds[i - 1])
+            dt = float(sampler.step_scalars(i))
+            z = ops.guidance_update(z, c, u, GUIDANCE_W, dt)
+            zp = ref.guidance_update_plain(zp, c, u, GUIDANCE_W, dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(tuple(z.shape) == GUIDANCE_LATENT and bool(torch.isfinite(z.float()).all()),
+              f"guidance {dtype}: latent {tuple(z.shape)} not finite or misshapen")
+        err = float((z.float() - zp.float()).abs().max())
+        check(bool(torch.equal(z, zp)),
+              f"guidance {dtype}: the loop differs from the plain version's ({err:.3e})")
+        rec[str(dtype)] = {"steps": STEPS, "wall_s_with_plain": wall}
+    counts = ops.launch_counts()
+    check(counts == {**{k: 0 for k in counts}, "guidance_update": 2 * STEPS},
+          f"guidance launches {counts}, expected {2 * STEPS} guidance_update and nothing else")
+    print(f"phase=guidance latent={GUIDANCE_LATENT} steps={STEPS} w={GUIDANCE_W} "
+          f"dtypes=float32,bfloat16 bit_equal_to_plain=True "
+          f"guidance_update_launches={counts['guidance_update']}", flush=True)
+    return rec, counts
 
 
 def ssd_inputs(b, s, h, p, n, seed, steep=False):
@@ -311,24 +526,14 @@ def ssd_mutants(kept):
     import torch
     from repro_torch.kernels import build, ops
 
-    src = (build.CSRC / "mamba_ssd.cu").read_text()
-    tmp = Path(tempfile.mkdtemp(prefix="mamba_ssd_mutants_"))
+    mutants = {m: ("mamba_ssd.cu", old, new) for m, (old, new) in SSD_MUTANTS.items()}
+    tmp, built = build_mutants("mamba_ssd_mutants_", mutants, ("mamba_ssd.cu",),
+                               {m: ("mamba_ssd",) for m in mutants})
     try:
-        procs = {}
-        for m, (old, new) in SSD_MUTANTS.items():
-            check(src.count(old) == 1, f"mutant {m}: its source line is not in mamba_ssd.cu once")
-            cu, so = tmp / f"mamba_ssd_{m}.cu", tmp / f"libmamba_ssd_{m}.so"
-            cu.write_text(src.replace(old, new))
-            procs[m] = (so, subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                                              str(so), str(cu)], stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT, text=True))
-        for m, (so, proc) in procs.items():
-            log, _ = proc.communicate(timeout=600)
-            check(proc.returncode == 0, f"mutant {m} did not build:\n{log[-2000:]}")
         before, caught = ops.mamba_ssd.launches, {}
-        for m, (so, _) in procs.items():
+        for m, sos in built.items():
             caught[m] = []
-            with build.substituted("mamba_ssd", build.load("mamba_ssd", so)):
+            with build.substituted("mamba_ssd", build.load("mamba_ssd", sos["mamba_ssd"])):
                 for name, args, plain, chunk in kept:
                     out = ops.mamba_ssd(*args, chunk=chunk)
                     torch.cuda.synchronize()
@@ -799,20 +1004,31 @@ def run() -> int:
     pt, ph, pw = cfg.patch_sizes
     t_window = (plan_uniform(LATENT[0], pt, K, R, 0).window // pt
                 * (LATENT[1] // ph) * (LATENT[2] // pw))     # tokens of a T window
-    flash = [
-        flash_case("flash_self_Twindow_bf16", batch2, t_window, t_window, H, H, D,
-                   torch.bfloat16, library=True),
-        flash_case("flash_cross_bf16", batch2, t_window, cfg.context_len, H, H, D,
-                   torch.bfloat16, library=True),
-        flash_case("flash_masked_gqa_bf16", 2, 200, 333, 8, 2, 64, torch.bfloat16,
-                   causal=True, window=96, pad_kv=5, kv_len=True, reps=3),
-        # the serving head dim through the masked path and a 13-key last tile
-        flash_case("flash_masked_gqa_bf16_d128", 2, 200, 333, 12, 4, 128, torch.bfloat16,
-                   causal=True, window=96, pad_kv=5, kv_len=True, reps=3),
-        flash_case("flash_masked_gqa_f32", 2, 200, 333, 8, 2, 64, torch.float32,
-                   causal=True, window=96, pad_kv=5, kv_len=True, reps=3),
-        flash_case("flash_self_f32_d128", 2, 300, 300, 4, 4, 128, torch.float32, reps=3),
+    flash_specs = [
+        # the video DiT (bf16, D 128: the wgmma kernel)
+        (("flash_self_Twindow_bf16", batch2, t_window, t_window, H, H, D, torch.bfloat16),
+         dict(library=True)),
+        (("flash_cross_bf16", batch2, t_window, cfg.context_len, H, H, D, torch.bfloat16),
+         dict(library=True)),
+        (("flash_masked_gqa_bf16", 2, 200, 333, 8, 2, 64, torch.bfloat16),
+         dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
+        # the serving head dim through the masked path and a ragged last tile
+        (("flash_masked_gqa_bf16_d128", 2, 200, 333, 12, 4, 128, torch.bfloat16),
+         dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
+        (("flash_ragged_gqa_bf16_d128", 2, 200, 700, 8, 2, 128, torch.bfloat16), dict(reps=3)),
+        (("flash_masked_gqa_f32", 2, 200, 333, 8, 2, 64, torch.float32),
+         dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
+        (("flash_self_f32_d128", 2, 300, 300, 4, 4, 128, torch.float32), dict(reps=3)),
     ]
+    # positions that put the skipping of masked key tiles at its edges,
+    # through the wgmma kernel (bf16, D 128), mma.sync (bf16, D 80) and the
+    # FMA kernel (f32)
+    from repro_torch.kernels.ref import SKIP_EDGE_CASES
+    for edge in SKIP_EDGE_CASES:
+        for dt, hd in ((torch.bfloat16, 128), (torch.bfloat16, 80), (torch.float32, 128)):
+            tag = "bf16" if dt == torch.bfloat16 else "f32"
+            flash_specs.append(((f"flash_edge_{edge}_{tag}_d{hd}", 2, 300, 333, 4, 2, hd, dt),
+                                dict(edge=edge, reps=3, seed=5)))
     blend = [blend_case(d, 2, cfg.latent_channels) for d in range(3)]
     quant = [quant_case("T_transfer", 4, 3, 49920), quant_case("T_cores", 4, 4, 49920),
              quant_case("H_cores", 4, 8, 21632), quant_case("T_transfer_int4", 4, 3, 49920, 7)]
@@ -822,12 +1038,18 @@ def run() -> int:
     # each against a 4096-slot cache, 63 valid slots as at the last step)
     lm_cfg = get_config("zamba2-2.7b")
     lH, lD = lm_cfg.num_heads, lm_cfg.head_dim
-    flash += [
-        flash_case("flash_lm_prefill_causal_bf16", PREFILL_B, PREFILL_S, PREFILL_S, lH, lH, lD,
-                   torch.bfloat16, causal=True, library=True, reps=3),
-        flash_case("flash_lm_decode_bf16", DECODE_B, 1, MAX_LEN, lH, lH, lD, torch.bfloat16,
-                   kv_len=[PROMPT + GEN - 1] * DECODE_B, library=True, reps=20),
+    flash_specs += [
+        (("flash_lm_prefill_causal_bf16", PREFILL_B, PREFILL_S, PREFILL_S, lH, lH, lD,
+          torch.bfloat16), dict(causal=True, library=True, reps=3)),
+        (("flash_lm_decode_bf16", DECODE_B, 1, MAX_LEN, lH, lH, lD, torch.bfloat16),
+         dict(kv_len=[PROMPT + GEN - 1] * DECODE_B, library=True, reps=20, short=True)),
     ]
+    flash, flash_kept = [], []
+    for a, kw in flash_specs:
+        rec, kept = flash_case(*a, **kw)
+        flash.append(rec)
+        flash_kept.append(kept)
+    guidance = [guidance_case(torch.float32), guidance_case(torch.bfloat16)]
     # the Mamba2 scan at Zamba2's prefill (d_inner 5120 = 80 heads x 64,
     # state 64, chunk 64), a ragged length, a short 16/16 shape with more
     # (batch, head) items than blocks, and steep decays that reach the clip
@@ -840,17 +1062,23 @@ def run() -> int:
         rec, kept = ssd_case(*args)
         ssd.append(rec)
         ssd_kept.append(kept)
-    record["kernels"] = flash + blend + quant + dequant + ssd
-    for c in flash + blend + quant + dequant + ssd:
+    record["kernels"] = flash + blend + quant + dequant + ssd + guidance
+    for c in flash + blend + quant + dequant + ssd + guidance:
         lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
-        print(f"phase=kernels case={c['case']} max_abs_err={c['max_abs_err']:.3e} "
-              f"share_of_limit={c['err_share_of_limit']:.3f} kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} library_ms={lib} "
+        earlier = f" earlier_ms={c['earlier_ms']}" if c.get("earlier_ms") else ""
+        if "events_ms" in c and c["events_ms"] != c["ms"]:
+            earlier += f" events_ms={c['events_ms']:.4f}"
+        kern = f" kernel={c['kernel']}" if "kernel" in c else ""
+        print(f"phase=kernels case={c['case']}{kern} max_abs_err={c['max_abs_err']:.3e} "
+              f"share_of_limit={c['err_share_of_limit']:.3f} kernel_ms={c['ms']:.4f}{earlier} "
+              f"plain_ms={c['plain_ms']:.4f} library_ms={lib} "
               f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
-    caught = ssd_mutants(ssd_kept)
-    del ssd_kept
+    caught = {f"mamba_ssd:{m}": v for m, v in ssd_mutants(ssd_kept).items()}
+    caught.update({f"flash:{m}": v for m, v in flash_mutants(flash_kept).items()})
+    del ssd_kept, flash_kept
     record["mutants"] = caught
     for m, cases in caught.items():
-        print(f"phase=kernels mutant=mamba_ssd:{m} caught_by={'; '.join(cases)}", flush=True)
+        print(f"phase=kernels mutant={m} caught_by={'; '.join(cases)}", flush=True)
 
     # ------------------------------------------------------------- 3. serve
     model = dit.init_params(cfg, generator(0, "cuda"), "cuda")
@@ -863,6 +1091,7 @@ def run() -> int:
     for r in reqs:
         eng.submit(r)
     results, batches = [], []
+    vid_flash = ops.flash_kernel(torch.bfloat16, D)     # the wgmma kernel
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     for b in range(2):
@@ -877,9 +1106,10 @@ def run() -> int:
                         "guidance": reqs[res0.request_id].guidance,
                         "step_cache_misses": misses})
         check(misses <= 3, f"batch {b}: {misses} step-cache misses in one denoise")
-        check(launches["flash_attention"] == 2 * cfg.num_layers * STEPS,
-              f"batch {b}: {launches['flash_attention']} flash launches, expected "
-              f"{2 * cfg.num_layers * STEPS}")
+        check(launches[vid_flash] == 2 * cfg.num_layers * STEPS
+              and sum(launches[n] for n in ops.FLASH_KERNELS) == launches[vid_flash],
+              f"batch {b}: flash launches {launches}, expected {2 * cfg.num_layers * STEPS} "
+              f"{vid_flash} and no other flash kernel")
         check(launches["latent_blend"] == STEPS,
               f"batch {b}: {launches['latent_blend']} blend launches, expected {STEPS}")
         results += out
@@ -896,7 +1126,8 @@ def run() -> int:
     for i, b in enumerate(batches):
         print(f"phase=serve batch={i} size={b['size']} guidance={b['guidance']} "
               f"wall_s={b['wall_s']:.3f} step_s={b['step_s']:.3f} "
-              f"flash_launches={b['launches']['flash_attention']} "
+              f"{vid_flash}_launches={b['launches'][vid_flash]} "
+              f"mma_flash_launches={b['launches']['flash_attention']} "
               f"blend_launches={b['launches']['latent_blend']} "
               f"step_cache_misses={b['step_cache_misses']}", flush=True)
     print(f"phase=serve requests=3 peak_mem_gb={peak_gb:.2f} lp_impl={eng.lp_impl}",
@@ -955,8 +1186,8 @@ def run() -> int:
         out = ceng.run(max_batches=1)
         counts = ops.launch_counts()
         coded_counts[codec] = counts
-        check(counts["flash_attention"] == 2 * cfg.num_layers * STEPS,
-              f"{codec}: {counts['flash_attention']} flash launches, expected "
+        check(counts[vid_flash] == 2 * cfg.num_layers * STEPS,
+              f"{codec}: {counts[vid_flash]} {vid_flash} launches, expected "
               f"{2 * cfg.num_layers * STEPS}")
         check(counts["int8_quantize"] == want_quant,
               f"{codec}: {counts['int8_quantize']} int8_quantize launches, expected {want_quant}")
@@ -998,7 +1229,7 @@ def run() -> int:
         print(f"phase=serve_codec codec={codec} lp_impl={ceng.lp_impl} "
               f"cold_wall_s={c['cold_wall_s']:.3f} warm_wall_s={c['warm_wall_s']:.3f} "
               f"step_s={c['step_s']:.3f} step_vs_fp32={c['step_vs_fp32']:.3f} "
-              f"flash_launches={counts['flash_attention']} "
+              f"{vid_flash}_launches={counts[vid_flash]} "
               f"int8_quantize_launches={counts['int8_quantize']} (expected {want_quant}) "
               f"blend_launches={counts['latent_blend']} "
               f"quantize_device_share={quant_us / max(dev_us, 1e-9):.4f} "
@@ -1065,7 +1296,10 @@ def run() -> int:
     lm_record, lm_counts = lm_serve(lm_cfg)
     record["lm_serve"] = lm_record
 
-    # ------------------------------------------------------------- 8. check
+    # ---------------------------------------------------------- 8. guidance
+    record["guidance"], guidance_counts = guidance_path()
+
+    # ------------------------------------------------------------- 9. check
     small_cfg = dataclasses.replace(cfg, num_layers=2)
     small = dit.init_params(small_cfg, generator(1, "cuda"), "cuda")
     small_cpu = copy.deepcopy(small).to("cpu")
@@ -1110,31 +1344,36 @@ def run() -> int:
                        "small_lm": small_lm_check(lm_cfg)}
 
     # ------------------------------------------------------------- results
-    def kernel_row(name, source, replaces, case, launches):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": case["max_abs_err"],
-                "ms": case["ms"], "plain_ms": case["plain_ms"],
-                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
-                "library_ms": case["library_ms"]}
+    def kernel_row(name, replaces, case, by_path):
+        check(sum(by_path.values()) > 0, f"{name}: no launch on its paths {by_path}")
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
 
-    # launches: each kernel's count from the runs of the paths it serves, set
-    # to 0 just before each and read just after (serve and lm_serve for flash;
-    # serve; serve_codec; coded_stitch; lm_serve for mamba_ssd)
+    # launches: each kernel's count from the runs of the paths it serves, each
+    # path's counts set to 0 just before it and read just after
+    named = {c["case"]: c for c in flash}
     line = {"kernels": [
-        kernel_row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:101", flash[0],
-                   main_counts["flash_attention"] + lm_counts["flash_attention"]),
-        kernel_row("latent_blend", "src/repro_torch/kernels/csrc/latent_blend.cu",
-                   "src/repro/kernels/latent_blend.py:63", blend[0],
-                   main_counts["latent_blend"]),
-        kernel_row("int8_quantize", "src/repro_torch/kernels/csrc/int8_quantize.cu",
-                   "src/repro/kernels/wire_codec.py:64", quant[0],
-                   sum(c["int8_quantize"] for c in coded_counts.values())),
-        kernel_row("dequant_blend", "src/repro_torch/kernels/csrc/dequant_blend.cu",
-                   "src/repro/kernels/wire_codec.py:131", dequant[0],
-                   stitch_counts["dequant_blend"]),
-        kernel_row("mamba_ssd", "src/repro_torch/kernels/csrc/mamba_ssd.cu",
-                   "src/repro/kernels/mamba_ssd.py:111", ssd[0], lm_counts["mamba_ssd"]),
+        kernel_row("flash_attention_sm90", "src/repro/kernels/flash_attention.py:101",
+                   named["flash_self_Twindow_bf16"],
+                   {"serve": main_counts[vid_flash],
+                    **{f"serve_codec:{c}": n[vid_flash] for c, n in coded_counts.items()}}),
+        kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
+                   named["flash_lm_prefill_causal_bf16"],
+                   {"lm_serve": lm_counts["flash_attention"]}),
+        kernel_row("latent_blend", "src/repro/kernels/latent_blend.py:63", blend[0],
+                   {"serve": main_counts["latent_blend"]}),
+        kernel_row("int8_quantize", "src/repro/kernels/wire_codec.py:64", quant[0],
+                   {f"serve_codec:{c}": n["int8_quantize"] for c, n in coded_counts.items()}),
+        kernel_row("dequant_blend", "src/repro/kernels/wire_codec.py:131", dequant[0],
+                   {"coded_stitch": stitch_counts["dequant_blend"]}),
+        kernel_row("mamba_ssd", "src/repro/kernels/mamba_ssd.py:111", ssd[0],
+                   {"lm_serve": lm_counts["mamba_ssd"]}),
+        kernel_row("guidance_update", "src/repro/kernels/guidance_update.py:31", guidance[0],
+                   {"guidance": guidance_counts["guidance_update"]}),
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,6 +1,10 @@
 """Hand-written CUDA kernels of the port, for Hopper (``sm_90a``).
 
-  flash_attention — DiT and LM attention (``csrc/flash_attention.cu``)
+  flash_attention — DiT and LM attention: ``csrc/flash_attention_sm90.cu``
+                    (wgmma + TMA, bf16 at head dim 128: the video DiT) and
+                    ``csrc/flash_attention.cu`` (mma.sync for bf16 at 64 and
+                    80, FMA for f32); both skip key tiles with no
+                    attendable pair (``csrc/flash_common.cuh``)
   latent_blend    — LP's position-aware reconstruction (``csrc/latent_blend.cu``)
   int8_quantize   — per-slab max-abs int8 quantize of wire messages
                     (``csrc/int8_quantize.cu``)
@@ -8,6 +12,8 @@
                     (``csrc/dequant_blend.cu``)
   mamba_ssd       — the chunked Mamba2/SSD scan of the hybrid LM
                     (``csrc/mamba_ssd.cu``)
+  guidance_update — fused CFG combine + Euler step, an entry point of its
+                    own (``csrc/guidance_update.cu``)
 
 ``ops.py`` holds the wrappers and launch counters, ``ref.py`` the plain
 PyTorch versions (CPU tensors, and the yardstick on the card),

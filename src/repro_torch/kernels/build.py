@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, under ``build/kernels/`` at
-the root of the checkout.  The file name carries a hash of the source
-and the flags, so an edited source is never served a stale library.
+the root of the checkout.  The file name carries a hash of the source,
+of the shared headers (``csrc/*.cuh``) and of the flags, so an edited
+source is never served a stale library.
 Several sources build in parallel: one ``nvcc`` process each, all
 started together.  Nothing here runs when the module is imported.
 """
@@ -20,8 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "latent_blend", "int8_quantize", "dequant_blend",
-           "mamba_ssd")
+KERNELS = ("flash_attention", "flash_attention_sm90", "latent_blend", "int8_quantize",
+           "dequant_blend", "mamba_ssd", "guidance_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,6 +39,14 @@ _SIGNATURES = {
         "flash_attention_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _L, _L, _I, _I, _I, _P], _I),
         "flash_attention_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention_sm90": {
+        # q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, KV,
+        # q_pos batch stride, kv_pos batch stride, causal, window, stream
+        # (bf16, D 128)
+        "flash_attention_sm90_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _L, _L, _I, _I, _P], _I),
+        "flash_attention_sm90_error_string": ([_I], ctypes.c_char_p),
     },
     "latent_blend": {
         # preds, weights, normalizer, out, starts (host int[K]), K, W, E, F,
@@ -63,6 +72,12 @@ _SIGNATURES = {
         "mamba_ssd_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
         "mamba_ssd_error_string": ([_I], ctypes.c_char_p),
     },
+    "guidance_update": {
+        # z, cond, uncond, out, elements, w, dt, dtype (0 f32, 1 bf16), stream
+        "guidance_update_fwd": ([_P, _P, _P, _P, _L, ctypes.c_float, ctypes.c_float, _I,
+                                 _P], _I),
+        "guidance_update_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -84,7 +99,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

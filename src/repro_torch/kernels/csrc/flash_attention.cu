@@ -15,14 +15,16 @@
 // axis becomes a loop inside the block: K and V tiles are staged in shared
 // memory and the online-softmax state stays in registers.
 //
-// Head dims 64, 80 (Zamba2's shared attention, 2560 / 32) and 128.  D = 80
-// keeps the design: 5 k-steps of 16 dims for Q.K^T (the odd last one
-// reads its K fragment with ldmatrix.x2), 10 8-dim blocks for P.V (paired
-// by ldmatrix.x4.trans), and shared-memory rows of 88 bf16 (176 B, a
-// multiple of 16 for cp.async and ldmatrix, and conflict-free: the 8 rows
-// of one ldmatrix start in 8 distinct 4-bank groups).
+// Head dims 64 and 80 (Zamba2's shared attention, 2560 / 32) in bf16;
+// bf16 at D = 128 runs on flash_attention_sm90.cu (wgmma + TMA); f32 at
+// 64, 80 and 128.  D = 80 keeps the design: 5 k-steps of 16 dims for
+// Q.K^T (the odd last one reads its K fragment with ldmatrix.x2), 10
+// 8-dim blocks for P.V (paired by ldmatrix.x4.trans), and shared-memory
+// rows of 88 bf16 (176 B, a multiple of 16 for cp.async and ldmatrix, and
+// conflict-free: the 8 rows of one ldmatrix start in 8 distinct 4-bank
+// groups).
 //
-// What bounds it.  At the DiT's shapes (S ~ 2.5k-5k tokens, D = 128) the
+// What bounds it.  At the LM's prefill (S 4096, D = 80) the
 // work is ~4*S*Skv*D operations against ~4*S*D bytes per head, far above
 // the card's ~295 operations per byte: tensor-core throughput bounds it.
 // bf16 therefore runs on mma.sync m16n8k16 tensor-core products (f32
@@ -30,19 +32,28 @@
 // to bf16 in registers for the P.V product, K/V fragments read with
 // ldmatrix, and the next K/V tile loaded by cp.async while the current
 // one is multiplied.  The softmax's elementwise work competes with the
-// mma.sync issue slots, so a tile that needs no mask skips it.  No TMA
-// and no wgmma yet: those are later work.  f32 runs on a plain FMA
-// kernel (the f32 path is for checks, not serving).
+// mma.sync issue slots, so a tile that needs no mask skips it.  f32
+// runs on a plain FMA kernel (the f32 path is for checks, not serving).
+//
+// Both kernels visit only the key tiles that may hold an attendable pair
+// for the block's queries (flash_common.cuh: live_tiles), judged from the
+// positions, so a causal prefill walks about half the tiles and a decode
+// step over a mostly empty cache only the filled ones.  The reference's
+// skip_upper does the same for contiguous positions only.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <cmath>
 
+#include "flash_common.cuh"
+
 namespace {
 
+using flash::attend;
+using flash::kPadPos;
+
 constexpr float kNegInf = -1.0e30f;
-constexpr int kPadPos = 2147483647;  // int32 max: padded kv slot
 
 struct Params {
   const void* q;
@@ -56,13 +67,6 @@ struct Params {
   int causal, window;
   float scale;
 };
-
-__device__ __forceinline__ bool attend(int qp, int kp, int causal, int window) {
-  bool ok = kp != kPadPos;
-  if (causal) ok = ok && kp <= qp;
-  if (window > 0) ok = ok && (long long)kp > (long long)qp - window;
-  return ok;
-}
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -146,6 +150,19 @@ constexpr int bf16_smem_bytes() {
   return 2 * 2 * kBN * (D + 8) * 2 + 2 * kBN * 4;  // 2 stages x (K, V) + kv positions
 }
 
+// shared memory after the tiles: the live-tile list (one int per key tile)
+// and live_tiles' 3 ints of scratch
+inline int list_bytes(int Skv, int BN) { return ((Skv + BN - 1) / BN + 3) * 4; }
+
+// The live key tiles of this block's queries (flash_common.cuh), written
+// to ``live``; returns how many.
+template <int BM, int BN, int kThreads>
+__device__ __forceinline__ int ntiles_live(const Params& p, int b, int* live) {
+  return flash::live_tiles<BM, BN, kThreads>(p.qpos + b * p.qpos_bs, blockIdx.x * BM, p.Sq,
+                                             p.kvpos + b * p.kvpos_bs, p.Skv, p.causal,
+                                             p.window, live, live + (p.Skv + BN - 1) / BN);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   constexpr int BM = 16 * kWarps, BN = kBN, LD = D + 8;  // +8: no bank conflicts
@@ -155,6 +172,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BN][LD]
   __nv_bfloat16* Vs = Ks + 2 * TILE;                            // [2][BN][LD]
   int* kvp_s = reinterpret_cast<int*>(Vs + 2 * TILE);           // [2][BN]
+  int* live = kvp_s + 2 * BN;                                   // [ntiles + 3]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
@@ -190,7 +208,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   // scores are kept unscaled; the softmax runs in base 2 with
   // log2(e) / sqrt(D) folded into one FMA per element
   const float sl2 = p.scale * 1.4426950408889634f;
-  const bool plain_mask = !p.causal && p.window <= 0;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   auto load_tile = [&](int n0, int st) {
@@ -209,19 +226,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
     }
   };
 
-  const int ntiles = (p.Skv + BN - 1) / BN;
-  load_tile(0, 0);
+  const int ntiles = ntiles_live<BM, BN, kThreads>(p, b, live);
+  if (ntiles > 0) load_tile((live[0] >> 1) * BN, 0);
   cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
     const int st = t & 1;
-    if (t + 1 < ntiles) load_tile((t + 1) * BN, st ^ 1);
+    if (t + 1 < ntiles) load_tile((live[t + 1] >> 1) * BN, st ^ 1);
     cp_async_commit();  // possibly empty: keeps "all but the newest" = tile t
     cp_async_wait_one();
-    // the barrier also tells whether every key of the tile is attendable
-    // by every row (no padding, no causal or window mask): then the
-    // per-element mask is skipped
-    const bool full =
-        __syncthreads_and(tid >= BN || kvp_s[st * BN + tid] != kPadPos) && plain_mask;
+    __syncthreads();
+    // every pair of the tile attendable (no padding, no causal or window
+    // cut): the per-element mask is skipped
+    const bool full = !(live[t] & 1);
     const __nv_bfloat16* ks = Ks + st * TILE;
     const __nv_bfloat16* vs = Vs + st * TILE;
     const int* kvp = kvp_s + st * BN;
@@ -348,6 +364,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
   __shared__ __align__(16) float Ks[BN][D];
   __shared__ __align__(16) float Vs[BN][D];
   __shared__ int kvp_s[BN];
+  extern __shared__ int live[];  // [ntiles + 3]
 
   const int tid = threadIdx.x, row = tid >> 2, j = tid & 3;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -371,7 +388,9 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
   for (int d = 0; d < DT; ++d) acc[d] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  for (int n0 = 0; n0 < p.Skv; n0 += BN) {
+  const int ntiles = ntiles_live<BM, BN, 128>(p, b, live);
+  for (int t = 0; t < ntiles; ++t) {
+    const int n0 = (live[t] >> 1) * BN;
     __syncthreads();
     for (int i = tid; i < BN * D / 4; i += 128) {
       const int kr = i / (D / 4), cc = (i % (D / 4)) * 4;
@@ -445,12 +464,24 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
 
 template <int D>
 cudaError_t launch_bf16(const Params& p, cudaStream_t st) {
-  constexpr int smem = bf16_smem_bytes<D>();  // dynamic: may pass the 48 KiB default
+  // dynamic: may pass the 48 KiB default
+  const int smem = bf16_smem_bytes<D>() + list_bytes(p.Skv, kBN);
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Sq + 16 * kWarps - 1) / (16 * kWarps), p.H, p.B);
   flash_fwd_bf16<D><<<grid, kThreads, smem, st>>>(p);
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_f32(const Params& p, cudaStream_t st) {
+  const int smem = list_bytes(p.Skv, 32);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Sq + 31) / 32, p.H, p.B);
+  flash_fwd_f32<D><<<grid, 128, smem, st>>>(p);
   return cudaSuccess;
 }
 
@@ -466,22 +497,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   Params p{q, k, v, static_cast<const int*>(qpos), static_cast<const int*>(kvpos), out,
            B, Sq, Skv, H, KV, qpos_bs, kvpos_bs, causal, window, 1.0f / sqrtf((float)D)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (dtype == 1) {
-    cudaError_t e;
-    if (D == 128) e = launch_bf16<128>(p, st);
-    else if (D == 80) e = launch_bf16<80>(p, st);
+    if (D == 80) e = launch_bf16<80>(p, st);
     else if (D == 64) e = launch_bf16<64>(p, st);
     else return -1;
-    if (e != cudaSuccess) return static_cast<int>(e);
   } else if (dtype == 0) {
-    const dim3 grid((Sq + 31) / 32, H, B);
-    if (D == 128) flash_fwd_f32<128><<<grid, 128, 0, st>>>(p);
-    else if (D == 80) flash_fwd_f32<80><<<grid, 128, 0, st>>>(p);
-    else if (D == 64) flash_fwd_f32<64><<<grid, 128, 0, st>>>(p);
+    if (D == 128) e = launch_f32<128>(p, st);
+    else if (D == 80) e = launch_f32<80>(p, st);
+    else if (D == 64) e = launch_f32<64>(p, st);
     else return -1;
   } else {
     return -1;
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,524 @@
+// Flash attention for Hopper with wgmma and TMA: bf16, head dim 128, sm_90a.
+//
+// Replaces: src/repro/kernels/flash_attention.py:flash_attention (the
+// Pallas TPU kernel) for bf16 at D = 128, the video DiT's self- and
+// cross-attention; flash_attention.cu keeps D 64 and 80 (mma.sync) and
+// f32 (FMA).
+//
+// Same function as flash_attention.cu: scores q.k / sqrt(128) in f32; a
+// key is attended when its position is not int32-max, and, if asked,
+// causal (kv_pos <= q_pos) and inside a sliding window (kv_pos > q_pos -
+// window); query head h reads kv head h / (H / KV); m, l and acc are f32;
+// P is rounded to bf16 for the P.V product; out = acc / max(l, 1e-37).
+//
+// What bounds it.  ~4 * Sq * Skv * 128 operations against ~4 * S * 128
+// bytes per head: the tensor cores.  mma.sync reaches a fraction of
+// Hopper's rate; wgmma, a 64-row product issued by a warpgroup with its
+// operands read from shared memory, is the way to the rest.
+//
+// Design.
+//  - A block owns 128 query rows of one (batch, head): two consumer
+//    warpgroups of 64 rows and one producer warpgroup.  Q is loaded once
+//    by TMA into 128-byte-swizzled shared memory (per warpgroup two
+//    64-column boxes).
+//  - One thread of the producer warpgroup keeps a ring of 3 K/V stages
+//    full: each tile of 128 keys is loaded by TMA (two 64-column boxes per
+//    matrix) onto the stage's "full" mbarrier, and the stage is refilled
+//    once both consumer warpgroups have arrived on its "empty" mbarrier.
+//    The producer gives its registers up (setmaxnreg 24) and the
+//    consumers take them (setmaxnreg 240).
+//  - Each consumer issues tile i's S = Q K^T together with tile i-1's
+//    O += P V (both asynchronous wgmma groups), waits for S only, and runs
+//    the softmax of tile i while the P.V product is still on the tensor
+//    cores; O takes tile i's correction just before tile i's P.V.
+//  - S = Q K^T: 8 wgmma.m64n128k16, both operands in shared memory; K is
+//    stored [key][dim], which is K-major for B.  The online softmax runs
+//    in f32 registers on the accumulator fragment (row g and g + 8 of
+//    each warp's 16, two columns in each 8-column block).
+//  - O += P V: 8 wgmma.m64n128k16 with A = P converted to bf16 in
+//    registers (the accumulator's layout is A's register layout) and B =
+//    V from shared memory with the transpose bit (V is [key][dim], so B is
+//    MN-major: LBO steps the 64-dim halves, SBO 8-key groups).
+//  - Tensor maps are 3-D, {rows * D, S, B}, so the rows past S of a
+//    ragged last tile are zero-filled and never the next batch's keys;
+//    the mask drops them by position (int32-max) in any case.
+//  - Only the key tiles that may hold an attendable pair for the block's
+//    queries are visited (flash_common.cuh: live_tiles), and only the
+//    tiles with a masked pair pay for the per-element mask.
+//  - The tensor-map encoder is fetched with cudaGetDriverEntryPoint, so
+//    the build needs no -lcuda; the maps are encoded on the host for each
+//    call and passed as __grid_constant__ parameters.
+// Written in plain PTX (no CuTe), which keeps the nvcc build at seconds.
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <cmath>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using flash::attend;
+using flash::kPadPos;
+
+constexpr int kD = 128;         // head dim
+constexpr int kBM = 128;        // query rows per block: two warpgroups of 64
+constexpr int kBN = 128;        // keys per tile
+constexpr int kConsumers = 2;   // consumer warpgroups of 64 query rows
+constexpr int kThreads = 128 * (kConsumers + 1);  // + one producer warpgroup
+constexpr int kStages = 3;      // K/V ring
+
+// shared memory, from a 1024-byte aligned base (the 128-byte swizzle
+// repeats every 8 rows of 128 bytes)
+constexpr int kBox = 64 * 64 * 2;                         // 64 rows x 64 dims
+constexpr int kQBytes = kBM * kD * 2;                     // [wg][half][64][64]
+constexpr int kTileBytes = kBN * kD * 2;                  // [half][128 keys][64]
+constexpr int kKOff = kQBytes;                            // stage s at + 2 s kTileBytes
+constexpr int kBarOff = kQBytes + kStages * 2 * kTileBytes;
+constexpr int kListOff = kBarOff + 8 * (2 * kStages + 1);
+constexpr int kMaxSmem = 232448;  // per block on Hopper (227 KB)
+
+struct Params {
+  const int* qpos;
+  const int* kvpos;
+  void* out;
+  int Sq, Skv, H, KV;
+  long long qpos_bs, kvpos_bs;
+  int causal, window;
+  float sl2;  // log2(e) / sqrt(128)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of this warpgroup's wgmma are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// named barriers 1 and 2: the two consumer warpgroups take turns to issue
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(256) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(256) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the fence / wait that guards them
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define D64_REGS                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "   \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define D64_OPS                                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),        \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),        \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),        \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),        \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (+)= A B, 64 x 128 x 16; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64_REGS
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D64_OPS
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, 64 x 128 x 16; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64_REGS
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : D64_OPS
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one tile's scores ``s`` (two rows per thread: g
+// and g + 8 of its warp's 16), in place: masked pairs (only tiles with a
+// masked pair pay for the mask) become 0, the others
+// exp2((s - max) * log2(e) / sqrt(128)); the running max and sum move on,
+// and corr0 / corr1 receive the factor the accumulated O must take.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], int entry, int key0, int c,
+                                             int qp0, int qp1, const Params& p,
+                                             const int* kvpos, float& m0, float& m1,
+                                             float& l0, float& l1, float& corr0,
+                                             float& corr1) {
+  if (entry & 1) {
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = key0 + nb * 8 + 2 * c + j;
+        const int kp = n < p.Skv ? kvpos[n] : kPadPos;
+        if (!attend(qp0, kp, p.causal, p.window)) s[4 * nb + j] = -INFINITY;
+        if (!attend(qp1, kp, p.causal, p.window)) s[4 * nb + 2 + j] = -INFINITY;
+      }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * nb], s[4 * nb + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * nb + 2], s[4 * nb + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // a row with no attendable key so far keeps max -inf: its masked scores
+  // give exp2(-inf) = 0 and its (zero) sums any finite factor
+  const float ms0 = mx0 == -INFINITY ? 0.f : mx0 * p.sl2;
+  const float ms1 = mx1 == -INFINITY ? 0.f : mx1 * p.sl2;
+  corr0 = exp2_approx(m0 * p.sl2 - ms0);
+  corr1 = exp2_approx(m1 * p.sl2 - ms1);
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      s[4 * nb + j] = exp2_approx(fmaf(s[4 * nb + j], p.sl2, -ms0));
+      s[4 * nb + 2 + j] = exp2_approx(fmaf(s[4 * nb + 2 + j], p.sl2, -ms1));
+      sum0 += s[4 * nb + j];
+      sum1 += s[4 * nb + 2 + j];
+    }
+  }
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+  l0 = l0 * corr0 + sum0;
+  l1 = l1 * corr1 + sum1;
+  m0 = mx0;
+  m1 = mx1;
+}
+
+// O *= the softmax's correction of its rows (accumulator index bit 1: row g + 8)
+__device__ __forceinline__ void rescale(float (&o)[64], float corr0, float corr1) {
+#pragma unroll
+  for (int x = 0; x < 64; ++x) o[x] *= (x & 2) ? corr1 : corr0;
+}
+
+// O += P V: P from the softmax's registers (k-step kk covers keys 16 kk ..
+// 16 kk + 15, the 8-column blocks 2 kk and 2 kk + 1 of S), V's 16 keys two
+// 8-key groups of 1 KB, the 64-dim halves kTileBytes / 2 apart
+__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&pa)[8][4],
+                                         uint32_t vs) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    wgmma_rs(o, pa[kk], desc(vs + kk * 2048, kTileBytes / 2, 1024));
+}
+
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tmQ,
+                   const __grid_constant__ CUtensorMap tmK,
+                   const __grid_constant__ CUtensorMap tmV, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  int* live = reinterpret_cast<int*>(smem_raw + (base - raw) + kListOff);
+  const uint32_t bar_full = base + kBarOff;              // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;     // [kStages]
+  const uint32_t bar_q = bar_empty + 8 * kStages;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (p.H / p.KV);
+  const int q0 = blockIdx.x * kBM;
+  const int* qpos = p.qpos + b * p.qpos_bs;
+  const int* kvpos = p.kvpos + b * p.kvpos_bs;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, kConsumers);  // one arrival per consumer warpgroup
+    }
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, kQBytes);
+#pragma unroll
+    for (int w = 0; w < kConsumers; ++w)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        tma_load(base + (2 * w + half) * kBox, &tmQ, bar_q, h * kD + 64 * half, q0 + 64 * w, b);
+  }
+  // (ends in __syncthreads: the barriers are initialised for every thread)
+  const int ntiles = flash::live_tiles<kBM, kBN, kThreads>(
+      qpos, q0, p.Sq, kvpos, p.Skv, p.causal, p.window, live, live + (p.Skv + kBN - 1) / kBN);
+
+  if (wg == kConsumers) {
+    // ---- producer warpgroup: one thread keeps the ring of K/V tiles full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 128 * kConsumers) {
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % kStages, key0 = (live[i] >> 1) * kBN;
+        if (i >= kStages) mbar_wait(bar_empty + 8 * st, (i / kStages - 1) & 1);
+        const uint32_t full = bar_full + 8 * st, ks = base + kKOff + st * 2 * kTileBytes;
+        mbar_expect_tx(full, 2 * kTileBytes);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          tma_load(ks + half * (kTileBytes / 2), &tmK, full, hk * kD + 64 * half, key0, b);
+          tma_load(ks + kTileBytes + half * (kTileBytes / 2), &tmV, full, hk * kD + 64 * half,
+                   key0, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each.  Tile i's S = Q K^T is
+    // issued together with tile i-1's O += P V, so the tensor cores work
+    // on one while the softmax of the other waits for its scores.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, c = lane & 3;
+    const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+    const int qp0 = r0 < p.Sq ? qpos[r0] : 0, qp1 = r1 < p.Sq ? qpos[r1] : 0;
+    const uint32_t qs = base + wg * 2 * kBox;
+    float o[64], s[64];
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o[x] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, corr0 = 1.f, corr1 = 1.f;
+    mbar_wait(bar_q, 0);
+    __syncwarp();
+
+    // S = Q K^T of tile i into s (k-steps of 16 dims: 32 bytes inside a
+    // 128-byte swizzled row), issued and committed, not waited for
+    auto issue_s = [&](int i) {
+      const uint32_t ks = base + kKOff + (i % kStages) * 2 * kTileBytes;
+      mbar_wait(bar_full + 8 * (i % kStages), (i / kStages) & 1);
+      __syncwarp();
+#pragma unroll
+      for (int x = 0; x < 64; ++x) s[x] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss(s, desc(qs + (kk >> 2) * kBox + (kk & 3) * 32, 16, 1024),
+                 desc(ks + (kk >> 2) * (kTileBytes / 2) + (kk & 3) * 32, 16, 1024), kk > 0);
+      wg_commit();
+    };
+    auto vs_of = [&](int i) { return base + kKOff + (i % kStages) * 2 * kTileBytes + kTileBytes; };
+    // The warpgroups take turns to issue their products (warpgroup w waits
+    // on barrier 1 + w, then lets the other go), so one's softmax runs
+    // while the other's products hold the tensor cores.  Each issues
+    // ntiles + 1 times; warpgroup 1 opens the first turn and does not pass
+    // on its last.
+    const int mine = 1 + wg, other = 2 - wg;
+    // (no branch between a wgmma and its wait: ptxas would serialise them)
+    if (ntiles > 0) {
+      if (wg == 1) bar_arrive(other);
+      bar_sync(mine);
+      issue_s(0);
+      bar_arrive(other);
+      wg_wait<0>();
+      pin(s);
+      softmax_tile(s, live[0], (live[0] >> 1) * kBN, c, qp0, qp1, p, kvpos, m0, m1, l0, l1,
+                   corr0, corr1);
+      pack_p(pa, s);
+      for (int i = 1; i < ntiles; ++i) {
+        bar_sync(mine);
+        issue_s(i);
+        // O = O * corr(i-1) + P(i-1) V(i-1), in flight beside S(i)
+        rescale(o, corr0, corr1);
+        wg_fence();
+        issue_pv(o, pa, vs_of(i - 1));
+        wg_commit();
+        bar_arrive(other);
+        wg_wait<1>();
+        pin(s);
+        softmax_tile(s, live[i], (live[i] >> 1) * kBN, c, qp0, qp1, p, kvpos, m0, m1, l0, l1,
+                     corr0, corr1);
+        wg_wait<0>();
+        pin(o);
+        pin(pa);
+        // tile i-1's stage is free once both warpgroups are done with it
+        if ((tid & 127) == 0) mbar_arrive(bar_empty + 8 * ((i - 1) % kStages));
+        pack_p(pa, s);
+      }
+      bar_sync(mine);
+      rescale(o, corr0, corr1);
+      wg_fence();
+      issue_pv(o, pa, vs_of(ntiles - 1));
+      wg_commit();
+      if (wg == 0) bar_arrive(other);
+      wg_wait<0>();
+      pin(o);
+    }
+
+    const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
+    const long long qrs = (long long)p.H * kD;
+    __nv_bfloat16* O =
+        static_cast<__nv_bfloat16*>(p.out) + (long long)b * p.Sq * qrs + (long long)h * kD;
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+      const int col = nb * 8 + 2 * c;
+      if (r0 < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(O + r0 * qrs + col) =
+            __floats2bfloat162_rn(o[4 * nb] * inv0, o[4 * nb + 1] * inv0);
+      if (r1 < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(O + r1 * qrs + col) =
+            __floats2bfloat162_rn(o[4 * nb + 2] * inv1, o[4 * nb + 3] * inv1);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 (B, S, heads, 128) tensor as the 3-D map {heads * 128, S, B},
+// read in boxes of 64 dims x ``rows`` rows with the 128-byte swizzle;
+// rows past S read as zeros.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads, int S, int B,
+            int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)heads * kD, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)heads * kD * 2, (cuuint64_t)S * heads * kD * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace
+
+// bf16 q (B, Sq, H, 128), k and v (B, Skv, KV, 128), all contiguous and
+// 16-byte aligned.  Returns cudaGetLastError() after the launch, -2 if a
+// tensor map could not be encoded, -3 if the driver has no tensor-map
+// encoder, -4 past about 63,000 keys (the live-tile list's shared memory).
+extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
+                                        const void* qpos, const void* kvpos, void* out, int B,
+                                        int Sq, int Skv, int H, int KV, long long qpos_bs,
+                                        long long kvpos_bs, int causal, int window,
+                                        void* stream) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return -3;
+  CUtensorMap tmQ, tmK, tmV;
+  if (!encode(fn, &tmQ, q, H, Sq, B, 64) || !encode(fn, &tmK, k, KV, Skv, B, kBN) ||
+      !encode(fn, &tmV, v, KV, Skv, B, kBN))
+    return -2;
+  Params p{static_cast<const int*>(qpos), static_cast<const int*>(kvpos), out, Sq, Skv, H, KV,
+           qpos_bs, kvpos_bs, causal, window, 1.4426950408889634f / sqrtf((float)kD)};
+  const int smem = 1024 + kListOff + ((Skv + kBN - 1) / kBN + 3) * 4;  // 1024: alignment
+  if (smem > kMaxSmem) return -4;
+  const cudaError_t e =
+      cudaFuncSetAttribute(flash_fwd_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((Sq + kBM - 1) / kBM, H, B);
+  flash_fwd_sm90<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(tmQ, tmK, tmV, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* flash_attention_sm90_error_string(int code) {
+  if (code == -2) return "tensor map encoding failed (shape, stride or alignment)";
+  if (code == -3) return "the driver has no cuTensorMapEncodeTiled";
+  if (code == -4) return "too many keys: the live-tile list does not fit in shared memory";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

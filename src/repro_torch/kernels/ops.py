@@ -43,13 +43,31 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# bf16 at head dim 128 (the video DiT's self- and cross-attention) runs on
+# the wgmma + TMA kernel of csrc/flash_attention_sm90.cu; every other dtype
+# and head dim on csrc/flash_attention.cu.
+FLASH_KERNELS = ("flash_attention", "flash_attention_sm90")
+
+
+def flash_kernel(dtype: torch.dtype, head_dim: int) -> str:
+    """The flash kernel that computes ``dtype`` at ``head_dim``."""
+    if dtype == torch.bfloat16 and head_dim == 128:
+        return "flash_attention_sm90"
+    return "flash_attention"
+
+
 def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
                     window: int = 0, kv_len=None) -> torch.Tensor:
     """Softmax attention: q ``(B,Sq,H,D)``, k/v ``(B,Skv,KV,D)``, int
     positions ``(B,S)`` (int32-max marks a padded kv slot); ``kv_len``
     ``(B,)`` masks keys at positions ``>= kv_len``.
 
-    CUDA: ``csrc/flash_attention.cu``, bf16 or f32, D in {64, 80, 128}.
+    CUDA: ``csrc/flash_attention_sm90.cu`` (``wgmma`` + TMA) for bf16 at
+    D 128, ``csrc/flash_attention.cu`` for bf16 at D 64 and 80
+    (``mma.sync``) and f32 at D 64, 80 and 128 (FMA); both skip key tiles
+    that hold no attendable pair (``flash_kernel`` names the one).  The
+    sm90 kernel's shared memory holds the list of live key tiles, which
+    caps Skv near 63,000 keys (its launcher refuses more).
     """
     if kv_len is not None:
         kv_positions = torch.where(kv_positions < kv_len[:, None],
@@ -71,6 +89,7 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k and v must share one dtype")
     code = _dtype_code(q, "flash_attention")
+    kernel = flash_kernel(q.dtype, D)
     if q_positions.shape != (B, Sq) or kv_positions.shape != (B, Skv):
         raise ValueError("flash_attention: positions must be (B, Sq) and (B, Skv)")
     qp = q_positions.to(torch.int32)
@@ -84,18 +103,41 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     _require_aligned({"q": q, "k": k, "v": v, "out": out})
     if out.numel() == 0:
         return out
-    lib = build.library("flash_attention")
-    rc = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
-        out.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0), kp.stride(0),
-        int(bool(causal)), int(window), code, _stream(q.device),
-    )
-    build.check("flash_attention", rc)
-    flash_attention.launches += 1
+    lib = build.library(kernel)
+    if kernel == "flash_attention_sm90":
+        rc = lib.flash_attention_sm90_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+            out.data_ptr(), B, Sq, Skv, H, KV, qp.stride(0), kp.stride(0),
+            int(bool(causal)), int(window), _stream(q.device),
+        )
+    else:
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+            out.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0), kp.stride(0),
+            int(bool(causal)), int(window), code, _stream(q.device),
+        )
+    build.check(kernel, rc)
+    WRAPPERS[kernel].launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_sm90(q, k, v, q_positions, kv_positions, *, causal: bool = True,
+                         window: int = 0, kv_len=None) -> torch.Tensor:
+    """``flash_attention`` on the inputs that go to the ``wgmma`` + TMA
+    kernel (``csrc/flash_attention_sm90.cu``): bf16 at head dim 128; raises
+    on others.  Its ``launches`` count that kernel's launches, whichever
+    wrapper made them."""
+    if flash_kernel(q.dtype, q.shape[-1]) != "flash_attention_sm90":
+        raise ValueError(f"flash_attention_sm90: takes bf16 at head dim 128, not {q.dtype} "
+                         f"at {q.shape[-1]}")
+    return flash_attention(q, k, v, q_positions, kv_positions, causal=causal,
+                           window=window, kv_len=kv_len)
+
+
+flash_attention_sm90.launches = 0
 
 
 def latent_blend(preds: torch.Tensor, weights: torch.Tensor,
@@ -288,9 +330,51 @@ def mamba_ssd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
 
 mamba_ssd.launches = 0
 
-WRAPPERS = {"flash_attention": flash_attention, "latent_blend": latent_blend,
-            "int8_quantize": int8_quantize, "dequant_blend": dequant_blend,
-            "mamba_ssd": mamba_ssd}
+def guidance_update(z: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor,
+                    w: float, dt: float) -> torch.Tensor:
+    """Fused CFG combine + flow-matching Euler step: ``z + dt * (u + w *
+    (c - u))`` in f32, cast back to z's dtype; z, cond and uncond share one
+    shape and one dtype (f32 or bf16), ``w`` and ``dt`` are floats.
+
+    The reference's ``blk`` and ``interpret`` arguments are TPU tiling and
+    emulation knobs; the port takes neither.  No path of the port calls
+    it: the sampler keeps ``cfg_combine``'s rounding of the guided
+    prediction to the model dtype before the Euler update, which this
+    fused update does not do.
+
+    CUDA: ``csrc/guidance_update.cu``, contiguous inputs.
+    """
+    if cond.shape != z.shape or uncond.shape != z.shape:
+        raise ValueError(f"guidance_update: z {tuple(z.shape)}, cond {tuple(cond.shape)} "
+                         f"and uncond {tuple(uncond.shape)} must share one shape")
+    if cond.dtype != z.dtype or uncond.dtype != z.dtype:
+        raise TypeError(f"guidance_update: mixed dtypes (z {z.dtype}, cond {cond.dtype}, "
+                        f"uncond {uncond.dtype})")
+    if z.device.type == "cpu":
+        return ref.guidance_update_plain(z, cond, uncond, w, dt)
+    if z.device.type != "cuda":
+        raise ValueError(f"guidance_update: no kernel for device {z.device}")
+    code = _dtype_code(z, "guidance_update")
+    _require_device({"cond": cond, "uncond": uncond}, z.device)
+    _require_aligned({"z": z, "cond": cond, "uncond": uncond}, align=1)  # vector loads
+    if z.numel() == 0:                                                   # when aligned
+        return torch.empty_like(z)
+    lib = build.library("guidance_update")
+    out = torch.empty_like(z)
+    rc = lib.guidance_update_fwd(z.data_ptr(), cond.data_ptr(), uncond.data_ptr(),
+                                 out.data_ptr(), z.numel(), float(w), float(dt), code,
+                                 _stream(z.device))
+    build.check("guidance_update", rc)
+    guidance_update.launches += 1
+    return out
+
+
+guidance_update.launches = 0
+
+WRAPPERS = {"flash_attention": flash_attention, "flash_attention_sm90": flash_attention_sm90,
+            "latent_blend": latent_blend, "int8_quantize": int8_quantize,
+            "dequant_blend": dequant_blend, "mamba_ssd": mamba_ssd,
+            "guidance_update": guidance_update}
 
 
 def launch_counts() -> Dict[str, int]:

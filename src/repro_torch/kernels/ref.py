@@ -26,7 +26,7 @@ def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
         ok = ok & (kp <= qp)
     if window > 0:
         ok = ok & (kp > qp - window)
-    return ok
+    return ok.expand(qp.shape[0], qp.shape[1], kp.shape[2])
 
 
 def flash_attention_ref(q, k, v, q_positions, kv_positions,
@@ -73,6 +73,57 @@ def flash_bf16_tolerance(q, k, v, q_positions, kv_positions, causal: bool,
     return 1.01 * (2.0 ** -8 * mean_abs_v + 2.0 ** -7 * plain.float().abs()) + 1e-6
 
 
+SKIP_EDGE_CASES = ("permuted", "reversed_runs", "padded_interior", "causal_first_key")
+
+
+def skip_edge_positions(case: str, B: int, Sq: int, Skv: int, seed: int = 0):
+    """Positions that put a flash kernel's skipping of masked key tiles at
+    its edges; returns int32 numpy ``(q_pos (B, Sq), kv_pos (B, Skv))``,
+    ``causal`` and ``window``.  A kernel may skip a tile only when no pair
+    in it is attendable, judged from positions, never from indices:
+
+    - ``permuted``: random, non-monotone positions per batch row, causal
+      with a window of Skv // 3;
+    - ``reversed_runs``: ascending positions reversed inside every run of
+      16, so a tile's first key is not its smallest position (causal);
+    - ``padded_interior``: keys 128 .. 383 padded (int32-max), so whole
+      interior tiles of 32 and of 128 keys hold no key (no mask);
+    - ``causal_first_key``: queries at 0 .. Sq-1, keys at 127 ..
+      Skv+126, causal with a window of 1, so each query attends exactly
+      the key at its own position: for blocks of 64 or 128 queries and
+      tiles of 32 or 128 keys some tile's only attendable pair is its
+      first key against the block's last query, and queries 0 .. 126
+      attend nothing (their rows must be zero).
+    """
+    rng = np.random.default_rng(seed)
+    if case == "permuted":
+        qp = np.stack([rng.permutation(Skv)[:Sq] for _ in range(B)])
+        kp = np.stack([rng.permutation(Skv) for _ in range(B)])
+        causal, window = True, Skv // 3
+    elif case == "reversed_runs":
+        def runs(a):
+            out = a.copy()
+            for i in range(0, len(a), 16):
+                out[i:i + 16] = a[i:i + 16][::-1]
+            return out
+        qp = np.broadcast_to(runs(np.arange(Skv - Sq, Skv)), (B, Sq))
+        kp = np.broadcast_to(runs(np.arange(Skv)), (B, Skv))
+        causal, window = True, 0
+    elif case == "padded_interior":
+        qp = np.broadcast_to(np.arange(Skv - Sq, Skv), (B, Sq))
+        kp = np.broadcast_to(np.arange(Skv), (B, Skv)).copy()
+        kp[:, 128:384] = INT32_MAX
+        causal, window = False, 0
+    elif case == "causal_first_key":
+        qp = np.broadcast_to(np.arange(Sq), (B, Sq))
+        kp = np.broadcast_to(np.arange(Skv) + 127, (B, Skv))
+        causal, window = True, 1
+    else:
+        raise ValueError(f"unknown skip-edge case {case!r} (one of {SKIP_EDGE_CASES})")
+    return (np.ascontiguousarray(qp, np.int32), np.ascontiguousarray(kp, np.int32),
+            causal, window)
+
+
 def latent_blend_ref(preds: torch.Tensor, weights: torch.Tensor,
                      normalizer: torch.Tensor, starts: Sequence[int],
                      window: int, extent: int) -> torch.Tensor:
@@ -87,6 +138,16 @@ def latent_blend_ref(preds: torch.Tensor, weights: torch.Tensor,
         s = int(starts[kk])
         acc[s:s + window] += preds[kk].float() * weights[kk][:, None]
     return (acc / normalizer[:, None]).to(preds.dtype)
+
+
+def guidance_update_plain(z: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor,
+                          w: float, dt: float) -> torch.Tensor:
+    """Fused CFG combine + Euler step: ``z + dt * (u + w * (c - u))`` in f32,
+    one rounding per operation in that order, cast back to z's dtype (the
+    reference's ``guidance_update_ref``)."""
+    u = uncond.float()
+    pred = u + (cond.float() - u) * w
+    return (z.float() + pred * dt).to(z.dtype)
 
 
 def int8_quantize_ref(x: torch.Tensor, qmax: int = 127):

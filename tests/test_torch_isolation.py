@@ -8,11 +8,15 @@
   steps) included.
 * CPU tensors never reach a kernel, coded requests and the hybrid LM's
   prefill and decode included: the launch counters stay at 0.
+* ``ops.guidance_update``, an entry point of its own: CPU tensors take
+  the plain version and launch nothing; a CUDA tensor goes to the kernel
+  or raises, never to the plain version.
 """
 import ast
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -125,9 +129,10 @@ def test_cpu_path_never_launches_a_kernel():
                           device="cpu")
     eng.submit(VideoRequest(0, ctx, (4, 8, 12)))
     assert bool(torch.isfinite(eng.run()[0].latent).all())
-    assert ops.launch_counts() == {"flash_attention": 0, "latent_blend": 0,
-                                   "int8_quantize": 0, "dequant_blend": 0,
-                                   "mamba_ssd": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_sm90": 0,
+                                   "latent_blend": 0, "int8_quantize": 0,
+                                   "dequant_blend": 0, "mamba_ssd": 0,
+                                   "guidance_update": 0}
 
 
 def test_lm_entry_points_raise_without_cuda(monkeypatch):
@@ -166,3 +171,28 @@ def test_cpu_lm_path_never_launches_a_kernel():
     assert bool(torch.isfinite(logits).all())
     assert set(ops.launch_counts().values()) == {0}
     assert "mamba_ssd" in ops.launch_counts()
+
+
+def test_guidance_update_cpu_runs_plain_and_cuda_never_falls_back(monkeypatch):
+    ops.reset_launch_counts()
+    g = torch.Generator().manual_seed(3)
+    z, c, u = (torch.randn((1, 4, 6, 8, 16), generator=g) for _ in range(3))
+    out = ops.guidance_update(z, c, u, 5.0, -0.02)
+    assert torch.equal(out, ops.ref.guidance_update_plain(z, c, u, 5.0, -0.02))
+    assert set(ops.launch_counts().values()) == {0}
+    # a CUDA tensor where no card (or no toolchain) is: the kernel's build
+    # raises, and the plain version is never taken instead
+    cuda = SimpleNamespace(shape=z.shape, dtype=torch.float32, device=torch.device("cuda"),
+                           is_contiguous=lambda: True, data_ptr=lambda: 0, numel=z.numel)
+
+    def no_card(name):
+        raise RuntimeError(f"{name}: no CUDA device")
+
+    def plain(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ops.build, "library", no_card)
+    monkeypatch.setattr(ops.ref, "guidance_update_plain", plain)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.guidance_update(cuda, cuda, cuda, 5.0, -0.02)
+    assert ops.guidance_update.launches == 0

@@ -9,7 +9,9 @@ against ``ref.latent_blend_ref`` and ``blend_windows(use_kernel=False)``
 plain ``int8_quantize`` bit for bit against the Pallas kernel in
 interpret mode and ``IntCodec.encode``; plain ``dequant_blend`` against
 the jnp decode-then-blend (the Pallas ``dequant_blend`` does not run on
-this JAX either).
+this JAX either); plain ``guidance_update`` against ``guidance_update_ref``
+and the Pallas kernel in interpret mode; plain flash on the positions
+that put tile skipping at its edges (``ref.skip_edge_positions``).
 The CUDA kernels themselves are tested in ``test_torch_kernels_cuda.py``,
 which imports no JAX so that it runs on a GPU host.
 """
@@ -165,8 +167,8 @@ def test_blend_windows_matches_reference_engine(dim, K, r):
     np.testing.assert_allclose(b.numpy(), a, rtol=1e-6, atol=1e-6)
 
 
-NO_LAUNCHES = {"flash_attention": 0, "latent_blend": 0, "int8_quantize": 0,
-               "dequant_blend": 0, "mamba_ssd": 0}
+NO_LAUNCHES = {"flash_attention": 0, "flash_attention_sm90": 0, "latent_blend": 0,
+               "int8_quantize": 0, "dequant_blend": 0, "mamba_ssd": 0, "guidance_update": 0}
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
@@ -179,6 +181,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     ops.dequant_blend(wire, scales, torch.ones(2, 4), torch.full((6,), 2.0), (0, 2), 4, 6)
     ops.mamba_ssd(torch.ones((1, 5, 2, 4)), -torch.ones((1, 5, 2)), torch.ones((1, 5, 2)),
                   torch.ones((1, 5, 3)), torch.ones((1, 5, 3)), chunk=4)
+    q, k, v, qp, kp, _ = _qkv(1, 8, 8, 2, 2, 128)
+    ops.flash_attention_sm90(*(t.bfloat16() for t in _t(q, k, v)), *_t(qp, kp))
+    ops.guidance_update(preds, preds, preds, 5.0, -0.02)
     assert ops.launch_counts() == NO_LAUNCHES
 
 
@@ -196,6 +201,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
                           None, None, (0, 2), 4, 6)
     with pytest.raises(ValueError, match="no kernel"):
         ops.mamba_ssd(torch.empty((1, 8, 2, 16), device="meta"), None, None, None, None)
+    z = torch.empty((2, 4, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.guidance_update(z, z, z, 5.0, -0.02)
     assert ops.launch_counts() == NO_LAUNCHES
 
 
@@ -283,3 +291,77 @@ def test_plain_dequant_blend_matches_jnp(K, W, E, starts, out_dtype):
         np.testing.assert_allclose(b.numpy(), a, rtol=1e-6, atol=1e-6)
     else:
         np.testing.assert_allclose(b.float().numpy(), a, rtol=2.0 ** -8, atol=1e-6)
+
+
+# ------------------------------------------------------------ guidance
+GUIDANCE_SHAPES = [(4, 8, 8, 4), (1, 13, 60, 104, 16), (3, 7, 11)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", GUIDANCE_SHAPES)
+def test_plain_guidance_update_matches_reference_and_pallas(shape, dtype):
+    """The reference test's w 5.0 and dt -0.02 on numpy inputs from a seed.
+    Stated tolerance: 1e-6 in f32, one bf16 ulp in bf16 (the same f32
+    operations, then one rounding to bf16).  Observed: bit-equal to
+    ``guidance_update_ref``, which rounds every operation in this order;
+    the Pallas kernel in interpret mode is up to 4.8e-7 off in f32 (XLA
+    fuses the expression and contracts it), and in bf16 differs on 28 of
+    the 1,297,920 elements of the 480p latent: by one bf16 ulp, or by a
+    residue below 1e-8 where the exact result cancels to 0."""
+    rng = np.random.default_rng(1)
+    z, c, u = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jz, jc, ju = (jnp.asarray(x, jdt) for x in (z, c, u))
+    want = np.asarray(jref.guidance_update_ref(jz, jc, ju, 5.0, -0.02), np.float32)
+    pallas = np.asarray(jops.guidance_update(jz, jc, ju, w=5.0, dt=-0.02, interpret=True),
+                        np.float32)
+    tz, tc, tu = (torch.tensor(np.asarray(x, np.float32)).to(tdt) for x in (jz, jc, ju))
+    ops.reset_launch_counts()
+    out = ops.guidance_update(tz, tc, tu, 5.0, -0.02)
+    assert ops.launch_counts() == NO_LAUNCHES          # CPU: the plain version
+    assert out.dtype == tdt and tuple(out.shape) == shape
+    assert torch.equal(out, ref.guidance_update_plain(tz, tc, tu, 5.0, -0.02))
+    got = out.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-6)
+    else:
+        ulp = np.maximum(np.abs(want), np.abs(pallas)) * 2.0 ** -7    # one bf16 ulp
+        assert (np.abs(got - want) <= ulp).all()
+        assert (np.abs(got - pallas) <= ulp + 1e-8).all()
+    assert np.array_equal(got, want)
+
+
+def test_guidance_update_refuses_mixed_inputs():
+    z = torch.zeros((2, 3))
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        ops.guidance_update(z, z.bfloat16(), z, 5.0, -0.02)
+    with pytest.raises(ValueError, match="one shape"):
+        ops.guidance_update(z, torch.zeros((3, 2)), z, 5.0, -0.02)
+
+
+# ---------------------------------------------------------- tile skips
+@pytest.mark.parametrize("case", ref.SKIP_EDGE_CASES)
+def test_plain_flash_on_skip_edges_matches_reference(case):
+    """The plain flash, which the kernels are held to on the card, against
+    ``repro.kernels.ref.flash_attention_ref`` at D 128 on the positions
+    that put tile skipping at its edges, and against the Pallas kernel in
+    interpret mode.  Rows with no attendable key are zero in the port and
+    the Pallas kernel; the dense oracle averages all values there (a
+    softmax of equal -1e30 scores), so it is compared on the other rows."""
+    B, Sq, Skv, H, KV, D = 2, 300, 333, 4, 2, 128
+    q, k, v, _, _, _ = _qkv(B, Sq, Skv, H, KV, D, seed=4)
+    qp, kp, causal, window = ref.skip_edge_positions(case, B, Sq, Skv, seed=5)
+    jargs = [jnp.asarray(x) for x in (q, k, v, qp, kp)]
+    dense = np.asarray(jref.flash_attention_ref(*jargs, causal, window))
+    pallas = np.asarray(jops.flash_attention(*jargs, causal=causal, window=window,
+                                             interpret=True))
+    out = ops.flash_attention(*_t(q, k, v, qp, kp), causal=causal, window=window).numpy()
+    has_key = ref.attention_mask(*_t(qp, kp), causal, window).any(-1).numpy()    # (B, Sq)
+    if case == "causal_first_key":
+        assert not has_key[:, :127].any() and has_key[:, 127:].all()
+    else:
+        assert has_key.all()
+    np.testing.assert_allclose(out[has_key], dense[has_key], **F32_TOL)
+    np.testing.assert_allclose(out, pallas, **F32_TOL)
+    assert float(np.abs(out[~has_key]).max(initial=0.0)) == 0.0

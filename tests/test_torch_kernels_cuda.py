@@ -9,8 +9,9 @@ has no CPU mode.  Inputs are made with numpy from a seed.  Stated
 tolerances: bf16 flash elementwise within the bound of its two roundings,
 ``2^-8 attention(q, k, |v|) + 2^-7 |plain|`` (P to bf16 for the
 tensor-core P.V, and the bf16 output; ``ref.flash_bf16_tolerance``),
-f32 flash 1e-4 (summation order only); blend, int8 quantize and
-dequant-blend exact (the same f32 operations in the same order);
+for both flash kernels (``mma.sync`` and ``wgmma`` + TMA), f32 flash 1e-4
+(summation order only); blend, int8 quantize, dequant-blend and
+guidance_update exact (the same f32 operations in the same order);
 mamba_ssd ``5e-4 + 5e-4 |plain|``, the reference's own SSD tolerance
 (f32 throughout, sums in another order).
 """
@@ -66,18 +67,123 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, case):
     q, k, v = (x.to(cuda_device, dtype) for x in (q, k, v))
     qp, kp, lens = (x.to(cuda_device) for x in (qp, kp, lens))
     kv_len = lens if use_len else None
-    before = ops.flash_attention.launches
-    out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kv_len=kv_len)
-    assert ops.flash_attention.launches == before + 1
-    kp_eff = kp if kv_len is None else torch.where(kp < lens[:, None], kp, ref.INT32_MAX)
-    plain = ref.flash_attention_ref(q, k, v, qp, kp_eff, causal, window)
+    out, _ = _flash_checked(q, k, v, qp, kp, causal, window, kv_len)
     assert out.dtype == dtype
-    if dtype == torch.bfloat16:
+
+
+def _flash_launches():
+    return {n: ops.WRAPPERS[n].launches for n in ops.FLASH_KERNELS}
+
+
+def _flash_checked(q, k, v, qp, kp, causal, window, kv_len=None, kernel=None):
+    """One launch of the flash kernel for q's dtype and head dim (it must
+    be ``kernel`` if given), held to the plain version on the same
+    inputs; returns (out, plain)."""
+    want = ops.flash_kernel(q.dtype, q.shape[-1])
+    assert kernel in (None, want)
+    before = _flash_launches()
+    out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kv_len=kv_len)
+    after = _flash_launches()
+    assert {n: after[n] - before[n] for n in after} == {n: int(n == want) for n in after}
+    kp_eff = kp if kv_len is None else torch.where(kp < kv_len[:, None], kp, ref.INT32_MAX)
+    plain = ref.flash_attention_ref(q, k, v, qp, kp_eff, causal, window)
+    if q.dtype == torch.bfloat16:
         limit = ref.flash_bf16_tolerance(q, k, v, qp, kp_eff, causal, window, plain)
     else:
         limit = 1e-4 + 1e-4 * plain.abs()
     err = (out.float() - plain.float()).abs()
+    assert bool(torch.isfinite(out.float()).all())
     assert bool((err <= limit).all()), f"max err {float(err.max()):.3e}"
+    return out, plain
+
+
+# (kernel, dtype, head dim): bf16 at D 128 runs on the wgmma kernel, bf16 at
+# D 80 (Zamba2) on mma.sync, f32 on the FMA kernel of flash_attention.cu
+KERNEL_CASES = [("flash_attention_sm90", torch.bfloat16, 128),
+                ("flash_attention", torch.bfloat16, 80), ("flash_attention", torch.float32, 128)]
+
+
+@pytest.mark.parametrize("kernel,dtype,D", KERNEL_CASES)
+@pytest.mark.parametrize("case", ref.SKIP_EDGE_CASES)
+def test_flash_kernels_on_skip_edges(cuda_device, case, kernel, dtype, D):
+    """Positions that put the skipping of masked key tiles at its edges
+    (``ref.skip_edge_positions``): non-monotone positions, fully padded
+    interior tiles, a causal tile whose only attendable pair is its first
+    key against the block's last query; rows with no key are zero."""
+    B, Sq, Skv, H, KV = 2, 300, 333, 4, 2
+    q, k, v, _, _, _ = _inputs(B, Sq, Skv, H, KV, D, seed=4)
+    qp, kp, causal, window = ref.skip_edge_positions(case, B, Sq, Skv, seed=5)
+    q, k, v = (x.to(cuda_device, dtype) for x in (q, k, v))
+    qp, kp = (torch.from_numpy(x).to(cuda_device) for x in (qp, kp))
+    out, _ = _flash_checked(q, k, v, qp, kp, causal, window, kernel=kernel)
+    empty = ~ref.attention_mask(qp, kp, causal, window).any(-1)
+    assert int(empty.sum()) == (2 * 127 if case == "causal_first_key" else 0)
+    if bool(empty.any()):
+        assert float(out[empty].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kernel,dtype,D", KERNEL_CASES)
+def test_flash_kernels_masked_gqa(cuda_device, kernel, dtype, D):
+    """Causal + window + GQA + padded slots + kv_len, Skv 333: ragged
+    against both 32- and 128-key tiles."""
+    B, Sq, Skv, H, KV = 2, 200, 333, 12, 4
+    q, k, v, qp, kp, _ = _inputs(B, Sq, Skv, H, KV, D, seed=6)
+    q, k, v = (x.to(cuda_device, dtype) for x in (q, k, v))
+    kp = kp.clone()
+    kp[:, -5:] = ref.INT32_MAX
+    lens = torch.tensor([Skv - 7 * (b + 1) for b in range(B)], dtype=torch.int32)
+    _flash_checked(q, k, v, qp.to(cuda_device), kp.to(cuda_device), True, 96,
+                   kv_len=lens.to(cuda_device), kernel=kernel)
+
+
+@pytest.mark.parametrize("kernel,dtype,D", KERNEL_CASES)
+def test_flash_kernels_on_a_mostly_empty_decode_cache(cuda_device, kernel, dtype, D):
+    """A decode step: 4 requests, one query each at position 62, against
+    a 4096-slot cache of which 63 slots are valid (kv_len)."""
+    B, Skv, H = 4, 4096, 8
+    q, k, v, _, kp, _ = _inputs(B, 1, Skv, H, H, D, seed=7)
+    q, k, v = (x.to(cuda_device, dtype) for x in (q, k, v))
+    qp = torch.full((B, 1), 62, dtype=torch.int32, device=cuda_device)
+    lens = torch.full((B,), 63, dtype=torch.int32, device=cuda_device)
+    _flash_checked(q, k, v, qp, kp.to(cuda_device), False, 0, kv_len=lens, kernel=kernel)
+
+
+@pytest.mark.parametrize("kernel,dtype,D", KERNEL_CASES)
+def test_flash_kernels_zero_a_row_without_keys(cuda_device, kernel, dtype, D):
+    q, k, v, qp, kp, _ = _inputs(2, 150, 260, 4, 4, D, seed=8)
+    q, k, v = (x.to(cuda_device, dtype) for x in (q, k, v))
+    kp = kp.clone()
+    kp[1] = ref.INT32_MAX                      # batch row 1: every key padded
+    out, _ = _flash_checked(q, k, v, qp.to(cuda_device), kp.to(cuda_device), False, 0,
+                            kernel=kernel)
+    assert float(out[1].float().abs().max()) == 0.0 and float(out[0].float().abs().max()) > 0
+
+
+SM90_CASES = [
+    # B, Sq, Skv, H, KV, causal, window: the wgmma kernel at its shapes
+    (1, 3120, 3120, 2, 2, False, 0),     # a T window's self-attention
+    (2, 3120, 512, 2, 2, False, 0),      # cross-attention to the text context
+    (2, 200, 700, 8, 2, False, 0),       # Sq != Skv, ragged, GQA
+    (2, 333, 517, 6, 3, True, 0),        # causal, ragged both ways
+    (3, 1, 300, 4, 4, False, 0),         # one query
+    (1, 130, 1, 4, 4, False, 0),         # one key
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,causal,window", SM90_CASES)
+def test_sm90_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, H, KV, causal, window):
+    q, k, v, qp, kp, _ = _inputs(B, Sq, Skv, H, KV, 128, seed=Sq + Skv)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    _flash_checked(q, k, v, qp.to(cuda_device), kp.to(cuda_device), causal, window,
+                   kernel="flash_attention_sm90")
+
+
+def test_sm90_flash_kernel_refuses_other_types_and_dims(cuda_device):
+    p = torch.zeros((1, 8), device=cuda_device, dtype=torch.int32)
+    for dtype, D in ((torch.float32, 128), (torch.bfloat16, 80)):
+        q = torch.zeros((1, 8, 2, D), device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError, match="bf16 at head dim 128"):
+            ops.flash_attention_sm90(q, q, q, p, p)
 
 
 def test_flash_kernel_zeroes_rows_without_keys(cuda_device):
@@ -238,3 +344,47 @@ def test_mamba_ssd_kernel_refuses_what_it_has_no_kernel_for(cuda_device):
         ops.mamba_ssd(x8, a, dt, B, C)
     with pytest.raises(ValueError, match="state"):
         ops.mamba_ssd(x, a, dt, B8, C8)
+
+
+GUIDANCE_SHAPES = [(4, 8, 8, 4), (1, 13, 60, 104, 16), (3, 7, 11)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GUIDANCE_SHAPES)
+def test_guidance_update_kernel_is_bit_equal_to_plain(cuda_device, shape, dtype):
+    """The reference test's w 5.0 and dt -0.02; the 480p latent, a small
+    one and a ragged one (a scalar tail after the 16-byte vectors)."""
+    rng = np.random.default_rng(2)
+    z, c, u = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, dtype) for _ in range(3))
+    before = ops.guidance_update.launches
+    out = ops.guidance_update(z, c, u, 5.0, -0.02)
+    assert ops.guidance_update.launches == before + 1
+    assert out.dtype == dtype and out.shape == z.shape
+    assert torch.equal(out, ref.guidance_update_plain(z, c, u, 5.0, -0.02))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_guidance_update_kernel_on_unaligned_buffers(cuda_device, dtype):
+    """Contiguous views that start off a 16-byte boundary take the
+    scalar path, bit-equal all the same."""
+    rng = np.random.default_rng(3)
+    z, c, u = (torch.from_numpy(rng.normal(size=1001).astype(np.float32))
+               .to(cuda_device, dtype)[1:] for _ in range(3))
+    assert z.data_ptr() % 16 != 0
+    out = ops.guidance_update(z, c, u, 5.0, -0.02)
+    assert torch.equal(out, ref.guidance_update_plain(z, c, u, 5.0, -0.02))
+
+
+def test_guidance_update_kernel_refuses_mixed_inputs(cuda_device):
+    z = torch.zeros((4, 6), device=cuda_device)
+    before = ops.guidance_update.launches
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        ops.guidance_update(z, z.bfloat16(), z, 5.0, -0.02)
+    with pytest.raises(ValueError, match="one shape"):
+        ops.guidance_update(z, z[:, :3], z, 5.0, -0.02)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.guidance_update(z.t(), z.t().contiguous(), z.t().contiguous(), 5.0, -0.02)
+    with pytest.raises(TypeError, match="not supported"):
+        ops.guidance_update(z.half(), z.half(), z.half(), 5.0, -0.02)
+    assert ops.guidance_update.launches == before
