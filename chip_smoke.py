@@ -10,11 +10,15 @@ Phases, one line each (any failed check exits non-zero):
                with kernel, plain, library and bound times (and the
                kernel times PERF.md records for the kernels they replaced); the
                flash kernels also on positions that put their skipping of
-               masked key tiles at its edges, and guidance_update on the
-               480p latent.  Then broken copies, built outside the
-               checkout, must each fail a check: two of mamba_ssd.cu, and
-               two of the flash sources (a causal live-tile test with < for
-               <=; the wgmma kernel without its accumulator's correction).
+               masked key tiles at its edges (D 80 through both the wgmma
+               and the mma.sync kernel), at the 161-frame latent's 63,960
+               keys, and guidance_update on the 480p latent.  Then broken
+               copies, built outside the checkout, must each fail a check:
+               two of mamba_ssd.cu, and three of the flash sources (a
+               causal live-tile test with < for <=; the wgmma kernel
+               without its accumulator's correction; its D-80 16-column
+               box read with the 128-byte swizzle), each caught by a case
+               of the D-80 wgmma kernel.
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -33,11 +37,11 @@ Phases, one line each (any failed check exits non-zero):
                on the same noise and weights (printed, no threshold).
   7. lm_serve — the full-width zamba2-2.7b (54 Mamba2 blocks, bf16,
                random weights) through make_prefill_step (2 x 4096
-               tokens, cold and warm: 54 mamba_ssd and 9 flash launches
-               each, then one traced for the device-time split) and
-               make_decode_step (4 requests, 32 prompt tokens
-               teacher-forced, 32 generated greedily, cache 4096: 9 flash
-               launches and no mamba_ssd per step).
+               tokens, cold and warm: 54 mamba_ssd and 9 wgmma flash
+               launches each, then one traced for the device-time split)
+               and make_decode_step (4 requests, 32 prompt tokens
+               teacher-forced, 32 generated greedily, cache 4096: 9
+               mma.sync flash launches and no mamba_ssd per step).
   8. guidance — the fused CFG + Euler entry point ops.guidance_update
                (no path of the reference calls it) driven over the 4-step
                schedule on the 480p latent (1, 13, 60, 104, 16), f32 and
@@ -84,10 +88,11 @@ LM_CARD_VS_CPU_REL_L2 = 1e-3    # small_lm: f32 on both sides (no TF32), sums in
 LM_CONSISTENCY_TOL = 3e-2       # prefill vs stepped decode (tests/test_models_smoke.py:132)
 GUIDANCE_LATENT = (1, 13, 60, 104, 16)     # the 480p latent of the reference's test
 GUIDANCE_W = 5.0
-# the earlier mma.sync kernel's times of the cases whose kernel changed
-# (PERF.md's kernel table, on an H100 80GB HBM3 at 700 W)
-EARLIER_MS = {"flash_self_Twindow_bf16": 4.675, "flash_cross_bf16": 0.861,
-              "flash_lm_prefill_causal_bf16": 2.442, "flash_lm_decode_bf16": 0.227}
+# the earlier kernel times of the cases whose kernel changed (PERF.md's
+# kernel table, on an H100 80GB HBM3 at 700 W): the wgmma kernel with its
+# list in shared memory, and mma.sync at the D-80 prefill
+EARLIER_MS = {"flash_self_Twindow_bf16": 1.671, "flash_cross_bf16": 0.442,
+              "flash_lm_prefill_causal_bf16": 1.100}
 CODECS = ("int8", "displaced:int8-residual")    # phase serve_codec
 LATENT = (13, 30, 52)           # 480p/4s-class latent, cut from (13, 60, 104) for time
 K, R, STEPS = 4, 0.5, 4
@@ -107,8 +112,16 @@ FLASH_MUTANTS = {
     "skip_off_by_one": ("flash_common.cuh", "if (causal) live = live && kmin <= qhi;",
                         "if (causal) live = live && kmin < qhi;"),
     "no_rescale": ("flash_attention_sm90.cu", "o[x] *= (x & 2) ? corr1 : corr0;", ";"),
+    # D 80's 16-column box read as if it had the 128-byte swizzle
+    "d80_tail_swizzle": ("flash_attention_sm90.cu",
+                         "return desc_bits(addr, 16, 256) | (3ull << 62);",
+                         "return desc_bits(addr, 16, 256) | (1ull << 62);"),
 }
+FLASH_MUTANT_LIBS = {"skip_off_by_one": ("flash_attention", "flash_attention_sm90"),
+                     "no_rescale": ("flash_attention_sm90",),
+                     "d80_tail_swizzle": ("flash_attention_sm90",)}
 FLASH_SOURCES = ("flash_attention", "flash_attention_sm90")
+NEW_KERNEL = ("flash_attention_sm90", 80)   # each flash mutant must fail one of its cases
 
 
 class SmokeFailure(RuntimeError):
@@ -195,12 +208,13 @@ def attended_pairs(q_pos, kv_pos, causal, window) -> int:
 
 
 def flash_inputs(B, Sq, Skv, H, KV, D, dtype, causal=False, window=0, pad_kv=0,
-                 kv_len=False, edge=None, seed=0):
+                 kv_len=False, edge=None, seed=0, v_tail=False):
     """q, k, v, positions and kv_len of one flash case on the card.
     ``kv_len``: False, True (row b keeps Skv - 7(b+1) keys) or each row's
     valid key count (a decode step's ``position + 1``); ``edge`` names a
     case of ``ref.skip_edge_positions`` (its positions, causal and window
-    replace the others)."""
+    replace the others); ``v_tail``: V is zero outside dims 64 .. 79, so
+    the output is D 80's 16-column product alone."""
     import torch
     from repro_torch.kernels import ref
 
@@ -208,6 +222,8 @@ def flash_inputs(B, Sq, Skv, H, KV, D, dtype, causal=False, window=0, pad_kv=0,
     q = torch.randn((B, Sq, H, D), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, Skv, KV, D), generator=g, device="cuda").to(dtype)
     v = torch.randn((B, Skv, KV, D), generator=g, device="cuda").to(dtype)
+    if v_tail:
+        v[..., :64] = 0
     if edge is not None:
         qp, kp, causal, window = ref.skip_edge_positions(edge, B, Sq, Skv, seed)
         qp, kp = torch.from_numpy(qp).cuda(), torch.from_numpy(kp).cuda()
@@ -249,26 +265,28 @@ def flash_agrees(out, args, causal, window):
 
 def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
                pad_kv=0, kv_len=False, edge=None, reps=5, library=False, seed=0,
-               short=False):
+               short=False, kernel=None, v_tail=False):
     """One flash kernel check: kernel vs plain on the same inputs, with
     kernel, plain, library and bound times.  The bytes bound counts only
     the valid keys, and the library call gets them as a boolean mask.
     ``short``: work shorter than a launch from the host, timed by the
     profiler's device time (events around the wrapper's calls are kept
-    as ``events_ms``).  Returns the record and (name, args, causal,
-    window) for the mutation checks."""
+    as ``events_ms``).  ``kernel`` forces a flash kernel (default:
+    ``ops.flash_kernel``'s choice).  Returns the record and (name, kernel,
+    args, causal, window) for the mutation checks."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     args, causal, window = flash_inputs(B, Sq, Skv, H, KV, D, dtype, causal, window, pad_kv,
-                                        kv_len, edge, seed)
+                                        kv_len, edge, seed, v_tail)
     q, k, v, qp, kp, lens = args
     kp_eff = kp if lens is None else torch.where(kp < lens[:, None], kp, ref.INT32_MAX)
-    kernel = ops.flash_kernel(dtype, D)
+    kernel = kernel or ops.flash_kernel(dtype, D, Sq)
     counter = ops.WRAPPERS[kernel]
     before = counter.launches
-    out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kv_len=lens)
+    out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kv_len=lens,
+                              kernel=kernel)
     check(counter.launches == before + 1, f"{name}: {kernel} did not launch")
     err, share, ok = flash_agrees(out, args, causal, window)
     tol = ("2^-8 attention(q,k,|v|) + 2^-7 |plain|" if dtype == torch.bfloat16
@@ -276,13 +294,14 @@ def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
     check(ok, f"{name}: kernel disagrees with plain version (max abs err {err:.3e}, "
               f"{share:.2f} of the limit {tol})")
     events_ms = time_ms(lambda: ops.flash_attention(q, k, v, qp, kp, causal=causal,
-                                                    window=window, kv_len=lens), reps)
+                                                    window=window, kv_len=lens, kernel=kernel),
+                        reps)
     kernel_ms = events_ms
     plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kp_eff, causal, window),
                        max(1, reps // 5))
     if short:          # the kernel alone: kv_len already folded into kp_eff
         kernel_ms = device_ms(lambda: ops.flash_attention(q, k, v, qp, kp_eff, causal=causal,
-                                                          window=window), reps)
+                                                          window=window, kernel=kernel), reps)
         plain_ms = device_ms(lambda: ref.flash_attention_ref(q, k, v, qp, kp_eff, causal,
                                                              window), reps)
     counter.launches = before                 # comparison launches do not count
@@ -313,7 +332,7 @@ def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "tflops": flops / kernel_ms / 1e9,
-    }, (name, args, causal, window)
+    }, (name, kernel, args, causal, window)
 
 
 def build_mutants(prefix, mutants, sources, lib_names):
@@ -350,32 +369,35 @@ def build_mutants(prefix, mutants, sources, lib_names):
 def flash_mutants(kept):
     """Serve each broken copy of the flash sources in place of the kernels
     and require that the flash check fails on at least one of the
-    ``kept`` cases; returns the cases that caught each."""
+    ``kept`` cases, one of them a case of the D-80 wgmma kernel; returns
+    the cases that caught each."""
     import torch
     from repro_torch.kernels import build, ops
 
-    libs = {"skip_off_by_one": FLASH_SOURCES, "no_rescale": ("flash_attention_sm90",)}
     tmp, built = build_mutants("flash_mutants_", FLASH_MUTANTS,
                                ("flash_common.cuh",) + tuple(f"{n}.cu" for n in FLASH_SOURCES),
-                               libs)
+                               FLASH_MUTANT_LIBS)
     try:
         before, caught = ops.launch_counts(), {}
         for m, sos in built.items():
-            caught[m] = []
+            caught[m], by_new = [], False
             with contextlib.ExitStack() as stack:
                 for lib, so in sos.items():
                     stack.enter_context(build.substituted(lib, build.load(lib, so)))
-                for name, args, causal, window in kept:
+                for name, kernel, args, causal, window in kept:
                     q, k, v, qp, kp, lens = args
-                    if ops.flash_kernel(q.dtype, q.shape[-1]) not in sos:
+                    if kernel not in sos:
                         continue
                     out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window,
-                                              kv_len=lens)
+                                              kv_len=lens, kernel=kernel)
                     torch.cuda.synchronize()
                     err, share, ok = flash_agrees(out, args, causal, window)
                     if not ok:
-                        caught[m].append(f"{name} ({share:.3g} of the limit)")
+                        caught[m].append(f"{name} [{kernel}] ({share:.3g} of the limit)")
+                        by_new |= (kernel, q.shape[-1]) == NEW_KERNEL
             check(caught[m], f"mutant {m} of the flash sources passed every check")
+            check(by_new, f"mutant {m} passed every case of {NEW_KERNEL[0]} at D {NEW_KERNEL[1]}"
+                          f" (caught by {caught[m]})")
         for n, v in before.items():
             ops.WRAPPERS[n].launches = v
         return caught
@@ -711,11 +733,13 @@ def psnr_db(a, b) -> float:
 def lm_serve(cfg):
     """Phase lm_serve: full-width Zamba2 on the card through the LM serve
     steps.  Prefill: 2 prompts of 4096 tokens, cold then warm, each
-    launching mamba_ssd once per Mamba2 block and flash once per shared-
-    attention invocation.  Decode: 4 requests teacher-force a 32-token
-    prompt, then generate 32 tokens greedily; each step launches flash
-    once per invocation and mamba_ssd never.  Returns the record and the
-    phase's launch counts (set to 0 at its start)."""
+    launching mamba_ssd once per Mamba2 block and the wgmma flash kernel
+    (D 80, 4096 queries) once per shared-attention invocation.  Decode: 4
+    requests teacher-force a 32-token prompt, then generate 32 tokens
+    greedily; each step launches the mma.sync flash kernel (one query per
+    request) once per invocation and mamba_ssd never.  Returns the record
+    and the launch counts of the prefills and of the decode, each set to 0
+    just before it and read just after."""
     import torch
     from repro_torch import models
     from repro_torch.kernels import ops
@@ -733,7 +757,9 @@ def lm_serve(cfg):
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S), generator=g,
                            device="cuda")
-    want = {"mamba_ssd": cfg.num_layers, "flash_attention": groups}
+    pre_flash = ops.flash_kernel(torch.bfloat16, cfg.head_dim, PREFILL_S)
+    dec_flash = ops.flash_kernel(torch.bfloat16, cfg.head_dim, 1)
+    want = {"mamba_ssd": cfg.num_layers, pre_flash: groups}
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     walls, logits = [], []
@@ -759,7 +785,7 @@ def lm_serve(cfg):
           f"prefill_batch={PREFILL_B}x{PREFILL_S} logits={tuple(logits[1].shape)} "
           f"cold_s={walls[0]:.3f} warm_s={walls[1]:.3f} "
           f"tokens_per_s={PREFILL_B * PREFILL_S / walls[1]:.0f} peak_mem_gb={peak_gb:.2f} "
-          f"mamba_ssd_launches={want['mamba_ssd']} flash_launches={want['flash_attention']} "
+          f"mamba_ssd_launches={want['mamba_ssd']} {pre_flash}_launches={want[pre_flash]} "
           f"cold_vs_warm_max_diff={repeat_diff:.3e}", flush=True)
 
     # where one warm prefill spends its device time
@@ -775,7 +801,7 @@ def lm_serve(cfg):
         us = e.self_device_time_total
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if "flash_fwd" in e.key:
+        if "flash_fwd" in e.key or "live_tiles" in e.key:
             split["flash_attention"] += us
         elif "mamba_ssd" in e.key:
             split["mamba_ssd"] += us
@@ -792,8 +818,10 @@ def lm_serve(cfg):
           f"device_busy={device_s / traced_s:.3f} device_share: {shares} top_other_ms: "
           + "; ".join(f"{k[:48]}={v / 1e3:.1f}" for k, v in top), flush=True)
     del logits, out
+    prefill_counts = ops.launch_counts()
 
     # decode: 4 requests, teacher-forced prompts then greedy generation
+    ops.reset_launch_counts()
     cache = lm.init_cache(DECODE_B, MAX_LEN)
     prompts = torch.randint(0, cfg.vocab_size, (DECODE_B, PROMPT), generator=g, device="cuda")
     step_s, generated = [], []
@@ -819,8 +847,9 @@ def lm_serve(cfg):
             dec_device_s = sum(e.self_device_time_total for e in dev) / 1e6
         after = ops.launch_counts()
         got = {k: after[k] - before[k] for k in after}
-        check(got == {**{k: 0 for k in got}, "flash_attention": groups},
-              f"decode step {t}: launches {got}, expected {groups} flash and nothing else")
+        check(got == {**{k: 0 for k in got}, dec_flash: groups},
+              f"decode step {t}: launches {got}, expected {groups} {dec_flash} and nothing "
+              "else")
         check(bool(torch.isfinite(lg).all()), f"decode step {t}: logits not finite")
         if t + 1 < PROMPT:
             tok = prompts[:, t + 1:t + 2]
@@ -840,17 +869,19 @@ def lm_serve(cfg):
            "decode_traced_step_s": step_s[traced_step], "decode_traced_kernels": dec_kernels,
            "decode_traced_device_s": dec_device_s,
            "decode_tokens_per_s": DECODE_B / (step_ms / 1e3),
-           "generated": torch.cat(generated, 1).tolist(), "launches": counts}
+           "generated": torch.cat(generated, 1).tolist(),
+           "launches": {"prefill": prefill_counts, "decode": counts}}
     print(f"phase=lm_serve decode_batch={DECODE_B} prompt={PROMPT} generated={GEN} "
           f"max_len={MAX_LEN} step_ms_median={step_ms:.2f} first_step_ms={1e3 * step_s[0]:.2f} "
-          f"tokens_per_s={DECODE_B / (step_ms / 1e3):.1f} flash_per_step={groups} "
-          f"mamba_ssd_per_step=0 phase_launches={counts}", flush=True)
+          f"tokens_per_s={DECODE_B / (step_ms / 1e3):.1f} {dec_flash}_per_step={groups} "
+          f"mamba_ssd_per_step=0 prefill_launches={prefill_counts} decode_launches={counts}",
+          flush=True)
     print(f"phase=lm_serve traced_decode_step_s={step_s[traced_step]:.4f} "
           f"device_kernels={dec_kernels} device_s={dec_device_s:.4f} "
           f"device_busy={dec_device_s / step_s[traced_step]:.3f}", flush=True)
     del params, cache, lm
     torch.cuda.empty_cache()
-    return rec, counts
+    return rec, prefill_counts, counts
 
 
 def _leaves(tree):
@@ -1016,31 +1047,49 @@ def run() -> int:
         (("flash_masked_gqa_bf16_d128", 2, 200, 333, 12, 4, 128, torch.bfloat16),
          dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
         (("flash_ragged_gqa_bf16_d128", 2, 200, 700, 8, 2, 128, torch.bfloat16), dict(reps=3)),
+        # the 161-frame latent's token count (41 x 30 x 52): past the 63,360
+        # keys a live-tile list in shared memory allowed
+        (("flash_vdm10s_keys_bf16", 1, 256, 63960, H, H, D, torch.bfloat16),
+         dict(causal=True, reps=3)),
+        # the D-80 wgmma kernel through the masked path, and with V zero
+        # outside dims 64 .. 79 (its 16-column box alone makes the output)
+        (("flash_masked_gqa_bf16_d80", 2, 200, 333, 8, 2, 80, torch.bfloat16),
+         dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
+        (("flash_d80_v_tail_bf16", 2, 300, 333, 4, 2, 80, torch.bfloat16),
+         dict(causal=True, v_tail=True, reps=3)),
         (("flash_masked_gqa_f32", 2, 200, 333, 8, 2, 64, torch.float32),
          dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
         (("flash_self_f32_d128", 2, 300, 300, 4, 4, 128, torch.float32), dict(reps=3)),
     ]
     # positions that put the skipping of masked key tiles at its edges,
-    # through the wgmma kernel (bf16, D 128), mma.sync (bf16, D 80) and the
-    # FMA kernel (f32)
+    # through the wgmma kernel (bf16, D 128 and 80), mma.sync (bf16, D 80)
+    # and the FMA kernel (f32)
     from repro_torch.kernels.ref import SKIP_EDGE_CASES
     for edge in SKIP_EDGE_CASES:
-        for dt, hd in ((torch.bfloat16, 128), (torch.bfloat16, 80), (torch.float32, 128)):
-            tag = "bf16" if dt == torch.bfloat16 else "f32"
-            flash_specs.append(((f"flash_edge_{edge}_{tag}_d{hd}", 2, 300, 333, 4, 2, hd, dt),
-                                dict(edge=edge, reps=3, seed=5)))
+        for dt, hd, kern in ((torch.bfloat16, 128, "flash_attention_sm90"),
+                             (torch.bfloat16, 80, "flash_attention_sm90"),
+                             (torch.bfloat16, 80, "flash_attention"),
+                             (torch.float32, 128, "flash_attention")):
+            tag = ("bf16" if dt == torch.bfloat16 else "f32") + f"_d{hd}"
+            if (dt, hd) == (torch.bfloat16, 80):
+                tag += "_wgmma" if kern == "flash_attention_sm90" else "_mma"
+            flash_specs.append(((f"flash_edge_{edge}_{tag}", 2, 300, 333, 4, 2, hd, dt),
+                                dict(edge=edge, reps=3, seed=5, kernel=kern)))
     blend = [blend_case(d, 2, cfg.latent_channels) for d in range(3)]
     quant = [quant_case("T_transfer", 4, 3, 49920), quant_case("T_cores", 4, 4, 49920),
              quant_case("H_cores", 4, 8, 21632), quant_case("T_transfer_int4", 4, 3, 49920, 7)]
     dequant = [dequant_case(d, 2, cfg.latent_channels) for d in range(3)]
     # Zamba2's shared attention (32 x 80 heads, bf16): the causal prefill of
-    # 2 prompts of 4096 tokens, and a decode step of 4 requests (one query
-    # each against a 4096-slot cache, 63 valid slots as at the last step)
+    # 2 prompts of 4096 tokens (the wgmma kernel; mma.sync beside it, the
+    # kernel it replaces), and a decode step of 4 requests (one query each
+    # against a 4096-slot cache, 63 valid slots as at the last step)
     lm_cfg = get_config("zamba2-2.7b")
     lH, lD = lm_cfg.num_heads, lm_cfg.head_dim
     flash_specs += [
         (("flash_lm_prefill_causal_bf16", PREFILL_B, PREFILL_S, PREFILL_S, lH, lH, lD,
-          torch.bfloat16), dict(causal=True, library=True, reps=3)),
+          torch.bfloat16), dict(causal=True, library=True, reps=5)),
+        (("flash_lm_prefill_causal_bf16_mma", PREFILL_B, PREFILL_S, PREFILL_S, lH, lH, lD,
+          torch.bfloat16), dict(causal=True, reps=5, kernel="flash_attention")),
         (("flash_lm_decode_bf16", DECODE_B, 1, MAX_LEN, lH, lH, lD, torch.bfloat16),
          dict(kv_len=[PROMPT + GEN - 1] * DECODE_B, library=True, reps=20, short=True)),
     ]
@@ -1091,7 +1140,7 @@ def run() -> int:
     for r in reqs:
         eng.submit(r)
     results, batches = [], []
-    vid_flash = ops.flash_kernel(torch.bfloat16, D)     # the wgmma kernel
+    vid_flash = ops.flash_kernel(torch.bfloat16, D, t_window)     # the wgmma kernel
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     for b in range(2):
@@ -1153,7 +1202,7 @@ def run() -> int:
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.key
-        if "flash_fwd" in name:
+        if "flash_fwd" in name or "live_tiles" in name:
             split["flash_attention"] += us
         elif "latent_blend" in name:
             split["latent_blend"] += us
@@ -1293,7 +1342,7 @@ def run() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 7. lm_serve
-    lm_record, lm_counts = lm_serve(lm_cfg)
+    lm_record, lm_prefill_counts, lm_decode_counts = lm_serve(lm_cfg)
     record["lm_serve"] = lm_record
 
     # ---------------------------------------------------------- 8. guidance
@@ -1344,10 +1393,11 @@ def run() -> int:
                        "small_lm": small_lm_check(lm_cfg)}
 
     # ------------------------------------------------------------- results
-    def kernel_row(name, replaces, case, by_path):
+    def kernel_row(name, replaces, case, by_path, source=None):
         check(sum(by_path.values()) > 0, f"{name}: no launch on its paths {by_path}")
         return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
+                "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
+                "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
@@ -1355,15 +1405,25 @@ def run() -> int:
 
     # launches: each kernel's count from the runs of the paths it serves, each
     # path's counts set to 0 just before it and read just after
+    # (the wgmma kernel's two instantiations get a row each: D 128 on the
+    # video paths, D 80 on the LM prefill; mma.sync serves the LM decode)
     named = {c["case"]: c for c in flash}
+    check(named["flash_lm_prefill_causal_bf16"]["kernel"] == "flash_attention_sm90"
+          and named["flash_lm_decode_bf16"]["kernel"] == "flash_attention",
+          "the D-80 prefill and decode cases ran other kernels than lm_serve's")
     line = {"kernels": [
-        kernel_row("flash_attention_sm90", "src/repro/kernels/flash_attention.py:101",
+        kernel_row("flash_attention_sm90_d128", "src/repro/kernels/flash_attention.py:101",
                    named["flash_self_Twindow_bf16"],
                    {"serve": main_counts[vid_flash],
-                    **{f"serve_codec:{c}": n[vid_flash] for c, n in coded_counts.items()}}),
-        kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
+                    **{f"serve_codec:{c}": n[vid_flash] for c, n in coded_counts.items()}},
+                   source="flash_attention_sm90"),
+        kernel_row("flash_attention_sm90_d80", "src/repro/kernels/flash_attention.py:101",
                    named["flash_lm_prefill_causal_bf16"],
-                   {"lm_serve": lm_counts["flash_attention"]}),
+                   {"lm_serve:prefill": lm_prefill_counts["flash_attention_sm90"]},
+                   source="flash_attention_sm90"),
+        kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
+                   named["flash_lm_decode_bf16"],
+                   {"lm_serve:decode": lm_decode_counts["flash_attention"]}),
         kernel_row("latent_blend", "src/repro/kernels/latent_blend.py:63", blend[0],
                    {"serve": main_counts["latent_blend"]}),
         kernel_row("int8_quantize", "src/repro/kernels/wire_codec.py:64", quant[0],
@@ -1371,7 +1431,7 @@ def run() -> int:
         kernel_row("dequant_blend", "src/repro/kernels/wire_codec.py:131", dequant[0],
                    {"coded_stitch": stitch_counts["dequant_blend"]}),
         kernel_row("mamba_ssd", "src/repro/kernels/mamba_ssd.py:111", ssd[0],
-                   {"lm_serve": lm_counts["mamba_ssd"]}),
+                   {"lm_serve:prefill": lm_prefill_counts["mamba_ssd"]}),
         kernel_row("guidance_update", "src/repro/kernels/guidance_update.py:31", guidance[0],
                    {"guidance": guidance_counts["guidance_update"]}),
     ]}

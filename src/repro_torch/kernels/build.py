@@ -41,11 +41,14 @@ _SIGNATURES = {
         "flash_attention_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention_sm90": {
-        # q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, KV,
+        # q, k, v, q_pos, kv_pos, live-tile lists, out, B, Sq, Skv, H, KV, D,
         # q_pos batch stride, kv_pos batch stride, causal, window, stream
-        # (bf16, D 128)
-        "flash_attention_sm90_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        # (bf16, D 80 or 128)
+        "flash_attention_sm90_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                       _L, _L, _I, _I, _P], _I),
+        # q_pos, kv_pos, lists, B, Sq, Skv, batch strides, causal, window, stream
+        "flash_attention_sm90_live_tiles": ([_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
+                                            _I),
         "flash_attention_sm90_error_string": ([_I], ctypes.c_char_p),
     },
     "latent_blend": {

@@ -1,6 +1,9 @@
 // What the two flash kernels (flash_attention.cu, flash_attention_sm90.cu)
 // share: the mask of one (query, key) pair and the list of the key tiles a
-// block of queries has to visit.
+// block of queries has to visit.  flash_attention.cu builds each block's
+// list in its own shared memory; flash_attention_sm90.cu builds it once per
+// (batch, 128-query block) in a pre-pass kernel (live_tiles_pass) into a
+// global buffer that the attention blocks of every head read.
 #pragma once
 
 #include <climits>
@@ -18,10 +21,11 @@ __device__ __forceinline__ bool attend(int qp, int kp, int causal, int window) {
 
 // The key tiles of BN keys that a block of BM queries (rows q0 .. q0+BM-1
 // of ``qpos``, the ones below Sq) must visit, in order, into ``list``
-// (room for one int per tile of Skv); returns how many.  Entry i is
-// 2 * tile + 1 when some pair of the tile is masked (padding, the
-// causal or window mask, keys past Skv) and 2 * tile when every pair is
-// attendable, so the per-element mask can be left out.
+// (shared or global memory, room for one int per tile of Skv); returns
+// how many.  Entry i is 2 * tile + 1 when some pair of the tile is masked
+// (padding, the causal or window mask, keys past Skv) and 2 * tile when
+// every pair is attendable, so the per-element mask can be left out.
+// kernels/ref.py: live_tiles_plain is its plain version.
 //
 // A tile is dropped only when it holds no attendable pair for any query of
 // the block, judged from positions (so any order of positions works):

@@ -43,32 +43,65 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# bf16 at head dim 128 (the video DiT's self- and cross-attention) runs on
-# the wgmma + TMA kernel of csrc/flash_attention_sm90.cu; every other dtype
-# and head dim on csrc/flash_attention.cu.
+# Which flash kernel computes what.  bf16 at head dim 128 (the video DiT's
+# self- and cross-attention) and bf16 at head dim 80 with at least
+# SM90_MIN_QUERIES queries (the hybrid LM's prefill) run on the wgmma + TMA
+# kernel of csrc/flash_attention_sm90.cu; every other case on
+# csrc/flash_attention.cu.
 FLASH_KERNELS = ("flash_attention", "flash_attention_sm90")
+_SM90_TILE = 128                     # flash_attention_sm90.cu: kBM query rows, kBN keys
+SM90_MIN_QUERIES = _SM90_TILE
+_FLASH_TAKES = {                     # kernel -> {dtype: head dims it is built for}
+    "flash_attention": {torch.bfloat16: (64, 80), torch.float32: (64, 80, 128)},
+    "flash_attention_sm90": {torch.bfloat16: (80, 128)},
+}
 
 
-def flash_kernel(dtype: torch.dtype, head_dim: int) -> str:
-    """The flash kernel that computes ``dtype`` at ``head_dim``."""
-    if dtype == torch.bfloat16 and head_dim == 128:
+def flash_kernel(dtype: torch.dtype, head_dim: int, q_len: int) -> str:
+    """The flash kernel that computes ``dtype`` at ``head_dim`` for
+    ``q_len`` queries per batch row.
+
+    bf16 at D 128 goes to ``flash_attention_sm90`` (``wgmma`` + TMA) for
+    any query count.  bf16 at D 80 goes there too when ``q_len >=
+    SM90_MIN_QUERIES`` (128: one full block of its 128 query rows), as in
+    a prefill; with fewer, as in a decode step (one query per request),
+    it stays on ``flash_attention`` (``mma.sync``), whose 64-row block
+    wastes less of a near-empty block.  Everything else (bf16 D 64, f32)
+    runs on ``flash_attention``.
+    """
+    if dtype == torch.bfloat16 and (head_dim == 128
+                                    or (head_dim == 80 and q_len >= SM90_MIN_QUERIES)):
         return "flash_attention_sm90"
     return "flash_attention"
 
 
+def _lists_shape(B: int, Sq: int, Skv: int):
+    """The shape of ``flash_attention_sm90``'s live-tile lists: (B, q
+    blocks of 128, key tiles of 128 + 1)."""
+    return (B, -(-Sq // _SM90_TILE), -(-Skv // _SM90_TILE) + 1)
+
+
 def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
-                    window: int = 0, kv_len=None) -> torch.Tensor:
+                    window: int = 0, kv_len=None, kernel=None) -> torch.Tensor:
     """Softmax attention: q ``(B,Sq,H,D)``, k/v ``(B,Skv,KV,D)``, int
     positions ``(B,S)`` (int32-max marks a padded kv slot); ``kv_len``
     ``(B,)`` masks keys at positions ``>= kv_len``.
 
-    CUDA: ``csrc/flash_attention_sm90.cu`` (``wgmma`` + TMA) for bf16 at
-    D 128, ``csrc/flash_attention.cu`` for bf16 at D 64 and 80
-    (``mma.sync``) and f32 at D 64, 80 and 128 (FMA); both skip key tiles
-    that hold no attendable pair (``flash_kernel`` names the one).  The
-    sm90 kernel's shared memory holds the list of live key tiles, which
-    caps Skv near 63,000 keys (its launcher refuses more).
+    CUDA: ``flash_kernel(dtype, D, Sq)`` names the kernel, or ``kernel``
+    (one of ``FLASH_KERNELS``) forces one; it raises on a dtype and head
+    dim it is not built for.  ``csrc/flash_attention_sm90.cu`` (``wgmma``
+    + TMA) takes bf16 at D 80 and 128 and any key count: its live-tile
+    lists go to a global buffer allocated here.  ``csrc/flash_attention.cu``
+    takes bf16 at D 64 and 80 (``mma.sync``) and f32 at D 64, 80 and 128
+    (FMA).  Both skip key tiles that hold no attendable pair.
     """
+    if kernel is not None:
+        takes = _FLASH_TAKES.get(kernel)
+        if takes is None:
+            raise ValueError(f"flash_attention: no flash kernel {kernel!r} ({FLASH_KERNELS})")
+        if q.shape[-1] not in takes.get(q.dtype, ()):
+            raise ValueError(f"flash_attention: {kernel} is not built for {q.dtype} at head "
+                             f"dim {q.shape[-1]} (takes {takes})")
     if kv_len is not None:
         kv_positions = torch.where(kv_positions < kv_len[:, None],
                                    kv_positions, INT32_MAX)
@@ -89,7 +122,8 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k and v must share one dtype")
     code = _dtype_code(q, "flash_attention")
-    kernel = flash_kernel(q.dtype, D)
+    if kernel is None:
+        kernel = flash_kernel(q.dtype, D, Sq)
     if q_positions.shape != (B, Sq) or kv_positions.shape != (B, Skv):
         raise ValueError("flash_attention: positions must be (B, Sq) and (B, Skv)")
     qp = q_positions.to(torch.int32)
@@ -105,10 +139,11 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
         return out
     lib = build.library(kernel)
     if kernel == "flash_attention_sm90":
+        lists = torch.empty(_lists_shape(B, Sq, Skv), dtype=torch.int32, device=q.device)
         rc = lib.flash_attention_sm90_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
-            out.data_ptr(), B, Sq, Skv, H, KV, qp.stride(0), kp.stride(0),
-            int(bool(causal)), int(window), _stream(q.device),
+            lists.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0),
+            kp.stride(0), int(bool(causal)), int(window), _stream(q.device),
         )
     else:
         rc = lib.flash_attention_fwd(
@@ -126,18 +161,44 @@ flash_attention.launches = 0
 
 def flash_attention_sm90(q, k, v, q_positions, kv_positions, *, causal: bool = True,
                          window: int = 0, kv_len=None) -> torch.Tensor:
-    """``flash_attention`` on the inputs that go to the ``wgmma`` + TMA
-    kernel (``csrc/flash_attention_sm90.cu``): bf16 at head dim 128; raises
-    on others.  Its ``launches`` count that kernel's launches, whichever
-    wrapper made them."""
-    if flash_kernel(q.dtype, q.shape[-1]) != "flash_attention_sm90":
-        raise ValueError(f"flash_attention_sm90: takes bf16 at head dim 128, not {q.dtype} "
-                         f"at {q.shape[-1]}")
+    """``flash_attention`` on the ``wgmma`` + TMA kernel
+    (``csrc/flash_attention_sm90.cu``) whatever the query count: bf16 at
+    head dim 80 or 128; raises on others.  Its ``launches`` count that
+    kernel's launches, whichever wrapper made them."""
     return flash_attention(q, k, v, q_positions, kv_positions, causal=causal,
-                           window=window, kv_len=kv_len)
+                           window=window, kv_len=kv_len, kernel="flash_attention_sm90")
 
 
 flash_attention_sm90.launches = 0
+
+
+def flash_live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
+                     causal: bool, window: int) -> torch.Tensor:
+    """The live-tile lists that ``flash_attention_sm90``'s pre-pass writes
+    for these positions: int32 ``(B, q blocks of 128, key tiles of 128 +
+    1)``, laid out as ``ref.live_tiles_plain`` says.  A check of that
+    pre-pass alone (the attention launches it itself, as part of its
+    one counted launch); CPU tensors get the plain version."""
+    if q_positions.device.type == "cpu":
+        return ref.live_tiles_plain(q_positions, kv_positions, _SM90_TILE, _SM90_TILE, causal,
+                                    window)
+    if q_positions.device.type != "cuda":
+        raise ValueError(f"flash_live_tiles: no kernel for device {q_positions.device}")
+    B, Sq = q_positions.shape
+    Skv = kv_positions.shape[1]
+    if kv_positions.shape[0] != B:
+        raise ValueError("flash_live_tiles: positions must be (B, Sq) and (B, Skv)")
+    qp = q_positions.to(torch.int32).contiguous()
+    kp = kv_positions.to(torch.int32).contiguous()
+    _require_device({"kv_positions": kp}, qp.device)
+    lists = torch.empty(_lists_shape(B, Sq, Skv), dtype=torch.int32, device=qp.device)
+    if lists.numel() == 0:
+        return lists
+    rc = build.library("flash_attention_sm90").flash_attention_sm90_live_tiles(
+        qp.data_ptr(), kp.data_ptr(), lists.data_ptr(), B, Sq, Skv, qp.stride(0), kp.stride(0),
+        int(bool(causal)), int(window), _stream(qp.device))
+    build.check("flash_attention_sm90", rc)
+    return lists
 
 
 def latent_blend(preds: torch.Tensor, weights: torch.Tensor,

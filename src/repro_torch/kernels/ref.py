@@ -73,6 +73,52 @@ def flash_bf16_tolerance(q, k, v, q_positions, kv_positions, causal: bool,
     return 1.01 * (2.0 ** -8 * mean_abs_v + 2.0 ** -7 * plain.float().abs()) + 1e-6
 
 
+def live_tiles_plain(q_pos: torch.Tensor, kv_pos: torch.Tensor, BM: int, BN: int,
+                     causal: bool, window: int) -> torch.Tensor:
+    """The key tiles a flash kernel visits, in the layout of the wgmma
+    kernel's pre-pass (``csrc/flash_common.cuh: live_tiles``): int32
+    ``(B, ceil(Sq / BM), ntiles + 1)`` with ``ntiles = ceil(Skv / BN)``.
+    Row ``(b, j)`` lists the tiles of BN keys that queries ``j*BM ..``
+    of batch row b must visit, in key order: ``2 * tile`` when every pair
+    of the tile is attendable (BN valid keys, and each inside the causal
+    and window limits of every query of the block), ``2 * tile + 1`` when
+    some pair may be masked; then -1, and the count at ``[ntiles]``.
+
+    A tile is listed unless it has no attendable pair judged from the
+    block's smallest and largest query positions and the tile's smallest
+    and largest valid key positions: no key other than int32-max, or,
+    causally, its smallest key above the largest query, or, with a window,
+    its largest key at or below the smallest query minus the window.
+    """
+    qp, kp = q_pos.long(), kv_pos.long()
+    B, Sq = qp.shape
+    Skv = kp.shape[1]
+    nq, nt = -(-Sq // BM), -(-Skv // BN)
+    big = torch.iinfo(torch.int64).max
+    rows = torch.nn.functional.pad(qp, (0, nq * BM - Sq), value=INT32_MAX).view(B, nq, BM)
+    has_row = (torch.arange(nq * BM, device=qp.device) < Sq).view(1, nq, BM)
+    qlo = torch.where(has_row, rows, big).amin(-1, keepdim=True)          # (B, nq, 1)
+    qhi = torch.where(has_row, rows, -big).amax(-1, keepdim=True)
+    keys = torch.nn.functional.pad(kp, (0, nt * BN - Skv), value=INT32_MAX).view(B, 1, nt, BN)
+    valid = keys != INT32_MAX
+    nvalid = valid.sum(-1)                                                # (B, 1, nt)
+    kmin = torch.where(valid, keys, big).amin(-1)
+    kmax = torch.where(valid, keys, -big).amax(-1)
+    live = (nvalid > 0).expand(B, nq, nt)
+    clear = (nvalid == BN).expand(B, nq, nt)
+    if causal:
+        live = live & (kmin <= qhi)
+        clear = clear & (kmax <= qlo)
+    if window > 0:
+        live = live & (kmax > qlo - window)
+        clear = clear & (kmin > qhi - window)
+    tiles = torch.arange(nt, device=qp.device)
+    entry = torch.where(live, 2 * tiles + (~clear).long(), big)
+    entry = entry.sort(dim=-1).values               # the live entries first, in key order
+    entry = torch.where(entry == big, -1, entry)
+    return torch.cat([entry, live.sum(-1, keepdim=True)], -1).to(torch.int32)
+
+
 SKIP_EDGE_CASES = ("permuted", "reversed_runs", "padded_interior", "causal_first_key")
 
 

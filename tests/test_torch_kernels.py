@@ -365,3 +365,97 @@ def test_plain_flash_on_skip_edges_matches_reference(case):
     np.testing.assert_allclose(out[has_key], dense[has_key], **F32_TOL)
     np.testing.assert_allclose(out, pallas, **F32_TOL)
     assert float(np.abs(out[~has_key]).max(initial=0.0)) == 0.0
+
+
+def _live_positions(case, B, Sq, Skv):
+    """Positions of a live-tile case: a ``ref.skip_edge_positions`` case, or
+    ``random``: per batch row a random permutation of positions with a
+    tenth of the keys padded, causal with a window of Skv // 4."""
+    if case != "random":
+        return ref.skip_edge_positions(case, B, Sq, Skv, seed=5)
+    rng = np.random.default_rng(9)
+    qp = np.stack([rng.permutation(Skv)[:Sq] for _ in range(B)]).astype(np.int32)
+    kp = np.stack([rng.permutation(Skv) for _ in range(B)]).astype(np.int32)
+    kp[rng.random(kp.shape) < 0.1] = ref.INT32_MAX
+    return qp, kp, True, Skv // 4
+
+
+@pytest.mark.parametrize("BM,BN", [(128, 128), (64, 32)])
+@pytest.mark.parametrize("case", ref.SKIP_EDGE_CASES + ("random",))
+def test_live_tiles_plain_covers_the_mask(case, BM, BN):
+    """``ref.live_tiles_plain``, the list layout of the wgmma kernel's
+    pre-pass, held to ``ref.attention_mask``: every attendable pair lies
+    in a listed tile, a tile flagged "every pair attendable" has no
+    masked pair, an unlisted tile has no attendable pair; entries in key
+    order, -1 after them, the count last."""
+    B, Sq, Skv = 2, 300, 333
+    qp, kp, causal, window = _live_positions(case, B, Sq, Skv)
+    qp, kp = _t(qp, kp)
+    lists = ref.live_tiles_plain(qp, kp, BM, BN, causal, window)
+    nq, nt = -(-Sq // BM), -(-Skv // BN)
+    assert lists.shape == (B, nq, nt + 1) and lists.dtype == torch.int32
+    mask = ref.attention_mask(qp, kp, causal, window)
+    n_listed = n_clear = 0
+    for b in range(B):
+        for j in range(nq):
+            count = int(lists[b, j, nt])
+            entries = lists[b, j, :count].tolist()
+            assert lists[b, j, count:nt].tolist() == [-1] * (nt - count)
+            tiles = [e >> 1 for e in entries]
+            assert tiles == sorted(set(tiles))
+            flags = dict(zip(tiles, (e & 1 for e in entries)))
+            for t in range(nt):
+                block = mask[b, j * BM:(j + 1) * BM, t * BN:(t + 1) * BN]
+                if t not in flags:
+                    assert not bool(block.any()), (b, j, t)
+                elif flags[t] == 0:
+                    assert block.shape[1] == BN and bool(block.all()), (b, j, t)
+                    n_clear += 1
+            n_listed += count
+    assert n_listed > 0
+    if case == "padded_interior":
+        assert n_clear > 0          # the unmasked path is reached
+    if case == "causal_first_key":
+        assert n_listed < B * nq * nt   # some tiles are skipped
+
+
+def test_flash_live_tiles_on_the_cpu_is_the_plain_version():
+    qp, kp, causal, window = ref.skip_edge_positions("permuted", 2, 300, 333, seed=5)
+    qp, kp = _t(qp, kp)
+    before = ops.launch_counts()
+    got = ops.flash_live_tiles(qp, kp, causal=causal, window=window)
+    assert torch.equal(got, ref.live_tiles_plain(qp, kp, 128, 128, causal, window))
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype,D,q_len,kernel", [
+    (torch.bfloat16, 128, 1, "flash_attention_sm90"),       # the video DiT, any query count
+    (torch.bfloat16, 128, 3120, "flash_attention_sm90"),
+    (torch.bfloat16, 80, 4096, "flash_attention_sm90"),     # the LM prefill
+    (torch.bfloat16, 80, 128, "flash_attention_sm90"),      # one full 128-row block
+    (torch.bfloat16, 80, 127, "flash_attention"),
+    (torch.bfloat16, 80, 1, "flash_attention"),             # the LM decode step
+    (torch.bfloat16, 64, 4096, "flash_attention"),
+    (torch.float32, 128, 4096, "flash_attention"),          # f32: the FMA kernel
+    (torch.float32, 80, 4096, "flash_attention"),
+])
+def test_flash_kernel_dispatch_rule(dtype, D, q_len, kernel):
+    """bf16 at D 128, and bf16 at D 80 with at least ``SM90_MIN_QUERIES``
+    (128) queries, go to the wgmma kernel; the rest to flash_attention.cu."""
+    assert ops.SM90_MIN_QUERIES == 128
+    assert ops.flash_kernel(dtype, D, q_len) == kernel
+
+
+@pytest.mark.parametrize("kernel,dtype,D", [("flash_attention_sm90", torch.float32, 128),
+                                            ("flash_attention_sm90", torch.bfloat16, 64),
+                                            ("flash_attention", torch.bfloat16, 128),
+                                            ("flash_mma", torch.bfloat16, 64)])
+def test_flash_attention_refuses_a_kernel_not_built_for_the_inputs(kernel, dtype, D):
+    """A forced kernel must be built for the dtype and head dim, on the CPU
+    as on the card; nothing launches."""
+    q, k, v, qp, kp, _ = _qkv(1, 8, 8, 2, 2, D)
+    tq, tk, tv = (x.to(dtype) for x in _t(q, k, v))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="not built for|no flash kernel"):
+        ops.flash_attention(tq, tk, tv, *_t(qp, kp), kernel=kernel)
+    assert ops.launch_counts() == before

@@ -76,13 +76,13 @@ def _flash_launches():
 
 
 def _flash_checked(q, k, v, qp, kp, causal, window, kv_len=None, kernel=None):
-    """One launch of the flash kernel for q's dtype and head dim (it must
-    be ``kernel`` if given), held to the plain version on the same
-    inputs; returns (out, plain)."""
-    want = ops.flash_kernel(q.dtype, q.shape[-1])
-    assert kernel in (None, want)
+    """One launch of the flash kernel ``kernel`` (``flash_kernel``'s choice
+    for q's dtype, head dim and query count if None), held to the plain
+    version on the same inputs; returns (out, plain)."""
+    want = kernel or ops.flash_kernel(q.dtype, q.shape[-1], q.shape[1])
     before = _flash_launches()
-    out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kv_len=kv_len)
+    out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kv_len=kv_len,
+                              kernel=kernel)
     after = _flash_launches()
     assert {n: after[n] - before[n] for n in after} == {n: int(n == want) for n in after}
     kp_eff = kp if kv_len is None else torch.where(kp < kv_len[:, None], kp, ref.INT32_MAX)
@@ -97,9 +97,11 @@ def _flash_checked(q, k, v, qp, kp, causal, window, kv_len=None, kernel=None):
     return out, plain
 
 
-# (kernel, dtype, head dim): bf16 at D 128 runs on the wgmma kernel, bf16 at
-# D 80 (Zamba2) on mma.sync, f32 on the FMA kernel of flash_attention.cu
+# (kernel, dtype, head dim): bf16 at D 128 and 80 on the wgmma kernel, bf16
+# at D 80 (Zamba2) on mma.sync too (its decode step), f32 on the FMA kernel
+# of flash_attention.cu
 KERNEL_CASES = [("flash_attention_sm90", torch.bfloat16, 128),
+                ("flash_attention_sm90", torch.bfloat16, 80),
                 ("flash_attention", torch.bfloat16, 80), ("flash_attention", torch.float32, 128)]
 
 
@@ -167,23 +169,71 @@ SM90_CASES = [
     (2, 333, 517, 6, 3, True, 0),        # causal, ragged both ways
     (3, 1, 300, 4, 4, False, 0),         # one query
     (1, 130, 1, 4, 4, False, 0),         # one key
+    (1, 1000, 1000, 4, 4, True, 0),      # a causal prefill
 ]
 
 
+@pytest.mark.parametrize("D", [128, 80])
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,causal,window", SM90_CASES)
-def test_sm90_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, H, KV, causal, window):
-    q, k, v, qp, kp, _ = _inputs(B, Sq, Skv, H, KV, 128, seed=Sq + Skv)
+def test_sm90_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, H, KV, causal, window, D):
+    q, k, v, qp, kp, _ = _inputs(B, Sq, Skv, H, KV, D, seed=Sq + Skv)
     q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
     _flash_checked(q, k, v, qp.to(cuda_device), kp.to(cuda_device), causal, window,
                    kernel="flash_attention_sm90")
 
 
+@pytest.mark.parametrize("Skv", [63361, 63960])
+def test_sm90_flash_kernel_takes_any_key_count(cuda_device, Skv):
+    """Past the 63,360 keys that a live-tile list in shared memory allowed:
+    63,960 is the 161-frame latent's token count (41 x 30 x 52).  256
+    queries at the last positions, causal, so the plain version's score
+    slab stays (H, 256, Skv)."""
+    q, k, v, qp, kp, _ = _inputs(1, 256, Skv, 2, 2, 128, seed=Skv)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    _flash_checked(q, k, v, qp.to(cuda_device), kp.to(cuda_device), True, 0,
+                   kernel="flash_attention_sm90")
+
+
+def test_sm90_d80_reads_the_16_column_box(cuda_device):
+    """V is zero outside dims 64-79, so the whole output comes from the
+    16-column box's P.V product (its 32-byte-swizzle descriptor); and Q, K
+    are zero in dims 0-63, so the scores come from its Q.K^T k-step."""
+    q, k, v, qp, kp, _ = _inputs(2, 300, 333, 4, 2, 80, seed=11)
+    v[..., :64] = 0.0
+    q[..., :64] = 0.0
+    k[..., :64] = 0.0
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    out, _ = _flash_checked(q, k, v, qp.to(cuda_device), kp.to(cuda_device), True, 0,
+                            kernel="flash_attention_sm90")
+    assert float(out[..., :64].float().abs().max()) == 0.0
+    assert float(out[..., 64:].float().abs().max()) > 0.1
+
+
 def test_sm90_flash_kernel_refuses_other_types_and_dims(cuda_device):
     p = torch.zeros((1, 8), device=cuda_device, dtype=torch.int32)
-    for dtype, D in ((torch.float32, 128), (torch.bfloat16, 80)):
+    for dtype, D in ((torch.float32, 128), (torch.bfloat16, 64), (torch.float32, 80)):
         q = torch.zeros((1, 8, 2, D), device=cuda_device, dtype=dtype)
-        with pytest.raises(ValueError, match="bf16 at head dim 128"):
+        with pytest.raises(ValueError, match="flash_attention_sm90 is not built for"):
             ops.flash_attention_sm90(q, q, q, p, p)
+
+
+@pytest.mark.parametrize("case", ref.SKIP_EDGE_CASES + ("vdm_10s_keys",))
+def test_sm90_live_tile_pre_pass_equals_plain(cuda_device, case):
+    """The wgmma kernel's pre-pass writes exactly ``ref.live_tiles_plain``'s
+    lists: the entries, their flags and order, the -1 after them and the
+    count."""
+    if case == "vdm_10s_keys":
+        Sq, Skv = 256, 63960
+        qp = np.arange(Skv - Sq, Skv, dtype=np.int32)[None].repeat(2, 0)
+        kp = np.arange(Skv, dtype=np.int32)[None].repeat(2, 0)
+        kp[1, 5000:9000] = ref.INT32_MAX
+        causal, window = True, 40000
+    else:
+        qp, kp, causal, window = ref.skip_edge_positions(case, 2, 300, 333, seed=5)
+    qp, kp = (torch.from_numpy(x).to(cuda_device) for x in (qp, kp))
+    lists = ops.flash_live_tiles(qp, kp, causal=causal, window=window)
+    plain = ref.live_tiles_plain(qp, kp, 128, 128, causal, window)
+    assert lists.dtype == torch.int32 and torch.equal(lists, plain)
 
 
 def test_flash_kernel_zeroes_rows_without_keys(cuda_device):
