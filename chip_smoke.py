@@ -14,7 +14,9 @@ Phases, one line each (any failed check exits non-zero):
                and the mma.sync kernel), at the 161-frame latent's 63,960
                keys, and guidance_update on the 480p latent.  Then broken
                copies, built outside the checkout, must each fail a check:
-               two of mamba_ssd.cu, and three of the flash sources (a
+               three of mamba_ssd.cu (no +-60 clip, no state reset, one
+               TF32 pass instead of 3xTF32; each one's share of the limit
+               is printed per case), and three of the flash sources (a
                causal live-tile test with < for <=; the wgmma kernel
                without its accumulator's correction; its D-80 16-column
                box read with the 128-byte swizzle), each caught by a case
@@ -75,6 +77,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12        # dense tensor-core peak (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12        # dense TF32 tensor-core peak
+SSD_PASSES = 3                  # mamba_ssd issues each product as 3 TF32 products (3xTF32)
+SSD_SPLIT = ("(batch, head, 16-column slice) units of 4 warps, 4-5 a block sharing C, B^T "
+             "and the pre-pass's Gram")
 H100_BYTES_S = 3.35e12          # HBM3
 # stated tolerances, |kernel - plain| <= atol + rtol * |plain| elementwise;
 # bf16 flash is held to the bound of its two roundings instead,
@@ -90,9 +96,9 @@ GUIDANCE_LATENT = (1, 13, 60, 104, 16)     # the 480p latent of the reference's 
 GUIDANCE_W = 5.0
 # the earlier kernel times of the cases whose kernel changed (PERF.md's
 # kernel table, on an H100 80GB HBM3 at 700 W): the wgmma kernel with its
-# list in shared memory, and mma.sync at the D-80 prefill
+# list in shared memory, mma.sync at the D-80 prefill, and the f32-FMA mamba_ssd
 EARLIER_MS = {"flash_self_Twindow_bf16": 1.671, "flash_cross_bf16": 0.442,
-              "flash_lm_prefill_causal_bf16": 1.100}
+              "flash_lm_prefill_causal_bf16": 1.100, "mamba_ssd_prefill": 1.411}
 CODECS = ("int8", "displaced:int8-residual")    # phase serve_codec
 LATENT = (13, 30, 52)           # 480p/4s-class latent, cut from (13, 60, 104) for time
 K, R, STEPS = 4, 0.5, 4
@@ -103,8 +109,10 @@ DECODE_B, PROMPT, GEN, MAX_LEN = 4, 32, 32, 4096    # 4 requests, 32 + 32 tokens
 SSD_MUTANTS = {
     "no_clip": ("__device__ __forceinline__ float clip60(float v) { return fminf(fmaxf(v, -kClip), kClip); }",
                 "__device__ __forceinline__ float clip60(float v) { return v; }"),
-    "no_state_reset": ("    for (int i = tid; i < N * P; i += kThreads) ss[i] = 0.f;  "
-                       "// S = 0 for every (batch, head)\n", ""),
+    "no_state_reset": ("    if (active) for (int i = ut; i < N * XP; i += kUnitThreads) ss[i] = 0.f;  "
+                       "// S = 0 for every (batch, head, slice)\n", ""),
+    # 1xTF32: the two products of the low halves left out
+    "one_pass_tf32": ("  mma(small, alo, bhi);\n  mma(small, ahi, blo);\n", ""),
 }
 # broken copies of the flash sources: (file, source text, replacement); each
 # must fail the flash check on at least one case
@@ -527,16 +535,19 @@ def ssd_case(name, b, s, h, p, n, chunk, seed, steep=False, reps=10):
     ops.mamba_ssd.launches = before       # comparison launches do not count
     # the factorized scan's multiply-adds: per (batch, head, chunk) the causal
     # intra-chunk product, the C.S readout and the state update; per
-    # (batch, chunk) the causal C.B Gram (the kernel recomputes it per head)
+    # (batch, chunk) the causal C.B Gram.  The kernel issues each as
+    # SSD_PASSES TF32 products, so the operations bound is at the TF32 rate
+    # over SSD_PASSES
     nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
     macs = b * h * nc * (tri * p + 2 * chunk * n * p) + b * nc * tri * n
     nbytes = 4 * (2 * b * s * h * p + 2 * b * s * h + 2 * b * s * n)
-    t_ops, t_bytes = 2.0 * macs / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
+    t_ops = 2.0 * macs * SSD_PASSES / H100_TF32_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_S * 1e3
     return {
         "case": name, "shape": [b, s, h, p, n], "chunk": chunk, "steep": steep,
         "max_abs_err": err, "tol": SSD_TOL, "err_share_of_limit": share, "ms": kernel_ms,
-        "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "earlier_ms": EARLIER_MS.get(name), "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "tflops": 2.0 * macs / kernel_ms / 1e9,
     }, (name, args, plain, chunk)
 
@@ -544,7 +555,8 @@ def ssd_case(name, b, s, h, p, n, chunk, seed, steep=False, reps=10):
 def ssd_mutants(kept):
     """Build each broken copy of mamba_ssd.cu outside the checkout (in
     parallel), serve it in place of the kernel, and require that the
-    mamba_ssd check fails on at least one of the ``kept`` cases."""
+    mamba_ssd check fails on at least one of the ``kept`` cases.  Returns,
+    per mutant, the cases it failed and its share of the limit on each."""
     import torch
     from repro_torch.kernels import build, ops
 
@@ -552,19 +564,22 @@ def ssd_mutants(kept):
     tmp, built = build_mutants("mamba_ssd_mutants_", mutants, ("mamba_ssd.cu",),
                                {m: ("mamba_ssd",) for m in mutants})
     try:
-        before, caught = ops.mamba_ssd.launches, {}
+        before, caught, shares = ops.mamba_ssd.launches, {}, {}
         for m, sos in built.items():
-            caught[m] = []
+            caught[m], shares[m] = [], {}
             with build.substituted("mamba_ssd", build.load("mamba_ssd", sos["mamba_ssd"])):
                 for name, args, plain, chunk in kept:
                     out = ops.mamba_ssd(*args, chunk=chunk)
                     torch.cuda.synchronize()
                     err, share, ok = ssd_agrees(out, plain)
+                    shares[m][name] = share
                     if not ok:
                         caught[m].append(f"{name} ({share:.3g} of the limit)")
+            print(f"phase=kernels mutant=mamba_ssd:{m} share_of_limit="
+                  + ",".join(f"{c}:{v:.3g}" for c, v in shares[m].items()), flush=True)
             check(caught[m], f"mutant {m} of mamba_ssd.cu passed every check")
         ops.mamba_ssd.launches = before
-        return caught
+        return caught, shares
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1100,14 +1115,21 @@ def run() -> int:
         flash_kept.append(kept)
     guidance = [guidance_case(torch.float32), guidance_case(torch.bfloat16)]
     # the Mamba2 scan at Zamba2's prefill (d_inner 5120 = 80 heads x 64,
-    # state 64, chunk 64), a ragged length, a short 16/16 shape with more
-    # (batch, head) items than blocks, and steep decays that reach the clip
+    # state 64, chunk 64), there with steep decays that reach the clip, a
+    # ragged length, a short 16/16 shape, steep decays on a short prompt,
+    # the largest block the FMA kernel took (p 128, n 64, chunk 112: one
+    # stage), and more tasks than the card holds at once (blocks take
+    # several in turn, so a state not reset per unit shows)
     lm_heads = lm_cfg.ssm_expand * lm_cfg.d_model // lm_cfg.ssm_headdim
     ssd, ssd_kept = [], []
     for args in (("mamba_ssd_prefill", PREFILL_B, PREFILL_S, lm_heads, 64, 64, 64, 1),
+                 ("mamba_ssd_prefill_steep", PREFILL_B, PREFILL_S, lm_heads, 64, 64, 64, 5,
+                  True),
                  ("mamba_ssd_ragged", PREFILL_B, 4000, lm_heads, 64, 64, 64, 2),
                  ("mamba_ssd_short16", 2, 200, 160, 16, 16, 32, 3),
-                 ("mamba_ssd_steep", PREFILL_B, 512, lm_heads, 64, 64, 64, 4, True)):
+                 ("mamba_ssd_steep", PREFILL_B, 512, lm_heads, 64, 64, 64, 4, True),
+                 ("mamba_ssd_widest", 1, 1000, 8, 128, 64, 112, 6),
+                 ("mamba_ssd_many_tasks", 2048, 40, 2, 16, 16, 16, 7)):
         rec, kept = ssd_case(*args)
         ssd.append(rec)
         ssd_kept.append(kept)
@@ -1122,7 +1144,8 @@ def run() -> int:
               f"share_of_limit={c['err_share_of_limit']:.3f} kernel_ms={c['ms']:.4f}{earlier} "
               f"plain_ms={c['plain_ms']:.4f} library_ms={lib} "
               f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
-    caught = {f"mamba_ssd:{m}": v for m, v in ssd_mutants(ssd_kept).items()}
+    ssd_caught, record["mamba_ssd_mutant_shares"] = ssd_mutants(ssd_kept)
+    caught = {f"mamba_ssd:{m}": v for m, v in ssd_caught.items()}
     caught.update({f"flash:{m}": v for m, v in flash_mutants(flash_kept).items()})
     del ssd_kept, flash_kept
     record["mutants"] = caught
@@ -1430,8 +1453,9 @@ def run() -> int:
                    {f"serve_codec:{c}": n["int8_quantize"] for c, n in coded_counts.items()}),
         kernel_row("dequant_blend", "src/repro/kernels/wire_codec.py:131", dequant[0],
                    {"coded_stitch": stitch_counts["dequant_blend"]}),
-        kernel_row("mamba_ssd", "src/repro/kernels/mamba_ssd.py:111", ssd[0],
-                   {"lm_serve:prefill": lm_prefill_counts["mamba_ssd"]}),
+        {**kernel_row("mamba_ssd", "src/repro/kernels/mamba_ssd.py:111", ssd[0],
+                      {"lm_serve:prefill": lm_prefill_counts["mamba_ssd"]}),
+         "precision": f"{SSD_PASSES}xtf32", "work_split": SSD_SPLIT},
         kernel_row("guidance_update", "src/repro/kernels/guidance_update.py:31", guidance[0],
                    {"guidance": guidance_counts["guidance_update"]}),
     ]}

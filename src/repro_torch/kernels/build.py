@@ -71,8 +71,10 @@ _SIGNATURES = {
         "dequant_blend_error_string": ([_I], ctypes.c_char_p),
     },
     "mamba_ssd": {
-        # x, log_decay, scale, B, C, y, b, s, h, p, n, chunk, stream
-        "mamba_ssd_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        # x, log_decay, scale, B, C, y, scratch, b, s, h, p, n, chunk, stream
+        "mamba_ssd_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        # b, s, h, n, chunk -> bytes of scratch (each chunk's Gram, B^T, scalars)
+        "mamba_ssd_scratch_bytes": ([_I, _I, _I, _I, _I], _L),
         "mamba_ssd_error_string": ([_I], ctypes.c_char_p),
     },
     "guidance_update": {

@@ -351,9 +351,11 @@ def mamba_ssd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
     ``models/ssm.gated_linear_scan`` (centred exponents clipped to +-60),
     so ``chunk`` changes the result in the last bits.
 
-    CUDA: ``csrc/mamba_ssd.cu``, f32, p, n and chunk multiples of 16 in
-    [16, 128] whose block fits the card's shared memory (the launcher
-    refuses the rest).
+    CUDA: ``csrc/mamba_ssd.cu`` (3xTF32 tensor-core products), f32, p, n
+    and chunk multiples of 16 in [16, 128] whose block fits the card's
+    shared memory (the launcher refuses the rest).  A scratch buffer of the
+    chunks' Gram matrices and per-head decay scalars, written by the
+    kernel's pre-pass, is allocated here.
     """
     if x.device.type == "cpu":
         return ref.mamba_ssd_plain(x, log_decay, scale, B, C, chunk)
@@ -381,9 +383,11 @@ def mamba_ssd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
     if y.numel() == 0:
         return y
     lib = build.library("mamba_ssd")
+    scratch = torch.empty(lib.mamba_ssd_scratch_bytes(b, s, h, n, int(chunk)) // 4,
+                          dtype=torch.float32, device=x.device)
     rc = lib.mamba_ssd_fwd(x.data_ptr(), log_decay.data_ptr(), scale.data_ptr(),
-                           B.data_ptr(), C.data_ptr(), y.data_ptr(), b, s, h, p, n,
-                           int(chunk), _stream(x.device))
+                           B.data_ptr(), C.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+                           b, s, h, p, n, int(chunk), _stream(x.device))
     build.check("mamba_ssd", rc)
     mamba_ssd.launches += 1
     return y

@@ -333,6 +333,72 @@ def mamba_ssd_plain(x, log_decay, scale, B, C, chunk: int = 64) -> torch.Tensor:
                     chunk, True).to(x.dtype)
 
 
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``; inf and NaN pass."""
+    t = t.float().contiguous()
+    bits = (t.view(torch.int32) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(t), bits.view(torch.float32), t)
+
+
+def split_tf32(t: torch.Tensor):
+    """``(hi, lo)`` with ``hi = round_tf32(t)`` and ``lo = round_tf32(t -
+    hi)``: ``hi + lo`` is ``t`` to within 2^-22 of ``|t|``."""
+    hi = round_tf32(t)
+    return hi, round_tf32(t.float() - hi)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """``a @ b`` as the tensor cores take it from f32 operands split by
+    ``split_tf32``: 3 passes ``lo.hi + hi.lo + hi.hi`` (3xTF32), or 1
+    pass ``hi.hi``; each product exact in f32, sums in f32."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    if passes == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def mamba_ssd_tf32(x, log_decay, scale, B, C, chunk: int = 64,
+                   passes: int = 3) -> torch.Tensor:
+    """The ``mamba_ssd`` kernel's arithmetic on the CPU: the function of
+    ``mamba_ssd_plain`` with each of its four products (the causal Gram
+    C.B^T, G.x with G scaled by ``dt_j exp(clip(c - cum_j))``, C.S, and
+    ``B^T (exp(total - cum_j) dt_j x_j)``) in ``tf32_matmul`` of
+    ``passes``, in the kernel's order of scalings.  f32 out."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    F = torch.nn.functional
+    xq = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
+    a = F.pad(log_decay.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, h).permute(0, 3, 1, 2)
+    dt = F.pad(scale.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, h).permute(0, 3, 1, 2)
+    Bq = F.pad(B.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+    Cq = F.pad(C.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+    cum = torch.cumsum(a, dim=-1)                                    # (b, h, nc, Q)
+    total = cum[..., -1]
+    center = 0.5 * (cum.amax(dim=-1, keepdim=True) + cum.amin(dim=-1, keepdim=True))
+    ai = torch.exp(torch.clamp(cum - center, -60.0, 60.0))
+    dtb = dt * torch.exp(torch.clamp(center - cum, -60.0, 60.0))
+    wj = torch.exp(total[..., None] - cum) * dt
+    ec = torch.exp(cum)
+    lmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    gram = torch.where(lmask, tf32_matmul(Cq, Bq.transpose(-1, -2), passes), 0.0)
+    S = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        gd = gram[:, None, c] * dtb[:, :, c, None, :]               # (b, h, Q, Q)
+        yi = tf32_matmul(gd, xq[:, :, c], passes)
+        yS = tf32_matmul(Cq[:, None, c], S, passes)
+        ys.append(ai[:, :, c, :, None] * yi + ec[:, :, c, :, None] * yS)
+        wx = wj[:, :, c, :, None] * xq[:, :, c]                      # (b, h, Q, p)
+        S = (torch.exp(total[:, :, c])[..., None, None] * S
+             + tf32_matmul(Bq[:, None, c].transpose(-1, -2), wx, passes))
+    y = torch.stack(ys, dim=2).permute(0, 2, 3, 1, 4).reshape(b, nc * chunk, h, p)
+    return y[:, :s]
+
+
 def mamba_ssd_ref(x, log_decay, scale, B, C) -> torch.Tensor:
     """The textbook SSD oracle of the reference's tests
     (``repro/kernels/ref.py:mamba_ssd_ref``): ``factorized=False`` at

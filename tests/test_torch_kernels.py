@@ -459,3 +459,76 @@ def test_flash_attention_refuses_a_kernel_not_built_for_the_inputs(kernel, dtype
     with pytest.raises(ValueError, match="not built for|no flash kernel"):
         ops.flash_attention(tq, tk, tv, *_t(qp, kp), kernel=kernel)
     assert ops.launch_counts() == before
+
+
+def _f32_from_bits(*bits):
+    return torch.tensor(np.array(bits, dtype=np.uint32).view(np.float32))
+
+
+def test_round_tf32_rounds_to_nearest_ties_away_from_zero():
+    """``ref.round_tf32`` keeps 10 mantissa bits as ``cvt.rna.tf32.f32``:
+    below half an ulp (2^-13 of the f32 mantissa's 23 bits) rounds down,
+    half an ulp rounds away from zero whatever the sign, inf and NaN pass."""
+    x = _f32_from_bits(0x3F800FFF, 0x3F801000, 0x3F803000, 0xBF801000, 0xBF800FFF,
+                       0x7F800000, 0xFF800000, 0x00001000, 0x3FFFF000)
+    want = _f32_from_bits(0x3F800000, 0x3F802000, 0x3F804000, 0xBF802000, 0xBF800000,
+                          0x7F800000, 0xFF800000, 0x00002000, 0x40000000)
+    assert torch.equal(ref.round_tf32(x), want)
+    assert torch.isnan(ref.round_tf32(torch.tensor([float("nan")]))).all()
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy((rng.normal(size=4096) * 10.0 ** rng.uniform(-8, 8, 4096))
+                         .astype(np.float32))
+    r = ref.round_tf32(v)
+    assert bool(((r.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((r - v).abs() <= 2.0 ** -11 * v.abs()).all())
+
+
+def test_split_tf32_recovers_the_f32_operand():
+    """``hi + lo`` of ``ref.split_tf32`` is the f32 operand to within
+    2^-22 of its magnitude; both halves are TF32 values."""
+    rng = np.random.default_rng(1)
+    v = torch.from_numpy((rng.normal(size=8192) * 10.0 ** rng.uniform(-20, 20, 8192))
+                         .astype(np.float32))
+    hi, lo = ref.split_tf32(v)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((lo.view(torch.int32) & 0x1FFF) == 0).all())
+    err = (hi.double() + lo.double() - v.double()).abs()
+    assert bool((err <= 2.0 ** -22 * v.double().abs()).all())
+    assert not bool(((hi.double() - v.double()).abs() <= 2.0 ** -22 * v.double().abs()).all())
+
+
+SSD_TOL = dict(rtol=5e-4, atol=5e-4)   # the reference's own SSD tolerance
+
+
+def _scan_args(b, s, h, p, n, seed, steep):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.2, size=(b, s, h)).astype(np.float32)
+    a = dt * -rng.uniform(0.5, 8.0, size=(h,)).astype(np.float32)
+    if steep:
+        a = -rng.uniform(2.0, 6.0, size=(b, s, h)).astype(np.float32)
+    B = rng.normal(size=(b, s, n)).astype(np.float32)
+    C = rng.normal(size=(b, s, n)).astype(np.float32)
+    return x, a, dt, B, C
+
+
+@pytest.mark.parametrize("steep", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 100, 4, 16, 16, 32), (1, 150, 2, 64, 64, 64)])
+def test_mamba_ssd_tf32_emulation_matches_jax_scan(b, s, h, p, n, chunk, steep):
+    """The kernel's 3xTF32 arithmetic (``ref.mamba_ssd_tf32``) within the
+    reference's SSD tolerance of ``gated_linear_scan(factorized=True)``;
+    one TF32 pass's share of that limit is printed, not asserted."""
+    from repro.models import ssm as jssm
+
+    x, a, dt, B, C = _scan_args(b, s, h, p, n, seed=s + h + steep, steep=steep)
+    want = np.asarray(jssm.gated_linear_scan(
+        *map(jnp.asarray, (x, a, dt, B[:, :, None], C[:, :, None])), chunk=chunk,
+        factorized=True))
+    targs = _t(x, a, dt, B, C)
+    got = ref.mamba_ssd_tf32(*targs, chunk=chunk)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **SSD_TOL)
+    limit = SSD_TOL["atol"] + SSD_TOL["rtol"] * np.abs(want)
+    one = ref.mamba_ssd_tf32(*targs, chunk=chunk, passes=1).numpy()
+    print(f"1xTF32 share of the limit: {float(np.max(np.abs(one - want) / limit)):.3g}; "
+          f"3xTF32: {float(np.max(np.abs(got.numpy() - want) / limit)):.3g}")

@@ -351,7 +351,17 @@ SSD_CASES = [
     (1, 64, 8, 16, 16, 16),
     (2, 4000, 8, 64, 64, 64),        # Zamba2's p, n and chunk, ragged s
     (1, 300, 320, 16, 16, 32),       # more (batch, head) items than blocks
+    (2, 4096, 80, 64, 64, 64),       # Zamba2-2.7B's prefill, whole
+    (1, 130, 4, 48, 32, 32),         # p 48: a narrower last slice if slices are 32 wide
+    (2048, 40, 2, 16, 16, 16),       # more tasks than resident blocks: blocks take several
 ]
+
+# (chunk, p, n) the FMA kernel's shared-memory check took that no other
+# accepted shape exceeds in all three: every accepted shape is under one
+SSD_WIDEST = [(64, 128, 128), (80, 80, 128), (80, 112, 112), (80, 128, 96), (96, 32, 128),
+              (96, 64, 112), (96, 96, 96), (96, 128, 80), (112, 16, 112), (112, 48, 96),
+              (112, 80, 80), (112, 128, 64), (128, 32, 80), (128, 80, 64), (128, 112, 48),
+              (128, 128, 32)]
 
 
 def _ssd_inputs(b, s, h, p, n, seed, steep=False):
@@ -378,6 +388,16 @@ def test_mamba_ssd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk, steep
     assert ops.mamba_ssd.launches == before + 1
     plain = ref.mamba_ssd_plain(*args, chunk=chunk)
     assert out.shape == (b, s, h, p) and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    err = (out - plain).abs()
+    assert bool((err <= 5e-4 + 5e-4 * plain.abs()).all()), f"max err {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("chunk,p,n", SSD_WIDEST)
+def test_mamba_ssd_kernel_takes_every_shape_the_fma_kernel_took(cuda_device, chunk, p, n):
+    args = [t.to(cuda_device) for t in _ssd_inputs(1, 2 * chunk + 5, 3, p, n, chunk + p + n)]
+    out = ops.mamba_ssd(*args, chunk=chunk)
+    plain = ref.mamba_ssd_plain(*args, chunk=chunk)
     assert bool(torch.isfinite(out).all())
     err = (out - plain).abs()
     assert bool((err <= 5e-4 + 5e-4 * plain.abs()).all()), f"max err {float(err.max()):.3e}"
