@@ -12,15 +12,22 @@ Phases, one line each (any failed check exits non-zero):
                flash kernels also on positions that put their skipping of
                masked key tiles at its edges (D 80 through both the wgmma
                and the mma.sync kernel), at the 161-frame latent's 63,960
-               keys, and guidance_update on the 480p latent.  Then broken
-               copies, built outside the checkout, must each fail a check:
-               three of mamba_ssd.cu (no +-60 clip, no state reset, one
-               TF32 pass instead of 3xTF32; each one's share of the limit
-               is printed per case), and three of the flash sources (a
-               causal live-tile test with < for <=; the wgmma kernel
-               without its accumulator's correction; its D-80 16-column
-               box read with the 128-byte swizzle), each caught by a case
-               of the D-80 wgmma kernel.
+               keys, and guidance_update on the 480p latent.  latent_blend
+               (bit-equal; its library yardstick a banded torch.matmul)
+               and int8_quantize (bit-equal; one kernel a call, no memset)
+               also at the 480p latent (21, 60, 104) with a cold L2; their
+               ptxas lines must show no spill.  Then broken copies, built
+               outside the checkout, must each fail a check: three of
+               mamba_ssd.cu (no +-60 clip, no state reset, one TF32 pass
+               instead of 3xTF32; each one's share of the limit is printed
+               per case), three of the flash sources (a causal live-tile
+               test with < for <=; the wgmma kernel without its
+               accumulator's correction; its D-80 16-column box read with
+               the 128-byte swizzle), each caught by a case of the D-80
+               wgmma kernel, two of int8_quantize.cu (a block-local max
+               with no exchange between a slab's blocks; a reciprocal
+               multiply) and two of latent_blend.cu (the k order reversed;
+               the last covering window dropped).
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -87,7 +94,11 @@ H100_BYTES_S = 3.35e12          # HBM3
 # 2^-8 * attention(q, k, |v|) + 2^-7 * |plain| (kernels/ref.py:
 # flash_bf16_tolerance), about 3e-3 + 8e-3 |plain| for N(0, 1) inputs
 FLASH_F32_TOL = (1e-4, 1e-4)    # f32 throughout: summation order only
-BLEND_TOL = (1e-6, 0.0)         # same f32 operations in the same order: expect 0
+BLEND_TOL = (1e-6, 0.0)         # dequant_blend: same f32 operations in the same order
+# latent_blend is held bit-equal (max_abs_err 0); its library yardstick, the
+# banded matmul, to (1e-5, 1e-5): w / Z rounded once more, the same <= 4
+# nonzero terms a row summed in another order (a few ulps of max |preds|)
+BLEND_LIBRARY_TOL = (1e-5, 1e-5)
 SSD_TOL = (5e-4, 5e-4)          # the reference's own SSD tolerance: f32 throughout,
                                 # the same formulas summed in another order
 LM_CARD_VS_CPU_REL_L2 = 1e-3    # small_lm: f32 on both sides (no TF32), sums in other orders
@@ -96,11 +107,17 @@ GUIDANCE_LATENT = (1, 13, 60, 104, 16)     # the 480p latent of the reference's 
 GUIDANCE_W = 5.0
 # the earlier kernel times of the cases whose kernel changed (PERF.md's
 # kernel table, on an H100 80GB HBM3 at 700 W): the wgmma kernel with its
-# list in shared memory, mma.sync at the D-80 prefill, and the f32-FMA mamba_ssd
+# list in shared memory, mma.sync at the D-80 prefill, the f32-FMA
+# mamba_ssd, and the two-kernel int8_quantize and one-load-at-a-time
+# latent_blend (the 480p cases: tools/quant_blend_times.py on those
+# kernels' sources, cold L2, the mean of its two turns beside the new ones)
 EARLIER_MS = {"flash_self_Twindow_bf16": 1.671, "flash_cross_bf16": 0.442,
-              "flash_lm_prefill_causal_bf16": 1.100, "mamba_ssd_prefill": 1.411}
+              "flash_lm_prefill_causal_bf16": 1.100, "mamba_ssd_prefill": 1.411,
+              "blend_dim0": 0.0120, "quant_T_transfer": 0.0069,
+              "blend_dim0_480p": 0.1080, "quant_T_cores_480p": 0.0223}
 CODECS = ("int8", "displaced:int8-residual")    # phase serve_codec
 LATENT = (13, 30, 52)           # 480p/4s-class latent, cut from (13, 60, 104) for time
+LATENT_480P = (21, 60, 104)     # vdm_5s (81 frames at 480p): the kernels' bandwidth cases
 K, R, STEPS = 4, 0.5, 4
 PREFILL_B, PREFILL_S = 2, 4096  # phase lm_serve: 2 prompts of 4096 tokens
 DECODE_B, PROMPT, GEN, MAX_LEN = 4, 32, 32, 4096    # 4 requests, 32 + 32 tokens, cache 4096
@@ -130,6 +147,21 @@ FLASH_MUTANT_LIBS = {"skip_off_by_one": ("flash_attention", "flash_attention_sm9
                      "d80_tail_swizzle": ("flash_attention_sm90",)}
 FLASH_SOURCES = ("flash_attention", "flash_attention_sm90")
 NEW_KERNEL = ("flash_attention_sm90", 80)   # each flash mutant must fail one of its cases
+# broken copies of the wire quantize and the stitch: (file, source text,
+# replacement); each must fail its kernel's check on at least one case
+QB_MUTANTS = {
+    # each block's own max as the slab's: no exchange across the grid barrier
+    "int8_quantize:block_local_max": ("int8_quantize.cu", "__ldcg(part + n * P + j)", "m"),
+    "int8_quantize:reciprocal_multiply": ("int8_quantize.cu", "__fdiv_rn(v, scale)",
+                                          "__fmul_rn(v, __frcp_rn(scale))"),
+    # the cover list in descending k
+    "latent_blend:k_order_reversed": ("latent_blend.cu",
+                                      "__popc(ballot & ((1u << lane) - 1u))",
+                                      "(__popc(ballot >> lane) - 1)"),
+    "latent_blend:last_window_dropped": ("latent_blend.cu", "n_cover = __popc(ballot);",
+                                         "n_cover = __popc(ballot) - 1;"),
+}
+NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
 
 
 class SmokeFailure(RuntimeError):
@@ -584,54 +616,102 @@ def ssd_mutants(kept):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def blend_case(dim: int, batch: int, channels: int, reps=20):
-    """latent_blend vs plain on the serving path's (K, W, F) for ``dim``."""
+def device_ops(fn) -> dict:
+    """The device operations of one call of ``fn`` (kernels, memsets) by
+    name, with their counts, from ``torch.profiler``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:90]: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def blend_matrix(weights, normalizer, starts, window: int, extent: int):
+    """The stitch as one banded matrix (E, K*W) for ``torch.matmul``:
+    ``M[x, k*W + j] = W_k[j] / Z[x]`` where window k covers x at j."""
+    import torch
+
+    K = weights.shape[0]
+    m = torch.zeros((extent, K * window), dtype=torch.float32, device=weights.device)
+    j = torch.arange(window, device=weights.device)
+    for k, s in enumerate(starts):
+        m[s + j, k * window + j] = weights[k] / normalizer[s + j]
+    return m
+
+
+def blend_case(dim: int, batch: int, channels: int, latent=LATENT, tag: str = "",
+               cold_l2: bool = False, reps=20):
+    """latent_blend vs plain on the serving path's (K, W, F) for ``dim`` of
+    ``latent``: bit-equal.  Its library yardstick is one banded
+    ``torch.matmul`` (``blend_matrix``, built outside the timed region,
+    TF32 off), held to the plain version within ``BLEND_LIBRARY_TOL``.
+    Returns the record and the inputs with the plain output, for the
+    mutation checks."""
     import torch
     from repro_torch.core.spmd import BlendTables
     from repro_torch.core.uniform import plan_uniform
     from repro_torch.kernels import ops, ref
 
+    name = f"blend_dim{dim}{tag}"
     patch = (1, 2, 2)
-    plan = plan_uniform(LATENT[dim], patch[dim], K, R, dim)
-    rest = [batch] + [LATENT[d] for d in range(3) if d != dim] + [channels]
+    plan = plan_uniform(latent[dim], patch[dim], K, R, dim)
+    rest = [batch] + [latent[d] for d in range(3) if d != dim] + [channels]
     F_ = int(math.prod(rest))
     g = torch.Generator(device="cuda").manual_seed(dim)
     preds = torch.randn((K, plan.window, F_), generator=g, device="cuda")
     tables = BlendTables.build(plan, "cuda")
+    args = (preds, tables.weights, tables.normalizer, plan.starts, plan.window, plan.extent)
     before = ops.latent_blend.launches
-    out = ops.latent_blend(preds, tables.weights, tables.normalizer, plan.starts,
-                           plan.window, plan.extent)
-    plain = ref.latent_blend_ref(preds, tables.weights, tables.normalizer, plan.starts,
-                                 plan.window, plan.extent)
+    out = ops.latent_blend(*args)
+    plain = ref.latent_blend_ref(*args)
     torch.cuda.synchronize()
-    err, share, ok = max_err(out, plain, BLEND_TOL[0] + BLEND_TOL[1] * plain.abs())
-    check(ok, f"latent_blend dim {dim}: kernel disagrees with plain version "
-              f"(max abs err {err:.3e})")
+    err = float((out - plain).abs().max())
+    check(bool(torch.equal(out, plain)),
+          f"{name}: kernel differs from its plain version (max abs err {err:.3e})")
     # ~10 us of work: device time, not events (they would time the wrapper)
-    kernel_ms = device_ms(lambda: ops.latent_blend(preds, tables.weights, tables.normalizer,
-                                                   plan.starts, plan.window, plan.extent),
-                          reps)
-    plain_ms = device_ms(lambda: ref.latent_blend_ref(preds, tables.weights,
-                                                      tables.normalizer, plan.starts,
-                                                      plan.window, plan.extent), reps)
+    kernel_ms = device_ms(lambda: ops.latent_blend(*args), reps, cold_l2)
+    plain_ms = device_ms(lambda: ref.latent_blend_ref(*args), reps, cold_l2)
     ops.latent_blend.launches = before
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    band = blend_matrix(tables.weights, tables.normalizer, plan.starts, plan.window,
+                        plan.extent)
+    flat = preds.view(K * plan.window, F_)
+    lib = torch.matmul(band, flat)
+    lib_err, lib_share, lib_ok = max_err(lib, plain, BLEND_LIBRARY_TOL[0]
+                                         + BLEND_LIBRARY_TOL[1] * plain.abs())
+    check(lib_ok, f"{name}: the banded matmul is not the stitch (max abs err {lib_err:.3e}, "
+                  f"{lib_share:.2f} of the limit {BLEND_LIBRARY_TOL})")
+    library_ms = device_ms(lambda: torch.matmul(band, flat), reps, cold_l2)
+    del lib, band
     nbytes = (preds.numel() + tables.weights.numel() + tables.normalizer.numel()
               + out.numel()) * 4
     flops = 2.0 * preds.numel() + out.numel()
     t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
     return {
-        "case": f"blend_dim{dim}", "K": K, "W": plan.window, "E": plan.extent, "F": F_,
-        "max_abs_err": err, "tol": BLEND_TOL, "err_share_of_limit": share, "ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": None, "bound_ms": max(t_ops, t_bytes),
+        "case": name, "K": K, "W": plan.window, "E": plan.extent, "F": F_,
+        "starts": list(plan.starts), "max_abs_err": err, "tol": "bit-equal",
+        "err_share_of_limit": 0.0, "cold_l2": cold_l2, "ms": kernel_ms,
+        "earlier_ms": EARLIER_MS.get(name), "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": "torch.matmul(banded (E, K*W) weights / Z, preds (K*W, F))",
+        "library_max_abs_err": lib_err, "library_share_of_limit": lib_share,
+        "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
+    }, (name, args, plain)
 
 
-def quant_case(name: str, N: int, R: int, F: int, qmax: int = 127, reps=20, seed=0):
+def quant_case(name: str, N: int, R: int, F: int, qmax: int = 127, reps=20, seed=0,
+               cold_l2: bool = False):
     """int8_quantize vs plain on N slabs (N, R, F): codes and scales bit-equal;
     slab 1 is all zero (scale 1e-20 / qmax), slab 2 carries half-way values
     (``ref.plant_halfway_inputs``).  Then a NaN in slab 0 must make its
-    scale NaN (and its decoded message non-finite), no other slab's."""
+    scale NaN (and its decoded message non-finite), no other slab's.  One
+    call must be one kernel on the device and nothing else (no memset).
+    Returns the record and the inputs with the plain output, for the
+    mutation checks."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -662,21 +742,65 @@ def quant_case(name: str, N: int, R: int, F: int, qmax: int = 127, reps=20, seed
           f"int8_quantize {name}: NaN slab scales {ns.tolist()}")
     check(not bool(torch.isfinite(decoded[0]).any()) and bool(torch.isfinite(decoded[1:]).all()),
           f"int8_quantize {name}: the NaN slab's decoded message is not all non-finite")
+    d_ops = device_ops(lambda: ops.int8_quantize(x, qmax))
+    check(len(d_ops) == 1 and sum(d_ops.values()) == 1
+          and "quantize_kernel" in next(iter(d_ops)),
+          f"int8_quantize {name}: one call ran {d_ops} on the device, not one kernel")
     # ~10 us of work: device time, not events
-    kernel_ms = device_ms(lambda: ops.int8_quantize(x, qmax), reps)
-    plain_ms = device_ms(lambda: ref.int8_quantize_ref(x, qmax), reps)
+    kernel_ms = device_ms(lambda: ops.int8_quantize(x, qmax), reps, cold_l2)
+    plain_ms = device_ms(lambda: ref.int8_quantize_ref(x, qmax), reps, cold_l2)
     ops.int8_quantize.launches = before     # comparison launches do not count
     nbytes = x.numel() * 4 + wire.numel() + N * 4
     flops = 5.0 * x.numel()                 # |x|, max, divide, round, clip
     t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
     return {
         "case": f"quant_{name}", "shape": [N, R, F], "qmax": qmax, "max_abs_err": err,
-        "halfway_values": n_halfway,
+        "halfway_values": n_halfway, "device_ops_per_call": d_ops,
         "tol": "bit-equal codes and scales", "err_share_of_limit": 0.0,
-        "nan_slab_scale_nan": True, "ms": kernel_ms, "plain_ms": plain_ms,
+        "nan_slab_scale_nan": True, "cold_l2": cold_l2, "ms": kernel_ms,
+        "earlier_ms": EARLIER_MS.get(f"quant_{name}"), "plain_ms": plain_ms,
         "library_ms": None, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
+    }, (f"quant_{name}", x, qmax, (pw, ps))
+
+
+def quant_blend_mutants(quant_kept, blend_kept):
+    """Build each broken copy of int8_quantize.cu and latent_blend.cu
+    (``QB_MUTANTS``) outside the checkout, serve it in place of its kernel
+    and require that the kernel's bit-equality check fails on at least one
+    of the kept cases; returns the cases that caught each."""
+    import torch
+    from repro_torch.kernels import build, ops
+
+    libs = {m: (m.split(":")[0],) for m in QB_MUTANTS}
+    tmp, built = build_mutants("quant_blend_mutants_", QB_MUTANTS,
+                               ("int8_quantize.cu", "latent_blend.cu"), libs)
+    try:
+        before, caught = ops.launch_counts(), {}
+        for m, sos in built.items():
+            (lib, so), = sos.items()
+            caught[m] = []
+            with build.substituted(lib, build.load(lib, so)):
+                if lib == "int8_quantize":
+                    for name, x, qmax, (pw, ps) in quant_kept:
+                        wire, scales = ops.int8_quantize(x, qmax)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(wire, pw) and torch.equal(
+                                scales.view(torch.int32), ps.view(torch.int32))):
+                            caught[m].append(name)
+                else:
+                    for name, args, plain in blend_kept:
+                        out = ops.latent_blend(*args)
+                        torch.cuda.synchronize()
+                        if not torch.equal(out, plain):
+                            caught[m].append(f"{name} (max abs err "
+                                             f"{float((out - plain).abs().max()):.3g})")
+            check(caught[m], f"mutant {m} passed every check")
+        for n, v in before.items():
+            ops.WRAPPERS[n].launches = v
+        return caught
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def dequant_case(dim: int, batch: int, channels: int, reps=20):
@@ -1042,6 +1166,9 @@ def run() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.split('ptxas info    :')[-1].strip()}")
+    for name in ("int8_quantize", "latent_blend"):      # spill nothing to local memory
+        spills = [l for l in reports[name].splitlines() if "spill" in l]
+        check(spills and all(NO_SPILL in l for l in spills), f"{name} spills: {spills}")
 
     # ----------------------------------------------------------- 2. kernels
     cfg = get_config("wan21-dit-1.3b")
@@ -1090,9 +1217,18 @@ def run() -> int:
                 tag += "_wgmma" if kern == "flash_attention_sm90" else "_mma"
             flash_specs.append(((f"flash_edge_{edge}_{tag}", 2, 300, 333, 4, 2, hd, dt),
                                 dict(edge=edge, reps=3, seed=5, kernel=kern)))
-    blend = [blend_case(d, 2, cfg.latent_channels) for d in range(3)]
-    quant = [quant_case("T_transfer", 4, 3, 49920), quant_case("T_cores", 4, 4, 49920),
-             quant_case("H_cores", 4, 8, 21632), quant_case("T_transfer_int4", 4, 3, 49920, 7)]
+    # the stitch and the wire quantize at the smoke's latent, then at the
+    # 480p latent (vdm_5s) with a cold L2, where bytes set the time
+    blend_runs = [blend_case(d, 2, cfg.latent_channels) for d in range(3)]
+    blend_runs.append(blend_case(0, 2, cfg.latent_channels, LATENT_480P, "_480p",
+                                 cold_l2=True))
+    quant_runs = [quant_case(*a) for a in (
+        ("T_transfer", 4, 3, 49920), ("T_cores", 4, 4, 49920), ("H_cores", 4, 8, 21632),
+        ("T_transfer_int4", 4, 3, 49920, 7))]
+    quant_runs.append(quant_case("T_cores_480p", 4, 6, 199680, cold_l2=True))
+    blend, blend_kept = [r for r, _ in blend_runs], [k for _, k in blend_runs]
+    quant, quant_kept = [r for r, _ in quant_runs], [k for _, k in quant_runs]
+    del blend_runs, quant_runs
     dequant = [dequant_case(d, 2, cfg.latent_channels) for d in range(3)]
     # Zamba2's shared attention (32 x 80 heads, bf16): the causal prefill of
     # 2 prompts of 4096 tokens (the wgmma kernel; mma.sync beside it, the
@@ -1147,7 +1283,8 @@ def run() -> int:
     ssd_caught, record["mamba_ssd_mutant_shares"] = ssd_mutants(ssd_kept)
     caught = {f"mamba_ssd:{m}": v for m, v in ssd_caught.items()}
     caught.update({f"flash:{m}": v for m, v in flash_mutants(flash_kept).items()})
-    del ssd_kept, flash_kept
+    caught.update(quant_blend_mutants(quant_kept, blend_kept))
+    del ssd_kept, flash_kept, quant_kept, blend_kept
     record["mutants"] = caught
     for m, cases in caught.items():
         print(f"phase=kernels mutant={m} caught_by={'; '.join(cases)}", flush=True)
@@ -1287,7 +1424,7 @@ def run() -> int:
             walls.append(res[0].batch_wall_s)
         quant_us = sum(e.self_device_time_total for e in cprof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA
-                       and ("amax_kernel" in e.key or "quantize_kernel" in e.key))
+                       and "quantize_kernel" in e.key)
         dev_us = sum(e.self_device_time_total for e in cprof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA)
         coded.append({"codec": codec, "cold_wall_s": out[0].batch_wall_s,

@@ -59,8 +59,9 @@ _SIGNATURES = {
         "latent_blend_error_string": ([_I], ctypes.c_char_p),
     },
     "int8_quantize": {
-        # x, wire, scales, amax scratch, N, M (elements per slab), qmax, stream
-        "int8_quantize_fwd": ([_P, _P, _P, _P, _I, _L, _I, _P], _I),
+        # x, wire, scales, scratch (one word an SM), its words, N, M (elements
+        # per slab), qmax, stream
+        "int8_quantize_fwd": ([_P, _P, _P, _P, _I, _I, _L, _I, _P], _I),
         "int8_quantize_error_string": ([_I], ctypes.c_char_p),
     },
     "dequant_blend": {
@@ -137,11 +138,12 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 
 def report(name: str) -> str:
-    """The ``ptxas -v`` lines of the last build of ``name``."""
+    """The ``ptxas -v`` lines of the last build of ``name``, with each
+    function's stack-frame and spill line (which carries no prefix)."""
     log = library_path(name).with_suffix(".log")
     if not log.exists():
         return ""
-    return "\n".join(l for l in log.read_text().splitlines() if "ptxas" in l)
+    return "\n".join(l for l in log.read_text().splitlines() if "ptxas" in l or "spill" in l)
 
 
 def load(name: str, path: Path) -> ctypes.CDLL:

@@ -209,7 +209,8 @@ def latent_blend(preds: torch.Tensor, weights: torch.Tensor,
     accumulator.  ``weights`` ``(K, W)`` and ``normalizer`` ``(E,)`` are
     f32; ``starts`` are the K window offsets.
 
-    CUDA: ``csrc/latent_blend.cu``, f32 preds (the serving path's type).
+    CUDA: ``csrc/latent_blend.cu``, f32 preds (the serving path's type);
+    16-byte loads where F % 4 == 0, 4-byte loads otherwise.
     """
     if preds.device.type == "cpu":
         return ref.latent_blend_ref(preds, weights, normalizer, starts,
@@ -255,8 +256,9 @@ def int8_quantize(x: torch.Tensor, qmax: int = 127):
     ``clip(round_half_even(x_n / scale_n), -qmax, qmax)``.  qmax 127 is
     the int8 codec, 7 the int4 codes before packing.
 
-    CUDA: ``csrc/int8_quantize.cu`` (an amax pass and a quantize pass,
-    counted as one launch).
+    CUDA: ``csrc/int8_quantize.cu``, one cooperative launch of one block
+    an SM: a slab's blocks exchange their maxes through a scratch word
+    each, allocated here, across a grid barrier.
     """
     if x.device.type == "cpu":
         return ref.int8_quantize_ref(x, qmax)
@@ -273,11 +275,12 @@ def int8_quantize(x: torch.Tensor, qmax: int = 127):
     scales = torch.empty((N,), dtype=torch.float32, device=x.device)
     if wire.numel() == 0:
         return wire, scales
-    scratch = torch.empty((N,), dtype=torch.int32, device=x.device)
-    _require_aligned({"x": x}, align=1)          # scalar loads: contiguity only
+    _require_aligned({"x": x}, align=1)    # contiguity only: the kernel takes any slab start
     lib = build.library("int8_quantize")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    part = torch.empty((sms,), dtype=torch.int32, device=x.device)
     rc = lib.int8_quantize_fwd(x.data_ptr(), wire.data_ptr(), scales.data_ptr(),
-                               scratch.data_ptr(), N, M, int(qmax), _stream(x.device))
+                               part.data_ptr(), sms, N, M, int(qmax), _stream(x.device))
     build.check("int8_quantize", rc)
     int8_quantize.launches += 1
     return wire, scales

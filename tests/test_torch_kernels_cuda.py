@@ -283,6 +283,11 @@ QUANT_CASES = [
     (4, 8, 21632, 127),      # H-dim cores
     (4, 3, 49920, 7),        # the int4 codes
     (3, 5, 999, 127),        # a ragged slab size
+    (5, 3, 333, 7),          # M % 4 != 0 with the int4 codes
+    (4, 6, 199680, 127),     # 480p T-dim cores, 4.8 MB slabs
+    (66, 3, 4000, 127),      # 2 blocks a slab on a 132-SM card
+    (600, 4, 1000, 127),     # more slabs than blocks: each block takes whole slabs in turn
+    (140, 1, 70001, 127),    # and slabs of 280 KB, more than a block stages
 ]
 
 
@@ -306,6 +311,104 @@ def test_int8_quantize_kernel_matches_plain(cuda_device, N, R, F, qmax):
     x[2, 0, 7] = float("nan")
     _, nan_scales = ops.int8_quantize(x, qmax)
     assert torch.isnan(nan_scales).tolist() == [n == 2 for n in range(N)]
+
+
+def _quant_equal(x, qmax):
+    """One counted launch, codes and scales bit-equal to the plain version;
+    returns the kernel's scales."""
+    before = ops.int8_quantize.launches
+    wire, scales = ops.int8_quantize(x, qmax)
+    assert ops.int8_quantize.launches == before + 1
+    pw, ps = ref.int8_quantize_ref(x, qmax)
+    assert torch.equal(wire, pw)
+    assert torch.equal(scales.view(torch.int32), ps.view(torch.int32))
+    return scales
+
+
+QUANT_EDGE_SHAPES = [(4, 3, 49920, 127), (3, 5, 999, 7), (4, 6, 199680, 127)]
+
+
+@pytest.mark.parametrize("N,R,F,qmax", QUANT_EDGE_SHAPES)
+def test_int8_quantize_slab_max_in_the_last_block_share(cuda_device, N, R, F, qmax):
+    """Each slab's only max-abs lies in the last 64th of the slab (inside
+    the last of the slab's blocks), or is its last element: a scale taken
+    from any block's own share alone gives other codes."""
+    rng = np.random.default_rng(F + qmax)
+    x = torch.from_numpy(rng.uniform(-1, 1, size=(N, R, F)).astype(np.float32))
+    flat = x.view(N, -1)
+    M = flat.shape[1]
+    for n in range(N):
+        flat[n, M - 1 if n == N - 1 else M - 1 - M // 64 - n] = -(3.0 + n)
+    _quant_equal(x.to(cuda_device), qmax)
+
+
+@pytest.mark.parametrize("N,R,F,qmax", QUANT_EDGE_SHAPES)
+def test_int8_quantize_nan_in_the_last_element_of_a_slab(cuda_device, N, R, F, qmax):
+    rng = np.random.default_rng(F)
+    x = torch.from_numpy(rng.normal(size=(N, R, F)).astype(np.float32)).to(cuda_device)
+    x[1, -1, -1] = float("nan")
+    _, scales = ops.int8_quantize(x, qmax)
+    assert torch.isnan(scales).tolist() == [n == 1 for n in range(N)]
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("N,R,F", [(3, 5, 999), (4, 3, 49920)])
+def test_int8_quantize_slabs_off_a_16_byte_boundary(cuda_device, offset, N, R, F):
+    """x starts 4, 8 or 12 bytes past a 16-byte boundary: every slab's
+    head and tail are scalar accesses, the codes start off a word."""
+    rng = np.random.default_rng(offset)
+    base = torch.from_numpy(rng.normal(size=N * R * F + 4).astype(np.float32)).to(cuda_device)
+    x = base[offset:offset + N * R * F].view(N, R, F)
+    assert x.data_ptr() % 16 == 4 * offset
+    _quant_equal(x, 127)
+
+
+def _blend_tables(K, W, E, starts, seed):
+    rng = np.random.default_rng(seed)
+    weights = torch.from_numpy(rng.uniform(0.1, 1.0, size=(K, W)).astype(np.float32))
+    norm = torch.from_numpy(rng.uniform(0.5, 2.0, size=E).astype(np.float32))
+    return weights, norm
+
+
+_K32_STARTS = tuple(int(s) for s in np.sort(np.random.default_rng(32).integers(0, 49, 32)))
+BLEND_EDGE_CASES = {
+    # name: K, W, E, starts, F
+    "f_not_multiple_of_4": (4, 8, 13, (0, 2, 5, 5), 1001),
+    "f_3": (4, 8, 13, (0, 2, 5, 5), 3),
+    "repeated_starts": (5, 6, 10, (0, 0, 3, 3, 4), 1000),
+    "one_window": (1, 7, 7, (0,), 996),
+    "k32": (32, 16, 64, _K32_STARTS, 2000),
+    "k32_f_not_multiple_of_4": (32, 16, 64, _K32_STARTS, 999),
+    "k32_one_row": (32, 1, 1, (0,) * 32, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLEND_EDGE_CASES))
+def test_blend_kernel_on_cover_edges(cuda_device, case):
+    """Shapes the serving path does not give: F % 4 != 0 (4-byte loads),
+    repeated starts (a row covered by several windows at one offset), K = 32
+    (a row covered by up to 32 windows: the cover list at its size).
+    Bit-equal to the plain version."""
+    K, W, E, starts, F = BLEND_EDGE_CASES[case]
+    weights, norm = _blend_tables(K, W, E, starts, len(case))
+    preds = torch.from_numpy(np.random.default_rng(F).normal(size=(K, W, F))
+                             .astype(np.float32))
+    args = [t.to(cuda_device) for t in (preds, weights, norm)]
+    before = ops.latent_blend.launches
+    out = ops.latent_blend(*args, starts, W, E)
+    assert ops.latent_blend.launches == before + 1
+    assert torch.equal(out, ref.latent_blend_ref(*args, starts, W, E))
+
+
+def test_blend_kernel_at_the_480p_t_dim(cuda_device):
+    """The vdm_5s latent's T dim (K 4, W 12, E 21, F 199,680), bit-equal."""
+    plan = uniform.plan_uniform(21, 1, 4, 0.5, 0)
+    assert (plan.window, plan.extent) == (12, 21)
+    tables = spmd.BlendTables.build(plan, cuda_device)
+    preds = torch.from_numpy(np.random.default_rng(21).normal(size=(4, 12, 199680))
+                             .astype(np.float32)).to(cuda_device)
+    args = (preds, tables.weights, tables.normalizer, plan.starts, plan.window, plan.extent)
+    assert torch.equal(ops.latent_blend(*args), ref.latent_blend_ref(*args))
 
 
 @pytest.mark.parametrize("dim,extent", [(0, 13), (1, 30), (2, 52)])
