@@ -4,30 +4,41 @@
     python3 chip_smoke.py            # all phases, one card
 
 Phases, one line each (any failed check exits non-zero):
-  1. device  — the card, the toolchain, the seven kernels' build from csrc/.
+  1. device  — the card, the toolchain, the eight kernels' build from csrc/.
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card at the serving paths' shapes (WAN and Zamba2),
                with kernel, plain, library and bound times (and the
                kernel times PERF.md records for the kernels they replaced); the
                flash kernels also on positions that put their skipping of
-               masked key tiles at its edges (D 80 through both the wgmma
-               and the mma.sync kernel), at the 161-frame latent's 63,960
-               keys, and guidance_update on the 480p latent.  latent_blend
-               (bit-equal; its library yardstick a banded torch.matmul)
-               and int8_quantize (bit-equal; one kernel a call, no memset)
-               also at the 480p latent (21, 60, 104) with a cold L2; their
-               ptxas lines must show no spill.  Then broken copies, built
-               outside the checkout, must each fail a check: three of
-               mamba_ssd.cu (no +-60 clip, no state reset, one TF32 pass
-               instead of 3xTF32; each one's share of the limit is printed
-               per case), three of the flash sources (a causal live-tile
-               test with < for <=; the wgmma kernel without its
-               accumulator's correction; its D-80 16-column box read with
-               the 128-byte swizzle), each caught by a case of the D-80
-               wgmma kernel, two of int8_quantize.cu (a block-local max
-               with no exchange between a slab's blocks; a reciprocal
-               multiply) and two of latent_blend.cu (the k order reversed;
-               the last covering window dropped).
+               masked key tiles at its edges (D 80 through the wgmma,
+               the mma.sync and the split-KV decode kernel), at the
+               161-frame latent's 63,960 keys, and guidance_update on the
+               480p latent.  The LM decode step's flash (flash_decode.cu)
+               at Zamba2's decode cache (63 of 4096 slots valid) and a
+               full one, each beside the mma.sync kernel it replaced on
+               that path, timed in the same run.  latent_blend (bit-equal;
+               its library yardstick a banded torch.matmul), int8_quantize
+               (bit-equal; one kernel a call, no memset) and dequant_blend
+               (bit-equal, f32 and bf16 out; its yardstick two calls,
+               wire.float() and the banded matmul with the scales folded
+               in) also at the 480p latent (21, 60, 104) with a cold L2;
+               the ptxas lines of those three and of flash_decode at D 80
+               must show no spill.  Then broken copies, built outside the
+               checkout, must each fail a check: three of mamba_ssd.cu (no
+               +-60 clip, no state reset, one TF32 pass instead of
+               3xTF32; each one's share of the limit is printed per case),
+               three of the flash sources (a causal live-tile test with <
+               for <=; the wgmma kernel without its accumulator's
+               correction; its D-80 16-column box read with the 128-byte
+               swizzle), each caught by a case of the D-80 wgmma kernel,
+               three of flash_decode.cu (the split merge without its
+               rescale; the last split dropped; kv_len taken as one more
+               key), each caught by a case of flash_decode, two of
+               int8_quantize.cu (a block-local max with no exchange
+               between a slab's blocks; a reciprocal multiply), two of
+               latent_blend.cu and three of dequant_blend.cu (the k order
+               reversed; the last covering window dropped; the weight
+               applied before the scale).
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -50,7 +61,7 @@ Phases, one line each (any failed check exits non-zero):
                launches each, then one traced for the device-time split)
                and make_decode_step (4 requests, 32 prompt tokens
                teacher-forced, 32 generated greedily, cache 4096: 9
-               mma.sync flash launches and no mamba_ssd per step).
+               flash_decode launches and nothing else per step).
   8. guidance — the fused CFG + Euler entry point ops.guidance_update
                (no path of the reference calls it) driven over the 4-step
                schedule on the 480p latent (1, 13, 60, 104, 16), f32 and
@@ -63,7 +74,9 @@ Phases, one line each (any failed check exits non-zero):
                small_lm: a 6-layer full-width Zamba2 in f32 with nonzero
                LoRA, card against CPU on prefill and 8 decode steps, and
                the card's prefill against its own stepped decode.
-Then one JSON line of every kernel, the card's name and power limit, and
+Then one JSON line of every kernel (flash_attention.cu's row, on its
+forced case, is marked off every path: no path launches it since the
+decode step moved to flash_decode.cu), the card's name and power limit, and
 the result line.  Detailed numbers go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
@@ -94,10 +107,10 @@ H100_BYTES_S = 3.35e12          # HBM3
 # 2^-8 * attention(q, k, |v|) + 2^-7 * |plain| (kernels/ref.py:
 # flash_bf16_tolerance), about 3e-3 + 8e-3 |plain| for N(0, 1) inputs
 FLASH_F32_TOL = (1e-4, 1e-4)    # f32 throughout: summation order only
-BLEND_TOL = (1e-6, 0.0)         # dequant_blend: same f32 operations in the same order
-# latent_blend is held bit-equal (max_abs_err 0); its library yardstick, the
-# banded matmul, to (1e-5, 1e-5): w / Z rounded once more, the same <= 4
-# nonzero terms a row summed in another order (a few ulps of max |preds|)
+# latent_blend and dequant_blend are held bit-equal (max_abs_err 0); their
+# yardsticks, the banded matmul, to (1e-5, 1e-5): w / Z (times the scale)
+# rounded once more, the same <= 4 nonzero terms a row summed in another
+# order (a few ulps of max |preds|)
 BLEND_LIBRARY_TOL = (1e-5, 1e-5)
 SSD_TOL = (5e-4, 5e-4)          # the reference's own SSD tolerance: f32 throughout,
                                 # the same formulas summed in another order
@@ -107,14 +120,17 @@ GUIDANCE_LATENT = (1, 13, 60, 104, 16)     # the 480p latent of the reference's 
 GUIDANCE_W = 5.0
 # the earlier kernel times of the cases whose kernel changed (PERF.md's
 # kernel table, on an H100 80GB HBM3 at 700 W): the wgmma kernel with its
-# list in shared memory, mma.sync at the D-80 prefill, the f32-FMA
-# mamba_ssd, and the two-kernel int8_quantize and one-load-at-a-time
-# latent_blend (the 480p cases: tools/quant_blend_times.py on those
-# kernels' sources, cold L2, the mean of its two turns beside the new ones)
+# list in shared memory, mma.sync at the D-80 prefill and at the decode
+# step, the f32-FMA mamba_ssd, the two-kernel int8_quantize, and the
+# one-load-at-a-time latent_blend and dequant_blend (the 480p and full-cache
+# cases: tools/quant_blend_times.py on those kernels' sources, the mean of
+# its two turns beside the new ones)
 EARLIER_MS = {"flash_self_Twindow_bf16": 1.671, "flash_cross_bf16": 0.442,
               "flash_lm_prefill_causal_bf16": 1.100, "mamba_ssd_prefill": 1.411,
               "blend_dim0": 0.0120, "quant_T_transfer": 0.0069,
-              "blend_dim0_480p": 0.1080, "quant_T_cores_480p": 0.0223}
+              "blend_dim0_480p": 0.1080, "quant_T_cores_480p": 0.0223,
+              "flash_lm_decode_bf16": 0.0113, "flash_lm_decode_fullcache_bf16": 0.1219,
+              "dequant_blend_dim0": 0.0089, "dequant_blend_dim0_480p": 0.0692}
 CODECS = ("int8", "displaced:int8-residual")    # phase serve_codec
 LATENT = (13, 30, 52)           # 480p/4s-class latent, cut from (13, 60, 104) for time
 LATENT_480P = (21, 60, 104)     # vdm_5s (81 frames at 480p): the kernels' bandwidth cases
@@ -142,11 +158,26 @@ FLASH_MUTANTS = {
                          "return desc_bits(addr, 16, 256) | (3ull << 62);",
                          "return desc_bits(addr, 16, 256) | (1ull << 62);"),
 }
+# the split-KV decode kernel: the split merge without the rescale of each
+# partial; the last split left out of the merge; kv_len taken as one key more
+FLASH_MUTANTS.update({
+    "decode:merge_skips_rescale": ("flash_decode.cu",
+                                   "o.x = o.x * fo + a[u].x * fa; o.y = o.y * fo + a[u].y * fa;",
+                                   "o.x = o.x + a[u].x; o.y = o.y + a[u].y;"),
+    "decode:last_split_dropped": ("flash_decode.cu", "s0 + u < p.splits && ml[u].y > 0.f",
+                                  "s0 + u < p.splits - 1 && ml[u].y > 0.f"),
+    "decode:kv_len_off_by_one": ("flash_decode.cu", "kp[e] < kl", "kp[e] <= kl"),
+})
 FLASH_MUTANT_LIBS = {"skip_off_by_one": ("flash_attention", "flash_attention_sm90"),
                      "no_rescale": ("flash_attention_sm90",),
-                     "d80_tail_swizzle": ("flash_attention_sm90",)}
-FLASH_SOURCES = ("flash_attention", "flash_attention_sm90")
-NEW_KERNEL = ("flash_attention_sm90", 80)   # each flash mutant must fail one of its cases
+                     "d80_tail_swizzle": ("flash_attention_sm90",),
+                     "decode:merge_skips_rescale": ("flash_decode",),
+                     "decode:last_split_dropped": ("flash_decode",),
+                     "decode:kv_len_off_by_one": ("flash_decode",)}
+FLASH_SOURCES = ("flash_attention", "flash_attention_sm90", "flash_decode")
+# each flash mutant must fail a case of this kernel at this head dim
+MUTANT_CATCHER = {m: ("flash_decode", 80) if m.startswith("decode:")
+                  else ("flash_attention_sm90", 80) for m in FLASH_MUTANTS}
 # broken copies of the wire quantize and the stitch: (file, source text,
 # replacement); each must fail its kernel's check on at least one case
 QB_MUTANTS = {
@@ -160,6 +191,15 @@ QB_MUTANTS = {
                                       "(__popc(ballot >> lane) - 1)"),
     "latent_blend:last_window_dropped": ("latent_blend.cu", "n_cover = __popc(ballot);",
                                          "n_cover = __popc(ballot) - 1;"),
+    "dequant_blend:k_order_reversed": ("dequant_blend.cu",
+                                       "__popc(ballot & ((1u << lane) - 1u))",
+                                       "(__popc(ballot >> lane) - 1)"),
+    "dequant_blend:last_window_dropped": ("dequant_blend.cu", "n_cover = __popc(ballot);",
+                                          "n_cover = __popc(ballot) - 1;"),
+    # (code * weight) * scale in place of (code * scale) * weight
+    "dequant_blend:weight_before_scale": (
+        "dequant_blend.cu", "__fmul_rn(__fmul_rn(static_cast<float>(code), scale), w)",
+        "__fmul_rn(__fmul_rn(static_cast<float>(code), w), scale)"),
 }
 NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
 
@@ -203,21 +243,37 @@ def device_ms(fn, reps: int, cold_l2: bool = False) -> float:
     shorter than the host's launch cost, where events around a loop of
     calls time the host.  ``cold_l2``: before each call, 64 MB written
     outside ``fn`` evict its inputs from the 50 MB L2 (that fill kernel is
-    not counted), so a call reads them from device memory."""
+    not counted), so a call reads them from device memory.  The profiler
+    now and then drops kernel records (after a long traced window, one
+    call's worth), which reads low: a window that holds other than
+    ``reps`` times the kernels of one profiled call is taken again (3
+    tries), and one still short is kept and reported on a line of its
+    own.  A window with no device time at all fails."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold_l2 else None
+
+    def profiled(n):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if cold_l2:
+                    flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not (cold_l2 and "fill" in e.key.lower())]
+        return sum(e.count for e in ev), sum(e.self_device_time_total for e in ev)
+
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if cold_l2:
-                flush.fill_(1)
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not (cold_l2 and "fill" in e.key.lower()))
+    for _ in range(3):
+        per_call, _ = profiled(1)
+        count, us = profiled(reps)
+        if per_call > 0 and count == per_call * reps and us > 0:
+            break
+    else:
+        print(f"profiler: a window of {reps} calls held {count} kernel records, one call "
+              f"{per_call} (3 tries): its time is kept as measured", flush=True)
     check(us > 0, "the profiler shows no device time")
     return us / 1e3 / reps
 
@@ -409,8 +465,9 @@ def build_mutants(prefix, mutants, sources, lib_names):
 def flash_mutants(kept):
     """Serve each broken copy of the flash sources in place of the kernels
     and require that the flash check fails on at least one of the
-    ``kept`` cases, one of them a case of the D-80 wgmma kernel; returns
-    the cases that caught each."""
+    ``kept`` cases, one of them a case of the kernel and head dim
+    ``MUTANT_CATCHER`` names (the D-80 wgmma kernel, or flash_decode);
+    returns the cases that caught each."""
     import torch
     from repro_torch.kernels import build, ops
 
@@ -420,7 +477,7 @@ def flash_mutants(kept):
     try:
         before, caught = ops.launch_counts(), {}
         for m, sos in built.items():
-            caught[m], by_new = [], False
+            caught[m], by_catcher = [], False
             with contextlib.ExitStack() as stack:
                 for lib, so in sos.items():
                     stack.enter_context(build.substituted(lib, build.load(lib, so)))
@@ -434,10 +491,10 @@ def flash_mutants(kept):
                     err, share, ok = flash_agrees(out, args, causal, window)
                     if not ok:
                         caught[m].append(f"{name} [{kernel}] ({share:.3g} of the limit)")
-                        by_new |= (kernel, q.shape[-1]) == NEW_KERNEL
+                        by_catcher |= (kernel, q.shape[-1]) == MUTANT_CATCHER[m]
             check(caught[m], f"mutant {m} of the flash sources passed every check")
-            check(by_new, f"mutant {m} passed every case of {NEW_KERNEL[0]} at D {NEW_KERNEL[1]}"
-                          f" (caught by {caught[m]})")
+            check(by_catcher, f"mutant {m} passed every case of {MUTANT_CATCHER[m][0]} at D "
+                              f"{MUTANT_CATCHER[m][1]} (caught by {caught[m]})")
         for n, v in before.items():
             ops.WRAPPERS[n].launches = v
         return caught
@@ -618,16 +675,22 @@ def ssd_mutants(kept):
 
 def device_ops(fn) -> dict:
     """The device operations of one call of ``fn`` (kernels, memsets) by
-    name, with their counts, from ``torch.profiler``."""
+    name, with their counts, from ``torch.profiler``; taken again (3
+    tries) while the profiler records none (it drops records now and then
+    on a shared host, and every ``fn`` here runs at least one kernel)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key[:90]: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        found = {e.key[:90]: e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if found:
+            break
+    return found
 
 
 def blend_matrix(weights, normalizer, starts, window: int, extent: int):
@@ -764,17 +827,18 @@ def quant_case(name: str, N: int, R: int, F: int, qmax: int = 127, reps=20, seed
     }, (f"quant_{name}", x, qmax, (pw, ps))
 
 
-def quant_blend_mutants(quant_kept, blend_kept):
-    """Build each broken copy of int8_quantize.cu and latent_blend.cu
-    (``QB_MUTANTS``) outside the checkout, serve it in place of its kernel
-    and require that the kernel's bit-equality check fails on at least one
-    of the kept cases; returns the cases that caught each."""
+def quant_blend_mutants(quant_kept, blend_kept, dequant_kept):
+    """Build each broken copy of int8_quantize.cu, latent_blend.cu and
+    dequant_blend.cu (``QB_MUTANTS``) outside the checkout, serve it in
+    place of its kernel and require that the kernel's bit-equality check
+    (f32 and bf16 out for dequant_blend) fails on at least one of the kept
+    cases; returns the cases that caught each."""
     import torch
     from repro_torch.kernels import build, ops
 
     libs = {m: (m.split(":")[0],) for m in QB_MUTANTS}
     tmp, built = build_mutants("quant_blend_mutants_", QB_MUTANTS,
-                               ("int8_quantize.cu", "latent_blend.cu"), libs)
+                               ("int8_quantize.cu", "latent_blend.cu", "dequant_blend.cu"), libs)
     try:
         before, caught = ops.launch_counts(), {}
         for m, sos in built.items():
@@ -788,11 +852,19 @@ def quant_blend_mutants(quant_kept, blend_kept):
                         if not (torch.equal(wire, pw) and torch.equal(
                                 scales.view(torch.int32), ps.view(torch.int32))):
                             caught[m].append(name)
-                else:
+                elif lib == "latent_blend":
                     for name, args, plain in blend_kept:
                         out = ops.latent_blend(*args)
                         torch.cuda.synchronize()
                         if not torch.equal(out, plain):
+                            caught[m].append(f"{name} (max abs err "
+                                             f"{float((out - plain).abs().max()):.3g})")
+                else:
+                    for name, args, plain, plain16 in dequant_kept:
+                        out = ops.dequant_blend(*args)
+                        out16 = ops.dequant_blend(*args, out_dtype=torch.bfloat16)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(out, plain) and torch.equal(out16, plain16)):
                             caught[m].append(f"{name} (max abs err "
                                              f"{float((out - plain).abs().max()):.3g})")
             check(caught[m], f"mutant {m} passed every check")
@@ -803,20 +875,29 @@ def quant_blend_mutants(quant_kept, blend_kept):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def dequant_case(dim: int, batch: int, channels: int, reps=20):
-    """dequant_blend vs plain on the serving path's (K, W, F) for ``dim``."""
+def dequant_case(dim: int, batch: int, channels: int, latent=LATENT, tag: str = "",
+                 cold_l2: bool = False, reps=20):
+    """dequant_blend vs plain on the serving path's (K, W, F) for ``dim`` of
+    ``latent``: bit-equal, f32 and bf16 out.  No single PyTorch call takes
+    int8 x f32, so its yardstick is two: ``wire.float()``, then one banded
+    ``torch.matmul`` with the scales folded into the band (``blend_matrix``
+    of ``W_k * scale_k``, built outside the timed region, TF32 off), held
+    to the plain version within ``BLEND_LIBRARY_TOL`` and reported as
+    ``yardstick_ms`` (``library_ms`` stays None).  Returns the record and
+    (name, args, plain, plain16) for the mutation checks."""
     import torch
     from repro_torch.core.spmd import BlendTables
     from repro_torch.core.uniform import plan_uniform
     from repro_torch.kernels import ops, ref
 
+    name = f"dequant_blend_dim{dim}{tag}"
     patch = (1, 2, 2)
-    plan = plan_uniform(LATENT[dim], patch[dim], K, R, dim)
-    rest = [batch] + [LATENT[d] for d in range(3) if d != dim] + [channels]
+    plan = plan_uniform(latent[dim], patch[dim], K, R, dim)
+    rest = [batch] + [latent[d] for d in range(3) if d != dim] + [channels]
     F_ = int(math.prod(rest))
     g = torch.Generator(device="cuda").manual_seed(10 + dim)
-    preds = torch.randn((K, plan.window, F_), generator=g, device="cuda")
-    wire, scales = ref.int8_quantize_ref(preds, 127)
+    wire, scales = ref.int8_quantize_ref(torch.randn((K, plan.window, F_), generator=g,
+                                                     device="cuda"), 127)
     tables = BlendTables.build(plan, "cuda")
     args = (wire, scales, tables.weights, tables.normalizer, plan.starts, plan.window,
             plan.extent)
@@ -826,24 +907,41 @@ def dequant_case(dim: int, batch: int, channels: int, reps=20):
     out16 = ops.dequant_blend(*args, out_dtype=torch.bfloat16)
     plain16 = ref.dequant_blend_ref(*args, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    err, share, ok = max_err(out, plain, BLEND_TOL[0] + BLEND_TOL[1] * plain.abs())
-    check(ok and bool(torch.equal(out16, plain16)),
-          f"dequant_blend dim {dim}: kernel disagrees with plain version (max abs err "
-          f"{err:.3e}, bf16 equal {bool(torch.equal(out16, plain16))})")
-    kernel_ms = device_ms(lambda: ops.dequant_blend(*args), reps)
-    plain_ms = device_ms(lambda: ref.dequant_blend_ref(*args), reps)
+    err = float((out - plain).abs().max())
+    check(bool(torch.equal(out, plain)) and bool(torch.equal(out16, plain16)),
+          f"{name}: kernel differs from its plain version (max abs err {err:.3e}, bf16 "
+          f"equal {bool(torch.equal(out16, plain16))})")
+    # ~10 us of work: device time, not events
+    kernel_ms = device_ms(lambda: ops.dequant_blend(*args), reps, cold_l2)
+    kernel16_ms = device_ms(lambda: ops.dequant_blend(*args, out_dtype=torch.bfloat16), reps,
+                            cold_l2)
+    plain_ms = device_ms(lambda: ref.dequant_blend_ref(*args), reps, cold_l2)
     ops.dequant_blend.launches = before
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    band = blend_matrix(tables.weights * scales[:, None], tables.normalizer, plan.starts,
+                        plan.window, plan.extent)
+    flat = wire.view(K * plan.window, F_)
+    yard = torch.matmul(band, flat.float())
+    yard_err, yard_share, yard_ok = max_err(yard, plain, BLEND_LIBRARY_TOL[0]
+                                            + BLEND_LIBRARY_TOL[1] * plain.abs())
+    check(yard_ok, f"{name}: the banded matmul is not the stitch (max abs err {yard_err:.3e}, "
+                   f"{yard_share:.2f} of the limit {BLEND_LIBRARY_TOL})")
+    yardstick_ms = device_ms(lambda: torch.matmul(band, flat.float()), reps, cold_l2)
+    del yard, band
     nbytes = (wire.numel() + (scales.numel() + tables.weights.numel()
                               + tables.normalizer.numel() + out.numel()) * 4)
     flops = 3.0 * wire.numel() + out.numel()
     t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
     return {
-        "case": f"dequant_blend_dim{dim}", "K": K, "W": plan.window, "E": plan.extent,
-        "F": F_, "max_abs_err": err, "tol": BLEND_TOL, "err_share_of_limit": share,
-        "bf16_equal": True, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": max(t_ops, t_bytes),
+        "case": name, "K": K, "W": plan.window, "E": plan.extent, "F": F_,
+        "starts": list(plan.starts), "max_abs_err": err, "tol": "bit-equal (f32 and bf16 out)",
+        "err_share_of_limit": 0.0, "bf16_equal": True, "cold_l2": cold_l2, "ms": kernel_ms,
+        "bf16_out_ms": kernel16_ms, "earlier_ms": EARLIER_MS.get(name), "plain_ms": plain_ms,
+        "library_ms": None, "yardstick_ms": yardstick_ms,
+        "yardstick": "wire.float() then torch.matmul(banded (E, K*W) W*scale / Z, (K*W, F))",
+        "yardstick_max_abs_err": yard_err, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
+    }, (name, args, plain, plain16)
 
 
 def expected_quantize_launches(cfg) -> int:
@@ -875,10 +973,10 @@ def lm_serve(cfg):
     launching mamba_ssd once per Mamba2 block and the wgmma flash kernel
     (D 80, 4096 queries) once per shared-attention invocation.  Decode: 4
     requests teacher-force a 32-token prompt, then generate 32 tokens
-    greedily; each step launches the mma.sync flash kernel (one query per
-    request) once per invocation and mamba_ssd never.  Returns the record
-    and the launch counts of the prefills and of the decode, each set to 0
-    just before it and read just after."""
+    greedily; each step launches the split-KV flash kernel (flash_decode:
+    one query per request) once per invocation and nothing else.  Returns
+    the record and the launch counts of the prefills and of the decode,
+    each set to 0 just before it and read just after."""
     import torch
     from repro_torch import models
     from repro_torch.kernels import ops
@@ -898,6 +996,7 @@ def lm_serve(cfg):
                            device="cuda")
     pre_flash = ops.flash_kernel(torch.bfloat16, cfg.head_dim, PREFILL_S)
     dec_flash = ops.flash_kernel(torch.bfloat16, cfg.head_dim, 1)
+    check(dec_flash == "flash_decode", f"the decode step's flash is {dec_flash}")
     want = {"mamba_ssd": cfg.num_layers, pre_flash: groups}
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1166,7 +1265,7 @@ def run() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.split('ptxas info    :')[-1].strip()}")
-    for name in ("int8_quantize", "latent_blend"):      # spill nothing to local memory
+    for name in ("int8_quantize", "latent_blend", "dequant_blend"):   # no local memory
         spills = [l for l in reports[name].splitlines() if "spill" in l]
         check(spills and all(NO_SPILL in l for l in spills), f"{name} spills: {spills}")
 
@@ -1211,10 +1310,12 @@ def run() -> int:
         for dt, hd, kern in ((torch.bfloat16, 128, "flash_attention_sm90"),
                              (torch.bfloat16, 80, "flash_attention_sm90"),
                              (torch.bfloat16, 80, "flash_attention"),
+                             (torch.bfloat16, 80, "flash_decode"),
                              (torch.float32, 128, "flash_attention")):
             tag = ("bf16" if dt == torch.bfloat16 else "f32") + f"_d{hd}"
             if (dt, hd) == (torch.bfloat16, 80):
-                tag += "_wgmma" if kern == "flash_attention_sm90" else "_mma"
+                tag += {"flash_attention_sm90": "_wgmma", "flash_attention": "_mma",
+                        "flash_decode": "_decode"}[kern]
             flash_specs.append(((f"flash_edge_{edge}_{tag}", 2, 300, 333, 4, 2, hd, dt),
                                 dict(edge=edge, reps=3, seed=5, kernel=kern)))
     # the stitch and the wire quantize at the smoke's latent, then at the
@@ -1229,7 +1330,11 @@ def run() -> int:
     blend, blend_kept = [r for r, _ in blend_runs], [k for _, k in blend_runs]
     quant, quant_kept = [r for r, _ in quant_runs], [k for _, k in quant_runs]
     del blend_runs, quant_runs
-    dequant = [dequant_case(d, 2, cfg.latent_channels) for d in range(3)]
+    dequant_runs = [dequant_case(d, 2, cfg.latent_channels) for d in range(3)]
+    dequant_runs.append(dequant_case(0, 2, cfg.latent_channels, LATENT_480P, "_480p",
+                                     cold_l2=True))
+    dequant, dequant_kept = [r for r, _ in dequant_runs], [k for _, k in dequant_runs]
+    del dequant_runs
     # Zamba2's shared attention (32 x 80 heads, bf16): the causal prefill of
     # 2 prompts of 4096 tokens (the wgmma kernel; mma.sync beside it, the
     # kernel it replaces), and a decode step of 4 requests (one query each
@@ -1243,6 +1348,21 @@ def run() -> int:
           torch.bfloat16), dict(causal=True, reps=5, kernel="flash_attention")),
         (("flash_lm_decode_bf16", DECODE_B, 1, MAX_LEN, lH, lH, lD, torch.bfloat16),
          dict(kv_len=[PROMPT + GEN - 1] * DECODE_B, library=True, reps=20, short=True)),
+        # the mma.sync kernel that served the decode step before, timed in
+        # this run; then both on a full cache (a long prompt, then decode)
+        (("flash_lm_decode_bf16_mma", DECODE_B, 1, MAX_LEN, lH, lH, lD, torch.bfloat16),
+         dict(kv_len=[PROMPT + GEN - 1] * DECODE_B, reps=20, short=True,
+              kernel="flash_attention")),
+        (("flash_lm_decode_fullcache_bf16", DECODE_B, 1, MAX_LEN, lH, lH, lD, torch.bfloat16),
+         dict(library=True, reps=20, short=True)),
+        (("flash_lm_decode_fullcache_bf16_mma", DECODE_B, 1, MAX_LEN, lH, lH, lD,
+          torch.bfloat16), dict(reps=20, short=True, kernel="flash_attention")),
+        # flash_decode through the masked path with GQA: several splits, rows
+        # in passes of 16 (8 queries x 4 heads) and a part pass (3 x 2)
+        (("flash_masked_gqa_bf16_d80_decode", 2, 8, 333, 16, 4, 80, torch.bfloat16),
+         dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
+        (("flash_masked_gqa_bf16_d64_decode", 2, 3, 333, 8, 4, 64, torch.bfloat16),
+         dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
     ]
     flash, flash_kept = [], []
     for a, kw in flash_specs:
@@ -1275,16 +1395,21 @@ def run() -> int:
         earlier = f" earlier_ms={c['earlier_ms']}" if c.get("earlier_ms") else ""
         if "events_ms" in c and c["events_ms"] != c["ms"]:
             earlier += f" events_ms={c['events_ms']:.4f}"
+        if "bf16_out_ms" in c:
+            earlier += f" bf16_out_ms={c['bf16_out_ms']:.5f}"
+        if c.get("yardstick_ms") is not None:
+            lib += f" yardstick_ms={c['yardstick_ms']:.4f}"
         kern = f" kernel={c['kernel']}" if "kernel" in c else ""
         print(f"phase=kernels case={c['case']}{kern} max_abs_err={c['max_abs_err']:.3e} "
-              f"share_of_limit={c['err_share_of_limit']:.3f} kernel_ms={c['ms']:.4f}{earlier} "
+              f"share_of_limit={c['err_share_of_limit']:.3f} kernel_ms={c['ms']:.5f}{earlier} "
               f"plain_ms={c['plain_ms']:.4f} library_ms={lib} "
-              f"bound_ms={c['bound_ms']:.4f} ({c['bound_by']})", flush=True)
+              f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) "
+              f"share_of_bound={c['bound_ms'] / c['ms']:.3f}", flush=True)
     ssd_caught, record["mamba_ssd_mutant_shares"] = ssd_mutants(ssd_kept)
     caught = {f"mamba_ssd:{m}": v for m, v in ssd_caught.items()}
     caught.update({f"flash:{m}": v for m, v in flash_mutants(flash_kept).items()})
-    caught.update(quant_blend_mutants(quant_kept, blend_kept))
-    del ssd_kept, flash_kept, quant_kept, blend_kept
+    caught.update(quant_blend_mutants(quant_kept, blend_kept, dequant_kept))
+    del ssd_kept, flash_kept, quant_kept, blend_kept, dequant_kept
     record["mutants"] = caught
     for m, cases in caught.items():
         print(f"phase=kernels mutant={m} caught_by={'; '.join(cases)}", flush=True)
@@ -1553,24 +1678,34 @@ def run() -> int:
                        "small_lm": small_lm_check(lm_cfg)}
 
     # ------------------------------------------------------------- results
-    def kernel_row(name, replaces, case, by_path, source=None):
-        check(sum(by_path.values()) > 0, f"{name}: no launch on its paths {by_path}")
+    def kernel_row(name, replaces, case, by_path, source=None, on_path=True):
+        # a kernel of a path launched on it; one off every path (on_path
+        # False) launched on none of the paths, and its numbers are its
+        # forced case's
+        check((sum(by_path.values()) > 0) == on_path,
+              f"{name}: launches on its paths {by_path} (on a path: {on_path})")
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
-                "replaces": replaces,
+                "replaces": replaces, "on_path": on_path, "case": case["case"],
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+                "earlier_ms": case.get("earlier_ms"),
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
 
     # launches: each kernel's count from the runs of the paths it serves, each
     # path's counts set to 0 just before it and read just after
     # (the wgmma kernel's two instantiations get a row each: D 128 on the
-    # video paths, D 80 on the LM prefill; mma.sync serves the LM decode)
+    # video paths, D 80 on the LM prefill; flash_decode serves the LM decode;
+    # flash_attention.cu (mma.sync, FMA) is on no path now)
     named = {c["case"]: c for c in flash}
     check(named["flash_lm_prefill_causal_bf16"]["kernel"] == "flash_attention_sm90"
-          and named["flash_lm_decode_bf16"]["kernel"] == "flash_attention",
+          and named["flash_lm_decode_bf16"]["kernel"] == "flash_decode",
           "the D-80 prefill and decode cases ran other kernels than lm_serve's")
+    path_counts = {"serve": main_counts, "lm_serve:prefill": lm_prefill_counts,
+                   "lm_serve:decode": lm_decode_counts, "coded_stitch": stitch_counts,
+                   "guidance": guidance_counts,
+                   **{f"serve_codec:{c}": n for c, n in coded_counts.items()}}
     line = {"kernels": [
         kernel_row("flash_attention_sm90_d128", "src/repro/kernels/flash_attention.py:101",
                    named["flash_self_Twindow_bf16"],
@@ -1581,9 +1716,12 @@ def run() -> int:
                    named["flash_lm_prefill_causal_bf16"],
                    {"lm_serve:prefill": lm_prefill_counts["flash_attention_sm90"]},
                    source="flash_attention_sm90"),
-        kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
+        kernel_row("flash_decode", "src/repro/kernels/flash_attention.py:101",
                    named["flash_lm_decode_bf16"],
-                   {"lm_serve:decode": lm_decode_counts["flash_attention"]}),
+                   {"lm_serve:decode": lm_decode_counts["flash_decode"]}),
+        kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
+                   named["flash_lm_prefill_causal_bf16_mma"],
+                   {k: n["flash_attention"] for k, n in path_counts.items()}, on_path=False),
         kernel_row("latent_blend", "src/repro/kernels/latent_blend.py:63", blend[0],
                    {"serve": main_counts["latent_blend"]}),
         kernel_row("int8_quantize", "src/repro/kernels/wire_codec.py:64", quant[0],

@@ -2,10 +2,12 @@
 
   flash_attention — DiT and LM attention: ``csrc/flash_attention_sm90.cu``
                     (wgmma + TMA, bf16 at head dim 128, the video DiT, and
-                    at 80 from 128 queries up, the LM prefill) and
+                    at 80 from 128 queries up, the LM prefill),
+                    ``csrc/flash_decode.cu`` (split-KV, bf16 at 64 and 80 up
+                    to 8 queries, the LM decode step) and
                     ``csrc/flash_attention.cu`` (mma.sync for bf16 at 64 and
-                    80, the LM decode, FMA for f32); both skip key tiles
-                    with no attendable pair (``csrc/flash_common.cuh``)
+                    80 in between, FMA for f32; on no serving path); all
+                    share ``csrc/flash_common.cuh``
   latent_blend    — LP's position-aware reconstruction (``csrc/latent_blend.cu``)
   int8_quantize   — per-slab max-abs int8 quantize of wire messages
                     (``csrc/int8_quantize.cu``)

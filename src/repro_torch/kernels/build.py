@@ -21,8 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "flash_attention_sm90", "latent_blend", "int8_quantize",
-           "dequant_blend", "mamba_ssd", "guidance_update")
+KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode", "latent_blend",
+           "int8_quantize", "dequant_blend", "mamba_ssd", "guidance_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -50,6 +50,15 @@ _SIGNATURES = {
         "flash_attention_sm90_live_tiles": ([_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
                                             _I),
         "flash_attention_sm90_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_decode": {
+        # q, k, v, q_pos, kv_pos, kv_len (or null), out, partial (m, l), partial
+        # acc, tickets, B, Sq, Skv, H, KV, D, q_pos batch stride, kv_pos batch
+        # stride, causal, window, splits, split length, stream (bf16, D 64 or 80)
+        "flash_decode_fwd": ([_P] * 10 + [_I] * 6 + [_L, _L] + [_I] * 4 + [_P], _I),
+        # D -> resident blocks an SM
+        "flash_decode_blocks_per_sm": ([_I], _I),
+        "flash_decode_error_string": ([_I], ctypes.c_char_p),
     },
     "latent_blend": {
         # preds, weights, normalizer, out, starts (host int[K]), K, W, E, F,

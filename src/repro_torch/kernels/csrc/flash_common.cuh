@@ -1,9 +1,10 @@
-// What the two flash kernels (flash_attention.cu, flash_attention_sm90.cu)
-// share: the mask of one (query, key) pair and the list of the key tiles a
-// block of queries has to visit.  flash_attention.cu builds each block's
-// list in its own shared memory; flash_attention_sm90.cu builds it once per
-// (batch, 128-query block) in a pre-pass kernel (live_tiles_pass) into a
-// global buffer that the attention blocks of every head read.
+// What the flash kernels share: the mask of one (query, key) pair (all
+// three), and the list of the key tiles a block of queries has to visit
+// (flash_attention.cu and flash_attention_sm90.cu).  flash_attention.cu
+// builds each block's list in its own shared memory; flash_attention_sm90.cu
+// builds it once per (batch, 128-query block) in a pre-pass kernel
+// (live_tiles_pass) into a global buffer that the attention blocks of every
+// head read; flash_decode.cu lists attendable keys, not tiles, itself.
 #pragma once
 
 #include <climits>

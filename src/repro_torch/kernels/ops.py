@@ -46,14 +46,19 @@ def _stream(device: torch.device) -> int:
 # Which flash kernel computes what.  bf16 at head dim 128 (the video DiT's
 # self- and cross-attention) and bf16 at head dim 80 with at least
 # SM90_MIN_QUERIES queries (the hybrid LM's prefill) run on the wgmma + TMA
-# kernel of csrc/flash_attention_sm90.cu; every other case on
+# kernel of csrc/flash_attention_sm90.cu; bf16 at head dims 64 and 80 with
+# at most DECODE_MAX_QUERIES queries (the hybrid LM's decode step) on the
+# split-KV kernel of csrc/flash_decode.cu; every other case on
 # csrc/flash_attention.cu.
-FLASH_KERNELS = ("flash_attention", "flash_attention_sm90")
+FLASH_KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode")
 _SM90_TILE = 128                     # flash_attention_sm90.cu: kBM query rows, kBN keys
 SM90_MIN_QUERIES = _SM90_TILE
+DECODE_MAX_QUERIES = 8
+_DECODE_CHUNK = 64                   # flash_decode.cu: kChunk keys, the unit of a split
 _FLASH_TAKES = {                     # kernel -> {dtype: head dims it is built for}
     "flash_attention": {torch.bfloat16: (64, 80), torch.float32: (64, 80, 128)},
     "flash_attention_sm90": {torch.bfloat16: (80, 128)},
+    "flash_decode": {torch.bfloat16: (64, 80)},
 }
 
 
@@ -64,15 +69,58 @@ def flash_kernel(dtype: torch.dtype, head_dim: int, q_len: int) -> str:
     bf16 at D 128 goes to ``flash_attention_sm90`` (``wgmma`` + TMA) for
     any query count.  bf16 at D 80 goes there too when ``q_len >=
     SM90_MIN_QUERIES`` (128: one full block of its 128 query rows), as in
-    a prefill; with fewer, as in a decode step (one query per request),
-    it stays on ``flash_attention`` (``mma.sync``), whose 64-row block
-    wastes less of a near-empty block.  Everything else (bf16 D 64, f32)
-    runs on ``flash_attention``.
+    a prefill.  bf16 at D 64 and 80 with ``q_len <= DECODE_MAX_QUERIES``,
+    as in a decode step (one query per request), goes to ``flash_decode``
+    (split-KV, f32 FMA over the attendable keys only).  Everything else
+    (bf16 D 64 and 80 in between, f32) runs on ``flash_attention``.
     """
     if dtype == torch.bfloat16 and (head_dim == 128
                                     or (head_dim == 80 and q_len >= SM90_MIN_QUERIES)):
         return "flash_attention_sm90"
+    if dtype == torch.bfloat16 and head_dim in (64, 80) and q_len <= DECODE_MAX_QUERIES:
+        return "flash_decode"
     return "flash_attention"
+
+
+def decode_split(Skv: int, batch_heads: int, resident: int):
+    """``flash_decode``'s key split: ``(splits, split_len)`` for ``Skv``
+    keys, ``batch_heads`` = B * KV (batch row, kv head) pairs and
+    ``resident`` blocks the card holds at once.  As many splits as fill
+    the resident blocks once (at least one, at most one a 64-key chunk),
+    each a multiple of 64 keys; the last may be short."""
+    splits = min(max(1, resident // max(batch_heads, 1)), max(1, -(-Skv // _DECODE_CHUNK)))
+    split_len = -(-max(Skv, 1) // splits)
+    split_len = -(-split_len // _DECODE_CHUNK) * _DECODE_CHUNK
+    return -(-max(Skv, 1) // split_len), split_len
+
+
+_DECODE_RESIDENT: Dict[tuple, int] = {}
+_DECODE_TICKETS: Dict[tuple, torch.Tensor] = {}
+
+
+def _decode_resident(device: torch.device, head_dim: int) -> int:
+    """Blocks of ``flash_decode`` at ``head_dim`` that the card holds at
+    once (occupancy x SMs), asked once per device."""
+    key = (device.index, head_dim)
+    if key not in _DECODE_RESIDENT:
+        per_sm = build.library("flash_decode").flash_decode_blocks_per_sm(head_dim)
+        if per_sm < 1:
+            raise RuntimeError(f"flash_decode: occupancy query failed ({per_sm})")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _DECODE_RESIDENT[key] = per_sm * sms
+    return _DECODE_RESIDENT[key]
+
+
+def _decode_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """``flash_decode``'s ticket counters, one per (batch row, kv head):
+    zeroed once per device and stream and left zero by every launch, so
+    they serve every call on that stream (calls on one stream never
+    overlap).  Grown (zeroed again) when a call needs more."""
+    key = (device, _stream(device))
+    t = _DECODE_TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _DECODE_TICKETS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
 
 
 def _lists_shape(B: int, Sq: int, Skv: int):
@@ -94,6 +142,11 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     lists go to a global buffer allocated here.  ``csrc/flash_attention.cu``
     takes bf16 at D 64 and 80 (``mma.sync``) and f32 at D 64, 80 and 128
     (FMA).  Both skip key tiles that hold no attendable pair.
+    ``csrc/flash_decode.cu`` takes bf16 at D 64 and 80 and any query count
+    (rows in passes of 16): ``decode_split`` key splits, their partials in
+    a workspace allocated here, merged by the last block of each (batch
+    row, kv head) through ticket counters kept per device and stream; it
+    masks ``kv_len`` itself.
     """
     if kernel is not None:
         takes = _FLASH_TAKES.get(kernel)
@@ -102,10 +155,10 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
         if q.shape[-1] not in takes.get(q.dtype, ()):
             raise ValueError(f"flash_attention: {kernel} is not built for {q.dtype} at head "
                              f"dim {q.shape[-1]} (takes {takes})")
-    if kv_len is not None:
-        kv_positions = torch.where(kv_positions < kv_len[:, None],
-                                   kv_positions, INT32_MAX)
     if q.device.type == "cpu":
+        if kv_len is not None:
+            kv_positions = torch.where(kv_positions < kv_len[:, None], kv_positions,
+                                       INT32_MAX)
         return ref.flash_attention_ref(q, k, v, q_positions, kv_positions,
                                        causal, window)
     if q.device.type != "cuda":
@@ -124,6 +177,16 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     code = _dtype_code(q, "flash_attention")
     if kernel is None:
         kernel = flash_kernel(q.dtype, D, Sq)
+    if kv_len is not None:
+        if kv_len.shape != (B,):
+            raise ValueError(f"flash_attention: kv_len {tuple(kv_len.shape)} must be ({B},)")
+        if kernel == "flash_decode":          # masked inside the kernel
+            kv_len = kv_len.to(torch.int32).contiguous()
+            _require_device({"kv_len": kv_len}, q.device)
+        else:
+            kv_positions = torch.where(kv_positions < kv_len[:, None], kv_positions,
+                                       INT32_MAX)
+            kv_len = None
     if q_positions.shape != (B, Sq) or kv_positions.shape != (B, Skv):
         raise ValueError("flash_attention: positions must be (B, Sq) and (B, Skv)")
     qp = q_positions.to(torch.int32)
@@ -144,6 +207,17 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
             lists.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0),
             kp.stride(0), int(bool(causal)), int(window), _stream(q.device),
+        )
+    elif kernel == "flash_decode":
+        splits, split_len = decode_split(Skv, B * KV, _decode_resident(q.device, D))
+        n = B * KV * splits * Sq * (H // KV)              # partial rows: (m, l) and acc[D]
+        ws = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+        rc = lib.flash_decode_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            ws.data_ptr() + 8 * n, _decode_tickets(q.device, B * KV).data_ptr(), B, Sq, Skv,
+            H, KV, D, qp.stride(0), kp.stride(0), int(bool(causal)), int(window), splits,
+            split_len, _stream(q.device),
         )
     else:
         rc = lib.flash_attention_fwd(
@@ -170,6 +244,19 @@ def flash_attention_sm90(q, k, v, q_positions, kv_positions, *, causal: bool = T
 
 
 flash_attention_sm90.launches = 0
+
+
+def flash_decode(q, k, v, q_positions, kv_positions, *, causal: bool = True,
+                 window: int = 0, kv_len=None) -> torch.Tensor:
+    """``flash_attention`` on the split-KV kernel (``csrc/flash_decode.cu``)
+    whatever the query count: bf16 at head dim 64 or 80; raises on others.
+    Its ``launches`` count that kernel's launches, whichever wrapper made
+    them."""
+    return flash_attention(q, k, v, q_positions, kv_positions, causal=causal,
+                           window=window, kv_len=kv_len, kernel="flash_decode")
+
+
+flash_decode.launches = 0
 
 
 def flash_live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
@@ -298,7 +385,10 @@ def dequant_blend(wire: torch.Tensor, scales: torch.Tensor, weights: torch.Tenso
     ``weights`` ``(K, W)`` and ``normalizer`` ``(E,)`` f32; the output
     ``(E, F)`` is ``out_dtype`` (f32 or bf16).
 
-    CUDA: ``csrc/dequant_blend.cu``.
+    CUDA: ``csrc/dequant_blend.cu``: 16 codes a thread (one 16-byte load a
+    covering window) where F % 16 == 0, the wire starts on 16 bytes and
+    the runs fill the card once (the 480p latent), 4 where F % 4 == 0 (the
+    smoke's latent), else 1.
     """
     if wire.device.type == "cpu":
         return ref.dequant_blend_ref(wire, scales, weights, normalizer, starts,
@@ -326,8 +416,10 @@ def dequant_blend(wire: torch.Tensor, scales: torch.Tensor, weights: torch.Tenso
     out = torch.empty((extent, F), dtype=out_dtype, device=wire.device)
     _require_device({"scales": scales, "weights": weights, "normalizer": normalizer},
                     wire.device)
+    # contiguity only: the launcher takes 16-, 4- or 1-byte code loads as F
+    # and the wire's start allow
     _require_aligned({"wire": wire, "scales": scales, "weights": weights,
-                      "normalizer": normalizer, "out": out}, align=1)   # scalar loads
+                      "normalizer": normalizer, "out": out}, align=1)
     if out.numel() == 0:
         return out
     lib = build.library("dequant_blend")
@@ -440,9 +532,9 @@ def guidance_update(z: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor,
 guidance_update.launches = 0
 
 WRAPPERS = {"flash_attention": flash_attention, "flash_attention_sm90": flash_attention_sm90,
-            "latent_blend": latent_blend, "int8_quantize": int8_quantize,
-            "dequant_blend": dequant_blend, "mamba_ssd": mamba_ssd,
-            "guidance_update": guidance_update}
+            "flash_decode": flash_decode, "latent_blend": latent_blend,
+            "int8_quantize": int8_quantize, "dequant_blend": dequant_blend,
+            "mamba_ssd": mamba_ssd, "guidance_update": guidance_update}
 
 
 def launch_counts() -> Dict[str, int]:

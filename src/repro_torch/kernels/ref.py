@@ -57,6 +57,43 @@ def flash_attention_ref(q, k, v, q_positions, kv_positions,
     return out
 
 
+def flash_decode_plain(q, k, v, q_positions, kv_positions, causal: bool = True,
+                       window: int = 0, split: int = 1024) -> torch.Tensor:
+    """The flash function as ``csrc/flash_decode.cu`` computes it: the keys
+    cut into splits of ``split`` keys (the last may be short), a partial
+    per split and query row (m, the largest unscaled score among the keys
+    it attends; l = sum exp((s - m) / sqrt(D)); acc = the same weights
+    times v), then the partials merged in split order: ``M`` the largest m
+    of the splits that attend a key, ``out = sum acc_s e^((m_s - M) /
+    sqrt(D)) / max(sum l_s e^(...), 1e-37)``.  A split with no attendable
+    key adds nothing, so a row with none is zero.  f32, cast to q's
+    dtype; shapes and masks as ``flash_attention_ref``."""
+    B, Sq, H, D = q.shape
+    Skv, G = k.shape[1], H // k.shape[2]
+    if Skv == 0:
+        return torch.zeros_like(q)
+    c = 1.0 / math.sqrt(D)
+    ok = attention_mask(q_positions, kv_positions, causal, window)[:, None]   # (B, 1, Sq, Skv)
+    kf = k.float().transpose(1, 2).repeat_interleave(G, 1)                    # (B, H, Skv, D)
+    vf = v.float().transpose(1, 2).repeat_interleave(G, 1)
+    s = torch.matmul(q.float().transpose(1, 2), kf.transpose(2, 3))           # (B, H, Sq, Skv)
+    parts = []
+    for a in range(0, Skv, split):
+        ss, oks = s[..., a:a + split], ok[..., a:a + split]
+        m = torch.where(oks, ss, -math.inf).amax(-1)                          # (B, H, Sq)
+        p = torch.where(oks, torch.exp((ss - m[..., None]) * c), 0.0)
+        parts.append((oks.any(-1).expand_as(m), m, p.sum(-1),
+                      torch.matmul(p, vf[:, :, a:a + split])))
+    M = torch.stack([torch.where(has, m, -math.inf) for has, m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(M)
+    o = torch.zeros(M.shape + (D,), dtype=torch.float32, device=q.device)
+    for has, m, l, acc in parts:                    # in split order
+        f = torch.where(has, torch.exp((m - M) * c), 0.0)
+        L = L + l * f
+        o = o + acc * f[..., None]
+    return (o / L.clamp_min(1e-37)[..., None]).transpose(1, 2).to(q.dtype)
+
+
 def flash_bf16_tolerance(q, k, v, q_positions, kv_positions, causal: bool,
                          window: int, plain: torch.Tensor) -> torch.Tensor:
     """Per-element limit on ``|bf16 kernel - plain|`` for the same inputs.

@@ -130,7 +130,7 @@ def test_cpu_path_never_launches_a_kernel():
     eng.submit(VideoRequest(0, ctx, (4, 8, 12)))
     assert bool(torch.isfinite(eng.run()[0].latent).all())
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_sm90": 0,
-                                   "latent_blend": 0, "int8_quantize": 0,
+                                   "flash_decode": 0, "latent_blend": 0, "int8_quantize": 0,
                                    "dequant_blend": 0, "mamba_ssd": 0,
                                    "guidance_update": 0}
 

@@ -11,7 +11,10 @@ interpret mode and ``IntCodec.encode``; plain ``dequant_blend`` against
 the jnp decode-then-blend (the Pallas ``dequant_blend`` does not run on
 this JAX either); plain ``guidance_update`` against ``guidance_update_ref``
 and the Pallas kernel in interpret mode; plain flash on the positions
-that put tile skipping at its edges (``ref.skip_edge_positions``).
+that put tile skipping at its edges (``ref.skip_edge_positions``); the
+split-and-merge ``ref.flash_decode_plain`` (the decode kernel's
+arithmetic) against the plain flash and the Pallas kernel in interpret
+mode, and ``ops.decode_split``, its choice of splits.
 The CUDA kernels themselves are tested in ``test_torch_kernels_cuda.py``,
 which imports no JAX so that it runs on a GPU host.
 """
@@ -30,6 +33,8 @@ from repro_torch.core import spmd as tspmd
 from repro_torch.core import uniform as tuni
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as tattn
+
+from _hypothesis_compat import given, settings, st
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 softmax attention, summation order only
 
@@ -167,8 +172,9 @@ def test_blend_windows_matches_reference_engine(dim, K, r):
     np.testing.assert_allclose(b.numpy(), a, rtol=1e-6, atol=1e-6)
 
 
-NO_LAUNCHES = {"flash_attention": 0, "flash_attention_sm90": 0, "latent_blend": 0,
-               "int8_quantize": 0, "dequant_blend": 0, "mamba_ssd": 0, "guidance_update": 0}
+NO_LAUNCHES = {"flash_attention": 0, "flash_attention_sm90": 0, "flash_decode": 0,
+               "latent_blend": 0, "int8_quantize": 0, "dequant_blend": 0, "mamba_ssd": 0,
+               "guidance_update": 0}
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
@@ -183,6 +189,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
                   torch.ones((1, 5, 3)), torch.ones((1, 5, 3)), chunk=4)
     q, k, v, qp, kp, _ = _qkv(1, 8, 8, 2, 2, 128)
     ops.flash_attention_sm90(*(t.bfloat16() for t in _t(q, k, v)), *_t(qp, kp))
+    q, k, v, qp, kp, lens = _qkv(2, 1, 40, 2, 2, 80)
+    ops.flash_decode(*(t.bfloat16() for t in _t(q, k, v)), *_t(qp, kp),
+                     kv_len=torch.from_numpy(lens))
     ops.guidance_update(preds, preds, preds, 5.0, -0.02)
     assert ops.launch_counts() == NO_LAUNCHES
 
@@ -291,6 +300,46 @@ def test_plain_dequant_blend_matches_jnp(K, W, E, starts, out_dtype):
         np.testing.assert_allclose(b.numpy(), a, rtol=1e-6, atol=1e-6)
     else:
         np.testing.assert_allclose(b.float().numpy(), a, rtol=2.0 ** -8, atol=1e-6)
+
+
+def _dequant_vs_jnp(K, W, E, starts, F, seed):
+    """Plain ``dequant_blend`` (f32 and bf16 out) against the jnp decode
+    then ``latent_blend_ref`` on seeded codes, scales and weights."""
+    rng = np.random.default_rng(seed)
+    wire = rng.integers(-127, 128, size=(K, W, F)).astype(np.int8)
+    scales = rng.uniform(1e-3, 0.05, size=K).astype(np.float32)
+    weights = rng.uniform(0.1, 1.0, size=(K, W)).astype(np.float32)
+    norm = rng.uniform(0.5, 2.0, size=E).astype(np.float32)
+    dq = jnp.asarray(wire).astype(jnp.float32) * jnp.asarray(scales)[:, None, None]
+    a = np.asarray(jref.latent_blend_ref(dq, jnp.asarray(weights), jnp.asarray(norm),
+                                         tuple(starts), W, E))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        b = ops.dequant_blend(*_t(wire, scales, weights, norm), starts, W, E,
+                              out_dtype=out_dtype)
+        assert b.dtype == out_dtype and b.shape == (E, F)
+        tol = 1e-6 if out_dtype == torch.float32 else 2.0 ** -8
+        np.testing.assert_allclose(b.float().numpy(), a, rtol=tol, atol=1e-6)
+
+
+@settings(max_examples=25, deadline=None)
+@given(K=st.integers(1, 32), W=st.integers(1, 12), extra=st.integers(0, 12),
+       F=st.integers(1, 70), seed=st.integers(0, 2**16), data=st.data())
+def test_plain_dequant_blend_edges_match_jnp(K, W, extra, F, seed, data):
+    """Shapes the card's load widths branch on: any F (F % 16 != 0 and F %
+    4 != 0 among them), repeated starts, K up to 32, W down to 1; 1e-6 in
+    f32 (the same products), one bf16 rounding in bf16."""
+    E = W + extra
+    starts = data.draw(st.lists(st.integers(0, E - W), min_size=K, max_size=K))
+    _dequant_vs_jnp(K, W, E, starts, F, seed)
+
+
+@pytest.mark.parametrize("K,W,E,starts,F", [
+    (4, 8, 13, (0, 2, 5, 5), 49920 // 16 + 6),   # F % 16 == 6, repeated starts
+    (3, 6, 10, (0, 2, 4), 1001),                  # F % 4 != 0
+    (32, 1, 1, (0,) * 32, 48),                    # K 32 and W 1: one row, 32 windows
+])
+def test_plain_dequant_blend_named_edges_match_jnp(K, W, E, starts, F):
+    _dequant_vs_jnp(K, W, E, starts, F, K + F)
 
 
 # ------------------------------------------------------------ guidance
@@ -434,21 +483,29 @@ def test_flash_live_tiles_on_the_cpu_is_the_plain_version():
     (torch.bfloat16, 80, 4096, "flash_attention_sm90"),     # the LM prefill
     (torch.bfloat16, 80, 128, "flash_attention_sm90"),      # one full 128-row block
     (torch.bfloat16, 80, 127, "flash_attention"),
-    (torch.bfloat16, 80, 1, "flash_attention"),             # the LM decode step
+    (torch.bfloat16, 80, 1, "flash_decode"),                # the LM decode step
+    (torch.bfloat16, 80, 8, "flash_decode"),                # DECODE_MAX_QUERIES
+    (torch.bfloat16, 80, 9, "flash_attention"),
+    (torch.bfloat16, 64, 1, "flash_decode"),
     (torch.bfloat16, 64, 4096, "flash_attention"),
+    (torch.float32, 80, 1, "flash_attention"),
     (torch.float32, 128, 4096, "flash_attention"),          # f32: the FMA kernel
     (torch.float32, 80, 4096, "flash_attention"),
 ])
 def test_flash_kernel_dispatch_rule(dtype, D, q_len, kernel):
     """bf16 at D 128, and bf16 at D 80 with at least ``SM90_MIN_QUERIES``
-    (128) queries, go to the wgmma kernel; the rest to flash_attention.cu."""
-    assert ops.SM90_MIN_QUERIES == 128
+    (128) queries, go to the wgmma kernel; bf16 at D 64 and 80 with at
+    most ``DECODE_MAX_QUERIES`` (8) to the split-KV decode kernel; the
+    rest to flash_attention.cu."""
+    assert ops.SM90_MIN_QUERIES == 128 and ops.DECODE_MAX_QUERIES == 8
     assert ops.flash_kernel(dtype, D, q_len) == kernel
 
 
 @pytest.mark.parametrize("kernel,dtype,D", [("flash_attention_sm90", torch.float32, 128),
                                             ("flash_attention_sm90", torch.bfloat16, 64),
                                             ("flash_attention", torch.bfloat16, 128),
+                                            ("flash_decode", torch.float32, 80),
+                                            ("flash_decode", torch.bfloat16, 128),
                                             ("flash_mma", torch.bfloat16, 64)])
 def test_flash_attention_refuses_a_kernel_not_built_for_the_inputs(kernel, dtype, D):
     """A forced kernel must be built for the dtype and head dim, on the CPU
@@ -459,6 +516,97 @@ def test_flash_attention_refuses_a_kernel_not_built_for_the_inputs(kernel, dtype
     with pytest.raises(ValueError, match="not built for|no flash kernel"):
         ops.flash_attention(tq, tk, tv, *_t(qp, kp), kernel=kernel)
     assert ops.launch_counts() == before
+
+
+# -------------------------------------------------------- split-KV decode
+def _decode_positions(case, B, Sq, Skv, rng):
+    """Positions, causal, window and the split of a ``flash_decode_plain``
+    case; queries sit at the last positions."""
+    qp = np.broadcast_to(np.arange(Skv - Sq, Skv, dtype=np.int32), (B, Sq)).copy()
+    kp = np.broadcast_to(np.arange(Skv, dtype=np.int32), (B, Skv)).copy()
+    causal, window, split = False, 0, 1024
+    if case == "mostly_empty":               # 63 of 4096 slots valid: a decode step
+        qp[:] = 62
+        kp[:, 63:] = ref.INT32_MAX
+    elif case == "causal_window":
+        causal, window, split = True, 100, 192
+    elif case == "gqa":
+        causal, split = True, 128
+    elif case == "empty_splits":              # splits 1 .. 6 of 64 keys hold no key
+        kp[:, 64:448] = ref.INT32_MAX
+        split = 64
+    elif case == "ragged_split":              # 1000 keys = 5 x 192 + 40
+        kp[:, rng.random(kp.shape[1]) < 0.3] = ref.INT32_MAX
+        split = 192
+    elif case == "row_without_key":           # batch row 1: every key padded
+        kp[1] = ref.INT32_MAX
+        split = 128
+    return qp, kp, causal, window, split
+
+
+DECODE_PLAIN_CASES = {
+    # case: B, Sq, Skv, H, KV, D
+    "mostly_empty": (2, 1, 4096, 4, 4, 16),
+    "full_cache": (2, 1, 4096, 4, 4, 16),
+    "gqa": (2, 3, 700, 8, 2, 16),
+    "causal_window": (2, 4, 600, 4, 4, 32),
+    "empty_splits": (2, 2, 500, 4, 2, 16),
+    "ragged_split": (1, 5, 1000, 4, 4, 16),
+    "row_without_key": (2, 1, 300, 2, 2, 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_PLAIN_CASES))
+def test_plain_flash_decode_matches_reference_and_pallas(case):
+    """The decode kernel's split-and-merge (``ref.flash_decode_plain``)
+    against the plain flash and the Pallas kernel in interpret mode,
+    within ``F32_TOL``; a row with no attendable key is zero in all three."""
+    B, Sq, Skv, H, KV, D = DECODE_PLAIN_CASES[case]
+    q, k, v, _, _, _ = _qkv(B, Sq, Skv, H, KV, D, seed=len(case))
+    qp, kp, causal, window, split = _decode_positions(case, B, Sq, Skv,
+                                                      np.random.default_rng(3))
+    tq, tk, tv, tqp, tkp = _t(q, k, v, qp, kp)
+    out = ref.flash_decode_plain(tq, tk, tv, tqp, tkp, causal, window, split)
+    assert out.dtype == torch.float32 and out.shape == tq.shape
+    plain = ref.flash_attention_ref(tq, tk, tv, tqp, tkp, causal, window)
+    pallas = np.asarray(jops.flash_attention(*map(jnp.asarray, (q, k, v, qp, kp)),
+                                             causal=causal, window=window, blk_k=512,
+                                             interpret=True))
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), **F32_TOL)
+    np.testing.assert_allclose(out.numpy(), pallas, **F32_TOL)
+    empty = ~ref.attention_mask(tqp, tkp, causal, window).any(-1)
+    assert bool(empty.any()) == (case == "row_without_key")
+    assert float(out[empty].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("split", [64, 100, 4096])
+def test_plain_flash_decode_is_the_same_function_at_any_split(split):
+    """Splits change only the order of the sums: bf16 in, bf16 out within
+    one bf16 rounding of the plain flash."""
+    q, k, v, qp, kp, _ = _qkv(2, 2, 333, 4, 2, 16, seed=split)
+    tq, tk, tv = (x.bfloat16() for x in _t(q, k, v))
+    out = ref.flash_decode_plain(tq, tk, tv, *_t(qp, kp), True, 50, split)
+    plain = ref.flash_attention_ref(tq, tk, tv, *_t(qp, kp), True, 50)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), plain.float().numpy(), rtol=2.0 ** -7,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("Skv,batch_heads,resident,want", [
+    (4096, 128, 528, (4, 1024)),      # the Zamba2 decode step: 4 x 32 heads, 4 blocks an SM
+    (4096, 4096, 528, (1, 4096)),     # more (batch row, kv head) pairs than resident blocks
+    (500, 12, 528, (8, 64)),          # at most one split a 64-key chunk; a short last split
+    (63, 1, 528, (1, 64)),
+    (0, 4, 528, (1, 64)),
+    (65536, 8, 264, (32, 2048)),
+])
+def test_decode_split_fills_the_card_and_covers_every_key(Skv, batch_heads, resident, want):
+    """``ops.decode_split``: as many splits as fill the resident blocks
+    once, 64-key multiples, every key in exactly one split, no empty split."""
+    splits, split_len = ops.decode_split(Skv, batch_heads, resident)
+    assert (splits, split_len) == want
+    assert split_len % 64 == 0 and splits * batch_heads <= max(resident, batch_heads)
+    assert (splits - 1) * split_len < max(Skv, 1) <= splits * split_len
 
 
 def _f32_from_bits(*bits):

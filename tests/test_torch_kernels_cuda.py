@@ -9,7 +9,8 @@ has no CPU mode.  Inputs are made with numpy from a seed.  Stated
 tolerances: bf16 flash elementwise within the bound of its two roundings,
 ``2^-8 attention(q, k, |v|) + 2^-7 |plain|`` (P to bf16 for the
 tensor-core P.V, and the bf16 output; ``ref.flash_bf16_tolerance``),
-for both flash kernels (``mma.sync`` and ``wgmma`` + TMA), f32 flash 1e-4
+for the three flash kernels (``mma.sync``, ``wgmma`` + TMA and the
+split-KV decode kernel, whose P stays f32), f32 flash 1e-4
 (summation order only); blend, int8 quantize, dequant-blend and
 guidance_update exact (the same f32 operations in the same order);
 mamba_ssd ``5e-4 + 5e-4 |plain|``, the reference's own SSD tolerance
@@ -98,11 +99,13 @@ def _flash_checked(q, k, v, qp, kp, causal, window, kv_len=None, kernel=None):
 
 
 # (kernel, dtype, head dim): bf16 at D 128 and 80 on the wgmma kernel, bf16
-# at D 80 (Zamba2) on mma.sync too (its decode step), f32 on the FMA kernel
-# of flash_attention.cu
+# at D 80 (Zamba2) on mma.sync too, bf16 at D 80 and 64 on the split-KV
+# decode kernel (Zamba2's decode step; forced here at any query count),
+# f32 on the FMA kernel of flash_attention.cu
 KERNEL_CASES = [("flash_attention_sm90", torch.bfloat16, 128),
                 ("flash_attention_sm90", torch.bfloat16, 80),
-                ("flash_attention", torch.bfloat16, 80), ("flash_attention", torch.float32, 128)]
+                ("flash_attention", torch.bfloat16, 80), ("flash_attention", torch.float32, 128),
+                ("flash_decode", torch.bfloat16, 80), ("flash_decode", torch.bfloat16, 64)]
 
 
 @pytest.mark.parametrize("kernel,dtype,D", KERNEL_CASES)
@@ -159,6 +162,66 @@ def test_flash_kernels_zero_a_row_without_keys(cuda_device, kernel, dtype, D):
     out, _ = _flash_checked(q, k, v, qp.to(cuda_device), kp.to(cuda_device), False, 0,
                             kernel=kernel)
     assert float(out[1].float().abs().max()) == 0.0 and float(out[0].float().abs().max()) > 0
+
+
+@pytest.mark.parametrize("B,H,KV,D", [(4, 32, 32, 80), (2, 8, 2, 64)])
+def test_flash_decode_on_a_full_cache(cuda_device, B, H, KV, D):
+    """One query per request against 4096 slots, every slot valid: each of
+    the splits holds keys, so the merge rescales and sums them all."""
+    q, k, v, _, kp, _ = _inputs(B, 1, 4096, H, KV, D, seed=B + H)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    qp = torch.full((B, 1), 4095, dtype=torch.int32, device=cuda_device)
+    _flash_checked(q, k, v, qp, kp.to(cuda_device), True, 0, kernel="flash_decode")
+
+
+@pytest.mark.parametrize("valid", [63, 4096])
+def test_flash_decode_two_calls_are_bit_equal(cuda_device, valid):
+    """The merge runs in split order whichever block finishes last."""
+    B, Skv, H = 4, 4096, 32
+    q, k, v, _, kp, _ = _inputs(B, 1, Skv, H, H, 80, seed=valid)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    qp = torch.full((B, 1), valid - 1, dtype=torch.int32, device=cuda_device)
+    lens = torch.full((B,), valid, dtype=torch.int32, device=cuda_device)
+    kp = kp.to(cuda_device)
+    a = ops.flash_decode(q, k, v, qp, kp, causal=False, kv_len=lens)
+    b = ops.flash_decode(q, k, v, qp, kp, causal=False, kv_len=lens)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Sq", [1, 2, 4, 5, 8, 9, 17])
+def test_flash_decode_at_query_counts_around_its_row_passes(cuda_device, Sq):
+    """GQA (4 query heads a kv head), causal with a window: Sq * 4 rows go
+    through passes of 16 (5, 9 and 17 queries leave a part pass); 9 and 17
+    queries are above DECODE_MAX_QUERIES, forced."""
+    q, k, v, qp, kp, _ = _inputs(2, Sq, 900, 16, 4, 80, seed=Sq)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    _flash_checked(q, k, v, qp.to(cuda_device), kp.to(cuda_device), True, 300,
+                   kernel="flash_decode")
+
+
+def test_flash_decode_with_one_split(cuda_device):
+    """More (batch row, kv head) pairs than resident blocks: one split, so
+    every block is the last of its (batch row, kv head) and merges its own
+    partial."""
+    B, KV = 8, 80
+    assert ops.decode_split(300, B * KV, ops._decode_resident(cuda_device, 64))[0] == 1
+    q, k, v, qp, kp, lens = _inputs(B, 1, 300, KV, KV, 64, seed=3)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    _flash_checked(q, k, v, qp.to(cuda_device), kp.to(cuda_device), False, 0,
+                   kv_len=lens.to(cuda_device), kernel="flash_decode")
+
+
+def test_flash_decode_positions_off_a_16_byte_boundary(cuda_device):
+    """Key positions that start 4 bytes past a 16-byte boundary are read
+    with scalar loads; the result is the same function."""
+    B, Skv = 3, 1000
+    q, k, v, qp, _, lens = _inputs(B, 2, Skv, 4, 4, 80, seed=12)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    base = torch.arange(Skv + 1, dtype=torch.int32, device=cuda_device) - 1
+    kp = base[None, 1:].expand(B, Skv)
+    assert kp.data_ptr() % 16 == 4
+    _flash_checked(q, k, v, qp.to(cuda_device), kp, True, 0, kv_len=lens.to(cuda_device),
+                   kernel="flash_decode")
 
 
 SM90_CASES = [
@@ -429,6 +492,60 @@ def test_dequant_blend_kernel_matches_plain(cuda_device, dim, extent, out_dtype)
                                   plan.starts, plan.window, plan.extent, out_dtype)
     assert out.dtype == out_dtype
     assert torch.equal(out, plain)     # same f32 operations in the same order
+
+
+DEQUANT_CASES = {
+    # name: latent extent of the dim, dim, F, byte offset of the wire's start
+    "serving_dim0": (13, 0, 49920, 0),        # the smoke's latent, 2 requests: 4 codes a thread
+    "serving_dim1": (30, 1, 21632, 0),
+    "serving_dim2": (52, 2, 12480, 0),
+    "480p_dim0": (21, 0, 199680, 0),          # vdm_5s's T dim: 16 codes a thread
+    "480p_ragged_warp": (21, 0, 199760, 0),   # 16 codes; a row ends 5 runs into a warp
+    "odd_f": (13, 0, 1001, 0),                # one code a thread
+    "f_mod16_4": (13, 0, 49924, 0),           # 4 codes a thread
+    "wire_off_16_bytes": (21, 0, 199680, 4),  # 480p, but the wire starts 4 bytes in: 4 codes
+    "wire_off_4_bytes": (30, 1, 21632, 1),    # one code a thread
+}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DEQUANT_CASES))
+def test_dequant_blend_kernel_at_its_load_widths(cuda_device, case, out_dtype):
+    """Bit-equal to the plain version at the serving dims (4 codes a
+    thread), the 480p T dim (16 codes a thread, stores staged a warp at a
+    time), and where F, the wire's start or a row's end in mid-warp change
+    the load width or the staged store."""
+    extent, dim, F, offset = DEQUANT_CASES[case]
+    plan = uniform.plan_uniform(extent, (1, 2, 2)[dim], 4, 0.5, dim)
+    tables = spmd.BlendTables.build(plan, cuda_device)
+    rng = np.random.default_rng(F + offset)
+    n = 4 * plan.window * F
+    flat = torch.from_numpy(rng.integers(-127, 128, size=n + 16).astype(np.int8))
+    wire = flat.to(cuda_device)[offset:offset + n].view(4, plan.window, F)
+    assert wire.data_ptr() % 16 == offset
+    scales = torch.from_numpy(rng.uniform(1e-3, 0.05, size=4).astype(np.float32))
+    args = (wire, scales.to(cuda_device), tables.weights, tables.normalizer, plan.starts,
+            plan.window, plan.extent)
+    before = ops.dequant_blend.launches
+    out = ops.dequant_blend(*args, out_dtype=out_dtype)
+    assert ops.dequant_blend.launches == before + 1
+    assert out.dtype == out_dtype
+    assert torch.equal(out, ref.dequant_blend_ref(*args, out_dtype))
+
+
+@pytest.mark.parametrize("case", sorted(BLEND_EDGE_CASES))
+def test_dequant_blend_kernel_on_cover_edges(cuda_device, case):
+    """latent_blend's cover edges (F % 4 != 0, repeated starts, K = 32,
+    one row under 32 windows) on int8 codes, f32 and bf16, bit-equal."""
+    K, W, E, starts, F = BLEND_EDGE_CASES[case]
+    weights, norm = _blend_tables(K, W, E, starts, len(case))
+    rng = np.random.default_rng(F)
+    wire = torch.from_numpy(rng.integers(-127, 128, size=(K, W, F)).astype(np.int8))
+    scales = torch.from_numpy(rng.uniform(1e-3, 0.05, size=K).astype(np.float32))
+    args = [t.to(cuda_device) for t in (wire, scales, weights, norm)]
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = ops.dequant_blend(*args, starts, W, E, out_dtype=out_dtype)
+        assert torch.equal(out, ref.dequant_blend_ref(*args, starts, W, E, out_dtype))
 
 
 @pytest.mark.parametrize("dim,extent", [(0, 13), (1, 30), (2, 52)])
