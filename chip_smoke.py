@@ -50,6 +50,18 @@ Phases, one line each (any failed check exits non-zero):
                int8_quantize (one launch per halo round and one for the
                cores, per step), none through latent_blend; PSNR of each
                request against the fp32 engine's latent.
+  4b. lp_ranks — LP across ranks: a gloo world of 4 ranks sharing the
+               card runs the halo engine (uncoded, int8,
+               displaced:int8-residual) and one of 2 the psum engine, one
+               request at the serve geometry through
+               LPServingEngine(mesh=group), each with an exact elementwise
+               denoiser and with the full-width DiT; every rank's latent
+               must equal the one-process run on the card bit for bit
+               (its DiT called window by window), the group's counted
+               bytes the port's comm_model exactly, and each rank's
+               launches 2 x 30 x 4 flash_attention_sm90 a DiT run and, on
+               an int8 wire, one int8_quantize a halo round and one for
+               the cores a step.  The walls are time-sliced on one card.
   5. coded_stitch — blend_windows_coded(codec="int8") on the card at the
                three dims (int8_quantize + dequant_blend) against its
                plain version.
@@ -237,7 +249,7 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, cold_l2: bool = False) -> float:
+def device_ms(fn, reps: int, cold_l2: bool = False):
     """Device time of one call of ``fn``: the time of every kernel it
     launches, summed by ``torch.profiler`` over ``reps`` calls.  For work
     shorter than the host's launch cost, where events around a loop of
@@ -247,8 +259,9 @@ def device_ms(fn, reps: int, cold_l2: bool = False) -> float:
     now and then drops kernel records (after a long traced window, one
     call's worth), which reads low: a window that holds other than
     ``reps`` times the kernels of one profiled call is taken again (3
-    tries), and one still short is kept and reported on a line of its
-    own.  A window with no device time at all fails."""
+    tries), and one still short gives no number: None, reported on a line
+    of its own (``timed_case`` flags the case).  A window with no device
+    time at all fails."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold_l2 else None
@@ -270,12 +283,23 @@ def device_ms(fn, reps: int, cold_l2: bool = False) -> float:
         per_call, _ = profiled(1)
         count, us = profiled(reps)
         if per_call > 0 and count == per_call * reps and us > 0:
-            break
-    else:
-        print(f"profiler: a window of {reps} calls held {count} kernel records, one call "
-              f"{per_call} (3 tries): its time is kept as measured", flush=True)
+            return us / 1e3 / reps
     check(us > 0, "the profiler shows no device time")
-    return us / 1e3 / reps
+    print(f"profiler: a window of {reps} calls held {count} kernel records, one call "
+          f"{per_call} (3 tries): no time is kept", flush=True)
+    return None
+
+
+def timed_case(rec: dict, device_timed=("ms", "plain_ms")) -> dict:
+    """``rec`` with ``profiler_short``: true where a ``device_ms`` reading
+    among ``device_timed`` came back short (None, written as null)."""
+    rec["profiler_short"] = any(rec.get(k) is None for k in device_timed)
+    return rec
+
+
+def num(x, spec: str = ".4f") -> str:
+    """``x`` formatted, or ``null`` for a reading that gave no number."""
+    return "null" if x is None else format(x, spec)
 
 
 def max_err(a, b, limit):
@@ -420,15 +444,16 @@ def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
         + (qp.numel() + kp.numel()) * 4
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_S * 1e3
-    return {
+    return timed_case({
         "case": name, "kernel": kernel, "shape": [B, Sq, Skv, H, KV, D], "dtype": str(dtype),
         "causal": causal, "window": window, "edge": edge, "max_abs_err": err, "tol": tol,
         "err_share_of_limit": share, "ms": kernel_ms, "events_ms": events_ms,
         "earlier_ms": EARLIER_MS.get(name), "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "tflops": flops / kernel_ms / 1e9,
-    }, (name, kernel, args, causal, window)
+        "tflops": None if kernel_ms is None else flops / kernel_ms / 1e9,
+    }, ("ms", "plain_ms") + (("library_ms",) if library and short else ())), \
+        (name, kernel, args, causal, window)
 
 
 def build_mutants(prefix, mutants, sources, lib_names):
@@ -527,12 +552,12 @@ def guidance_case(dtype, reps=20):
     nbytes = 4 * z.numel() * z.element_size()      # 3 reads and 1 write
     flops = 5.0 * z.numel()
     t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
-    return {
+    return timed_case({
         "case": f"guidance_update_{str(dtype).split('.')[-1]}", "shape": list(GUIDANCE_LATENT),
         "max_abs_err": err, "tol": "bit-equal", "err_share_of_limit": 0.0, "ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": None, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }
+    })
 
 
 def guidance_path():
@@ -637,7 +662,7 @@ def ssd_case(name, b, s, h, p, n, chunk, seed, steep=False, reps=10):
         "max_abs_err": err, "tol": SSD_TOL, "err_share_of_limit": share, "ms": kernel_ms,
         "earlier_ms": EARLIER_MS.get(name), "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "tflops": 2.0 * macs / kernel_ms / 1e9,
+        "tflops": 2.0 * macs / kernel_ms / 1e9, "profiler_short": False,
     }, (name, args, plain, chunk)
 
 
@@ -754,7 +779,7 @@ def blend_case(dim: int, batch: int, channels: int, latent=LATENT, tag: str = ""
               + out.numel()) * 4
     flops = 2.0 * preds.numel() + out.numel()
     t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
-    return {
+    return timed_case({
         "case": name, "K": K, "W": plan.window, "E": plan.extent, "F": F_,
         "starts": list(plan.starts), "max_abs_err": err, "tol": "bit-equal",
         "err_share_of_limit": 0.0, "cold_l2": cold_l2, "ms": kernel_ms,
@@ -763,14 +788,14 @@ def blend_case(dim: int, batch: int, channels: int, latent=LATENT, tag: str = ""
         "library_max_abs_err": lib_err, "library_share_of_limit": lib_share,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }, (name, args, plain)
+    }, ("ms", "plain_ms", "library_ms")), (name, args, plain)
 
 
 def quant_case(name: str, N: int, R: int, F: int, qmax: int = 127, reps=20, seed=0,
                cold_l2: bool = False):
     """int8_quantize vs plain on N slabs (N, R, F): codes and scales bit-equal;
-    slab 1 is all zero (scale 1e-20 / qmax), slab 2 carries half-way values
-    (``ref.plant_halfway_inputs``).  Then a NaN in slab 0 must make its
+    slab 1 is all zero (scale 1e-20 / qmax), slab 2 (the last, for N < 3)
+    carries half-way values (``ref.plant_halfway_inputs``).  Then a NaN in slab 0 must make its
     scale NaN (and its decoded message non-finite), no other slab's.  One
     call must be one kernel on the device and nothing else (no memset).
     Returns the record and the inputs with the plain output, for the
@@ -781,10 +806,11 @@ def quant_case(name: str, N: int, R: int, F: int, qmax: int = 127, reps=20, seed
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((N, R, F), generator=g, device="cuda")
     x[0] *= 40.0
-    x[1] = 0.0
+    if N > 1:
+        x[1] = 0.0
     # values where dividing by the scale and multiplying by its reciprocal
     # give other codes: a kernel that does the latter fails here
-    n_halfway = ref.plant_halfway_inputs(x[2], qmax)
+    n_halfway = ref.plant_halfway_inputs(x[min(2, N - 1)], qmax)
     before = ops.int8_quantize.launches
     wire, scales = ops.int8_quantize(x, qmax)
     pw, ps = ref.int8_quantize_ref(x, qmax)
@@ -816,7 +842,7 @@ def quant_case(name: str, N: int, R: int, F: int, qmax: int = 127, reps=20, seed
     nbytes = x.numel() * 4 + wire.numel() + N * 4
     flops = 5.0 * x.numel()                 # |x|, max, divide, round, clip
     t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
-    return {
+    return timed_case({
         "case": f"quant_{name}", "shape": [N, R, F], "qmax": qmax, "max_abs_err": err,
         "halfway_values": n_halfway, "device_ops_per_call": d_ops,
         "tol": "bit-equal codes and scales", "err_share_of_limit": 0.0,
@@ -824,7 +850,7 @@ def quant_case(name: str, N: int, R: int, F: int, qmax: int = 127, reps=20, seed
         "earlier_ms": EARLIER_MS.get(f"quant_{name}"), "plain_ms": plain_ms,
         "library_ms": None, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }, (f"quant_{name}", x, qmax, (pw, ps))
+    }), (f"quant_{name}", x, qmax, (pw, ps))
 
 
 def quant_blend_mutants(quant_kept, blend_kept, dequant_kept):
@@ -932,7 +958,7 @@ def dequant_case(dim: int, batch: int, channels: int, latent=LATENT, tag: str = 
                               + tables.normalizer.numel() + out.numel()) * 4)
     flops = 3.0 * wire.numel() + out.numel()
     t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
-    return {
+    return timed_case({
         "case": name, "K": K, "W": plan.window, "E": plan.extent, "F": F_,
         "starts": list(plan.starts), "max_abs_err": err, "tol": "bit-equal (f32 and bf16 out)",
         "err_share_of_limit": 0.0, "bf16_equal": True, "cold_l2": cold_l2, "ms": kernel_ms,
@@ -941,10 +967,10 @@ def dequant_case(dim: int, batch: int, channels: int, latent=LATENT, tag: str = 
         "yardstick": "wire.float() then torch.matmul(banded (E, K*W) W*scale / Z, (K*W, F))",
         "yardstick_max_abs_err": yard_err, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-    }, (name, args, plain, plain16)
+    }, ("ms", "bf16_out_ms", "plain_ms", "yardstick_ms")), (name, args, plain, plain16)
 
 
-def expected_quantize_launches(cfg) -> int:
+def expected_quantize_launches(cfg, latent=LATENT) -> int:
     """int8_quantize launches of one coded denoise at the smoke's geometry:
     per step one for each halo transfer round (its K slabs in one call)
     and one for the K cores."""
@@ -952,12 +978,286 @@ def expected_quantize_launches(cfg) -> int:
     from repro_torch.core.uniform import plan_uniform
     from repro_torch.distributed.collectives import halo_spec
 
-    dims = usable_dims(LATENT, cfg.patch_sizes, K)
+    dims = usable_dims(latent, cfg.patch_sizes, K)
     n = 0
     for i in range(1, STEPS + 1):
         d = rotation_dim(i, dims)
-        n += len(halo_spec(plan_uniform(LATENT[d], cfg.patch_sizes[d], K, R, d)).transfers) + 1
+        n += len(halo_spec(plan_uniform(latent[d], cfg.patch_sizes[d], K, R, d)).transfers) + 1
     return n
+
+
+def rank_kernel_shapes(cfg, latent=LATENT, size=K):
+    """The shapes one rank of a halo world of phase lp_ranks gives its
+    kernels over a denoise (one request, batch 1): ``int8_quantize``'s
+    ``(rows, F)`` of one slab (N = 1) for each halo round and for the
+    rank's core, and the DiT's attention over one window as
+    ``(tokens, keys)``, self and cross, at batch 2 (the CFG pair)."""
+    from repro_torch.core.schedule import rotation_dim, usable_dims
+    from repro_torch.core.uniform import plan_uniform
+    from repro_torch.distributed.collectives import halo_spec
+
+    dims = usable_dims(latent, cfg.patch_sizes, size)
+    quant, attn = set(), set()
+    for i in range(1, STEPS + 1):
+        d = rotation_dim(i, dims)
+        plan = plan_uniform(latent[d], cfg.patch_sizes[d], size, R, d)
+        spec = halo_spec(plan)
+        F = math.prod(n for j, n in enumerate(latent) if j != d) * cfg.latent_channels
+        quant |= {(t.length, F) for t in spec.transfers} | {(spec.core_pad, F)}
+        tokens = math.prod((plan.window if j == d else n) // p
+                           for j, (n, p) in enumerate(zip(latent, cfg.patch_sizes)))
+        attn |= {(tokens, tokens), (tokens, cfg.context_len)}
+    return sorted(quant), sorted(attn)
+
+
+# phase lp_ranks: (run name, codec) per world size; each run twice, with the
+# exact denoiser and with the guided DiT
+LP_WORLDS = {4: (("fp32", None), ("int8", "int8"),
+                 ("displaced:int8-residual", "displaced:int8-residual")),
+             2: (("psum-fp32", None),)}
+LP_CONTEXT_SEED = 100
+
+
+def exact_dit(z, t, context):
+    """A stand-in DiT that is elementwise and exact: a window's output is
+    the same alone or stacked, on any batch."""
+    return 0.5 * z + 0.25
+
+
+def windowwise(denoise_fn, K: int):
+    """``denoise_fn`` called window by window on the K windows stacked on
+    the batch axis: each call sees the batch a rank of an lp group sees
+    (cuBLAS may pick another algorithm for another batch)."""
+    import torch
+
+    def fn(windows, t, *extras):
+        return torch.cat([denoise_fn(w, t, *extras) for w in windows.chunk(K)])
+
+    return fn
+
+
+def param_digest(model) -> str:
+    """sha256 of every parameter's bytes, in ``named_parameters`` order."""
+    import torch
+
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode() + p.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def lp_rank_worker(group, runs, cfg, latent, device):
+    """One rank of phase lp_ranks: the full-width DiT built from seed 0 on
+    the shared card, then each run through ``LPServingEngine(mesh=group)``:
+    its latent, this rank's launch counts, its byte counter before each
+    step and at the end, its wall; the DiT runs once more, traced."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import generator
+    from repro_torch.kernels import ops
+    from repro_torch.models import dit, frontends
+    from repro_torch.serving.engine import LPServingEngine, VideoRequest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = dit.init_params(cfg, generator(0, device), group.device)
+    digest = param_digest(model)
+    ctx = frontends.text_context(generator(LP_CONTEXT_SEED, device), 1, cfg, group.device)
+    out = {"rank": group.rank, "digest": digest, "runs": {}}
+    for name, codec in runs:
+        for kind, fn in (("exact", exact_dit), ("dit", model)):
+            eng = LPServingEngine(fn, cfg, num_partitions=group.size, overlap_ratio=R,
+                                  num_steps=STEPS, max_batch=1, mesh=group, wire_codec=codec)
+            snaps = []
+            eng._step_fault = lambda i: snaps.append(group.counter.snapshot())
+            eng.submit(VideoRequest(0, ctx, latent, seed=0))
+            dist.barrier()
+            ops.reset_launch_counts()
+            group.counter.reset()
+            res = eng.run()[0]
+            rec = {"latent": res.latent.cpu(), "wall_s": res.batch_wall_s,
+                   "launches": ops.launch_counts(),
+                   "counts": snaps + [group.counter.snapshot()],
+                   "lp_impl": eng.lp_impl, "compiles": eng._compiler.compiles}
+            eng._step_fault = None
+            if kind == "dit":                  # warm and traced: this rank's device time
+                eng.submit(VideoRequest(1, ctx, latent, seed=0))
+                dist.barrier()
+                act = torch.profiler.ProfilerActivity
+                with torch.profiler.profile(
+                        activities=[act.CPU if device == "cpu" else act.CUDA]) as prof:
+                    warm = eng.run()[0]
+                rec["traced_wall_s"] = warm.batch_wall_s
+                # each kernel's span on the host's clock: the ranks' spans
+                # overlap (a time-sliced kernel's span includes the slices of
+                # the other ranks), so the parent takes their union
+                rec["kernel_spans"] = np.array(
+                    [(e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA],
+                    dtype=np.int64).reshape(-1, 2)
+            out["runs"][(name, kind)] = rec
+            del eng
+    return out
+
+
+def kernel_union_s(spans):
+    """(seconds covered by the union of every rank's kernel spans, sum of
+    the spans): ``spans`` one (N, 2) array of [start, end) ns a rank."""
+    import numpy as np
+
+    allspans = np.concatenate(spans) if spans else np.zeros((0, 2), np.int64)
+    if not len(allspans):
+        return 0.0, 0.0
+    allspans = allspans[np.argsort(allspans[:, 0])]
+    covered, end = 0, None
+    for a, b in allspans:
+        if end is None or a > end:
+            covered += b - a
+            end = b
+        elif b > end:
+            covered += b - end
+            end = b
+    return covered / 1e9, float((allspans[:, 1] - allspans[:, 0]).sum()) / 1e9
+
+
+def lp_ranks(cfg, model, device="cuda", latent=LATENT):
+    """Phase lp_ranks: LP across ranks of gloo groups that share the card.
+
+    A world of 4 ranks runs the halo engine (uncoded, int8,
+    displaced:int8-residual), one of 2 the psum engine, at the smoke's
+    geometry, one request, through ``LPServingEngine(mesh=group)``; each
+    run with the exact denoiser and with the guided DiT.  Every rank's
+    latent must equal the one-process run on the card bit for bit (the
+    wire mirror at K 4, the uniform engine at K 2; its DiT called window
+    by window), the group's counted bytes the port's comm_model exactly
+    (and each step's per-rank payloads the step models), and each rank's
+    launches: 2 x 30 x 4 flash_attention_sm90 in a DiT run, one
+    int8_quantize a halo round and one for the cores a step on an int8
+    wire.  ``device`` and ``latent`` let a CPU run of the phase check its
+    logic at a reduced size.  Returns the record and the launch counts by
+    run."""
+    import torch
+    from repro_torch.core import comm_model as cm
+    from repro_torch.core.schedule import rotation_dim, usable_dims
+    from repro_torch.device import generator
+    from repro_torch.launch.mesh import run_lp_world
+    from repro_torch.models import frontends
+    from repro_torch.serving.engine import LPServingEngine, VideoRequest
+
+    vid_flash = "flash_attention_sm90"
+    ccfg = cm.VDMCommConfig(latent_dims=latent, latent_channels=cfg.latent_channels,
+                            patch_sizes=cfg.patch_sizes, d_model=cfg.d_model,
+                            num_blocks=cfg.num_layers, num_steps=STEPS, bytes_per_el=4)
+    ctx = frontends.text_context(generator(LP_CONTEXT_SEED, device), 1, cfg, device)
+    want_digest = param_digest(model)
+    records, path_counts = [], {}
+    print("phase=lp_ranks note: the ranks of each world share one card and time-slice it; "
+          "their walls are not multi-GPU numbers", flush=True)
+    for size, runs in LP_WORLDS.items():
+        t0 = time.perf_counter()
+        ranks = run_lp_world(lp_rank_worker, size, (runs, cfg, latent, device), device=device,
+                             backend="gloo",
+                             deadline_s=900, threads=2, workdir=str(ROOT / "build" / "lp_world"))
+        world_s = time.perf_counter() - t0
+        check(all(r["digest"] == want_digest for r in ranks),
+              f"lp_ranks: parameter digests differ across ranks ({size} ranks)")
+        dims = usable_dims(latent, cfg.patch_sizes, size)
+        for name, codec in runs:
+            for kind, fn in (("exact", exact_dit), ("dit", model)):
+                got = [r["runs"][(name, kind)] for r in ranks]
+                eng = LPServingEngine(fn, cfg, num_partitions=size, overlap_ratio=R,
+                                      num_steps=STEPS, max_batch=1, device=device,
+                                      wire_codec=codec,
+                                      lp_impl="halo" if size > 2 else "auto")
+                if kind == "dit":
+                    eng._compiler.denoise_fn = windowwise(eng._compiler.denoise_fn, size)
+                eng.submit(VideoRequest(0, ctx, latent, seed=0))
+                want = eng.run()[0].latent.cpu()
+                del eng
+                lat = got[0]["latent"]
+                check(all(torch.equal(g["latent"], lat) for g in got),
+                      f"lp_ranks {name} {kind}: the ranks' latents differ")
+                check(tuple(lat.shape) == (1, *latent, cfg.latent_channels)
+                      and bool(torch.isfinite(lat.float()).all()),
+                      f"lp_ranks {name} {kind}: latent {tuple(lat.shape)} not finite")
+                max_abs = float((lat.float() - want.float()).abs().max())
+                equal = bool(torch.equal(lat, want))
+                # bytes: the group's sent bytes over the denoise, and each
+                # step's per-rank payloads, against the port's comm_model
+                sent = sum(g["counts"][-1]["sent"] for g in got)
+                if size > 2:
+                    model_bytes = cm.comm_lp_halo_codec(ccfg, size, R, codec or "fp32")
+                    bytes_ok, bytes_are = sent == model_bytes, "sent"
+                else:
+                    # a psum rank hands its buffer to the transport; what the
+                    # all-reduce puts on the wire is the model's ring over it
+                    model_bytes = cm.comm_lp_spmd(ccfg, size, R)
+                    payload = sum(g["counts"][-1]["payload"]["all-reduce"] for g in got)
+                    bytes_ok = sent == payload and \
+                        cm.collective_wire_bytes("all-reduce", payload, size) == model_bytes
+                    bytes_are = "handed to the transport, all-reduce wire bytes modelled"
+                steps_ok = True
+                for g in got:
+                    for i in range(1, STEPS + 1):
+                        a, b = g["counts"][i - 1]["payload"], g["counts"][i]["payload"]
+                        step = {k: b[k] - a[k] for k in a}
+                        if size > 2:
+                            m = cm.lp_halo_codec_step_collectives(
+                                ccfg, size, R, rotation_dim(i, dims), codec or "fp32")
+                            m = {"all-gather": m["all-gather"], "all-reduce": 0,
+                                 "collective-permute": m["collective-permute"]}
+                        else:
+                            m = {"all-gather": 0, "all-reduce": ccfg.latent_bytes,
+                                 "collective-permute": 0}
+                        steps_ok &= step == m
+                flash = [g["launches"][vid_flash] for g in got]
+                quant = [g["launches"]["int8_quantize"] for g in got]
+                want_flash = 2 * cfg.num_layers * STEPS if kind == "dit" and device != "cpu" else 0
+                want_quant = (expected_quantize_launches(cfg, latent)
+                              if codec and "int8" in codec and device != "cpu" else 0)
+                others = {k: sum(g["launches"][k] for g in got) for k in got[0]["launches"]
+                          if k not in (vid_flash, "int8_quantize")}
+                rec = {"run": name, "denoiser": kind, "ranks": size, "lp_impl": got[0]["lp_impl"],
+                       "codec": codec or "fp32", "wall_s": max(g["wall_s"] for g in got),
+                       "bytes": sent, "bytes_are": bytes_are, "model_bytes": model_bytes,
+                       "bytes_ok": bytes_ok, "step_payloads_ok": steps_ok,
+                       "bit_equal": equal, "max_abs": max_abs,
+                       "flash_launches_per_rank": flash, "int8_quantize_per_rank": quant,
+                       "compiles": [g["compiles"] for g in got], "world_s": world_s}
+                if kind == "dit":
+                    rec["traced_wall_s"] = max(g["traced_wall_s"] for g in got)
+                    busy_s, span_s = kernel_union_s([g["kernel_spans"] for g in got])
+                    rec["kernel_union_s"], rec["kernel_span_sum_s"] = busy_s, span_s
+                    rec["device_busy"] = busy_s / rec["traced_wall_s"] if busy_s > 0 else None
+                    path_counts[f"lp_ranks:{name}"] = {
+                        vid_flash: sum(flash), "int8_quantize": sum(quant), **others}
+                records.append(rec)
+                busy = "" if kind == "exact" else (
+                    f" traced_wall_s={rec['traced_wall_s']:.3f} "
+                    f"device_busy={num(rec['device_busy'], '.3f')} "
+                    f"rank_kernel_spans_sum_s={rec['kernel_span_sum_s']:.3f}")
+                print(f"phase=lp_ranks run={name} denoiser={kind} ranks={size} "
+                      f"lp_impl={rec['lp_impl']} wall_s={rec['wall_s']:.3f}{busy} "
+                      f"bytes={sent} model_bytes={model_bytes} bytes_ok={bytes_ok} "
+                      f"step_payloads_ok={steps_ok} "
+                      f"bit_equal={equal} max_abs={max_abs:.3e} "
+                      f"{vid_flash}_per_rank={flash} int8_quantize_per_rank={quant} "
+                      f"backend=gloo ranks_share_device=1", flush=True)
+                check(equal, f"lp_ranks {name} {kind}: the ranks' latent differs from the "
+                             f"one-process run (max abs {max_abs:.3e})")
+                check(bytes_ok and steps_ok,
+                      f"lp_ranks {name} {kind}: {sent} bytes counted ({bytes_are}), the model "
+                      f"{model_bytes}; per-step payloads match: {steps_ok}")
+                check(flash == [want_flash] * size and quant == [want_quant] * size
+                      and not any(others.values()),
+                      f"lp_ranks {name} {kind}: launches per rank flash {flash} (want "
+                      f"{want_flash}), int8_quantize {quant} (want {want_quant}), others {others}")
+                check(all(c <= 3 for c in rec["compiles"]),
+                      f"lp_ranks {name} {kind}: step-cache misses {rec['compiles']}")
+    return {"runs": records}, path_counts
 
 
 def psnr_db(a, b) -> float:
@@ -1302,6 +1602,12 @@ def run() -> int:
          dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
         (("flash_self_f32_d128", 2, 300, 300, 4, 4, 128, torch.float32), dict(reps=3)),
     ]
+    # what one rank of phase lp_ranks gives the wgmma kernel: one window's
+    # CFG pair, self and cross, in each dim the denoise runs
+    rank_quant, rank_attn = rank_kernel_shapes(cfg)
+    flash_specs += [((f"flash_rank_{'self' if skv == sq else 'cross'}_{sq}_bf16", 2, sq, skv,
+                      H, H, D, torch.bfloat16), dict(reps=3))
+                    for sq, skv in rank_attn]
     # positions that put the skipping of masked key tiles at its edges,
     # through the wgmma kernel (bf16, D 128 and 80), mma.sync (bf16, D 80)
     # and the FMA kernel (f32)
@@ -1327,6 +1633,8 @@ def run() -> int:
         ("T_transfer", 4, 3, 49920), ("T_cores", 4, 4, 49920), ("H_cores", 4, 8, 21632),
         ("T_transfer_int4", 4, 3, 49920, 7))]
     quant_runs.append(quant_case("T_cores_480p", 4, 6, 199680, cold_l2=True))
+    # one slab a launch, as a rank of phase lp_ranks quantizes: its rounds and its core
+    quant_runs += [quant_case(f"rank_{rows}x{F}", 1, rows, F, reps=5) for rows, F in rank_quant]
     blend, blend_kept = [r for r, _ in blend_runs], [k for _, k in blend_runs]
     quant, quant_kept = [r for r, _ in quant_runs], [k for _, k in quant_runs]
     del blend_runs, quant_runs
@@ -1391,20 +1699,22 @@ def run() -> int:
         ssd_kept.append(kept)
     record["kernels"] = flash + blend + quant + dequant + ssd + guidance
     for c in flash + blend + quant + dequant + ssd + guidance:
-        lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+        lib = num(c["library_ms"])
         earlier = f" earlier_ms={c['earlier_ms']}" if c.get("earlier_ms") else ""
         if "events_ms" in c and c["events_ms"] != c["ms"]:
             earlier += f" events_ms={c['events_ms']:.4f}"
         if "bf16_out_ms" in c:
-            earlier += f" bf16_out_ms={c['bf16_out_ms']:.5f}"
-        if c.get("yardstick_ms") is not None:
-            lib += f" yardstick_ms={c['yardstick_ms']:.4f}"
+            earlier += f" bf16_out_ms={num(c['bf16_out_ms'], '.5f')}"
+        if "yardstick_ms" in c:
+            lib += f" yardstick_ms={num(c['yardstick_ms'])}"
         kern = f" kernel={c['kernel']}" if "kernel" in c else ""
+        short = " profiler_short=true" if c["profiler_short"] else ""
+        share = None if c["ms"] is None else c["bound_ms"] / c["ms"]
         print(f"phase=kernels case={c['case']}{kern} max_abs_err={c['max_abs_err']:.3e} "
-              f"share_of_limit={c['err_share_of_limit']:.3f} kernel_ms={c['ms']:.5f}{earlier} "
-              f"plain_ms={c['plain_ms']:.4f} library_ms={lib} "
+              f"share_of_limit={c['err_share_of_limit']:.3f} kernel_ms={num(c['ms'], '.5f')}"
+              f"{earlier} plain_ms={num(c['plain_ms'])} library_ms={lib} "
               f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']}) "
-              f"share_of_bound={c['bound_ms'] / c['ms']:.3f}", flush=True)
+              f"share_of_bound={num(share, '.3f')}{short}", flush=True)
     ssd_caught, record["mamba_ssd_mutant_shares"] = ssd_mutants(ssd_kept)
     caught = {f"mamba_ssd:{m}": v for m, v in ssd_caught.items()}
     caught.update({f"flash:{m}": v for m, v in flash_mutants(flash_kept).items()})
@@ -1573,6 +1883,9 @@ def run() -> int:
     record["serve_codec"] = {"expected_int8_quantize": want_quant, "fp32_warm_wall_s": warm[0],
                              "runs": coded}
 
+    # --------------------------------------------------------- 4b. lp_ranks
+    record["lp_ranks"], lp_counts = lp_ranks(cfg, model)
+
     # ------------------------------------------------------ 5. coded_stitch
     stitch = []
     ops.reset_launch_counts()
@@ -1603,8 +1916,8 @@ def run() -> int:
         ms = device_ms(lambda: blend_windows_coded(preds, plan, d + 1, codec="int8"), 10)
         for n, v in before.items():
             getattr(ops, n).launches = v
-        stitch.append({"dim": d, "max_abs_err": err, "ms": ms})
-        print(f"phase=coded_stitch dim={d} max_abs_err={err:.3e} device_ms={ms:.4f} "
+        stitch.append(timed_case({"dim": d, "max_abs_err": err, "ms": ms}, ("ms",)))
+        print(f"phase=coded_stitch dim={d} max_abs_err={err:.3e} device_ms={num(ms)} "
               f"int8_quantize_launches=1 dequant_blend_launches=1", flush=True)
     record["coded_stitch"] = {"cases": stitch, "launches": stitch_counts}
 
@@ -1689,7 +2002,7 @@ def run() -> int:
                 "replaces": replaces, "on_path": on_path, "case": case["case"],
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
-                "earlier_ms": case.get("earlier_ms"),
+                "profiler_short": case["profiler_short"], "earlier_ms": case.get("earlier_ms"),
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
 
@@ -1705,12 +2018,13 @@ def run() -> int:
     path_counts = {"serve": main_counts, "lm_serve:prefill": lm_prefill_counts,
                    "lm_serve:decode": lm_decode_counts, "coded_stitch": stitch_counts,
                    "guidance": guidance_counts,
-                   **{f"serve_codec:{c}": n for c, n in coded_counts.items()}}
+                   **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts}
     line = {"kernels": [
         kernel_row("flash_attention_sm90_d128", "src/repro/kernels/flash_attention.py:101",
                    named["flash_self_Twindow_bf16"],
                    {"serve": main_counts[vid_flash],
-                    **{f"serve_codec:{c}": n[vid_flash] for c, n in coded_counts.items()}},
+                    **{f"serve_codec:{c}": n[vid_flash] for c, n in coded_counts.items()},
+                    **{k: n[vid_flash] for k, n in lp_counts.items()}},
                    source="flash_attention_sm90"),
         kernel_row("flash_attention_sm90_d80", "src/repro/kernels/flash_attention.py:101",
                    named["flash_lm_prefill_causal_bf16"],
@@ -1725,7 +2039,8 @@ def run() -> int:
         kernel_row("latent_blend", "src/repro/kernels/latent_blend.py:63", blend[0],
                    {"serve": main_counts["latent_blend"]}),
         kernel_row("int8_quantize", "src/repro/kernels/wire_codec.py:64", quant[0],
-                   {f"serve_codec:{c}": n["int8_quantize"] for c, n in coded_counts.items()}),
+                   {**{f"serve_codec:{c}": n["int8_quantize"] for c, n in coded_counts.items()},
+                    **{k: n["int8_quantize"] for k, n in lp_counts.items()}}),
         kernel_row("dequant_blend", "src/repro/kernels/wire_codec.py:131", dequant[0],
                    {"coded_stitch": stitch_counts["dequant_blend"]}),
         {**kernel_row("mamba_ssd", "src/repro/kernels/mamba_ssd.py:111", ssd[0],

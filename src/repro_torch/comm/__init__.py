@@ -5,11 +5,11 @@
                    codecs quantize through the ``int8_quantize`` kernel on
                    CUDA tensors.
   * ``residual`` — temporal-delta coding with error feedback.
-  * ``wire``     — ``simulate_halo_forward``, the single-process mirror of
-                   the halo engine the serving engine runs off a mesh.
-
-The SPMD collectives (``compressed_halo_exchange``,
-``compressed_core_gather``) and the byte model are ROADMAP Queue 1 item 6.
+  * ``wire``     — the halo engine's codec'd collectives on each rank of an
+                   lp group (``compressed_halo_exchange``,
+                   ``compressed_core_gather``, ``rank_wire_state``) and
+                   ``simulate_halo_forward``, their single-process mirror,
+                   which the serving engine runs off a mesh.
 """
 from .codecs import (  # noqa: F401
     Bf16Codec,
@@ -28,6 +28,10 @@ from .residual import (  # noqa: F401
 )
 from .wire import (  # noqa: F401
     HaloTables,
+    compressed_core_gather,
+    compressed_halo_exchange,
     init_halo_wire_state,
+    put_rank_wire_state,
+    rank_wire_state,
     simulate_halo_forward,
 )

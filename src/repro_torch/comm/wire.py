@@ -1,20 +1,29 @@
-"""The quantized LP wire on one process: a bit-faithful mirror of halo LP.
+"""The quantized LP wire: the halo engine's codec'd collectives, across
+ranks and as a bit-faithful single-process mirror.
 
-A port of the single-process part of ``repro/comm/wire.py``.
-:func:`simulate_halo_forward` replays the halo engine's arithmetic on one
-device: every rank's halo slab and normalized core crosses the "wire"
-through a codec with its own per-slab scale, delivery follows
-``halo_spec``'s schedule, and residual codecs thread explicit state
-(:func:`init_halo_wire_state`).  The serving engine runs it off a mesh
-when a wire codec is active or ``lp_impl="halo"`` was asked for.  The
-SPMD collectives (``compressed_halo_exchange``,
-``compressed_core_gather``) are ROADMAP Queue 1 item 6.
+A port of ``repro/comm/wire.py``.
+
+* :func:`compressed_halo_exchange` / :func:`compressed_core_gather` —
+  the SPMD half, run by each rank of an lp group
+  (``distributed.collectives.LPGroup``) inside ``core/spmd.lp_forward_halo``:
+  each halo slab and the rank's normalized core cross the wire through a
+  codec, payload and per-slab scale meta each as a message of their own
+  (both counted: together ``codec.wire_bytes``).  A rank holds its own
+  slice of the residual state (:func:`rank_wire_state`).
+* :func:`simulate_halo_forward` replays the same arithmetic on one
+  device: every rank's slab and core through the codec with its own
+  per-slab scale, delivery by ``halo_spec``'s schedule, residual codecs
+  threading explicit state (:func:`init_halo_wire_state`).  The serving
+  engine runs it off a mesh when a wire codec is active or
+  ``lp_impl="halo"`` was asked for; the tests hold the ranks to it.
 
 The reference loops over ranks in Python; here the K ranks of one
 transfer are one stack ``(K, length, ...)``, so each transfer and the
 core gather are one ``encode_many`` call each: one ``int8_quantize``
 launch on a CUDA tensor for the int codecs.  Per-rank results are
-bit-equal to the reference's loop (each slab keeps its own scale).
+bit-equal to the reference's loop (each slab keeps its own scale).  A
+rank encodes its slab of every round and its core: one launch each, the
+launches of the mirror's stacks.
 """
 from __future__ import annotations
 
@@ -25,7 +34,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.spmd import stack_windows, window_weights
-from repro_torch.distributed.collectives import HaloSpec, HaloTransfer, halo_spec
+from repro_torch.distributed.collectives import (SHARDED_WIRE, HaloSpec, HaloTransfer,
+                                                 LPGroup, Round, halo_round, halo_rounds,
+                                                 halo_spec, masked_slab)
 
 from .codecs import get_codec
 from .residual import ResidualCodec, residual_decode, residual_encode
@@ -88,6 +99,174 @@ def _finite_rows_or(decoded: torch.Tensor, fallback) -> torch.Tensor:
     ok = ok.reshape((-1,) + (1,) * (decoded.ndim - 1))
     fb = torch.zeros_like(decoded) if fallback is None else fallback
     return torch.where(ok, decoded, fb)
+
+
+def rank_wire_state(state: WireState, rank: int) -> WireState:
+    """Rank ``rank``'s slice of a global-layout wire state (every leaf's
+    leading K dim taken at ``rank``): what that rank holds and threads."""
+    return _map_leaves(state, lambda s: s[rank])
+
+
+def put_rank_wire_state(state: WireState, rank: int, rank_state: WireState) -> WireState:
+    """``state`` (global layout) with rank ``rank``'s row replaced by
+    ``rank_state``; a new state, ``state`` is left as it is."""
+    flat_rank = dict(_leaves(rank_state))
+
+    def put(path, s):
+        s = s.clone()
+        s[rank] = flat_rank[path]
+        return s
+
+    return _map_leaves(state, put, with_path=True)
+
+
+def _leaves(state, prefix=()):
+    for key, val in state.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _map_leaves(state, fn, with_path=False, prefix=()):
+    out = {}
+    for key, val in state.items():
+        path = prefix + (key,)
+        if isinstance(val, dict):
+            out[key] = _map_leaves(val, fn, with_path, path)
+        else:
+            out[key] = fn(path, val) if with_path else fn(val)
+    return out
+
+
+# ----------------------------------------------------------- SPMD pieces
+def compressed_halo_exchange(
+    wpred: torch.Tensor,
+    spec: HaloSpec,
+    rank: int,
+    group: LPGroup,
+    codec,
+    state: WireState,
+    eager_sends: bool = False,
+    shard_axis=None,
+    nan_guard: bool = False,
+) -> Tuple[torch.Tensor, WireState]:
+    """Codec twin of ``collectives.halo_exchange`` on one rank: padded
+    window-first f32 ``wpred`` in, the ``(core_pad + max_transfer, ...)``
+    accumulator out, with this rank's updated codec state.
+
+    Each round encodes the rank's masked slab (residual codecs: the
+    temporal delta with its EF carry) and ships payload and meta to the
+    round's receiver.  As in the reference, every rank encodes every
+    round and decodes what it receives, a rank without a sender decoding
+    zeros (ppermute's implicit zeros: exactly zero, and a residual
+    receiver's state advances as the reference's does).  ``eager_sends``
+    encodes and issues every round before the first decode.
+    ``nan_guard`` falls back per message (:func:`_finite_or`): to the
+    same direction's stale slab for residual codecs (which is then not
+    advanced), to zeros otherwise.  Displaced codecs deposit the previous
+    step's decoded slab while this step's lands in the carry; the first
+    exchange after a state init (``fresh``) deposits the fresh decode.
+    """
+    if shard_axis is not None:
+        raise NotImplementedError(f"shard_axis= is not ported yet: {SHARDED_WIRE}")
+    stateful = isinstance(codec, ResidualCodec)
+    base = codec.base if stateful else codec
+    displaced = stateful and getattr(codec, "displaced", False)
+    rest = tuple(wpred.shape[1:])
+    acc = wpred.new_zeros((spec.core_pad + spec.max_transfer,) + rest, dtype=torch.float32)
+    new_state: WireState = {}
+    if stateful:
+        new_state = dict(state)
+        for key in ("pp_send", "pp_err", "pp_recv"):
+            new_state[key] = dict(state[key])
+    if displaced:
+        fresh = state["fresh"] > 0.5
+        new_state["fresh"] = torch.zeros_like(state["fresh"])
+
+    def send(ti: int, t: HaloTransfer):
+        dk = _dir_key(t)
+        slab = masked_slab(wpred, t, rank)
+        if stateful:
+            wire, meta, n_send, n_err = residual_encode(
+                base, slab[None], state["pp_send"][dk][None], state["pp_err"][dk][None])
+            new_state["pp_send"][dk] = n_send[0]
+            new_state["pp_err"][dk] = n_err[0]
+            wire, meta = wire[0], tuple(m[0] for m in meta)
+        else:
+            wire, meta = codec.encode(slab)
+        msg = (wire,) + tuple(meta)
+        dst, src = halo_round(t, rank)
+        return group.issue(Round(msg, dst, src), ti), msg
+
+    def deposit(t: HaloTransfer, sent) -> None:
+        handle, msg = sent
+        got = group.land(handle)
+        if got is None:                                  # no sender: ppermute's zeros
+            got = tuple(torch.zeros_like(m) for m in msg)
+        wire, meta = got[0], got[1:]
+        shape = (t.length,) + rest
+        if stateful:
+            dk = _dir_key(t)
+            prev = state["pp_recv"][dk]                  # this direction's stale slab
+            dec, n_recv = residual_decode(base, wire, meta, prev, shape)
+            if nan_guard:
+                dec = n_recv = _finite_or(dec, prev)
+            new_state["pp_recv"][dk] = n_recv
+            if displaced:
+                dec = torch.where(fresh, dec, prev)
+        else:
+            dec = codec.decode(wire, meta, shape)
+            if nan_guard:
+                dec = _finite_or(dec, None)
+        dst = t.dst_start[rank]
+        acc[dst:dst + t.length] += dec
+
+    off = spec.core_start[rank] - spec.starts[rank]
+    acc[:spec.core_pad] = wpred[off:off + spec.core_pad]          # own core, never coded
+    halo_rounds(spec, eager_sends, send, deposit)
+    return acc, new_state
+
+
+def compressed_core_gather(
+    core: torch.Tensor,
+    rank: int,
+    group: LPGroup,
+    codec,
+    state: WireState,
+    num_partitions: int,
+    shard_axis=None,
+    nan_guard: bool = False,
+) -> Tuple[torch.Tensor, WireState]:
+    """All-gather of the normalized ``(core_pad, ...)`` f32 core slices
+    through the codec: the decoded ``(K, core_pad, ...)`` stack and the
+    updated state.  Residual codecs delta-code against ``ag_prev`` (the
+    previous gathered table, the same on every rank, so the rank's own
+    row is its sender reference) with an EF carry on its own core.
+    ``nan_guard`` drops a corrupted sender's row (residual: its delta)."""
+    if shard_axis is not None:
+        raise NotImplementedError(f"shard_axis= is not ported yet: {SHARDED_WIRE}")
+    stateful = isinstance(codec, ResidualCodec)
+    base = codec.base if stateful else codec
+    shape = (num_partitions,) + tuple(core.shape)
+    if not stateful:
+        wire, meta = codec.encode(core)
+        wires, metas = group.all_gather(wire), tuple(group.all_gather(m) for m in meta)
+        out = codec.decode(wires, metas, shape)
+        if nan_guard:
+            out = _finite_rows_or(out, None)
+        return out, {}
+    corrected = core - state["ag_prev"][rank] + state["ag_err"]
+    wire, meta = base.encode(corrected)
+    wires, metas = group.all_gather(wire), tuple(group.all_gather(m) for m in meta)
+    d_all = base.decode(wires, metas, shape)
+    if nan_guard:
+        d_all = _finite_rows_or(d_all, None)
+    gathered = state["ag_prev"] + d_all
+    out_state = dict(state)
+    out_state["ag_prev"] = gathered
+    out_state["ag_err"] = corrected - d_all[rank]
+    return gathered, out_state
 
 
 @dataclasses.dataclass(frozen=True)

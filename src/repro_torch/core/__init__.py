@@ -1,13 +1,18 @@
-"""Latent Parallelism (LP) on one GPU: the port of ``repro.core``.
+"""Latent Parallelism (LP) on one GPU or across an lp group: the port of
+``repro.core``.
 
   schedule / partition / weights / uniform — framework-free geometry,
       copied from the reference (the port never imports it)
+  comm_model  — the analytic byte model, copied (numpy only)
   reconstruct — paper-exact stitching (Eqs. 13-17)
   spmd        — uniform windows: slice, and stitch through the
                 ``latent_blend`` kernel (``blend_windows_coded``: through
-                ``int8_quantize`` + ``dequant_blend`` for an int8 wire)
+                ``int8_quantize`` + ``dequant_blend`` for an int8 wire);
+                across ranks the psum (``lp_forward_shard_map``) and halo
+                (``lp_forward_halo``) engines
   lp_step     — the LP loops, the step cache and boundary snapshots;
-                ``codec=`` runs the halo wire mirror (``comm/wire.py``)
+                ``codec=`` runs the halo wire mirror (``comm/wire.py``),
+                ``forward=`` an engine bound to an lp group
 """
 from .schedule import (  # noqa: F401
     DIM_NAMES,

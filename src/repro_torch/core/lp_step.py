@@ -2,7 +2,7 @@
 
 One LP forward pass = dynamic rotating partition -> parallel denoising ->
 position-aware latent reconstruction (paper §3.2 workflow, Fig. 3).  A
-port of ``repro/core/lp_step.py`` for one process:
+port of ``repro/core/lp_step.py``:
 
 * :func:`lp_denoise_reference` — the eager loop, a fresh closure per step.
 * :func:`lp_denoise` + :class:`LPStepCompiler` — the serving path.  PyTorch
@@ -24,8 +24,15 @@ creates it fresh at the start of every run of same-dim steps (where
 boundary snapshots are recorded, so a resume stays bit-exact) and
 carries it across the run; ``state_inits`` counts the inits.
 
-Not served yet, and raising ``NotImplementedError``: codec schedules
-(ROADMAP Queue 1 item 9), mesh-bound forward hooks (items 6 and 8),
+``forward=`` binds the step to an lp group: each rank calls
+``forward(fn, z, plan, axis)`` (``(..., state)`` -> ``(pred, state)`` with a
+residual codec) in place of the one-process engines, e.g. the psum or
+halo engine of ``core/spmd.py`` (``serving/engine.py`` builds it); the
+mesh shape ``(K, 1)`` is part of the cache key, and ``lp_rank`` names the
+rank whose slice of the residual state this process threads.
+
+Not served yet, and raising ``NotImplementedError``: codec schedules and
+per-segment forward hooks (ROADMAP Queue 1 item 9), a tp axis and
 tp-sharded wires (item 8), the flight recorder (item 7).
 """
 from __future__ import annotations
@@ -47,9 +54,8 @@ DenoiseStepFn = Callable[..., torch.Tensor]
 
 _NOT_SERVED = {
     "schedule": "ROADMAP Queue 1 item 9 (step policy)",
-    "forward": "ROADMAP Queue 1 item 6 (several GPUs)",
-    "forward_factory": "ROADMAP Queue 1 items 6 and 9 (scheduled mesh-bound wires)",
-    "mesh_shape": "ROADMAP Queue 1 item 8 (hybrid LP x TP)",
+    "forward_factory": "ROADMAP Queue 1 item 9 (scheduled mesh-bound wires)",
+    "mesh_shape": "ROADMAP Queue 1 item 8 (hybrid LP x TP: a tp axis)",
     "wire_shard": "ROADMAP Queue 1 item 8 (hybrid LP x TP)",
     "recorder": "ROADMAP Queue 1 item 7 (observability)",
 }
@@ -116,18 +122,20 @@ class _StepEntry:
     plan: Any                       # UniformPlan or PartitionPlan
     axis: int
     tables: Optional[BlendTables]   # uniform plans: blend tables on the device
-    halo: Any = None                # codec steps: comm.wire.HaloTables
+    halo: Any = None                # mirrored codec steps: comm.wire.HaloTables
 
 
 class LPStepCompiler:
     """LRU cache of LP step geometry, keyed like the reference's step cache.
 
-    Key: ``(dim, z shape, z dtype, device, K, r, uniform, codec name)``.
-    ``step(dim, z, t, scalars, extras, state=None)`` runs one LP forward
-    with ``denoise_fn(window, t, *extras)`` and applies
+    Key: ``(dim, z shape, z dtype, device, K, r, uniform, codec name,
+    mesh shape)``.  ``step(dim, z, t, scalars, extras, state=None)`` runs
+    one LP forward with ``denoise_fn(window, t, *extras)`` and applies
     ``update_fn(z, pred, scalars)``; with a residual codec it takes and
     returns the wire state, ``(z, state)``.  ``nan_guard`` arms the
-    mirror's per-message NaN/Inf decode guard.
+    mirror's per-message NaN/Inf decode guard (a ``forward`` hook carries
+    its own).  ``forward``, ``mesh_shape`` and ``lp_rank``: see the
+    module docstring.
     """
 
     def __init__(
@@ -147,18 +155,22 @@ class LPStepCompiler:
         mesh_shape: Optional[Tuple[int, ...]] = None,
         wire_shard: bool = False,
         nan_guard: bool = False,
+        lp_rank: Optional[int] = None,
     ):
-        not_served(_NOT_SERVED, schedule=schedule, forward=forward,
-                   forward_factory=forward_factory, mesh_shape=mesh_shape,
-                   wire_shard=wire_shard)
+        tp_axis = mesh_shape is not None and any(n != 1 for n in tuple(mesh_shape)[1:])
+        not_served(_NOT_SERVED, schedule=schedule, forward_factory=forward_factory,
+                   mesh_shape=mesh_shape if tp_axis else None, wire_shard=wire_shard)
         if codec is not None:
             from repro_torch.comm.codecs import get_codec
 
             codec = get_codec(codec)
-            if not uniform:
+            if not uniform and forward is None:
                 raise ValueError("wire codecs need the uniform-window halo geometry "
-                                 "(uniform=True)")
+                                 "(uniform=True) or a custom forward hook")
         self.codec = codec
+        self.forward = forward
+        self.mesh_shape = None if mesh_shape is None else tuple(mesh_shape)
+        self.lp_rank = lp_rank
         self.nan_guard = bool(nan_guard)
         self.denoise_fn = denoise_fn
         self.update_fn = update_fn
@@ -185,7 +197,7 @@ class LPStepCompiler:
     def entry(self, dim: int, z: torch.Tensor) -> _StepEntry:
         key = (dim, tuple(z.shape), z.dtype, z.device, self.num_partitions,
                self.overlap_ratio, self.uniform,
-               None if self.codec is None else self.codec.name)
+               None if self.codec is None else self.codec.name, self.mesh_shape)
         cached = self._cache.get(key)
         if cached is not None:
             self._cache.move_to_end(key)
@@ -193,7 +205,9 @@ class LPStepCompiler:
             return cached
         axis = self.spatial_axes[dim]
         plan = self._plan(dim, z.shape[axis])
-        if self.codec is not None:
+        if self.forward is not None:
+            entry = _StepEntry(plan, axis, None)
+        elif self.codec is not None:
             from repro_torch.comm.wire import HaloTables
 
             entry = _StepEntry(plan, axis, None, HaloTables.build(plan, z.device))
@@ -209,7 +223,7 @@ class LPStepCompiler:
     def init_codec_state(self, dim: int, z: torch.Tensor):
         """Zeroed residual-codec state for (rotation dim, latent geometry),
         on z's device; None for stateless codecs.  Counted in
-        ``state_inits``."""
+        ``state_inits``.  With ``lp_rank`` set, that rank's slice."""
         if not self.stateful:
             return None
         from repro_torch.comm.wire import init_halo_wire_state
@@ -219,7 +233,12 @@ class LPStepCompiler:
         axis = self.spatial_axes[dim]
         plan = self._plan(dim, z.shape[axis])
         rest = tuple(s for i, s in enumerate(z.shape) if i != axis)
-        return init_halo_wire_state(self.codec, halo_spec(plan), rest, z.device)
+        state = init_halo_wire_state(self.codec, halo_spec(plan), rest, z.device)
+        if self.lp_rank is None:
+            return state
+        from repro_torch.comm.wire import rank_wire_state
+
+        return rank_wire_state(state, self.lp_rank)
 
     def step(self, dim: int, z: torch.Tensor, t, scalars, extras: Tuple, state=None):
         e = self.entry(dim, z)
@@ -227,6 +246,11 @@ class LPStepCompiler:
         def fn(w):
             return self.denoise_fn(w, t, *extras)
 
+        if self.forward is not None:
+            if self.stateful:
+                pred, state = self.forward(fn, z, e.plan, e.axis, state)
+                return self.update_fn(z, pred, scalars), state
+            return self.update_fn(z, self.forward(fn, z, e.plan, e.axis), scalars)
         if self.codec is not None:
             from repro_torch.comm.wire import simulate_halo_forward
 

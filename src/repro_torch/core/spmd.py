@@ -1,16 +1,27 @@
-"""Uniform-window LP math: slice the K windows, stitch their predictions.
+"""Uniform-window LP math: slice the K windows, stitch their predictions,
+on one GPU or across the ranks of an lp group.
 
-The single-GPU part of ``repro/core/spmd.py``.  The latent lives on one
-device, so the "rotating partition" is K slices of it and "latent
-reconstruction" (paper Eqs. 15-17) is one pass of the hand-written
-``latent_blend`` kernel (``kernels/ops.latent_blend``) for CUDA tensors,
-its plain version for CPU ones; ``blend_windows_coded`` stitches windows
-that crossed a quantized wire (``int8_quantize`` + ``dequant_blend``).
-The multi-GPU engines (psum, halo) are ROADMAP Queue 1 item 6.
+A port of ``repro/core/spmd.py``.  On one device the "rotating
+partition" is K slices of the latent and "latent reconstruction" (paper
+Eqs. 15-17) one pass of the hand-written ``latent_blend`` kernel
+(``kernels/ops.latent_blend``) for CUDA tensors, its plain version for
+CPU ones; ``blend_windows_coded`` stitches windows that crossed a
+quantized wire (``int8_quantize`` + ``dequant_blend``).
+
+Across an lp group (``distributed.collectives.LPGroup``, one rank per
+window, the latent replicated on every rank) the reference's two SPMD
+engines, picked by ``select_lp_impl``:
+
+* :func:`lp_forward_shard_map` — the psum engine (K = 2): one all-reduce
+  of the f32 weighted global buffer, then the normalizer;
+* :func:`lp_forward_halo` — the halo engine (K >= 3): overlap slabs by
+  point-to-point rounds, each rank normalizes its core, an all-gather of
+  the cores; uncoded or through a wire codec (``comm/wire.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -18,6 +29,8 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 
 from .uniform import UniformPlan
+
+DenoiseFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 def stack_windows(z: torch.Tensor, plan: UniformPlan, axis: int) -> torch.Tensor:
@@ -97,6 +110,110 @@ def blend_windows_coded(preds: torch.Tensor, plan: UniformPlan, axis: int,
     wire, meta = codec.encode_many(preds)
     roundtripped = codec.decode(wire, meta, preds.shape).to(preds.dtype)
     return blend_windows(roundtripped, plan, axis, tables)
+
+
+# --------------------------------------------------------- across ranks
+def _check_group(group, plan: UniformPlan, z: torch.Tensor, axis: int) -> None:
+    K = plan.num_partitions
+    if group.size != K:
+        raise ValueError(f"the lp group has {group.size} ranks, the plan has K={K}")
+    if z.shape[axis] != plan.extent:
+        raise ValueError(f"z must be the whole (replicated) latent: extent {z.shape[axis]} "
+                         f"on axis {axis}, the plan covers {plan.extent}")
+
+
+def _weighted_window(denoise_fn: DenoiseFn, z: torch.Tensor, plan: UniformPlan, axis: int,
+                     k: int) -> torch.Tensor:
+    """Rank k's window denoised, as f32 times its trapezoid weights."""
+    pred = denoise_fn(z.narrow(axis, plan.starts[k], plan.window)).float()
+    w = torch.from_numpy(plan.weight_1d(k)).to(pred.device)
+    wshape = [1] * pred.ndim
+    wshape[axis] = plan.window
+    return pred * w.reshape(wshape)
+
+
+def lp_forward_shard_map(denoise_fn: DenoiseFn, z: torch.Tensor, plan: UniformPlan,
+                         axis: int, group) -> torch.Tensor:
+    """The psum engine on one rank: slice the window locally, denoise,
+    weight, scatter into a zero f32 global buffer, one sum all-reduce
+    over the group (``comm_model.comm_lp_spmd``'s ``2 (K-1) S_z`` wire
+    bytes a step across the group), divide by the analytic normalizer.
+    ``z`` is the replicated latent; the group's size must equal K."""
+    _check_group(group, plan, z, axis)
+    k = group.rank
+    buf = torch.zeros(z.shape, dtype=torch.float32, device=z.device)
+    buf.narrow(axis, plan.starts[k], plan.window).copy_(
+        _weighted_window(denoise_fn, z, plan, axis, k))
+    buf = group.all_reduce(buf)                   # latent reconstruction (Eq. 15)
+    nshape = [1] * buf.ndim
+    nshape[axis] = plan.extent
+    norm = torch.from_numpy(plan.normalizer()).to(buf.device)
+    return (buf / norm.reshape(nshape)).to(z.dtype)
+
+
+def lp_forward_halo(denoise_fn: DenoiseFn, z: torch.Tensor, plan: UniformPlan, axis: int,
+                    group, codec=None, codec_state=None, eager_sends: bool = False,
+                    shard_axis=None, nan_guard: bool = False):
+    """The halo engine on one rank: the psum engine's math without a
+    global-sized buffer on the wire.
+
+    The rank denoises and weights its window, exchanges only the overlap
+    slabs with the ranks whose cores its window touches
+    (``distributed.collectives.halo_exchange``), normalizes its own core
+    with the analytic ``Z(x)``, all-gathers the cores (a disjoint cover
+    of the latent) and reassembles the replicated output
+    (``comm_model.comm_lp_halo``'s bytes).  Uncoded, the core is cast to
+    z's dtype before the gather.
+
+    ``codec`` (a ``comm.codecs`` name or instance) squeezes every slab and
+    the core gather through a wire codec (``comm_model.comm_lp_halo_codec``).
+    Residual codecs are stateful: ``codec_state`` is this rank's slice of
+    ``comm.wire.init_halo_wire_state`` (``comm.wire.rank_wire_state``),
+    and the call returns ``(latent, new_state)``.  ``eager_sends`` issues
+    every round before the first deposit; ``nan_guard`` arms the codec
+    decode guard (``comm.wire._finite_or``).  ``shard_axis`` (the
+    tp-sharded wire) is ROADMAP Queue 1 item 8.
+    """
+    from repro_torch.distributed.collectives import SHARDED_WIRE, halo_exchange, halo_spec
+
+    if shard_axis is not None:
+        raise NotImplementedError(f"shard_axis= is not ported yet: {SHARDED_WIRE}")
+    _check_group(group, plan, z, axis)
+    K, k = plan.num_partitions, group.rank
+    spec = halo_spec(plan)
+    if codec is not None:
+        from repro_torch.comm.codecs import get_codec
+
+        codec = get_codec(codec)
+        if codec.stateful and codec_state is None:
+            raise ValueError(f"codec {codec.name!r} is stateful: pass this rank's slice of "
+                             "comm.wire.init_halo_wire_state as codec_state")
+    wpred = torch.movedim(_weighted_window(denoise_fn, z, plan, axis, k), axis, 0)
+    rest = tuple(wpred.shape[1:])
+    wpred = torch.cat([wpred, wpred.new_zeros((spec.pad,) + rest)])
+    norm = np.ones(spec.core_pad, np.float32)        # ones past core_len: a no-op divide
+    norm[:spec.core_len[k]] = plan.normalizer()[spec.core_start[k]:spec.core_end[k]]
+    norm = torch.from_numpy(norm).to(z.device).reshape((spec.core_pad,) + (1,) * len(rest))
+
+    def reassemble(gathered):
+        out = torch.cat([gathered[j, :spec.core_len[j]] for j in range(K)])
+        return torch.movedim(out, 0, axis).to(z.dtype)
+
+    if codec is None:
+        acc = halo_exchange(wpred, spec, k, group, eager_sends=eager_sends)
+        core = (acc[:spec.core_pad] / norm).to(z.dtype)
+        return reassemble(group.all_gather(core))
+
+    from repro_torch.comm.wire import compressed_core_gather, compressed_halo_exchange
+
+    state = codec_state if codec.stateful else {}
+    acc, state = compressed_halo_exchange(wpred, spec, k, group, codec, state,
+                                          eager_sends=eager_sends, nan_guard=nan_guard)
+    core = acc[:spec.core_pad] / norm
+    gathered, state = compressed_core_gather(core, k, group, codec, state, K,
+                                             nan_guard=nan_guard)
+    out = reassemble(gathered)
+    return (out, state) if codec.stateful else out
 
 
 # ------------------------------------------------------- engine selection

@@ -1,3 +1,3 @@
-"""Distributed pieces of the port.  So far only the halo-exchange
-geometry (``collectives.halo_spec``); the collectives are ROADMAP
-Queue 1 item 6."""
+"""Distributed pieces of the port: the halo-exchange geometry and the LP
+collectives across the ranks of a ``torch.distributed`` group
+(``collectives.LPGroup``, ``collectives.halo_exchange``)."""

@@ -71,7 +71,8 @@ def flash_kernel(dtype: torch.dtype, head_dim: int, q_len: int) -> str:
     SM90_MIN_QUERIES`` (128: one full block of its 128 query rows), as in
     a prefill.  bf16 at D 64 and 80 with ``q_len <= DECODE_MAX_QUERIES``,
     as in a decode step (one query per request), goes to ``flash_decode``
-    (split-KV, f32 FMA over the attendable keys only).  Everything else
+    (split-KV over the attendable keys only, ``mma.sync`` bf16 products
+    with f32 accumulators, one 16-row tile a warp).  Everything else
     (bf16 D 64 and 80 in between, f32) runs on ``flash_attention``.
     """
     if dtype == torch.bfloat16 and (head_dim == 128

@@ -137,7 +137,9 @@ def decode_attention(params, x_t: torch.Tensor, cache_k: torch.Tensor,
     x_t ``(B, 1, d)``, caches ``(B, S_max, KV, D)``, position ``(B,)``.
     Returns ``(out (B, 1, d), cache_k, cache_v)``.  Unlike the reference,
     which returns new arrays, the caches are updated in place and returned
-    as they are.  The query attends every slot below ``position + 1``
+    as they are.  A position outside ``[0, S_max)`` writes the slot the
+    reference's ``dynamic_update_slice`` writes (a negative one counted
+    from the end, then clamped into the cache).  The query attends every slot below ``position + 1``
     (the full-cache branch); the reference's sliding-window branch
     (``0 < window < S_max``) is not ported and raises (ROADMAP Queue 1
     item 12).
@@ -155,7 +157,13 @@ def decode_attention(params, x_t: torch.Tensor, cache_k: torch.Tensor,
     if use_rope:
         q = apply_rope(q, pos2d, rope_theta)
         k = apply_rope(k, pos2d, rope_theta)
-    rows, slots = torch.arange(B, device=x_t.device), position.long()
+    # the reference writes with dynamic_update_slice, which takes a
+    # negative start from the end and clamps it into the cache: position
+    # S_max or past writes the last slot, -1 the last, -S_max - 1 the
+    # first; kv_len stays position + 1
+    rows = torch.arange(B, device=x_t.device)
+    slots = position.long()
+    slots = torch.where(slots < 0, slots + S_max, slots).clamp(0, S_max - 1)
     cache_k[rows, slots] = k[:, 0]
     cache_v[rows, slots] = v[:, 0]
     kv_pos = torch.arange(S_max, device=x_t.device)[None, :].expand(B, S_max)

@@ -1,8 +1,7 @@
-"""LP video-generation serving engine on one GPU: request queue ->
-geometry-batched LP denoising -> latents out.
+"""LP video-generation serving engine: request queue -> geometry-batched
+LP denoising -> latents out, on one GPU or on each rank of an lp group.
 
-The subset of ``repro/serving/engine.py`` that runs on one process (no
-mesh):
+The subset of ``repro/serving/engine.py`` that the port serves:
 
   * bounded admission: ``submit`` raises :class:`QueueFull` beyond
     ``max_queue`` queued requests;
@@ -15,11 +14,21 @@ mesh):
     boundary snapshot, at most ``max_restarts_per_batch`` times.
 
 ``lp_impl`` resolves to the name the reference reports
-(``select_lp_impl``; a wire codec implies the halo family).  Off a mesh
-the reference runs the halo wire mirror (``comm/wire.simulate_halo_forward``)
-when ``lp_impl`` is a halo-family engine and either a codec is active or
-halo was asked for by name (``engine.py:426-437``), and the uniform
-vmapped engine otherwise (``engine.py:565-567``); so does this one.
+(``select_lp_impl``; a wire codec implies the halo family).
+
+``mesh`` (an lp group from ``launch/mesh.make_lp_group``: every rank
+builds the same engine and submits the same requests) binds the LP step
+to the group, as the reference's ``_build_forward`` does
+(``engine.py:491``): the halo engine (``core/spmd.lp_forward_halo``,
+through the wire codec; ``eager_sends`` issues every round before the
+first deposit) or the psum engine (``lp_forward_shard_map``) for the
+rest.  Each rank denoises its own window and ends every step with the
+replicated latent.  Any other mesh (a tp axis) is ROADMAP Queue 1 item 8.
+Off a mesh the reference runs the halo wire mirror
+(``comm/wire.simulate_halo_forward``) when ``lp_impl`` is a halo-family
+engine and either a codec is active or halo was asked for by name
+(``engine.py:426-437``), and the uniform vmapped engine otherwise
+(``engine.py:565-567``); so does this one.
 ``wire_codec`` takes any name of ``comm.codecs.CODEC_NAMES``;
 ``wire_nan_guard`` (default on) arms the mirror's per-message NaN/Inf
 decode guard.  Arguments of other paths raise ``NotImplementedError``
@@ -41,11 +50,12 @@ from repro_torch.core.spmd import select_lp_impl
 from repro_torch.device import DeviceLike, generator, resolve_device
 from repro_torch.diffusion.pipeline import make_guided_step_denoiser
 from repro_torch.diffusion.sampler import FlowMatchEuler
+from repro_torch.distributed.collectives import LPGroup
 from repro_torch.obs.clock import perf_s
 from repro_torch.runtime.ft import DeviceFailure
 
 _NOT_SERVED = {
-    "mesh": "ROADMAP Queue 1 items 6 and 8 (several GPUs, hybrid LP x TP)",
+    "mesh": "ROADMAP Queue 1 item 8 (hybrid LP x TP: a mesh other than a 1-D lp group)",
     "codec_schedule": "ROADMAP Queue 1 item 9 (step policy)",
     "psnr_floor": "ROADMAP Queue 1 item 9 (step policy)",
     "elastic": "ROADMAP Queue 1 item 8 (runtime/elastic re-planning)",
@@ -119,10 +129,15 @@ class LPServingEngine:
         recorder=None,
         slo=None,
         wire_nan_guard: bool = True,
+        eager_sends: Optional[bool] = None,
     ):
-        not_served(_NOT_SERVED, mesh=mesh, codec_schedule=codec_schedule,
+        one_d = mesh is None or isinstance(mesh, LPGroup)
+        not_served(_NOT_SERVED, mesh=None if one_d else mesh, codec_schedule=codec_schedule,
                    psnr_floor=psnr_floor, elastic=elastic, inject_fault=inject_fault,
                    recorder=recorder, slo=slo)
+        if mesh is not None and mesh.size != num_partitions:
+            raise ValueError(f"the lp group has {mesh.size} ranks, num_partitions="
+                             f"{num_partitions}")
         if max_queue is not None and max_queue < max_batch:
             raise ValueError(f"max_queue={max_queue} < max_batch={max_batch}: "
                              "the queue could never fill a batch")
@@ -140,11 +155,19 @@ class LPServingEngine:
                     f"engines have no per-direction slab carry); got lp_impl={lp_impl!r}")
             raise ValueError(f"{what} needs the halo family (the codec layer lives "
                              f"there), got lp_impl={lp_impl!r}")
+        halo_family = lp_impl in ("halo", "halo_hybrid")
+        if mesh is not None and lp_impl == "halo_hybrid":
+            raise NotImplementedError(f"lp_impl='halo_hybrid' on a mesh is not ported yet: "
+                                      f"{_NOT_SERVED['mesh']}")
         # off a mesh the halo family runs the single-process wire mirror, when
         # a codec is active or halo was asked for by name
-        simulate = lp_impl in ("halo", "halo_hybrid") and (codec_active or explicit_halo)
+        simulate = mesh is None and halo_family and (codec_active or explicit_halo)
         self.wire_nan_guard = bool(wire_nan_guard)
-        self.device = resolve_device(device)
+        # None is off: the reference turns it on only on a tp mesh (item 8)
+        self.eager_sends = bool(eager_sends)
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        if mesh is not None and device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device={device} but the lp group computes on {mesh.device}")
         self.cfg = cfg
         self.K = num_partitions
         self.r = overlap_ratio
@@ -161,6 +184,7 @@ class LPServingEngine:
         self._lifecycle: Dict[int, dict] = {}
         self._step_fault: Optional[Callable[[int], None]] = None   # test hook
         self._guided = make_guided_step_denoiser(dit)
+        forward = None if mesh is None else self._build_forward(mesh)
         self._compiler = LPStepCompiler(
             denoise_fn=self._guided,
             update_fn=self._sampler.update,
@@ -169,9 +193,30 @@ class LPServingEngine:
             patch_sizes=cfg.patch_sizes,
             spatial_axes=(1, 2, 3),
             uniform=uniform,
-            codec=self.codec if simulate else None,
+            codec=self.codec if simulate or (mesh is not None and halo_family) else None,
             nan_guard=self.wire_nan_guard,
+            forward=forward,
+            mesh_shape=None if mesh is None else (self.K, 1),
+            lp_rank=None if mesh is None else mesh.rank,
         )
+
+    def _build_forward(self, mesh):
+        """The step's forward hook on ``mesh``: the halo engine through the
+        compiler's wire codec (read when the step runs) for the halo
+        family, the psum engine otherwise (``engine.py:491-567``)."""
+        from repro_torch.core.spmd import lp_forward_halo, lp_forward_shard_map
+
+        if self.lp_impl != "halo":
+            return lambda fn, z, plan, axis: lp_forward_shard_map(fn, z, plan, axis, mesh)
+
+        def halo_fwd(fn, z, plan, axis, **kw):
+            return lp_forward_halo(fn, z, plan, axis, mesh, codec=self._compiler.codec,
+                                   eager_sends=self.eager_sends,
+                                   nan_guard=self.wire_nan_guard, **kw)
+
+        if self.codec.stateful:
+            return lambda fn, z, plan, axis, st: halo_fwd(fn, z, plan, axis, codec_state=st)
+        return halo_fwd
 
     # ------------------------------------------------------------- queue
     def submit(self, req: VideoRequest) -> None:

@@ -211,6 +211,21 @@ def test_flash_decode_with_one_split(cuda_device):
                    kv_len=lens.to(cuda_device), kernel="flash_decode")
 
 
+@pytest.mark.parametrize("over", [1, 7])
+def test_flash_decode_takes_kv_len_past_the_cache(cuda_device, over):
+    """A decode step at ``position >= S_max`` (the reference clamps the
+    cache write and keeps ``kv_len = position + 1``): kv_len above Skv
+    masks nothing, so every slot the query's position allows is attended,
+    as in the plain version."""
+    B, Skv, H = 4, 512, 32
+    q, k, v, _, kp, _ = _inputs(B, 1, Skv, H, H, 80, seed=20 + over)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    qp = torch.full((B, 1), Skv - 1 + over, dtype=torch.int32, device=cuda_device)
+    lens = torch.full((B,), Skv + over, dtype=torch.int32, device=cuda_device)
+    _flash_checked(q, k, v, qp, kp.to(cuda_device), False, 0, kv_len=lens,
+                   kernel="flash_decode")
+
+
 def test_flash_decode_positions_off_a_16_byte_boundary(cuda_device):
     """Key positions that start 4 bytes past a 16-byte boundary are read
     with scalar loads; the result is the same function."""

@@ -172,6 +172,35 @@ def test_gqa_and_decode_attention_match_reference(window_branch):
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
 
 
+@pytest.mark.parametrize("position", [(3, 16), (16, 20), (-1, 5), (-3, -20)])
+def test_decode_attention_outside_the_cache_matches_reference(position):
+    """A position at or past ``S_max`` (16 slots) or below 0: the
+    reference's ``dynamic_update_slice`` counts a negative start from the
+    end, clamps the write into the cache and keeps ``kv_len = position +
+    1``; the port writes the same slot and attends the same keys.  Where the reference attends no key
+    (kv_len <= 0) both give the same NaN or value, compared with
+    ``equal_nan``."""
+    rng = np.random.default_rng(13)
+    d, H, KV, D, B, S_max = 64, 4, 2, 16, 2, 16
+    p = jattn.gqa_init(jax.random.PRNGKey(2), d, H, KV, D, jnp.float32)
+    tp = ttr._map_tree(lambda a: torch.from_numpy(np.array(a)), jax.tree.map(np.asarray, p))
+    xt = rng.normal(size=(B, 1, d)).astype(np.float32)
+    ck = rng.normal(size=(B, S_max, KV, D)).astype(np.float32)
+    cv = rng.normal(size=(B, S_max, KV, D)).astype(np.float32)
+    pos = np.array(position, np.int32)
+    jy, jk, jv = jattn.decode_attention(p, jnp.asarray(xt), jnp.asarray(ck), jnp.asarray(cv),
+                                        jnp.asarray(pos), 1e4, H, KV, D)
+    tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+    ty, _, _ = tattn.decode_attention(tp, torch.from_numpy(xt), tk, tv, torch.from_numpy(pos),
+                                      1e4, H, KV, D)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+    changed = np.nonzero((np.asarray(jk) != ck).any(axis=(2, 3)))
+    slots = np.clip(np.where(pos < 0, pos + S_max, pos), 0, S_max - 1)
+    assert changed[1].tolist() == slots.tolist()
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), equal_nan=True, **TOL)
+
+
 def test_lm_layers_match_reference():
     rng = np.random.default_rng(12)
     x = rng.normal(size=(2, 7, 3, 16)).astype(np.float32)

@@ -30,7 +30,7 @@ from repro.diffusion.pipeline import make_guided_step_denoiser as jguided_step
 from repro.diffusion.sampler import FlowMatchEuler as JFlowMatchEuler
 from repro.models import dit as jdit
 from repro_torch.configs import get_config
-from repro_torch.core import DenoiseSnapshot, LPStepCompiler, lp_denoise
+from repro_torch.core import DenoiseSnapshot, LPStepCompiler, lp_denoise, lp_forward_uniform
 from repro_torch.diffusion import FlowMatchEuler, generate_lp, make_guided_denoiser
 from repro_torch.diffusion.pipeline import make_guided_step_denoiser
 from repro_torch.models import dit as tdit
@@ -119,7 +119,8 @@ def test_snapshot_resume_is_bit_exact(setup):
 
 def test_unported_arguments_name_their_roadmap_item(setup):
     """Arguments of paths not ported yet raise, naming their ROADMAP item;
-    ``codec=`` is served now, so its cases check that it runs."""
+    ``codec=``, ``forward=`` and a ``(K, 1)`` ``mesh_shape`` are served
+    now, so their cases check that they run."""
     sampler, comp, extras = _step_setup(setup)
     z = torch.from_numpy(setup["z"])
     for kw in (dict(schedule="int8@0.5,bf16"), dict(recorder=object())):
@@ -129,11 +130,26 @@ def test_unported_arguments_name_their_roadmap_item(setup):
     coded = lp_denoise(make_guided_step_denoiser(setup["model"]), z, sampler, 2, 2, 0.5,
                        (1, 2, 2), (1, 2, 3), uniform=True, codec="int8", extras=extras)
     assert coded.shape == z.shape and bool(torch.isfinite(coded).all())
-    for kw in (dict(forward=lambda *a: None),
-               dict(forward_factory=lambda c: None), dict(mesh_shape=(2, 1)),
+    for kw in (dict(forward_factory=lambda c: None), dict(mesh_shape=(2, 2)),
                dict(wire_shard=True), dict(schedule="auto")):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), **kw)
+    # a forward hook on a (K, 1) mesh is served: the step runs through it
+    # (the lp-group engines behind it: tests/test_torch_dist.py)
+    calls = []
+
+    def hook(fn, z, plan, axis):
+        calls.append(plan.dim)
+        return lp_forward_uniform(fn, z, plan, axis)
+
+    hooked = LPStepCompiler(make_guided_step_denoiser(setup["model"]), sampler.update, 2, 0.5,
+                            (1, 2, 2), uniform=True, forward=hook, mesh_shape=(2, 1))
+    plain = LPStepCompiler(make_guided_step_denoiser(setup["model"]), sampler.update, 2, 0.5,
+                           (1, 2, 2), uniform=True)
+    outs = [lp_denoise(None, z, sampler, 2, 2, 0.5, (1, 2, 2), (1, 2, 3), compiler=c,
+                       extras=extras) for c in (hooked, plain)]
+    assert len(calls) == 2 and torch.equal(outs[0], outs[1])
+    assert hooked.compiles == plain.compiles and hooked.mesh_shape == (2, 1)
     bf16 = LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), uniform=True,
                           codec="bf16")
     assert bf16.codec.name == "bf16" and not bf16.stateful

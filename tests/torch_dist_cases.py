@@ -1,0 +1,173 @@
+"""Rank-side cases of ``test_torch_dist.py``.
+
+``repro_torch.launch.mesh.run_lp_world`` runs these in spawned
+processes, one per rank of a gloo group on the CPU.  This module imports
+no JAX (a child imports only the module its function lives in), and
+each function runs many cases in one world.  Inputs come from numpy
+seeds; outputs go back to the test, which holds them to the port's
+single-process mirror and to ``core/comm_model``.
+"""
+from __future__ import annotations
+
+import contextlib
+import io
+
+import numpy as np
+import torch
+
+from repro_torch.comm.codecs import get_codec
+from repro_torch.comm.wire import init_halo_wire_state, rank_wire_state
+from repro_torch.core.schedule import rotation_dim, usable_dims
+from repro_torch.core.spmd import lp_forward_halo, lp_forward_shard_map
+from repro_torch.core.uniform import plan_uniform
+from repro_torch.distributed.collectives import halo_spec
+
+PATCH = (1, 2, 2)
+
+
+def exact_denoiser(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise, so a window gives the same values alone or stacked."""
+    return 0.5 * x + 0.25
+
+
+def case_latent(shape, seed: int, nan_at=None) -> torch.Tensor:
+    z = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    if nan_at is not None:
+        z[nan_at] = np.nan
+    return torch.from_numpy(z)
+
+
+def step_plans(z: torch.Tensor, K: int, r: float, steps: int):
+    """(step, dim, plan) of each step, the rotation ``lp_denoise`` runs."""
+    dims = usable_dims([z.shape[1 + d] for d in range(3)], PATCH, K)
+    for i in range(1, steps + 1):
+        d = rotation_dim(i, dims)
+        yield i, d, plan_uniform(z.shape[1 + d], PATCH[d], K, r, d)
+
+
+def halo_run(group, case: dict) -> dict:
+    """One case on this rank: ``case["steps"]`` halo forwards, the output
+    fed back as the next input, residual state made fresh on every new
+    rotation dim (as ``lp_denoise`` does) and threaded within a run.
+    Returns the outputs, this rank's states and the byte counter read
+    after each step."""
+    z = case_latent(case["shape"], case["seed"], case.get("nan_at"))
+    codec = case["codec"]
+    outs, states, counts = [], [], []
+    state, state_dim = None, None
+    group.counter.reset()
+    for _, d, plan in step_plans(z, group.size, case["r"], case["steps"]):
+        kw = dict(codec=codec, eager_sends=case["eager"], nan_guard=case["guard"])
+        if codec is not None and get_codec(codec).stateful:
+            if state is None or d != state_dim:
+                rest = tuple(s for i, s in enumerate(z.shape) if i != 1 + d)
+                state = rank_wire_state(init_halo_wire_state(codec, halo_spec(plan), rest),
+                                        group.rank)
+                state_dim = d
+            z, state = lp_forward_halo(exact_denoiser, z, plan, 1 + d, group,
+                                       codec_state=state, **kw)
+            states.append(state)
+        else:
+            z = lp_forward_halo(exact_denoiser, z, plan, 1 + d, group, **kw)
+        outs.append(z)
+        counts.append(group.counter.snapshot())
+    return {"outs": outs, "states": states, "counts": counts}
+
+
+def halo_cases(group, cases) -> list:
+    return [halo_run(group, c) for c in cases]
+
+
+def psum_cases(group, cases) -> list:
+    """The psum engine over each case's steps (output fed back)."""
+    results = []
+    for case in cases:
+        z = case_latent(case["shape"], case["seed"])
+        outs, counts = [], []
+        group.counter.reset()
+        for _, d, plan in step_plans(z, group.size, case["r"], case["steps"]):
+            z = lp_forward_shard_map(exact_denoiser, z, plan, 1 + d, group)
+            outs.append(z)
+            counts.append(group.counter.snapshot())
+        results.append({"outs": outs, "counts": counts})
+    return results
+
+
+def engine_run(group, requests, num_steps: int, wire_codec=None, eager_sends=None) -> dict:
+    """The reduced WAN DiT (f32, weights from seed 0) served through
+    ``LPServingEngine(mesh=group)`` on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import dit
+    from repro_torch.serving.engine import LPServingEngine, VideoRequest
+
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
+    eng = LPServingEngine(model, cfg, num_partitions=group.size, num_steps=num_steps,
+                          max_batch=len(requests), device="cpu", mesh=group,
+                          wire_codec=wire_codec, eager_sends=eager_sends)
+    group.counter.reset()
+    for rid, ctx, shape, seed in requests:
+        eng.submit(VideoRequest(rid, torch.from_numpy(ctx), shape, seed=seed))
+    res = eng.run()
+    return {"latents": {r.request_id: r.latent for r in res}, "lp_impl": eng.lp_impl,
+            "compiles": eng._compiler.compiles, "counts": group.counter.snapshot(),
+            "eager_sends": eng.eager_sends}
+
+
+def engine_runs(group, codecs, requests, num_steps: int) -> list:
+    return [engine_run(group, requests, num_steps, wire_codec=c) for c in codecs]
+
+
+def kernel_shapes_of_a_rank(group, latent, num_steps: int, r: float, codec: str) -> dict:
+    """The shapes this rank hands ``ops.int8_quantize`` (N, rows, F) and
+    the DiT's attention (B, Sq, Skv) while the reduced DiT serves one
+    request through ``LPServingEngine(mesh=group)`` on the ``codec`` wire."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.kernels import ops
+    from repro_torch.models import dit, frontends
+    from repro_torch.serving.engine import LPServingEngine, VideoRequest
+
+    quant, attn = set(), set()
+    quantize, attention = ops.int8_quantize, dit.attention
+
+    def quantize_seen(x, qmax=127):
+        quant.add(tuple(x.shape))
+        return quantize(x, qmax)
+
+    def attention_seen(q, k, *args, **kw):
+        attn.add((q.shape[0], q.shape[1], k.shape[1]))
+        return attention(q, k, *args, **kw)
+
+    ops.int8_quantize, dit.attention = quantize_seen, attention_seen
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
+    eng = LPServingEngine(model, cfg, num_partitions=group.size, overlap_ratio=r,
+                          num_steps=num_steps, max_batch=1, device="cpu", mesh=group,
+                          wire_codec=codec)
+    eng.submit(VideoRequest(0, frontends.text_context(generator(0, "cpu"), 1, cfg, "cpu"),
+                            tuple(latent), seed=0))
+    eng.run()
+    return {"quant": sorted(quant), "attn": sorted(attn)}
+
+
+def serve_cli(group, argv) -> str:
+    """``repro_torch.launch.serve`` on this rank, the reduced config
+    patched in; returns what the rank printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    serve.get_config = lambda name: get_config(name).reduced()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    return buf.getvalue()
+
+
+def fail_on_rank(group, bad: int) -> int:
+    """Rank ``bad`` raises; the others wait on it in a collective."""
+    if group.rank == bad:
+        raise RuntimeError(f"rank {bad} fails on purpose")
+    group.all_gather(torch.zeros(3))
+    return group.rank

@@ -248,7 +248,7 @@ def time_parts(cs, build, ops, ref):
                                          f"{variant} {name}: differs from plain")
                         ms = cs.device_ms(run, REPS, cold_l2=cold)
                         out.setdefault(f"{lib}:{variant}", {}).setdefault(name, []).append(ms)
-                        print(f"part={lib}:{variant} case={name} ms={ms:.5f}", flush=True)
+                        print(f"part={lib}:{variant} case={name} ms={cs.num(ms, '.5f')}", flush=True)
         return out
     finally:
         __import__("shutil").rmtree(tmp, ignore_errors=True)
@@ -290,7 +290,7 @@ def main() -> int:
         d_ops = cs.device_ops(lambda: ops.int8_quantize(x, qmax))
         ms = cs.device_ms(lambda: ops.int8_quantize(x, qmax), REPS, cold_l2=cold)
         result["cases"][f"quant_{name}"] = {"ms": ms, "device_ops": d_ops, "cold_l2": cold}
-        print(f"tag={a.tag} case=quant_{name} ms={ms:.5f} cold_l2={cold} device_ops={d_ops}",
+        print(f"tag={a.tag} case=quant_{name} ms={cs.num(ms, '.5f')} cold_l2={cold} device_ops={d_ops}",
               flush=True)
     for name, latent, dim, cold in BLEND:
         args = blend_inputs(latent, dim)
@@ -301,7 +301,7 @@ def main() -> int:
         d_ops = cs.device_ops(lambda: ops.latent_blend(*args))
         ms = cs.device_ms(lambda: ops.latent_blend(*args), REPS, cold_l2=cold)
         result["cases"][name] = {"ms": ms, "device_ops": d_ops, "cold_l2": cold}
-        print(f"tag={a.tag} case={name} ms={ms:.5f} cold_l2={cold} device_ops={d_ops}",
+        print(f"tag={a.tag} case={name} ms={cs.num(ms, '.5f')} cold_l2={cold} device_ops={d_ops}",
               flush=True)
         del args, out, plain
     for name, latent, dim, cold in DEQUANT:
@@ -313,7 +313,7 @@ def main() -> int:
         d_ops = cs.device_ops(lambda: ops.dequant_blend(*args))
         ms = cs.device_ms(lambda: ops.dequant_blend(*args), REPS, cold_l2=cold)
         result["cases"][name] = {"ms": ms, "device_ops": d_ops, "cold_l2": cold}
-        print(f"tag={a.tag} case={name} ms={ms:.5f} cold_l2={cold} device_ops={d_ops}",
+        print(f"tag={a.tag} case={name} ms={cs.num(ms, '.5f')} cold_l2={cold} device_ops={d_ops}",
               flush=True)
         del args, out, plain
     for name, valid in DECODE:
@@ -323,7 +323,7 @@ def main() -> int:
         d_ops = cs.device_ops(lambda: ops.flash_attention(q, k, v, qp, kp, causal=True))
         ms = cs.device_ms(lambda: ops.flash_attention(q, k, v, qp, kp, causal=True), REPS)
         result["cases"][name] = {"ms": ms, "kernel": dec_kernel, "device_ops": d_ops}
-        print(f"tag={a.tag} case={name} kernel={dec_kernel} ms={ms:.5f} device_ops={d_ops}",
+        print(f"tag={a.tag} case={name} kernel={dec_kernel} ms={cs.num(ms, '.5f')} device_ops={d_ops}",
               flush=True)
         del q, k, v
     if a.crossover:
@@ -337,7 +337,7 @@ def main() -> int:
                     ms = cs.device_ms(run, REPS)
                     result["crossover"].setdefault(f"valid{valid}_q{sq}", {}).setdefault(
                         kern, []).append(ms)
-                    print(f"crossover valid={valid} queries={sq} kernel={kern} ms={ms:.5f}",
+                    print(f"crossover valid={valid} queries={sq} kernel={kern} ms={cs.num(ms, '.5f')}",
                           flush=True)
                 del q, k, v
     if a.parts:
@@ -362,7 +362,7 @@ def main() -> int:
                                           cold_l2=cold)
                         result["variants"].setdefault(variant, {}).setdefault(
                             f"quant_{name}", []).append(ms)
-                        print(f"variant={variant} case=quant_{name} ms={ms:.5f}", flush=True)
+                        print(f"variant={variant} case=quant_{name} ms={cs.num(ms, '.5f')}", flush=True)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     out_dir = ROOT / "chiprun_out"
