@@ -970,19 +970,19 @@ def dequant_case(dim: int, batch: int, channels: int, latent=LATENT, tag: str = 
     }, ("ms", "bf16_out_ms", "plain_ms", "yardstick_ms")), (name, args, plain, plain16)
 
 
-def expected_quantize_launches(cfg, latent=LATENT) -> int:
+def expected_quantize_launches(cfg, latent=LATENT, size=K, steps=None) -> int:
     """int8_quantize launches of one coded denoise at the smoke's geometry:
-    per step one for each halo transfer round (its K slabs in one call)
-    and one for the K cores."""
+    per step one for each halo transfer round (its K slabs in one call, or
+    a rank's one slab) and one for the cores.  ``steps``: the (step, K)
+    pairs that ran (default: steps 1..STEPS at ``size``)."""
     from repro_torch.core.schedule import rotation_dim, usable_dims
     from repro_torch.core.uniform import plan_uniform
     from repro_torch.distributed.collectives import halo_spec
 
-    dims = usable_dims(latent, cfg.patch_sizes, K)
     n = 0
-    for i in range(1, STEPS + 1):
-        d = rotation_dim(i, dims)
-        n += len(halo_spec(plan_uniform(latent[d], cfg.patch_sizes[d], K, R, d)).transfers) + 1
+    for i, k in steps or [(i, size) for i in range(1, STEPS + 1)]:
+        d = rotation_dim(i, usable_dims(latent, cfg.patch_sizes, k))
+        n += len(halo_spec(plan_uniform(latent[d], cfg.patch_sizes[d], k, R, d)).transfers) + 1
     return n
 
 
@@ -1024,14 +1024,15 @@ def exact_dit(z, t, context):
     return 0.5 * z + 0.25
 
 
-def windowwise(denoise_fn, K: int):
+def windowwise(denoise_fn):
     """``denoise_fn`` called window by window on the K windows stacked on
-    the batch axis: each call sees the batch a rank of an lp group sees
-    (cuBLAS may pick another algorithm for another batch)."""
+    the batch axis (a window is the context's batch): each call sees the
+    batch a rank of an lp group sees (cuBLAS may pick another algorithm
+    for another batch), at whatever K the step runs."""
     import torch
 
     def fn(windows, t, *extras):
-        return torch.cat([denoise_fn(w, t, *extras) for w in windows.chunk(K)])
+        return torch.cat([denoise_fn(w, t, *extras) for w in windows.split(extras[0].shape[0])])
 
     return fn
 
@@ -1173,7 +1174,7 @@ def lp_ranks(cfg, model, device="cuda", latent=LATENT):
                                       wire_codec=codec,
                                       lp_impl="halo" if size > 2 else "auto")
                 if kind == "dit":
-                    eng._compiler.denoise_fn = windowwise(eng._compiler.denoise_fn, size)
+                    eng._compiler.denoise_fn = windowwise(eng._compiler.denoise_fn)
                 eng.submit(VideoRequest(0, ctx, latent, seed=0))
                 want = eng.run()[0].latent.cpu()
                 del eng
@@ -1258,6 +1259,320 @@ def lp_ranks(cfg, model, device="cuda", latent=LATENT):
                 check(all(c <= 3 for c in rec["compiles"]),
                       f"lp_ranks {name} {kind}: step-cache misses {rec['compiles']}")
     return {"runs": records}, path_counts
+
+
+# phase hybrid_ranks: one (M, T) world; (run name, codec, wire_shard), each run
+# with the exact denoiser and with the guided DiT; then the eviction drill
+HYBRID_MESH = (3, 2)
+HYBRID_RUNS = (("fp32", None, False), ("fp32-shard", None, True),
+               ("int8-shard", "int8", True),
+               ("displaced-shard", "displaced:int8-residual", True))
+HYBRID_DRILL = dict(wire_codec="int8-residual", elastic=True, inject_fault="dead:1@3")
+HYBRID_TRACED = "int8-shard"       # the DiT run traced once more, warm: the busy share
+
+
+def hybrid_rank_worker(group, cfg, latent, device):
+    """One rank of phase hybrid_ranks: the full-width DiT from seed 0 on the
+    shared card; an untimed warm-up request, then each run of
+    ``HYBRID_RUNS`` through
+    ``LPServingEngine(mesh=group)`` (its latent, launches, byte counter
+    before each step and at the end, wall); one warm traced DiT run; then
+    the eviction drill (the steps this rank ran, as (dim, K), its launches
+    and outcome; the survivors serve a second request).  A rank of the
+    evicted group records where it left.  Peak memory and its setup and
+    run seconds."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import generator
+    from repro_torch.distributed.collectives import lp_axis
+    from repro_torch.kernels import ops
+    from repro_torch.models import dit, frontends
+    from repro_torch.runtime.faults import GroupEvicted
+    from repro_torch.serving.engine import LPServingEngine, VideoRequest
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = dit.init_params(cfg, generator(0, device), group.device)
+    ctx = frontends.text_context(generator(LP_CONTEXT_SEED, device), 1, cfg, group.device)
+    out = {"rank": dist.get_rank(), "digest": param_digest(model), "runs": {},
+           "setup_s": time.perf_counter() - t0}
+
+    def engine(fn, **kw):
+        return LPServingEngine(fn, cfg, num_partitions=group.size, overlap_ratio=R,
+                               num_steps=STEPS, max_batch=1, mesh=group, **kw)
+
+    # one untimed DiT request first: a process's first request pays its
+    # warm-up, which would fall on the first run and skew the walls
+    warm_eng = engine(model)
+    warm_eng.submit(VideoRequest(0, ctx, latent, seed=0))
+    warm_eng.run()
+    del warm_eng
+    t1 = time.perf_counter()
+    for name, codec, shard in HYBRID_RUNS:
+        for kind, fn in (("exact", exact_dit), ("dit", model)):
+            eng = engine(fn, wire_codec=codec, wire_shard=shard)
+            snaps = []
+            eng._step_fault = lambda i: snaps.append(group.counter.snapshot())
+            eng.submit(VideoRequest(0, ctx, latent, seed=0))
+            dist.barrier()
+            ops.reset_launch_counts()
+            group.counter.reset()
+            res = eng.run()[0]
+            rec = {"latent": res.latent.cpu(), "wall_s": res.batch_wall_s,
+                   "launches": ops.launch_counts(),
+                   "counts": snaps + [group.counter.snapshot()], "lp_impl": eng.lp_impl,
+                   "wire_shard": eng.wire_shard, "eager_sends": eng.eager_sends,
+                   "compiles": eng._compiler.compiles}
+            if kind == "dit" and name == HYBRID_TRACED:
+                eng._step_fault = None
+                eng.submit(VideoRequest(1, ctx, latent, seed=0))
+                dist.barrier()
+                act = torch.profiler.ProfilerActivity
+                with torch.profiler.profile(
+                        activities=[act.CPU if device == "cpu" else act.CUDA]) as prof:
+                    warm = eng.run()[0]
+                rec["traced_wall_s"] = warm.batch_wall_s
+                rec["kernel_spans"] = np.array(
+                    [(e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA],
+                    dtype=np.int64).reshape(-1, 2)
+            out["runs"][(name, kind)] = rec
+            del eng
+    eng = engine(model, **HYBRID_DRILL)
+    ran = []
+    step = eng._compiler.step
+
+    def counted_step(dim, z, *a, **kw):
+        ran.append((dim, eng._compiler.num_partitions))
+        return step(dim, z, *a, **kw)
+
+    eng._compiler.step = counted_step
+    eng.submit(VideoRequest(0, ctx, latent, seed=0))
+    dist.barrier()
+    ops.reset_launch_counts()
+    try:
+        res = eng.run()[0]
+    except GroupEvicted as e:
+        res = None
+        out["evicted"] = (e.group, e.step)
+    drill = {"ran": list(ran), "launches": ops.launch_counts()}
+    if res is not None:
+        drill.update(latent=res.latent.cpu(), wall_s=res.batch_wall_s, restarts=res.restarts,
+                     resumed_from_step=res.resumed_from_step, evictions=eng.evictions,
+                     K=eng.K, mesh_shape=eng._compiler.mesh_shape,
+                     last_steps_lost=eng.last_steps_lost, lp_rank=lp_axis(eng.mesh).rank)
+        eng.submit(VideoRequest(1, ctx, latent, seed=1))
+        again = eng.run()[0]
+        drill["after"] = {"latent": again.latent.cpu(), "restarts": again.restarts,
+                          "evictions": eng.evictions}
+    out["drill"] = drill
+    out["run_s"] = time.perf_counter() - t1
+    out["peak_mem_gb"] = (torch.cuda.max_memory_allocated(group.device) / 2**30
+                          if device != "cpu" else 0.0)
+    return out
+
+
+def hybrid_ranks(cfg, model, device="cuda", latent=LATENT):
+    """Phase hybrid_ranks: hybrid LP x TP on one gloo world of 3 x 2 ranks
+    sharing the card.  Each run of ``HYBRID_RUNS`` (fp32 with the wire
+    sharded over the tp ranks and not, ``int8`` and
+    ``displaced:int8-residual`` sharded), with the exact denoiser and with
+    the guided DiT: every rank's latent the same and bit-equal to the
+    one-process engine at K 3 (the wire mirror, its DiT called window by
+    window), the sharded fp32 wire bit-equal to the unsharded one, each
+    rank's step payloads per tier and the world's sent bytes per tier the
+    comm model's exactly, each rank's launches: 2 x 30 flash_attention_sm90
+    a DiT step, one int8_quantize a halo round and one for the core a step
+    on an int8 wire, <= 3 step-cache misses.  Then the eviction drill in the
+    same world (``HYBRID_DRILL``): the world shrinks to 2 x 2 mid-request,
+    the survivors' latent bit-equal to the one-process engine under the
+    same drill, each rank's launches those of the steps it ran, and a
+    second request makes no new eviction.  Returns the record and the
+    launch counts by run."""
+    import torch
+    from repro_torch.core import comm_model as cm
+    from repro_torch.core.schedule import rotation_dim, usable_dims
+    from repro_torch.device import generator
+    from repro_torch.launch.mesh import run_lp_world
+    from repro_torch.models import frontends
+    from repro_torch.serving.engine import LPServingEngine, VideoRequest
+
+    M, T = HYBRID_MESH
+    vid_flash = "flash_attention_sm90"
+    ccfg = cm.VDMCommConfig(latent_dims=latent, latent_channels=cfg.latent_channels,
+                            patch_sizes=cfg.patch_sizes, d_model=cfg.d_model,
+                            num_blocks=cfg.num_layers, num_steps=STEPS, bytes_per_el=4)
+    ctx = frontends.text_context(generator(LP_CONTEXT_SEED, device), 1, cfg, device)
+    dims = usable_dims(latent, cfg.patch_sizes, M)
+    on_card = device != "cpu"
+
+    def one_process(fn, kind, **kw):
+        eng = LPServingEngine(fn, cfg, num_partitions=M, overlap_ratio=R, num_steps=STEPS,
+                              max_batch=1, device=device, **kw)
+        if kind == "dit":
+            eng._compiler.denoise_fn = windowwise(eng._compiler.denoise_fn)
+        return eng
+
+    t0 = time.perf_counter()
+    ranks = run_lp_world(hybrid_rank_worker, M, (cfg, latent, device), tp=T, device=device,
+                         backend="gloo", deadline_s=900, threads=2,
+                         workdir=str(ROOT / "build" / "hybrid_world"))
+    world_s = time.perf_counter() - t0
+    check(all(r["digest"] == param_digest(model) for r in ranks),
+          "hybrid_ranks: parameter digests differ across ranks")
+    records, path_counts = [], {}
+    print(f"phase=hybrid_ranks world={M}x{T} ranks_share_device=1 backend=gloo "
+          f"world_s={world_s:.1f} setup_s_max={max(r['setup_s'] for r in ranks):.1f} "
+          f"run_s_max={max(r['run_s'] for r in ranks):.1f} peak_mem_gb_per_rank="
+          f"{[round(r['peak_mem_gb'], 2) for r in ranks]}", flush=True)
+    for name, codec, shard in HYBRID_RUNS:
+        wire = codec or "fp32"
+        for kind, fn in (("exact", exact_dit), ("dit", model)):
+            got = [r["runs"][(name, kind)] for r in ranks]
+            eng = one_process(fn, kind, wire_codec=codec, lp_impl="halo")
+            eng.submit(VideoRequest(0, ctx, latent, seed=0))
+            want = eng.run()[0].latent.cpu()
+            del eng
+            lat = got[0]["latent"]
+            check(all(torch.equal(g["latent"], lat) for g in got),
+                  f"hybrid_ranks {name} {kind}: the ranks' latents differ")
+            check(tuple(lat.shape) == (1, *latent, cfg.latent_channels)
+                  and bool(torch.isfinite(lat.float()).all()),
+                  f"hybrid_ranks {name} {kind}: latent {tuple(lat.shape)} not finite")
+            equal = bool(torch.equal(lat, want))
+            max_abs = float((lat.float() - want.float()).abs().max())
+            shard_equal = (bool(torch.equal(lat, ranks[0]["runs"][("fp32", kind)]["latent"]))
+                           if name == "fp32-shard" else None)
+            steps_ok = True
+            for g in got:
+                for i in range(1, STEPS + 1):
+                    d = rotation_dim(i, dims)
+                    step = {t: {k: g["counts"][i]["tiers"][t]["payload"][k]
+                                - g["counts"][i - 1]["tiers"][t]["payload"][k]
+                                for k in ("all-gather", "collective-permute")}
+                            for t in ("inter", "intra")}
+                    if shard:
+                        m = cm.lp_halo_sharded_step_collectives(ccfg, M, T, R, d, wire)
+                        m = {"inter": m["inter"], "intra": {"all-gather": m["intra"]["all-gather"],
+                                                            "collective-permute": 0}}
+                    else:
+                        m = {"inter": cm.lp_halo_hybrid_step_collectives(ccfg, M, T, R, d, wire),
+                             "intra": {"all-gather": 0, "collective-permute": 0}}
+                    steps_ok &= step == m
+            sent = {t: sum(g["counts"][-1]["tiers"][t]["sent"] for g in got)
+                    for t in ("inter", "intra")}
+            if shard:
+                model_bytes = cm.comm_lp_halo_sharded(ccfg, M, T, R, wire)
+                model_bytes = {"inter": model_bytes["inter"], "intra": model_bytes["intra"]}
+            else:
+                model_bytes = {"inter": cm.comm_lp_halo_hybrid(ccfg, M, T, R, wire), "intra": 0}
+            bytes_ok = sent == model_bytes
+            flash = [g["launches"][vid_flash] for g in got]
+            quant = [g["launches"]["int8_quantize"] for g in got]
+            want_flash = 2 * cfg.num_layers * STEPS if kind == "dit" and on_card else 0
+            want_quant = (expected_quantize_launches(cfg, latent, M)
+                          if "int8" in wire and on_card else 0)
+            others = {k: sum(g["launches"][k] for g in got) for k in got[0]["launches"]
+                      if k not in (vid_flash, "int8_quantize")}
+            rec = {"run": name, "denoiser": kind, "mesh": [M, T], "codec": wire,
+                   "wire_shard": got[0]["wire_shard"], "eager_sends": got[0]["eager_sends"],
+                   "lp_impl": got[0]["lp_impl"], "wall_s": max(g["wall_s"] for g in got),
+                   "bytes": sent, "model_bytes": model_bytes, "bytes_ok": bytes_ok,
+                   "step_payloads_ok": steps_ok, "bit_equal": equal, "max_abs": max_abs,
+                   "sharded_equals_unsharded": shard_equal,
+                   "flash_launches_per_rank": flash, "int8_quantize_per_rank": quant,
+                   "compiles": [g["compiles"] for g in got]}
+            busy = ""
+            if "traced_wall_s" in got[0]:
+                rec["traced_wall_s"] = max(g["traced_wall_s"] for g in got)
+                busy_s, span_s = kernel_union_s([g["kernel_spans"] for g in got])
+                rec["kernel_union_s"], rec["kernel_span_sum_s"] = busy_s, span_s
+                rec["device_busy"] = busy_s / rec["traced_wall_s"] if busy_s > 0 else None
+                busy = (f" traced_wall_s={rec['traced_wall_s']:.3f} "
+                        f"device_busy={num(rec['device_busy'], '.3f')}")
+            if kind == "dit":
+                path_counts[f"hybrid_ranks:{name}"] = {
+                    vid_flash: sum(flash), "int8_quantize": sum(quant), **others}
+            records.append(rec)
+            print(f"phase=hybrid_ranks run={name} denoiser={kind} mesh={M}x{T} "
+                  f"lp_impl={rec['lp_impl']} wire_shard={rec['wire_shard']} "
+                  f"wall_s={rec['wall_s']:.3f}{busy} bytes_inter={sent['inter']} "
+                  f"bytes_intra={sent['intra']} model={model_bytes} bytes_ok={bytes_ok} "
+                  f"step_payloads_ok={steps_ok} bit_equal={equal} max_abs={max_abs:.3e} "
+                  f"sharded_equals_unsharded={shard_equal} {vid_flash}_per_rank={flash} "
+                  f"int8_quantize_per_rank={quant}", flush=True)
+            check(equal, f"hybrid_ranks {name} {kind}: the ranks' latent differs from the "
+                         f"one-process run (max abs {max_abs:.3e})")
+            check(shard_equal is not False,
+                  f"hybrid_ranks {name} {kind}: the sharded wire changed the latent")
+            check(bytes_ok and steps_ok,
+                  f"hybrid_ranks {name} {kind}: bytes {sent}, the model {model_bytes}; "
+                  f"per-step payloads match: {steps_ok}")
+            check(flash == [want_flash] * (M * T) and quant == [want_quant] * (M * T)
+                  and not any(others.values()),
+                  f"hybrid_ranks {name} {kind}: launches per rank flash {flash} (want "
+                  f"{want_flash}), int8_quantize {quant} (want {want_quant}), others {others}")
+            check(all(c <= 3 for c in rec["compiles"]) and rec["lp_impl"] == "halo_hybrid"
+                  and rec["wire_shard"] is shard,
+                  f"hybrid_ranks {name} {kind}: step-cache misses {rec['compiles']}, "
+                  f"{rec['lp_impl']}, wire_shard {rec['wire_shard']}")
+
+    # the eviction drill against the one-process engine under the same drill
+    eng = one_process(model, "dit", **HYBRID_DRILL)
+    eng.submit(VideoRequest(0, ctx, latent, seed=0))
+    first = eng.run()[0]
+    eng.submit(VideoRequest(1, ctx, latent, seed=1))
+    second = eng.run()[0]
+    left = [w for w, r in enumerate(ranks) if "evicted" in r]
+    survivors = [r for r in ranks if "evicted" not in r]
+    drills = [r["drill"] for r in survivors]
+    outcome = [(d["evictions"], d["K"], d["mesh_shape"], d["restarts"],
+                d["resumed_from_step"], d["last_steps_lost"]) for d in drills]
+    want_outcome = (eng.evictions, eng.K, (M - 1, T), first.restarts,
+                    first.resumed_from_step, eng.last_steps_lost)
+    equal = all(torch.equal(d["latent"], first.latent.cpu()) for d in drills)
+    again = all(torch.equal(d["after"]["latent"], second.latent.cpu())
+                and d["after"]["restarts"] == 0 and d["after"]["evictions"] == 1 for d in drills)
+    launches_ok = True
+    for r in ranks:
+        d = r["drill"]
+        steps_run = [(i, k) for i, (_, k) in enumerate(d["ran"], start=1)]
+        want_flash = 2 * cfg.num_layers * len(d["ran"]) if on_card else 0
+        want_quant = (expected_quantize_launches(cfg, latent, steps=steps_run)
+                      if on_card else 0)
+        launches_ok &= (d["launches"][vid_flash] == want_flash
+                        and d["launches"]["int8_quantize"] == want_quant)
+    ran_ok = (all(len(d["ran"]) == STEPS for d in drills)
+              and all(len(ranks[w]["drill"]["ran"]) == 2 for w in left))
+    drill_counts = {k: sum(r["drill"]["launches"][k] for r in ranks)
+                    for k in ranks[0]["drill"]["launches"]}
+    path_counts["hybrid_ranks:drill"] = drill_counts
+    drill_rec = {"left": left, "evicted": [ranks[w]["evicted"] for w in left],
+                 "outcome": outcome, "one_process_outcome": want_outcome, "bit_equal": equal,
+                 "second_request_ok": again, "launches_ok": launches_ok, "ran_ok": ran_ok,
+                 "ran": [r["drill"]["ran"] for r in ranks],
+                 "wall_s": max(d["wall_s"] for d in drills)}
+    print(f"phase=hybrid_ranks run=drill {HYBRID_DRILL} left={left} "
+          f"outcome={outcome[0] if outcome else None} one_process={want_outcome} "
+          f"bit_equal={equal} second_request_ok={again} launches_ok={launches_ok} "
+          f"steps_ran={[len(r['drill']['ran']) for r in ranks]} "
+          f"wall_s={drill_rec['wall_s']:.3f} {vid_flash}={drill_counts[vid_flash]} "
+          f"int8_quantize={drill_counts['int8_quantize']}", flush=True)
+    check(left == [T + t for t in range(T)] and len(survivors) == (M - 1) * T,
+          f"hybrid_ranks drill: ranks {left} left, wanted LP group 1's")
+    check(all(o == want_outcome for o in outcome) and want_outcome[:3] == (1, M - 1, (M - 1, T))
+          and want_outcome[3] >= 1 and want_outcome[5] == 0,
+          f"hybrid_ranks drill: outcome {outcome}, the one-process engine's {want_outcome}")
+    check(equal and again, "hybrid_ranks drill: the survivors' latents differ from the "
+                           f"one-process drill (second request ok: {again})")
+    check(launches_ok and ran_ok, f"hybrid_ranks drill: launches or steps run wrong "
+                                  f"({drill_rec['ran']})")
+    return {"runs": records, "drill": drill_rec, "world_s": world_s,
+            "setup_s": [r["setup_s"] for r in ranks], "run_s": [r["run_s"] for r in ranks],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]}, path_counts
 
 
 def psnr_db(a, b) -> float:
@@ -1602,12 +1917,19 @@ def run() -> int:
          dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
         (("flash_self_f32_d128", 2, 300, 300, 4, 4, 128, torch.float32), dict(reps=3)),
     ]
-    # what one rank of phase lp_ranks gives the wgmma kernel: one window's
-    # CFG pair, self and cross, in each dim the denoise runs
-    rank_quant, rank_attn = rank_kernel_shapes(cfg)
+    # what one rank of phase lp_ranks (K 4) and of phase hybrid_ranks (K 3, and
+    # K 2 after its drill's eviction) gives the wgmma kernel: one window's CFG
+    # pair, self and cross, in each dim the denoise runs; SDPA beside each.
+    # Kernel, plain and SDPA by the profiler's device time: a cross call is
+    # ~0.05 ms, shorter than SDPA's cost on the host, which events would time
+    rank_quant, rank_attn = set(), set()
+    for size in (K, HYBRID_MESH[0], HYBRID_MESH[0] - 1):
+        quant_shapes, attn_shapes = rank_kernel_shapes(cfg, size=size)
+        rank_quant |= set(quant_shapes)
+        rank_attn |= set(attn_shapes)
     flash_specs += [((f"flash_rank_{'self' if skv == sq else 'cross'}_{sq}_bf16", 2, sq, skv,
-                      H, H, D, torch.bfloat16), dict(reps=3))
-                    for sq, skv in rank_attn]
+                      H, H, D, torch.bfloat16), dict(reps=20, library=True, short=True))
+                    for sq, skv in sorted(rank_attn)]
     # positions that put the skipping of masked key tiles at its edges,
     # through the wgmma kernel (bf16, D 128 and 80), mma.sync (bf16, D 80)
     # and the FMA kernel (f32)
@@ -1634,7 +1956,8 @@ def run() -> int:
         ("T_transfer_int4", 4, 3, 49920, 7))]
     quant_runs.append(quant_case("T_cores_480p", 4, 6, 199680, cold_l2=True))
     # one slab a launch, as a rank of phase lp_ranks quantizes: its rounds and its core
-    quant_runs += [quant_case(f"rank_{rows}x{F}", 1, rows, F, reps=5) for rows, F in rank_quant]
+    quant_runs += [quant_case(f"rank_{rows}x{F}", 1, rows, F, reps=5)
+                   for rows, F in sorted(rank_quant)]
     blend, blend_kept = [r for r, _ in blend_runs], [k for _, k in blend_runs]
     quant, quant_kept = [r for r, _ in quant_runs], [k for _, k in quant_runs]
     del blend_runs, quant_runs
@@ -1653,7 +1976,7 @@ def run() -> int:
         (("flash_lm_prefill_causal_bf16", PREFILL_B, PREFILL_S, PREFILL_S, lH, lH, lD,
           torch.bfloat16), dict(causal=True, library=True, reps=5)),
         (("flash_lm_prefill_causal_bf16_mma", PREFILL_B, PREFILL_S, PREFILL_S, lH, lH, lD,
-          torch.bfloat16), dict(causal=True, reps=5, kernel="flash_attention")),
+          torch.bfloat16), dict(causal=True, library=True, reps=5, kernel="flash_attention")),
         (("flash_lm_decode_bf16", DECODE_B, 1, MAX_LEN, lH, lH, lD, torch.bfloat16),
          dict(kv_len=[PROMPT + GEN - 1] * DECODE_B, library=True, reps=20, short=True)),
         # the mma.sync kernel that served the decode step before, timed in
@@ -1885,6 +2208,10 @@ def run() -> int:
 
     # --------------------------------------------------------- 4b. lp_ranks
     record["lp_ranks"], lp_counts = lp_ranks(cfg, model)
+
+    # ----------------------------------------------------- 4c. hybrid_ranks
+    record["hybrid_ranks"], hybrid_counts = hybrid_ranks(cfg, model)
+    lp_counts = {**lp_counts, **hybrid_counts}
 
     # ------------------------------------------------------ 5. coded_stitch
     stitch = []

@@ -9,7 +9,9 @@ A port of ``repro/comm/wire.py``.
   each halo slab and the rank's normalized core cross the wire through a
   codec, payload and per-slab scale meta each as a message of their own
   (both counted: together ``codec.wire_bytes``).  A rank holds its own
-  slice of the residual state (:func:`rank_wire_state`).
+  slice of the residual state (:func:`rank_wire_state`).  With
+  ``shard_axis`` (the tp group of a 2-D group) each coded payload crosses
+  the lp group in 1/T chunks and the meta whole.
 * :func:`simulate_halo_forward` replays the same arithmetic on one
   device: every rank's slab and core through the codec with its own
   per-slab scale, delivery by ``halo_spec``'s schedule, residual codecs
@@ -34,9 +36,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.spmd import stack_windows, window_weights
-from repro_torch.distributed.collectives import (SHARDED_WIRE, HaloSpec, HaloTransfer,
-                                                 LPGroup, Round, halo_round, halo_rounds,
-                                                 halo_spec, masked_slab)
+from repro_torch.distributed.collectives import (HaloSpec, HaloTransfer, LPGroup, Round,
+                                                 check_shard, gather, halo_round, halo_rounds,
+                                                 halo_spec, issue_round, land_round,
+                                                 masked_slab)
 
 from .codecs import get_codec
 from .residual import ResidualCodec, residual_decode, residual_encode
@@ -148,7 +151,7 @@ def compressed_halo_exchange(
     codec,
     state: WireState,
     eager_sends: bool = False,
-    shard_axis=None,
+    shard_axis: Optional[LPGroup] = None,
     nan_guard: bool = False,
 ) -> Tuple[torch.Tensor, WireState]:
     """Codec twin of ``collectives.halo_exchange`` on one rank: padded
@@ -167,9 +170,12 @@ def compressed_halo_exchange(
     advanced), to zeros otherwise.  Displaced codecs deposit the previous
     step's decoded slab while this step's lands in the carry; the first
     exchange after a state init (``fresh``) deposits the fresh decode.
+    ``shard_axis`` (the tp group of a ``HybridGroup``) ships each coded
+    payload sharded over it and the meta whole (``collectives.issue_round``):
+    encoding happens on the full slab, identical on every tp rank, so
+    scales, codes and residual state are those of the unsharded wire.
     """
-    if shard_axis is not None:
-        raise NotImplementedError(f"shard_axis= is not ported yet: {SHARDED_WIRE}")
+    shard_axis = check_shard(group, shard_axis)
     stateful = isinstance(codec, ResidualCodec)
     base = codec.base if stateful else codec
     displaced = stateful and getattr(codec, "displaced", False)
@@ -197,11 +203,11 @@ def compressed_halo_exchange(
             wire, meta = codec.encode(slab)
         msg = (wire,) + tuple(meta)
         dst, src = halo_round(t, rank)
-        return group.issue(Round(msg, dst, src), ti), msg
+        return issue_round(group, Round(msg, dst, src), ti, shard_axis), msg
 
     def deposit(t: HaloTransfer, sent) -> None:
         handle, msg = sent
-        got = group.land(handle)
+        got = land_round(group, handle, shard_axis)
         if got is None:                                  # no sender: ppermute's zeros
             got = tuple(torch.zeros_like(m) for m in msg)
         wire, meta = got[0], got[1:]
@@ -235,7 +241,7 @@ def compressed_core_gather(
     codec,
     state: WireState,
     num_partitions: int,
-    shard_axis=None,
+    shard_axis: Optional[LPGroup] = None,
     nan_guard: bool = False,
 ) -> Tuple[torch.Tensor, WireState]:
     """All-gather of the normalized ``(core_pad, ...)`` f32 core slices
@@ -243,22 +249,26 @@ def compressed_core_gather(
     updated state.  Residual codecs delta-code against ``ag_prev`` (the
     previous gathered table, the same on every rank, so the rank's own
     row is its sender reference) with an EF carry on its own core.
-    ``nan_guard`` drops a corrupted sender's row (residual: its delta)."""
-    if shard_axis is not None:
-        raise NotImplementedError(f"shard_axis= is not ported yet: {SHARDED_WIRE}")
+    ``nan_guard`` drops a corrupted sender's row (residual: its delta).
+    ``shard_axis`` gathers each coded core sharded over the tp group
+    (``collectives.sharded_all_gather``) and the meta whole over the lp
+    group; the residual state stays tp-replicated."""
+    shard_axis = check_shard(group, shard_axis)
     stateful = isinstance(codec, ResidualCodec)
     base = codec.base if stateful else codec
     shape = (num_partitions,) + tuple(core.shape)
     if not stateful:
         wire, meta = codec.encode(core)
-        wires, metas = group.all_gather(wire), tuple(group.all_gather(m) for m in meta)
+        wires = gather(group, wire, shard_axis)
+        metas = tuple(group.all_gather(m) for m in meta)
         out = codec.decode(wires, metas, shape)
         if nan_guard:
             out = _finite_rows_or(out, None)
         return out, {}
     corrected = core - state["ag_prev"][rank] + state["ag_err"]
     wire, meta = base.encode(corrected)
-    wires, metas = group.all_gather(wire), tuple(group.all_gather(m) for m in meta)
+    wires = gather(group, wire, shard_axis)
+    metas = tuple(group.all_gather(m) for m in meta)
     d_all = base.decode(wires, metas, shape)
     if nan_guard:
         d_all = _finite_rows_or(d_all, None)

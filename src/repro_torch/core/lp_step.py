@@ -24,16 +24,23 @@ creates it fresh at the start of every run of same-dim steps (where
 boundary snapshots are recorded, so a resume stays bit-exact) and
 carries it across the run; ``state_inits`` counts the inits.
 
-``forward=`` binds the step to an lp group: each rank calls
+``forward=`` binds the step to a group: each rank calls
 ``forward(fn, z, plan, axis)`` (``(..., state)`` -> ``(pred, state)`` with a
-residual codec) in place of the one-process engines, e.g. the psum or
-halo engine of ``core/spmd.py`` (``serving/engine.py`` builds it); the
-mesh shape ``(K, 1)`` is part of the cache key, and ``lp_rank`` names the
-rank whose slice of the residual state this process threads.
+residual codec) in place of the one-process engines, e.g. the psum, halo
+or hybrid engine of ``core/spmd.py`` / ``core/hybrid.py``
+(``serving/engine.py`` builds it); the mesh shape ``(K, T)`` and
+``wire_shard`` are part of the cache key, and ``lp_rank`` names the rank
+whose slice of the residual state this process threads.
+
+``LPStepCompiler.replan`` swaps the geometry mid-request (an elastic
+eviction, ``runtime/elastic.replan_lp_compiler``): it bumps
+``plan_epoch``, and the in-flight ``lp_denoise`` re-derives its rotation
+dims, re-zeroes the codec state once and records a snapshot at the
+re-plan boundary.
 
 Not served yet, and raising ``NotImplementedError``: codec schedules and
-per-segment forward hooks (ROADMAP Queue 1 item 9), a tp axis and
-tp-sharded wires (item 8), the flight recorder (item 7).
+per-segment forward hooks (ROADMAP Queue 1 item 9), the flight recorder
+(item 7).
 """
 from __future__ import annotations
 
@@ -55,8 +62,6 @@ DenoiseStepFn = Callable[..., torch.Tensor]
 _NOT_SERVED = {
     "schedule": "ROADMAP Queue 1 item 9 (step policy)",
     "forward_factory": "ROADMAP Queue 1 item 9 (scheduled mesh-bound wires)",
-    "mesh_shape": "ROADMAP Queue 1 item 8 (hybrid LP x TP: a tp axis)",
-    "wire_shard": "ROADMAP Queue 1 item 8 (hybrid LP x TP)",
     "recorder": "ROADMAP Queue 1 item 7 (observability)",
 }
 
@@ -73,20 +78,23 @@ def not_served(items: Dict[str, str], **given: Any) -> None:
 class DenoiseSnapshot:
     """Mid-denoise recovery point, recorded at dim-rotation boundaries.
 
-    After each completed run of same-dim steps the latent and the step
-    index are recorded here (a CPU copy, so it survives the loss of the
-    device that failed); a later :func:`lp_denoise` call with the same
-    snapshot resumes from that boundary instead of ``z_T``.
+    After each completed run of same-dim steps, and at a re-plan, the
+    latent and the step index are recorded here (a CPU copy, so it
+    survives the loss of the device that failed) with the compiler's
+    ``plan_epoch``; a later :func:`lp_denoise` call with the same snapshot
+    resumes from that boundary instead of ``z_T``.
     """
 
     step: int = 0                          # last completed denoise step
     z: Optional[torch.Tensor] = None       # CPU copy of the latent at ``step``
+    plan_epoch: int = 0                    # compiler epoch when recorded
     boundaries: int = 0                    # records taken
     resumes: int = 0                       # times a denoise resumed from here
 
-    def record(self, step: int, z: torch.Tensor) -> None:
+    def record(self, step: int, z: torch.Tensor, plan_epoch: int = 0) -> None:
         self.step = int(step)
         self.z = z.detach().to("cpu", copy=True)
+        self.plan_epoch = int(plan_epoch)
         self.boundaries += 1
 
 
@@ -129,7 +137,7 @@ class LPStepCompiler:
     """LRU cache of LP step geometry, keyed like the reference's step cache.
 
     Key: ``(dim, z shape, z dtype, device, K, r, uniform, codec name,
-    mesh shape)``.  ``step(dim, z, t, scalars, extras, state=None)`` runs
+    mesh shape, wire_shard)``.  ``step(dim, z, t, scalars, extras, state=None)`` runs
     one LP forward with ``denoise_fn(window, t, *extras)`` and applies
     ``update_fn(z, pred, scalars)``; with a residual codec it takes and
     returns the wire state, ``(z, state)``.  ``nan_guard`` arms the
@@ -157,9 +165,7 @@ class LPStepCompiler:
         nan_guard: bool = False,
         lp_rank: Optional[int] = None,
     ):
-        tp_axis = mesh_shape is not None and any(n != 1 for n in tuple(mesh_shape)[1:])
-        not_served(_NOT_SERVED, schedule=schedule, forward_factory=forward_factory,
-                   mesh_shape=mesh_shape if tp_axis else None, wire_shard=wire_shard)
+        not_served(_NOT_SERVED, schedule=schedule, forward_factory=forward_factory)
         if codec is not None:
             from repro_torch.comm.codecs import get_codec
 
@@ -170,6 +176,7 @@ class LPStepCompiler:
         self.codec = codec
         self.forward = forward
         self.mesh_shape = None if mesh_shape is None else tuple(mesh_shape)
+        self.wire_shard = bool(wire_shard)
         self.lp_rank = lp_rank
         self.nan_guard = bool(nan_guard)
         self.denoise_fn = denoise_fn
@@ -184,6 +191,48 @@ class LPStepCompiler:
         self.compiles = 0
         self.hits = 0
         self.state_inits = 0
+        self.plan_epoch = 0                # bumped by every re-plan that changes anything
+
+    def replan(self, num_partitions: Optional[int] = None,
+               overlap_ratio: Optional[float] = None,
+               mesh_shape: Optional[Tuple[int, ...]] = None,
+               forward: Optional[Callable] = None,
+               wire_shard: Optional[bool] = None,
+               lp_rank: Optional[int] = None) -> bool:
+        """Mid-request re-plan (``lp_step.py:267``): swap K, r, the mesh
+        shape, the forward hook, ``wire_shard`` or this process's
+        ``lp_rank``.  Safe from an ``lp_denoise`` step hook: the geometry is
+        in the cache key, so old entries are never served again, and the
+        ``plan_epoch`` bump makes the in-flight loop re-derive its dims and
+        re-zero the codec state once.  Changing ``wire_shard`` on a compiler
+        with a bound hook needs a re-bound ``forward`` in the same call
+        (checked before anything changes).  Returns True when anything
+        changed.
+
+        The engine re-plans through ``runtime/elastic.replan_lp_compiler``,
+        which passes K, the mesh shape, ``forward`` and ``lp_rank``;
+        ``overlap_ratio`` and ``wire_shard`` are the reference's contract,
+        held to it by a test, and reached from no path of the port."""
+        if wire_shard is not None and bool(wire_shard) != self.wire_shard \
+                and self.forward is not None and forward is None:
+            raise ValueError("changing wire_shard on a compiler with a bound forward hook "
+                             "needs a re-bound forward= / forward_factory= in the same replan "
+                             "call")
+        new = {"num_partitions": num_partitions, "overlap_ratio": overlap_ratio,
+               "mesh_shape": None if mesh_shape is None else tuple(mesh_shape),
+               "wire_shard": None if wire_shard is None else bool(wire_shard),
+               "lp_rank": lp_rank}
+        changed = False
+        for name, value in new.items():
+            if value is not None and value != getattr(self, name):
+                setattr(self, name, value)
+                changed = True
+        if forward is not None and forward is not self.forward:
+            self.forward = forward                 # a new group needs a re-bound hook
+            changed = True
+        if changed:
+            self.plan_epoch += 1
+        return changed
 
     @property
     def stateful(self) -> bool:
@@ -197,7 +246,8 @@ class LPStepCompiler:
     def entry(self, dim: int, z: torch.Tensor) -> _StepEntry:
         key = (dim, tuple(z.shape), z.dtype, z.device, self.num_partitions,
                self.overlap_ratio, self.uniform,
-               None if self.codec is None else self.codec.name, self.mesh_shape)
+               None if self.codec is None else self.codec.name, self.mesh_shape,
+               self.wire_shard)
         cached = self._cache.get(key)
         if cached is not None:
             self._cache.move_to_end(key)
@@ -298,7 +348,10 @@ def lp_denoise(
     reference records (``lp_step.py:670``): after the last step of every
     run of same-dim steps but the final one, which is where the state is
     re-zeroed; a snapshot that already holds a step resumes from it,
-    bit-exact.
+    bit-exact.  A ``step_hook`` may re-plan the compiler
+    (``LPStepCompiler.replan``): at the next step the loop re-derives the
+    rotation dims from the new K, re-zeroes the codec state and records
+    the pre-replan latent stamped with the new epoch (``lp_step.py:686``).
     """
     not_served(_NOT_SERVED, schedule=schedule, recorder=recorder)
     comp = compiler
@@ -308,11 +361,15 @@ def lp_denoise(
         comp = LPStepCompiler(denoise_fn, sampler.update, num_partitions,
                               overlap_ratio, patch_sizes, spatial_axes,
                               uniform=uniform, codec=codec, nan_guard=nan_guard)
-    dims = usable_dims([z_T.shape[comp.spatial_axes[d]] for d in range(3)],
-                       comp.patch_sizes, comp.num_partitions)
-    if not dims:
-        raise ValueError(f"no latent dim has >= {comp.num_partitions} patches; reduce K")
+    def usable():
+        # from the compiler's current K: a step hook may re-plan mid-request
+        dims = usable_dims([z_T.shape[comp.spatial_axes[d]] for d in range(3)],
+                           comp.patch_sizes, comp.num_partitions)
+        if not dims:
+            raise ValueError(f"no latent dim has >= {comp.num_partitions} patches; reduce K")
+        return dims
 
+    dims = usable()
     start = 0
     z = z_T
     if snapshot is not None and snapshot.z is not None and snapshot.step > 0:
@@ -321,9 +378,18 @@ def lp_denoise(
         z = snapshot.z.to(device=z_T.device, dtype=z_T.dtype)
 
     state, state_dim = None, None
+    epoch = comp.plan_epoch
     for i in range(start + 1, num_steps + 1):
         if step_hook is not None:
             step_hook(i)
+        if comp.plan_epoch != epoch:                   # re-planned mid-request
+            epoch = comp.plan_epoch
+            dims = usable()
+            state, state_dim = None, None
+            if snapshot is not None and i - 1 >= max(start, 1):
+                # a re-plan is a boundary too: re-stamped with the new epoch
+                # even on the first resumed step
+                snapshot.record(i - 1, z, epoch)
         dim = rotation_dim(i, dims)
         t, scalars = sampler.timestep(i), sampler.step_scalars(i)
         if comp.stateful:
@@ -333,7 +399,7 @@ def lp_denoise(
         else:
             z = comp.step(dim, z, t, scalars, extras)
         if snapshot is not None and i < num_steps and rotation_dim(i + 1, dims) != dim:
-            snapshot.record(i, z)
+            snapshot.record(i, z, comp.plan_epoch)
     return z
 
 

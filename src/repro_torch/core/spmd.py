@@ -171,13 +171,19 @@ def lp_forward_halo(denoise_fn: DenoiseFn, z: torch.Tensor, plan: UniformPlan, a
     ``comm.wire.init_halo_wire_state`` (``comm.wire.rank_wire_state``),
     and the call returns ``(latent, new_state)``.  ``eager_sends`` issues
     every round before the first deposit; ``nan_guard`` arms the codec
-    decode guard (``comm.wire._finite_or``).  ``shard_axis`` (the
-    tp-sharded wire) is ROADMAP Queue 1 item 8.
-    """
-    from repro_torch.distributed.collectives import SHARDED_WIRE, halo_exchange, halo_spec
+    decode guard (``comm.wire._finite_or``).
 
-    if shard_axis is not None:
-        raise NotImplementedError(f"shard_axis= is not ported yet: {SHARDED_WIRE}")
+    ``shard_axis`` (the tp group of a ``distributed.collectives.HybridGroup``
+    whose lp group is ``group``) shards every payload, halo slabs and core
+    contributions, over the tp ranks: each ships 1/T of it across the lp
+    group and one tp all-gather reassembles it
+    (``comm_model.comm_lp_halo_sharded``).  The denoiser's output must be
+    the same on every tp rank, as the hybrid engine's contract requires;
+    the result is then bit-equal to the unsharded engine's.
+    """
+    from repro_torch.distributed.collectives import check_shard, gather, halo_exchange, halo_spec
+
+    shard_axis = check_shard(group, shard_axis)
     _check_group(group, plan, z, axis)
     K, k = plan.num_partitions, group.rank
     spec = halo_spec(plan)
@@ -200,18 +206,20 @@ def lp_forward_halo(denoise_fn: DenoiseFn, z: torch.Tensor, plan: UniformPlan, a
         return torch.movedim(out, 0, axis).to(z.dtype)
 
     if codec is None:
-        acc = halo_exchange(wpred, spec, k, group, eager_sends=eager_sends)
+        acc = halo_exchange(wpred, spec, k, group, eager_sends=eager_sends,
+                            shard_axis=shard_axis)
         core = (acc[:spec.core_pad] / norm).to(z.dtype)
-        return reassemble(group.all_gather(core))
+        return reassemble(gather(group, core, shard_axis))
 
     from repro_torch.comm.wire import compressed_core_gather, compressed_halo_exchange
 
     state = codec_state if codec.stateful else {}
     acc, state = compressed_halo_exchange(wpred, spec, k, group, codec, state,
-                                          eager_sends=eager_sends, nan_guard=nan_guard)
+                                          eager_sends=eager_sends, shard_axis=shard_axis,
+                                          nan_guard=nan_guard)
     core = acc[:spec.core_pad] / norm
     gathered, state = compressed_core_gather(core, k, group, codec, state, K,
-                                             nan_guard=nan_guard)
+                                             shard_axis=shard_axis, nan_guard=nan_guard)
     out = reassemble(gathered)
     return (out, state) if codec.stateful else out
 

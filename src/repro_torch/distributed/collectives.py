@@ -25,12 +25,21 @@ are not wire bytes.  Payloads travel as their bytes (``uint8`` views),
 so every wire dtype (bf16-as-int16, int8, packed int4) crosses the same
 way; the all-reduce sums f32.
 
-The tp-sharded twins (``sharded_ppermute``, ``sharded_all_gather``)
-need a 2-D mesh: ROADMAP Queue 1 item 8.
+On a 2-D ``(lp, tp)`` group (:class:`HybridGroup`: rank ``m*T + t`` of the
+world is device ``(m, t)``) every tp rank of LP group ``m`` holds the same
+slabs.  The tp-sharded wire (``wire_shard_slice`` / ``wire_unshard`` /
+``wire_unshard_rows``, :func:`sharded_ppermute`, :func:`sharded_all_gather`,
+the reference's ``collectives.py:98-185``) ships each payload as T chunks,
+one a tp rank, across the lp group (the **inter** tier), and one all-gather
+over the tp group (the **intra** tier) reassembles it: a pure
+rearrangement of bytes, so the sharded and unsharded wires give the same
+bits.  The lp and tp groups of a rank share one :class:`WireCounter`,
+which keeps each tier apart.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -134,8 +143,35 @@ def wire_shard_len(n_elems: int, shard_size: int) -> int:
     return -(-n_elems // shard_size)
 
 
-SHARDED_WIRE = "ROADMAP Queue 1 item 8 (hybrid LP x TP: the tp-sharded wire)"
+def wire_shard_slice(x: torch.Tensor, shard_rank: int, shard_size: int) -> torch.Tensor:
+    """Chunk ``shard_rank`` of a flat view of ``x``: ``wire_shard_len``
+    elements of x's dtype, the tail chunk zero-padded, so every rank ships
+    the same shape.  Flattening keeps the split exact for any slab shape and
+    wire dtype (int8, bf16-as-int16, int4 packed along its last axis)."""
+    flat = x.reshape(-1)
+    s = wire_shard_len(flat.numel(), shard_size)
+    if s * shard_size != flat.numel():
+        flat = torch.cat([flat, flat.new_zeros(s * shard_size - flat.numel())])
+    return flat[shard_rank * s:(shard_rank + 1) * s]
+
+
+def wire_unshard(chunks: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """The wire of ``shape`` from its ``(T, s)`` gathered chunks, the tail
+    padding dropped: the exact inverse of T :func:`wire_shard_slice` calls."""
+    n = math.prod(shape)
+    return chunks.reshape(-1)[:n].reshape(shape)
+
+
+def wire_unshard_rows(chunks: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """The ``(K,) + shape`` table from a ``(T, K, s)`` stack of chunk
+    columns (a tp gather of a K-row lp gather), each row's padding dropped:
+    :func:`wire_unshard` a row."""
+    K, n = chunks.shape[1], math.prod(shape)
+    return chunks.transpose(0, 1).reshape(K, -1)[:, :n].reshape((K,) + tuple(shape))
+
+
 KINDS = ("all-gather", "all-reduce", "collective-permute")
+TIERS = ("inter", "intra")
 
 
 @dataclasses.dataclass
@@ -153,21 +189,32 @@ class WireCounter:
     transport's algorithm, which the counter cannot see: the byte model
     takes a ring's 2(K-1)/K of the buffer a rank
     (``comm_model.collective_wire_bytes``), the buffer itself at K = 2.
-    ``calls``: collectives issued, per kind."""
+    ``calls``: collectives issued, per kind.  ``tiers[tier]`` splits
+    payload and sent bytes by link tier: ``inter`` for the lp group's
+    collectives, ``intra`` for the tp group's (a 1-D group has only
+    ``inter``); the totals above are their sums."""
 
     payload: Dict[str, int] = dataclasses.field(
         default_factory=lambda: dict.fromkeys(KINDS, 0))
     calls: Dict[str, int] = dataclasses.field(
         default_factory=lambda: dict.fromkeys(KINDS, 0))
     sent: int = 0
+    tiers: Dict[str, dict] = dataclasses.field(default_factory=lambda: _zero_tiers())
 
     def reset(self) -> None:
         self.payload = dict.fromkeys(KINDS, 0)
         self.calls = dict.fromkeys(KINDS, 0)
         self.sent = 0
+        self.tiers = _zero_tiers()
 
     def snapshot(self) -> dict:
-        return {"payload": dict(self.payload), "calls": dict(self.calls), "sent": self.sent}
+        return {"payload": dict(self.payload), "calls": dict(self.calls), "sent": self.sent,
+                "tiers": {t: {"payload": dict(v["payload"]), "sent": v["sent"]}
+                          for t, v in self.tiers.items()}}
+
+
+def _zero_tiers() -> Dict[str, dict]:
+    return {t: {"payload": dict.fromkeys(KINDS, 0), "sent": 0} for t in TIERS}
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -188,21 +235,29 @@ class Round:
 
 @dataclasses.dataclass
 class LPGroup:
-    """One rank's end of a 1-D lp group (``launch/mesh.make_lp_group``).
+    """One rank's end of a 1-D group (``launch/mesh.make_lp_group``): an
+    lp group, or one axis of a :class:`HybridGroup`.
 
     ``group`` is the ``torch.distributed`` process group (None: the
     default one), ``device`` where this rank computes, ``counter`` the
-    bytes its collectives moved."""
+    bytes its collectives moved, counted under ``tier``.  ``ranks`` are
+    the members' world ranks in group order (None: the world itself);
+    peers are named by group rank and sent to by world rank."""
 
     rank: int
     size: int
     device: torch.device
     group: Optional[object] = None
     counter: WireCounter = dataclasses.field(default_factory=WireCounter)
+    tier: str = "inter"
+    ranks: Optional[Tuple[int, ...]] = None
 
     @property
     def backend(self) -> str:
         return dist.get_backend(self.group)
+
+    def world_rank(self, rank: int) -> int:
+        return rank if self.ranks is None else self.ranks[rank]
 
     # ------------------------------------------------------------ transport
     def _out(self, x: torch.Tensor) -> torch.Tensor:
@@ -231,6 +286,8 @@ class LPGroup:
         c.payload[kind] += payload
         c.calls[kind] += 1
         c.sent += sent
+        c.tiers[self.tier]["payload"][kind] += payload
+        c.tiers[self.tier]["sent"] += sent
 
     # ---------------------------------------------------------- collectives
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -259,13 +316,14 @@ class LPGroup:
         ops, bufs = [], []
         if rnd.dst is not None:
             for i, x in enumerate(rnd.msg):
-                ops.append(dist.P2POp(dist.isend, self._out(x), rnd.dst, self.group,
-                                      tag * 8 + i))
+                ops.append(dist.P2POp(dist.isend, self._out(x), self.world_rank(rnd.dst),
+                                      self.group, tag * 8 + i))
         if rnd.src is not None:
             for i, x in enumerate(rnd.msg):
                 buf = self._buffer(_nbytes(x))
                 bufs.append(buf)
-                ops.append(dist.P2POp(dist.irecv, buf, rnd.src, self.group, tag * 8 + i))
+                ops.append(dist.P2POp(dist.irecv, buf, self.world_rank(rnd.src), self.group,
+                                      tag * 8 + i))
         payload = sum(_nbytes(x) for x in rnd.msg)
         self._count("collective-permute", payload, payload if rnd.dst is not None else 0)
         reqs = dist.batch_isend_irecv(ops) if ops else []
@@ -280,6 +338,127 @@ class LPGroup:
         if rnd.src is None:
             return None
         return tuple(self._back(b, x, x.shape) for b, x in zip(bufs, rnd.msg))
+
+
+@dataclasses.dataclass
+class HybridGroup:
+    """One rank's end of a 2-D ``(lp, tp)`` group
+    (``launch/mesh.make_hybrid_group``): ``lp`` is this rank's lp group
+    (the ranks with its tp index, one per LP group, the LP ring), ``tp``
+    its tp group (the ranks of its LP group).  Both count into one
+    :class:`WireCounter`, the lp group under ``inter``, the tp group
+    under ``intra``.  ``rank`` and ``size`` are the lp group's, as an
+    engine that takes an :class:`LPGroup` reads them."""
+
+    lp: LPGroup
+    tp: LPGroup
+
+    @property
+    def rank(self) -> int:
+        return self.lp.rank
+
+    @property
+    def size(self) -> int:
+        return self.lp.size
+
+    @property
+    def tp_rank(self) -> int:
+        return self.tp.rank
+
+    @property
+    def tp_size(self) -> int:
+        return self.tp.size
+
+    @property
+    def mesh_shape(self) -> Tuple[int, int]:
+        return (self.lp.size, self.tp.size)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lp.device
+
+    @property
+    def counter(self) -> WireCounter:
+        return self.lp.counter
+
+    @property
+    def backend(self) -> str:
+        return self.lp.backend
+
+
+def lp_axis(mesh) -> LPGroup:
+    """The lp group of an :class:`LPGroup` (itself) or a :class:`HybridGroup`."""
+    return mesh.lp if isinstance(mesh, HybridGroup) else mesh
+
+
+def tp_size(mesh) -> int:
+    """The tp axis' size of a mesh: 1 off a mesh and on a 1-D group."""
+    return mesh.tp_size if isinstance(mesh, HybridGroup) else 1
+
+
+# ----------------------------------------------------- the sharded wire
+def issue_round(group: LPGroup, rnd: Round, tag: int, shard: Optional[LPGroup] = None):
+    """Start one halo round over ``group``.  With ``shard`` (the tp group)
+    the round's payload, its first tensor, crosses as this rank's
+    :func:`wire_shard_slice` and the rest (scale meta, identical on every
+    tp rank) whole; :func:`land_round` reassembles it."""
+    if shard is None:
+        return group.issue(rnd, tag), None
+    wire = rnd.msg[0]
+    chunk = wire_shard_slice(wire, shard.rank, shard.size)
+    return group.issue(Round((chunk,) + rnd.msg[1:], rnd.dst, rnd.src), tag), (wire, chunk)
+
+
+def land_round(group: LPGroup, handle, shard: Optional[LPGroup] = None):
+    """Wait for a round of :func:`issue_round`: the tensors received, or
+    None without a sender.  Sharded, every rank then all-gathers the
+    chunks over ``shard`` (a rank without a sender gathers zeros, as the
+    reference's tp gather of ppermute's zeros does, so every tp rank of a
+    group takes part) and unshards the payload."""
+    h, sharded = handle
+    got = group.land(h)
+    if shard is None:
+        return got
+    wire, chunk = sharded
+    piece = torch.zeros_like(chunk) if got is None else got[0]
+    full = wire_unshard(shard.all_gather(piece), tuple(wire.shape))
+    return None if got is None else (full,) + tuple(got[1:])
+
+
+def sharded_ppermute(x: torch.Tensor, group: LPGroup, dst: Optional[int],
+                     src: Optional[int], shard: LPGroup, tag: int = 0):
+    """One point-to-point round with ``x`` sharded over ``shard``: this
+    rank's 1/T chunk goes to ``dst`` across ``group``, the chunks from
+    ``src`` are reassembled by one all-gather over ``shard``
+    (``collectives.py:145``).  Returns ``src``'s ``x``, None without one."""
+    got = land_round(group, issue_round(group, Round((x,), dst, src), tag, shard), shard)
+    return None if got is None else got[0]
+
+
+def sharded_all_gather(x: torch.Tensor, group: LPGroup, shard: LPGroup) -> torch.Tensor:
+    """The all-gather of ``x`` over ``group`` with each contribution
+    sharded over ``shard`` (``collectives.py:167``): the lp gather moves
+    ``(K, 1/T chunk)``, one tp gather collects the chunk columns, and the
+    ``(K,) + x.shape`` table is reassembled here."""
+    rows = group.all_gather(wire_shard_slice(x, shard.rank, shard.size))
+    return wire_unshard_rows(shard.all_gather(rows), tuple(x.shape))
+
+
+def gather(group: LPGroup, x: torch.Tensor, shard: Optional[LPGroup] = None) -> torch.Tensor:
+    """``group.all_gather(x)``, sharded over ``shard`` when given."""
+    return group.all_gather(x) if shard is None else sharded_all_gather(x, group, shard)
+
+
+def check_shard(group: LPGroup, shard: Optional[LPGroup]) -> Optional[LPGroup]:
+    """The shard group to use: None for none or a tp axis of size 1; the
+    lp group itself is refused (chunks of different senders' slabs would
+    be reassembled: shapes agree, values are wrong; ``spmd.py:403``)."""
+    if shard is None:
+        return None
+    if shard is group or (shard.group is not None and shard.group is group.group):
+        raise ValueError("the shard axis must differ from the lp axis: wire chunks are "
+                         "reassembled across the shard axis after the lp transfer")
+    return shard if shard.size > 1 else None
 
 
 def halo_round(t: HaloTransfer, rank: int) -> Tuple[Optional[int], Optional[int]]:
@@ -316,7 +495,8 @@ def halo_rounds(spec: HaloSpec, eager_sends: bool, issue: Callable, deposit: Cal
 
 
 def halo_exchange(wpred: torch.Tensor, spec: HaloSpec, rank: int, group: LPGroup,
-                  eager_sends: bool = False, shard_axis=None) -> torch.Tensor:
+                  eager_sends: bool = False,
+                  shard_axis: Optional[LPGroup] = None) -> torch.Tensor:
     """Cross-rank reduction of overlapping window predictions, halo only.
 
     ``wpred``: this rank's weighted f32 prediction, partition dim first,
@@ -326,9 +506,10 @@ def halo_exchange(wpred: torch.Tensor, spec: HaloSpec, rank: int, group: LPGroup
     this rank's core (unnormalized): the own core first, then each
     round's slab (:func:`halo_rounds`), as the reference sums.  A rank
     without a peer in a round sends nothing and deposits nothing (the
-    reference deposits ppermute's zeros, which add nothing)."""
-    if shard_axis is not None:
-        raise NotImplementedError(f"shard_axis= is not ported yet: {SHARDED_WIRE}")
+    reference deposits ppermute's zeros, which add nothing).  ``shard_axis``
+    (the tp group of a :class:`HybridGroup`) ships every slab sharded
+    (:func:`issue_round`), bit-equal to the unsharded exchange."""
+    shard_axis = check_shard(group, shard_axis)
     acc_len = spec.core_pad + spec.max_transfer
     rest = tuple(wpred.shape[1:])
     acc = wpred.new_zeros((acc_len,) + rest)
@@ -339,10 +520,10 @@ def halo_exchange(wpred: torch.Tensor, spec: HaloSpec, rank: int, group: LPGroup
         dst, src = halo_round(t, rank)
         slab = wpred.new_empty((t.length,) + rest) if dst is None else \
             masked_slab(wpred, t, rank)
-        return group.issue(Round((slab,), dst, src), ti)
+        return issue_round(group, Round((slab,), dst, src), ti, shard_axis)
 
     def deposit(t, handle):
-        got = group.land(handle)
+        got = land_round(group, handle, shard_axis)
         if got is not None:
             dst = t.dst_start[rank]
             acc[dst:dst + t.length] += got[0]

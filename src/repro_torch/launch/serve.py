@@ -1,32 +1,40 @@
-"""Serving CLI of the port — LP video generation on one GPU or an lp group.
+"""Serving CLI of the port — LP video generation on one GPU or a group.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 --steps 6 \
       --partitions 2 --overlap 0.5 [--lp-impl auto] [--wire-codec int8-residual] \
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--elastic] [--inject-fault dead:3@2]
 
-  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
-      --partitions 4 --mesh 4 [--wire-codec int8] [--eager-sends]
+  PYTHONPATH=src torchrun --nproc-per-node 6 -m repro_torch.launch.serve \
+      --partitions 3 --mesh 3x2 [--wire-codec int8] [--no-wire-shard] \
+      [--eager-sends] [--elastic --inject-fault dead:1@3]
 
 Serves ``wan21-dit-1.3b`` at its published widths in bf16 with random
 weights.  ``--wire-codec`` (or ``--lp-impl halo``) runs every step through
 the single-process halo wire mirror (``comm/wire.simulate_halo_forward``).
-``--mesh M`` (or ``Mx1``; M must equal ``--partitions``) serves across an
-lp group of M ranks, one window each: under ``torchrun`` on NCCL with one
-GPU a rank, with ``--device cpu`` on gloo (a world started by
+``--mesh MxT`` (M must equal ``--partitions``) serves across a group of
+M*T ranks, M LP groups of T: under ``torchrun`` on NCCL with one GPU a
+rank, with ``--device cpu`` on gloo (a world started by
 ``launch/mesh.run_lp_world``, or ``torchrun`` with the gloo ranks on the
-CPU).  Every rank serves the same requests; only rank 0 prints them.
-The codec-schedule, elastic, fault-drill and observability flags of the
-reference CLI, and a tp axis, are not ported yet (ROADMAP Queue 1
-items 7-10).
+CPU).  At T > 1 every rank runs the DiT on its group's window and the
+halo wire is sharded over the tp ranks (``--no-wire-shard`` ships it
+whole).  Every rank serves the same requests; only rank 0 prints them.
+``--elastic`` evicts dead or straggling LP groups mid-request;
+``--inject-fault`` scripts a drill (``runtime/faults.py``).  The ranks of
+an evicted group leave (rank 0 says so if it was one of them).  The
+codec-schedule and observability flags of the reference CLI are not
+ported yet (ROADMAP Queue 1 items 7 and 9).
 """
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
 from repro_torch.comm.codecs import CODEC_NAMES
 from repro_torch.configs import get_config
 from repro_torch.device import generator, resolve_device
 from repro_torch.models import dit, frontends
+from repro_torch.runtime.faults import GroupEvicted
 from repro_torch.serving.engine import LPServingEngine, VideoRequest
 
 
@@ -39,9 +47,10 @@ def main(argv=None):
     ap.add_argument("--frames-latent", type=int, default=6)
     ap.add_argument("--lp-impl", default="auto",
                     choices=["auto", "uniform", "shard_map", "halo", "halo_hybrid"],
-                    help="LP engine; auto = psum math at K=2, halo beyond.  On one "
-                         "device the halo family runs the wire mirror when a codec "
-                         "is active or halo is named, the uniform engine otherwise")
+                    help="LP engine; auto = psum math at K=2, halo beyond (hybrid halo "
+                         "when the mesh has a tp axis).  On one device the halo family "
+                         "runs the wire mirror when a codec is active or halo is named, "
+                         "the uniform engine otherwise")
     ap.add_argument("--wire-codec", default=None, choices=list(CODEC_NAMES),
                     help="compress LP halo wire payloads (fixed codec)")
     ap.add_argument("--wire-nan-guard", default=True,
@@ -52,11 +61,21 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default=None,
-                    help="M or Mx1: serve across an lp group of M ranks (M must equal "
+                    help="MxT: serve across M LP groups of T ranks (M must equal "
                          "--partitions); NCCL under torchrun, gloo with --device cpu")
+    ap.add_argument("--wire-shard", default=None, action=argparse.BooleanOptionalAction,
+                    help="shard every halo payload over the tp ranks (1/T chunks across "
+                         "the lp group, one tp all-gather; the same values).  Default: on "
+                         "for a mesh with a tp axis")
     ap.add_argument("--eager-sends", default=None, action=argparse.BooleanOptionalAction,
-                    help="issue all halo rounds before the first deposit (default off "
-                         "on a 1-D mesh)")
+                    help="issue all halo rounds before the first deposit.  Default: on "
+                         "for a mesh with a tp axis")
+    ap.add_argument("--elastic", action="store_true",
+                    help="mid-request re-planning: the per-step hook evicts dead or "
+                         "straggling LP groups through the health monitor")
+    ap.add_argument("--inject-fault", default=None,
+                    help="scripted serving-fault drill, e.g. 'dead:1@4,slow:0x2,corrupt@2'; "
+                         "dead/slow need --elastic to recover")
     args = ap.parse_args(argv)
 
     mesh = None
@@ -77,12 +96,18 @@ def main(argv=None):
                              overlap_ratio=args.overlap, num_steps=args.steps,
                              lp_impl=args.lp_impl, wire_codec=args.wire_codec,
                              wire_nan_guard=args.wire_nan_guard, device=device, mesh=mesh,
-                             eager_sends=args.eager_sends)
-    lead = mesh is None or mesh.rank == 0
+                             eager_sends=args.eager_sends, wire_shard=args.wire_shard,
+                             elastic=args.elastic, inject_fault=args.inject_fault)
+    lead = mesh is None or dist.get_rank() == 0
     if lead:
-        ranks = "" if mesh is None else f" ranks={mesh.size} backend={mesh.backend}"
-        print(f"engine: lp_impl={engine.lp_impl} codec={engine.codec.name} tp=1 "
-              f"device={device} eager_sends={engine.eager_sends}{ranks}")
+        ranks = "" if mesh is None else \
+            f" ranks={dist.get_world_size()} backend={mesh.backend}"
+        print(f"engine: lp_impl={engine.lp_impl} codec={engine.codec.name} tp={engine.tp} "
+              f"wire_shard={engine.wire_shard} device={device} "
+              f"eager_sends={engine.eager_sends}{ranks}")
+        if engine._fault_plan is not None:
+            print(f"fault drill: {engine._fault_plan.describe()} (elastic={engine.elastic}, "
+                  f"nan_guard={engine.wire_nan_guard})")
     for i in range(args.requests):
         engine.submit(VideoRequest(
             request_id=i,
@@ -90,7 +115,13 @@ def main(argv=None):
             latent_shape=(args.frames_latent, 8, 12),
             seed=i,
         ))
-    results = engine.run()
+    try:
+        results = engine.run()
+    except GroupEvicted as e:
+        if lead:
+            print(f"elastic: this rank's LP group {e.group} was evicted before step "
+                  f"{e.step}; the survivors go on without it")
+        return
     if not lead:
         return
     for r in sorted(results, key=lambda x: x.request_id):
@@ -99,6 +130,9 @@ def main(argv=None):
               f"steps={r.num_steps} wait={r.queue_wait_s:.2f}s "
               f"e2e={r.e2e_s:.2f}s batch_wall={r.batch_wall_s:.1f}s "
               f"batch={r.batch_size} restarts={r.restarts}{resumed}")
+    if engine.evictions:
+        print(f"elastic: evictions={engine.evictions} K={engine.K} "
+              f"steps_lost={engine.last_steps_lost}")
 
 
 if __name__ == "__main__":

@@ -29,23 +29,23 @@ gives the same values alone or stacked and no DiT rounding enters.
   (the ranks run the DiT window by window, the one-process engine on the
   stack), with at most 3 step-cache misses a denoise and the bytes of
   the model; ``serve --mesh 3 --device cpu`` runs in a world.
-* A rank that raises fails its world at once; a tp axis, a sharded wire
-  and a group of the wrong size raise.
+* A rank that raises fails its world at once; a wire sharded over the lp
+  group itself and a group of the wrong size raise (the tp axis and the
+  sharded wire: ``test_torch_hybrid.py``).
 """
 import numpy as np
 import pytest
 import torch
 
 import torch_dist_cases as cases
-from repro_torch.comm.codecs import CODEC_NAMES, get_codec
-from repro_torch.comm.wire import (init_halo_wire_state, put_rank_wire_state,
-                                   rank_wire_state, simulate_halo_forward)
+from repro_torch.comm.codecs import CODEC_NAMES
+from repro_torch.comm.wire import put_rank_wire_state, rank_wire_state
 from repro_torch.configs import get_config
 from repro_torch.core import comm_model as cm
 from repro_torch.core import lp_forward_uniform, plan_uniform
 from repro_torch.core.spmd import lp_forward_halo
 from repro_torch.device import generator
-from repro_torch.distributed.collectives import KINDS, LPGroup, halo_spec
+from repro_torch.distributed.collectives import KINDS, LPGroup
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import dit
 from repro_torch.serving import engine as teng
@@ -93,52 +93,10 @@ def halo_worlds(workdir):
             for K in (3, 4)}
 
 
-def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal values, NaNs in the same places."""
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    na, nb = torch.isnan(a), torch.isnan(b)
-    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0), b.masked_fill(nb, 0))
-
-
-def _flat(state, prefix=()):
-    for k, v in state.items():
-        if isinstance(v, dict):
-            yield from _flat(v, prefix + (k,))
-        else:
-            yield prefix + (k,), v
-
-
 def _comm_cfg(shape, steps):
     return cm.VDMCommConfig(latent_dims=tuple(shape[1:4]), latent_channels=shape[4],
                             patch_sizes=cases.PATCH, d_model=1, num_blocks=1,
                             num_steps=steps, bytes_per_el=4)
-
-
-def _mirror(case, K):
-    """The single-process mirror over the case's steps: outputs, states
-    and each step's dim."""
-    z = cases.case_latent(case["shape"], case["seed"], case.get("nan_at"))
-    codec = get_codec(case["codec"])
-    # the engine's guard guards decodes: uncoded it is a no-op (as in the
-    # reference), while the mirror would run an fp32 codec with a guard
-    guard = case["guard"] and case["codec"] is not None
-    outs, states, dims = [], [], []
-    state, state_dim = None, None
-    for _, d, plan in cases.step_plans(z, K, case["r"], case["steps"]):
-        if codec.stateful:
-            if state is None or d != state_dim:
-                rest = tuple(s for i, s in enumerate(z.shape) if i != 1 + d)
-                state, state_dim = init_halo_wire_state(codec, halo_spec(plan), rest), d
-            z, state = simulate_halo_forward(cases.exact_denoiser, z, plan, 1 + d, codec,
-                                             state, nan_guard=guard)
-            states.append(state)
-        else:
-            z = simulate_halo_forward(cases.exact_denoiser, z, plan, 1 + d, codec,
-                                      nan_guard=guard)
-        outs.append(z)
-        dims.append(d)
-    return outs, states, dims
 
 
 @pytest.mark.parametrize("K", [3, 4])
@@ -147,17 +105,18 @@ def _mirror(case, K):
 def test_halo_engine_equals_the_mirror(halo_worlds, K, ci):
     case = HALO_CASES[ci]
     ranks = [res[ci] for res in halo_worlds[K]]
-    outs, states, dims = _mirror(case, K)
+    outs, states, dims = cases.mirror_run(case, K)
     for r, got in enumerate(ranks):
         for i, want in enumerate(outs):
-            assert _same(got["outs"][i], want), (r, i)
+            assert cases.same(got["outs"][i], want), (r, i)
         for i, want in enumerate(states):          # rank r's state is row r of the mirror's
-            mine = dict(_flat(got["states"][i]))
-            for path, leaf in _flat(rank_wire_state(want, r)):
-                assert _same(mine[path], leaf), (r, i, path)
+            mine = dict(cases.flat_state(got["states"][i]))
+            for path, leaf in cases.flat_state(rank_wire_state(want, r)):
+                assert cases.same(mine[path], leaf), (r, i, path)
     if states:                                     # and the helpers invert each other
         back = put_rank_wire_state(states[-1], 1, ranks[1]["states"][-1])
-        assert all(_same(a, b) for (_, a), (_, b) in zip(_flat(back), _flat(states[-1])))
+        assert all(cases.same(a, b) for (_, a), (_, b) in zip(cases.flat_state(back),
+                                                              cases.flat_state(states[-1])))
 
 
 @pytest.mark.parametrize("K", [3, 4])
@@ -167,7 +126,7 @@ def test_halo_bytes_equal_the_comm_model(halo_worlds, K, ci):
     case = HALO_CASES[ci]
     ranks = [res[ci] for res in halo_worlds[K]]
     cfg = _comm_cfg(case["shape"], case["steps"])
-    _, _, dims = _mirror(case, K)
+    _, _, dims = cases.mirror_run(case, K)
     prev = [dict.fromkeys(KINDS, 0) for _ in ranks]
     for i, d in enumerate(dims):
         if case["codec"] is None:
@@ -308,8 +267,8 @@ def test_what_is_not_served_raises():
     for bad in ("1", "4x0", "2x2x2", "a"):
         with pytest.raises(ValueError):
             tmesh.parse_mesh(bad)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmesh.make_lp_group(4, 2, device="cpu")
+    with pytest.raises(ValueError, match="lp, tp >= 1"):     # a tp axis is served (hybrid tests)
+        tmesh.make_lp_group(4, 0, device="cpu")
     if not torch.cuda.is_available():          # a world runs on the card unless asked
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tmesh.run_lp_world(cases.fail_on_rank, 2, (1,), workdir="unused")
@@ -321,8 +280,8 @@ def test_what_is_not_served_raises():
     plan = plan_uniform(9, 1, 4, R, 0)
     with pytest.raises(ValueError, match="3 ranks"):
         lp_forward_halo(cases.exact_denoiser, z, plan, 1, group)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        lp_forward_halo(cases.exact_denoiser, z, plan, 1, group, shard_axis="model")
+    with pytest.raises(ValueError, match="must differ from the lp axis"):
+        lp_forward_halo(cases.exact_denoiser, z, plan, 1, group, shard_axis=group)
 
 
 # ------------------------------------------------- against the JAX package

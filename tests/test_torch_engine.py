@@ -24,6 +24,7 @@ from repro.serving.engine import VideoRequest as JRequest
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import dit as tdit
+from repro_torch.runtime.faults import ServingFault
 from repro_torch.runtime.ft import DeviceFailure
 from repro_torch.serving import engine as teng
 
@@ -170,18 +171,35 @@ SERVED_NOW = ({"wire_codec": "int8"}, {"lp_impl": "halo"})
                                 dict(recorder=object()), dict(slo="interactive:20"),
                                 dict(lp_impl="halo")])
 def test_unported_engine_arguments_raise(models, kw):
-    """Arguments of paths not ported yet raise, naming their ROADMAP item;
-    ``wire_codec=`` and ``lp_impl="halo"`` are served now, so their cases
-    check that the engine runs the halo wire mirror and answers."""
-    if kw not in SERVED_NOW:
+    """Arguments of paths not ported yet raise, naming their ROADMAP item.
+    Served now: ``wire_codec=`` and ``lp_impl="halo"`` (the halo wire
+    mirror answers), ``elastic=`` (nothing to evict: the request is
+    served), ``inject_fault=`` (a dead group at K = 2, the floor, cannot be
+    evicted: the restarts run out, as in the reference,
+    ``tests/test_fault_recovery.py``; the drills: ``test_torch_faults.py``)
+    and ``mesh=`` (anything but a group is refused; groups:
+    ``test_torch_dist.py``, ``test_torch_hybrid.py``)."""
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="LPGroup or a HybridGroup"):
+            _port_engine(models, **kw)
+        return
+    if "inject_fault" in kw:
+        eng = _port_engine(models, num_steps=2, **kw)
+        eng.submit(_port_requests(models, 1)[0])
+        with pytest.raises(ServingFault, match="stopped heartbeating"):
+            eng.run()
+        assert eng.evictions == 0 and eng._lifecycle == {}
+        return
+    if kw not in SERVED_NOW and "elastic" not in kw:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             _port_engine(models, **kw)
         return
     eng = _port_engine(models, num_steps=2, **kw)
-    assert eng.lp_impl == "halo" and eng._compiler.codec is not None
+    assert (eng.lp_impl == "halo" and eng._compiler.codec is not None) or eng.elastic
     eng.submit(_port_requests(models, 1)[0])
     res = eng.run()[0]
     assert tuple(res.latent.shape) == (1, *SHAPE, 4) and bool(torch.isfinite(res.latent).all())
+    assert eng.evictions == 0 and res.restarts == 0
 
 
 @pytest.mark.parametrize("kw,match", [

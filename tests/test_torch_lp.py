@@ -119,8 +119,9 @@ def test_snapshot_resume_is_bit_exact(setup):
 
 def test_unported_arguments_name_their_roadmap_item(setup):
     """Arguments of paths not ported yet raise, naming their ROADMAP item;
-    ``codec=``, ``forward=`` and a ``(K, 1)`` ``mesh_shape`` are served
-    now, so their cases check that they run."""
+    ``codec=``, ``forward=``, a ``mesh_shape`` (with a tp axis too) and
+    ``wire_shard`` are served now, so their cases check that they run and
+    key the step cache."""
     sampler, comp, extras = _step_setup(setup)
     z = torch.from_numpy(setup["z"])
     for kw in (dict(schedule="int8@0.5,bf16"), dict(recorder=object())):
@@ -130,8 +131,7 @@ def test_unported_arguments_name_their_roadmap_item(setup):
     coded = lp_denoise(make_guided_step_denoiser(setup["model"]), z, sampler, 2, 2, 0.5,
                        (1, 2, 2), (1, 2, 3), uniform=True, codec="int8", extras=extras)
     assert coded.shape == z.shape and bool(torch.isfinite(coded).all())
-    for kw in (dict(forward_factory=lambda c: None), dict(mesh_shape=(2, 2)),
-               dict(wire_shard=True), dict(schedule="auto")):
+    for kw in (dict(forward_factory=lambda c: None), dict(schedule="auto")):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), **kw)
     # a forward hook on a (K, 1) mesh is served: the step runs through it
@@ -150,6 +150,15 @@ def test_unported_arguments_name_their_roadmap_item(setup):
                        extras=extras) for c in (hooked, plain)]
     assert len(calls) == 2 and torch.equal(outs[0], outs[1])
     assert hooked.compiles == plain.compiles and hooked.mesh_shape == (2, 1)
+    # a (2, 2) mesh and a sharded wire are served too (tests/test_torch_hybrid.py);
+    # both are part of the step-cache key
+    tp_mesh = LPStepCompiler(make_guided_step_denoiser(setup["model"]), sampler.update, 2,
+                             0.5, (1, 2, 2), uniform=True, forward=hook, mesh_shape=(2, 2),
+                             wire_shard=True)
+    out = lp_denoise(None, z, sampler, 2, 2, 0.5, (1, 2, 2), (1, 2, 3), compiler=tp_mesh,
+                     extras=extras)
+    assert torch.equal(out, outs[1]) and len(calls) == 4
+    assert {k[-2:] for k in tp_mesh._cache} == {((2, 2), True)}
     bf16 = LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), uniform=True,
                           codec="bf16")
     assert bf16.codec.name == "bf16" and not bf16.stateful

@@ -5,8 +5,9 @@
   than ``reps`` times one call's records is taken again; one still
   short after 3 tries gives no number (None), and ``timed_case`` flags
   the case with ``profiler_short`` and writes its time as JSON null.
-* Phase ``lp_ranks`` at a reduced size on gloo worlds of CPU ranks (the
-  plain versions, the reduced DiT in f32): its checks hold there too.
+* Phases ``lp_ranks`` and ``hybrid_ranks`` at a reduced size on gloo
+  worlds of CPU ranks (the plain versions, the reduced DiT in f32): their
+  checks hold there too.
 """
 import importlib
 import json
@@ -118,21 +119,57 @@ def test_lp_ranks_phase_on_the_cpu(smoke, tmp_path, monkeypatch):
     assert not any(v for c in counts.values() for v in c.values())
 
 
+def test_hybrid_ranks_phase_on_the_cpu(smoke, tmp_path, monkeypatch):
+    """The phase's checks (a 3 x 2 world bit-equal to the one-process run,
+    the sharded wire to the unsharded one, the bytes of the model per tier,
+    the eviction drill's outcome and latents, launches: none on the CPU)
+    on the reduced DiT, at a latent with all three dims usable at K 3."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import dit
+
+    monkeypatch.setattr(smoke, "ROOT", tmp_path)
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
+    rec, counts = smoke.hybrid_ranks(cfg, model, device="cpu", latent=(9, 8, 12))
+    assert len(rec["runs"]) == 2 * len(smoke.HYBRID_RUNS)
+    assert all(r["bit_equal"] and r["bytes_ok"] and r["step_payloads_ok"] for r in rec["runs"])
+    assert [r["sharded_equals_unsharded"] for r in rec["runs"] if r["run"] == "fp32-shard"] \
+        == [True, True]
+    drill = rec["drill"]
+    assert drill["left"] == [2, 3] and drill["bit_equal"] and drill["second_request_ok"]
+    assert drill["outcome"][0][:3] == (1, 2, (2, 2)) and drill["ran_ok"]
+    assert sorted(counts) == sorted([f"hybrid_ranks:{n}" for n, _, _ in smoke.HYBRID_RUNS]
+                                    + ["hybrid_ranks:drill"])
+    assert not any(v for c in counts.values() for v in c.values())
+
+
 def test_rank_kernel_shapes_are_what_a_rank_passes(smoke, tmp_path):
     """The kernels phase holds int8_quantize and the wgmma kernel to their
     plain versions at ``rank_kernel_shapes``: the ranks of a halo world
     (the reduced DiT on the int8 wire, on the CPU) hand the wrappers
     exactly those shapes, one slab a quantize and one window's CFG pair an
     attention."""
+    _check_rank_kernel_shapes(smoke, tmp_path, smoke.K, 1)
+
+
+def test_hybrid_rank_kernel_shapes_are_what_a_rank_passes(smoke, tmp_path):
+    """The same for the ranks of a 3 x 2 hybrid world (phase
+    ``hybrid_ranks``): ``rank_kernel_shapes`` at K 3."""
+    _check_rank_kernel_shapes(smoke, tmp_path, *smoke.HYBRID_MESH)
+
+
+def _check_rank_kernel_shapes(smoke, tmp_path, M, T):
     import torch_dist_cases as cases
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_lp_world
 
     latent = (9, 8, 12)
-    got = run_lp_world(cases.kernel_shapes_of_a_rank, smoke.K,
-                       (latent, smoke.STEPS, smoke.R, "int8"), workdir=str(tmp_path),
-                       device="cpu", deadline_s=300)
-    quant, attn = smoke.rank_kernel_shapes(get_config("wan21-dit-1.3b").reduced(), latent)
+    got = run_lp_world(cases.kernel_shapes_of_a_rank, M,
+                       (latent, smoke.STEPS, smoke.R, "int8"), tp=T,
+                       workdir=str(tmp_path), device="cpu", deadline_s=300)
+    quant, attn = smoke.rank_kernel_shapes(get_config("wan21-dit-1.3b").reduced(), latent,
+                                           size=M)
     assert len({F for _, F in quant}) == 3            # a round in each dim
     for rank in got:
         assert rank["quant"] == [(1,) + s for s in quant]

@@ -16,11 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.comm.codecs import get_codec
-from repro_torch.comm.wire import init_halo_wire_state, rank_wire_state
+from repro_torch.comm.wire import init_halo_wire_state, rank_wire_state, simulate_halo_forward
 from repro_torch.core.schedule import rotation_dim, usable_dims
+from repro_torch.core.hybrid import lp_forward_halo_hybrid, tp_cfg_branch, tp_cfg_combine
 from repro_torch.core.spmd import lp_forward_halo, lp_forward_shard_map
 from repro_torch.core.uniform import plan_uniform
-from repro_torch.distributed.collectives import halo_spec
+from repro_torch.distributed.collectives import HybridGroup, halo_spec, sharded_ppermute
 
 PATCH = (1, 2, 2)
 
@@ -49,13 +50,19 @@ def halo_run(group, case: dict) -> dict:
     """One case on this rank: ``case["steps"]`` halo forwards, the output
     fed back as the next input, residual state made fresh on every new
     rotation dim (as ``lp_denoise`` does) and threaded within a run.
-    Returns the outputs, this rank's states and the byte counter read
-    after each step."""
+    On a ``HybridGroup`` the hybrid engine runs, its wire sharded over the
+    tp group when ``case["shard"]``.  Returns the outputs, this rank's
+    states and the byte counter read after each step."""
     z = case_latent(case["shape"], case["seed"], case.get("nan_at"))
     codec = case["codec"]
     outs, states, counts = [], [], []
     state, state_dim = None, None
     group.counter.reset()
+    forward = lp_forward_halo
+    if isinstance(group, HybridGroup):
+        def forward(fn, z, plan, axis, mesh, **kw):
+            return lp_forward_halo_hybrid(fn, z, plan, axis, mesh,
+                                          wire_shard=case["shard"], **kw)
     for _, d, plan in step_plans(z, group.size, case["r"], case["steps"]):
         kw = dict(codec=codec, eager_sends=case["eager"], nan_guard=case["guard"])
         if codec is not None and get_codec(codec).stateful:
@@ -64,11 +71,10 @@ def halo_run(group, case: dict) -> dict:
                 state = rank_wire_state(init_halo_wire_state(codec, halo_spec(plan), rest),
                                         group.rank)
                 state_dim = d
-            z, state = lp_forward_halo(exact_denoiser, z, plan, 1 + d, group,
-                                       codec_state=state, **kw)
+            z, state = forward(exact_denoiser, z, plan, 1 + d, group, codec_state=state, **kw)
             states.append(state)
         else:
-            z = lp_forward_halo(exact_denoiser, z, plan, 1 + d, group, **kw)
+            z = forward(exact_denoiser, z, plan, 1 + d, group, **kw)
         outs.append(z)
         counts.append(group.counter.snapshot())
     return {"outs": outs, "states": states, "counts": counts}
@@ -171,3 +177,148 @@ def fail_on_rank(group, bad: int) -> int:
         raise RuntimeError(f"rank {bad} fails on purpose")
     group.all_gather(torch.zeros(3))
     return group.rank
+
+
+def exact_dit(z: torch.Tensor, t, context) -> torch.Tensor:
+    """A stand-in DiT, elementwise and exact: a window's output is the same
+    alone or stacked, on any batch."""
+    return 0.5 * z + 0.25
+
+
+def _engine(group, dit_fn, cfg, num_steps: int, **kw):
+    from repro_torch.serving.engine import LPServingEngine
+
+    return LPServingEngine(dit_fn, cfg, num_partitions=group.size, num_steps=num_steps,
+                           max_batch=1, device="cpu", mesh=group, **kw)
+
+
+def _record(eng, group, res) -> dict:
+    lp = eng.mesh.lp if isinstance(eng.mesh, HybridGroup) else eng.mesh
+    return {"latent": res.latent, "restarts": res.restarts,
+            "resumed_from_step": res.resumed_from_step, "lp_impl": eng.lp_impl,
+            "wire_shard": eng.wire_shard, "eager_sends": eng.eager_sends,
+            "compiles": eng._compiler.compiles, "counts": group.counter.snapshot(),
+            "evictions": eng.evictions, "K": eng.K, "mesh_shape": eng._compiler.mesh_shape,
+            "last_steps_lost": eng.last_steps_lost, "lp_rank": lp.rank,
+            "lp_size": lp.size, "lp_ranks": lp.ranks}
+
+
+def hybrid_engine_runs(group, runs, drill, requests, num_steps: int,
+                          exact: bool = False, leave: bool = False) -> dict:
+    """One world's engine work on a ``HybridGroup``: ``runs`` (name,
+    wire_codec, wire_shard) through ``LPServingEngine(mesh=group)``, one
+    request each; then the eviction drill (``drill``: the engine's
+    keyword arguments), one request and a second one on the shrunken
+    group.  The reduced WAN DiT in f32 (weights from seed 0), or the exact
+    elementwise stand-in.  On the ranks of the evicted group the drill
+    raises ``GroupEvicted``: with ``leave`` it ends the rank (the world
+    returns ``Evicted`` for it), else it is recorded under ``evicted``
+    beside the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import dit
+    from repro_torch.runtime.faults import GroupEvicted
+    from repro_torch.serving.engine import VideoRequest
+
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    dit_fn = exact_dit if exact else dit.init_params(cfg, generator(0, "cpu"), "cpu")
+    out = {"runs": {}}
+    reqs = [VideoRequest(rid, torch.from_numpy(ctx), shape, seed=seed)
+            for rid, ctx, shape, seed in requests]
+    for name, codec, shard in runs:
+        eng = _engine(group, dit_fn, cfg, num_steps, wire_codec=codec, wire_shard=shard)
+        group.counter.reset()
+        eng.submit(reqs[0])
+        out["runs"][name] = _record(eng, group, eng.run()[0])
+    if drill is None:
+        return out
+    eng = _engine(group, dit_fn, cfg, num_steps, **drill)
+    group.counter.reset()
+    eng.submit(reqs[0])
+    try:
+        res = eng.run()[0]
+    except GroupEvicted as e:
+        if leave:
+            raise
+        out["evicted"] = (e.group, e.step)
+        return out
+    out["drill"] = _record(eng, group, res)
+    eng.submit(reqs[1])
+    out["after"] = _record(eng, group, eng.run()[0])
+    return out
+
+
+def hybrid_wire_world(group, wire_cases, engine_args=None) -> dict:
+    """The wire cases (:func:`halo_run`) on this rank of a ``HybridGroup``,
+    a ring shift through ``sharded_ppermute``, the CFG pair split over the
+    tp group, then (``engine_args``: the arguments of
+    :func:`hybrid_engine_runs` after ``group``) engine runs and an
+    eviction drill."""
+    out = {"wires": halo_cases(group, wire_cases)}
+    M, m = group.size, group.rank
+    mine = case_latent((3, 5, 2), 80 + m)
+    out["ppermute"] = sharded_ppermute(mine, group.lp, (m + 1) % M, (m - 1) % M, group.tp)
+    branch = tp_cfg_branch(group.tp)
+    pred = case_latent((2, 3, 4), 90 + group.rank)[branch] + float(branch)
+    out["cfg"] = (branch, pred, tp_cfg_combine(pred, group.tp, 4.0))
+    if engine_args is not None:
+        out["engine"] = hybrid_engine_runs(group, *engine_args)
+    return out
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaNs in the same places."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0), b.masked_fill(nb, 0))
+
+
+def flat_state(state, prefix=()):
+    for k, v in state.items():
+        if isinstance(v, dict):
+            yield from flat_state(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def mirror_run(case: dict, K: int):
+    """The single-process mirror over the case's steps: outputs, states
+    and each step's dim.  The engines' guard guards decodes: uncoded it is
+    a no-op, while the mirror would run an fp32 codec with a guard."""
+    z = case_latent(case["shape"], case["seed"], case.get("nan_at"))
+    codec = get_codec(case["codec"])
+    guard = case["guard"] and case["codec"] is not None
+    outs, states, dims = [], [], []
+    state, state_dim = None, None
+    for _, d, plan in step_plans(z, K, case["r"], case["steps"]):
+        if codec.stateful:
+            if state is None or d != state_dim:
+                rest = tuple(s for i, s in enumerate(z.shape) if i != 1 + d)
+                state, state_dim = init_halo_wire_state(codec, halo_spec(plan), rest), d
+            z, state = simulate_halo_forward(exact_denoiser, z, plan, 1 + d, codec, state,
+                                             nan_guard=guard)
+            states.append(state)
+        else:
+            z = simulate_halo_forward(exact_denoiser, z, plan, 1 + d, codec, nan_guard=guard)
+        outs.append(z)
+        dims.append(d)
+    return outs, states, dims
+
+
+def diverging_monitor(group, slow_group: int, num_steps: int) -> None:
+    """An elastic engine whose health monitor is fed different step times
+    on rank 0 (``slow_group`` far slower) than on the other ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import VideoRequest
+
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    eng = _engine(group, exact_dit, cfg, num_steps, elastic=True)
+    times = [1.0] * group.size
+    if group.rank == 0:
+        times[slow_group] = 9.0
+    for _ in range(5):
+        eng.observe_group_times(times)
+    eng.submit(VideoRequest(0, torch.zeros((1, cfg.context_len, cfg.context_dim)),
+                            (9, 8, 12), seed=0))
+    eng.run()

@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""The flash kernels against PyTorch's ``scaled_dot_product_attention``,
+timed in alternating turns on one GPU.
+
+    python3 tools/library_turns.py [--turns N] [--events]
+
+One reading of a kernel and one of its library call, taken once each in
+the same run, can differ by more than the gap between the two (the
+card's clocks drift between readings).  This times each case in turns,
+kernel and library call back to back, the order swapped every turn, N
+times (default 8).  A turn is one call's device time, summed by
+``torch.profiler`` over 20 calls (``chip_smoke.device_ms``): CUDA events
+around a loop of calls also time the host, which sets the pace of calls
+shorter than ~0.1 ms and added 4-13% of spread to the longer ones in a
+first run of this tool.  ``--events`` times by CUDA events instead (the
+mean of 20 calls after 3).  Per case it reports each side's median and
+spread ((max - min) / median), the gap (library median / kernel median -
+1) and a verdict: ``kernel ahead`` or ``kernel behind`` where the gap is
+larger than both spreads, ``unresolved`` otherwise.
+
+Cases: Zamba2-2.7B's prefill (2 x 4096 tokens, 32 x 80 heads, causal);
+the video DiT's self- and cross-attention at B 16 (3120 tokens, 12 x 128
+heads; 512 context tokens); a hybrid rank's (B 2, 3510 tokens) and a
+K-2 survivor's (B 2, 5070 tokens) self-attention, and the rank's
+cross-attention; Zamba2's decode step on a full cache (4 x 1 query, 4096
+keys).  Each kernel is first held to its plain version
+(``chip_smoke.flash_agrees``).
+
+Prints one line per case and writes
+``chiprun_out/library_turns_<timer>.json`` (``device_ms`` or ``events``)
+with nvidia-smi's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+BF16_CASES = (   # name, (B, Sq, Skv, H, KV, D), causal
+    ("prefill_d80_causal", (2, 4096, 4096, 32, 32, 80), True),
+    ("self_b16_d128", (16, 3120, 3120, 12, 12, 128), False),
+    ("cross_b16_d128", (16, 3120, 512, 12, 12, 128), False),
+    ("rank_self_b2_3510", (2, 3510, 3510, 12, 12, 128), False),
+    ("rank_cross_b2_3510", (2, 3510, 512, 12, 12, 128), False),
+    ("survivor_self_b2_5070", (2, 5070, 5070, 12, 12, 128), False),
+    ("decode_fullcache_d80", (4, 1, 4096, 32, 32, 80), False),
+)
+
+
+def spread(xs):
+    return (max(xs) - min(xs)) / statistics.median(xs)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--turns", type=int, default=8)
+    ap.add_argument("--events", action="store_true", help="time by CUDA events")
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("library_turns: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.kernels import build, ops
+
+    smi = cs.nvidia_smi_line()
+    build.build(("flash_attention_sm90", "flash_decode"))
+    timer = "events" if args.events else "device_ms"
+    report = {"nvidia_smi": smi, "turns": args.turns, "timer": timer, "cases": {}}
+    for name, shape, causal in BF16_CASES:
+        (q, k, v, qp, kp, _), causal, window = cs.flash_inputs(*shape, torch.bfloat16,
+                                                               causal=causal)
+        kernel = ops.flash_kernel(q.dtype, shape[5], shape[1])
+        out = ops.flash_attention(q, k, v, qp, kp, causal=causal, kernel=kernel)
+        err, share, ok = cs.flash_agrees(out, (q, k, v, qp, kp, None), causal, window)
+        cs.check(ok, f"{name}: {kernel} disagrees with its plain version (max abs err "
+                     f"{err:.3e}, {share:.2f} of the limit)")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sides = {"kernel": lambda: ops.flash_attention(q, k, v, qp, kp, causal=causal,
+                                                       kernel=kernel),
+                 "library": lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                   is_causal=causal)}
+        ms = {"kernel": [], "library": []}
+        for turn in range(args.turns):
+            for side in (("kernel", "library") if turn % 2 == 0 else ("library", "kernel")):
+                fn = sides[side]
+                t = cs.time_ms(fn, 20, 3) if args.events else cs.device_ms(fn, 20)
+                if t is not None:          # a short profiler window keeps no time
+                    ms[side].append(t)
+        cs.check(all(len(v) >= 2 for v in ms.values()), f"{name}: too few readings {ms}")
+        med = {s: statistics.median(v) for s, v in ms.items()}
+        spr = {s: spread(v) for s, v in ms.items()}
+        gap = med["library"] / med["kernel"] - 1
+        verdict = ("unresolved" if abs(gap) <= max(spr.values())
+                   else "kernel ahead" if gap > 0 else "kernel behind")
+        report["cases"][name] = {"shape": list(shape), "causal": causal, "kernel": kernel,
+                                 "ms": ms, "median_ms": med, "spread": spr, "gap": gap,
+                                 "verdict": verdict, "max_abs_err": err}
+        print(f"case={name} kernel={kernel} kernel_ms={med['kernel']:.4f} "
+              f"(spread {spr['kernel']:.3f}) sdpa_ms={med['library']:.4f} "
+              f"(spread {spr['library']:.3f}) gap={gap:+.3f} verdict={verdict}", flush=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"library_turns_{timer}.json").write_text(json.dumps(report, indent=1))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
