@@ -50,6 +50,17 @@ Phases, one line each (any failed check exits non-zero):
                int8_quantize (one launch per halo round and one for the
                cores, per step), none through latent_blend; PSNR of each
                request against the fp32 engine's latent.
+  4a. serve_policy — the step policy and the flight recorder at the same
+               settings: codec_schedule "int8-residual@0.85,int8@0.6,bf16"
+               with a FlightRecorder (2 batches of 2 requests; <= 9
+               step-cache misses, int8_quantize on steps 1-3 only, 240
+               flash launches a batch, the trace valid, the recorder's
+               per-step wire bytes equal to comm_model's, the serve
+               counters and reconciliation rows), the schedule "int8"
+               bit-equal to wire_codec "int8", "auto" at a 40 dB floor,
+               the warm batch wall bare and recorded in turns, and every
+               flash kernel of a profiled recorded batch inside a
+               denoise.run range.
   4b. lp_ranks — LP across ranks: a gloo world of 4 ranks sharing the
                card runs the halo engine (uncoded, int8,
                displaced:int8-residual) and one of 2 the psum engine, one
@@ -61,7 +72,12 @@ Phases, one line each (any failed check exits non-zero):
                bytes the port's comm_model exactly, and each rank's
                launches 2 x 30 x 4 flash_attention_sm90 a DiT run and, on
                an int8 wire, one int8_quantize a halo round and one for
-               the cores a step.  The walls are time-sliced on one card.
+               the cores a step; then one scheduled, recorded DiT request
+               on the 4 ranks (bit-equal, bytes comm_lp_halo_scheduled,
+               each rank's recorder equal to its counter a step).  The
+               walls are time-sliced on one card.
+  4c. hybrid_ranks — the same on a 3 x 2 world (the wire sharded and
+               not, a scheduled request, then the dead:1@3 drill).
   5. coded_stitch — blend_windows_coded(codec="int8") on the card at the
                three dims (int8_quantize + dequant_blend) against its
                plain version.
@@ -1010,6 +1026,213 @@ def rank_kernel_shapes(cfg, latent=LATENT, size=K):
     return sorted(quant), sorted(attn)
 
 
+# phase serve_policy: the explicit schedule of the smoke (sigmas 1.0, 0.9,
+# 0.75, 0.5 over 4 FlowMatch steps at shift 3: int8-residual on steps 1-2,
+# int8 on step 3, bf16 on step 4), and the autotuned plan at a 40 dB floor
+SCHEDULE = "int8-residual@0.85,int8@0.6,bf16"
+SCHEDULE_CODECS = ("int8-residual", "int8-residual", "int8", "bf16")
+AUTO_FLOOR = 40.0
+
+
+def flash_in_ranges(prof, kernel: str, range_name: str):
+    """Whether every launch of ``kernel`` in a ``torch.profiler`` capture
+    falls inside a ``range_name`` range: the GPU-side user annotation when
+    the capture has one, else the CPU-side ``record_function`` range around
+    the kernel's launch call (matched by correlation id).  Returns (kernels
+    seen, kernels inside, the method used)."""
+    import torch
+
+    events = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type() == cuda and kernel in e.name()]
+
+    def inside(t, spans):
+        return any(a <= t <= b for a, b in spans)
+
+    gpu = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+           if e.device_type() == cuda and e.name() == range_name]
+    if gpu:
+        n_in = sum(inside(e.start_ns(), gpu) and inside(e.start_ns() + e.duration_ns(), gpu)
+                   for e in kernels)
+        return len(kernels), n_in, "gpu_user_annotation"
+    cpu = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+           if e.device_type() != cuda and e.name() == range_name]
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != cuda and "LaunchKernel" in e.name()}
+    n_in = 0
+    for e in kernels:
+        cid = e.correlation_id() if e.correlation_id() in launches else \
+            e.linked_correlation_id()
+        n_in += cid in launches and inside(launches[cid], cpu)
+    return len(kernels), n_in, "cpu_range_and_launch_call"
+
+
+def serve_policy(cfg, model, reqs, int8_latents, device="cuda", latent=LATENT):
+    """Phase serve_policy: the step policy and the flight recorder on one
+    process, at the serve phase's settings (K 4, r 0.5, 4 steps).
+
+    (a) ``codec_schedule=SCHEDULE`` with a ``FlightRecorder``: a 2-request
+        batch, cold, then warm: <= 3 x 3 step-cache misses, int8_quantize
+        launched for the halo rounds and the cores of steps 1-3 only, 2 x 30
+        x 4 flash_attention_sm90 launches a batch, a trace that validates
+        with the serving and denoise spans, the recorder's per-step wire
+        bytes equal to comm_model's for each step's codec, the serve
+        counters and a reconciliation row for every run.
+    (b) the single-segment schedule ``"int8"`` bit-equal to
+        ``wire_codec="int8"`` (``int8_latents``: phase serve_codec's).
+    (c) ``codec_schedule="auto"`` at a 40 dB floor: the plan, one request.
+    (d) the warm batch wall of (a)'s engine bare and recorded, in turns.
+    (e) a ``torch.profiler`` capture of one recorded warm batch: every
+        flash_attention_sm90 launch inside a ``denoise.run`` range.
+    ``device`` and ``latent`` let a CPU run check the logic at a small size.
+    Returns the record and the launch counts of (a)'s cold batch."""
+    import torch
+    from repro_torch.core import comm_model as cm
+    from repro_torch.core.schedule import rotation_dim, usable_dims
+    from repro_torch.kernels import ops
+    from repro_torch.obs import FlightRecorder, validate_trace
+    from repro_torch.obs import metrics as obsm
+    from repro_torch.serving.engine import LPServingEngine
+
+    on_card = device != "cpu"
+    vid_flash = "flash_attention_sm90"
+    ccfg = cm.VDMCommConfig(latent_dims=latent, latent_channels=cfg.latent_channels,
+                            patch_sizes=cfg.patch_sizes, d_model=cfg.d_model,
+                            num_blocks=cfg.num_layers, num_steps=STEPS)
+    dims = usable_dims(latent, cfg.patch_sizes, K)
+
+    def engine(**kw):
+        # the plan's byte model at the served latent: its bytes are the request's
+        return LPServingEngine(model, cfg, num_partitions=K, overlap_ratio=R, num_steps=STEPS,
+                               max_batch=2, device=device, plan_geometry=latent, **kw)
+
+    def batch(eng, base_id):
+        for i in (0, 1):
+            eng.submit(dataclasses.replace(reqs[i], request_id=base_id + i))
+        return eng.run(max_batches=1)
+
+    # (a) the explicit schedule, recorded
+    rec = FlightRecorder()
+    eng = engine(codec_schedule=SCHEDULE, recorder=rec)
+    plan = eng.plan
+    check(tuple(plan.step_codecs) == SCHEDULE_CODECS and eng.lp_impl == "halo",
+          f"serve_policy: plan {plan.describe()} on {eng.lp_impl}")
+    ops.reset_launch_counts()
+    cold = batch(eng, 30)
+    counts = ops.launch_counts()
+    misses = eng._compiler.compiles
+    warm = batch(eng, 40)
+    doc = rec.trace.to_json()
+    errors = validate_trace(doc)
+    names = {e["name"] for e in doc["traceEvents"]}
+    want_names = {"request.enqueue", "batch.admit", "batch.denoise", "denoise.run", "wire.step",
+                  "request.lifecycle", "policy.plan"}
+    want_quant = expected_quantize_launches(cfg, latent, K, steps=[(i, K) for i in (1, 2, 3)])
+    want_flash = 2 * cfg.num_layers * STEPS if on_card else 0
+    wire_ok = len(rec.wire_steps) == 2 * STEPS
+    for r in rec.wire_steps:
+        i = r["step"]
+        m = cm.lp_halo_codec_step_collectives(ccfg, K, R, rotation_dim(i, dims),
+                                              SCHEDULE_CODECS[i - 1])
+        wire_ok &= (r["codec"] == SCHEDULE_CODECS[i - 1] and r["intra"] == {}
+                    and r["inter"] == {k: float(v) for k, v in m.items()})
+    m = rec.metrics
+    serve_ok = (m.counter_value(obsm.REQUESTS) == 4 and m.counter_value(obsm.BATCHES) == 2
+                and len(rec.request_rows) == 4)
+    rows = rec.reconciliations
+    recon_ok = (len(rows) == len(rec.measured_runs) == 2 * STEPS
+                and all(r["unattributed_steps"] == 0 and r["pred_wire_time_ms"] > 0
+                        for r in rows))
+    for res in cold + warm:
+        check(tuple(res.latent.shape) == (1, *latent, cfg.latent_channels)
+              and bool(torch.isfinite(res.latent).all()),
+              f"serve_policy request {res.request_id}: latent shape or values")
+    explicit = {"plan": plan.describe(), "spec": plan.schedule.spec,
+                "step_codecs": list(plan.step_codecs), "wire_bytes": plan.wire_bytes,
+                "fp32_halo_bytes": plan.fp32_halo_bytes,
+                "int8_halo_bytes": cm.comm_lp_halo_codec(ccfg, K, R, "int8"),
+                "step_cache_misses": misses, "launches": counts,
+                "expected_int8_quantize": want_quant, "cold_wall_s": cold[0].batch_wall_s,
+                "warm_wall_s": warm[0].batch_wall_s, "trace_errors": errors[:5],
+                "trace_events": len(doc["traceEvents"]), "wire_steps_ok": wire_ok,
+                "serve_counters_ok": serve_ok, "reconciliation_ok": recon_ok,
+                "state_inits": eng._compiler.state_inits,
+                "reconciliations": rows[:STEPS]}
+    print(f"phase=serve_policy run=explicit schedule={plan.schedule.spec} "
+          f"lp_impl={eng.lp_impl} segments={plan.num_segments} "
+          f"step_codecs={','.join(plan.step_codecs)} model_bytes={plan.wire_bytes} "
+          f"fp32_halo_bytes={plan.fp32_halo_bytes} int8_bytes={explicit['int8_halo_bytes']} "
+          f"cold_wall_s={cold[0].batch_wall_s:.3f} warm_wall_s={warm[0].batch_wall_s:.3f} "
+          f"step_cache_misses={misses} {vid_flash}={counts[vid_flash]} (want {want_flash}) "
+          f"int8_quantize={counts['int8_quantize']} (want {want_quant if on_card else 0}) "
+          f"trace_ok={not errors} wire_steps_ok={wire_ok} serve_counters_ok={serve_ok} "
+          f"reconciliation_ok={recon_ok}", flush=True)
+    check(misses <= 3 * plan.num_segments, f"serve_policy: {misses} step-cache misses")
+    check(counts[vid_flash] == want_flash
+          and counts["int8_quantize"] == (want_quant if on_card else 0)
+          and counts["latent_blend"] == counts["dequant_blend"] == 0,
+          f"serve_policy: launches {counts}, want {want_flash} flash, "
+          f"{want_quant} int8_quantize, no blend")
+    check(not errors and want_names <= names, f"serve_policy: trace errors {errors[:3]}, "
+                                               f"missing {want_names - names}")
+    check(wire_ok and serve_ok and recon_ok,
+          f"serve_policy: wire steps {wire_ok}, serve counters {serve_ok}, "
+          f"reconciliation {recon_ok}")
+
+    # (d) the recorder's cost: the same engine's warm batch bare and recorded
+    walls = {"bare": [], "recorded": []}
+    for i, kind in enumerate(("bare", "recorded", "recorded", "bare")):
+        eng.recorder = rec if kind == "recorded" else None
+        walls[kind].append(batch(eng, 50 + 2 * i)[0].batch_wall_s)
+    eng.recorder = rec
+    cost = {k: sorted(v) for k, v in walls.items()}
+    print(f"phase=serve_policy run=recorder_cost warm_batch_wall_s bare={cost['bare']} "
+          f"recorded={cost['recorded']} step_s_bare={min(cost['bare']) / STEPS:.4f} "
+          f"step_s_recorded={min(cost['recorded']) / STEPS:.4f}", flush=True)
+
+    # (e) the spans on the device timeline
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU] + ([act.CUDA] if on_card else [])) \
+            as prof:
+        traced = batch(eng, 60)
+    seen, inside, method = flash_in_ranges(prof, "flash_fwd_sm90", "denoise.run")
+    print(f"phase=serve_policy run=spans flash_fwd_sm90_kernels={seen} "
+          f"inside_denoise_run={inside} method={method} "
+          f"traced_wall_s={traced[0].batch_wall_s:.3f}", flush=True)
+    check(seen == inside and (seen == want_flash or not on_card),
+          f"serve_policy: {inside} of {seen} flash kernels inside a denoise.run range "
+          f"({method})")
+
+    # (b) one segment equals the fixed codec
+    one = engine(codec_schedule="int8")
+    single = batch(one, 0)
+    equal = all(torch.equal(r.latent, int8_latents[r.request_id]) for r in single)
+    print(f"phase=serve_policy run=single_segment schedule=int8 bit_equal_to_wire_codec="
+          f"{equal}", flush=True)
+    check(equal, "serve_policy: the single-segment schedule differs from wire_codec='int8'")
+    del one
+
+    # (c) the autotuned plan at a 40 dB floor
+    auto = engine(codec_schedule="auto", psnr_floor=AUTO_FLOOR)
+    ap = auto.plan
+    auto.submit(dataclasses.replace(reqs[0], request_id=70))
+    ares = auto.run()[0]
+    check(bool(torch.isfinite(ares.latent).all()), "serve_policy auto: non-finite latent")
+    print(f"phase=serve_policy run=auto floor_db={AUTO_FLOOR} plan=[{ap.describe()}] "
+          f"lp_impl={auto.lp_impl} model_bytes={ap.wire_bytes} "
+          f"fp32_halo_bytes={ap.fp32_halo_bytes} "
+          f"vs_fp32={ap.fp32_halo_bytes / ap.wire_bytes:.3f} wall_s={ares.batch_wall_s:.3f}",
+          flush=True)
+    record = {"explicit": explicit, "recorder_cost_wall_s": cost,
+              "spans": {"flash_kernels": seen, "inside": inside, "method": method,
+                        "traced_wall_s": traced[0].batch_wall_s},
+              "single_segment_bit_equal": equal,
+              "auto": {"plan": ap.describe(), "spec": ap.schedule.spec,
+                       "lp_impl": auto.lp_impl, "wire_bytes": ap.wire_bytes,
+                       "fp32_halo_bytes": ap.fp32_halo_bytes, "wall_s": ares.batch_wall_s}}
+    return record, counts
+
+
 # phase lp_ranks: (run name, codec) per world size; each run twice, with the
 # exact denoiser and with the guided DiT
 LP_WORLDS = {4: (("fp32", None), ("int8", "int8"),
@@ -1101,7 +1324,89 @@ def lp_rank_worker(group, runs, cfg, latent, device):
                     dtype=np.int64).reshape(-1, 2)
             out["runs"][(name, kind)] = rec
             del eng
+    if group.size > 2:
+        out["scheduled"] = scheduled_rank_run(group, model, cfg, ctx, latent)
     return out
+
+
+def scheduled_rank_run(group, model, cfg, ctx, latent, **kw):
+    """One DiT request on this rank through ``LPServingEngine(mesh=group,
+    codec_schedule=SCHEDULE)`` with a flight recorder: its latent, launches,
+    byte counter before each step and at the end, the recorder's per-step
+    wire attribution, the plan's spec, wall and step-cache misses."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.obs import FlightRecorder
+    from repro_torch.serving.engine import LPServingEngine, VideoRequest
+
+    rec = FlightRecorder()
+    eng = LPServingEngine(model, cfg, num_partitions=group.size, overlap_ratio=R,
+                          num_steps=STEPS, max_batch=1, mesh=group, codec_schedule=SCHEDULE,
+                          recorder=rec, **kw)
+    snaps = []
+    eng._step_fault = lambda i: snaps.append(group.counter.snapshot())
+    eng.submit(VideoRequest(0, ctx, latent, seed=0))
+    dist.barrier()
+    ops.reset_launch_counts()
+    group.counter.reset()
+    res = eng.run()[0]
+    return {"latent": res.latent.cpu(), "wall_s": res.batch_wall_s,
+            "launches": ops.launch_counts(), "counts": snaps + [group.counter.snapshot()],
+            "wire_steps": rec.wire_steps, "spec": eng.plan.schedule.spec,
+            "step_codecs": list(eng.plan.step_codecs), "lp_impl": eng.lp_impl,
+            "wire_shard": eng.wire_shard, "compiles": eng._compiler.compiles}
+
+
+def check_scheduled_ranks(name, got, want, cfg, latent, size, on_card, tiers=("inter",)):
+    """The scheduled request of every rank of a world against the
+    one-process scheduled engine's latent ``want``: bit-equal, each rank's
+    counted payloads per step and tier equal to its recorder's attribution,
+    the plan the same on every rank, 2 x 30 x 4 flash_attention_sm90
+    launches a rank and int8_quantize for steps 1-3 (on the card).  Returns
+    the record and the summed launch counts."""
+    import torch
+
+    kinds = ("all-gather", "all-reduce", "collective-permute")
+    equal = all(torch.equal(g["latent"], want) for g in got)
+    max_abs = max(float((g["latent"].float() - want.float()).abs().max()) for g in got)
+    steps_ok = True
+    for g in got:
+        steps_ok &= len(g["wire_steps"]) == STEPS
+        for i, r in enumerate(g["wire_steps"]):
+            for t in tiers:
+                a = g["counts"][i]["tiers"][t]["payload"]
+                b = g["counts"][i + 1]["tiers"][t]["payload"]
+                steps_ok &= {k: b[k] - a[k] for k in kinds} == \
+                    {k: r[t].get(k, 0.0) * r["batch_size"] for k in kinds}
+    same_plan = all(g["spec"] == got[0]["spec"] and g["step_codecs"] == list(SCHEDULE_CODECS)
+                    for g in got)
+    flash = [g["launches"]["flash_attention_sm90"] for g in got]
+    quant = [g["launches"]["int8_quantize"] for g in got]
+    want_flash = 2 * cfg.num_layers * STEPS if on_card else 0
+    want_quant = (expected_quantize_launches(cfg, latent, size,
+                                             steps=[(i, size) for i in (1, 2, 3)])
+                  if on_card else 0)
+    rec = {"run": name, "ranks": len(got), "spec": got[0]["spec"], "lp_impl": got[0]["lp_impl"],
+           "wire_shard": got[0]["wire_shard"], "bit_equal": equal, "max_abs": max_abs,
+           "recorder_equals_counter": steps_ok, "same_plan": same_plan,
+           "wall_s": max(g["wall_s"] for g in got), "flash_launches_per_rank": flash,
+           "int8_quantize_per_rank": quant, "compiles": [g["compiles"] for g in got],
+           "sent": {t: sum(g["counts"][-1]["tiers"][t]["sent"] for g in got) for t in tiers}}
+    print(f"phase={name} run=scheduled schedule={rec['spec']} lp_impl={rec['lp_impl']} "
+          f"wire_shard={rec['wire_shard']} wall_s={rec['wall_s']:.3f} bit_equal={equal} "
+          f"max_abs={max_abs:.3e} recorder_equals_counter={steps_ok} same_plan={same_plan} "
+          f"sent={rec['sent']} flash_attention_sm90_per_rank={flash} "
+          f"int8_quantize_per_rank={quant} (want {want_quant})", flush=True)
+    check(equal, f"{name} scheduled: the ranks' latent differs from the one-process run "
+                 f"(max abs {max_abs:.3e})")
+    check(steps_ok and same_plan, f"{name} scheduled: recorder vs counter {steps_ok}, "
+                                  f"one plan {same_plan}")
+    check(flash == [want_flash] * len(got) and quant == [want_quant] * len(got),
+          f"{name} scheduled: launches flash {flash} (want {want_flash}), int8_quantize "
+          f"{quant} (want {want_quant})")
+    check(all(c <= 3 * 3 for c in rec["compiles"]), f"{name} scheduled: misses {rec['compiles']}")
+    counts = {k: sum(g["launches"][k] for g in got) for k in got[0]["launches"]}
+    return rec, counts
 
 
 def kernel_union_s(spans):
@@ -1154,7 +1459,7 @@ def lp_ranks(cfg, model, device="cuda", latent=LATENT):
                             num_blocks=cfg.num_layers, num_steps=STEPS, bytes_per_el=4)
     ctx = frontends.text_context(generator(LP_CONTEXT_SEED, device), 1, cfg, device)
     want_digest = param_digest(model)
-    records, path_counts = [], {}
+    records, path_counts, sched = [], {}, None
     print("phase=lp_ranks note: the ranks of each world share one card and time-slice it; "
           "their walls are not multi-GPU numbers", flush=True)
     for size, runs in LP_WORLDS.items():
@@ -1258,7 +1563,25 @@ def lp_ranks(cfg, model, device="cuda", latent=LATENT):
                       f"{want_flash}), int8_quantize {quant} (want {want_quant}), others {others}")
                 check(all(c <= 3 for c in rec["compiles"]),
                       f"lp_ranks {name} {kind}: step-cache misses {rec['compiles']}")
-    return {"runs": records}, path_counts
+        if size > 2:
+            eng = LPServingEngine(model, cfg, num_partitions=size, overlap_ratio=R,
+                                  num_steps=STEPS, max_batch=1, device=device,
+                                  codec_schedule=SCHEDULE)
+            eng._compiler.denoise_fn = windowwise(eng._compiler.denoise_fn)
+            eng.submit(VideoRequest(0, ctx, latent, seed=0))
+            want = eng.run()[0].latent.cpu()
+            del eng
+            got = [r["scheduled"] for r in ranks]
+            sched, path_counts["lp_ranks:scheduled"] = check_scheduled_ranks(
+                "lp_ranks", got, want, cfg, latent, size, device != "cpu")
+            sched["model_bytes"] = cm.comm_lp_halo_scheduled(ccfg, size, R, SCHEDULE_CODECS)
+            sched["bytes_ok"] = sched["sent"]["inter"] == sched["model_bytes"]
+            print(f"phase=lp_ranks run=scheduled bytes={sched['sent']['inter']} "
+                  f"model_bytes={sched['model_bytes']} bytes_ok={sched['bytes_ok']}",
+                  flush=True)
+            check(sched["bytes_ok"], f"lp_ranks scheduled: {sched['sent']} bytes sent, the "
+                                     f"model {sched['model_bytes']}")
+    return {"runs": records, "scheduled": sched}, path_counts
 
 
 # phase hybrid_ranks: one (M, T) world; (run name, codec, wire_shard), each run
@@ -1341,6 +1664,7 @@ def hybrid_rank_worker(group, cfg, latent, device):
                     dtype=np.int64).reshape(-1, 2)
             out["runs"][(name, kind)] = rec
             del eng
+    out["scheduled"] = scheduled_rank_run(group, model, cfg, ctx, latent, wire_shard=True)
     eng = engine(model, **HYBRID_DRILL)
     ran = []
     step = eng._compiler.step
@@ -1520,6 +1844,17 @@ def hybrid_ranks(cfg, model, device="cuda", latent=LATENT):
                   f"hybrid_ranks {name} {kind}: step-cache misses {rec['compiles']}, "
                   f"{rec['lp_impl']}, wire_shard {rec['wire_shard']}")
 
+    # the scheduled request, sharded, against the one-process scheduled engine
+    eng = one_process(model, "dit", codec_schedule=SCHEDULE)
+    eng.submit(VideoRequest(0, ctx, latent, seed=0))
+    want = eng.run()[0].latent.cpu()
+    del eng
+    sched, path_counts["hybrid_ranks:scheduled"] = check_scheduled_ranks(
+        "hybrid_ranks", [r["scheduled"] for r in ranks], want, cfg, latent, M, on_card,
+        tiers=("inter", "intra"))
+    check(sched["lp_impl"] == "halo_hybrid" and sched["wire_shard"] is True,
+          f"hybrid_ranks scheduled: {sched['lp_impl']}, wire_shard {sched['wire_shard']}")
+
     # the eviction drill against the one-process engine under the same drill
     eng = one_process(model, "dit", **HYBRID_DRILL)
     eng.submit(VideoRequest(0, ctx, latent, seed=0))
@@ -1570,7 +1905,7 @@ def hybrid_ranks(cfg, model, device="cuda", latent=LATENT):
                            f"one-process drill (second request ok: {again})")
     check(launches_ok and ran_ok, f"hybrid_ranks drill: launches or steps run wrong "
                                   f"({drill_rec['ran']})")
-    return {"runs": records, "drill": drill_rec, "world_s": world_s,
+    return {"runs": records, "scheduled": sched, "drill": drill_rec, "world_s": world_s,
             "setup_s": [r["setup_s"] for r in ranks], "run_s": [r["run_s"] for r in ranks],
             "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]}, path_counts
 
@@ -2143,7 +2478,7 @@ def run() -> int:
     # ------------------------------------------------------- 4. serve_codec
     fp32_latent = {r.request_id: r.latent for r in results if r.request_id in (0, 1)}
     want_quant = expected_quantize_launches(cfg)
-    coded, coded_counts = [], {}
+    coded, coded_counts, int8_latents = [], {}, {}
     for codec in CODECS:
         ceng = LPServingEngine(model, cfg, num_partitions=K, overlap_ratio=R,
                                num_steps=STEPS, max_batch=2, device="cuda", wire_codec=codec)
@@ -2167,6 +2502,8 @@ def run() -> int:
             check(bool(torch.isfinite(r.latent).all()), f"{codec} request {r.request_id}: "
                                                          "non-finite")
             psnr[r.request_id] = psnr_db(r.latent, fp32_latent[r.request_id])
+            if codec == "int8":
+                int8_latents[r.request_id] = r.latent
         # a warm batch of the same two requests, then one traced
         walls = []
         for traced in (False, True):
@@ -2205,6 +2542,10 @@ def run() -> int:
         del ceng
     record["serve_codec"] = {"expected_int8_quantize": want_quant, "fp32_warm_wall_s": warm[0],
                              "runs": coded}
+
+    # ------------------------------------------------------ 4a. serve_policy
+    record["serve_policy"], policy_counts = serve_policy(cfg, model, reqs, int8_latents)
+    del int8_latents
 
     # --------------------------------------------------------- 4b. lp_ranks
     record["lp_ranks"], lp_counts = lp_ranks(cfg, model)
@@ -2344,13 +2685,14 @@ def run() -> int:
           "the D-80 prefill and decode cases ran other kernels than lm_serve's")
     path_counts = {"serve": main_counts, "lm_serve:prefill": lm_prefill_counts,
                    "lm_serve:decode": lm_decode_counts, "coded_stitch": stitch_counts,
-                   "guidance": guidance_counts,
+                   "guidance": guidance_counts, "serve_policy": policy_counts,
                    **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts}
     line = {"kernels": [
         kernel_row("flash_attention_sm90_d128", "src/repro/kernels/flash_attention.py:101",
                    named["flash_self_Twindow_bf16"],
                    {"serve": main_counts[vid_flash],
                     **{f"serve_codec:{c}": n[vid_flash] for c, n in coded_counts.items()},
+                    "serve_policy": policy_counts[vid_flash],
                     **{k: n[vid_flash] for k, n in lp_counts.items()}},
                    source="flash_attention_sm90"),
         kernel_row("flash_attention_sm90_d80", "src/repro/kernels/flash_attention.py:101",
@@ -2367,6 +2709,7 @@ def run() -> int:
                    {"serve": main_counts["latent_blend"]}),
         kernel_row("int8_quantize", "src/repro/kernels/wire_codec.py:64", quant[0],
                    {**{f"serve_codec:{c}": n["int8_quantize"] for c, n in coded_counts.items()},
+                    "serve_policy": policy_counts["int8_quantize"],
                     **{k: n["int8_quantize"] for k, n in lp_counts.items()}}),
         kernel_row("dequant_blend", "src/repro/kernels/wire_codec.py:131", dequant[0],
                    {"coded_stitch": stitch_counts["dequant_blend"]}),

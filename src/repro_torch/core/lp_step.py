@@ -20,8 +20,8 @@ denoisers of ``diffusion/pipeline.py`` tile their conditioning to match.
 ``codec=`` (a ``comm.codecs`` name or instance) runs every step through
 ``comm/wire.simulate_halo_forward``, the single-process mirror of the
 halo engine.  Residual codecs thread explicit state: ``lp_denoise``
-creates it fresh at the start of every run of same-dim steps (where
-boundary snapshots are recorded, so a resume stays bit-exact) and
+creates it fresh at the start of every run of same-dim, same-codec steps
+(where boundary snapshots are recorded, so a resume stays bit-exact) and
 carries it across the run; ``state_inits`` counts the inits.
 
 ``forward=`` binds the step to a group: each rank calls
@@ -38,15 +38,32 @@ eviction, ``runtime/elastic.replan_lp_compiler``): it bumps
 dims, re-zeroes the codec state once and records a snapshot at the
 re-plan boundary.
 
-Not served yet, and raising ``NotImplementedError``: codec schedules and
-per-segment forward hooks (ROADMAP Queue 1 item 9), the flight recorder
-(item 7).
+``schedule=`` (a ``policy.CodecSchedule`` or spec) varies the wire codec
+over the denoise, as the reference does (``lp_step.py:168-246``):
+``lp_denoise`` resolves the sigma thresholds against the sampler's
+trajectory and hands each step its segment's codec, which keys the step
+cache, picks the residual state's layout and encodes the wire.  Residual
+state is zeroed at every rotation-dim switch, every codec-segment
+boundary and every re-plan, where boundary snapshots are recorded, so a
+resume stays bit-exact; misses stay <= 3 x the number of segments.
+``forward_factory`` is the scheduled twin of ``forward``: called with a
+segment's codec, it returns the group-bound hook for that codec.
+
+``recorder=`` (``obs.FlightRecorder``, duck-typed) wraps each run of
+same-dim, same-codec steps (each step, when a ``step_hook`` is given) in
+a ``device_span`` (``torch.profiler.record_function`` on the device
+timeline) and records its wall, its snapshots, resumes and re-plans.
+Only then does a run end in a synchronisation of the current stream of
+``z``'s device, so the wall is the run's; without a recorder the loop
+adds none.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,20 +75,6 @@ from .uniform import UniformPlan, plan_uniform
 
 DenoiseFn = Callable[[torch.Tensor], torch.Tensor]
 DenoiseStepFn = Callable[..., torch.Tensor]
-
-_NOT_SERVED = {
-    "schedule": "ROADMAP Queue 1 item 9 (step policy)",
-    "forward_factory": "ROADMAP Queue 1 item 9 (scheduled mesh-bound wires)",
-    "recorder": "ROADMAP Queue 1 item 7 (observability)",
-}
-
-
-def not_served(items: Dict[str, str], **given: Any) -> None:
-    """Raise for the first argument given that this slice does not serve;
-    ``items`` names each argument's ROADMAP item."""
-    for name, value in given.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(f"{name}= is not ported yet: {items[name]}")
 
 
 @dataclasses.dataclass
@@ -137,13 +140,16 @@ class LPStepCompiler:
     """LRU cache of LP step geometry, keyed like the reference's step cache.
 
     Key: ``(dim, z shape, z dtype, device, K, r, uniform, codec name,
-    mesh shape, wire_shard)``.  ``step(dim, z, t, scalars, extras, state=None)`` runs
-    one LP forward with ``denoise_fn(window, t, *extras)`` and applies
+    mesh shape, wire_shard)``, the codec being the step's: the compiler's
+    own, or the schedule segment's that ``lp_denoise`` passes per call
+    (the reference keys ``codec.name`` per call, ``lp_step.py:406-415``).
+    ``step(dim, z, t, scalars, extras, state=None, codec=None)`` runs one
+    LP forward with ``denoise_fn(window, t, *extras)`` and applies
     ``update_fn(z, pred, scalars)``; with a residual codec it takes and
     returns the wire state, ``(z, state)``.  ``nan_guard`` arms the
-    mirror's per-message NaN/Inf decode guard (a ``forward`` hook carries
-    its own).  ``forward``, ``mesh_shape`` and ``lp_rank``: see the
-    module docstring.
+    mirror's per-message NaN/Inf decode guard (a group-bound hook carries
+    its own).  ``forward``, ``forward_factory``, ``schedule``,
+    ``mesh_shape`` and ``lp_rank``: see the module docstring.
     """
 
     def __init__(
@@ -165,7 +171,20 @@ class LPStepCompiler:
         nan_guard: bool = False,
         lp_rank: Optional[int] = None,
     ):
-        not_served(_NOT_SERVED, schedule=schedule, forward_factory=forward_factory)
+        if schedule is not None:
+            from repro_torch.policy.schedule import parse_schedule
+
+            schedule = parse_schedule(schedule)
+            if codec is not None:
+                raise ValueError("pass codec= (fixed) or schedule= (sigma-varying), not both")
+            if forward is not None and forward_factory is None:
+                raise ValueError(
+                    "a codec schedule cannot run through a fixed forward= hook (it is bound "
+                    "to one codec and would silently ignore the segments) — pass a "
+                    "forward_factory that binds the hook per segment codec")
+            if not uniform and forward_factory is None:
+                raise ValueError("codec schedules need the uniform-window halo geometry "
+                                 "(uniform=True) or a forward_factory hook")
         if codec is not None:
             from repro_torch.comm.codecs import get_codec
 
@@ -174,7 +193,9 @@ class LPStepCompiler:
                 raise ValueError("wire codecs need the uniform-window halo geometry "
                                  "(uniform=True) or a custom forward hook")
         self.codec = codec
+        self.schedule = schedule
         self.forward = forward
+        self.forward_factory = forward_factory
         self.mesh_shape = None if mesh_shape is None else tuple(mesh_shape)
         self.wire_shard = bool(wire_shard)
         self.lp_rank = lp_rank
@@ -197,24 +218,27 @@ class LPStepCompiler:
                overlap_ratio: Optional[float] = None,
                mesh_shape: Optional[Tuple[int, ...]] = None,
                forward: Optional[Callable] = None,
+               forward_factory: Optional[Callable] = None,
                wire_shard: Optional[bool] = None,
                lp_rank: Optional[int] = None) -> bool:
         """Mid-request re-plan (``lp_step.py:267``): swap K, r, the mesh
-        shape, the forward hook, ``wire_shard`` or this process's
-        ``lp_rank``.  Safe from an ``lp_denoise`` step hook: the geometry is
-        in the cache key, so old entries are never served again, and the
-        ``plan_epoch`` bump makes the in-flight loop re-derive its dims and
-        re-zero the codec state once.  Changing ``wire_shard`` on a compiler
-        with a bound hook needs a re-bound ``forward`` in the same call
-        (checked before anything changes).  Returns True when anything
-        changed.
+        shape, the forward hook or factory, ``wire_shard`` or this
+        process's ``lp_rank``.  Safe from an ``lp_denoise`` step hook: the
+        geometry is in the cache key, so old entries are never served
+        again, and the ``plan_epoch`` bump makes the in-flight loop
+        re-derive its dims and re-zero the codec state once.  Changing
+        ``wire_shard`` on a compiler with a bound hook or factory needs a
+        re-bound one in the same call (checked before anything changes).
+        Returns True when anything changed.
 
         The engine re-plans through ``runtime/elastic.replan_lp_compiler``,
-        which passes K, the mesh shape, ``forward`` and ``lp_rank``;
-        ``overlap_ratio`` and ``wire_shard`` are the reference's contract,
-        held to it by a test, and reached from no path of the port."""
-        if wire_shard is not None and bool(wire_shard) != self.wire_shard \
-                and self.forward is not None and forward is None:
+        which passes K, the mesh shape, the hook or factory and
+        ``lp_rank``; ``overlap_ratio`` and ``wire_shard`` are the
+        reference's contract, held to it by a test, and reached from no
+        path of the port."""
+        if wire_shard is not None and bool(wire_shard) != self.wire_shard and (
+                (self.forward is not None and forward is None)
+                or (self.forward_factory is not None and forward_factory is None)):
             raise ValueError("changing wire_shard on a compiler with a bound forward hook "
                              "needs a re-bound forward= / forward_factory= in the same replan "
                              "call")
@@ -227,9 +251,10 @@ class LPStepCompiler:
             if value is not None and value != getattr(self, name):
                 setattr(self, name, value)
                 changed = True
-        if forward is not None and forward is not self.forward:
-            self.forward = forward                 # a new group needs a re-bound hook
-            changed = True
+        for name, hook in (("forward", forward), ("forward_factory", forward_factory)):
+            if hook is not None and hook is not getattr(self, name):
+                setattr(self, name, hook)          # a new group needs a re-bound hook
+                changed = True
         if changed:
             self.plan_epoch += 1
         return changed
@@ -238,16 +263,31 @@ class LPStepCompiler:
     def stateful(self) -> bool:
         return self.codec is not None and self.codec.stateful
 
+    def _codec_for(self, codec):
+        """The step's codec: the compiler's own for None, else a schedule
+        segment's (a name or an instance)."""
+        if codec is None:
+            return self.codec
+        from repro_torch.comm.codecs import get_codec
+
+        return get_codec(codec)
+
     def _plan(self, dim: int, extent: int):
         planner = plan_uniform if self.uniform else plan_partition
         return planner(extent, self.patch_sizes[dim], self.num_partitions,
                        self.overlap_ratio, dim)
 
-    def entry(self, dim: int, z: torch.Tensor) -> _StepEntry:
+    def _hook(self, codec):
+        """The group-bound hook of a step on ``codec``, or None off a group."""
+        if self.forward_factory is not None and codec is not None:
+            return self.forward_factory(codec)
+        return self.forward
+
+    def entry(self, dim: int, z: torch.Tensor, codec=None) -> _StepEntry:
+        codec = self._codec_for(codec)
         key = (dim, tuple(z.shape), z.dtype, z.device, self.num_partitions,
-               self.overlap_ratio, self.uniform,
-               None if self.codec is None else self.codec.name, self.mesh_shape,
-               self.wire_shard)
+               self.overlap_ratio, self.uniform, None if codec is None else codec.name,
+               self.mesh_shape, self.wire_shard)
         cached = self._cache.get(key)
         if cached is not None:
             self._cache.move_to_end(key)
@@ -255,9 +295,10 @@ class LPStepCompiler:
             return cached
         axis = self.spatial_axes[dim]
         plan = self._plan(dim, z.shape[axis])
-        if self.forward is not None:
+        if self.forward is not None or (self.forward_factory is not None
+                                        and codec is not None):
             entry = _StepEntry(plan, axis, None)
-        elif self.codec is not None:
+        elif codec is not None:
             from repro_torch.comm.wire import HaloTables
 
             entry = _StepEntry(plan, axis, None, HaloTables.build(plan, z.device))
@@ -270,11 +311,13 @@ class LPStepCompiler:
         self.compiles += 1
         return entry
 
-    def init_codec_state(self, dim: int, z: torch.Tensor):
-        """Zeroed residual-codec state for (rotation dim, latent geometry),
-        on z's device; None for stateless codecs.  Counted in
-        ``state_inits``.  With ``lp_rank`` set, that rank's slice."""
-        if not self.stateful:
+    def init_codec_state(self, dim: int, z: torch.Tensor, codec=None):
+        """Zeroed residual-codec state for (rotation dim, latent geometry,
+        the step's codec), on z's device; None for stateless codecs.
+        Counted in ``state_inits``.  With ``lp_rank`` set, that rank's
+        slice."""
+        codec = self._codec_for(codec)
+        if codec is None or not codec.stateful:
             return None
         from repro_torch.comm.wire import init_halo_wire_state
         from repro_torch.distributed.collectives import halo_spec
@@ -283,30 +326,34 @@ class LPStepCompiler:
         axis = self.spatial_axes[dim]
         plan = self._plan(dim, z.shape[axis])
         rest = tuple(s for i, s in enumerate(z.shape) if i != axis)
-        state = init_halo_wire_state(self.codec, halo_spec(plan), rest, z.device)
+        state = init_halo_wire_state(codec, halo_spec(plan), rest, z.device)
         if self.lp_rank is None:
             return state
         from repro_torch.comm.wire import rank_wire_state
 
         return rank_wire_state(state, self.lp_rank)
 
-    def step(self, dim: int, z: torch.Tensor, t, scalars, extras: Tuple, state=None):
-        e = self.entry(dim, z)
+    def step(self, dim: int, z: torch.Tensor, t, scalars, extras: Tuple, state=None,
+             codec=None):
+        codec = self._codec_for(codec)
+        e = self.entry(dim, z, codec)
+        stateful = codec is not None and codec.stateful
 
         def fn(w):
             return self.denoise_fn(w, t, *extras)
 
-        if self.forward is not None:
-            if self.stateful:
-                pred, state = self.forward(fn, z, e.plan, e.axis, state)
+        hook = self._hook(codec)
+        if hook is not None:
+            if stateful:
+                pred, state = hook(fn, z, e.plan, e.axis, state)
                 return self.update_fn(z, pred, scalars), state
-            return self.update_fn(z, self.forward(fn, z, e.plan, e.axis), scalars)
-        if self.codec is not None:
+            return self.update_fn(z, hook(fn, z, e.plan, e.axis), scalars)
+        if codec is not None:
             from repro_torch.comm.wire import simulate_halo_forward
 
-            out = simulate_halo_forward(fn, z, e.plan, e.axis, self.codec, state,
+            out = simulate_halo_forward(fn, z, e.plan, e.axis, codec, state,
                                         nan_guard=self.nan_guard, tables=e.halo)
-            if self.stateful:
+            if stateful:
                 pred, state = out
                 return self.update_fn(z, pred, scalars), state
             return self.update_fn(z, out, scalars)
@@ -340,27 +387,55 @@ def lp_denoise(
 
     ``denoise_fn(window, t, *extras)`` takes the timestep as a float;
     ``sampler`` gives ``timestep(i)``, ``step_scalars(i)`` and ``update``.
-    ``step_hook(i)`` fires before step ``i``.  ``codec`` and
-    ``nan_guard`` build the compiler when none is given (a given
-    compiler owns its codec).  Residual-codec state is created fresh at
-    the start of every run of same-dim steps and threaded through the
-    run.  ``snapshot`` arms boundary checkpointing exactly where the
-    reference records (``lp_step.py:670``): after the last step of every
-    run of same-dim steps but the final one, which is where the state is
-    re-zeroed; a snapshot that already holds a step resumes from it,
-    bit-exact.  A ``step_hook`` may re-plan the compiler
-    (``LPStepCompiler.replan``): at the next step the loop re-derives the
-    rotation dims from the new K, re-zeroes the codec state and records
-    the pre-replan latent stamped with the new epoch (``lp_step.py:686``).
+    ``step_hook(i)`` fires before step ``i``.  ``codec``, ``schedule`` and
+    ``nan_guard`` build the compiler when none is given (a given compiler
+    owns its codec and schedule).  A schedule is resolved against the
+    sampler's sigma trajectory: each step runs on its segment's codec.
+
+    A run is a stretch of same-dim, same-codec steps, as the reference's
+    scans are (``lp_step.py:635-688``).  Residual-codec state is created
+    fresh at the start of every run and threaded through it.  ``snapshot`` arms
+    boundary checkpointing where the reference records: after every run
+    but the final one, which is where the state is re-zeroed; a snapshot
+    that already holds a step resumes from it, bit-exact.  A
+    ``step_hook`` may re-plan the compiler (``LPStepCompiler.replan``): at
+    the next step the loop re-derives the rotation dims from the new K,
+    re-zeroes the codec state and records the pre-replan latent stamped
+    with the new epoch (``lp_step.py:686``).
+
+    ``recorder`` (duck-typed ``obs.FlightRecorder``): a ``device_span``
+    ``denoise.run`` opened at a run's first step and closed at its last
+    (``denoise.step`` around each step with a hook, which may re-plan),
+    ended by a synchronisation of ``z``'s current stream so ``record_run``
+    gets the run's wall; ``record_snapshot``,
+    ``record_resume`` and ``record_replan`` where those happen.  It never
+    enters the step cache, so it adds no miss.
     """
-    not_served(_NOT_SERVED, schedule=schedule, recorder=recorder)
     comp = compiler
     if comp is None:
         if denoise_fn is None:
             raise ValueError("need denoise_fn when no compiler is given")
         comp = LPStepCompiler(denoise_fn, sampler.update, num_partitions,
                               overlap_ratio, patch_sizes, spatial_axes,
-                              uniform=uniform, codec=codec, nan_guard=nan_guard)
+                              uniform=uniform, codec=codec, schedule=schedule,
+                              nan_guard=nan_guard)
+    # one codec per step: a schedule's segment codec, or None for the
+    # compiler's own (read at each step, so the corrupt drill's swap counts)
+    if comp.schedule is not None:
+        from repro_torch.comm.codecs import get_codec
+        from repro_torch.policy.schedule import trajectory_sigmas
+
+        step_codecs = [get_codec(n) for n in
+                       comp.schedule.step_codecs(trajectory_sigmas(sampler, num_steps))]
+    else:
+        step_codecs = [None] * num_steps
+
+    def codec_key(c):
+        return None if c is None else c.name
+
+    def stateful(c):
+        return comp.stateful if c is None else c.stateful
+
     def usable():
         # from the compiler's current K: a step hook may re-plan mid-request
         dims = usable_dims([z_T.shape[comp.spatial_axes[d]] for d in range(3)],
@@ -369,37 +444,77 @@ def lp_denoise(
             raise ValueError(f"no latent dim has >= {comp.num_partitions} patches; reduce K")
         return dims
 
+    def run_key(i, dims):
+        return rotation_dim(i, dims), codec_key(step_codecs[i - 1])
+
+    def boundary(i, z, epoch):
+        snapshot.record(i, z, epoch)
+        if recorder is not None:
+            recorder.record_snapshot(i)
+
     dims = usable()
     start = 0
     z = z_T
     if snapshot is not None and snapshot.z is not None and snapshot.step > 0:
         start = min(int(snapshot.step), num_steps)
         snapshot.resumes += 1
+        if recorder is not None:
+            recorder.record_resume(start)
         z = snapshot.z.to(device=z_T.device, dtype=z_T.dtype)
 
-    state, state_dim = None, None
+    state, cur_key = None, None
     epoch = comp.plan_epoch
-    for i in range(start + 1, num_steps + 1):
-        if step_hook is not None:
-            step_hook(i)
-        if comp.plan_epoch != epoch:                   # re-planned mid-request
-            epoch = comp.plan_epoch
-            dims = usable()
-            state, state_dim = None, None
-            if snapshot is not None and i - 1 >= max(start, 1):
-                # a re-plan is a boundary too: re-stamped with the new epoch
-                # even on the first resumed step
-                snapshot.record(i - 1, z, epoch)
-        dim = rotation_dim(i, dims)
-        t, scalars = sampler.timestep(i), sampler.step_scalars(i)
-        if comp.stateful:
-            if state is None or dim != state_dim:      # a new run of same-dim steps
-                state, state_dim = comp.init_codec_state(dim, z), dim
-            z, state = comp.step(dim, z, t, scalars, extras, state)
-        else:
-            z = comp.step(dim, z, t, scalars, extras)
-        if snapshot is not None and i < num_steps and rotation_dim(i + 1, dims) != dim:
-            snapshot.record(i, z, comp.plan_epoch)
+    span = None          # the recorder's open span: (exit stack, first step, t0, codec)
+    try:
+        for i in range(start + 1, num_steps + 1):
+            if step_hook is not None:
+                step_hook(i)
+            if comp.plan_epoch != epoch:                   # re-planned mid-request
+                epoch = comp.plan_epoch
+                dims = usable()
+                state, cur_key = None, None
+                if recorder is not None:
+                    recorder.record_replan(i, comp.num_partitions, epoch)
+                if snapshot is not None and i - 1 >= max(start, 1):
+                    # a re-plan is a boundary too: re-stamped with the new
+                    # epoch even on the first resumed step
+                    boundary(i - 1, z, epoch)
+            key = run_key(i, dims)
+            dim, seg = key[0], step_codecs[i - 1]
+            if stateful(seg) and (state is None or key != cur_key):
+                state = comp.init_codec_state(dim, z, seg)      # a new run
+            run_ends = i == num_steps or run_key(i + 1, dims) != key
+            if recorder is not None and span is None:
+                if step_hook is not None:
+                    name, args = "denoise.step", {"step": i}
+                else:                          # no hook, no re-plan: the run is known
+                    stop = next(j for j in range(i, num_steps + 1)
+                                if j == num_steps or run_key(j + 1, dims) != key)
+                    name, args = "denoise.run", {"start": i, "stop": stop,
+                                                 "n": stop - i + 1}
+                ck_name = codec_key(seg) or getattr(comp.codec, "name", "none")
+                span = (contextlib.ExitStack(), i, time.perf_counter(), ck_name)
+                span[0].enter_context(recorder.device_span(
+                    name, dim=dim, codec=ck_name, epoch=comp.plan_epoch, **args))
+            cur_key = key
+            t, scalars = sampler.timestep(i), sampler.step_scalars(i)
+            if stateful(seg):
+                z, state = comp.step(dim, z, t, scalars, extras, state, codec=seg)
+            else:
+                z = comp.step(dim, z, t, scalars, extras, codec=seg)
+            if span is not None and (run_ends or step_hook is not None):
+                if z.is_cuda:                   # the run's wall, not its launch
+                    torch.cuda.current_stream(z.device).synchronize()
+                stack, first, t0, ck_name = span
+                span = None
+                stack.close()
+                recorder.record_run(first, i, time.perf_counter() - t0, dim=dim,
+                                    codec=ck_name, epoch=comp.plan_epoch)
+            if snapshot is not None and run_ends and i < num_steps:
+                boundary(i, z, comp.plan_epoch)            # step i ends a run
+    finally:
+        if span is not None:
+            span[0].close()
     return z
 
 

@@ -2,7 +2,9 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 --steps 6 \
       --partitions 2 --overlap 0.5 [--lp-impl auto] [--wire-codec int8-residual] \
-      [--device cuda|cpu] [--elastic] [--inject-fault dead:3@2]
+      [--device cuda|cpu] [--elastic] [--inject-fault dead:3@2] \
+      [--codec-schedule auto|'int8-residual@0.85,int8@0.6,bf16' [--psnr-floor 40]] \
+      [--trace-out t.json] [--metrics-out m.jsonl|m.prom]
 
   PYTHONPATH=src torchrun --nproc-per-node 6 -m repro_torch.launch.serve \
       --partitions 3 --mesh 3x2 [--wire-codec int8] [--no-wire-shard] \
@@ -20,20 +22,29 @@ halo wire is sharded over the tp ranks (``--no-wire-shard`` ships it
 whole).  Every rank serves the same requests; only rank 0 prints them.
 ``--elastic`` evicts dead or straggling LP groups mid-request;
 ``--inject-fault`` scripts a drill (``runtime/faults.py``).  The ranks of
-an evicted group leave (rank 0 says so if it was one of them).  The
-codec-schedule and observability flags of the reference CLI are not
-ported yet (ROADMAP Queue 1 items 7 and 9).
+an evicted group leave (rank 0 says so if it was one of them).
+``--codec-schedule`` runs a sigma-scheduled wire: ``auto`` lets the
+cost-model autotuner pick the engine and schedule under ``--psnr-floor``
+(40 dB by default), a spec pins one (``policy/``).  ``--trace-out`` and
+``--metrics-out`` turn on the flight recorder (``obs/``) and write its
+Chrome trace and its metrics (``.prom``/``.txt``: Prometheus text, else
+JSONL); across ranks each rank writes ``<path>.rank<N>`` and rank 0 also
+the plain path.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
+import numpy as np
 import torch.distributed as dist
 
 from repro_torch.comm.codecs import CODEC_NAMES
 from repro_torch.configs import get_config
 from repro_torch.device import generator, resolve_device
 from repro_torch.models import dit, frontends
+from repro_torch.obs import FlightRecorder
+from repro_torch.obs import metrics as obsm
 from repro_torch.runtime.faults import GroupEvicted
 from repro_torch.serving.engine import LPServingEngine, VideoRequest
 
@@ -53,6 +64,12 @@ def main(argv=None):
                          "the uniform engine otherwise")
     ap.add_argument("--wire-codec", default=None, choices=list(CODEC_NAMES),
                     help="compress LP halo wire payloads (fixed codec)")
+    ap.add_argument("--codec-schedule", default=None,
+                    help="sigma-scheduled codecs: 'auto' (cost-model autotuner) or a spec "
+                         "like 'int8-residual@0.45,bf16'; excludes --wire-codec")
+    ap.add_argument("--psnr-floor", type=float, default=None,
+                    help="PSNR floor (dB) the codec schedule must meet against the "
+                         "conformance envelope (auto default: 40)")
     ap.add_argument("--wire-nan-guard", default=True,
                     action=argparse.BooleanOptionalAction,
                     help="absorb NaN/Inf wire payloads by falling back to the "
@@ -76,7 +93,14 @@ def main(argv=None):
     ap.add_argument("--inject-fault", default=None,
                     help="scripted serving-fault drill, e.g. 'dead:1@4,slow:0x2,corrupt@2'; "
                          "dead/slow need --elastic to recover")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Perfetto/Chrome-trace JSON of the request lifecycle here")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write a metrics snapshot here (.prom/.txt -> Prometheus text, "
+                         "else JSONL)")
     args = ap.parse_args(argv)
+    if args.codec_schedule and args.wire_codec:
+        ap.error("--codec-schedule and --wire-codec are exclusive")
 
     mesh = None
     if args.mesh:
@@ -92,12 +116,15 @@ def main(argv=None):
         device = resolve_device(args.device)
     cfg = get_config("wan21-dit-1.3b")
     model = dit.init_params(cfg, generator(0, device), device)
+    recorder = FlightRecorder() if args.trace_out or args.metrics_out else None
     engine = LPServingEngine(model, cfg, num_partitions=args.partitions,
                              overlap_ratio=args.overlap, num_steps=args.steps,
                              lp_impl=args.lp_impl, wire_codec=args.wire_codec,
+                             codec_schedule=args.codec_schedule, psnr_floor=args.psnr_floor,
                              wire_nan_guard=args.wire_nan_guard, device=device, mesh=mesh,
                              eager_sends=args.eager_sends, wire_shard=args.wire_shard,
-                             elastic=args.elastic, inject_fault=args.inject_fault)
+                             elastic=args.elastic, inject_fault=args.inject_fault,
+                             recorder=recorder)
     lead = mesh is None or dist.get_rank() == 0
     if lead:
         ranks = "" if mesh is None else \
@@ -105,6 +132,8 @@ def main(argv=None):
         print(f"engine: lp_impl={engine.lp_impl} codec={engine.codec.name} tp={engine.tp} "
               f"wire_shard={engine.wire_shard} device={device} "
               f"eager_sends={engine.eager_sends}{ranks}")
+        if engine.plan is not None:
+            print(f"step policy: {engine.plan.describe()}")
         if engine._fault_plan is not None:
             print(f"fault drill: {engine._fault_plan.describe()} (elastic={engine.elastic}, "
                   f"nan_guard={engine.wire_nan_guard})")
@@ -118,22 +147,55 @@ def main(argv=None):
     try:
         results = engine.run()
     except GroupEvicted as e:
+        results = None
         if lead:
             print(f"elastic: this rank's LP group {e.group} was evicted before step "
                   f"{e.step}; the survivors go on without it")
+    if lead and results is not None:
+        for r in sorted(results, key=lambda x: x.request_id):
+            resumed = f" resumed_from={r.resumed_from_step}" if r.restarts else ""
+            print(f"request {r.request_id}: latent {tuple(r.latent.shape)} "
+                  f"steps={r.num_steps} wait={r.queue_wait_s:.2f}s "
+                  f"e2e={r.e2e_s:.2f}s batch_wall={r.batch_wall_s:.1f}s "
+                  f"batch={r.batch_size} restarts={r.restarts}{resumed}")
+        if engine.evictions:
+            print(f"elastic: evictions={engine.evictions} K={engine.K} "
+                  f"steps_lost={engine.last_steps_lost}")
+    if recorder is None:
         return
-    if not lead:
-        return
-    for r in sorted(results, key=lambda x: x.request_id):
-        resumed = f" resumed_from={r.resumed_from_step}" if r.restarts else ""
-        print(f"request {r.request_id}: latent {tuple(r.latent.shape)} "
-              f"steps={r.num_steps} wait={r.queue_wait_s:.2f}s "
-              f"e2e={r.e2e_s:.2f}s batch_wall={r.batch_wall_s:.1f}s "
-              f"batch={r.batch_size} restarts={r.restarts}{resumed}")
-    if engine.evictions:
-        print(f"elastic: evictions={engine.evictions} K={engine.K} "
-              f"steps_lost={engine.last_steps_lost}")
+    write_records(recorder, args, mesh, lead)
+    steps = recorder.metrics.hist_values(obsm.STEP_LATENCY_S)
+    if lead and steps:
+        p50, p99 = np.percentile(steps, [50, 99])
+        print(f"obs: step_latency p50={p50 * 1e3:.1f}ms p99={p99 * 1e3:.1f}ms over "
+              f"{len(steps)} steps")
+    for row in recorder.reconciliations if lead else ():
+        print(f"obs: run[{row['start']}-{row['stop']}] codec={row['codec']} "
+              f"pred_wire={row['pred_wire_time_ms']:.2f}ms "
+              f"measured={row['measured_wall_ms']:.1f}ms")
 
+
+def write_records(recorder, args, mesh, lead: bool) -> None:
+    """The recorder's trace and metrics to ``--trace-out`` / ``--metrics-out``:
+    across ranks each rank's to ``<path>.rank<N>``, rank 0's also to the
+    plain path, each in the format the plain path names (``.prom`` /
+    ``.txt``: Prometheus text, else JSONL); rank 0 prints where they went."""
+    for what, path in (("trace", args.trace_out), ("metrics", args.metrics_out)):
+        if not path:
+            continue
+        if what == "trace":
+            text = json.dumps(recorder.trace.to_json())
+        elif path.endswith((".prom", ".txt")):
+            text = recorder.metrics.to_prometheus()
+        else:
+            text = recorder.metrics.to_jsonl()
+        paths = ([path] if mesh is None else
+                 [f"{path}.rank{dist.get_rank()}"] + ([path] if lead else []))
+        for p in paths:
+            with open(p, "w") as f:
+                f.write(text)
+        if lead:
+            print(f"{what}: {', '.join(paths)}")
 
 if __name__ == "__main__":
     main()

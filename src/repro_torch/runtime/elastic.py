@@ -19,21 +19,17 @@ def replan_lp_compiler(compiler, new_mesh_shape, forward=None, forward_factory=N
     * The compiler's ``plan_epoch`` bump makes an in-flight ``lp_denoise``
       re-derive its rotation dims and re-zero the codec state exactly once
       at the next step boundary.
-    * A compiler with a group-bound ``forward`` hook must be given one
-      re-bound to the new group whenever K changes: this raises at once
-      instead of mid-denoise.
+    * A compiler with a group-bound ``forward`` hook, or a group-bound
+      ``forward_factory`` (the scheduled twin), must be given one re-bound
+      to the new group whenever K changes: this raises at once instead of
+      mid-denoise.
       ``lp_rank`` re-binds the rank whose slice of the residual state the
       process threads (the survivors are re-indexed).
 
-    ``recorder`` (the flight recorder, ROADMAP Queue 1 item 7) and
-    ``forward_factory`` (item 9) raise.  Returns True when the compiler
-    changed.
+    ``recorder`` (``obs.FlightRecorder``, duck-typed) gets an
+    ``elastic.replan`` instant when the compiler changed.  Returns True
+    when the compiler changed.
     """
-    from repro_torch.core.lp_step import not_served
-
-    not_served({"recorder": "ROADMAP Queue 1 item 7 (observability)",
-                "forward_factory": "ROADMAP Queue 1 item 9 (scheduled mesh-bound wires)"},
-               recorder=recorder, forward_factory=forward_factory)
     new_mesh_shape = tuple(new_mesh_shape)
     if new_mesh_shape[0] != compiler.num_partitions:
         if compiler.forward is not None and forward is None:
@@ -41,5 +37,15 @@ def replan_lp_compiler(compiler, new_mesh_shape, forward=None, forward_factory=N
                 "re-planning the lp-axis size of a mesh-bound compiler needs a re-bound "
                 f"forward hook (the old hook closes over a mesh with lp="
                 f"{compiler.num_partitions}, new plan wants lp={new_mesh_shape[0]})")
-    return compiler.replan(num_partitions=new_mesh_shape[0], mesh_shape=new_mesh_shape,
-                           forward=forward, lp_rank=lp_rank)
+        if compiler.forward_factory is not None and forward_factory is None:
+            raise ValueError(
+                "re-planning the lp-axis size of a schedule compiler whose forward_factory "
+                "is mesh-bound needs a re-bound factory (the old one binds hooks to a mesh "
+                f"with lp={compiler.num_partitions}, new plan wants lp={new_mesh_shape[0]})")
+    changed = compiler.replan(num_partitions=new_mesh_shape[0], mesh_shape=new_mesh_shape,
+                              forward=forward, forward_factory=forward_factory,
+                              lp_rank=lp_rank)
+    if changed and recorder is not None:
+        recorder.instant("elastic.replan", cat="elastic", new_mesh_shape=list(new_mesh_shape),
+                         epoch=compiler.plan_epoch)
+    return changed

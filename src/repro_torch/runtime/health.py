@@ -1,6 +1,6 @@
 """Group health for the LP serving ring: slow is not dead.  A copy of
-``repro/runtime/health.py`` (numpy only), without its optional metrics
-registry (observability is ROADMAP Queue 1 item 7).
+``repro/runtime/health.py`` (numpy only); ``metrics=`` takes the port's
+``obs.MetricsRegistry`` (duck-typed).
 
 ``runtime/straggler.StragglerState`` sees only finite step times, so its
 EMA can flag a *slow* group (rebalance, eventually evict at the 2×-median
@@ -57,12 +57,18 @@ class GroupHealthMonitor:
     backoff: float = 1.5             # deadline growth per missed round
     default_deadline_s: float = 30.0  # before any EMA history exists
     straggler: StragglerState = None  # type: ignore[assignment]
+    # optional obs.MetricsRegistry (duck-typed): heartbeat misses and
+    # the dead-group gauge flow out per observe() round
+    metrics: object = None
     _misses: np.ndarray = None        # type: ignore[assignment]
     _dead: set = dataclasses.field(default_factory=set)
 
     def __post_init__(self):
         if self.straggler is None:
-            self.straggler = StragglerState(self.num_groups)
+            self.straggler = StragglerState(self.num_groups,
+                                            metrics=self.metrics)
+        elif self.metrics is not None and self.straggler.metrics is None:
+            self.straggler.metrics = self.metrics
         if self._misses is None:
             self._misses = np.zeros(self.num_groups, dtype=np.int64)
 
@@ -106,6 +112,13 @@ class GroupHealthMonitor:
             else:
                 self._misses[g] = 0
                 self._dead.discard(g)
+        if self.metrics is not None:
+            from repro_torch.obs import metrics as obsm
+
+            for g, m in enumerate(missed):
+                if m:
+                    self.metrics.inc(obsm.HEARTBEAT_MISSES, group=str(g))
+            self.metrics.set(obsm.DEAD_GROUPS, len(self._dead))
 
     def mark_recovered(self, group: int) -> None:
         """External recovery signal: ``group`` came back (host restart,
@@ -120,6 +133,10 @@ class GroupHealthMonitor:
                 f"group {group} not in [0, {self.num_groups})")
         self._misses[group] = 0
         self._dead.discard(group)
+        if self.metrics is not None:
+            from repro_torch.obs import metrics as obsm
+
+            self.metrics.set(obsm.DEAD_GROUPS, len(self._dead))
 
     # ----------------------------------------------------------- proposals
     def dead_groups(self) -> List[int]:

@@ -1,6 +1,6 @@
 """Straggler mitigation for LP serving: adaptive partition sizing.  A
-copy of ``repro/runtime/straggler.py`` (numpy only), without its optional
-metrics registry (observability is ROADMAP Queue 1 item 7).
+copy of ``repro/runtime/straggler.py`` (numpy only); ``metrics=`` takes
+the port's ``obs.MetricsRegistry`` (duck-typed).
 
 LP's unit of work is *patches*, so a slow device (thermal throttling, a
 noisy neighbour, a degraded ICI link) can be compensated by shrinking its
@@ -26,6 +26,9 @@ class StragglerState:
     num_partitions: int
     ema_alpha: float = 0.3
     rebalance_threshold: float = 0.15   # re-plan when >15% imbalance
+    # optional obs.MetricsRegistry (duck-typed): the imbalance gauge and
+    # slowest-group index flow out per observe() round
+    metrics: object = None
     _ema: Optional[np.ndarray] = None
 
     def observe(self, step_times: Sequence[float]) -> None:
@@ -39,6 +42,13 @@ class StragglerState:
             self._ema = t
         else:
             self._ema = self.ema_alpha * t + (1 - self.ema_alpha) * self._ema
+        if self.metrics is not None:
+            from repro_torch.obs import metrics as obsm
+
+            s = self.speeds
+            imb = float((s.max() - s.min()) / s.max()) if s.max() else 0.0
+            self.metrics.set(obsm.STRAGGLER_IMBALANCE, imb)
+            self.metrics.set("straggler.slowest_group", self.slowest)
 
     @property
     def speeds(self) -> np.ndarray:

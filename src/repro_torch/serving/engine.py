@@ -56,39 +56,58 @@ step; on the ranks of the evicted group ``run`` raises
 :meth:`LPServingEngine.observe_group_times` must therefore be the same
 on every rank.
 
-Arguments of other paths raise ``NotImplementedError`` naming their
-ROADMAP item: ``codec_schedule`` and ``psnr_floor`` (9), ``recorder`` (7),
-``slo`` (10).
+Step policy (``engine.py:313-367``): ``codec_schedule`` takes an explicit
+spec (``"int8-residual@0.85,int8@0.6,bf16"``) or ``"auto"``, resolved by
+``policy.resolve_cli_schedule`` against the byte model of
+``plan_geometry`` under ``psnr_floor``; ``lp_impl="auto"`` follows the
+plan's engine, and a schedule implies the halo family, whose mirror (off a
+mesh) or group-bound hooks (``forward_factory``, one per segment codec)
+encode each step with its segment's codec.  ``wire_codec`` and
+``codec_schedule`` together raise, as does ``psnr_floor`` without a
+schedule.  On a mesh every rank resolves the plan and the ranks compare
+its digest once; after an eviction each rank re-resolves it at the new K
+in the step hook that evicts (the next batch runs it), and
+:meth:`LPServingEngine.set_psnr_floor` re-resolves it at a new floor.
+
+``recorder`` (``obs.FlightRecorder``): the ``request.enqueue`` /
+``batch.admit`` / ``batch.denoise`` / ``request.lifecycle`` spans, the
+``serve.*`` counters and histograms (``priority`` labels), the denoise
+runs of ``lp_denoise``, the health monitor's metrics, and after each
+batch the exact per-step wire attribution (``obs.account``) over the
+batch's geometry and codec timelines, reconciled against the measured
+runs.  On a mesh each rank records its own; its ``wire_steps`` are that
+rank's payloads.  ``slo`` (``obs.slo.SLOSpec`` or its grammar) sets each
+priority's deadline and counts ``serve.slo_violations`` live.
+
+Left for ROADMAP Queue 1 item 10 (the fleet layer), and not taken here:
+the reference's ``replica_id`` and ``clock=`` (the load harness's virtual
+clock), and ``lp_axis`` / ``tp_axis`` (a group has no axis names).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import defaultdict
+from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm.codecs import get_codec
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import DenoiseSnapshot, LPStepCompiler, lp_denoise
-from repro_torch.core.lp_step import not_served
 from repro_torch.core.spmd import select_lp_impl
 from repro_torch.device import DeviceLike, generator, resolve_device
 from repro_torch.diffusion.pipeline import make_guided_step_denoiser
 from repro_torch.diffusion.sampler import FlowMatchEuler
 from repro_torch.distributed.collectives import HybridGroup, LPGroup, lp_axis, tp_size
+from repro_torch.obs import metrics as obsm
 from repro_torch.obs.clock import perf_s
 from repro_torch.runtime.faults import (CorruptingCodec, GroupEvicted, ReplicaDeath,
                                         ServingFault, parse_fault_plan)
 from repro_torch.runtime.ft import DeviceFailure
 from repro_torch.runtime.health import GroupHealthMonitor
-
-_NOT_SERVED = {
-    "codec_schedule": "ROADMAP Queue 1 item 9 (step policy)",
-    "psnr_floor": "ROADMAP Queue 1 item 9 (step policy)",
-    "recorder": "ROADMAP Queue 1 item 7 (observability)",
-    "slo": "ROADMAP Queue 1 item 10 (fleet and SLO layer)",
-}
 
 
 class QueueFull(RuntimeError):
@@ -109,6 +128,11 @@ class VideoRequest:
     latent_shape: Tuple[int, int, int]   # (T_lat, H_lat, W_lat)
     seed: int = 0
     guidance: float = 5.0
+    # the SLO class (its deadline through ``slo=``; labels its metrics) and
+    # the quality floor it maps to, carried into the lifecycle rows; neither
+    # enters the batching key
+    priority: str = "standard"
+    psnr_floor: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -132,6 +156,26 @@ def initial_noise(shape: Tuple[int, ...], seed: int,
                        dtype=torch.float32)
 
 
+def plan_digest(plan) -> str:
+    """sha256 of what a resolved step-policy plan decides: the engine, the
+    spec, each step's codec and the wire-shard choice."""
+    key = repr((plan.lp_impl, plan.schedule.spec, tuple(plan.step_codecs),
+                bool(plan.wire_shard)))
+    return hashlib.sha256(key.encode()).hexdigest()
+
+
+def _agree(mesh, digest: str) -> None:
+    """Every rank of ``mesh`` must hold the same plan: its digest gathered
+    over the lp group and the tp group (not through the byte counter)."""
+    groups = [lp_axis(mesh)] + ([mesh.tp] if isinstance(mesh, HybridGroup) else [])
+    for g in groups:
+        seen = [None] * g.size
+        dist.all_gather_object(seen, digest, group=g.group)
+        if len(set(seen)) != 1:
+            raise RuntimeError(f"the ranks resolved different step-policy plans: digests "
+                               f"{seen}; a plan must be a function of its inputs alone")
+
+
 class LPServingEngine:
     def __init__(
         self,
@@ -150,6 +194,7 @@ class LPServingEngine:
         wire_codec: Optional[str] = None,
         codec_schedule: Optional[str] = None,
         psnr_floor: Optional[float] = None,
+        plan_geometry: Tuple[int, int, int] = (13, 60, 104),
         elastic: bool = False,
         inject_fault=None,
         recorder=None,
@@ -158,8 +203,6 @@ class LPServingEngine:
         eager_sends: Optional[bool] = None,
         wire_shard: Optional[bool] = None,
     ):
-        not_served(_NOT_SERVED, codec_schedule=codec_schedule, psnr_floor=psnr_floor,
-                   recorder=recorder, slo=slo)
         if mesh is not None and not isinstance(mesh, (LPGroup, HybridGroup)):
             raise ValueError(f"mesh= takes an LPGroup or a HybridGroup "
                              f"(launch/mesh.make_lp_group), got {type(mesh).__name__}")
@@ -180,17 +223,64 @@ class LPServingEngine:
         if wire_shard and tp <= 1:
             raise ValueError("wire_shard shards the halo wire over the tp axis; the mesh has "
                              "no tp axis (need --mesh MxT with T >= 2)")
+        wire_shard_pinned = wire_shard is True
+        self.recorder = recorder
+        self.slo = None
+        if slo is not None:
+            from repro_torch.obs.slo import SLOSpec
+
+            self.slo = SLOSpec.parse(slo)
+        self.r = overlap_ratio
+        self._sampler = FlowMatchEuler(num_steps)
         self.codec = get_codec(wire_codec)
         codec_active = self.codec.name not in ("fp32", "identity")
+        # step policy: a schedule (explicit or "auto") replaces the fixed codec
+        self.plan = None
+        self.psnr_floor = psnr_floor
+        self._plan_resolver: Optional[Callable] = None
+        schedule = None
+        if codec_schedule is not None:
+            from repro_torch.core.comm_model import VDMCommConfig
+            from repro_torch.policy import resolve_cli_schedule
+
+            if codec_active:
+                raise ValueError("pass wire_codec= (fixed) or codec_schedule= "
+                                 "(sigma-scheduled), not both")
+            ccfg = VDMCommConfig(latent_dims=tuple(plan_geometry),
+                                 latent_channels=cfg.latent_channels,
+                                 patch_sizes=cfg.patch_sizes, d_model=cfg.d_model,
+                                 num_blocks=cfg.num_layers, num_steps=num_steps)
+            wire_shard_cli = wire_shard
+
+            def resolve(k):
+                # re-invoked after an eviction (a new K) and by set_psnr_floor
+                return resolve_cli_schedule(codec_schedule, ccfg, k, self.r, self._sampler,
+                                            num_steps, psnr_floor_db=self.psnr_floor, tp=tp,
+                                            wire_shard=wire_shard_cli, recorder=self.recorder)
+
+            self._plan_resolver = resolve
+            self.plan = resolve(num_partitions)
+            if mesh is not None:
+                _agree(mesh, plan_digest(self.plan))
+            if lp_impl == "auto":
+                lp_impl = self.plan.lp_impl
+            if set(self.plan.step_codecs) != {"fp32"}:
+                schedule = self.plan.schedule
+            wire_shard = self.plan.wire_shard
+        elif psnr_floor is not None:
+            raise ValueError("psnr_floor needs codec_schedule")
         explicit_halo = lp_impl in ("halo", "halo_hybrid")
         if lp_impl == "auto":
             if codec_active:
                 lp_impl = "halo_hybrid" if tp > 1 else "halo"
             else:
                 lp_impl = select_lp_impl(num_partitions, tp)
-        if codec_active and lp_impl not in ("halo", "halo_hybrid"):
-            what = f"wire_codec={self.codec.name!r}"
-            if self.codec.name.startswith("displaced"):
+        if (codec_active or schedule is not None) and lp_impl not in ("halo", "halo_hybrid"):
+            what = (f"wire_codec={self.codec.name!r}" if codec_active
+                    else f"codec_schedule={schedule.spec!r}")
+            names = (list(self.plan.step_codecs) if self.plan is not None
+                     else [self.codec.name])
+            if any(str(n).startswith("displaced") for n in names):
                 raise ValueError(
                     f"{what} uses a displaced halo codec, which needs carry-resident "
                     "slab state — only the halo family keeps one (the psum/gspmd "
@@ -205,21 +295,23 @@ class LPServingEngine:
         if not halo_family or tp <= 1 or mesh is None:
             # sharding belongs to the mesh-bound halo wire; an explicit pin
             # that cannot be honoured is a config error, not a downgrade
-            if wire_shard is True:
+            if wire_shard_pinned:
                 raise ValueError(
                     f"wire_shard=True needs the mesh-bound halo family, got lp_impl="
                     f"{lp_impl!r} (mesh={'yes' if mesh is not None else 'no'}, tp={tp})")
             self.wire_shard = False
         # off a mesh the halo family runs the single-process wire mirror, when
-        # a codec is active or halo was asked for by name
-        self._simulate_codec = halo_family and (codec_active or explicit_halo)
+        # a codec is active or halo was asked for by name; a schedule needs no
+        # compiler codec (its segment codecs take every step through the mirror)
+        self._schedule = schedule
+        self._simulate_codec = halo_family and (codec_active or explicit_halo) \
+            and schedule is None
         self.wire_nan_guard = bool(wire_nan_guard)
         self.device = resolve_device(device) if mesh is None else mesh.device
         if mesh is not None and device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device={device} but the group computes on {mesh.device}")
         self.cfg = cfg
         self.K = num_partitions
-        self.r = overlap_ratio
         self.num_steps = num_steps
         self.max_batch = max_batch
         self.max_wait = max_wait_requests
@@ -228,22 +320,26 @@ class LPServingEngine:
         self.lp_impl = lp_impl
         self.mesh = mesh
         self.tp = tp
-        self.health = GroupHealthMonitor(num_partitions)
+        self.health = GroupHealthMonitor(
+            num_partitions, metrics=None if recorder is None else recorder.metrics)
         self.elastic = bool(elastic)
         self.evictions = 0
         self.last_steps_lost: Optional[int] = None
         self._corrupt_active = False
         self._saved_codec = None
         self._cur_step = 1
-        self._sampler = FlowMatchEuler(num_steps)
         self._queue: List[VideoRequest] = []
         self._polls = 0
+        self._batch_seq = 0
         self._enqueued_at: Dict[int, int] = {}
         self._lifecycle: Dict[int, dict] = {}
         self._step_fault: Optional[Callable[[int], None]] = None   # test hook
-        forward, compiler_codec = self._build_forward(mesh)
+        forward, forward_factory, compiler_codec = self._build_forward(mesh)
         if self._fault_plan is not None and self._fault_plan.corrupt:
             # the corrupt fault swaps the live wire codec for one step
+            if schedule is not None:
+                raise ValueError("corrupt@S faults need a fixed wire codec — "
+                                 "sigma-scheduled segments own their codecs")
             if compiler_codec is None:
                 raise ValueError("corrupt@S faults poison the halo wire, but this engine "
                                  f"has none (lp_impl={self.lp_impl!r}); use the halo family "
@@ -264,28 +360,38 @@ class LPServingEngine:
             spatial_axes=(1, 2, 3),
             uniform=uniform,
             codec=compiler_codec,
+            schedule=schedule,
             nan_guard=self.wire_nan_guard,
             forward=forward,
+            forward_factory=forward_factory,
             mesh_shape=None if mesh is None else (self.K, tp),
             wire_shard=self.wire_shard,
             lp_rank=None if mesh is None else lp_axis(mesh).rank,
         )
+        # wire-attribution timelines (obs.account), reset per batch: one
+        # geometry entry per (from_step, K) and one codec entry per
+        # (from_step, step codec names), appended by evictions and re-plans
+        self._geom_events: List[Tuple[int, int]] = [(1, self.K)]
+        self._codec_events: List[Tuple[int, List[str]]] = []
+        self._batch_codecs: List[str] = []
+        self._runs_mark = 0
 
     def _build_forward(self, mesh):
-        """``(forward, compiler_codec)`` of the step on ``mesh``
-        (``engine.py:491-569``): the hybrid or plain halo engine (its wire
-        sharded over the tp group with ``wire_shard``) through the
-        compiler's codec, read when the step runs so the corrupt drill's
-        one-step swap reaches the wire; the psum engine otherwise.  Off a
-        mesh, the wire mirror's codec or none.  Re-invoked on the
-        survivors' group after an eviction."""
+        """``(forward, forward_factory, compiler_codec)`` of the step on
+        ``mesh`` (``engine.py:491-569``): the hybrid or plain halo engine
+        (its wire sharded over the tp group with ``wire_shard``) through
+        the compiler's codec, read when the step runs so the corrupt
+        drill's one-step swap reaches the wire, or, under a schedule, a
+        factory of the same hook for each segment's codec; the psum engine
+        otherwise.  Off a mesh, the wire mirror's codec or none.
+        Re-invoked on the survivors' group after an eviction."""
         from repro_torch.core.spmd import lp_forward_halo, lp_forward_shard_map
 
         if mesh is None:
-            return None, (self.codec if self._simulate_codec else None)
+            return None, None, (self.codec if self._simulate_codec else None)
         if self.lp_impl not in ("halo", "halo_hybrid"):
             return (lambda fn, z, plan, axis:
-                    lp_forward_shard_map(fn, z, plan, axis, lp_axis(mesh))), None
+                    lp_forward_shard_map(fn, z, plan, axis, lp_axis(mesh))), None, None
         # "halo" and "halo_hybrid" differ in name only: both are the halo
         # engine over the lp group (core/hybrid.lp_forward_halo_hybrid's
         # body), the wire sharded over the tp group with wire_shard (which
@@ -297,22 +403,44 @@ class LPServingEngine:
                                    eager_sends=self.eager_sends, shard_axis=shard,
                                    nan_guard=self.wire_nan_guard, **kw)
 
+        if self._schedule is not None:
+            def forward_factory(seg_codec):
+                if seg_codec.stateful:
+                    return (lambda fn, z, plan, axis, st: halo_fwd(
+                        fn, z, plan, axis, codec=seg_codec, codec_state=st))
+                return lambda fn, z, plan, axis: halo_fwd(fn, z, plan, axis, codec=seg_codec)
+
+            return None, forward_factory, None
         if self.codec.stateful:
             return (lambda fn, z, plan, axis, st: halo_fwd(
-                fn, z, plan, axis, codec=self._compiler.codec, codec_state=st)), self.codec
+                fn, z, plan, axis, codec=self._compiler.codec, codec_state=st)), None, self.codec
         return (lambda fn, z, plan, axis: halo_fwd(
-            fn, z, plan, axis, codec=self._compiler.codec)), self.codec
+            fn, z, plan, axis, codec=self._compiler.codec)), None, self.codec
 
     # ------------------------------------------------------------- queue
     def submit(self, req: VideoRequest) -> None:
+        rec = self.recorder
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            if rec is not None:
+                rec.instant("request.rejected", cat="serve", request_id=req.request_id,
+                            priority=req.priority, depth=len(self._queue))
+                rec.inc(obsm.REQUESTS_REJECTED)
             raise QueueFull(
                 f"engine queue full ({len(self._queue)} >= max_queue="
                 f"{self.max_queue}); request {req.request_id} not enqueued",
                 request_id=req.request_id, depth=len(self._queue))
         self._queue.append(req)
         self._enqueued_at[req.request_id] = self._polls
-        self._lifecycle[req.request_id] = {"submit_s": perf_s()}
+        self._lifecycle[req.request_id] = {
+            "request_id": req.request_id, "priority": str(req.priority),
+            "latent_shape": list(req.latent_shape), "guidance": float(req.guidance),
+            "psnr_floor": req.psnr_floor, "submit_s": perf_s()}
+        if rec is not None:
+            rec.instant("request.enqueue", cat="serve", request_id=req.request_id,
+                        latent_shape=req.latent_shape, guidance=req.guidance,
+                        priority=req.priority)
+            rec.inc(obsm.REQUESTS)
+            rec.gauge(obsm.QUEUE_DEPTH, len(self._queue))
 
     @staticmethod
     def _bucket_key(req: VideoRequest) -> Tuple:
@@ -342,10 +470,20 @@ class LPServingEngine:
                 return []
         chosen = {id(r) for r in batch}
         self._queue = [r for r in self._queue if id(r) not in chosen]
+        self._batch_seq += 1
         admit_s = perf_s()
         for r in batch:
             self._enqueued_at.pop(r.request_id, None)
-            self._lifecycle[r.request_id]["admit_s"] = admit_s
+            self._lifecycle[r.request_id].update(admit_s=admit_s, batch_seq=self._batch_seq,
+                                                 batch_size=len(batch))
+        rec = self.recorder
+        if rec is not None:
+            rec.instant("batch.admit", cat="serve", size=len(batch),
+                        latent_shape=batch[0].latent_shape, guidance=batch[0].guidance,
+                        request_ids=[r.request_id for r in batch], batch_seq=self._batch_seq)
+            rec.observe(obsm.BATCH_SIZE, len(batch))
+            rec.observe(obsm.BATCH_OCCUPANCY, len(batch) / max(1, self.max_batch))
+            rec.gauge(obsm.QUEUE_DEPTH, len(self._queue))
         return batch
 
     # ------------------------------------------------------------ serving
@@ -358,13 +496,49 @@ class LPServingEngine:
         and the others' next collective fails at the group timeout."""
         self.health.observe(step_times)
 
+    def set_psnr_floor(self, floor: Optional[float]) -> bool:
+        """Move the quality floor (dB) and re-resolve the codec schedule
+        against it (``engine.py:697``): a lower floor admits cheaper
+        schedules.  False (nothing done) without a resolved schedule or
+        at the same floor.  The next batch runs the new plan."""
+        if self._plan_resolver is None or floor == self.psnr_floor:
+            return False
+        self.psnr_floor = floor
+        self._replan_schedule()
+        return True
+
+    def _step_codec_names(self) -> List[str]:
+        """Each step's codec name, resolved as ``lp_denoise`` resolves it."""
+        if self._schedule is not None:
+            from repro_torch.policy.schedule import trajectory_sigmas
+
+            return list(self._schedule.step_codecs(
+                trajectory_sigmas(self._sampler, self.num_steps)))
+        return [self.codec.name] * self.num_steps
+
+    def _replan_schedule(self) -> None:
+        """Re-resolve the codec schedule at the current K and floor and
+        install it on the compiler (``engine.py:718``).  The in-flight
+        denoise keeps its resolved segments (its hooks bind per segment
+        codec); a retry resumed after this, and the next batch, run the
+        new one, and the codec timeline says so from the current step."""
+        if self._plan_resolver is None:
+            return
+        self.plan = self._plan_resolver(self.K)
+        if set(self.plan.step_codecs) != {"fp32"}:
+            self._schedule = self.plan.schedule
+            self._compiler.schedule = self._schedule
+            if self.recorder is not None:
+                self._codec_events.append((self._cur_step, self._step_codec_names()))
+
     def _maybe_evict_straggler(self) -> None:
         """Per-step elastic hook (``engine.py:739``): apply the health
         monitor's eviction proposal (a dead group first, a slow one second)
         while the batch is denoising.  On a mesh the survivors make their
         new lp group (``shrink_hybrid_group``) and the compiler gets a
-        forward hook bound to it and this rank's new lp index; on the
-        evicted group's ranks this raises ``GroupEvicted``."""
+        forward hook (or factory) bound to it and this rank's new lp
+        index; on the evicted group's ranks this raises ``GroupEvicted``.
+        A resolved schedule is re-resolved at the new K."""
         from repro_torch.launch.mesh import shrink_hybrid_group
         from repro_torch.runtime.elastic import replan_lp_compiler
 
@@ -372,16 +546,19 @@ class LPServingEngine:
         if proposal is None:
             return
         evicted, new_shape = proposal.group, proposal.new_mesh_shape
-        forward, lp_rank, new_mesh = None, None, self.mesh
+        forward = forward_factory = lp_rank = None
+        new_mesh = self.mesh
         if self.mesh is not None:
             new_mesh = shrink_hybrid_group(self.mesh, evicted, self.tp)
             if new_mesh is None:
                 raise GroupEvicted(f"LP group {evicted} was evicted ({proposal.reason}) "
                                    f"before denoise step {self._cur_step}: its ranks leave",
                                    group=evicted, step=self._cur_step)
-            forward, _ = self._build_forward(new_mesh)
+            forward, forward_factory, _ = self._build_forward(new_mesh)
             lp_rank = lp_axis(new_mesh).rank
-        if replan_lp_compiler(self._compiler, new_shape, forward=forward, lp_rank=lp_rank):
+        if replan_lp_compiler(self._compiler, new_shape, forward=forward,
+                              forward_factory=forward_factory, recorder=self.recorder,
+                              lp_rank=lp_rank):
             self.health.evict(evicted)
             self.K = new_shape[0]
             self.mesh = new_mesh
@@ -389,6 +566,15 @@ class LPServingEngine:
             if self._fault_plan is not None:
                 # the dead hardware left the ring: its faults stop firing
                 self._fault_plan.mark_recovered(evicted)
+            rec = self.recorder
+            if rec is not None:
+                # the step about to run (and every later one) runs at the new K
+                self._geom_events.append((self._cur_step, self.K))
+                rec.instant("elastic.evict", cat="elastic", group=evicted,
+                            reason=proposal.reason, step=self._cur_step,
+                            new_mesh_shape=list(new_shape))
+                rec.inc(obsm.EVICTIONS, reason=proposal.reason)
+            self._replan_schedule()
 
     # ------------------------------------------------------ fault drills
     def _activate_corrupt(self) -> None:
@@ -404,6 +590,13 @@ class LPServingEngine:
             self._compiler.codec = self._saved_codec
             self._corrupt_active = False
 
+    def _fault_events(self, plan) -> None:
+        rec = self.recorder
+        if rec is not None:
+            for ev in plan.drain_events():
+                rec.instant("fault." + ev["kind"], cat="fault", **ev)
+                rec.inc(obsm.FAULTS_INJECTED, kind=ev["kind"])
+
     def _step_hook(self) -> Optional[Callable[[int], None]]:
         """The per-step hook, in the reference's order (``engine.py:810``):
         scripted heartbeats feed the health monitor first, the eviction
@@ -418,6 +611,7 @@ class LPServingEngine:
             self._cur_step = i
             plan = self._fault_plan
             if plan is not None and plan.die_fires(i):
+                self._fault_events(plan)
                 raise ReplicaDeath(f"replica {plan.die_replica} died (denoise step {i})",
                                    replica=plan.die_replica, step=i)
             if plan is not None:
@@ -433,6 +627,7 @@ class LPServingEngine:
                 self._maybe_evict_straggler()
             if plan is not None:
                 dead = plan.active_dead(i)
+                self._fault_events(plan)
                 if dead is not None:
                     # the group is gone and not (yet) evicted: its collectives
                     # would hang, so the batch retries from its last boundary
@@ -444,7 +639,12 @@ class LPServingEngine:
     def _denoise_batch(self, reqs: List[VideoRequest],
                        snapshot: Optional[DenoiseSnapshot] = None) -> List[VideoResult]:
         t0 = perf_s()
+        rec = self.recorder
         shape = tuple(reqs[0].latent_shape)
+        start_s = perf_s()
+        for r in reqs:
+            # a resumed retry keeps the first dispatch's stamp
+            self._lifecycle.get(r.request_id, {}).setdefault("denoise_start_s", start_s)
         ctx = torch.cat([r.context.to(self.device) for r in reqs], dim=0)
         null_ctx = torch.zeros_like(ctx)
         guidance = float(reqs[0].guidance)
@@ -452,30 +652,78 @@ class LPServingEngine:
             initial_noise((1, *shape, self.cfg.latent_channels), r.seed, self.device)
             for r in reqs
         ], dim=0)
+        compiles0 = self._compiler.compiles
+        span = nullcontext() if rec is None else rec.span(
+            "batch.denoise", cat="serve", size=len(reqs), latent_shape=shape,
+            steps=self.num_steps, K=self.K, lp_impl=self.lp_impl)
         try:
-            z0 = lp_denoise(
-                None, z_T, self._sampler, self.num_steps, self.K, self.r,
-                self.cfg.patch_sizes, (1, 2, 3), uniform=self.uniform,
-                extras=(ctx, null_ctx, guidance), compiler=self._compiler,
-                step_hook=self._step_hook(), snapshot=snapshot,
-            )
+            with span:
+                z0 = lp_denoise(
+                    None, z_T, self._sampler, self.num_steps, self.K, self.r,
+                    self.cfg.patch_sizes, (1, 2, 3), uniform=self.uniform,
+                    extras=(ctx, null_ctx, guidance), compiler=self._compiler,
+                    step_hook=self._step_hook(), snapshot=snapshot, recorder=rec,
+                )
+                if z0.is_cuda:
+                    torch.cuda.synchronize(z0.device)
         finally:
             self._restore_codec()      # a corrupt drill never outlives its batch
-        if z0.is_cuda:
-            torch.cuda.synchronize(z0.device)
         wall = perf_s() - t0
+        if rec is not None:
+            rec.observe(obsm.BATCH_WALL_S, wall)
+            rec.inc(obsm.COMPILES, self._compiler.compiles - compiles0,
+                    epoch=self._compiler.plan_epoch)
         return [VideoResult(r.request_id, z0[i:i + 1], self.num_steps,
                             batch_wall_s=wall, batch_size=len(reqs))
                 for i, r in enumerate(reqs)]
 
+    def _record_batch_wire(self, shape: Tuple[int, int, int], batch_size: int) -> None:
+        """The batch's per-step wire bytes, replayed from ``comm_model``
+        over the geometry and codec timelines (``engine.py:956``): exact
+        per collective and tier; then each measured run reconciled against
+        its predicted wire time.  Steps repeated by a resumed retry are
+        billed once, under the geometry their surviving run used."""
+        rec = self.recorder
+        if rec is None:
+            return
+        from repro_torch.core.comm_model import VDMCommConfig
+        from repro_torch.obs.account import attribute_denoise_steps, reconcile_segments
+
+        ccfg = VDMCommConfig(latent_dims=tuple(shape), latent_channels=self.cfg.latent_channels,
+                             patch_sizes=self.cfg.patch_sizes, d_model=self.cfg.d_model,
+                             num_blocks=self.cfg.num_layers, num_steps=self.num_steps)
+        codecs = list(self._batch_codecs)
+        for from_step, names in self._codec_events:   # the latest event at or before a step
+            for i in range(from_step, self.num_steps + 1):
+                codecs[i - 1] = names[i - 1]
+        records = attribute_denoise_steps(
+            ccfg, self.r, codecs, self._geom_events, tp=self.tp, wire_shard=self.wire_shard,
+            lp_impl=self.lp_impl, links=rec.links, batch_size=batch_size)
+        rec.record_wire_steps(records)
+        runs = rec.measured_runs[self._runs_mark:]
+        if runs:
+            rec.record_reconciliations(reconcile_segments(records, runs))
+
     def _finalize_requests(self, results: List[VideoResult]) -> None:
+        """Close each request's lifecycle row (``engine.py:997``): its done
+        stamp, queue wait and end-to-end time (also on the result), the
+        SLO verdict of its priority, and the row to the recorder."""
         done_s = perf_s()
         for res in results:
             life = self._lifecycle.pop(res.request_id, None)
             if life is None:
                 continue
-            res.queue_wait_s = life["admit_s"] - life["submit_s"]
-            res.e2e_s = done_s - life["submit_s"]
+            life["done_s"] = done_s
+            life["queue_wait_s"] = life["admit_s"] - life["submit_s"]
+            life["e2e_s"] = done_s - life["submit_s"]
+            life["restarts"] = res.restarts
+            res.queue_wait_s, res.e2e_s = life["queue_wait_s"], life["e2e_s"]
+            if self.slo is not None:
+                deadline = self.slo.deadline_for(life["priority"])
+                life["deadline_s"] = deadline if deadline != float("inf") else None
+                life["violated"] = bool(life["e2e_s"] > deadline)
+            if self.recorder is not None:
+                self.recorder.record_request(life)
 
     def run(self, max_batches: Optional[int] = None,
             max_restarts_per_batch: int = 2) -> List[VideoResult]:
@@ -486,6 +734,7 @@ class LPServingEngine:
         group: they leave)."""
         out: List[VideoResult] = []
         batches = 0
+        rec = self.recorder
         while self._queue and (max_batches is None or batches < max_batches):
             reqs = self._next_batch(force=True)
             if not reqs:
@@ -493,6 +742,11 @@ class LPServingEngine:
             restarts = 0
             resumed_from = 0
             snapshot = DenoiseSnapshot()
+            # fresh attribution timelines; a retry appends to them
+            self._geom_events = [(1, self.K)]
+            self._codec_events = []
+            self._batch_codecs = self._step_codec_names()
+            self._runs_mark = 0 if rec is None else len(rec.measured_runs)
             while True:
                 try:
                     results = self._denoise_batch(reqs, snapshot)
@@ -501,6 +755,9 @@ class LPServingEngine:
                         res.resumed_from_step = resumed_from
                     self._finalize_requests(results)
                     out.extend(results)
+                    self._record_batch_wire(tuple(reqs[0].latent_shape), len(reqs))
+                    if rec is not None:
+                        rec.inc(obsm.BATCHES)
                     break
                 except (DeviceFailure, ServingFault) as e:
                     restarts += 1
@@ -508,9 +765,19 @@ class LPServingEngine:
                     if step is not None:
                         self.last_steps_lost = max(0, int(step) - 1 - snapshot.step)
                     resumed_from = snapshot.step
+                    if rec is not None:
+                        rec.instant("batch.restart", cat="serve", restarts=restarts,
+                                    fault=str(e), resume_from=resumed_from)
+                        rec.inc(obsm.RESTARTS)
                     if restarts > max_restarts_per_batch:
+                        failed_s = perf_s()
                         for r in reqs:
-                            self._lifecycle.pop(r.request_id, None)
+                            life = self._lifecycle.pop(r.request_id, None)
+                            if rec is not None and life is not None:
+                                rec.instant("request.failed", cat="serve",
+                                            request_id=r.request_id, priority=life["priority"],
+                                            submit_s=life["submit_s"], failed_s=failed_s,
+                                            restarts=restarts, fault=str(e))
                         raise
             batches += 1
         return out

@@ -33,6 +33,9 @@ gives the same values alone or stacked and no DiT rounding enters.
   group itself and a group of the wrong size raise (the tp axis and the
   sharded wire: ``test_torch_hybrid.py``).
 """
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -48,6 +51,7 @@ from repro_torch.device import generator
 from repro_torch.distributed.collectives import KINDS, LPGroup
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import dit
+from repro_torch.obs import validate_trace
 from repro_torch.serving import engine as teng
 
 ROTATING = (1, 9, 6, 10, 4)         # T, H and W usable at K 3 and 4: the dims rotate
@@ -190,13 +194,19 @@ def _contexts(cfg, n=2):
             for _ in range(n)]
 
 
+SCHEDULE = "int8-residual@0.85,int8@0.6,bf16"     # chip_smoke.py's schedule
+SCHEDULED_STEPS = 4                                # steps 1-2 int8-residual, 3 int8, 4 bf16
+
+
 @pytest.fixture(scope="module")
 def engine_worlds(workdir):
+    """One world per K: the DiT engine runs, then at K 3 a scheduled request."""
     cfg = get_config("wan21-dit-1.3b").reduced()
     reqs = [(0, _contexts(cfg)[0], SHAPE, 0)]
-    return {K: tmesh.run_lp_world(cases.engine_runs, K, (ENGINE_RUNS[K], reqs, STEPS),
-                                  workdir=str(workdir), device="cpu", deadline_s=DEADLINE_S)
-            for K in ENGINE_RUNS}
+    return {K: tmesh.run_lp_world(
+        cases.engine_world, K,
+        (ENGINE_RUNS[K], reqs, STEPS, SCHEDULE if K == 3 else None, SCHEDULED_STEPS),
+        workdir=str(workdir), device="cpu", deadline_s=DEADLINE_S) for K in ENGINE_RUNS}
 
 
 @pytest.fixture(scope="module")
@@ -219,7 +229,7 @@ def test_engine_on_a_group_matches_one_process(engine_worlds, one_process, K, ri
     cfg, ref = one_process
     codec = ENGINE_RUNS[K][ri]
     want = ref[(K, codec)].numpy()
-    latents = [w[ri]["latents"][0] for w in engine_worlds[K]]
+    latents = [w["runs"][ri]["latents"][0] for w in engine_worlds[K]]
     for lat in latents[1:]:
         assert torch.equal(lat, latents[0])        # every rank holds the same latent
     got = latents[0].numpy()
@@ -229,13 +239,14 @@ def test_engine_on_a_group_matches_one_process(engine_worlds, one_process, K, ri
     else:                          # within one code step, as test_torch_engine holds the wire
         assert d.max() <= 1e-4 + np.abs(want).max() / 127, d.max()
         assert (d > 1e-4 + 1e-4 * np.abs(want)).mean() <= 0.01
-    rank0 = engine_worlds[K][0][ri]
+    rank0 = engine_worlds[K][0]["runs"][ri]
     assert rank0["lp_impl"] == ("shard_map" if K == 2 else "halo")
     assert rank0["compiles"] <= 3 and rank0["eager_sends"] is False
     ccfg = _comm_cfg((1, *SHAPE, cfg.latent_channels), STEPS)
-    sent = sum(w[ri]["counts"]["sent"] for w in engine_worlds[K])
+    sent = sum(w["runs"][ri]["counts"]["sent"] for w in engine_worlds[K])
     if K == 2:                     # the buffers handed over; the ring's bytes modelled
-        payload = sum(w[ri]["counts"]["payload"]["all-reduce"] for w in engine_worlds[K])
+        payload = sum(w["runs"][ri]["counts"]["payload"]["all-reduce"]
+                      for w in engine_worlds[K])
         assert sent == payload
         assert cm.collective_wire_bytes("all-reduce", payload, K) == \
             cm.comm_lp_spmd(ccfg, K, 0.5)
@@ -245,15 +256,64 @@ def test_engine_on_a_group_matches_one_process(engine_worlds, one_process, K, ri
             assert sent == cm.comm_lp_halo(ccfg, K, 0.5)
 
 
+def _recorded_steps_equal_the_counter(run) -> bool:
+    """A rank's recorder attribution of each step equals what its byte
+    counter moved in that step, per tier and collective (batch 1)."""
+    snaps = run["snaps"]
+    for i, rec in enumerate(run["wire_steps"]):
+        for tier in ("inter", "intra"):
+            a, b = snaps[i]["tiers"][tier]["payload"], snaps[i + 1]["tiers"][tier]["payload"]
+            moved = {k: b[k] - a[k] for k in KINDS}
+            if moved != {k: rec[tier].get(k, 0.0) * rec["batch_size"] for k in KINDS}:
+                return False
+    return len(run["wire_steps"]) == len(snaps) - 1
+
+
+def test_scheduled_halo_engine_on_a_group(engine_worlds):
+    """``codec_schedule`` on a group of 3 (the halo engine, a hook per
+    segment codec), the exact stand-in DiT: every rank bit-equal to the
+    one-process scheduled engine (the wire mirror), the plan the same on
+    every rank, each rank's recorder attribution equal to its byte counter
+    step by step, the world's sent bytes ``comm_lp_halo_scheduled``."""
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    runs = [w["scheduled"] for w in engine_worlds[3]]
+    eng = teng.LPServingEngine(cases.exact_dit, cfg, num_partitions=3,
+                               num_steps=SCHEDULED_STEPS, device="cpu", codec_schedule=SCHEDULE)
+    eng.submit(teng.VideoRequest(0, torch.from_numpy(_contexts(cfg)[0]), SHAPE, seed=0))
+    want = eng.run()[0].latent
+    step_codecs = ["int8-residual", "int8-residual", "int8", "bf16"]
+    assert list(eng.plan.step_codecs) == step_codecs
+    for r in runs:
+        assert torch.equal(r["latent"], want)
+        assert r["plan"] == runs[0]["plan"] and r["plan"]["step_codecs"] == tuple(step_codecs)
+        assert r["lp_impl"] == "halo" and r["trace_ok"] and r["compiles"] <= 3 * 3
+        assert r["state_inits"] == eng._compiler.state_inits == 2
+        assert _recorded_steps_equal_the_counter(r)
+    ccfg = _comm_cfg((1, *SHAPE, cfg.latent_channels), SCHEDULED_STEPS)
+    assert sum(r["snaps"][-1]["sent"] for r in runs) == \
+        cm.comm_lp_halo_scheduled(ccfg, 3, 0.5, step_codecs)
+
+
 def test_serve_cli_with_a_mesh_in_a_world(workdir):
+    """``serve --mesh 3`` in a world; with ``--trace-out`` / ``--metrics-out``
+    each rank writes ``<path>.rank<N>`` and rank 0 the plain path too."""
+    trace, metrics = workdir / "cli_trace.json", workdir / "cli_metrics.prom"
     argv = ["--device", "cpu", "--mesh", "3", "--partitions", "3", "--requests", "1",
-            "--steps", "2", "--frames-latent", "4", "--wire-codec", "int8", "--eager-sends"]
+            "--steps", "2", "--frames-latent", "4", "--wire-codec", "int8", "--eager-sends",
+            "--trace-out", str(trace), "--metrics-out", str(metrics)]
     outs = tmesh.run_lp_world(cases.serve_cli, 3, (argv,), workdir=str(workdir),
                               device="cpu", deadline_s=DEADLINE_S)
     assert "engine: lp_impl=halo codec=int8" in outs[0] and "ranks=3 backend=gloo" in outs[0]
     assert "eager_sends=True" in outs[0]
     assert "request 0: latent (1, 4, 8, 12, 4)" in outs[0]
+    assert f"trace: {trace}.rank0, {trace}" in outs[0]
     assert outs[1] == outs[2] == ""                # only rank 0 prints
+    docs = [json.loads(Path(f"{trace}.rank{r}").read_text()) for r in range(3)]
+    assert json.loads(trace.read_text()) == docs[0]
+    for doc in docs:
+        assert validate_trace(doc) == []
+        assert sum(e["name"] == "wire.step" for e in doc["traceEvents"]) == 2
+    assert all(Path(f"{metrics}.rank{r}").read_text().startswith("# TYPE") for r in range(3))
 
 
 def test_a_failing_rank_fails_its_world(workdir):

@@ -8,7 +8,7 @@ reference within 1e-4 (f32, 3 steps at guidance 5-6).  The coded engine
 engine within one code step (``test_torch_lp.py`` gives the reason: the
 DiTs' ~1e-6 difference can flip a code at a rounding half-way point).
 Plus admission, DeviceFailure retry, the resolved engine name and the
-arguments that are not ported yet.
+reference's other engine arguments, each served.
 """
 import jax
 import numpy as np
@@ -24,6 +24,7 @@ from repro.serving.engine import VideoRequest as JRequest
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import dit as tdit
+from repro_torch.obs import FlightRecorder, validate_trace
 from repro_torch.runtime.faults import ServingFault
 from repro_torch.runtime.ft import DeviceFailure
 from repro_torch.serving import engine as teng
@@ -162,20 +163,23 @@ def test_lp_impl_name_matches_reference(models, K):
     assert _port_engine(models, num_partitions=K).lp_impl == jeng.lp_impl
 
 
-SERVED_NOW = ({"wire_codec": "int8"}, {"lp_impl": "halo"})
-
-
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(wire_codec="int8"),
                                 dict(codec_schedule="auto"), dict(psnr_floor=40.0),
                                 dict(elastic=True), dict(inject_fault="dead:1@2"),
-                                dict(recorder=object()), dict(slo="interactive:20"),
+                                dict(recorder=FlightRecorder()), dict(slo="interactive:20"),
                                 dict(lp_impl="halo")])
 def test_unported_engine_arguments_raise(models, kw):
-    """Arguments of paths not ported yet raise, naming their ROADMAP item.
-    Served now: ``wire_codec=`` and ``lp_impl="halo"`` (the halo wire
-    mirror answers), ``elastic=`` (nothing to evict: the request is
-    served), ``inject_fault=`` (a dead group at K = 2, the floor, cannot be
-    evicted: the restarts run out, as in the reference,
+    """The engine's arguments of the reference, each served as the
+    reference serves it (the step policy and the flight recorder since
+    their port; what stays unported, ``replica_id`` and ``clock=``,
+    belongs to ROADMAP Queue 1 item 10 and is not taken).
+    ``wire_codec=`` and ``lp_impl="halo"`` run the halo wire mirror,
+    ``codec_schedule="auto"`` the autotuned schedule through it
+    (``test_torch_obs.py`` holds it to the reference), ``psnr_floor``
+    alone raises as the reference does, ``recorder=`` records the request
+    (a trace that validates), ``slo=`` stamps its deadline, ``elastic=``
+    has nothing to evict, ``inject_fault=`` (a dead group at K = 2, the
+    floor, cannot be evicted: the restarts run out, as in the reference,
     ``tests/test_fault_recovery.py``; the drills: ``test_torch_faults.py``)
     and ``mesh=`` (anything but a group is refused; groups:
     ``test_torch_dist.py``, ``test_torch_hybrid.py``)."""
@@ -190,16 +194,24 @@ def test_unported_engine_arguments_raise(models, kw):
             eng.run()
         assert eng.evictions == 0 and eng._lifecycle == {}
         return
-    if kw not in SERVED_NOW and "elastic" not in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    if "psnr_floor" in kw:
+        with pytest.raises(ValueError, match="psnr_floor needs codec_schedule"):
             _port_engine(models, **kw)
         return
     eng = _port_engine(models, num_steps=2, **kw)
-    assert (eng.lp_impl == "halo" and eng._compiler.codec is not None) or eng.elastic
+    assert (eng.lp_impl == "halo" and (eng._compiler.codec is not None
+                                       or eng._compiler.schedule is not None)) \
+        or eng.elastic or eng.recorder is not None or eng.slo is not None
     eng.submit(_port_requests(models, 1)[0])
     res = eng.run()[0]
     assert tuple(res.latent.shape) == (1, *SHAPE, 4) and bool(torch.isfinite(res.latent).all())
     assert eng.evictions == 0 and res.restarts == 0
+    if "recorder" in kw:
+        rec = kw["recorder"]
+        assert validate_trace(rec.trace.to_json()) == [] and len(rec.wire_steps) == 2
+        assert rec.request_rows[0]["request_id"] == 0
+    if "slo" in kw:
+        assert eng.slo.deadline_for("interactive") == 20.0
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -26,6 +26,7 @@
   ``test_torch_engine.py``'s coded tolerance (one code step: max, and
   beyond 1e-4 on at most 1% of the values).
 """
+import dataclasses
 import math
 
 import jax
@@ -39,12 +40,16 @@ from repro.comm import get_codec as jget_codec
 from repro.comm.wire import simulate_halo_forward as jsimulate
 from repro.configs import get_config as jget_config
 from repro.core import LPStepCompiler as JCompiler
+from repro.core import comm_model as jcm
 from repro.core import lp_denoise as jlp_denoise
 from repro.core import plan_uniform as jplan_uniform
 from repro.core.lp_step import DenoiseSnapshot as JSnapshot
 from repro.diffusion.sampler import FlowMatchEuler as JSampler
 from repro.models import dit as jdit
 from repro.models import frontends as jfrontends
+from repro.obs import FlightRecorder as JRecorder
+from repro.obs import metrics as jmetrics
+from repro.policy import resolve_cli_schedule as jresolve
 from repro.runtime import elastic as jelastic
 from repro.runtime import faults as jfaults
 from repro.runtime import health as jhealth
@@ -58,11 +63,15 @@ from repro_torch.core import LPStepCompiler, lp_denoise, plan_uniform
 from repro_torch.core.lp_step import DenoiseSnapshot
 from repro_torch.diffusion.sampler import FlowMatchEuler
 from repro_torch.models import dit as tdit
+from repro_torch.obs import FlightRecorder
+from repro_torch.obs import metrics as tmetrics
 from repro_torch.runtime import elastic, faults, health, straggler
 from repro_torch.serving import engine as teng
 
-REF = dict(health=jhealth, straggler=jstraggler, faults=jfaults)
-PORT = dict(health=health, straggler=straggler, faults=faults)
+REF = dict(health=jhealth, straggler=jstraggler, faults=jfaults,
+           registry=jmetrics.MetricsRegistry)
+PORT = dict(health=health, straggler=straggler, faults=faults,
+            registry=tmetrics.MetricsRegistry)
 
 
 def _plain(x):
@@ -276,7 +285,23 @@ def fault_plan_for_replica_splits_scoped_chunks(m, t):
     t.read(sub1.die_fires(2), sub1.die_fires(3), sub1.die_fires(1), sub1.drain_events())
 
 
-SCENARIOS = [health_death_after_miss_budget, health_on_time_round_clears_misses,
+def health_and_straggler_feed_their_metrics(m, t):
+    reg = m["registry"]()
+    mon = m["health"].GroupHealthMonitor(4, max_misses=1, default_deadline_s=10.0,
+                                         metrics=reg)
+    for times in ([1.0] * 4, [1.0, 2.5, 1.0, 1.0], [1.0, None, 1.0, 1.0],
+                  [1.0, math.inf, 1.0, None], [1.0, None, 1.0, 1.0]):
+        mon.observe(times)
+        t.read(reg.snapshot())
+    mon.mark_recovered(1)
+    mon.evict(3)
+    t.read(reg.snapshot(), mon.straggler.metrics is reg)
+    ema = m["straggler"].StragglerState(3, metrics=reg)
+    ema.observe([1.0, 3.0, 1.0])
+    t.read(reg.gauge_value("straggler.imbalance"), reg.gauge_value("straggler.slowest_group"))
+
+
+SCENARIOS = [health_and_straggler_feed_their_metrics, health_death_after_miss_budget, health_on_time_round_clears_misses,
              health_backoff_extends_deadline, health_miss_does_not_trip_slow_ema,
              health_dead_takes_precedence_over_slow, health_refuses_eviction_at_two_groups,
              health_evict_remaps_indices, health_restarts_on_layout_change,
@@ -479,15 +504,17 @@ def _jax_noise(shape, seed, device):
     return torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(seed), shape)))
 
 
-def _drill(models, monkeypatch, shape, **kw):
+def _drill(models, monkeypatch, shape, recorders=(None, None), **kw):
     """One request through the reference engine and the port's (the
-    reference's noise): each engine and its result, or the error raised."""
+    reference's noise; ``recorders``: the port's and the reference's):
+    each engine and its result, or the error raised."""
     jcfg, params, tcfg, model, ctx = models
     args = dict(overlap_ratio=0.5, num_steps=3, max_batch=1, **kw)
-    jeng = JEngine(lambda p, z, t, c, m: jdit.forward(p, z, t, c, m), params, jcfg, **args)
+    jeng = JEngine(lambda p, z, t, c, m: jdit.forward(p, z, t, c, m), params, jcfg, **args,
+                   recorder=recorders[1])
     jeng.submit(JRequest(0, jnp.asarray(ctx), shape, seed=0))
     monkeypatch.setattr(teng, "initial_noise", _jax_noise)
-    eng = teng.LPServingEngine(model, tcfg, device="cpu", **args)
+    eng = teng.LPServingEngine(model, tcfg, device="cpu", **args, recorder=recorders[0])
     eng.submit(teng.VideoRequest(0, torch.from_numpy(ctx), shape, seed=0))
     out = []
     for e in (eng, jeng):
@@ -550,3 +577,116 @@ def test_fault_config_errors_as_the_reference(models):
                        "replica:-scoped")):
         with pytest.raises(ValueError, match=match):
             teng.LPServingEngine(model, tcfg, num_steps=2, device="cpu", **kw)
+
+
+SCHEDULE = "int8-residual@0.85,int8@0.6,bf16"
+
+
+def test_scheduled_drill_as_the_reference(models, monkeypatch):
+    """``dead:3@2`` with ``elastic`` on a scheduled engine (K 4, 3 steps:
+    int8-residual, int8-residual, int8), each engine with its recorder: the
+    same outcome, the plan re-resolved at K 3 the same, the same per-step
+    attribution across the eviction, the latent within one code step."""
+    jrec, rec = JRecorder(), FlightRecorder()
+    kw = dict(num_partitions=4, elastic=True, codec_schedule=SCHEDULE, inject_fault="dead:3@2")
+    (eng, res), (jeng, jres) = _drill(models, monkeypatch, (8, 8, 12), recorders=(rec, jrec),
+                                      **kw)
+    assert _outcome(eng, res) == _outcome(jeng, jres) == (1, 3, 3, 3, 0, 0, 2, 1)
+    assert dataclasses.asdict(eng.plan) == dataclasses.asdict(jeng.plan)
+    assert eng.plan.wire_bytes != 0 and eng._geom_events == jeng._geom_events == [(1, 4), (2, 3)]
+    assert rec.wire_steps == jrec.wire_steps and [r["K"] for r in rec.wire_steps] == [4, 3, 3]
+    assert rec.plans == jrec.plans and len(rec.plans) == 2
+    names = sorted(e["name"] for e in rec.trace.events)
+    assert names == sorted(e["name"] for e in jrec.trace.events)
+    _within_a_code_step(res.latent.numpy(), jres.latent)
+
+
+# ----------------------------------------------- a scheduled 3x2 world
+SCHED_LATENT = (8, 8, 12)
+SCHED_RUNS = (("scheduled-shard", None, True, {"codec_schedule": SCHEDULE}),)
+SCHED_DRILL = dict(codec_schedule=SCHEDULE, elastic=True, inject_fault="dead:1@3")
+
+
+@pytest.fixture(scope="module")
+def scheduled_world(tmp_path_factory):
+    """A 3x2 gloo world, the exact stand-in DiT: a scheduled request on the
+    sharded wire (recorded), then the scheduled drill ``dead:1@3``."""
+    import torch_dist_cases as cases
+    from repro_torch.launch import mesh as tmesh
+
+    rng = np.random.default_rng(7)
+    ctx = [(0.02 * rng.normal(size=(1, 16, 128))).astype(np.float32) for _ in range(2)]
+    reqs = [(0, ctx[0], SCHED_LATENT, 0), (1, ctx[1], SCHED_LATENT, 1)]
+    ranks = tmesh.run_lp_world(cases.hybrid_engine_runs, 3,
+                               (SCHED_RUNS, SCHED_DRILL, reqs, 4, True), tp=2,
+                               workdir=str(tmp_path_factory.mktemp("scheduled_world")),
+                               device="cpu", deadline_s=300)
+    return ranks, ctx
+
+
+def _one_process_scheduled(ctx, **kw):
+    import torch_dist_cases as cases
+
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    eng = teng.LPServingEngine(cases.exact_dit, cfg, num_partitions=3, num_steps=4,
+                               max_batch=1, device="cpu", **kw)
+    out = []
+    for rid in (0, 1):
+        eng.submit(teng.VideoRequest(rid, torch.from_numpy(ctx[rid]), SCHED_LATENT, seed=rid))
+        out.append(eng.run()[0])
+    return eng, out
+
+
+def test_scheduled_sharded_request_on_a_3x2_group(scheduled_world):
+    """Every rank bit-equal to the one-process scheduled engine; each
+    rank's recorder attribution equal to its byte counter per step and
+    tier; one plan on every rank (the sharded hybrid halo)."""
+    ranks, ctx = scheduled_world
+    _, (want, _) = _one_process_scheduled(ctx, codec_schedule=SCHEDULE)
+    kinds = ("all-gather", "all-reduce", "collective-permute")
+    for r in ranks:
+        run = r["runs"]["scheduled-shard"]
+        assert torch.equal(run["latent"], want.latent)
+        assert run["plan"] == ranks[0]["runs"]["scheduled-shard"]["plan"]
+        assert run["plan"]["lp_impl"] == "halo_hybrid" and run["wire_shard"] is True
+        assert run["trace_ok"] and run["compiles"] <= 3 * 3 and len(run["wire_steps"]) == 4
+        snaps = run["snaps"]
+        for i, rec in enumerate(run["wire_steps"]):
+            for tier in ("inter", "intra"):
+                a, b = snaps[i]["tiers"][tier]["payload"], snaps[i + 1]["tiers"][tier]["payload"]
+                assert {k: b[k] - a[k] for k in kinds} == \
+                    {k: rec[tier].get(k, 0.0) for k in kinds}, (i, tier)
+        assert sum(rec["intra_bytes"] for rec in run["wire_steps"]) > 0
+
+
+def test_scheduled_drill_on_a_3x2_group(scheduled_world):
+    """The scheduled ``dead:1@3`` drill: group 1's ranks leave, the
+    survivors shrink to 2x2, finish bit-equal to the one-process scheduled
+    drill, and hold the plan re-resolved at K 2, equal to the reference's
+    resolution at K 2 (tp 2; the one-process engine's at tp 1)."""
+    ranks, ctx = scheduled_world
+    eng, (first, second) = _one_process_scheduled(ctx, **SCHED_DRILL)
+    assert eng.K == 2 and eng.evictions == 1
+    left = [w for w, r in enumerate(ranks) if "evicted" in r]
+    assert left == [2, 3] and all(ranks[w]["evicted"] == (1, 3) for w in left)
+    jcfg = jget_config("wan21-dit-1.3b").reduced()
+    ccfg = jcm.VDMCommConfig(latent_dims=(13, 60, 104), latent_channels=jcfg.latent_channels,
+                             patch_sizes=jcfg.patch_sizes, d_model=jcfg.d_model,
+                             num_blocks=jcfg.num_layers, num_steps=4)
+    for tp, plan in ((2, None), (1, dataclasses.asdict(eng.plan))):
+        want = dataclasses.asdict(jresolve(SCHEDULE, ccfg, 2, 0.5, JSampler(4), 4, tp=tp))
+        if plan is None:
+            for w, r in enumerate(ranks):
+                if w not in left:
+                    assert r["drill"]["plan"] == want
+        else:
+            assert plan == want
+    for w, r in enumerate(ranks):
+        if w in left:
+            continue
+        d, a = r["drill"], r["after"]
+        assert (d["evictions"], d["K"], d["mesh_shape"], d["restarts"],
+                d["resumed_from_step"]) == (1, 2, (2, 2), first.restarts,
+                                            first.resumed_from_step)
+        assert torch.equal(d["latent"], first.latent) and torch.equal(a["latent"],
+                                                                       second.latent)

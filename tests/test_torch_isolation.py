@@ -2,7 +2,8 @@
 
 * No file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports JAX or
   the JAX package ``repro`` (an AST scan), and the package imports and
-  serves with ``jax`` blocked in ``sys.modules`` (a subprocess).
+  serves with ``jax`` blocked in ``sys.modules`` (a subprocess), a
+  scheduled, recorded request (``policy/``, ``obs/``) included.
 * Without CUDA, the entry points raise unless given ``device="cpu"``,
   the LM's (``models.build``, ``transformer.init_params``, the serve
   steps) included.
@@ -70,6 +71,11 @@ serve.get_config = lambda name: full_width(name).reduced()    # small enough for
 serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4"])
 serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4",
             "--partitions", "3", "--wire-codec", "displaced:int4-residual"])
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4",
+                "--partitions", "3", "--codec-schedule", "auto", "--trace-out",
+                tmp + "/t.json", "--metrics-out", tmp + "/m.prom"])
 from repro_torch import models
 from repro_torch.configs import get_config
 from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
@@ -95,7 +101,8 @@ def test_package_runs_with_jax_blocked():
     assert "request 0: latent (1, 4, 8, 12, 4)" in out.stdout
     assert "codec=displaced:int4-residual" in out.stdout
     assert "lm logits (1, 1, 512)" in out.stdout
-    assert int(out.stdout.split("imported")[-1]) >= 25
+    assert "step policy: halo schedule=" in out.stdout and "trace: " in out.stdout
+    assert int(out.stdout.split("imported")[-1]) >= 34      # policy/ and obs/ included
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -34,6 +34,7 @@ from repro_torch.core import DenoiseSnapshot, LPStepCompiler, lp_denoise, lp_for
 from repro_torch.diffusion import FlowMatchEuler, generate_lp, make_guided_denoiser
 from repro_torch.diffusion.pipeline import make_guided_step_denoiser
 from repro_torch.models import dit as tdit
+from repro_torch.obs import FlightRecorder, validate_trace
 from repro_torch.runtime.ft import DeviceFailure
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -118,22 +119,41 @@ def test_snapshot_resume_is_bit_exact(setup):
 
 
 def test_unported_arguments_name_their_roadmap_item(setup):
-    """Arguments of paths not ported yet raise, naming their ROADMAP item;
-    ``codec=``, ``forward=``, a ``mesh_shape`` (with a tp axis too) and
-    ``wire_shard`` are served now, so their cases check that they run and
-    key the step cache."""
+    """Every argument of the reference's step cache and loop is served
+    now: ``schedule=`` and ``recorder=`` (since the step policy and the
+    flight recorder were ported: ``test_torch_policy.py`` and
+    ``test_torch_obs.py`` hold them to the reference), ``forward_factory``
+    (a schedule's group-bound hooks), ``codec=``, ``forward=``, a
+    ``mesh_shape`` (with a tp axis too) and ``wire_shard``; their cases
+    check that they run and key the step cache.  ``schedule="auto"`` is
+    refused as the reference refuses it (a compiler takes a spec, the
+    engine resolves ``auto``)."""
     sampler, comp, extras = _step_setup(setup)
     z = torch.from_numpy(setup["z"])
-    for kw in (dict(schedule="int8@0.5,bf16"), dict(recorder=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            lp_denoise(None, z, sampler, 2, 2, 0.5, (1, 2, 2), (1, 2, 3), **kw,
-                       compiler=comp, extras=extras)
-    coded = lp_denoise(make_guided_step_denoiser(setup["model"]), z, sampler, 2, 2, 0.5,
-                       (1, 2, 2), (1, 2, 3), uniform=True, codec="int8", extras=extras)
+    guided = make_guided_step_denoiser(setup["model"])
+    rec = FlightRecorder()
+    for kw in (dict(schedule="int8@0.95,bf16"), dict(recorder=rec)):
+        out = lp_denoise(guided, z, sampler, 2, 2, 0.5, (1, 2, 2), (1, 2, 3), uniform=True,
+                         extras=extras, **kw)
+        assert out.shape == z.shape and bool(torch.isfinite(out).all())
+    assert [(r["start"], r["stop"]) for r in rec.measured_runs] == [(1, 1), (2, 2)]
+    assert validate_trace(rec.trace.to_json()) == []
+    coded = lp_denoise(guided, z, sampler, 2, 2, 0.5, (1, 2, 2), (1, 2, 3), uniform=True,
+                       codec="int8", extras=extras)
     assert coded.shape == z.shape and bool(torch.isfinite(coded).all())
-    for kw in (dict(forward_factory=lambda c: None), dict(schedule="auto")):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), **kw)
+
+    def factory(codec):
+        return lambda fn, zz, plan, axis: lp_forward_uniform(fn, zz, plan, axis)
+
+    hooked = LPStepCompiler(guided, sampler.update, 2, 0.5, (1, 2, 2), uniform=True,
+                            schedule="int8@0.95,bf16", forward_factory=factory)
+    assert hooked.forward_factory is factory
+    out = lp_denoise(None, z, sampler, 2, 2, 0.5, (1, 2, 2), (1, 2, 3), compiler=hooked,
+                     extras=extras)
+    assert torch.equal(out, lp_denoise(guided, z, sampler, 2, 2, 0.5, (1, 2, 2), (1, 2, 3),
+                                       uniform=True, extras=extras))
+    with pytest.raises(ValueError, match="unknown wire codec 'auto'"):
+        LPStepCompiler(None, sampler.update, 2, 0.5, (1, 2, 2), schedule="auto")
     # a forward hook on a (K, 1) mesh is served: the step runs through it
     # (the lp-group engines behind it: tests/test_torch_dist.py)
     calls = []

@@ -5,9 +5,10 @@
   than ``reps`` times one call's records is taken again; one still
   short after 3 tries gives no number (None), and ``timed_case`` flags
   the case with ``profiler_short`` and writes its time as JSON null.
-* Phases ``lp_ranks`` and ``hybrid_ranks`` at a reduced size on gloo
-  worlds of CPU ranks (the plain versions, the reduced DiT in f32): their
-  checks hold there too.
+* Phases ``lp_ranks`` and ``hybrid_ranks`` (their scheduled requests
+  included) at a reduced size on gloo worlds of CPU ranks, and phase
+  ``serve_policy`` in one process (the plain versions, the reduced DiT
+  in f32): their checks hold there too.
 """
 import importlib
 import json
@@ -110,12 +111,16 @@ def test_lp_ranks_phase_on_the_cpu(smoke, tmp_path, monkeypatch):
     cfg = get_config("wan21-dit-1.3b").reduced()
     model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
     rec, counts = smoke.lp_ranks(cfg, model, device="cpu", latent=(9, 8, 12))
-    runs = rec["runs"]
+    runs, scheduled = rec["runs"], rec["scheduled"]
     assert len(runs) == 2 * sum(len(r) for r in smoke.LP_WORLDS.values())
     assert all(r["bit_equal"] and r["bytes"] == r["model_bytes"] and r["bytes_ok"]
                and r["step_payloads_ok"] for r in runs)
-    assert sorted(counts) == sorted(f"lp_ranks:{n}" for w in smoke.LP_WORLDS.values()
-                                    for n, _ in w)
+    # the scheduled, recorded request of the K-4 world
+    assert scheduled["run"] == "lp_ranks" and scheduled["spec"] == smoke.SCHEDULE
+    assert scheduled["bit_equal"] and scheduled["bytes_ok"] and scheduled["same_plan"]
+    assert scheduled["recorder_equals_counter"]
+    assert sorted(counts) == sorted([f"lp_ranks:{n}" for w in smoke.LP_WORLDS.values()
+                                     for n, _ in w] + ["lp_ranks:scheduled"])
     assert not any(v for c in counts.values() for v in c.values())
 
 
@@ -132,16 +137,53 @@ def test_hybrid_ranks_phase_on_the_cpu(smoke, tmp_path, monkeypatch):
     cfg = get_config("wan21-dit-1.3b").reduced()
     model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
     rec, counts = smoke.hybrid_ranks(cfg, model, device="cpu", latent=(9, 8, 12))
-    assert len(rec["runs"]) == 2 * len(smoke.HYBRID_RUNS)
-    assert all(r["bit_equal"] and r["bytes_ok"] and r["step_payloads_ok"] for r in rec["runs"])
+    runs, scheduled = rec["runs"], rec["scheduled"]
+    assert len(runs) == 2 * len(smoke.HYBRID_RUNS)
+    assert all(r["bit_equal"] and r["bytes_ok"] and r["step_payloads_ok"] for r in runs)
+    assert scheduled["bit_equal"] and scheduled["recorder_equals_counter"]
+    assert scheduled["lp_impl"] == "halo_hybrid" and scheduled["wire_shard"] is True
+    assert scheduled["sent"]["intra"] > 0
     assert [r["sharded_equals_unsharded"] for r in rec["runs"] if r["run"] == "fp32-shard"] \
         == [True, True]
     drill = rec["drill"]
     assert drill["left"] == [2, 3] and drill["bit_equal"] and drill["second_request_ok"]
     assert drill["outcome"][0][:3] == (1, 2, (2, 2)) and drill["ran_ok"]
     assert sorted(counts) == sorted([f"hybrid_ranks:{n}" for n, _, _ in smoke.HYBRID_RUNS]
-                                    + ["hybrid_ranks:drill"])
+                                    + ["hybrid_ranks:drill", "hybrid_ranks:scheduled"])
     assert not any(v for c in counts.values() for v in c.values())
+
+
+def test_serve_policy_phase_on_the_cpu(smoke):
+    """Phase serve_policy's checks (the explicit schedule's misses, trace,
+    per-step wire bytes, serve counters and reconciliation; the
+    single-segment schedule bit-equal to the fixed ``int8`` wire; ``auto``
+    at 40 dB; launches: none on the CPU) on the reduced DiT, at a latent
+    with all three dims usable at K 4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.models import dit, frontends
+    from repro_torch.serving.engine import LPServingEngine, VideoRequest
+
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
+    latent = (9, 8, 12)
+    reqs = [VideoRequest(i, frontends.text_context(generator(100 + i, "cpu"), 1, cfg, "cpu"),
+                         latent, seed=i) for i in range(2)]
+    fixed = LPServingEngine(model, cfg, num_partitions=smoke.K, overlap_ratio=smoke.R,
+                            num_steps=smoke.STEPS, max_batch=2, device="cpu", wire_codec="int8")
+    for r in reqs:
+        fixed.submit(dataclasses.replace(r))
+    int8 = {r.request_id: r.latent for r in fixed.run()}
+    rec, counts = smoke.serve_policy(cfg, model, reqs, int8, device="cpu", latent=latent)
+    ex = rec["explicit"]
+    assert ex["step_codecs"] == list(smoke.SCHEDULE_CODECS) and ex["step_cache_misses"] == 4
+    assert ex["wire_steps_ok"] and ex["serve_counters_ok"] and ex["reconciliation_ok"]
+    assert ex["trace_errors"] == [] and ex["wire_bytes"] < ex["fp32_halo_bytes"]
+    assert rec["single_segment_bit_equal"] and rec["auto"]["spec"] != smoke.SCHEDULE
+    assert rec["spans"]["flash_kernels"] == 0 and not any(counts.values())
+    assert len(rec["recorder_cost_wall_s"]["bare"]) == 2
 
 
 def test_rank_kernel_shapes_are_what_a_rank_passes(smoke, tmp_path):

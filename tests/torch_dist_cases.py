@@ -10,6 +10,7 @@ single-process mirror and to ``core/comm_model``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro_torch.core.hybrid import lp_forward_halo_hybrid, tp_cfg_branch, tp_cf
 from repro_torch.core.spmd import lp_forward_halo, lp_forward_shard_map
 from repro_torch.core.uniform import plan_uniform
 from repro_torch.distributed.collectives import HybridGroup, halo_spec, sharded_ppermute
+from repro_torch.obs import FlightRecorder
 
 PATCH = (1, 2, 2)
 
@@ -125,6 +127,45 @@ def engine_runs(group, codecs, requests, num_steps: int) -> list:
     return [engine_run(group, requests, num_steps, wire_codec=c) for c in codecs]
 
 
+def engine_world(group, codecs, requests, num_steps: int, schedule=None,
+                 scheduled_steps: int = 4) -> dict:
+    """:func:`engine_runs`, then (``schedule``: a codec-schedule spec) one
+    request of the exact stand-in DiT through a scheduled, recorded engine
+    of ``scheduled_steps`` steps (:func:`recorded_run`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import VideoRequest
+
+    out = {"runs": engine_runs(group, codecs, requests, num_steps)}
+    if schedule is not None:
+        cfg = get_config("wan21-dit-1.3b").reduced()
+        rid, ctx, shape, seed = requests[0]
+        eng = _engine(group, exact_dit, cfg, scheduled_steps, codec_schedule=schedule,
+                      recorder=FlightRecorder())
+        out["scheduled"] = recorded_run(eng, group, VideoRequest(rid, torch.from_numpy(ctx),
+                                                                 shape, seed=seed))
+    return out
+
+
+def recorded_run(eng, group, request) -> dict:
+    """One request through ``eng``, built with a flight recorder:
+    :func:`_record` and this rank's byte counter before each step and at
+    the end, the recorder's ``wire_steps``, whether its trace validates,
+    the plan (as a dict) and the state inits."""
+    from repro_torch.obs import validate_trace
+
+    rec = eng.recorder
+    snaps = []
+    eng._step_fault = lambda i: snaps.append(group.counter.snapshot())
+    group.counter.reset()
+    eng.submit(request)
+    res = eng.run()[0]
+    eng._step_fault = None
+    return {**_record(eng, group, res), "snaps": snaps + [group.counter.snapshot()],
+            "wire_steps": rec.wire_steps, "trace_ok": validate_trace(rec.trace.to_json()) == [],
+            "plan": None if eng.plan is None else dataclasses.asdict(eng.plan),
+            "state_inits": eng._compiler.state_inits}
+
+
 def kernel_shapes_of_a_rank(group, latent, num_steps: int, r: float, codec: str) -> dict:
     """The shapes this rank hands ``ops.int8_quantize`` (N, rows, F) and
     the DiT's attention (B, Sq, Skv) while the reduced DiT serves one
@@ -206,7 +247,8 @@ def _record(eng, group, res) -> dict:
 def hybrid_engine_runs(group, runs, drill, requests, num_steps: int,
                           exact: bool = False, leave: bool = False) -> dict:
     """One world's engine work on a ``HybridGroup``: ``runs`` (name,
-    wire_codec, wire_shard) through ``LPServingEngine(mesh=group)``, one
+    wire_codec, wire_shard[, more engine arguments: a recorded run,
+    :func:`recorded_run`]) through ``LPServingEngine(mesh=group)``, one
     request each; then the eviction drill (``drill``: the engine's
     keyword arguments), one request and a second one on the shrunken
     group.  The reduced WAN DiT in f32 (weights from seed 0), or the exact
@@ -225,7 +267,12 @@ def hybrid_engine_runs(group, runs, drill, requests, num_steps: int,
     out = {"runs": {}}
     reqs = [VideoRequest(rid, torch.from_numpy(ctx), shape, seed=seed)
             for rid, ctx, shape, seed in requests]
-    for name, codec, shard in runs:
+    for name, codec, shard, *extra in runs:
+        if extra:                  # a scheduled run: recorded, its counter read every step
+            eng = _engine(group, dit_fn, cfg, num_steps, wire_codec=codec, wire_shard=shard,
+                          recorder=FlightRecorder(), **extra[0])
+            out["runs"][name] = recorded_run(eng, group, reqs[0])
+            continue
         eng = _engine(group, dit_fn, cfg, num_steps, wire_codec=codec, wire_shard=shard)
         group.counter.reset()
         eng.submit(reqs[0])
@@ -243,6 +290,7 @@ def hybrid_engine_runs(group, runs, drill, requests, num_steps: int,
         out["evicted"] = (e.group, e.step)
         return out
     out["drill"] = _record(eng, group, res)
+    out["drill"]["plan"] = None if eng.plan is None else dataclasses.asdict(eng.plan)
     eng.submit(reqs[1])
     out["after"] = _record(eng, group, eng.run()[0])
     return out
