@@ -61,7 +61,21 @@ Phases, one line each (any failed check exits non-zero):
                the warm batch wall bare and recorded in turns, and every
                flash kernel of a profiled recorded batch inside a
                denoise.run range.
-  4b. lp_ranks — LP across ranks: a gloo world of 4 ranks sharing the
+  4b. serve_fleet — the fleet layer at the same settings, over engines
+               sharing the DiT module, each warmed first: (a) one engine
+               replays a seeded Poisson workload (loadgen.run_workload on
+               a VirtualClock: no step-cache miss, 240 flash and 4
+               latent_blend launches a batch, each clock advance the
+               batch's wall, offline SLO report equal to the live one);
+               (b) 2 replicas behind ReplicaRouter with replica 1 killed
+               at step 2 (zero lost, arrival stamps kept, rows carrying
+               their replica, the first batch bit-equal to a bare engine,
+               launches per replica and the killed batch's apart); (c) 2
+               codec_schedule="auto" replicas under twice the fleet's
+               load (sheds, degraded floors with no costlier plan,
+               restored floors, int8_quantize launched); (d) the loadtest
+               CLI with the kill, then --report-from its trace.
+  4c. lp_ranks — LP across ranks: a gloo world of 4 ranks sharing the
                card runs the halo engine (uncoded, int8,
                displaced:int8-residual) and one of 2 the psum engine, one
                request at the serve geometry through
@@ -76,7 +90,7 @@ Phases, one line each (any failed check exits non-zero):
                on the 4 ranks (bit-equal, bytes comm_lp_halo_scheduled,
                each rank's recorder equal to its counter a step).  The
                walls are time-sliced on one card.
-  4c. hybrid_ranks — the same on a 3 x 2 world (the wire sharded and
+  4d. hybrid_ranks — the same on a 3 x 2 world (the wire sharded and
                not, a scheduled request, then the dead:1@3 drill).
   5. coded_stitch — blend_windows_coded(codec="int8") on the card at the
                three dims (int8_quantize + dequant_blend) against its
@@ -1230,6 +1244,384 @@ def serve_policy(cfg, model, reqs, int8_latents, device="cuda", latent=LATENT):
               "auto": {"plan": ap.describe(), "spec": ap.schedule.spec,
                        "lp_impl": auto.lp_impl, "wire_bytes": ap.wire_bytes,
                        "fp32_halo_bytes": ap.fp32_halo_bytes, "wall_s": ares.batch_wall_s}}
+    return record, counts
+
+
+# phase serve_fleet: the fleet layer at the video settings.  The arrival rates
+# (requests/s) of its drives are set against the card's walls (PERF.md §6): (a)
+# below one engine's capacity, (b) and the CLI near the fleet's, (c) about
+# twice it, long enough for the queue to pass the shed watermark
+FLEET_SLO = "interactive:10,standard:30"
+FLEET_RATES = {"a": 0.5, "b": 1.0, "c": 4.0, "cli": 1.0}
+FLEET_REQUESTS = {"a": 6, "b": 8, "c": 20, "cli": 6}
+FLEET_KILL, FLEET_DIE_STEP = "replica:1:dead@2", 2
+FLEET_SHED, FLEET_DEGRADE = 4, 2            # (c)'s watermarks
+CLI_NOTES = ("source", "warmed", "workload", "router")
+
+
+def fleet_mix(latent) -> str:
+    """The phase's request mix: interactive and standard (twice as likely)
+    requests of one latent shape, guidance 5."""
+    shape = "x".join(str(n) for n in latent)
+    return f"i,shape={shape},priority=interactive;s,shape={shape},priority=standard,weight=2"
+
+
+def same_report(live: dict, offline: dict) -> bool:
+    """Whether an offline SLO report is byte for byte the live one, after
+    the JSON round trip a written report takes, apart from the load-test
+    CLI's notes on a live serve (``CLI_NOTES``), which no trace holds."""
+    def canon(report):
+        return json.dumps({k: v for k, v in json.loads(json.dumps(report)).items()
+                           if k not in CLI_NOTES}, sort_keys=True)
+
+    return canon(live) == canon(offline)
+
+
+def live_report(rec, routed: bool) -> dict:
+    """The SLO report of a recorder's rows as the serve left them (one
+    device)."""
+    from repro_torch.obs.slo import evaluate_slo
+
+    return evaluate_slo(rec.request_rows, spec=FLEET_SLO, num_devices=1,
+                        shed_rows=rec.shed_rows if routed else None,
+                        failed_rows=rec.failed_rows if routed else None)
+
+
+def offline_report(rec, slo: str, routed: bool) -> dict:
+    """The SLO report recomputed from ``rec``'s trace after a JSON round
+    trip, as ``loadtest --report-from`` does (one device)."""
+    from repro_torch.obs import slo as S
+
+    doc = json.loads(json.dumps(rec.trace.to_json()))
+    return S.evaluate_slo(S.rows_from_trace(doc), spec=slo, num_devices=1,
+                          shed_rows=S.shed_from_trace(doc) if routed else None,
+                          failed_rows=S.failures_from_trace(doc) if routed else None)
+
+
+def class_summary(report: dict) -> str:
+    return " ".join(
+        f"{p}:n={c['count']},wait_p50={c['queue_wait_p50_s']:.3f},"
+        f"wait_p99={c['queue_wait_p99_s']:.3f},e2e_p50={c['e2e_p50_s']:.3f},"
+        f"e2e_p99={c['e2e_p99_s']:.3f},viol={c['violations']},goodput={c['goodput_rps']:.4f}"
+        for p, c in sorted(report["classes"].items()))
+
+
+def count_runs(eng, replica, calls):
+    """Wrap ``eng.run`` so that each call (one batch: the replay and the
+    router ask for one) appends its replica, the ids it served, the
+    launches it made and its wall to ``calls``; a call that raised
+    ``ReplicaDeath`` is marked ``killed``."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.faults import ReplicaDeath
+
+    run = eng.run
+
+    def counted(*args, **kw):
+        before = ops.launch_counts()
+        queued = [r.request_id for r in eng._queue]
+
+        def entry(ids, killed, wall):
+            after = ops.launch_counts()
+            calls.append({"replica": replica, "ids": ids, "killed": killed, "wall_s": wall,
+                          "launches": {n: after[n] - before[n] for n in after}})
+
+        try:
+            out = run(*args, **kw)
+        except ReplicaDeath:
+            entry(queued, True, None)
+            raise
+        entry([r.request_id for r in out], False, out[0].batch_wall_s if out else None)
+        return out
+
+    eng.run = counted
+
+
+def serve_fleet(cfg, model, device="cuda", latent=LATENT, rates=FLEET_RATES):
+    """Phase serve_fleet: the fleet layer (``serving/loadgen``,
+    ``serving/router``, ``launch/loadtest``) over engines at the serve
+    phase's settings (K 4, r 0.5, 4 steps, batches of up to 2) that share
+    one DiT module, each warmed (``loadtest._warm_compiles``) on a
+    throwaway clock before it replays.
+
+    (a) One engine, ``run_workload``: Poisson arrivals, every request
+        answered with a finite latent of its shape, no step-cache miss in
+        the replay, each batch 2 x 30 x 4 flash_attention_sm90 and 4
+        latent_blend launches, each clock advance the batch's wall, the
+        offline report equal to the live one, a trace that validates.
+    (b) Two replicas behind ``ReplicaRouter``, replica 1 killed at denoise
+        step 2 of its first batch: zero lost, the kill and a redispatch
+        seen, redispatched requests stamped at their arrival, every row
+        carrying the replica that served it, all accounted for, offline
+        equal to live, the fleet's first batch bit-equal to the same
+        requests served as one batch by a fresh bare engine, launches per
+        replica with the killed batch's apart.
+    (c) Two replicas with ``codec_schedule="auto"`` at 40 dB under an
+        overload of deterministic arrivals: requests shed, floors relaxed
+        (a plan re-resolved below 40 dB with no more bytes) and restored,
+        every request accounted for, int8_quantize launched.
+    (d) ``loadtest.main`` with 2 replicas and the kill, its trace and
+        report under ``chiprun_out/``, then ``--report-from``: the reports
+        equal apart from the CLI's notes.
+    ``device``, ``latent`` and ``rates`` let a CPU run check the logic at
+    a small size.  Returns the record and each drive's launch counts."""
+    import io
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import loadtest
+    from repro_torch.obs import FlightRecorder, validate_trace
+    from repro_torch.serving.engine import LPServingEngine, VideoRequest
+    from repro_torch.serving.loadgen import (VirtualClock, WorkloadSpec, _default_make_context,
+                                             build_workload, parse_mix, run_workload,
+                                             workload_digest)
+    from repro_torch.serving.router import ReplicaRouter
+
+    on_card = device != "cpu"
+    vid_flash = "flash_attention_sm90"
+    per_step_flash = 2 * cfg.num_layers if on_card else 0
+    blend_per_step = 1 if on_card else 0
+    mix = parse_mix(fleet_mix(latent))
+    record, counts = {}, {}
+
+    class AdvanceLog(VirtualClock):
+        """A virtual clock that keeps every advance."""
+
+        def __init__(self):
+            super().__init__()
+            self.advances = []
+
+        def advance(self, dt_s):
+            self.advances.append(dt_s)
+            super().advance(dt_s)
+
+    def workload(run, arrivals="poisson"):
+        return build_workload(WorkloadSpec(rate_rps=rates[run], num_requests=FLEET_REQUESTS[run],
+                                           arrivals=arrivals, seed=0, mix=mix))
+
+    def warmed(wl, **kw):
+        eng = LPServingEngine(model, cfg, num_partitions=K, overlap_ratio=R, num_steps=STEPS,
+                              max_batch=2, device=device, clock=VirtualClock(), slo=FLEET_SLO,
+                              **kw)
+        loadtest._warm_compiles(eng, cfg, wl)
+        return eng
+
+    def check_rows(name, results, n):
+        check(sorted(r.request_id for r in results) == list(range(n)),
+              f"serve_fleet {name}: answered {sorted(r.request_id for r in results)}")
+        for r in results:
+            check(tuple(r.latent.shape) == (1, *latent, cfg.latent_channels)
+                  and bool(torch.isfinite(r.latent).all()),
+                  f"serve_fleet {name} request {r.request_id}: latent shape or values")
+
+    def line(name, wl, report, extra):
+        print(f"phase=serve_fleet run={name} digest={workload_digest(wl)[:12]} "
+              f"requests={len(wl)} makespan_s={report.get('makespan_s', 0.0):.3f} "
+              f"violations={report['violations']} goodput_rps={report['goodput_rps']:.4f} "
+              f"{class_summary(report)} {extra}", flush=True)
+
+    # (a) one engine, run_workload
+    wl = workload("a")
+    eng = warmed(wl)
+    misses0 = eng._compiler.compiles
+    rec, clock, calls = FlightRecorder(), AdvanceLog(), []
+    eng.recorder, eng.clock = rec, clock
+    count_runs(eng, 0, calls)
+    ops.reset_launch_counts()
+    results = run_workload(eng, wl)
+    counts["serve_fleet:a"] = ops.launch_counts()
+    misses = eng._compiler.compiles - misses0
+    check_rows("a", results, len(wl))
+    live = live_report(rec, routed=False)
+    offline_ok = same_report(live, offline_report(rec, FLEET_SLO, routed=False))
+    errors = validate_trace(rec.trace.to_json())
+    walls = [c["wall_s"] for c in calls]
+    per_batch = [(c["launches"][vid_flash], c["launches"]["latent_blend"]) for c in calls]
+    batches_ok = all(p == (per_step_flash * STEPS, blend_per_step * STEPS) for p in per_batch)
+    record["a"] = {"digest": workload_digest(wl), "report": live, "step_cache_misses": misses,
+                   "batch_walls_s": walls, "advances_s": clock.advances,
+                   "batch_sizes": [len(c["ids"]) for c in calls], "launches": counts["serve_fleet:a"],
+                   "offline_equals_live": offline_ok, "trace_errors": errors[:5],
+                   "virtual_now_s": clock.now}
+    line("a", wl, live, f"batches={len(calls)} sizes={record['a']['batch_sizes']} "
+         f"walls_s={[round(w, 4) for w in walls]} step_cache_misses={misses} "
+         f"advances_equal_walls={clock.advances == walls} offline_equals_live={offline_ok} "
+         f"trace_ok={not errors} {vid_flash}={counts['serve_fleet:a'][vid_flash]} "
+         f"latent_blend={counts['serve_fleet:a']['latent_blend']}")
+    check(misses == 0, f"serve_fleet a: {misses} step-cache misses after the warm-up")
+    check(batches_ok, f"serve_fleet a: launches per batch {per_batch}, want "
+                      f"{(per_step_flash * STEPS, blend_per_step * STEPS)}")
+    check(clock.advances == walls, f"serve_fleet a: advances {clock.advances} != walls {walls}")
+    check(offline_ok and not errors, f"serve_fleet a: offline equals live {offline_ok}, "
+                                     f"trace errors {errors[:3]}")
+    del eng
+
+    # (b) two replicas, replica 1 killed at its first batch's step 2
+    wl = workload("b")
+    arrival = {a.request_id: a for a in wl}
+    engines = [warmed(wl) for _ in range(2)]
+    rec, calls = FlightRecorder(), []
+    for i, e in enumerate(engines):
+        e.recorder, e.clock = rec, VirtualClock()
+        count_runs(e, i, calls)
+    router = ReplicaRouter(engines, recorder=rec, slo=FLEET_SLO, inject_fault=FLEET_KILL)
+    ops.reset_launch_counts()
+    results = router.serve(wl)
+    counts["serve_fleet:b"] = ops.launch_counts()
+    check_rows("b", results, len(wl))
+    live = live_report(rec, routed=True)
+    offline_ok = same_report(live, offline_report(rec, FLEET_SLO, routed=True))
+    served_by = {i: c["replica"] for c in calls if not c["killed"] for i in c["ids"]}
+    redispatched = sorted({e["args"]["request_id"] for e in rec.trace.events
+                           if e["name"] == "router.redispatch"})
+    stamps_ok = all(row["submit_s"] == arrival[row["request_id"]].arrival_s
+                    for row in rec.request_rows) and bool(redispatched)
+    replica_ok = all(row.get("replica") == served_by[row["request_id"]]
+                     for row in rec.request_rows)
+    killed = [c for c in calls if c["killed"]]
+    kill_ok = (len(killed) == 1 and killed[0]["replica"] == 1
+               and killed[0]["launches"][vid_flash] == per_step_flash * (FLEET_DIE_STEP - 1)
+               and killed[0]["launches"]["latent_blend"] == blend_per_step * (FLEET_DIE_STEP - 1))
+    by_replica = {}
+    for c in calls:
+        key = "killed" if c["killed"] else f"replica{c['replica']}"
+        for n, v in c["launches"].items():
+            by_replica.setdefault(key, dict.fromkeys(c["launches"], 0))[n] += v
+    served = [c for c in calls if not c["killed"]]
+    batches_ok = all((c["launches"][vid_flash], c["launches"]["latent_blend"])
+                     == (per_step_flash * STEPS, blend_per_step * STEPS) for c in served)
+    # the fleet's first batch against a fresh bare engine on the same module
+    first = served[0]["ids"]
+    bare = LPServingEngine(model, cfg, num_partitions=K, overlap_ratio=R, num_steps=STEPS,
+                           max_batch=2, device=device)
+    make_context = _default_make_context(bare)
+    for rid in first:
+        a = arrival[rid]
+        bare.submit(VideoRequest(rid, make_context(a), tuple(a.cls.latent_shape), seed=a.seed,
+                                 guidance=a.cls.guidance, priority=a.cls.priority))
+    want = {r.request_id: r.latent for r in bare.run(max_batches=1)}
+    got = {r.request_id: r.latent for r in results}
+    bit_equal = sorted(want) == sorted(first) and all(torch.equal(got[i], want[i]) for i in first)
+    del bare
+    states = [r.state for r in router.replicas]
+    record["b"] = {"digest": workload_digest(wl), "report": live, "stats": dict(router.stats),
+                   "states": states, "redispatched": redispatched, "stamps_ok": stamps_ok,
+                   "rows_carry_replica": replica_ok, "offline_equals_live": offline_ok,
+                   "first_batch": first, "first_batch_bit_equal": bit_equal,
+                   "launches": counts["serve_fleet:b"], "launches_by_replica": by_replica,
+                   "batches": [{k: c[k] for k in ("replica", "ids", "killed", "wall_s")}
+                               for c in calls]}
+    line("b", wl, live, f"stats={router.stats} states={states} redispatched={redispatched} "
+         f"stamps_ok={stamps_ok} rows_carry_replica={replica_ok} "
+         f"accounted={live['disposition']['accounted']} offline_equals_live={offline_ok} "
+         f"first_batch={first} bit_equal_to_bare={bit_equal} "
+         + " ".join(f"{k}:{vid_flash}={v[vid_flash]},latent_blend={v['latent_blend']}"
+                    for k, v in sorted(by_replica.items())))
+    check(states[1] == "dead" and router.stats["replica_deaths"] == 1
+          and router.stats["redispatches"] >= 1 and router.stats["completed"] == len(wl),
+          f"serve_fleet b: states {states}, stats {router.stats}")
+    check(stamps_ok and replica_ok and live["disposition"]["accounted"] == len(wl)
+          and offline_ok, f"serve_fleet b: stamps {stamps_ok}, replica rows {replica_ok}, "
+                          f"disposition {live['disposition']}, offline {offline_ok}")
+    check(bit_equal, f"serve_fleet b: the first batch {first} differs from a bare engine's")
+    check(kill_ok and batches_ok, f"serve_fleet b: launches {by_replica}")
+    del engines, router
+
+    # (c) overload: two auto-scheduled replicas, shedding and degradation
+    wl = workload("c", arrivals="deterministic")
+    engines = [warmed(wl, codec_schedule="auto", psnr_floor=AUTO_FLOOR, plan_geometry=latent)
+               for _ in range(2)]
+    base = {"spec": engines[0].plan.schedule.spec, "bytes": engines[0].plan.wire_bytes}
+    rec, calls, replans = FlightRecorder(), [], []
+
+    def track(e, i):
+        set_floor = e.set_psnr_floor
+
+        def tracked(floor):
+            changed = set_floor(floor)
+            replans.append((i, floor, e.plan.schedule.spec, e.plan.wire_bytes))
+            return changed
+
+        e.set_psnr_floor = tracked
+
+    for i, e in enumerate(engines):
+        e.recorder, e.clock = rec, VirtualClock()
+        count_runs(e, i, calls)
+        track(e, i)
+    router = ReplicaRouter(engines, recorder=rec, slo=FLEET_SLO, shed_watermark=FLEET_SHED,
+                           degrade_watermark=FLEET_DEGRADE)
+    ops.reset_launch_counts()
+    results = router.serve(wl)
+    counts["serve_fleet:c"] = ops.launch_counts()
+    live = live_report(rec, routed=True)
+    degrades = [e["args"] for e in rec.trace.events if e["name"] == "router.degrade"]
+    lower = [r for r in replans if r[1] < AUTO_FLOOR]
+    cheaper_ok = bool(lower) and all(b <= base["bytes"] for _, _, _, b in lower)
+    restored = ([e.psnr_floor for e in engines] == [AUTO_FLOOR] * 2
+                and router.degrade_level == 0
+                and all(e.plan.schedule.spec == base["spec"] for e in engines))
+    st = router.stats
+    accounted = (live["disposition"]["accounted"] == len(wl)
+                 and st["admitted"] == st["completed"] + st["shed"] + st["failed"] == len(wl))
+    quant = counts["serve_fleet:c"]["int8_quantize"]
+    offline_ok = same_report(live, offline_report(rec, FLEET_SLO, routed=True))
+    for r in results:
+        check(tuple(r.latent.shape) == (1, *latent, cfg.latent_channels)
+              and bool(torch.isfinite(r.latent).all()),
+              f"serve_fleet c request {r.request_id}: latent shape or values")
+    record["c"] = {"digest": workload_digest(wl), "report": live, "stats": dict(st),
+                   "states": [r.state for r in router.replicas], "base_plan": base,
+                   "replans": replans, "degrades": degrades, "restored": restored,
+                   "shed_ids": [r["request_id"] for r in rec.shed_rows],
+                   "offline_equals_live": offline_ok, "launches": counts["serve_fleet:c"],
+                   "batches": [{k: c[k] for k in ("replica", "ids", "wall_s")} for c in calls]}
+    lowest = min(lower, key=lambda r: r[1]) if lower else None
+    line("c", wl, live, f"stats={st} shed_ids={record['c']['shed_ids']} "
+         f"degrade_instants={len(degrades)} base_plan=[{base['spec']}]:{base['bytes']}B "
+         f"lowest_floor_plan={lowest} cheaper_ok={cheaper_ok} floors_restored={restored} "
+         f"accounted={live['disposition']['accounted']} offline_equals_live={offline_ok} "
+         f"{vid_flash}={counts['serve_fleet:c'][vid_flash]} int8_quantize={quant} "
+         f"latent_blend={counts['serve_fleet:c']['latent_blend']}")
+    check(rec.shed_rows and degrades, f"serve_fleet c: {len(rec.shed_rows)} shed rows, "
+                                      f"{len(degrades)} degrade instants")
+    check(cheaper_ok and restored, f"serve_fleet c: re-plans {replans[:4]}, restored {restored}")
+    check(accounted and offline_ok, f"serve_fleet c: stats {st}, disposition "
+                                    f"{live['disposition']}, offline {offline_ok}")
+    check((quant > 0) == on_card and counts["serve_fleet:c"]["latent_blend"] == 0,
+          f"serve_fleet c: launches {counts['serve_fleet:c']}")
+    del engines, router
+
+    # (d) the CLI in process, then its report from the trace it wrote
+    out_dir = ROOT / "chiprun_out"
+    trace, live_path, off_path = (out_dir / "fleet_trace.json", out_dir / "fleet_report.json",
+                                  out_dir / "fleet_report_offline.json")
+    argv = ["--device", device, "--partitions", str(K), "--overlap", str(R), "--steps",
+            str(STEPS), "--max-batch", "2", "--mix", fleet_mix(latent), "--slo", FLEET_SLO,
+            "--rate", str(rates["cli"]), "--requests", str(FLEET_REQUESTS["cli"]), "--seed",
+            "0", "--replicas", "2", "--inject-fault", FLEET_KILL, "--trace-out", str(trace),
+            "--report-out", str(live_path)]
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        cli_live = loadtest.main(argv)
+    counts["serve_fleet:cli"] = ops.launch_counts()
+    with contextlib.redirect_stdout(buf):
+        loadtest.main(["--report-from", str(trace), "--slo", FLEET_SLO,
+                       "--report-out", str(off_path)])
+    written, recomputed = json.loads(live_path.read_text()), json.loads(off_path.read_text())
+    cli_ok = (same_report(written, recomputed) and written["source"] == "live"
+              and recomputed["source"] == "trace")
+    router_rec = cli_live["router"]
+    record["cli"] = {"argv": argv, "stdout": buf.getvalue(), "offline_equals_live": cli_ok,
+                     "router": router_rec, "launches": counts["serve_fleet:cli"]}
+    line("cli", workload("cli"), cli_live,
+         f"states={router_rec['states']} completed={router_rec['completed']} "
+         f"redispatches={router_rec['redispatches']} "
+         f"accounted={cli_live['disposition']['accounted']} offline_equals_live={cli_ok} "
+         f"{vid_flash}={counts['serve_fleet:cli'][vid_flash]} "
+         f"latent_blend={counts['serve_fleet:cli']['latent_blend']}")
+    check(cli_ok and router_rec["states"][1] == "dead"
+          and cli_live["disposition"]["accounted"] == FLEET_REQUESTS["cli"],
+          f"serve_fleet cli: offline equals live {cli_ok}, router {router_rec}")
     return record, counts
 
 
@@ -2547,10 +2939,16 @@ def run() -> int:
     record["serve_policy"], policy_counts = serve_policy(cfg, model, reqs, int8_latents)
     del int8_latents
 
-    # --------------------------------------------------------- 4b. lp_ranks
+    # ------------------------------------------------------- 4b. serve_fleet
+    t_fleet = time.perf_counter()
+    record["serve_fleet"], fleet_counts = serve_fleet(cfg, model)
+    record["serve_fleet"]["phase_s"] = time.perf_counter() - t_fleet
+    print(f"phase=serve_fleet phase_s={record['serve_fleet']['phase_s']:.1f}", flush=True)
+
+    # --------------------------------------------------------- 4c. lp_ranks
     record["lp_ranks"], lp_counts = lp_ranks(cfg, model)
 
-    # ----------------------------------------------------- 4c. hybrid_ranks
+    # ----------------------------------------------------- 4d. hybrid_ranks
     record["hybrid_ranks"], hybrid_counts = hybrid_ranks(cfg, model)
     lp_counts = {**lp_counts, **hybrid_counts}
 
@@ -2686,14 +3084,16 @@ def run() -> int:
     path_counts = {"serve": main_counts, "lm_serve:prefill": lm_prefill_counts,
                    "lm_serve:decode": lm_decode_counts, "coded_stitch": stitch_counts,
                    "guidance": guidance_counts, "serve_policy": policy_counts,
-                   **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts}
+                   **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts,
+                   **fleet_counts}
     line = {"kernels": [
         kernel_row("flash_attention_sm90_d128", "src/repro/kernels/flash_attention.py:101",
                    named["flash_self_Twindow_bf16"],
                    {"serve": main_counts[vid_flash],
                     **{f"serve_codec:{c}": n[vid_flash] for c, n in coded_counts.items()},
                     "serve_policy": policy_counts[vid_flash],
-                    **{k: n[vid_flash] for k, n in lp_counts.items()}},
+                    **{k: n[vid_flash] for k, n in lp_counts.items()},
+                    **{k: n[vid_flash] for k, n in fleet_counts.items()}},
                    source="flash_attention_sm90"),
         kernel_row("flash_attention_sm90_d80", "src/repro/kernels/flash_attention.py:101",
                    named["flash_lm_prefill_causal_bf16"],
@@ -2706,11 +3106,13 @@ def run() -> int:
                    named["flash_lm_prefill_causal_bf16_mma"],
                    {k: n["flash_attention"] for k, n in path_counts.items()}, on_path=False),
         kernel_row("latent_blend", "src/repro/kernels/latent_blend.py:63", blend[0],
-                   {"serve": main_counts["latent_blend"]}),
+                   {"serve": main_counts["latent_blend"],
+                    **{k: n["latent_blend"] for k, n in fleet_counts.items()}}),
         kernel_row("int8_quantize", "src/repro/kernels/wire_codec.py:64", quant[0],
                    {**{f"serve_codec:{c}": n["int8_quantize"] for c, n in coded_counts.items()},
                     "serve_policy": policy_counts["int8_quantize"],
-                    **{k: n["int8_quantize"] for k, n in lp_counts.items()}}),
+                    **{k: n["int8_quantize"] for k, n in lp_counts.items()},
+                    **{k: n["int8_quantize"] for k, n in fleet_counts.items()}}),
         kernel_row("dequant_blend", "src/repro/kernels/wire_codec.py:131", dequant[0],
                    {"coded_stitch": stitch_counts["dequant_blend"]}),
         {**kernel_row("mamba_ssd", "src/repro/kernels/mamba_ssd.py:111", ssd[0],

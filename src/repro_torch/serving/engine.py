@@ -79,9 +79,21 @@ runs.  On a mesh each rank records its own; its ``wire_steps`` are that
 rank's payloads.  ``slo`` (``obs.slo.SLOSpec`` or its grammar) sets each
 priority's deadline and counts ``serve.slo_violations`` live.
 
-Left for ROADMAP Queue 1 item 10 (the fleet layer), and not taken here:
-the reference's ``replica_id`` and ``clock=`` (the load harness's virtual
-clock), and ``lp_axis`` / ``tp_axis`` (a group has no axis names).
+Fleet layer (``engine.py:189-245``): ``clock`` (default ``obs.clock.perf_s``)
+stamps every lifecycle row (submit, admit, denoise start, done, failed);
+``submit(req, submit_s=)`` lets an open-loop replay stamp the arrival
+(``serving/loadgen.run_workload``).  A clock with ``advance`` (the
+``loadgen.VirtualClock``) advances by each batch's synchronised wall.  On a
+mesh that wall (also the one the batch reports) is the slowest rank's: the
+ranks agree on it with a MAX all-reduce over the lp group (and one over the
+tp group), through no byte counter, so every rank's virtual timeline, and
+with it every admission and batching decision, stays the same; the default
+clock adds no collective.  ``replica_id`` (set by
+``serving/router.ReplicaRouter``) labels every ``serve.*`` metric, the
+``request.enqueue`` / ``request.rejected`` / ``batch.restart`` instants and
+the lifecycle rows with ``replica``; ``_inflight`` holds the batch in
+flight, for the router to requeue when its replica dies.  The reference's ``lp_axis`` /
+``tp_axis`` are not taken: a group has no axis names.
 """
 from __future__ import annotations
 
@@ -176,6 +188,18 @@ def _agree(mesh, digest: str) -> None:
                                f"{seen}; a plan must be a function of its inputs alone")
 
 
+def _slowest_wall(mesh, wall: float) -> float:
+    """The batch's wall as its slowest rank measured it: a MAX all-reduce of
+    one scalar over the lp group, then over the tp group of a 2-D mesh (not
+    through the byte counter).  Every rank of the batch gets the same value."""
+    lp = lp_axis(mesh)
+    t = torch.tensor([wall], dtype=torch.float64,
+                     device=mesh.device if lp.backend == "nccl" else "cpu")
+    for g in [lp] + ([mesh.tp] if isinstance(mesh, HybridGroup) else []):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g.group)
+    return float(t.item())
+
+
 class LPServingEngine:
     def __init__(
         self,
@@ -202,6 +226,8 @@ class LPServingEngine:
         wire_nan_guard: bool = True,
         eager_sends: Optional[bool] = None,
         wire_shard: Optional[bool] = None,
+        replica_id: Optional[int] = None,
+        clock: Optional[Callable[[], float]] = None,
     ):
         if mesh is not None and not isinstance(mesh, (LPGroup, HybridGroup)):
             raise ValueError(f"mesh= takes an LPGroup or a HybridGroup "
@@ -217,14 +243,16 @@ class LPServingEngine:
             raise ValueError(
                 f"fault plan {self._fault_plan.describe()!r} carries replica:-scoped targets, "
                 "which a bare engine cannot interpret (it does not know which replica it "
-                "is); the replica router (ROADMAP Queue 1 item 10) splits per-replica "
-                "sub-plans")
+                "is); serving/router.ReplicaRouter splits per-replica sub-plans")
         tp = tp_size(mesh)
         if wire_shard and tp <= 1:
             raise ValueError("wire_shard shards the halo wire over the tp axis; the mesh has "
                              "no tp axis (need --mesh MxT with T >= 2)")
         wire_shard_pinned = wire_shard is True
         self.recorder = recorder
+        # fleet identity (the replica router sets it) and the lifecycle clock
+        self.replica_id = replica_id
+        self.clock: Callable[[], float] = clock if clock is not None else perf_s
         self.slo = None
         if slo is not None:
             from repro_torch.obs.slo import SLOSpec
@@ -333,6 +361,9 @@ class LPServingEngine:
         self._batch_seq = 0
         self._enqueued_at: Dict[int, int] = {}
         self._lifecycle: Dict[int, dict] = {}
+        # the batch in flight, cleared on success: the router requeues it
+        # when the replica dies with it
+        self._inflight: List[VideoRequest] = []
         self._step_fault: Optional[Callable[[int], None]] = None   # test hook
         forward, forward_factory, compiler_codec = self._build_forward(mesh)
         if self._fault_plan is not None and self._fault_plan.corrupt:
@@ -418,13 +449,21 @@ class LPServingEngine:
             fn, z, plan, axis, codec=self._compiler.codec)), None, self.codec
 
     # ------------------------------------------------------------- queue
-    def submit(self, req: VideoRequest) -> None:
+    def _rlabels(self) -> Dict[str, str]:
+        """``{}`` for a bare engine (today's metric schema), ``{"replica":
+        "<id>"}`` once a router gave it a fleet identity; read live, since
+        the router sets ``replica_id`` after construction."""
+        return {} if self.replica_id is None else {"replica": str(self.replica_id)}
+
+    def submit(self, req: VideoRequest, submit_s: Optional[float] = None) -> None:
+        """Enqueue ``req``, its lifecycle stamped ``submit_s`` (an open-loop
+        replay passes the arrival time) or the clock's now."""
         rec = self.recorder
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             if rec is not None:
                 rec.instant("request.rejected", cat="serve", request_id=req.request_id,
-                            priority=req.priority, depth=len(self._queue))
-                rec.inc(obsm.REQUESTS_REJECTED)
+                            priority=req.priority, depth=len(self._queue), **self._rlabels())
+                rec.inc(obsm.REQUESTS_REJECTED, **self._rlabels())
             raise QueueFull(
                 f"engine queue full ({len(self._queue)} >= max_queue="
                 f"{self.max_queue}); request {req.request_id} not enqueued",
@@ -434,13 +473,16 @@ class LPServingEngine:
         self._lifecycle[req.request_id] = {
             "request_id": req.request_id, "priority": str(req.priority),
             "latent_shape": list(req.latent_shape), "guidance": float(req.guidance),
-            "psnr_floor": req.psnr_floor, "submit_s": perf_s()}
+            "psnr_floor": req.psnr_floor,
+            "submit_s": float(self.clock()) if submit_s is None else float(submit_s)}
+        if self.replica_id is not None:
+            self._lifecycle[req.request_id]["replica"] = self.replica_id
         if rec is not None:
             rec.instant("request.enqueue", cat="serve", request_id=req.request_id,
                         latent_shape=req.latent_shape, guidance=req.guidance,
-                        priority=req.priority)
-            rec.inc(obsm.REQUESTS)
-            rec.gauge(obsm.QUEUE_DEPTH, len(self._queue))
+                        priority=req.priority, **self._rlabels())
+            rec.inc(obsm.REQUESTS, **self._rlabels())
+            rec.gauge(obsm.QUEUE_DEPTH, len(self._queue), **self._rlabels())
 
     @staticmethod
     def _bucket_key(req: VideoRequest) -> Tuple:
@@ -471,19 +513,21 @@ class LPServingEngine:
         chosen = {id(r) for r in batch}
         self._queue = [r for r in self._queue if id(r) not in chosen]
         self._batch_seq += 1
-        admit_s = perf_s()
+        admit_s = float(self.clock())
         for r in batch:
             self._enqueued_at.pop(r.request_id, None)
-            self._lifecycle[r.request_id].update(admit_s=admit_s, batch_seq=self._batch_seq,
-                                                 batch_size=len(batch))
+            life = self._lifecycle.get(r.request_id)
+            if life is not None:
+                life.update(admit_s=admit_s, batch_seq=self._batch_seq, batch_size=len(batch))
         rec = self.recorder
         if rec is not None:
             rec.instant("batch.admit", cat="serve", size=len(batch),
                         latent_shape=batch[0].latent_shape, guidance=batch[0].guidance,
                         request_ids=[r.request_id for r in batch], batch_seq=self._batch_seq)
-            rec.observe(obsm.BATCH_SIZE, len(batch))
-            rec.observe(obsm.BATCH_OCCUPANCY, len(batch) / max(1, self.max_batch))
-            rec.gauge(obsm.QUEUE_DEPTH, len(self._queue))
+            rec.observe(obsm.BATCH_SIZE, len(batch), **self._rlabels())
+            rec.observe(obsm.BATCH_OCCUPANCY, len(batch) / max(1, self.max_batch),
+                        **self._rlabels())
+            rec.gauge(obsm.QUEUE_DEPTH, len(self._queue), **self._rlabels())
         return batch
 
     # ------------------------------------------------------------ serving
@@ -573,7 +617,7 @@ class LPServingEngine:
                 rec.instant("elastic.evict", cat="elastic", group=evicted,
                             reason=proposal.reason, step=self._cur_step,
                             new_mesh_shape=list(new_shape))
-                rec.inc(obsm.EVICTIONS, reason=proposal.reason)
+                rec.inc(obsm.EVICTIONS, reason=proposal.reason, **self._rlabels())
             self._replan_schedule()
 
     # ------------------------------------------------------ fault drills
@@ -595,7 +639,7 @@ class LPServingEngine:
         if rec is not None:
             for ev in plan.drain_events():
                 rec.instant("fault." + ev["kind"], cat="fault", **ev)
-                rec.inc(obsm.FAULTS_INJECTED, kind=ev["kind"])
+                rec.inc(obsm.FAULTS_INJECTED, kind=ev["kind"], **self._rlabels())
 
     def _step_hook(self) -> Optional[Callable[[int], None]]:
         """The per-step hook, in the reference's order (``engine.py:810``):
@@ -641,7 +685,7 @@ class LPServingEngine:
         t0 = perf_s()
         rec = self.recorder
         shape = tuple(reqs[0].latent_shape)
-        start_s = perf_s()
+        start_s = float(self.clock())
         for r in reqs:
             # a resumed retry keeps the first dispatch's stamp
             self._lifecycle.get(r.request_id, {}).setdefault("denoise_start_s", start_s)
@@ -669,10 +713,18 @@ class LPServingEngine:
         finally:
             self._restore_codec()      # a corrupt drill never outlives its batch
         wall = perf_s() - t0
+        # a virtual lifecycle clock (the load harness) advances by the batch's
+        # measured wall: on a mesh the slowest rank's, so every rank's clock
+        # reads the same; the default clock has advanced on its own
+        advance = getattr(self.clock, "advance", None)
+        if advance is not None:
+            if self.mesh is not None:
+                wall = _slowest_wall(self.mesh, wall)
+            advance(wall)
         if rec is not None:
-            rec.observe(obsm.BATCH_WALL_S, wall)
+            rec.observe(obsm.BATCH_WALL_S, wall, **self._rlabels())
             rec.inc(obsm.COMPILES, self._compiler.compiles - compiles0,
-                    epoch=self._compiler.plan_epoch)
+                    epoch=self._compiler.plan_epoch, **self._rlabels())
         return [VideoResult(r.request_id, z0[i:i + 1], self.num_steps,
                             batch_wall_s=wall, batch_size=len(reqs))
                 for i, r in enumerate(reqs)]
@@ -708,7 +760,7 @@ class LPServingEngine:
         """Close each request's lifecycle row (``engine.py:997``): its done
         stamp, queue wait and end-to-end time (also on the result), the
         SLO verdict of its priority, and the row to the recorder."""
-        done_s = perf_s()
+        done_s = float(self.clock())
         for res in results:
             life = self._lifecycle.pop(res.request_id, None)
             if life is None:
@@ -739,6 +791,10 @@ class LPServingEngine:
             reqs = self._next_batch(force=True)
             if not reqs:
                 break
+            # the router requeues these if the batch dies with its replica
+            # (ReplicaDeath is no ServingFault: it leaves run); cleared only
+            # on success, so a terminal fault leaves them readable too
+            self._inflight = list(reqs)
             restarts = 0
             resumed_from = 0
             snapshot = DenoiseSnapshot()
@@ -754,10 +810,11 @@ class LPServingEngine:
                         res.restarts = restarts
                         res.resumed_from_step = resumed_from
                     self._finalize_requests(results)
+                    self._inflight = []
                     out.extend(results)
                     self._record_batch_wire(tuple(reqs[0].latent_shape), len(reqs))
                     if rec is not None:
-                        rec.inc(obsm.BATCHES)
+                        rec.inc(obsm.BATCHES, **self._rlabels())
                     break
                 except (DeviceFailure, ServingFault) as e:
                     restarts += 1
@@ -767,10 +824,10 @@ class LPServingEngine:
                     resumed_from = snapshot.step
                     if rec is not None:
                         rec.instant("batch.restart", cat="serve", restarts=restarts,
-                                    fault=str(e), resume_from=resumed_from)
-                        rec.inc(obsm.RESTARTS)
+                                    fault=str(e), resume_from=resumed_from, **self._rlabels())
+                        rec.inc(obsm.RESTARTS, **self._rlabels())
                     if restarts > max_restarts_per_batch:
-                        failed_s = perf_s()
+                        failed_s = float(self.clock())
                         for r in reqs:
                             life = self._lifecycle.pop(r.request_id, None)
                             if rec is not None and life is not None:

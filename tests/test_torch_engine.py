@@ -171,8 +171,8 @@ def test_lp_impl_name_matches_reference(models, K):
 def test_unported_engine_arguments_raise(models, kw):
     """The engine's arguments of the reference, each served as the
     reference serves it (the step policy and the flight recorder since
-    their port; what stays unported, ``replica_id`` and ``clock=``,
-    belongs to ROADMAP Queue 1 item 10 and is not taken).
+    their port; ``replica_id`` and ``clock=``, the fleet layer's, are held
+    to the reference in ``test_torch_loadgen.py``).
     ``wire_codec=`` and ``lp_impl="halo"`` run the halo wire mirror,
     ``codec_schedule="auto"`` the autotuned schedule through it
     (``test_torch_obs.py`` holds it to the reference), ``psnr_floor``

@@ -1,12 +1,15 @@
 """The port stands alone, and runs where it is told to.
 
 * No file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports JAX or
-  the JAX package ``repro`` (an AST scan), and the package imports and
-  serves with ``jax`` blocked in ``sys.modules`` (a subprocess), a
-  scheduled, recorded request (``policy/``, ``obs/``) included.
+  the JAX package ``repro`` (an AST scan; the fleet layer's three modules
+  named), and the package imports and serves with ``jax`` blocked in
+  ``sys.modules`` (a subprocess), a scheduled, recorded request
+  (``policy/``, ``obs/``) and a routed load test with a replica kill
+  (``serving/loadgen``, ``serving/router``, ``launch/loadtest``) included.
 * Without CUDA, the entry points raise unless given ``device="cpu"``,
   the LM's (``models.build``, ``transformer.init_params``, the serve
-  steps) included.
+  steps) and the load-test CLI (``--device cpu``; ``--report-from`` needs
+  no device) included.
 * CPU tensors never reach a kernel, coded requests and the hybrid LM's
   prefill and decode included: the launch counters stay at 0.
 * ``ops.guidance_update``, an entry point of its own: CPU tensors take
@@ -76,6 +79,13 @@ with tempfile.TemporaryDirectory() as tmp:
     serve.main(["--device", "cpu", "--requests", "1", "--steps", "2", "--frames-latent", "4",
                 "--partitions", "3", "--codec-schedule", "auto", "--trace-out",
                 tmp + "/t.json", "--metrics-out", tmp + "/m.prom"])
+from repro_torch.launch import loadtest
+loadtest.get_config = serve.get_config
+with tempfile.TemporaryDirectory() as tmp:
+    loadtest.main(["--device", "cpu", "--requests", "3", "--rate", "50", "--steps", "2",
+                   "--max-batch", "2", "--mix", "s,shape=4x8x12", "--replicas", "2",
+                   "--inject-fault", "replica:1:dead@1", "--trace-out", tmp + "/l.json"])
+    loadtest.main(["--report-from", tmp + "/l.json"])
 from repro_torch import models
 from repro_torch.configs import get_config
 from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
@@ -102,6 +112,7 @@ def test_package_runs_with_jax_blocked():
     assert "codec=displaced:int4-residual" in out.stdout
     assert "lm logits (1, 1, 512)" in out.stdout
     assert "step policy: halo schedule=" in out.stdout and "trace: " in out.stdout
+    assert "router: 2 replicas" in out.stdout and "disposition: completed=3" in out.stdout
     assert int(out.stdout.split("imported")[-1]) >= 34      # policy/ and obs/ included
 
 
@@ -121,6 +132,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve.main(["--requests", "1"])
     assert LPServingEngine(model, cfg, num_partitions=2, device="cpu").device.type == "cpu"
     assert frontends.text_context(None, 1, cfg, device="cpu").shape == (1, 16, 128)
+
+
+FLEET = ("serving/loadgen.py", "serving/router.py", "launch/loadtest.py")
+
+
+def test_fleet_layer_stands_alone_and_needs_cuda(monkeypatch, tmp_path):
+    from repro_torch.launch import loadtest
+
+    files = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _port_files()[:-1]}
+    assert set(FLEET) <= files
+    for rel in FLEET:
+        tree = ast.parse((ROOT / "src" / "repro_torch" / rel).read_text())
+        mods = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names}
+        mods |= {(n.module or "").split(".")[0] for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.level == 0}
+        assert not mods & FORBIDDEN, (rel, mods & FORBIDDEN)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loadtest.main(["--requests", "1"])
+    trace = tmp_path / "t.json"
+    trace.write_text('{"traceEvents": []}')
+    assert loadtest.main(["--report-from", str(trace)])["requests"] == 0
 
 
 def test_cpu_path_never_launches_a_kernel():

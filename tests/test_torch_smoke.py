@@ -6,9 +6,12 @@
   short after 3 tries gives no number (None), and ``timed_case`` flags
   the case with ``profiler_short`` and writes its time as JSON null.
 * Phases ``lp_ranks`` and ``hybrid_ranks`` (their scheduled requests
-  included) at a reduced size on gloo worlds of CPU ranks, and phase
-  ``serve_policy`` in one process (the plain versions, the reduced DiT
-  in f32): their checks hold there too.
+  included) at a reduced size on gloo worlds of CPU ranks, and phases
+  ``serve_policy`` and ``serve_fleet`` in one process (the plain versions,
+  the reduced DiT in f32; the fleet's arrival rates raised to the CPU's
+  walls): their checks hold there too.
+* ``same_report`` holds an offline SLO report to the live one byte for
+  byte, apart from the load-test CLI's notes on the live serve.
 """
 import importlib
 import json
@@ -216,3 +219,51 @@ def _check_rank_kernel_shapes(smoke, tmp_path, M, T):
     for rank in got:
         assert rank["quant"] == [(1,) + s for s in quant]
         assert rank["attn"] == [(2,) + s for s in attn]
+
+
+def test_same_report_ignores_only_the_cli_notes(smoke):
+    live = {"classes": {"standard": {"count": 2, "e2e_p50_s": 0.1}}, "makespan_s": 1.5,
+            "source": "live", "warmed": True, "workload": {"seed": 0},
+            "router": {"replicas": 2}}
+    offline = {"classes": {"standard": {"count": 2, "e2e_p50_s": 0.1}}, "makespan_s": 1.5,
+               "source": "trace"}
+    assert smoke.same_report(live, offline)
+    assert not smoke.same_report(live, {**offline, "makespan_s": 1.5000001})
+    assert not smoke.same_report(live, {**offline, "replicas": {}})
+    assert smoke.fleet_mix((9, 8, 12)) == \
+        "i,shape=9x8x12,priority=interactive;s,shape=9x8x12,priority=standard,weight=2"
+
+
+def test_serve_fleet_phase_on_the_cpu(smoke, tmp_path, monkeypatch):
+    """Phase serve_fleet's checks (the replay's misses, launches per batch,
+    clock advances and offline report; the fleet's kill, redispatch,
+    stamps, replica rows, bit-equality to a bare engine and per-replica
+    launches; the overload's sheds, degradation and restore; the CLI's
+    reports) on the reduced DiT at a latent with all three dims usable at
+    K 4, the arrival rates raised so that the CPU's short walls still
+    queue, batch and shed."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.launch import loadtest
+    from repro_torch.models import dit
+
+    monkeypatch.setattr(smoke, "ROOT", tmp_path)          # the CLI's trace and reports
+    monkeypatch.setattr(loadtest, "get_config", lambda name: get_config(name).reduced())
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
+    rec, counts = smoke.serve_fleet(cfg, model, device="cpu", latent=(9, 8, 12),
+                                    rates={"a": 50.0, "b": 200.0, "c": 2000.0, "cli": 200.0})
+    a, b, c = rec["a"], rec["b"], rec["c"]
+    assert a["step_cache_misses"] == 0 and a["advances_s"] == a["batch_walls_s"]
+    assert a["offline_equals_live"] and a["trace_errors"] == []
+    assert b["states"] == ["healthy", "dead"] and b["stats"]["replica_deaths"] == 1
+    assert b["first_batch_bit_equal"] and b["stamps_ok"] and b["rows_carry_replica"]
+    assert b["report"]["disposition"]["accounted"] == smoke.FLEET_REQUESTS["b"]
+    assert [x["killed"] for x in b["batches"]].count(True) == 1
+    assert c["shed_ids"] and c["degrades"] and c["restored"]
+    assert c["report"]["disposition"]["accounted"] == smoke.FLEET_REQUESTS["c"]
+    assert rec["cli"]["offline_equals_live"] and rec["cli"]["router"]["states"][1] == "dead"
+    assert (tmp_path / "chiprun_out" / "fleet_report_offline.json").exists()
+    assert sorted(counts) == ["serve_fleet:a", "serve_fleet:b", "serve_fleet:c",
+                              "serve_fleet:cli"]
+    assert not any(v for n in counts.values() for v in n.values())

@@ -370,3 +370,47 @@ def diverging_monitor(group, slow_group: int, num_steps: int) -> None:
     eng.submit(VideoRequest(0, torch.zeros((1, cfg.context_len, cfg.context_dim)),
                             (9, 8, 12), seed=0))
     eng.run()
+
+
+def fleet_replay(group, mix: str, rate: float, num_requests: int, num_steps: int,
+                 skew_s: float, lp_impl: str = "auto", elastic: bool = False,
+                 inject_fault=None) -> dict:
+    """A seeded open-loop workload through ``loadgen.run_workload`` on this
+    rank of ``group``: the exact stand-in DiT behind a sleep of ``skew_s``
+    times (world rank + 1) a call, so each rank measures its own wall; the
+    engine on a ``VirtualClock`` with a flight recorder, batches of up to
+    2 (``elastic`` / ``inject_fault``: an eviction drill, on whose evicted
+    ranks this raises ``GroupEvicted``).  Returns the lifecycle rows, the
+    latents, the byte counter, the clock's reading, the batch walls, the
+    seconds this rank slept and the evictions."""
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import LPServingEngine
+    from repro_torch.serving.loadgen import (VirtualClock, WorkloadSpec, build_workload,
+                                             parse_mix, run_workload)
+
+    rank = torch.distributed.get_rank()
+    slept = [0.0]
+
+    def skewed_dit(z, t, context):
+        time.sleep(skew_s * (rank + 1))
+        slept[0] += skew_s * (rank + 1)
+        return exact_dit(z, t, context)
+
+    cfg = get_config("wan21-dit-1.3b").reduced()
+    rec = FlightRecorder()
+    eng = LPServingEngine(skewed_dit, cfg, num_partitions=group.size, num_steps=num_steps,
+                          max_batch=2, device="cpu", mesh=group, recorder=rec,
+                          clock=VirtualClock(), lp_impl=lp_impl, elastic=elastic,
+                          inject_fault=inject_fault)
+    wl = build_workload(WorkloadSpec(rate_rps=rate, num_requests=num_requests,
+                                     arrivals="deterministic", mix=parse_mix(mix)))
+    group.counter.reset()
+    ctx = torch.zeros((1, cfg.context_len, cfg.context_dim))
+    res = run_workload(eng, wl, make_context=lambda a: ctx)
+    return {"rows": rec.request_rows, "latents": {r.request_id: r.latent for r in res},
+            "counts": group.counter.snapshot(), "now": eng.clock.now,
+            "walls": [r.batch_wall_s for r in res], "slept": slept[0],
+            "lp_impl": eng.lp_impl, "wire_shard": eng.wire_shard, "evictions": eng.evictions,
+            "mesh_shape": eng._compiler.mesh_shape}
