@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
 
 Phases, one line each (any failed check exits non-zero):
-  1. device  — the card, the toolchain, the eight kernels' build from csrc/.
+  1. device  — the card, the toolchain, the nine kernels' build from csrc/.
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card at the serving paths' shapes (WAN and Zamba2),
                with kernel, plain, library and bound times (and the
@@ -38,7 +38,16 @@ Phases, one line each (any failed check exits non-zero):
                between a slab's blocks; a reciprocal multiply), two of
                latent_blend.cu and three of dequant_blend.cu (the k order
                reversed; the last covering window dropped; the weight
-               applied before the scale).
+               applied before the scale).  The flash backward
+               (flash_attention_bwd.cu) against its plain version within
+               ref.flash_bwd_bf16_tolerance: granite's layer (2 x 2048,
+               32 / 8 x 64, causal; SDPA's autograd beside it), a window, an
+               odd length with padded keys, rows that attend no key, no
+               mask, D 80; no spill; five broken copies (Delta left out,
+               the log-sum-exp without its sum, dK unscaled, a group's last
+               head dropped, the causal live-tile test with < for <=) must
+               each fail a case.  Granite's forward (flash_attention.cu at
+               2 x 2048, D 64) is timed beside it.
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -104,6 +113,17 @@ Phases, one line each (any failed check exits non-zero):
                and make_decode_step (4 requests, 32 prompt tokens
                teacher-forced, 32 generated greedily, cache 4096: 9
                flash_decode launches and nothing else per step).
+  7b. train — granite-3-2b (40 layers, d_model 2048, 32 / 8 x 64 heads,
+               bf16, random weights) through make_train_step (remat full,
+               2 microbatches, AdamW) on SyntheticLMStream batches of 4 x
+               2048 tokens: a warm-up step, 3 timed steps (finite losses and
+               grad norms; 160 flash_attention and 80 flash_attention_bwd
+               launches a step), one profiled; then the restart drill in a
+               process of its own with deterministic algorithms (2 layers,
+               Adafactor, 6 steps, a checkpoint every 2, a failure at step
+               3: one restart, losses and final state bit-equal to a clean
+               run); then a greedy decode from the trained parameters (40
+               flash_decode launches a step).
   8. guidance — the fused CFG + Euler entry point ops.guidance_update
                (no path of the reference calls it) driven over the 4-step
                schedule on the 480p latent (1, 13, 60, 104, 16), f32 and
@@ -116,10 +136,10 @@ Phases, one line each (any failed check exits non-zero):
                small_lm: a 6-layer full-width Zamba2 in f32 with nonzero
                LoRA, card against CPU on prefill and 8 decode steps, and
                the card's prefill against its own stepped decode.
-Then one JSON line of every kernel (flash_attention.cu's row, on its
-forced case, is marked off every path: no path launches it since the
-decode step moved to flash_decode.cu), the card's name and power limit, and
-the result line.  Detailed numbers go to chiprun_out/chip_smoke.json.
+Then one JSON line of every kernel (flash_attention.cu's row on granite's
+training case: phase train is its one path), the card's name and power
+limit, and the result line.  ``python3 chip_smoke.py --train-drill`` is
+phase train's drill alone, as the phase runs it.  Detailed numbers go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -243,6 +263,39 @@ QB_MUTANTS = {
         "dequant_blend.cu", "__fmul_rn(__fmul_rn(static_cast<float>(code), scale), w)",
         "__fmul_rn(__fmul_rn(static_cast<float>(code), w), scale)"),
 }
+# broken copies of the flash backward: (file, source text, replacement); each
+# must fail the backward check on at least one case
+BWD_MUTANTS = {
+    # dS = P o dP: Delta left out of half the keys of a warp
+    "bwd:no_delta": ("flash_attention_bwd.cu", "pt[nb][j] *= dpt[nb][j] - d;",
+                     "pt[nb][j] *= dpt[nb][j];"),
+    # the log-sum-exp without its sum (the row max alone), rows g of each warp
+    "bwd:lse_without_sum": ("flash_attention_bwd.cu",
+                            "p.lse[row + r0] = l0 > 0.f ? m0 * sl2 + __log2f(l0) : INFINITY;",
+                            "p.lse[row + r0] = l0 > 0.f ? m0 * sl2 : INFINITY;"),
+    "bwd:dk_unscaled": ("flash_attention_bwd.cu",
+                        "__floats2bfloat162_rn(dk[db][0] * p.scale, dk[db][1] * p.scale);",
+                        "__floats2bfloat162_rn(dk[db][0], dk[db][1]);"),
+    # the last query head of each GQA group left out of dK and dV
+    "bwd:group_head_dropped": ("flash_attention_bwd.cu", "const int steps = G * nlive;",
+                               "const int steps = (G - 1) * nlive;"),
+    # a query tile whose only attendable pair is its last query against the
+    # key block's first key dropped (causal_first_key positions catch it)
+    "bwd:live_q_causal_off_by_one": ("flash_attention_bwd.cu",
+                                     "if (causal) live = live && klo <= qhi;",
+                                     "if (causal) live = live && klo < qhi;"),
+}
+# phase train: granite-3-2b at its published widths (hf:ibm-granite/granite-3.0-2b-base:
+# 40 layers, d_model 2048, 32 x 64 query heads, 8 kv heads, d_ff 8192, bf16)
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_B, TRAIN_S = 4, 2048      # a batch of 4 sequences of 2048 tokens, 2 microbatches
+TRAIN_PARALLEL = dict(remat="full", microbatch=2, optimizer="adamw")
+TRAIN_STEPS = 3                 # timed, after one warm-up step
+TRAIN_LR = 3e-4
+# (b) the restart drill: full widths, depth cut to 2 layers (a checkpoint is
+# 0.65 GB, not the full model's 26 GB with AdamW), Adafactor
+DRILL = dict(layers=2, optimizer="adafactor", steps=6, ckpt_every=2, fail_at=(3,), lr=1e-2)
+TRAIN_DECODE = (4, 16, 16, 64)  # (c): requests, prompt tokens, generated, cache slots
 NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
 
 
@@ -465,7 +518,7 @@ def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
                 qt, kt, vt, attn_mask=mask), reps)
         else:
             library_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal), reps)
+                qt, kt, vt, is_causal=causal, enable_gqa=H != KV), reps)
     pairs = (B * Sq * Skv if not (causal or window or pad_kv or lens is not None or edge)
              else attended_pairs(qp, kp_eff, causal, window))
     flops = 4.0 * pairs * H * D
@@ -730,14 +783,17 @@ def ssd_mutants(kept):
 
 def device_ops(fn) -> dict:
     """The device operations of one call of ``fn`` (kernels, memsets) by
-    name, with their counts, from ``torch.profiler``; taken again (3
-    tries) while the profiler records none (it drops records now and then
-    on a shared host, and every ``fn`` here runs at least one kernel)."""
+    name, with their counts, from ``torch.profiler``; taken again (10
+    tries, 0.1 s apart) while the profiler records none (it drops records
+    now and then on a shared host, 3 windows in a row at times, and every
+    ``fn`` here runs at least one kernel)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(10):
+        if attempt:
+            time.sleep(0.1)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -2302,6 +2358,408 @@ def hybrid_ranks(cfg, model, device="cuda", latent=LATENT):
             "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]}, path_counts
 
 
+def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
+    """The least time (ms) the card could take for ``flops`` operations at
+    ``peak`` and ``nbytes`` moved at its memory rate, and which bounds it."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_bwd_work(B, Sq, Skv, H, KV, D, pairs: int, elem: int = 2):
+    """Operations and bytes of one flash backward: 2.5 times the forward's
+    products over the attended pairs (S = Q K^T twice, dP = dO V^T twice,
+    dV, dK and dQ: 10 pairs * H * D); q, out, dout, k and v read once, dq,
+    dk and dv written once, the int32 positions read once."""
+    q, kv = B * Sq * H * D, B * Skv * KV * D
+    return 10.0 * pairs * H * D, (3 * q + 2 * kv) * elem + (q + 2 * kv) * elem \
+        + (B * Sq + B * Skv) * 4
+
+
+def flash_bwd_agrees(grads, inputs, causal, window):
+    """|kernel - plain| of dq, dk and dv against the stated limit
+    (``ref.flash_bwd_bf16_tolerance``) on the same inputs: (max abs err,
+    largest share of the limit, every element within it and finite)."""
+    import torch
+    from repro_torch.kernels import ref
+
+    plain = ref.flash_attention_bwd_ref(*inputs, causal, window)
+    limits = ref.flash_bwd_bf16_tolerance(*inputs, causal, window, plain)
+    torch.cuda.synchronize()
+    errs = [max_err(g, p, l) for g, p, l in zip(grads, plain, limits)]
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            all(e[2] for e in errs) and finite)
+
+
+def flash_bwd_case(name, B, Sq, Skv, H, KV, D, causal=False, window=0, pad_kv=0, edge=None,
+                   reps=5, library=False, seed=0):
+    """One check of ``flash_attention_bwd`` (bf16): the kernel against
+    ``ref.flash_attention_bwd_ref`` on the same inputs (the forward's output
+    from ``flash_attention``, a random output gradient), with kernel, plain,
+    library (autograd of SDPA with GQA, its backward alone) and bound
+    times.  Returns the record and (name, inputs, causal, window) for the
+    mutation checks."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    (q, k, v, qp, kp, _), causal, window = flash_inputs(
+        B, Sq, Skv, H, KV, D, torch.bfloat16, causal, window, pad_kv, False, edge, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    before = ops.launch_counts()
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window)
+    inputs = (q, k, v, out, dout, qp, kp)
+    grads = ops.flash_attention_bwd(*inputs, causal=causal, window=window)
+    check(ops.flash_attention_bwd.launches == before["flash_attention_bwd"] + 1,
+          f"{name}: flash_attention_bwd did not launch")
+    err, share, ok = flash_bwd_agrees(grads, inputs, causal, window)
+    check(ok, f"{name}: the backward kernel disagrees with its plain version (max abs err "
+              f"{err:.3e}, {share:.2f} of the limit)")
+    kernel_ms = time_ms(lambda: ops.flash_attention_bwd(*inputs, causal=causal, window=window),
+                        reps)
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(*inputs, causal, window),
+                       max(1, reps // 5))
+    for n, c in before.items():                # comparison launches do not count
+        ops.WRAPPERS[n].launches = c
+    library_ms = None
+    if library:
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=H != KV)
+        library_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dout.transpose(1, 2),
+                                                         retain_graph=True), reps)
+        del o
+    pairs = attended_pairs(qp, kp, causal, window)
+    b_ms, b_by = bound(*flash_bwd_work(B, Sq, Skv, H, KV, D, pairs))
+    return timed_case({
+        "case": name, "kernel": "flash_attention_bwd", "shape": [B, Sq, Skv, H, KV, D],
+        "dtype": "torch.bfloat16", "causal": causal, "window": window, "edge": edge,
+        "max_abs_err": err, "tol": "ref.flash_bwd_bf16_tolerance",
+        "err_share_of_limit": share, "ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "tflops": flash_bwd_work(B, Sq, Skv, H, KV, D, pairs)[0] / kernel_ms / 1e9,
+    }), (name, inputs, causal, window)
+
+
+def flash_bwd_mutants(kept):
+    """Serve each broken copy of ``flash_attention_bwd.cu`` in place of the
+    kernel and require that the backward check fails on at least one of
+    the ``kept`` cases; returns the cases that caught each."""
+    import torch
+    from repro_torch.kernels import build, ops
+
+    tmp, built = build_mutants("flash_bwd_mutants_", BWD_MUTANTS,
+                               ("flash_common.cuh", "flash_attention_bwd.cu"),
+                               {m: ("flash_attention_bwd",) for m in BWD_MUTANTS})
+    try:
+        before, caught = ops.launch_counts(), {}
+        for m, sos in built.items():
+            caught[m] = []
+            lib = build.load("flash_attention_bwd", sos["flash_attention_bwd"])
+            with build.substituted("flash_attention_bwd", lib):
+                for name, inputs, causal, window in kept:
+                    grads = ops.flash_attention_bwd(*inputs, causal=causal, window=window)
+                    torch.cuda.synchronize()
+                    err, share, ok = flash_bwd_agrees(grads, inputs, causal, window)
+                    if not ok:
+                        caught[m].append(f"{name} ({share:.3g} of the limit)")
+            check(caught[m], f"mutant {m} of flash_attention_bwd.cu passed every check")
+        for n, v in before.items():
+            ops.WRAPPERS[n].launches = v
+        return caught
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def expected_train_launches(num_layers: int, microbatch: int, remat: bool, steps: int) -> dict:
+    """Flash launches of ``steps`` train steps of a dense LM: one forward a
+    layer and microbatch, a second one under remat (the layer recomputed in
+    the backward pass), and one backward."""
+    fwd = num_layers * microbatch * (2 if remat else 1) * steps
+    return {"flash_attention": fwd, "flash_attention_bwd": num_layers * microbatch * steps}
+
+
+def drill_steps(num_steps: int, ckpt_every: int, fail_at) -> int:
+    """Train steps a ``run_training`` run takes: each failure at step f
+    replays from the last checkpoint at or below f (``ckpt_every``
+    cadence), so the steps from there to f - 1 run twice."""
+    ran, start = 0, 0
+    for f in sorted(fail_at):
+        ran += f - start
+        start = f // ckpt_every * ckpt_every
+    return ran + num_steps - start
+
+
+def train_flops(n_matmul: int, tokens: int, pairs: int, layers: int, heads: int,
+                head_dim: int) -> float:
+    """Model operations of one train step: 6 N T for the weight products (N
+    the parameters that multiply: all but the input embedding) and three
+    times the attention's forward products (4 pairs H D a layer) over the
+    attended pairs; remat's recompute is not counted."""
+    return 6.0 * n_matmul * tokens + 3 * 4.0 * pairs * heads * head_dim * layers
+
+
+def _device_split(prof):
+    """Device time (us) of a profiled window by kind: the flash forward and
+    backward kernels, cuBLAS products and the rest."""
+    import torch
+
+    split = {"flash_fwd": 0.0, "flash_bwd": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if any(k in e.key for k in ("bwd_prep", "bwd_dkdv", "bwd_dq")):
+            split["flash_bwd"] += us
+        elif "flash_fwd" in e.key or "live_tiles" in e.key:
+            split["flash_fwd"] += us
+        elif any(k in e.key for k in ("gemm", "nvjet", "xmma", "cutlass")):
+            split["matmul"] += us
+        else:
+            split["other"] += us
+    return split
+
+
+def train_drill() -> int:
+    """Phase train (b), run by ``chip_smoke.py --train-drill`` in a process
+    of its own with ``CUBLAS_WORKSPACE_CONFIG`` set before the first cuBLAS
+    call and deterministic algorithms on: granite-3-2b at its published
+    widths cut to ``DRILL["layers"]`` layers, Adafactor, ``run_training`` for
+    ``DRILL["steps"]`` steps with a checkpoint every ``DRILL["ckpt_every"]``,
+    once clean and once with ``FailureInjector(fail_at=DRILL["fail_at"])``.
+    Prints one ``DRILL {json}`` line: restarts, final step, whether the
+    losses and the final parameters and optimizer state are bit-equal, the
+    launch counts of both runs."""
+    import os
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import models, tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.ft import FailureInjector, run_training
+    from repro_torch.train.loop import make_train_step
+
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8",
+          "the drill needs CUBLAS_WORKSPACE_CONFIG=:4096:8 before its first cuBLAS call")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=DRILL["layers"])
+    model = models.build(cfg, "cuda")
+    step_fn = make_train_step(model, ParallelConfig(**{**TRAIN_PARALLEL,
+                                                       "optimizer": DRILL["optimizer"]}),
+                              peak_lr=DRILL["lr"], total_steps=DRILL["steps"])
+    data = SyntheticLMStream(cfg, batch=TRAIN_B, seq_len=TRAIN_S, device="cuda")
+
+    def init_state():
+        p = model.init(0)
+        return p, step_fn.opt_init(p)
+
+    runs = {}
+    for name, injector in (("clean", None), ("faulty", FailureInjector(fail_at=DRILL["fail_at"]))):
+        last = {}
+
+        def step(params, opt_state, batch, s):
+            out = step_fn(params, opt_state, batch, s)
+            last["state"] = out[:2]
+            return out
+
+        ckpt_dir = tempfile.mkdtemp(prefix=f"train_drill_{name}_")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rep = run_training(step, init_state, data.batch_at, DRILL["steps"], ckpt_dir,
+                               ckpt_every=DRILL["ckpt_every"], injector=injector)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.synchronize()
+        runs[name] = (rep, tree.flatten(last["state"])[0], ops.launch_counts(),
+                      time.perf_counter() - t0)
+    (clean, cl, cc, cs), (faulty, fl, fc, fs) = runs["clean"], runs["faulty"]
+    out = {"restarts": faulty.restarts, "final_step": faulty.final_step,
+           "clean_final_step": clean.final_step,
+           "losses_bit_equal": clean.losses == faulty.losses,
+           "state_bit_equal": len(cl) == len(fl) and all(torch.equal(a, b)
+                                                         for a, b in zip(cl, fl)),
+           "leaves": len(cl), "losses": {str(k): v for k, v in sorted(faulty.losses.items())},
+           "launches": {"clean": cc, "faulty": fc}, "clean_s": cs, "faulty_s": fs,
+           "deterministic": torch.are_deterministic_algorithms_enabled()}
+    print("DRILL " + json.dumps(out), flush=True)
+    return 0
+
+
+def train_phase():
+    """Phase train: granite-3-2b at its published widths and depth in bf16
+    (random weights from seed 0) through ``make_train_step`` with
+    ``ParallelConfig(**TRAIN_PARALLEL)`` on ``SyntheticLMStream`` batches of
+    ``TRAIN_B`` x ``TRAIN_S`` tokens: (a) one warm-up step, then
+    ``TRAIN_STEPS`` timed steps whose losses and gradient norms must be
+    finite and whose flash launches must be ``expected_train_launches``,
+    one more step profiled for the device split; (b) the restart drill in a
+    process of its own (``train_drill``); (c) a greedy decode from (a)'s
+    parameters through the dense ``decode_step`` (``flash_decode`` 40
+    times a step and nothing else).  Returns the record and the launch
+    counts of (a), (b) and (c), each set to 0 just before it and read just
+    after."""
+    import os
+    import torch
+    from repro_torch import models, tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    parallel = ParallelConfig(**TRAIN_PARALLEL)
+    check(ops.flash_kernel(torch.bfloat16, cfg.head_dim, TRAIN_S) == "flash_attention",
+          "granite's training attention is not on flash_attention.cu")
+    t0 = time.perf_counter()
+    model = models.build(cfg, "cuda")
+    params = model.init(0)
+    step_fn = make_train_step(model, parallel, peak_lr=TRAIN_LR, total_steps=100)
+    opt_state = step_fn.opt_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves, paths = tree.flatten(params)
+    n_params = sum(p.numel() for p in leaves)
+    n_matmul = n_params - params["embed"]["emb"].numel()
+    data = SyntheticLMStream(cfg, batch=TRAIN_B, seq_len=TRAIN_S, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state, m = step_fn(params, opt_state, data.batch_at(0), 0)    # warm-up
+    warm_loss = float(m["loss"])
+    warmup_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    walls, losses, gnorms = [], [], []
+    for s in range(1, TRAIN_STEPS + 1):
+        batch = data.batch_at(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch, s)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    want = expected_train_launches(cfg.num_layers, parallel.microbatch,
+                                   parallel.remat != "none", TRAIN_STEPS)
+    check(counts == {**{k: 0 for k in counts}, **want},
+          f"train launches {counts}, expected {want} and no other kernel")
+    check(all(math.isfinite(x) for x in losses + gnorms + [warm_loss]),
+          f"train: losses {losses} or grad norms {gnorms} not finite")
+    check(all(bool(torch.isfinite(p.float()).all()) for p in tree.flatten(params)[0]),
+          "train: parameters not finite after the steps")
+    # one more step, profiled: where the device time goes, and the busy share
+    batch = data.batch_at(TRAIN_STEPS + 1)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch, TRAIN_STEPS + 1)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    split = _device_split(prof)
+    device_s = sum(split.values()) / 1e6
+    check(device_s > 0, "the traced train step shows no device time")
+    wall = sorted(walls)[len(walls) // 2]
+    tokens = TRAIN_B * TRAIN_S
+    pairs = TRAIN_B * TRAIN_S * (TRAIN_S + 1) // 2                 # causal, per layer
+    flops = train_flops(n_matmul, tokens, pairs, cfg.num_layers, cfg.num_heads, cfg.head_dim)
+    rec = {"arch": cfg.name, "params": n_params, "params_matmul": n_matmul,
+           "batch": [TRAIN_B, TRAIN_S], "parallel": TRAIN_PARALLEL, "lr": TRAIN_LR,
+           "init_s": init_s, "warmup_step_s": warmup_s, "step_s": walls,
+           "step_s_median": wall, "tokens_per_s": tokens / wall, "model_flops": flops,
+           "share_of_bf16_peak": flops / wall / H100_BF16_FLOPS, "peak_gb": peak_gb,
+           "losses": [warm_loss] + losses, "grad_norms": gnorms, "launches": counts,
+           "traced_s": traced_s, "device_s": device_s, "device_busy": device_s / traced_s,
+           "device_split_s": {k: v / 1e6 for k, v in split.items()}}
+    print(f"phase=train run=full_width arch={cfg.name} layers={cfg.num_layers} "
+          f"params={n_params} batch={TRAIN_B}x{TRAIN_S} {TRAIN_PARALLEL} init_s={init_s:.1f} "
+          f"warmup_step_s={warmup_s:.3f} step_s={[round(w, 4) for w in walls]} "
+          f"tokens_per_s={tokens / wall:.0f} share_of_bf16_peak="
+          f"{rec['share_of_bf16_peak']:.4f} peak_mem_gb={peak_gb:.2f} "
+          f"losses={[round(x, 4) for x in rec['losses']]} grad_norms="
+          f"{[round(x, 4) for x in gnorms]} launches={want}", flush=True)
+    print(f"phase=train traced_step_s={traced_s:.3f} device_s={device_s:.3f} "
+          f"device_busy={device_s / traced_s:.3f} device_share: "
+          + " ".join(f"{k}={v / 1e6 / device_s:.3f}" for k, v in split.items()), flush=True)
+    del opt_state, m, batch
+    torch.cuda.empty_cache()
+
+    # (b) the restart drill, deterministic, in a process of its own
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-drill"],
+                          capture_output=True, text=True, timeout=900,
+                          env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("DRILL ")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the train drill failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    drill = json.loads(lines[0][len("DRILL "):])
+    ran = drill_steps(DRILL["steps"], DRILL["ckpt_every"], DRILL["fail_at"])
+    drill_want = {"clean": expected_train_launches(DRILL["layers"], parallel.microbatch, True,
+                                                   DRILL["steps"]),
+                  "faulty": expected_train_launches(DRILL["layers"], parallel.microbatch,
+                                                    True, ran)}
+    for run_name, want_run in drill_want.items():
+        got = drill["launches"][run_name]
+        check(got == {**{k: 0 for k in got}, **want_run},
+              f"drill {run_name} launches {got}, expected {want_run}")
+    check(drill["restarts"] == 1 and drill["final_step"] == DRILL["steps"]
+          and drill["losses_bit_equal"] and drill["state_bit_equal"]
+          and drill["deterministic"],
+          f"train drill: {drill}")
+    rec["drill"] = {**drill, "steps_run_faulty": ran, **{k: DRILL[k] for k in DRILL}}
+    print(f"phase=train run=drill layers={DRILL['layers']} optimizer={DRILL['optimizer']} "
+          f"steps={DRILL['steps']} ckpt_every={DRILL['ckpt_every']} fail_at={DRILL['fail_at']} "
+          f"restarts={drill['restarts']} final_step={drill['final_step']} losses_bit_equal="
+          f"{drill['losses_bit_equal']} state_bit_equal={drill['state_bit_equal']} "
+          f"({drill['leaves']} leaves) clean_s={drill['clean_s']:.1f} faulty_s="
+          f"{drill['faulty_s']:.1f} launches={drill['launches']['faulty']}", flush=True)
+
+    # (c) a greedy decode from the trained parameters
+    n_req, prompt, gen, max_len = TRAIN_DECODE
+    dec_flash = ops.flash_kernel(torch.bfloat16, cfg.head_dim, 1)
+    check(dec_flash == "flash_decode", f"the dense decode step's flash is {dec_flash}")
+    cache = model.init_cache(n_req, max_len)
+    prompts = data.batch_at(10_000)["tokens"][:n_req, :prompt]
+    ops.reset_launch_counts()
+    tok, generated, step_s = prompts[:, :1], [], []
+    for t in range(prompt + gen - 1):
+        pos = torch.full((n_req,), t, dtype=torch.int32, device="cuda")
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode(params, tok, cache, pos)
+        nxt = lg[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == {**{k: 0 for k in got}, dec_flash: cfg.num_layers},
+              f"decode step {t}: launches {got}, expected {cfg.num_layers} {dec_flash}")
+        check(bool(torch.isfinite(lg).all()), f"decode step {t}: logits not finite")
+        tok = prompts[:, t + 1:t + 2] if t + 1 < prompt else nxt
+        if t + 1 >= prompt:
+            generated.append(nxt)
+    decode_counts = ops.launch_counts()
+    rec["decode"] = {"requests": n_req, "prompt": prompt, "generated": gen, "max_len": max_len,
+                     "step_s": step_s, "tokens": torch.cat(generated, 1).tolist(),
+                     "launches": decode_counts}
+    print(f"phase=train run=decode requests={n_req} prompt={prompt} generated={gen} "
+          f"max_len={max_len} step_ms_median={1e3 * sorted(step_s)[len(step_s) // 2]:.2f} "
+          f"{dec_flash}_per_step={cfg.num_layers} first_tokens={rec['decode']['tokens'][0][:8]}",
+          flush=True)
+    del params, cache, model
+    torch.cuda.empty_cache()
+    drill_counts = {k: v + drill["launches"]["clean"][k]
+                    for k, v in drill["launches"]["faulty"].items()}
+    return rec, counts, drill_counts, decode_counts
+
+
 def psnr_db(a, b) -> float:
     a, b = a.double().cpu(), b.double().cpu()
     mse = float(((a - b) ** 2).mean())
@@ -2607,7 +3065,8 @@ def run() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.split('ptxas info    :')[-1].strip()}")
-    for name in ("int8_quantize", "latent_blend", "dequant_blend"):   # no local memory
+    for name in ("int8_quantize", "latent_blend", "dequant_blend",     # no local memory
+                 "flash_attention_bwd"):
         spills = [l for l in reports[name].splitlines() if "spill" in l]
         check(spills and all(NO_SPILL in l for l in spills), f"{name} spills: {spills}")
 
@@ -2715,6 +3174,10 @@ def run() -> int:
          dict(library=True, reps=20, short=True)),
         (("flash_lm_decode_fullcache_bf16_mma", DECODE_B, 1, MAX_LEN, lH, lH, lD,
           torch.bfloat16), dict(reps=20, short=True, kernel="flash_attention")),
+        # granite's training attention (a microbatch of 2 x 2048, 32 / 8 x 64,
+        # causal): flash_attention.cu's mma.sync kernel, on phase train
+        (("flash_train_granite_causal_bf16", TRAIN_B // TRAIN_PARALLEL["microbatch"], TRAIN_S,
+          TRAIN_S, 32, 8, 64, torch.bfloat16), dict(causal=True, library=True, reps=5)),
         # flash_decode through the masked path with GQA: several splits, rows
         # in passes of 16 (8 queries x 4 heads) and a part pass (3 x 2)
         (("flash_masked_gqa_bf16_d80_decode", 2, 8, 333, 16, 4, 80, torch.bfloat16),
@@ -2728,6 +3191,24 @@ def run() -> int:
         flash.append(rec)
         flash_kept.append(kept)
     guidance = [guidance_case(torch.float32), guidance_case(torch.bfloat16)]
+    # the backward kernel: granite's layer (a microbatch, causal), a window,
+    # an odd length with padded keys, positions where queries attend no key
+    # and tiles hold one attendable pair, no mask, and D 80 with every mask
+    gB = TRAIN_B // TRAIN_PARALLEL["microbatch"]
+    bwd, bwd_kept = [], []
+    for a, kw in ((("flash_bwd_granite_causal", gB, TRAIN_S, TRAIN_S, 32, 8, 64),
+                   dict(causal=True, library=True)),
+                  (("flash_bwd_window", gB, 1024, 1024, 32, 8, 64), dict(causal=True, window=256)),
+                  (("flash_bwd_odd_padded", gB, 777, 777, 32, 8, 64),
+                   dict(causal=True, pad_kv=37)),
+                  (("flash_bwd_edge_causal_first_key", 2, 300, 333, 4, 2, 64),
+                   dict(edge="causal_first_key", seed=5)),
+                  (("flash_bwd_unmasked_gqa_ragged", 2, 130, 190, 8, 2, 64), dict(pad_kv=9)),
+                  (("flash_bwd_masked_gqa_d80", 2, 300, 333, 8, 2, 80),
+                   dict(causal=True, window=96, pad_kv=5))):
+        rec, kept = flash_bwd_case(*a, **kw)
+        bwd.append(rec)
+        bwd_kept.append(kept)
     # the Mamba2 scan at Zamba2's prefill (d_inner 5120 = 80 heads x 64,
     # state 64, chunk 64), there with steep decays that reach the clip, a
     # ragged length, a short 16/16 shape, steep decays on a short prompt,
@@ -2747,8 +3228,8 @@ def run() -> int:
         rec, kept = ssd_case(*args)
         ssd.append(rec)
         ssd_kept.append(kept)
-    record["kernels"] = flash + blend + quant + dequant + ssd + guidance
-    for c in flash + blend + quant + dequant + ssd + guidance:
+    record["kernels"] = flash + bwd + blend + quant + dequant + ssd + guidance
+    for c in flash + bwd + blend + quant + dequant + ssd + guidance:
         lib = num(c["library_ms"])
         earlier = f" earlier_ms={c['earlier_ms']}" if c.get("earlier_ms") else ""
         if "events_ms" in c and c["events_ms"] != c["ms"]:
@@ -2769,7 +3250,8 @@ def run() -> int:
     caught = {f"mamba_ssd:{m}": v for m, v in ssd_caught.items()}
     caught.update({f"flash:{m}": v for m, v in flash_mutants(flash_kept).items()})
     caught.update(quant_blend_mutants(quant_kept, blend_kept, dequant_kept))
-    del ssd_kept, flash_kept, quant_kept, blend_kept, dequant_kept
+    caught.update({f"flash_attention_bwd:{m}": v for m, v in flash_bwd_mutants(bwd_kept).items()})
+    del ssd_kept, flash_kept, quant_kept, blend_kept, dequant_kept, bwd_kept
     record["mutants"] = caught
     for m, cases in caught.items():
         print(f"phase=kernels mutant={m} caught_by={'; '.join(cases)}", flush=True)
@@ -3009,6 +3491,12 @@ def run() -> int:
     lm_record, lm_prefill_counts, lm_decode_counts = lm_serve(lm_cfg)
     record["lm_serve"] = lm_record
 
+    # ------------------------------------------------------------- 7b. train
+    t_train = time.perf_counter()
+    record["train"], train_counts, drill_counts, train_decode_counts = train_phase()
+    record["train"]["phase_s"] = time.perf_counter() - t_train
+    print(f"phase=train phase_s={record['train']['phase_s']:.1f}", flush=True)
+
     # ---------------------------------------------------------- 8. guidance
     record["guidance"], guidance_counts = guidance_path()
 
@@ -3082,7 +3570,9 @@ def run() -> int:
           and named["flash_lm_decode_bf16"]["kernel"] == "flash_decode",
           "the D-80 prefill and decode cases ran other kernels than lm_serve's")
     path_counts = {"serve": main_counts, "lm_serve:prefill": lm_prefill_counts,
-                   "lm_serve:decode": lm_decode_counts, "coded_stitch": stitch_counts,
+                   "lm_serve:decode": lm_decode_counts, "train": train_counts,
+                   "train:drill": drill_counts, "train:decode": train_decode_counts,
+                   "coded_stitch": stitch_counts,
                    "guidance": guidance_counts, "serve_policy": policy_counts,
                    **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts,
                    **fleet_counts}
@@ -3101,10 +3591,15 @@ def run() -> int:
                    source="flash_attention_sm90"),
         kernel_row("flash_decode", "src/repro/kernels/flash_attention.py:101",
                    named["flash_lm_decode_bf16"],
-                   {"lm_serve:decode": lm_decode_counts["flash_decode"]}),
+                   {"lm_serve:decode": lm_decode_counts["flash_decode"],
+                    "train:decode": train_decode_counts["flash_decode"]}),
         kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
-                   named["flash_lm_prefill_causal_bf16_mma"],
-                   {k: n["flash_attention"] for k, n in path_counts.items()}, on_path=False),
+                   named["flash_train_granite_causal_bf16"],
+                   {k: n["flash_attention"] for k, n in path_counts.items()}),
+        {**kernel_row("flash_attention_bwd", "src/repro/models/attention.py:81", bwd[0],
+                      {k: n["flash_attention_bwd"] for k, n in path_counts.items()}),
+         "note": "no Pallas kernel: the reference trains through XLA's gradient of "
+                 "attention_chunked"},
         kernel_row("latent_blend", "src/repro/kernels/latent_blend.py:63", blend[0],
                    {"serve": main_counts["latent_blend"],
                     **{k: n["latent_blend"] for k, n in fleet_counts.items()}}),
@@ -3134,6 +3629,8 @@ def run() -> int:
 
 def main() -> int:
     try:
+        if sys.argv[1:] == ["--train-drill"]:      # phase train (b), in its own process
+            return train_drill()
         return run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

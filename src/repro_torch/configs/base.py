@@ -3,8 +3,8 @@
 The port keeps its own copy so that it runs without the JAX package;
 ``tests/test_torch_geometry.py`` and ``tests/test_torch_lm.py`` hold the
 two copies equal.  Kept: ``ArchConfig`` with ``reduced()`` and
-``padded_vocab_size``, ``ShapeConfig``, ``LM_SHAPES`` and ``VDM_SHAPES``
-(not the mesh-mapping ``ParallelConfig``).
+``padded_vocab_size``, ``ShapeConfig``, ``LM_SHAPES``, ``VDM_SHAPES`` and
+the train step's three fields of ``ParallelConfig``.
 """
 from __future__ import annotations
 
@@ -164,3 +164,13 @@ VDM_SHAPES = {
     "vdm_5s": ShapeConfig("vdm_5s", "vdm_generate", num_frames=81, global_batch=1),
     "vdm_10s": ShapeConfig("vdm_10s", "vdm_generate", num_frames=161, global_batch=1),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The train step's settings: the reference's ``ParallelConfig``
+    without its mesh axes, which name nothing on one device."""
+
+    remat: str = "none"                          # none | full | dots
+    microbatch: int = 1                          # gradient-accumulation steps
+    optimizer: str = "adamw"                     # adamw | adafactor

@@ -21,8 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode", "latent_blend",
-           "int8_quantize", "dequant_blend", "mamba_ssd", "guidance_update")
+KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode", "flash_attention_bwd",
+           "latent_blend", "int8_quantize", "dequant_blend", "mamba_ssd", "guidance_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -59,6 +59,13 @@ _SIGNATURES = {
         # D -> resident blocks an SM
         "flash_decode_blocks_per_sm": ([_I], _I),
         "flash_decode_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention_bwd": {
+        # q, k, v, out, dout, q_pos, kv_pos, lse and delta workspaces, dq, dk, dv,
+        # B, Sq, Skv, H, KV, D, q_pos batch stride, kv_pos batch stride, causal,
+        # window, dtype (1 bf16), stream
+        "flash_attention_bwd": ([_P] * 12 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P], _I),
+        "flash_attention_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "latent_blend": {
         # preds, weights, normalizer, out, starts (host int[K]), K, W, E, F,

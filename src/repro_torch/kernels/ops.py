@@ -4,6 +4,12 @@ Each wrapper takes its plain version (``kernels/ref.py``) for CPU
 tensors only.  A CUDA tensor launches the kernel or raises: there is no
 fallback.  ``<wrapper>.launches`` counts kernel launches, so a run can
 show that the main path went through the kernels.
+
+No wrapper takes part in autograd: under grad mode, an input that
+requires grad is refused before anything runs (a kernel's output would
+reach autograd as a constant).  ``FlashAttention`` is the one route that
+differentiates: its forward launches ``flash_attention`` and its backward
+``flash_attention_bwd``.
 """
 from __future__ import annotations
 
@@ -37,6 +43,15 @@ def _require_aligned(tensors: Dict[str, torch.Tensor], align: int = 16) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % align:
             raise ValueError(f"{name} must start on a {align}-byte boundary")
+
+
+def _refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and one of ``tensors`` requires grad."""
+    if torch.is_grad_enabled() and any(getattr(t, "requires_grad", False) for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and this kernel has no backward: its output "
+            "would reach autograd as a constant.  Call it under torch.no_grad(), or, for "
+            "attention, through ops.flash_attention_autograd")
 
 
 def _stream(device: torch.device) -> int:
@@ -138,7 +153,7 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
 
     CUDA: ``flash_kernel(dtype, D, Sq)`` names the kernel, or ``kernel``
     (one of ``FLASH_KERNELS``) forces one; it raises on a dtype and head
-    dim it is not built for.  ``csrc/flash_attention_sm90.cu`` (``wgmma``
+    dim it is not built for.  No gradient: see ``flash_attention_autograd``.  ``csrc/flash_attention_sm90.cu`` (``wgmma``
     + TMA) takes bf16 at D 80 and 128 and any key count: its live-tile
     lists go to a global buffer allocated here.  ``csrc/flash_attention.cu``
     takes bf16 at D 64 and 80 (``mma.sync``) and f32 at D 64, 80 and 128
@@ -149,6 +164,7 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     row, kv head) through ticket counters kept per device and stream; it
     masks ``kv_len`` itself.
     """
+    _refuse_grad("flash_attention", q, k, v)
     if kernel is not None:
         takes = _FLASH_TAKES.get(kernel)
         if takes is None:
@@ -289,6 +305,111 @@ def flash_live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
     return lists
 
 
+# The backward kernel (csrc/flash_attention_bwd.cu): bf16 at the head dims of
+# flash_attention.cu's mma.sync kernel.
+_BWD_TAKES = {torch.bfloat16: (64, 80)}
+
+
+def flash_attention_bwd(q, k, v, out, dout, q_positions, kv_positions, *,
+                        causal: bool = True, window: int = 0):
+    """Gradients ``(dq, dk, dv)`` of ``flash_attention`` at ``(q, k, v)``
+    for the output gradient ``dout``; ``out`` is the forward's output there.
+    Shapes and masks as ``flash_attention`` (int32-max marks a padded key;
+    fold a ``kv_len`` into the positions first).  A query row that attends
+    no key gets zero gradients; with GQA dk and dv sum over the heads of a
+    group.  Results in the dtypes of q, k and v.
+
+    CUDA: ``csrc/flash_attention_bwd.cu``, bf16 at head dims 64 and 80
+    (raises on the rest), deterministic: three launches (each row's
+    log-sum-exp and ``Delta = rowsum(dout o out)`` into f32 workspaces
+    allocated here, then dk and dv per key tile, then dq per query tile),
+    counted as one.
+    """
+    _refuse_grad("flash_attention_bwd", q, k, v, out, dout)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, q_positions, kv_positions,
+                                           causal, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, KV, D) or v.shape != k.shape or out.shape != q.shape \
+            or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)} do not match")
+    if H % KV:
+        raise ValueError(f"flash_attention_bwd: {H} heads not divisible by {KV} kv heads")
+    if any(t.dtype != q.dtype for t in (k, v, out, dout)):
+        raise TypeError("flash_attention_bwd: q, k, v, out and dout must share one dtype")
+    if D not in _BWD_TAKES.get(q.dtype, ()):
+        raise ValueError(f"flash_attention_bwd: no kernel for {q.dtype} at head dim {D} "
+                         f"(takes {_BWD_TAKES})")
+    if q_positions.shape != (B, Sq) or kv_positions.shape != (B, Skv):
+        raise ValueError("flash_attention_bwd: positions must be (B, Sq) and (B, Skv)")
+    qp = q_positions.to(torch.int32)
+    kp = kv_positions.to(torch.int32)
+    if qp.stride(1) != 1:
+        qp = qp.contiguous()
+    if kp.stride(1) != 1:
+        kp = kp.contiguous()
+    _require_device({"k": k, "v": v, "out": out, "dout": dout, "q_positions": qp,
+                     "kv_positions": kp}, q.device)
+    _require_aligned({"q": q, "k": k, "v": v, "out": out, "dout": dout})
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    rc = build.library("flash_attention_bwd").flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0), kp.stride(0),
+        int(bool(causal)), int(window), _DTYPE_CODES[q.dtype], _stream(q.device),
+    )
+    build.check("flash_attention_bwd", rc)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: the forward on ``flash_attention``
+    (the kernel ``flash_kernel`` names), the backward on
+    ``flash_attention_bwd``.  It saves q, k, v, the output and the
+    positions; under activation checkpointing the forward runs (and
+    launches) again in the backward pass and saves them anew."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window):
+        out = flash_attention(q, k, v, q_positions, kv_positions, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, q_positions, kv_positions)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, qp, kp = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), qp, kp,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_autograd(q, k, v, q_positions, kv_positions, *, causal: bool = True,
+                             window: int = 0, kv_len=None) -> torch.Tensor:
+    """``flash_attention`` that autograd differentiates (``FlashAttention``);
+    ``kv_len`` is folded into the key positions.  On CUDA it raises before
+    any launch for a dtype and head dim the backward kernel does not take."""
+    if kv_len is not None:
+        kv_positions = torch.where(kv_positions < kv_len[:, None], kv_positions, INT32_MAX)
+    if q.device.type == "cuda" and q.shape[-1] not in _BWD_TAKES.get(q.dtype, ()):
+        raise ValueError(f"flash_attention_autograd: no backward kernel for {q.dtype} at "
+                         f"head dim {q.shape[-1]} (takes {_BWD_TAKES})")
+    return FlashAttention.apply(q, k, v, q_positions, kv_positions, causal, window)
+
+
 def latent_blend(preds: torch.Tensor, weights: torch.Tensor,
                  normalizer: torch.Tensor, starts: Sequence[int],
                  window: int, extent: int) -> torch.Tensor:
@@ -300,6 +421,7 @@ def latent_blend(preds: torch.Tensor, weights: torch.Tensor,
     CUDA: ``csrc/latent_blend.cu``, f32 preds (the serving path's type);
     16-byte loads where F % 4 == 0, 4-byte loads otherwise.
     """
+    _refuse_grad("latent_blend", preds, weights, normalizer)
     if preds.device.type == "cpu":
         return ref.latent_blend_ref(preds, weights, normalizer, starts,
                                     window, extent)
@@ -348,6 +470,7 @@ def int8_quantize(x: torch.Tensor, qmax: int = 127):
     an SM: a slab's blocks exchange their maxes through a scratch word
     each, allocated here, across a grid barrier.
     """
+    _refuse_grad("int8_quantize", x)
     if x.device.type == "cpu":
         return ref.int8_quantize_ref(x, qmax)
     if x.device.type != "cuda":
@@ -391,6 +514,7 @@ def dequant_blend(wire: torch.Tensor, scales: torch.Tensor, weights: torch.Tenso
     the runs fill the card once (the 480p latent), 4 where F % 4 == 0 (the
     smoke's latent), else 1.
     """
+    _refuse_grad("dequant_blend", scales, weights, normalizer)
     if wire.device.type == "cpu":
         return ref.dequant_blend_ref(wire, scales, weights, normalizer, starts,
                                      window, extent, out_dtype)
@@ -453,6 +577,7 @@ def mamba_ssd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
     chunks' Gram matrices and per-head decay scalars, written by the
     kernel's pre-pass, is allocated here.
     """
+    _refuse_grad("mamba_ssd", x, log_decay, scale, B, C)
     if x.device.type == "cpu":
         return ref.mamba_ssd_plain(x, log_decay, scale, B, C, chunk)
     if x.device.type != "cuda":
@@ -505,6 +630,7 @@ def guidance_update(z: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor,
 
     CUDA: ``csrc/guidance_update.cu``, contiguous inputs.
     """
+    _refuse_grad("guidance_update", z, cond, uncond)
     if cond.shape != z.shape or uncond.shape != z.shape:
         raise ValueError(f"guidance_update: z {tuple(z.shape)}, cond {tuple(cond.shape)} "
                          f"and uncond {tuple(uncond.shape)} must share one shape")
@@ -533,7 +659,8 @@ def guidance_update(z: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor,
 guidance_update.launches = 0
 
 WRAPPERS = {"flash_attention": flash_attention, "flash_attention_sm90": flash_attention_sm90,
-            "flash_decode": flash_decode, "latent_blend": latent_blend,
+            "flash_decode": flash_decode, "flash_attention_bwd": flash_attention_bwd,
+            "latent_blend": latent_blend,
             "int8_quantize": int8_quantize, "dequant_blend": dequant_blend,
             "mamba_ssd": mamba_ssd, "guidance_update": guidance_update}
 

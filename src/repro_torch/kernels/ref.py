@@ -110,6 +110,96 @@ def flash_bf16_tolerance(q, k, v, q_positions, kv_positions, causal: bool,
     return 1.01 * (2.0 ** -8 * mean_abs_v + 2.0 ** -7 * plain.float().abs()) + 1e-6
 
 
+def _softmax_grad_rows(q, k, v, out, dout, ok, b: int, G: int):
+    """Batch row ``b`` of the flash function's softmax gradient, f32, each
+    ``(H, Sq, Skv)``: ``P`` (the forward's probabilities, zero on masked
+    pairs and on rows with no attendable key), ``dP = dO V^T``, ``Delta =
+    rowsum(dO o O)`` ``(H, Sq, 1)`` and ``dS = P o (dP - Delta)``; plus the
+    head-major f32 ``q``, ``k``, ``dO`` (k repeated over the G heads of
+    its group)."""
+    D = q.shape[-1]
+    qb = q[b].float().transpose(0, 1)                          # (H, Sq, D)
+    kb = k[b].float().transpose(0, 1).repeat_interleave(G, 0)  # (H, Skv, D)
+    vb = v[b].float().transpose(0, 1).repeat_interleave(G, 0)
+    dob = dout[b].float().transpose(0, 1)
+    s = torch.where(ok[b][None], torch.matmul(qb, kb.transpose(1, 2)) / math.sqrt(D), NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * ok[b][None]
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
+    dp = torch.matmul(dob, vb.transpose(1, 2))
+    delta = (dob * out[b].float().transpose(0, 1)).sum(-1, keepdim=True)
+    return p, dp, delta, p * (dp - delta), qb, kb, dob
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, q_positions, kv_positions,
+                            causal: bool = True, window: int = 0):
+    """Gradients ``(dq, dk, dv)`` of ``flash_attention_ref`` for the output
+    gradient ``dout``, by the softmax-gradient algebra (not autograd), so
+    that the backward kernel has an independent check: with ``P`` the
+    forward's probabilities (masks as ``attention_mask``: int32-max marks a
+    padded key; a row with no attendable key has ``P = 0`` and gets zero
+    gradients), ``Delta_i = sum_d dO_id O_id`` from the given forward output
+    ``out``, ``dP = dO V^T`` and ``dS = P o (dP - Delta)``:
+    ``dQ = dS K / sqrt(D)``, ``dK = dS^T Q / sqrt(D)``, ``dV = P^T dO``;
+    with GQA, dK and dV sum over the G query heads of a group.  f32 inside,
+    results in the dtypes of q, k and v; one batch row at a time."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    ok = attention_mask(q_positions, kv_positions, causal, window)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for b in range(B):
+        p, _, _, ds, qb, kb, dob = _softmax_grad_rows(q, k, v, out, dout, ok, b, G)
+        dq[b] = (torch.matmul(ds, kb) * scale).transpose(0, 1).to(q.dtype)
+        dkh = torch.matmul(ds.transpose(1, 2), qb) * scale               # (H, Skv, D)
+        dvh = torch.matmul(p.transpose(1, 2), dob)
+        dk[b] = dkh.view(KV, G, Skv, D).sum(1).transpose(0, 1).to(k.dtype)
+        dv[b] = dvh.view(KV, G, Skv, D).sum(1).transpose(0, 1).to(v.dtype)
+    return dq, dk, dv
+
+
+def flash_bwd_bf16_tolerance(q, k, v, out, dout, q_positions, kv_positions, causal: bool,
+                             window: int, plain):
+    """Per-element limits ``(dq, dk, dv)`` on ``|bf16 kernel - plain|`` for
+    the backward of the same inputs (``plain``: ``flash_attention_bwd_ref``'s
+    three results).
+
+    Derived as ``flash_bf16_tolerance`` derives the forward's.  The kernel
+    multiplies bf16 inputs on the tensor cores with f32 sums and rounds two
+    operands to bf16 on the way: ``P`` for ``dV = P^T dO`` and ``dS`` for
+    ``dQ = dS K`` and ``dK = dS^T Q`` (relative error <= 2^-8 each).  Its f32
+    sums of n terms add at most ``n 2^-24`` of their absolute sum (n the keys
+    for dQ, the G x queries for dK and dV), and its ``dS`` carries the f32
+    error of ``dP`` and ``Delta`` (D-term sums, <= 2^-16 of ``|dO| |V|^T``
+    and of ``rowsum |dO o O|``, which also covers ``P``'s recomputed
+    log-sum-exp).  Both results are rounded to bf16 (<= 2^-8 each).  Hence
+    ``|dQ - plain| <= (2^-8 + Skv 2^-24) sqrt(D)^-1 |dS|' |K| + 2^-7 |plain|``,
+    ``|dK - plain| <= (2^-8 + G Sq 2^-24) sqrt(D)^-1 |dS|'^T |Q| + ...`` and
+    ``|dV - plain| <= (2^-8 + G Sq 2^-24) P^T |dO| + ...``, with ``|dS|' =
+    |dS| + 2^-16 P o (|dO| |V|^T + rowsum |dO o O|)``; the factor 1.01 and
+    1e-6 cover the f32 arithmetic of the plain version.
+    """
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    ok = attention_mask(q_positions, kv_positions, causal, window)
+    lim = [torch.empty(t.shape, dtype=torch.float32, device=t.device) for t in (q, k, v)]
+    f_q, f_kv = 2.0 ** -8 + Skv * 2.0 ** -24, 2.0 ** -8 + G * Sq * 2.0 ** -24
+    for b in range(B):
+        p, _, _, ds, qb, kb, dob = _softmax_grad_rows(q, k, v, out, dout, ok, b, G)
+        vb = v[b].float().abs().transpose(0, 1).repeat_interleave(G, 0)
+        dob_abs = dob.abs()
+        dob_o = (dob_abs * out[b].float().abs().transpose(0, 1)).sum(-1, keepdim=True)
+        ds = ds.abs() + 2.0 ** -16 * p * (torch.matmul(dob_abs, vb.transpose(1, 2)) + dob_o)
+        lim[0][b] = (f_q * scale * torch.matmul(ds, kb.abs())).transpose(0, 1)
+        dkh = f_kv * scale * torch.matmul(ds.transpose(1, 2), qb.abs())
+        dvh = f_kv * torch.matmul(p.transpose(1, 2), dob_abs)
+        lim[1][b] = dkh.view(KV, G, Skv, D).sum(1).transpose(0, 1)
+        lim[2][b] = dvh.view(KV, G, Skv, D).sum(1).transpose(0, 1)
+    return tuple(1.01 * (l + 2.0 ** -7 * g.float().abs()) + 1e-6 for l, g in zip(lim, plain))
+
+
 def live_tiles_plain(q_pos: torch.Tensor, kv_pos: torch.Tensor, BM: int, BN: int,
                      causal: bool, window: int) -> torch.Tensor:
     """The key tiles a flash kernel visits, in the layout of the wgmma

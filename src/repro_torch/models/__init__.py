@@ -1,4 +1,4 @@
-"""Models of the port: the video DiT and the hybrid LM.
+"""Models of the port: the video DiT and the dense and hybrid LMs.
 
 ``build(cfg, device=None)`` returns a ``Model`` with the reference's API
 (``repro/models/__init__.py``), bound to one device (``None`` means
@@ -7,12 +7,15 @@
   init(key)                          -> params   (key: an int seed or a
                                                   torch.Generator on the device)
   forward(params, batch, **kw)       -> (hidden or noise-pred, aux)
+  loss(params, batch, remat, kv_chunk) -> scalar NLL + 0.01 aux (LM)
   init_cache(batch, max_len)         -> decode cache (LM)
   decode(params, token, cache, pos)  -> (logits, cache) (LM)
 
-Families: ``hybrid`` (``transformer``, Zamba2) and ``vdm`` (``dit``,
-whose params are the ``DiT`` module).  Training losses and the other LM
-families are not ported (ROADMAP Queue 1 item 12).
+Families: ``dense`` (granite) and ``hybrid`` (Zamba2), both
+``transformer``, and ``vdm`` (``dit``, whose params are the ``DiT``
+module).  The other LM families are not ported (ROADMAP Queue 1 item 12).
+On the card the hybrid loss cannot be differentiated yet: ``mamba_ssd``
+has no backward kernel and refuses to run under grad.
 """
 from __future__ import annotations
 
@@ -44,12 +47,20 @@ def _generator(key: Union[int, torch.Generator], device: torch.device) -> torch.
 def build(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     device = resolve_device(device)
     fam = cfg.family
-    if fam == "hybrid":
+    if fam in ("dense", "hybrid"):
+        def loss_fn(params, batch, remat=False, kv_chunk=2048):
+            hidden, aux = transformer.forward(
+                params, batch["tokens"], cfg, vision_embeds=batch.get("vision_embeds"),
+                kv_chunk=kv_chunk, remat=remat)
+            nll = transformer.cross_entropy_chunked(params, hidden, batch["labels"], cfg)
+            return nll + 0.01 * aux
+
         return Model(
             cfg=cfg, device=device,
             init=lambda key: transformer.init_params(cfg, _generator(key, device), device),
             forward=lambda p, batch, **kw: transformer.forward(
                 p, batch["tokens"], cfg, vision_embeds=batch.get("vision_embeds"), **kw),
+            loss=loss_fn,
             init_cache=lambda b, m: transformer.init_cache(cfg, b, m, device),
             decode=lambda p, tok, cache, pos: transformer.decode_step(p, tok, cache, pos, cfg),
         )

@@ -5,7 +5,11 @@ the LM's GQA block with its one-token decode.
 ``repro/models/attention.py`` (same masks, same f32 math).  ``attention``
 sends CUDA tensors to the hand-written flash kernel
 (``kernels/ops.flash_attention``) and CPU tensors to ``attention_chunked``,
-as the reference DiT does (``repro/models/dit.py:_attn``).  ``gqa_apply``
+as the reference DiT does (``repro/models/dit.py:_attn``).  A CUDA call
+that needs a gradient (grad mode on, an input that requires grad: a
+training step) goes through ``ops.flash_attention_autograd``, whose
+backward is the hand-written backward kernel; a call under ``no_grad``
+(serving) launches the forward alone.  ``gqa_apply``
 and ``decode_attention`` go through ``attention`` too: the reference's
 ``decode_attention`` calls ``attention_chunked`` directly, and the
 dispatcher computes the same function.
@@ -82,8 +86,13 @@ def attention_chunked(q, k, v, q_positions, kv_positions, causal: bool = True,
 
 def attention(q, k, v, q_positions, kv_positions, causal: bool = True,
               window: int = 0, kv_len=None, kv_chunk: int = 2048) -> torch.Tensor:
-    """Flash kernel for CUDA tensors, ``attention_chunked`` for CPU ones."""
+    """Flash kernel for CUDA tensors (with its backward kernel when a
+    gradient is needed), ``attention_chunked`` for CPU ones."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return kernel_ops.flash_attention_autograd(
+                q, k, v, q_positions, kv_positions, causal=causal, window=window,
+                kv_len=kv_len)
         return kernel_ops.flash_attention(
             q, k, v, q_positions, kv_positions, causal=causal, window=window,
             kv_len=kv_len,

@@ -54,6 +54,20 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (y * scale + bias).to(x.dtype)
 
 
+def rmsnorm_init(d: int, dtype=torch.float32,
+                 device: Optional[torch.device] = None):
+    """``{"scale": ones (d,)}`` (f32, as the reference keeps norm scales)."""
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def mlp_init(d: int, ff: int, generator: torch.Generator, dtype=torch.bfloat16,
+             device: Optional[torch.device] = None):
+    """SwiGLU weights ``{"wi" | "wg": {"w": (d, ff)}, "wo": {"w": (ff, d)}}``,
+    drawn in that order."""
+    return {nm: {"w": dense_init(i, o, generator, dtype, device=device)}
+            for nm, (i, o) in (("wi", (d, ff)), ("wg", (d, ff)), ("wo", (ff, d)))}
+
+
 def mlp(wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor,
         x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``wo(silu(wg x) * wi x)``."""

@@ -15,6 +15,11 @@
 * ``ops.guidance_update``, an entry point of its own: CPU tensors take
   the plain version and launch nothing; a CUDA tensor goes to the kernel
   or raises, never to the plain version.
+* The training path (``train/``, ``optim/``, ``data/``, ``runtime/
+  checkpoint``, ``launch/train``) imports no JAX; its entry points raise
+  without CUDA; under grad every kernel wrapper refuses an input that
+  requires grad before it looks at the device (so before any launch), and
+  runs under ``no_grad``.
 """
 import ast
 import subprocess
@@ -95,6 +100,9 @@ lm = models.build(cfg, device="cpu")
 params = lm.init(0)
 tok = torch.zeros((1, 5), dtype=torch.long)
 print("lm logits", tuple(make_prefill_step(lm, cfg)(params, {"tokens": tok}).shape))
+from repro_torch.launch import train
+train.main(["--arch", "granite-3-2b", "--steps", "2", "--batch", "2", "--seq", "8",
+            "--device", "cpu", "--ckpt-dir", tempfile.mkdtemp()])
 make_decode_step(lm, cfg)(params, {"token": tok[:, :1], "position": torch.zeros(1, dtype=torch.long)},
                           lm.init_cache(1, 5))
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
@@ -113,6 +121,7 @@ def test_package_runs_with_jax_blocked():
     assert "lm logits (1, 1, 512)" in out.stdout
     assert "step policy: halo schedule=" in out.stdout and "trace: " in out.stdout
     assert "router: 2 replicas" in out.stdout and "disposition: completed=3" in out.stdout
+    assert "finished 2 steps; loss " in out.stdout
     assert int(out.stdout.split("imported")[-1]) >= 34      # policy/ and obs/ included
 
 
@@ -171,7 +180,8 @@ def test_cpu_path_never_launches_a_kernel():
     eng.submit(VideoRequest(0, ctx, (4, 8, 12)))
     assert bool(torch.isfinite(eng.run()[0].latent).all())
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_sm90": 0,
-                                   "flash_decode": 0, "latent_blend": 0, "int8_quantize": 0,
+                                   "flash_decode": 0, "flash_attention_bwd": 0,
+                                   "latent_blend": 0, "int8_quantize": 0,
                                    "dequant_blend": 0, "mamba_ssd": 0,
                                    "guidance_update": 0}
 
@@ -237,3 +247,76 @@ def test_guidance_update_cpu_runs_plain_and_cuda_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.guidance_update(cuda, cuda, cuda, 5.0, -0.02)
     assert ops.guidance_update.launches == 0
+
+
+TRAIN = ("train/loop.py", "optim/adamw.py", "optim/adafactor.py", "optim/schedule.py",
+         "data/pipeline.py", "runtime/checkpoint.py", "runtime/ft.py", "launch/train.py",
+         "tree.py", "configs/granite_3_2b.py")
+
+
+def test_training_path_stands_alone_and_needs_cuda(monkeypatch):
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.launch import train
+
+    files = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _port_files()[:-1]}
+    assert set(TRAIN) <= files
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("granite-3-2b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "granite-3-2b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticLMStream(cfg, batch=2, seq_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        models.build(cfg)
+    assert SyntheticLMStream(cfg, 2, 8, device="cpu").batch_at(0)["tokens"].device.type == "cpu"
+
+
+def _wrapper_calls(device, requires_grad):
+    """Each kernel wrapper with small inputs on ``device``; the float
+    inputs require grad when asked."""
+    g = torch.Generator().manual_seed(0)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(device, dtype).requires_grad_(requires_grad)
+
+    pos = torch.arange(6).expand(2, 6).to(device)
+    q, k, v, o = t(2, 6, 4, 64), t(2, 6, 2, 64), t(2, 6, 2, 64), t(2, 6, 4, 64)
+    # the forced kernels take bf16 only (the wgmma one at head dim 128)
+    qb, kb, vb = (x.detach().bfloat16().requires_grad_(requires_grad) for x in (q, k, v))
+    qw, kw, vw = t(2, 6, 4, 128, dtype=torch.bfloat16), t(2, 6, 2, 128, dtype=torch.bfloat16), \
+        t(2, 6, 2, 128, dtype=torch.bfloat16)
+    w = torch.ones(2, 4).to(device)
+    z = torch.ones(6).to(device)
+    return {
+        "flash_attention": lambda: ops.flash_attention(q, k, v, pos, pos),
+        "flash_attention_sm90": lambda: ops.flash_attention_sm90(qw, kw, vw, pos, pos),
+        "flash_decode": lambda: ops.flash_decode(qb, kb, vb, pos, pos),
+        "flash_attention_bwd": lambda: ops.flash_attention_bwd(q, k, v, o, o, pos, pos),
+        "latent_blend": lambda: ops.latent_blend(t(2, 4, 3), w, z, [0, 2], 4, 6),
+        "int8_quantize": lambda: ops.int8_quantize(t(2, 3, 4)),
+        "dequant_blend": lambda: ops.dequant_blend(torch.ones(2, 4, 3, dtype=torch.int8)
+                                                   .to(device), t(2), w, z, [0, 2], 4, 6),
+        "mamba_ssd": lambda: ops.mamba_ssd(t(1, 8, 2, 16), t(1, 8, 2), t(1, 8, 2),
+                                           t(1, 8, 16), t(1, 8, 16), chunk=16),
+        "guidance_update": lambda: ops.guidance_update(t(2, 3), t(2, 3), t(2, 3), 5.0, 0.1),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(ops.WRAPPERS))
+def test_every_kernel_wrapper_refuses_to_run_under_grad(name):
+    """An input that requires grad, in grad mode: the wrapper raises before
+    it looks at the device (a ``meta`` tensor, which no wrapper takes, gets
+    the grad error, not the device one), so no kernel and no plain version
+    runs.  Under ``no_grad`` the same CPU call runs its plain version;
+    ``ops.flash_attention_autograd`` is the route that differentiates."""
+    ops.reset_launch_counts()
+    assert set(_wrapper_calls("cpu", False)) == set(ops.WRAPPERS)
+    for device in ("cpu", "meta"):
+        with pytest.raises(RuntimeError, match="requires grad.*no backward"):
+            _wrapper_calls(device, True)[name]()
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        with torch.no_grad():
+            _wrapper_calls("meta", True)[name]()
+    with torch.no_grad():
+        _wrapper_calls("cpu", True)[name]()
+    assert set(ops.launch_counts().values()) == {0}

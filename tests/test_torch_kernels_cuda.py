@@ -14,7 +14,9 @@ split-KV decode kernel, whose P stays f32), f32 flash 1e-4
 (summation order only); blend, int8 quantize, dequant-blend and
 guidance_update exact (the same f32 operations in the same order);
 mamba_ssd ``5e-4 + 5e-4 |plain|``, the reference's own SSD tolerance
-(f32 throughout, sums in another order).
+(f32 throughout, sums in another order); the flash backward (bf16, D 64
+and 80) within ``ref.flash_bwd_bf16_tolerance`` (P and dS rounded to bf16
+for the products that take them, f32 sums, the bf16 results).
 """
 import numpy as np
 import pytest
@@ -693,3 +695,99 @@ def test_guidance_update_kernel_refuses_mixed_inputs(cuda_device):
     with pytest.raises(TypeError, match="not supported"):
         ops.guidance_update(z.half(), z.half(), z.half(), 5.0, -0.02)
     assert ops.guidance_update.launches == before
+
+
+# the flash backward: B, Sq, Skv, H, KV, D, causal, window, padded keys
+BWD_CASES = [
+    (2, 40, 40, 4, 4, 64, True, 0, 0),
+    (2, 130, 190, 8, 2, 64, True, 50, 5),           # GQA, window, a ragged tile
+    (2, 77, 150, 4, 1, 64, False, 0, 9),            # one kv head, no causal mask
+    (1, 512, 512, 8, 2, 64, True, 0, 0),            # whole tiles: the unmasked path
+    (2, 300, 300, 4, 2, 80, True, 0, 0),            # Zamba2's head dim
+    (2, 100, 333, 8, 2, 80, True, 96, 5),
+]
+
+
+def _bwd_inputs(cuda_device, B, Sq, Skv, H, KV, D, pad, seed=0):
+    q, k, v, qp, kp, _ = _inputs(B, Sq, Skv, H, KV, D, seed=seed)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=(B, Sq, H, D)).astype(np.float32))
+    q, k, v, do = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v, do))
+    qp, kp = qp.to(cuda_device), kp.to(cuda_device)
+    if pad:
+        kp[:, -pad:] = ref.INT32_MAX
+    return q, k, v, do, qp, kp
+
+
+def _bwd_checked(q, k, v, out, do, qp, kp, causal, window):
+    before = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, out, do, qp, kp, causal=causal, window=window)
+    assert ops.flash_attention_bwd.launches == before + 1
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, do, qp, kp, causal, window)
+    limits = ref.flash_bwd_bf16_tolerance(q, k, v, out, do, qp, kp, causal, window, plain)
+    for name, g, p, lim in zip(("dq", "dk", "dv"), got, plain, limits):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g.float()).all()), name
+        err = (g.float() - p.float()).abs()
+        assert bool((err <= lim).all()), f"{name}: {float((err / lim).max()):.3f} of the limit"
+    return got
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_kernel_matches_plain(cuda_device, case):
+    B, Sq, Skv, H, KV, D, causal, window, pad = case
+    q, k, v, do, qp, kp = _bwd_inputs(cuda_device, B, Sq, Skv, H, KV, D, pad)
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window)
+    got = _bwd_checked(q, k, v, out, do, qp, kp, causal, window)
+    again = ops.flash_attention_bwd(q, k, v, out, do, qp, kp, causal=causal, window=window)
+    for a, b in zip(got, again):                      # deterministic: no atomics
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ref.SKIP_EDGE_CASES)
+def test_flash_backward_kernel_on_skip_edges(cuda_device, case):
+    """Positions in any order, padded interior tiles, and queries that
+    attend no key (zero gradients)."""
+    qp, kp, causal, window = ref.skip_edge_positions(case, 2, 300, 333, seed=5)
+    q, k, v, do, _, _ = _bwd_inputs(cuda_device, 2, 300, 333, 4, 2, 64, 0, seed=5)
+    qp, kp = torch.from_numpy(qp).to(cuda_device), torch.from_numpy(kp).to(cuda_device)
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window)
+    dq, _, _ = _bwd_checked(q, k, v, out, do, qp, kp, causal, window)
+    if case == "causal_first_key":
+        assert float(dq[:, :127].float().abs().max()) == 0.0
+
+
+def test_flash_autograd_function_runs_both_kernels(cuda_device):
+    """Gradcheck-style agreement of ``ops.flash_attention_autograd``: its
+    output is ``flash_attention``'s and its gradients are
+    ``flash_attention_bwd``'s on that output, bit for bit; those are within
+    the stated limit of the plain backward.  Under ``no_grad`` the
+    dispatcher of the models launches the forward alone."""
+    from repro_torch.models.attention import attention
+
+    q, k, v, do, qp, kp = _bwd_inputs(cuda_device, 2, 256, 256, 8, 2, 64, 0, seed=3)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = ops.launch_counts()
+    out = attention(*leaves, qp, kp, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == 1
+    assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
+    with torch.no_grad():
+        direct = ops.flash_attention(q, k, v, qp, kp, causal=True)
+        assert torch.equal(attention(*leaves, qp, kp, causal=True), direct)
+    assert torch.equal(out.detach(), direct)
+    want = _bwd_checked(q, k, v, direct, do, qp, kp, True, 0)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+def test_flash_backward_refuses_what_it_has_no_kernel_for(cuda_device):
+    p = torch.zeros((1, 8), device=cuda_device, dtype=torch.int32)
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 128), (torch.bfloat16, 32)):
+        q = torch.zeros((1, 8, 2, D), device=cuda_device, dtype=dtype, requires_grad=True)
+        with pytest.raises(ValueError, match="no backward kernel"):
+            ops.flash_attention_autograd(q, q, q, p, p)
+        with pytest.raises(ValueError, match="no kernel for"):
+            ops.flash_attention_bwd(*(x.detach() for x in (q, q, q, q, q)), p, p)

@@ -12,6 +12,10 @@
   walls): their checks hold there too.
 * ``same_report`` holds an offline SLO report to the live one byte for
   byte, apart from the load-test CLI's notes on the live serve.
+* Phase ``train``'s arithmetic: the flash launches a train step makes
+  (counted on the CPU by stand-in wrappers), the steps ``run_training``
+  runs around an injected failure (counted on a real run), the backward
+  kernel's work and bound, and the model operations of a step.
 """
 import importlib
 import json
@@ -267,3 +271,78 @@ def test_serve_fleet_phase_on_the_cpu(smoke, tmp_path, monkeypatch):
     assert sorted(counts) == ["serve_fleet:a", "serve_fleet:b", "serve_fleet:c",
                               "serve_fleet:cli"]
     assert not any(v for n in counts.values() for v in n.values())
+
+
+@pytest.mark.parametrize("k,remat", [(1, "none"), (2, "none"), (2, "full")])
+def test_expected_train_launches_count_a_train_step(smoke, monkeypatch, k, remat):
+    """The flash forward and backward launches of 2 train steps of the
+    reduced dense model, counted by stand-ins for the two wrappers on the
+    CPU (forward through ``FlashAttention``, remat's recompute included),
+    equal ``expected_train_launches``."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.train.loop import make_train_step
+
+    counts = {"flash_attention": 0, "flash_attention_bwd": 0}
+    fwd, bwd = ops.flash_attention, ops.flash_attention_bwd
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr(ops, "flash_attention", counted("flash_attention", fwd))
+    monkeypatch.setattr(ops, "flash_attention_bwd", counted("flash_attention_bwd", bwd))
+    # the CPU's attention is attention_chunked: send it through the autograd function
+    monkeypatch.setattr(attention, "attention_chunked",
+                        lambda q, k_, v, qp, kp, causal, window, kv_len, kv_chunk:
+                        ops.flash_attention_autograd(q, k_, v, qp, kp, causal=causal,
+                                                     window=window, kv_len=kv_len))
+    cfg = get_config("granite-3-2b").reduced()
+    model = models.build(cfg, "cpu")
+    step_fn = make_train_step(model, ParallelConfig(remat=remat, microbatch=k))
+    params = model.init(0)
+    opt = step_fn.opt_init(params)
+    data = SyntheticLMStream(cfg, batch=2, seq_len=8, device="cpu")
+    for s in range(2):
+        params, opt, _ = step_fn(params, opt, data.batch_at(s), s)
+    assert counts == smoke.expected_train_launches(cfg.num_layers, k, remat != "none", 2)
+
+
+@pytest.mark.parametrize("steps,every,fail_at", [(6, 2, (3,)), (6, 2, ()), (25, 5, (7, 13)),
+                                                 (6, 3, (3,))])
+def test_drill_steps_counts_what_run_training_runs(smoke, tmp_path, steps, every, fail_at):
+    from repro_torch.runtime.ft import FailureInjector, run_training
+
+    ran = []
+
+    def step(params, opt, batch, s):
+        ran.append(s)
+        return params, opt, {"loss": torch.zeros(())}
+
+    rep = run_training(step, lambda: (torch.zeros(2), {"m": torch.zeros(2)}), lambda s: None,
+                       steps, str(tmp_path), ckpt_every=every,
+                       injector=FailureInjector(fail_at=fail_at))
+    assert rep.restarts == len(fail_at) and rep.final_step == steps
+    assert len(ran) == smoke.drill_steps(steps, every, fail_at)
+
+
+def test_flash_bwd_work_and_bound(smoke):
+    pairs = 2 * 2048 * 2049 // 2
+    flops, nbytes = smoke.flash_bwd_work(2, 2048, 2048, 32, 8, 64, pairs)
+    assert flops == 2.5 * 4 * pairs * 32 * 64
+    q, kv = 2 * 2048 * 32 * 64, 2 * 2048 * 8 * 64
+    assert nbytes == (4 * q + 4 * kv) * 2 + 2 * 2 * 2048 * 4
+    ms, by = smoke.bound(flops, nbytes)
+    assert by == "operations" and ms == pytest.approx(flops / 989e12 * 1e3)
+    assert smoke.bound(1.0, 3.35e9) == (pytest.approx(1.0), "bytes")
+
+
+def test_train_flops(smoke):
+    assert smoke.train_flops(10, 3, 0, 4, 2, 8) == 180.0
+    assert smoke.train_flops(0, 0, 5, 4, 2, 8) == 12 * 5 * 2 * 8 * 4
