@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
 
 Phases, one line each (any failed check exits non-zero):
-  1. device  — the card, the toolchain, the nine kernels' build from csrc/.
+  1. device  — the card, the toolchain, the ten kernels' build from csrc/.
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card at the serving paths' shapes (WAN and Zamba2),
                with kernel, plain, library and bound times (and the
@@ -22,8 +22,9 @@ Phases, one line each (any failed check exits non-zero):
                (bit-equal, f32 and bf16 out; its yardstick two calls,
                wire.float() and the banded matmul with the scales folded
                in) also at the 480p latent (21, 60, 104) with a cold L2;
-               the ptxas lines of those three and of flash_decode at D 80
-               must show no spill.  Then broken copies, built outside the
+               the ptxas lines of those three and of every flash library
+               (flash_attention.cu, the wgmma forward, flash_decode.cu and
+               both backwards) must show no spill.  Then broken copies, built outside the
                checkout, must each fail a check: three of mamba_ssd.cu (no
                +-60 clip, no state reset, one TF32 pass instead of
                3xTF32; each one's share of the limit is printed per case),
@@ -38,16 +39,25 @@ Phases, one line each (any failed check exits non-zero):
                between a slab's blocks; a reciprocal multiply), two of
                latent_blend.cu and three of dequant_blend.cu (the k order
                reversed; the last covering window dropped; the weight
-               applied before the scale).  The flash backward
-               (flash_attention_bwd.cu) against its plain version within
-               ref.flash_bwd_bf16_tolerance: granite's layer (2 x 2048,
-               32 / 8 x 64, causal; SDPA's autograd beside it), a window, an
-               odd length with padded keys, rows that attend no key, no
-               mask, D 80; no spill; five broken copies (Delta left out,
-               the log-sum-exp without its sum, dK unscaled, a group's last
-               head dropped, the causal live-tile test with < for <=) must
-               each fail a case.  Granite's forward (flash_attention.cu at
-               2 x 2048, D 64) is timed beside it.
+               applied before the scale).  The flash backward, fed the
+               forward's log-sum-exp, against its plain version within
+               ref.flash_bwd_bf16_tolerance, two calls bit-equal: at D 64
+               on flash_attention_bwd_sm90.cu (wgmma + TMA) at granite's
+               layer (2 x 2048, 32 / 8 x 64, causal; flash_attention_bwd.cu
+               on the same inputs and SDPA's autograd beside it), a window,
+               an odd length with padded keys, no mask, 100 queries (the
+               log-sum-exp from flash_attention.cu) and every skip edge; at
+               D 80 on flash_attention_bwd.cu (mma.sync).  Each writer's log-sum-exp (the wgmma kernel at D 64,
+               80 and 128, flash_attention.cu at 64 and 80) against
+               ref.flash_attention_lse_ref within ref.flash_lse_tolerance.
+               Eleven broken copies must each fail a case: five of the new
+               backward (Delta left out, a group's last head dropped, the
+               transposed live-tile test with < for <=, dK unscaled, dQ
+               reading the previous stage's K), the log-sum-exp without the
+               log of its sum in each forward, and four of the mma.sync
+               backward (caught at D 80).  Granite's forward (the wgmma
+               kernel at 2 x 2048, D 64) is timed beside flash_attention.cu
+               and SDPA.
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -117,8 +127,8 @@ Phases, one line each (any failed check exits non-zero):
                bf16, random weights) through make_train_step (remat full,
                2 microbatches, AdamW) on SyntheticLMStream batches of 4 x
                2048 tokens: a warm-up step, 3 timed steps (finite losses and
-               grad norms; 160 flash_attention and 80 flash_attention_bwd
-               launches a step), one profiled; then the restart drill in a
+               grad norms; 160 flash_attention_sm90 and 80
+               flash_attention_bwd_sm90 launches a step), one profiled; then the restart drill in a
                process of its own with deterministic algorithms (2 layers,
                Adafactor, 6 steps, a checkpoint every 2, a failure at step
                3: one restart, losses and final state bit-equal to a clean
@@ -136,10 +146,11 @@ Phases, one line each (any failed check exits non-zero):
                small_lm: a 6-layer full-width Zamba2 in f32 with nonzero
                LoRA, card against CPU on prefill and 8 decode steps, and
                the card's prefill against its own stepped decode.
-Then one JSON line of every kernel (flash_attention.cu's row on granite's
-training case: phase train is its one path), the card's name and power
-limit, and the result line.  ``python3 chip_smoke.py --train-drill`` is
-phase train's drill alone, as the phase runs it.  Detailed numbers go to chiprun_out/chip_smoke.json.
+Then one JSON line of every kernel (flash_attention.cu's and
+flash_attention_bwd.cu's rows, on no path now, on granite's training case
+forced onto them), the card's name and power limit, and the result line.
+``python3 chip_smoke.py --train-drill`` is phase train's drill alone, as the
+phase runs it.  Detailed numbers go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -263,28 +274,64 @@ QB_MUTANTS = {
         "dequant_blend.cu", "__fmul_rn(__fmul_rn(static_cast<float>(code), scale), w)",
         "__fmul_rn(__fmul_rn(static_cast<float>(code), w), scale)"),
 }
-# broken copies of the flash backward: (file, source text, replacement); each
-# must fail the backward check on at least one case
+# broken copies of the flash backward and of the log-sum-exp its forward
+# writes: (file, source text, replacement); each must fail the backward check
+# (forward and backward on the same inputs) on a case of the head dim that
+# BWD_MUTANT_CATCHER names
 BWD_MUTANTS = {
-    # dS = P o dP: Delta left out of half the keys of a warp
+    # the wgmma + TMA backward (D 64): dS^T = P^T o dP^T, Delta left out of a
+    # quarter of the pairs
+    "bwd_sm90:no_delta": ("flash_attention_bwd_sm90.cu",
+                          "st_[4 * nb + 0] *= dpt[4 * nb + 0] - d2.x;",
+                          "st_[4 * nb + 0] *= dpt[4 * nb + 0];"),
+    # the last query head of each GQA group left out of dK and dV
+    "bwd_sm90:group_head_dropped": ("flash_attention_bwd_sm90.cu",
+                                    "const int steps = G * nlive;",
+                                    "const int steps = (G - 1) * nlive;"),
+    # the transposed live-tile test with < for <=: a query tile whose only
+    # attendable pair is its last query against the key block's first key is
+    # dropped (causal_first_key positions catch it)
+    "bwd_sm90:live_q_causal_off_by_one": ("flash_common.cuh",
+                                          "if (causal) live = live && klo <= qhi;",
+                                          "if (causal) live = live && klo < qhi;"),
+    "bwd_sm90:dk_unscaled": ("flash_attention_bwd_sm90.cu",
+                             "__floats2bfloat162_rn(dk[4 * nb] * p.scale, "
+                             "dk[4 * nb + 1] * p.scale);",
+                             "__floats2bfloat162_rn(dk[4 * nb], dk[4 * nb + 1]);"),
+    # dQ's product reading K's tile of the previous ring stage
+    "bwd_sm90:dq_stale_stage": ("flash_attention_bwd_sm90.cu",
+                                "wgmma_rs(dq, pd[kk], desc(ks + kk * 2048, kBox, 1024));",
+                                "wgmma_rs(dq, pd[kk], desc(base + L::kStage + ((t + kStages - 1)"
+                                " % kStages) * 2 * kBox + kk * 2048, kBox, 1024));"),
+    # the log-sum-exp written without the log of its sum (the scaled row max
+    # alone): the wgmma forward's (D 64 from 128 queries) and, moved from the
+    # mma.sync backward's former recomputation, flash_attention.cu's (below
+    # 128 queries)
+    "lse:sm90_without_log_sum": ("flash_attention_sm90.cu",
+                                 "lse[r0] = l0 > 0.f ? fmaf(m0, p.sl2, __log2f(l0)) : INFINITY;",
+                                 "lse[r0] = l0 > 0.f ? m0 * p.sl2 : INFINITY;"),
+    "lse:mma_without_log_sum": ("flash_attention.cu",
+                                "lse[r0] = l0 > 0.f ? fmaf(m0, sl2, __log2f(l0)) : INFINITY;",
+                                "lse[r0] = l0 > 0.f ? m0 * sl2 : INFINITY;"),
+    # the mma.sync backward (D 80): Delta left out of half the keys of a warp
     "bwd:no_delta": ("flash_attention_bwd.cu", "pt[nb][j] *= dpt[nb][j] - d;",
                      "pt[nb][j] *= dpt[nb][j];"),
-    # the log-sum-exp without its sum (the row max alone), rows g of each warp
-    "bwd:lse_without_sum": ("flash_attention_bwd.cu",
-                            "p.lse[row + r0] = l0 > 0.f ? m0 * sl2 + __log2f(l0) : INFINITY;",
-                            "p.lse[row + r0] = l0 > 0.f ? m0 * sl2 : INFINITY;"),
     "bwd:dk_unscaled": ("flash_attention_bwd.cu",
                         "__floats2bfloat162_rn(dk[db][0] * p.scale, dk[db][1] * p.scale);",
                         "__floats2bfloat162_rn(dk[db][0], dk[db][1]);"),
-    # the last query head of each GQA group left out of dK and dV
     "bwd:group_head_dropped": ("flash_attention_bwd.cu", "const int steps = G * nlive;",
                                "const int steps = (G - 1) * nlive;"),
-    # a query tile whose only attendable pair is its last query against the
-    # key block's first key dropped (causal_first_key positions catch it)
-    "bwd:live_q_causal_off_by_one": ("flash_attention_bwd.cu",
+    "bwd:live_q_causal_off_by_one": ("flash_common.cuh",
                                      "if (causal) live = live && klo <= qhi;",
                                      "if (causal) live = live && klo < qhi;"),
 }
+# the library each mutant replaces, and the head dim one of its catching
+# cases must have
+BWD_MUTANT_LIBS = {m: ("flash_attention_sm90",) if m.startswith("lse:sm90")
+                   else ("flash_attention",) if m.startswith("lse:mma")
+                   else ("flash_attention_bwd_sm90",) if m.startswith("bwd_sm90:")
+                   else ("flash_attention_bwd",) for m in BWD_MUTANTS}
+BWD_MUTANT_CATCHER = {m: 80 if m.startswith("bwd:") else 64 for m in BWD_MUTANTS}
 # phase train: granite-3-2b at its published widths (hf:ibm-granite/granite-3.0-2b-base:
 # 40 layers, d_model 2048, 32 x 64 query heads, 8 kv heads, d_ff 8192, bf16)
 TRAIN_ARCH = "granite-3-2b"
@@ -2367,12 +2414,13 @@ def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
 
 def flash_bwd_work(B, Sq, Skv, H, KV, D, pairs: int, elem: int = 2):
     """Operations and bytes of one flash backward: 2.5 times the forward's
-    products over the attended pairs (S = Q K^T twice, dP = dO V^T twice,
-    dV, dK and dQ: 10 pairs * H * D); q, out, dout, k and v read once, dq,
-    dk and dv written once, the int32 positions read once."""
+    products over the attended pairs (S = Q K^T, dP = dO V^T, dV, dK and dQ:
+    10 pairs * H * D); q, out, dout, k and v read once, dq, dk and dv
+    written once, the int32 positions and the forward's f32 log-sum-exp
+    read once."""
     q, kv = B * Sq * H * D, B * Skv * KV * D
     return 10.0 * pairs * H * D, (3 * q + 2 * kv) * elem + (q + 2 * kv) * elem \
-        + (B * Sq + B * Skv) * 4
+        + (B * Sq + B * Skv) * 4 + B * H * Sq * 4
 
 
 def flash_bwd_agrees(grads, inputs, causal, window):
@@ -2391,14 +2439,30 @@ def flash_bwd_agrees(grads, inputs, causal, window):
             all(e[2] for e in errs) and finite)
 
 
+def flash_fwd_bwd(q, k, v, dout, qp, kp, causal, window, kernel=None):
+    """The training attention's two halves on the card: the forward with its
+    log-sum-exp (``flash_attention(..., return_lse=True)``, the kernel
+    ``FlashAttention`` takes), then the backward that reads it (``kernel``
+    forced, or ``ops.bwd_kernel``'s choice); returns ``(out, lse, grads)``."""
+    from repro_torch.kernels import ops
+
+    out, lse = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window,
+                                   return_lse=True)
+    grads = ops.flash_attention_bwd(q, k, v, out, dout, lse, qp, kp, causal=causal,
+                                    window=window, kernel=kernel)
+    return out, lse, grads
+
+
 def flash_bwd_case(name, B, Sq, Skv, H, KV, D, causal=False, window=0, pad_kv=0, edge=None,
-                   reps=5, library=False, seed=0):
-    """One check of ``flash_attention_bwd`` (bf16): the kernel against
+                   reps=5, library=False, seed=0, kernel=None, timed=True):
+    """One check of ``flash_attention_bwd`` (bf16, the kernel ``kernel`` or
+    ``ops.bwd_kernel``'s choice): the kernel against
     ``ref.flash_attention_bwd_ref`` on the same inputs (the forward's output
-    from ``flash_attention``, a random output gradient), with kernel, plain,
-    library (autograd of SDPA with GQA, its backward alone) and bound
-    times.  Returns the record and (name, inputs, causal, window) for the
-    mutation checks."""
+    and log-sum-exp from ``flash_attention(..., return_lse=True)``, a random
+    output gradient), two calls bit-equal, with kernel, plain, library
+    (autograd of SDPA with GQA, its backward alone) and bound times
+    (``timed``).  Returns the record and (name, forward inputs, causal,
+    window) for the mutation checks."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -2407,23 +2471,27 @@ def flash_bwd_case(name, B, Sq, Skv, H, KV, D, causal=False, window=0, pad_kv=0,
         B, Sq, Skv, H, KV, D, torch.bfloat16, causal, window, pad_kv, False, edge, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    kernel = kernel or ops.bwd_kernel(q.dtype, D)
     before = ops.launch_counts()
     with torch.no_grad():
-        out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window)
+        out, lse, grads = flash_fwd_bwd(q, k, v, dout, qp, kp, causal, window, kernel)
     inputs = (q, k, v, out, dout, qp, kp)
-    grads = ops.flash_attention_bwd(*inputs, causal=causal, window=window)
-    check(ops.flash_attention_bwd.launches == before["flash_attention_bwd"] + 1,
-          f"{name}: flash_attention_bwd did not launch")
+    check(ops.WRAPPERS[kernel].launches == before[kernel] + 1, f"{name}: {kernel} did not launch")
     err, share, ok = flash_bwd_agrees(grads, inputs, causal, window)
-    check(ok, f"{name}: the backward kernel disagrees with its plain version (max abs err "
-              f"{err:.3e}, {share:.2f} of the limit)")
-    kernel_ms = time_ms(lambda: ops.flash_attention_bwd(*inputs, causal=causal, window=window),
-                        reps)
-    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(*inputs, causal, window),
-                       max(1, reps // 5))
+    check(ok, f"{name}: the backward kernel {kernel} disagrees with its plain version (max abs "
+              f"err {err:.3e}, {share:.2f} of the limit)")
+    again = ops.flash_attention_bwd(q, k, v, out, dout, lse, qp, kp, causal=causal,
+                                    window=window, kernel=kernel)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          f"{name}: two calls of {kernel} differ (it must be deterministic)")
+    kernel_ms = plain_ms = library_ms = None
+    if timed:
+        kernel_ms = time_ms(lambda: ops.flash_attention_bwd(
+            q, k, v, out, dout, lse, qp, kp, causal=causal, window=window, kernel=kernel), reps)
+        plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(*inputs, causal, window),
+                           max(1, reps // 5))
     for n, c in before.items():                # comparison launches do not count
         ops.WRAPPERS[n].launches = c
-    library_ms = None
     if library:
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=H != KV)
@@ -2433,38 +2501,84 @@ def flash_bwd_case(name, B, Sq, Skv, H, KV, D, causal=False, window=0, pad_kv=0,
     pairs = attended_pairs(qp, kp, causal, window)
     b_ms, b_by = bound(*flash_bwd_work(B, Sq, Skv, H, KV, D, pairs))
     return timed_case({
-        "case": name, "kernel": "flash_attention_bwd", "shape": [B, Sq, Skv, H, KV, D],
+        "case": name, "kernel": kernel, "shape": [B, Sq, Skv, H, KV, D],
         "dtype": "torch.bfloat16", "causal": causal, "window": window, "edge": edge,
         "max_abs_err": err, "tol": "ref.flash_bwd_bf16_tolerance",
-        "err_share_of_limit": share, "ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "tflops": flash_bwd_work(B, Sq, Skv, H, KV, D, pairs)[0] / kernel_ms / 1e9,
-    }), (name, inputs, causal, window)
+        "err_share_of_limit": share, "ms": kernel_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "tflops": None if kernel_ms is None
+        else flash_bwd_work(B, Sq, Skv, H, KV, D, pairs)[0] / kernel_ms / 1e9,
+    }, ("ms", "plain_ms") if timed else ()), ((name, (q, k, v, dout, qp, kp), causal, window),
+                                              kernel)
+
+
+def lse_case(name, B, Sq, Skv, H, KV, D, kernel, causal=False, window=0, pad_kv=0, edge=None,
+             seed=0):
+    """The log-sum-exp that ``kernel`` writes (``return_lse``) against
+    ``ref.flash_attention_lse_ref`` within ``ref.flash_lse_tolerance``; rows
+    that attend no key must be +inf in both.  The forward's output is held
+    to its plain version too.  Returns the record."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    (q, k, v, qp, kp, _), causal, window = flash_inputs(
+        B, Sq, Skv, H, KV, D, torch.bfloat16, causal, window, pad_kv, False, edge, seed)
+    before = ops.launch_counts()
+    out, lse = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kernel=kernel,
+                                   return_lse=True)
+    check(ops.WRAPPERS[kernel].launches == before[kernel] + 1, f"{name}: {kernel} did not launch")
+    ops.WRAPPERS[kernel].launches = before[kernel]
+    o_err, o_share, o_ok = flash_agrees(out, (q, k, v, qp, kp, None), causal, window)
+    check(o_ok, f"{name}: {kernel}'s output disagrees with its plain version ({o_share:.2f} "
+                "of the limit)")
+    plain = ref.flash_attention_lse_ref(q, k, qp, kp, causal, window)
+    limit = ref.flash_lse_tolerance(q, k, qp, kp, causal, window, plain)
+    empty = torch.isinf(plain)
+    check(bool(torch.equal(torch.isposinf(lse), empty)),
+          f"{name}: {kernel}'s log-sum-exp is +inf on other rows than the rows with no key")
+    err, share, ok = max_err(lse[~empty], plain[~empty], limit[~empty]) if bool((~empty).any()) \
+        else (0.0, 0.0, True)
+    check(ok, f"{name}: {kernel}'s log-sum-exp disagrees with ref.flash_attention_lse_ref "
+              f"(max abs err {err:.3e}, {share:.2f} of ref.flash_lse_tolerance)")
+    rec = {"case": name, "kernel": kernel, "shape": [B, Sq, Skv, H, KV, D], "causal": causal,
+           "window": window, "edge": edge, "max_abs_err": err, "err_share_of_limit": share,
+           "rows_without_key": int(empty.sum()), "tol": "ref.flash_lse_tolerance"}
+    print(f"phase=kernels lse={name} kernel={kernel} max_abs_err={err:.3e} "
+          f"share_of_limit={share:.3f} rows_without_key={rec['rows_without_key']}", flush=True)
+    return rec
 
 
 def flash_bwd_mutants(kept):
-    """Serve each broken copy of ``flash_attention_bwd.cu`` in place of the
-    kernel and require that the backward check fails on at least one of
-    the ``kept`` cases; returns the cases that caught each."""
+    """Serve each broken copy of the backward sources and of the
+    log-sum-exp write in place of its kernel and require that the forward
+    and backward check fails on at least one of the ``kept`` cases, one of
+    them at the head dim ``BWD_MUTANT_CATCHER`` names; returns the cases
+    that caught each."""
     import torch
     from repro_torch.kernels import build, ops
 
-    tmp, built = build_mutants("flash_bwd_mutants_", BWD_MUTANTS,
-                               ("flash_common.cuh", "flash_attention_bwd.cu"),
-                               {m: ("flash_attention_bwd",) for m in BWD_MUTANTS})
+    sources = ("flash_common.cuh", "flash_attention.cu", "flash_attention_sm90.cu",
+               "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu")
+    tmp, built = build_mutants("flash_bwd_mutants_", BWD_MUTANTS, sources, BWD_MUTANT_LIBS)
     try:
         before, caught = ops.launch_counts(), {}
         for m, sos in built.items():
-            caught[m] = []
-            lib = build.load("flash_attention_bwd", sos["flash_attention_bwd"])
-            with build.substituted("flash_attention_bwd", lib):
-                for name, inputs, causal, window in kept:
-                    grads = ops.flash_attention_bwd(*inputs, causal=causal, window=window)
+            caught[m], by_catcher = [], False
+            (lib, so), = sos.items()
+            with build.substituted(lib, build.load(lib, so)):
+                for (name, (q, k, v, dout, qp, kp), causal, window), kernel in kept:
+                    with torch.no_grad():
+                        out, _, grads = flash_fwd_bwd(q, k, v, dout, qp, kp, causal, window,
+                                                      kernel)
                     torch.cuda.synchronize()
-                    err, share, ok = flash_bwd_agrees(grads, inputs, causal, window)
+                    err, share, ok = flash_bwd_agrees(grads, (q, k, v, out, dout, qp, kp),
+                                                      causal, window)
                     if not ok:
-                        caught[m].append(f"{name} ({share:.3g} of the limit)")
-            check(caught[m], f"mutant {m} of flash_attention_bwd.cu passed every check")
+                        caught[m].append(f"{name} [{kernel}] ({share:.3g} of the limit)")
+                        by_catcher |= q.shape[-1] == BWD_MUTANT_CATCHER[m]
+            check(caught[m], f"mutant {m} of the flash backward passed every check")
+            check(by_catcher, f"mutant {m} passed every case at D {BWD_MUTANT_CATCHER[m]} "
+                              f"(caught by {caught[m]})")
         for n, v in before.items():
             ops.WRAPPERS[n].launches = v
         return caught
@@ -2473,11 +2587,13 @@ def flash_bwd_mutants(kept):
 
 
 def expected_train_launches(num_layers: int, microbatch: int, remat: bool, steps: int) -> dict:
-    """Flash launches of ``steps`` train steps of a dense LM: one forward a
-    layer and microbatch, a second one under remat (the layer recomputed in
-    the backward pass), and one backward."""
+    """Flash launches of ``steps`` train steps of granite (D 64, 2048 tokens):
+    one forward a layer and microbatch on the wgmma kernel, a second one
+    under remat (the layer recomputed in the backward pass), and one
+    backward on the wgmma + TMA backward."""
     fwd = num_layers * microbatch * (2 if remat else 1) * steps
-    return {"flash_attention": fwd, "flash_attention_bwd": num_layers * microbatch * steps}
+    return {"flash_attention_sm90": fwd,
+            "flash_attention_bwd_sm90": num_layers * microbatch * steps}
 
 
 def drill_steps(num_steps: int, ckpt_every: int, fail_at) -> int:
@@ -2510,7 +2626,7 @@ def _device_split(prof):
         us = e.self_device_time_total
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if any(k in e.key for k in ("bwd_prep", "bwd_dkdv", "bwd_dq")):
+        if any(k in e.key for k in ("bwd_delta", "bwd_prep", "bwd_dkdv", "bwd_dq")):
             split["flash_bwd"] += us
         elif "flash_fwd" in e.key or "live_tiles" in e.key:
             split["flash_fwd"] += us
@@ -2615,8 +2731,10 @@ def train_phase():
 
     cfg = get_config(TRAIN_ARCH)
     parallel = ParallelConfig(**TRAIN_PARALLEL)
-    check(ops.flash_kernel(torch.bfloat16, cfg.head_dim, TRAIN_S) == "flash_attention",
-          "granite's training attention is not on flash_attention.cu")
+    check(ops.flash_kernel(torch.bfloat16, cfg.head_dim, TRAIN_S) == "flash_attention_sm90"
+          and ops.bwd_kernel(torch.bfloat16, cfg.head_dim) == "flash_attention_bwd_sm90",
+          "granite's training attention is not on flash_attention_sm90.cu and "
+          "flash_attention_bwd_sm90.cu")
     t0 = time.perf_counter()
     model = models.build(cfg, "cuda")
     params = model.init(0)
@@ -3066,7 +3184,8 @@ def run() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.split('ptxas info    :')[-1].strip()}")
     for name in ("int8_quantize", "latent_blend", "dequant_blend",     # no local memory
-                 "flash_attention_bwd"):
+                 "flash_attention", "flash_attention_sm90", "flash_decode",
+                 "flash_attention_bwd", "flash_attention_bwd_sm90"):
         spills = [l for l in reports[name].splitlines() if "spill" in l]
         check(spills and all(NO_SPILL in l for l in spills), f"{name} spills: {spills}")
 
@@ -3123,6 +3242,7 @@ def run() -> int:
     for edge in SKIP_EDGE_CASES:
         for dt, hd, kern in ((torch.bfloat16, 128, "flash_attention_sm90"),
                              (torch.bfloat16, 80, "flash_attention_sm90"),
+                             (torch.bfloat16, 64, "flash_attention_sm90"),
                              (torch.bfloat16, 80, "flash_attention"),
                              (torch.bfloat16, 80, "flash_decode"),
                              (torch.float32, 128, "flash_attention")):
@@ -3175,9 +3295,18 @@ def run() -> int:
         (("flash_lm_decode_fullcache_bf16_mma", DECODE_B, 1, MAX_LEN, lH, lH, lD,
           torch.bfloat16), dict(reps=20, short=True, kernel="flash_attention")),
         # granite's training attention (a microbatch of 2 x 2048, 32 / 8 x 64,
-        # causal): flash_attention.cu's mma.sync kernel, on phase train
+        # causal): the wgmma kernel at D 64, phase train's forward, and beside
+        # it the mma.sync kernel of flash_attention.cu that ran it before;
+        # then D 64 through the masked path and the skip edges on the wgmma
+        # kernel
         (("flash_train_granite_causal_bf16", TRAIN_B // TRAIN_PARALLEL["microbatch"], TRAIN_S,
           TRAIN_S, 32, 8, 64, torch.bfloat16), dict(causal=True, library=True, reps=5)),
+        (("flash_train_granite_causal_bf16_mma", TRAIN_B // TRAIN_PARALLEL["microbatch"],
+          TRAIN_S, TRAIN_S, 32, 8, 64, torch.bfloat16),
+         dict(causal=True, library=True, reps=5, kernel="flash_attention")),
+        (("flash_masked_gqa_bf16_d64_wgmma", 2, 200, 333, 8, 2, 64, torch.bfloat16),
+         dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3,
+              kernel="flash_attention_sm90")),
         # flash_decode through the masked path with GQA: several splits, rows
         # in passes of 16 (8 queries x 4 heads) and a part pass (3 x 2)
         (("flash_masked_gqa_bf16_d80_decode", 2, 8, 333, 16, 4, 80, torch.bfloat16),
@@ -3191,24 +3320,55 @@ def run() -> int:
         flash.append(rec)
         flash_kept.append(kept)
     guidance = [guidance_case(torch.float32), guidance_case(torch.bfloat16)]
-    # the backward kernel: granite's layer (a microbatch, causal), a window,
-    # an odd length with padded keys, positions where queries attend no key
-    # and tiles hold one attendable pair, no mask, and D 80 with every mask
+    # the backward: granite's layer (a microbatch, causal) on the wgmma + TMA
+    # kernel, the mma.sync kernel it replaces on the same inputs and SDPA's
+    # autograd backward beside it; then at D 64 a window, an odd length with
+    # padded keys, rows that attend no key, no mask, a query count below 128
+    # (the log-sum-exp from flash_attention.cu) and every skip edge; D 80 on
+    # mma.sync with every mask and the causal edge
     gB = TRAIN_B // TRAIN_PARALLEL["microbatch"]
     bwd, bwd_kept = [], []
     for a, kw in ((("flash_bwd_granite_causal", gB, TRAIN_S, TRAIN_S, 32, 8, 64),
                    dict(causal=True, library=True)),
+                  (("flash_bwd_granite_causal_mma", gB, TRAIN_S, TRAIN_S, 32, 8, 64),
+                   dict(causal=True, library=True, kernel="flash_attention_bwd")),
                   (("flash_bwd_window", gB, 1024, 1024, 32, 8, 64), dict(causal=True, window=256)),
                   (("flash_bwd_odd_padded", gB, 777, 777, 32, 8, 64),
                    dict(causal=True, pad_kv=37)),
-                  (("flash_bwd_edge_causal_first_key", 2, 300, 333, 4, 2, 64),
-                   dict(edge="causal_first_key", seed=5)),
                   (("flash_bwd_unmasked_gqa_ragged", 2, 130, 190, 8, 2, 64), dict(pad_kv=9)),
+                  (("flash_bwd_no_mask", 2, 512, 512, 8, 2, 64), {}),
+                  (("flash_bwd_below_128_queries", 2, 100, 333, 8, 2, 64),
+                   dict(causal=True, window=96, pad_kv=5)),
+                  *((((f"flash_bwd_edge_{e}", 2, 300, 333, 4, 2, 64),
+                      dict(edge=e, seed=5, timed=False)) for e in SKIP_EDGE_CASES)),
                   (("flash_bwd_masked_gqa_d80", 2, 300, 333, 8, 2, 80),
-                   dict(causal=True, window=96, pad_kv=5))):
+                   dict(causal=True, window=96, pad_kv=5)),
+                  (("flash_bwd_edge_causal_first_key_d80", 2, 300, 333, 4, 2, 80),
+                   dict(edge="causal_first_key", seed=5, timed=False))):
         rec, kept = flash_bwd_case(*a, **kw)
         bwd.append(rec)
-        bwd_kept.append(kept)
+        if kw.get("kernel") is None:          # the mma.sync timing twin is not a mutant case
+            bwd_kept.append(kept)
+    # granite's forward and backward against the mma.sync kernels they
+    # replace: each one's earlier time is its twin's, on the same inputs in
+    # this run
+    for cases, case in ((flash, "flash_train_granite_causal_bf16"),
+                        (bwd, "flash_bwd_granite_causal")):
+        by_case = {c["case"]: c for c in cases}
+        by_case[case]["earlier_ms"] = by_case[f"{case}_mma"]["ms"]
+    # the log-sum-exp of each writer against its plain version: the wgmma
+    # kernel at D 64, 80 and 128, flash_attention.cu at D 64 and 80 (below
+    # 128 queries), each through every mask, rows with no key included
+    lse = [lse_case(f"lse_{kern}_d{hd}", 2, sq, 333, 8, 2, hd, kern, causal=True, window=96,
+                    pad_kv=5)
+           for kern, hd, sq in (("flash_attention_sm90", 64, 300),
+                                ("flash_attention_sm90", 80, 300),
+                                ("flash_attention_sm90", 128, 300),
+                                ("flash_attention", 64, 100), ("flash_attention", 80, 100))]
+    lse += [lse_case(f"lse_{kern}_d64_causal_first_key", 2, sq, 333, 4, 2, 64, kern,
+                     edge="causal_first_key", seed=5)
+            for kern, sq in (("flash_attention_sm90", 300), ("flash_attention", 100))]
+    record["lse"] = lse
     # the Mamba2 scan at Zamba2's prefill (d_inner 5120 = 80 heads x 64,
     # state 64, chunk 64), there with steep decays that reach the clip, a
     # ragged length, a short 16/16 shape, steep decays on a short prompt,
@@ -3250,7 +3410,7 @@ def run() -> int:
     caught = {f"mamba_ssd:{m}": v for m, v in ssd_caught.items()}
     caught.update({f"flash:{m}": v for m, v in flash_mutants(flash_kept).items()})
     caught.update(quant_blend_mutants(quant_kept, blend_kept, dequant_kept))
-    caught.update({f"flash_attention_bwd:{m}": v for m, v in flash_bwd_mutants(bwd_kept).items()})
+    caught.update({f"flash_bwd:{m}": v for m, v in flash_bwd_mutants(bwd_kept).items()})
     del ssd_kept, flash_kept, quant_kept, blend_kept, dequant_kept, bwd_kept
     record["mutants"] = caught
     for m, cases in caught.items():
@@ -3562,13 +3722,19 @@ def run() -> int:
 
     # launches: each kernel's count from the runs of the paths it serves, each
     # path's counts set to 0 just before it and read just after
-    # (the wgmma kernel's two instantiations get a row each: D 128 on the
-    # video paths, D 80 on the LM prefill; flash_decode serves the LM decode;
-    # flash_attention.cu (mma.sync, FMA) is on no path now)
+    # (the wgmma kernel's three instantiations get a row each: D 128 on the
+    # video paths, D 80 on the LM prefill, D 64 on the training forward;
+    # flash_decode serves the LM decode steps; flash_attention_bwd_sm90 the
+    # training backward; flash_attention.cu (mma.sync, FMA) and
+    # flash_attention_bwd.cu (mma.sync, D 80) are on no path now, and their
+    # rows carry their forced cases at granite's layer)
     named = {c["case"]: c for c in flash}
+    named_bwd = {c["case"]: c for c in bwd}
     check(named["flash_lm_prefill_causal_bf16"]["kernel"] == "flash_attention_sm90"
-          and named["flash_lm_decode_bf16"]["kernel"] == "flash_decode",
-          "the D-80 prefill and decode cases ran other kernels than lm_serve's")
+          and named["flash_lm_decode_bf16"]["kernel"] == "flash_decode"
+          and named["flash_train_granite_causal_bf16"]["kernel"] == "flash_attention_sm90"
+          and named_bwd["flash_bwd_granite_causal"]["kernel"] == "flash_attention_bwd_sm90",
+          "the prefill, decode and training cases ran other kernels than their paths'")
     path_counts = {"serve": main_counts, "lm_serve:prefill": lm_prefill_counts,
                    "lm_serve:decode": lm_decode_counts, "train": train_counts,
                    "train:drill": drill_counts, "train:decode": train_decode_counts,
@@ -3576,6 +3742,7 @@ def run() -> int:
                    "guidance": guidance_counts, "serve_policy": policy_counts,
                    **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts,
                    **fleet_counts}
+    train_paths = {k: path_counts[k] for k in ("train", "train:drill")}
     line = {"kernels": [
         kernel_row("flash_attention_sm90_d128", "src/repro/kernels/flash_attention.py:101",
                    named["flash_self_Twindow_bf16"],
@@ -3589,17 +3756,30 @@ def run() -> int:
                    named["flash_lm_prefill_causal_bf16"],
                    {"lm_serve:prefill": lm_prefill_counts["flash_attention_sm90"]},
                    source="flash_attention_sm90"),
+        kernel_row("flash_attention_sm90_d64", "src/repro/kernels/flash_attention.py:101",
+                   named["flash_train_granite_causal_bf16"],
+                   {k: train_paths[k]["flash_attention_sm90"] for k in train_paths},
+                   source="flash_attention_sm90"),
         kernel_row("flash_decode", "src/repro/kernels/flash_attention.py:101",
                    named["flash_lm_decode_bf16"],
                    {"lm_serve:decode": lm_decode_counts["flash_decode"],
                     "train:decode": train_decode_counts["flash_decode"]}),
-        kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
-                   named["flash_train_granite_causal_bf16"],
-                   {k: n["flash_attention"] for k, n in path_counts.items()}),
-        {**kernel_row("flash_attention_bwd", "src/repro/models/attention.py:81", bwd[0],
-                      {k: n["flash_attention_bwd"] for k, n in path_counts.items()}),
+        {**kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
+                      named["flash_train_granite_causal_bf16_mma"],
+                      {k: n["flash_attention"] for k, n in path_counts.items()}, on_path=False),
+         "note": "on no path: granite's training forward moved to flash_attention_sm90 "
+                 "(D 64); it serves bf16 D 64 / 80 with 9-127 queries and f32"},
+        {**kernel_row("flash_attention_bwd_sm90", "src/repro/models/attention.py:81",
+                      named_bwd["flash_bwd_granite_causal"],
+                      {k: train_paths[k]["flash_attention_bwd_sm90"] for k in train_paths}),
          "note": "no Pallas kernel: the reference trains through XLA's gradient of "
                  "attention_chunked"},
+        {**kernel_row("flash_attention_bwd", "src/repro/models/attention.py:81",
+                      named_bwd["flash_bwd_granite_causal_mma"],
+                      {k: n["flash_attention_bwd"] for k, n in path_counts.items()},
+                      on_path=False),
+         "note": "on no path: granite's backward (D 64) moved to flash_attention_bwd_sm90; "
+                 "it keeps D 80, which no training path runs yet"},
         kernel_row("latent_blend", "src/repro/kernels/latent_blend.py:63", blend[0],
                    {"serve": main_counts["latent_blend"],
                     **{k: n["latent_blend"] for k, n in fleet_counts.items()}}),

@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode", "flash_attention_bwd",
-           "latent_blend", "int8_quantize", "dequant_blend", "mamba_ssd", "guidance_update")
+           "flash_attention_bwd_sm90", "latent_blend", "int8_quantize", "dequant_blend",
+           "mamba_ssd", "guidance_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -34,18 +35,18 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention": {
-        # q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, KV, D,
+        # q, k, v, q_pos, kv_pos, out, lse (or null), B, Sq, Skv, H, KV, D,
         # q_pos batch stride, kv_pos batch stride, causal, window, dtype, stream
-        "flash_attention_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        "flash_attention_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _L, _L, _I, _I, _I, _P], _I),
         "flash_attention_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention_sm90": {
-        # q, k, v, q_pos, kv_pos, live-tile lists, out, B, Sq, Skv, H, KV, D,
-        # q_pos batch stride, kv_pos batch stride, causal, window, stream
-        # (bf16, D 80 or 128)
-        "flash_attention_sm90_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                      _L, _L, _I, _I, _P], _I),
+        # q, k, v, q_pos, kv_pos, live-tile lists, out, lse (or null), B, Sq, Skv,
+        # H, KV, D, q_pos batch stride, kv_pos batch stride, causal, window,
+        # stream (bf16, D 64, 80 or 128)
+        "flash_attention_sm90_fwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _L, _L, _I, _I, _P], _I),
         # q_pos, kv_pos, lists, B, Sq, Skv, batch strides, causal, window, stream
         "flash_attention_sm90_live_tiles": ([_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _P],
                                             _I),
@@ -61,11 +62,16 @@ _SIGNATURES = {
         "flash_decode_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention_bwd": {
-        # q, k, v, out, dout, q_pos, kv_pos, lse and delta workspaces, dq, dk, dv,
-        # B, Sq, Skv, H, KV, D, q_pos batch stride, kv_pos batch stride, causal,
-        # window, dtype (1 bf16), stream
+        # q, k, v, out, dout, q_pos, kv_pos, the forward's lse, delta workspace,
+        # dq, dk, dv, B, Sq, Skv, H, KV, D, q_pos batch stride, kv_pos batch
+        # stride, causal, window, dtype (1 bf16), stream
         "flash_attention_bwd": ([_P] * 12 + [_I] * 6 + [_L, _L] + [_I] * 3 + [_P], _I),
         "flash_attention_bwd_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention_bwd_sm90": {
+        # the arguments of flash_attention_bwd without the dtype (bf16, D 64)
+        "flash_attention_bwd_sm90": ([_P] * 12 + [_I] * 6 + [_L, _L] + [_I] * 2 + [_P], _I),
+        "flash_attention_bwd_sm90_error_string": ([_I], ctypes.c_char_p),
     },
     "latent_blend": {
         # preds, weights, normalizer, out, starts (host int[K]), K, W, E, F,

@@ -15,14 +15,18 @@
 // axis becomes a loop inside the block: K and V tiles are staged in shared
 // memory and the online-softmax state stays in registers.
 //
-// Head dims 64 and 80 (Zamba2's shared attention, 2560 / 32) in bf16;
-// bf16 at D = 128 runs on flash_attention_sm90.cu (wgmma + TMA); f32 at
-// 64, 80 and 128.  D = 80 keeps the design: 5 k-steps of 16 dims for
-// Q.K^T (the odd last one reads its K fragment with ldmatrix.x2), 10
-// 8-dim blocks for P.V (paired by ldmatrix.x4.trans), and shared-memory
-// rows of 88 bf16 (176 B, a multiple of 16 for cp.async and ldmatrix, and
-// conflict-free: the 8 rows of one ldmatrix start in 8 distinct 4-bank
-// groups).
+// Head dims 64 and 80 (Zamba2's shared attention, 2560 / 32) in bf16, run
+// for 9-127 queries (ops.py: flash_kernel) and for the training forward's
+// few-query calls (FlashAttention never takes flash_decode.cu, which writes
+// no log-sum-exp); from 128 queries up, and at D = 128, bf16 runs on
+// flash_attention_sm90.cu (wgmma + TMA); f32 at 64, 80 and 128.  The bf16
+// kernel writes each row's log-sum-exp when given a buffer (the backward's
+// input: kernels/ref.py: flash_attention_lse_ref).  D = 80 keeps the
+// design: 5 k-steps of 16 dims for Q.K^T (the odd last one reads its K
+// fragment with ldmatrix.x2), 10 8-dim blocks for P.V (paired by
+// ldmatrix.x4.trans), and shared-memory rows of 88 bf16 (176 B, a
+// multiple of 16 for cp.async and ldmatrix, and conflict-free: the 8 rows
+// of one ldmatrix start in 8 distinct 4-bank groups).
 //
 // What bounds it.  At the LM's prefill (S 4096, D = 80) the
 // work is ~4*S*Skv*D operations against ~4*S*D bytes per head, far above
@@ -51,7 +55,16 @@
 namespace {
 
 using flash::attend;
+using flash::cp_async16;
+using flash::cp_async_commit;
+using flash::cp_async_wait_one;
+using flash::exp2_approx;
 using flash::kPadPos;
+using flash::ldsm_x2;
+using flash::ldsm_x4;
+using flash::ldsm_x4_trans;
+using flash::mma_bf16;
+using flash::pack_bf16;
 
 constexpr float kNegInf = -1.0e30f;
 
@@ -62,84 +75,23 @@ struct Params {
   const int* qpos;
   const int* kvpos;
   void* out;
+  float* lse;  // (B, H, Sq) or null: each row's log-sum-exp (bf16 kernel only)
   int B, Sq, Skv, H, KV;
   long long qpos_bs, kvpos_bs;  // batch strides of the position arrays
   int causal, window;
   float scale;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// Two 8x8 b16 matrices; lanes 8i..8i+7 (i < 2) give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared without a register round trip; zero-filled
-// when ``valid`` is false (``src`` must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // ---------------------------------------------------------------- bf16
-// Fragment layouts of mma m16n8k16 (g = lane / 4, c = lane % 4):
-//   A (16x16): a0 (g, 2c..2c+1), a1 (g+8, 2c..), a2 (g, 2c+8..), a3 (g+8, 2c+8..)
-//   B (16x8):  b0 (k = 2c..2c+1, n = g), b1 (k = 2c+8.., n = g)
-//   C (16x8):  c0,c1 (g, 2c..2c+1), c2,c3 (g+8, 2c..2c+1)
-// The C layout of a 16x16 slice of S equals the A layout of P, so P
-// never leaves registers.  K is stored [key][dim], which is B's layout
-// for S = Q K^T (plain ldmatrix); V is stored [key][dim] too and
-// ldmatrix.trans turns it into B's layout for O = P V.  K/V tiles go
+// Fragment layouts of mma m16n8k16: flash_common.cuh.  The C layout of a
+// 16x16 slice of S equals the A layout of P, so P never leaves registers.
+// K is stored [key][dim], which is B's layout for S = Q K^T (plain
+// ldmatrix); V is stored [key][dim] too and ldmatrix.trans turns it into
+// B's layout for O = P V.  K/V tiles go
 // through two shared-memory stages: tile t+1 is in flight (cp.async)
 // while tile t is multiplied.
 constexpr int kWarps = 4, kThreads = 32 * kWarps;  // 16 query rows per warp
@@ -163,8 +115,10 @@ __device__ __forceinline__ int ntiles_live(const Params& p, int b, int* live) {
                                              p.window, live, live + (p.Skv + BN - 1) / BN);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
+// One block's work; kLse: also write each row's log-sum-exp to p.lse (the
+// training forward's entry, flash_fwd_bf16_lse).
+template <int D, bool kLse>
+__device__ __forceinline__ void fwd_bf16(const Params& p) {
   constexpr int BM = 16 * kWarps, BN = kBN, LD = D + 8;  // +8: no bank conflicts
   constexpr int KSTEPS = D / 16, DB = D / 8, NB = BN / 8, TILE = BN * LD;
   static_assert(D % 16 == 0 && DB % 2 == 0, "k-steps of 16 dims, P.V dim blocks in pairs");
@@ -320,10 +274,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 #pragma unroll
     for (int k2 = 0; k2 < BN / 16; ++k2) {
       uint32_t a[4];
-      a[0] = pack_f32(s[2 * k2][0], s[2 * k2][1]);
-      a[1] = pack_f32(s[2 * k2][2], s[2 * k2][3]);
-      a[2] = pack_f32(s[2 * k2 + 1][0], s[2 * k2 + 1][1]);
-      a[3] = pack_f32(s[2 * k2 + 1][2], s[2 * k2 + 1][3]);
+      a[0] = pack_bf16(s[2 * k2][0], s[2 * k2][1]);
+      a[1] = pack_bf16(s[2 * k2][2], s[2 * k2][3]);
+      a[2] = pack_bf16(s[2 * k2 + 1][0], s[2 * k2 + 1][1]);
+      a[3] = pack_bf16(s[2 * k2 + 1][2], s[2 * k2 + 1][3]);
       // matrices: (keys +0, dims db), (keys +8, db), (+0, db+1), (+8, db+1)
       const __nv_bfloat16* vrow =
           vs + (k2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
@@ -351,6 +305,26 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
       *reinterpret_cast<__nv_bfloat162*>(O + r1 * qrs + col) =
           __floats2bfloat162_rn(o[db][2] * inv1, o[db][3] * inv1);
   }
+  // each row's log-sum-exp (log2 units, +inf on a row that attends no key:
+  // kernels/ref.py: flash_attention_lse_ref)
+  if (kLse && c == 0) {
+    float* lse = p.lse + ((long long)b * p.H + h) * p.Sq;
+    if (ok_r0) lse[r0] = l0 > 0.f ? fmaf(m0, sl2, __log2f(l0)) : INFINITY;
+    if (ok_r1) lse[r1] = l1 > 0.f ? fmaf(m1, sl2, __log2f(l1)) : INFINITY;
+  }
+}
+
+// The serving calls' entry (no log-sum-exp).
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
+  fwd_bf16<D, false>(p);
+}
+
+// The training forward's entry.  At least 3 blocks an SM: without that
+// bound ptxas holds the D-80 instantiation to 128 registers and spills.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3) flash_fwd_bf16_lse(Params p) {
+  fwd_bf16<D, true>(p);
 }
 
 // ----------------------------------------------------------------- f32
@@ -464,13 +438,14 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
 
 template <int D>
 cudaError_t launch_bf16(const Params& p, cudaStream_t st) {
+  const auto kernel = p.lse != nullptr ? flash_fwd_bf16_lse<D> : flash_fwd_bf16<D>;
   // dynamic: may pass the 48 KiB default
   const int smem = bf16_smem_bytes<D>() + list_bytes(p.Skv, kBN);
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Sq + 16 * kWarps - 1) / (16 * kWarps), p.H, p.B);
-  flash_fwd_bf16<D><<<grid, kThreads, smem, st>>>(p);
+  kernel<<<grid, kThreads, smem, st>>>(p);
   return cudaSuccess;
 }
 
@@ -487,15 +462,19 @@ cudaError_t launch_f32(const Params& p, cudaStream_t st) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch, or -1 for a dtype / head dim this file has no kernel for.
+// dtype: 0 = float32, 1 = bfloat16.  ``lse``: an f32 (B, H, Sq) buffer for
+// each row's log-sum-exp (bf16 only), or null.  Returns cudaGetLastError()
+// after the launch, or -1 for a dtype / head dim this file has no kernel
+// for (or an lse buffer with f32).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* qpos, const void* kvpos, void* out,
+                                   const void* qpos, const void* kvpos, void* out, void* lse,
                                    int B, int Sq, int Skv, int H, int KV, int D,
                                    long long qpos_bs, long long kvpos_bs, int causal,
                                    int window, int dtype, void* stream) {
+  if (lse != nullptr && dtype != 1) return -1;
   Params p{q, k, v, static_cast<const int*>(qpos), static_cast<const int*>(kvpos), out,
-           B, Sq, Skv, H, KV, qpos_bs, kvpos_bs, causal, window, 1.0f / sqrtf((float)D)};
+           static_cast<float*>(lse), B, Sq, Skv, H, KV, qpos_bs, kvpos_bs, causal, window,
+           1.0f / sqrtf((float)D)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 1) {

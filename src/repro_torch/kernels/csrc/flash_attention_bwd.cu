@@ -1,5 +1,8 @@
 // Flash attention backward (the gradient of flash_attention.cu's function)
-// for Hopper, sm_90a.
+// for Hopper, sm_90a, on mma.sync: bf16 at head dims 64 and 80.  ops.py
+// routes D 80 here (Zamba2's head dim; no training path runs it yet) and D
+// 64 to flash_attention_bwd_sm90.cu (wgmma + TMA); D 64 stays built so the
+// two can be timed on the same inputs.
 //
 // Replaces: no Pallas kernel.  The reference has no backward kernel: it
 // trains through XLA's gradient of the jnp attention_chunked
@@ -15,20 +18,21 @@
 // dP = dO V^T and dS = P o (dP - Delta):
 //   dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D),  dV = P^T dO,
 // dK and dV summed over the G query heads of a kv head's group (GQA).
-// bf16 in and out, head dims 64 and 80, f32 sums; P and dS go to bf16 for
-// the products that take them (kernels/ref.py: flash_bwd_bf16_tolerance).
+// bf16 in and out, f32 sums; P and dS go to bf16 for the products that take
+// them (kernels/ref.py: flash_bwd_bf16_tolerance).  P is exp2(s log2(e) /
+// sqrt(D) - lse) with the forward's log-sum-exp (kernels/ref.py:
+// flash_attention_lse_ref), which flash_attention_sm90.cu or
+// flash_attention.cu wrote: no launch here computes it again.
 //
 // Design.  Deterministic, with no atomics on a result: every output element
 // is summed by one thread in a fixed order.  Three launches on the stream:
-//   1. bwd_prep, one block per (batch, head, 64 queries): each row's
-//      log-sum-exp recomputed from the same masks (an online max and sum
-//      over the live key tiles, as the forward runs them) and Delta; both
-//      f32 into a workspace.  The forward kernels stay as they are.
+//   1. bwd_prep, one block per (batch, head, 64 queries): each row's Delta,
+//      f32 into a workspace.
 //   2. bwd_dkdv, one block per (batch, kv head, 64 keys), 16 keys a warp:
 //      dK and dV of its keys stay in registers while the block walks the G
 //      heads of the group and, for each, the query tiles that hold an
-//      attendable pair with its keys (live_q_tiles below), recomputing
-//      S^T = K Q^T and P^T from the log-sum-exp.
+//      attendable pair with its keys (flash_common.cuh: live_q_tiles),
+//      recomputing S^T = K Q^T and P^T from the log-sum-exp.
 //   3. bwd_dq, one block per (batch, head, 64 queries), 16 rows a warp: dQ
 //      in registers over the live key tiles (flash_common.cuh: live_tiles).
 // Products are mma.sync m16n8k16 (bf16 in, f32 accumulate) with the
@@ -42,7 +46,7 @@
 // products over the attended pairs (S recomputed twice, dP twice, and dV,
 // dK and dQ), far above the card's ~295 operations per byte at a training
 // length.  mma.sync reaches about two thirds of the wgmma rate at best;
-// wgmma and TMA are later work.
+// flash_attention_bwd_sm90.cu is the wgmma + TMA design (D 64).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -55,14 +59,22 @@
 namespace {
 
 using flash::attend;
+using flash::cp_async16;
+using flash::cp_async_commit;
+using flash::cp_async_wait_one;
+using flash::exp2_approx;
+using flash::kLog2e;
 using flash::kPadPos;
+using flash::ldsm_x2;
+using flash::ldsm_x4;
+using flash::ldsm_x4_trans;
+using flash::mma_bf16;
+using flash::pack_bf16;
 using bf16 = __nv_bfloat16;
 
-constexpr float kNegInf = -1.0e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWarps = 4, kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // queries of a prep / dq block, keys of a dkdv block
-constexpr int kBN = 32;             // keys of a tile in prep / dq
+constexpr int kBN = 32;             // keys of a tile in dq
 
 struct Params {
   const bf16* q;
@@ -72,8 +84,8 @@ struct Params {
   const bf16* dout;
   const int* qpos;
   const int* kvpos;
-  float* lse;    // [B][H][Sq]: log2 sum_j exp2(s_ij * sl2), +inf on a row with no key
-  float* delta;  // [B][H][Sq]
+  const float* lse;  // [B][H][Sq] from the forward (kernels/ref.py: flash_attention_lse_ref)
+  float* delta;      // [B][H][Sq]
   bf16* dq;
   bf16* dk;
   bf16* dv;
@@ -83,20 +95,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -105,52 +103,8 @@ __device__ __forceinline__ float2 ld_f2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Fragment layouts of mma m16n8k16 (g = lane / 4, c = lane % 4):
-//   A (16x16): a0 (g, 2c..2c+1), a1 (g+8, 2c..), a2 (g, 2c+8..), a3 (g+8, 2c+8..)
-//   B (16x8):  b0 (k = 2c..2c+1, n = g), b1 (k = 2c+8.., n = g)
-//   C (16x8):  c0,c1 (g, 2c..2c+1), c2,c3 (g+8, 2c..2c+1)
-// Tiles in shared memory are [row][dim] with rows of LD = D + 8 bf16.
+// Fragment layouts of mma m16n8k16: flash_common.cuh.  Tiles in shared
+// memory are [row][dim] with rows of LD = D + 8 bf16.
 
 // A fragments of 16 rows (r0 = row g, r1 = row g + 8) x D from device memory
 // (rows past the end are zero).
@@ -200,10 +154,10 @@ __device__ __forceinline__ void mul_acc_t(float (&out)[DB][4], const float (&x)[
 #pragma unroll
   for (int k2 = 0; k2 < NB / 2; ++k2) {
     uint32_t a[4];
-    a[0] = pack_f32(x[2 * k2][0], x[2 * k2][1]);
-    a[1] = pack_f32(x[2 * k2][2], x[2 * k2][3]);
-    a[2] = pack_f32(x[2 * k2 + 1][0], x[2 * k2 + 1][1]);
-    a[3] = pack_f32(x[2 * k2 + 1][2], x[2 * k2 + 1][3]);
+    a[0] = pack_bf16(x[2 * k2][0], x[2 * k2][1]);
+    a[1] = pack_bf16(x[2 * k2][2], x[2 * k2][3]);
+    a[2] = pack_bf16(x[2 * k2 + 1][0], x[2 * k2 + 1][1]);
+    a[3] = pack_bf16(x[2 * k2 + 1][2], x[2 * k2 + 1][3]);
     // matrices: (rows +0, dims db), (rows +8, db), (+0, db+1), (+8, db+1)
     const bf16* row = t + (k2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
 #pragma unroll
@@ -216,117 +170,21 @@ __device__ __forceinline__ void mul_acc_t(float (&out)[DB][4], const float (&x)[
   }
 }
 
-// The query tiles of BQ rows that hold an attendable pair with the keys
-// k0 .. k0+BK-1 (those below Skv) of ``kvpos``, in order, into ``list``;
-// returns how many.  flash_common.cuh's live_tiles with queries and keys
-// swapped: entry i is 2 * tile + 1 when some pair may be masked and 2 * tile
-// when every pair is attendable (BQ rows below Sq, BK valid keys, each inside
-// the causal and window limits of every query).  A tile is dropped only when
-// no pair is attendable, judged from positions: the keys have no valid one,
-// or, causally, their smallest position is above the tile's largest query
-// position, or, with a window, their largest is at or below the tile's
-// smallest query position minus the window.  ``scratch`` holds 3 ints of
-// shared memory.  Every thread of the block must call it.
-template <int BQ, int BK>
-__device__ int live_q_tiles(const int* __restrict__ qpos, int Sq,
-                            const int* __restrict__ kvpos, int k0, int Skv, int causal,
-                            int window, int* list, int* scratch) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int kmin = INT_MAX, kmax = INT_MIN, nvalid = 0;
-  for (int j = tid; j < BK; j += kThreads) {
-    const int n = k0 + j;
-    const int kp = n < Skv ? kvpos[n] : kPadPos;
-    if (kp != kPadPos) {
-      kmin = min(kmin, kp);
-      kmax = max(kmax, kp);
-      ++nvalid;
-    }
-  }
-  kmin = __reduce_min_sync(0xffffffffu, kmin);
-  kmax = __reduce_max_sync(0xffffffffu, kmax);
-  nvalid = __reduce_add_sync(0xffffffffu, nvalid);
-  if (tid == 0) {
-    scratch[0] = INT_MAX;
-    scratch[1] = INT_MIN;
-    scratch[2] = 0;
-  }
-  __syncthreads();
-  if (lane == 0) {
-    atomicMin(&scratch[0], kmin);
-    atomicMax(&scratch[1], kmax);
-    atomicAdd(&scratch[2], nvalid);
-  }
-  __syncthreads();
-  const int klo = scratch[0], khi = scratch[1], kn = scratch[2];
-  const int ntiles = (Sq + BQ - 1) / BQ;
-  for (int t = warp; t < ntiles; t += kWarps) {  // one warp per query tile
-    int qlo = INT_MAX, qhi = INT_MIN;
-    for (int r = lane; r < BQ; r += 32) {
-      if (t * BQ + r < Sq) {
-        const int qp = qpos[t * BQ + r];
-        qlo = min(qlo, qp);
-        qhi = max(qhi, qp);
-      }
-    }
-    qlo = __reduce_min_sync(0xffffffffu, qlo);
-    qhi = __reduce_max_sync(0xffffffffu, qhi);
-    if (lane == 0) {
-      bool live = kn > 0;
-      if (causal) live = live && klo <= qhi;
-      if (window > 0) live = live && (long long)khi > (long long)qlo - window;
-      bool clear = kn == BK && (t + 1) * BQ <= Sq;
-      if (causal) clear = clear && khi <= qlo;
-      if (window > 0) clear = clear && (long long)klo > (long long)qhi - window;
-      list[t] = live ? (clear ? 1 : 2) : 0;
-    }
-  }
-  __syncthreads();
-  if (warp == 0) {  // compact the live tiles in place, in order
-    int count = 0;
-    for (int base = 0; base < ntiles; base += 32) {
-      const int t = base + lane;
-      const int f = t < ntiles ? list[t] : 0;
-      __syncwarp();
-      const unsigned live = __ballot_sync(0xffffffffu, f != 0);
-      if (f) list[count + __popc(live & ((1u << lane) - 1u))] = 2 * t + (f == 2);
-      count += __popc(live);
-      __syncwarp();
-    }
-    if (lane == 0) scratch[2] = count;
-  }
-  __syncthreads();
-  return scratch[2];
-}
-
 inline int list_bytes(int n, int tile) { return ((n + tile - 1) / tile + 3) * 4; }
 
 // --------------------------------------------------------------- 1. prep
-template <int D>
-constexpr int prep_smem_bytes() {
-  return 2 * kBN * (D + 8) * 2 + 2 * kBN * 4;  // 2 stages of K, kv positions
-}
-
+// Delta = rowsum(dO o O) of 64 rows, 16 a warp, a row's dims spread over
+// the 4 lanes of a quad.
 template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_prep(Params p) {
-  constexpr int BN = kBN, LD = D + 8, KSTEPS = D / 16, NB = BN / 8, TILE = BN * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);            // [2][BN][LD]
-  int* kvp_s = reinterpret_cast<int*>(Ks + 2 * TILE);  // [2][BN]
-  int* live = kvp_s + 2 * BN;                          // [ntiles + 3]
-
+  constexpr int KSTEPS = D / 16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
+  const int c = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.H / p.KV);
-  const long long qrs = (long long)p.H * D, kvrs = (long long)p.KV * D;
+  const long long qrs = (long long)p.H * D;
   const long long qoff = (long long)b * p.Sq * qrs + (long long)h * D;
-  const bf16* Kg = p.k + (long long)b * p.Skv * kvrs + (long long)hk * D;
-  const int r0 = blockIdx.x * kRows + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = blockIdx.x * kRows + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const bool ok_r0 = r0 < p.Sq, ok_r1 = r1 < p.Sq;
-  const int qp0 = ok_r0 ? p.qpos[b * p.qpos_bs + r0] : 0;
-  const int qp1 = ok_r1 ? p.qpos[b * p.qpos_bs + r1] : 0;
-
-  // Delta = rowsum(dO o O), a row's dims spread over the 4 lanes of a quad
   float dl0 = 0.f, dl1 = 0.f;
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {
@@ -350,89 +208,9 @@ __global__ void __launch_bounds__(kThreads) bwd_prep(Params p) {
   dl1 += __shfl_xor_sync(0xffffffffu, dl1, 1);
   dl1 += __shfl_xor_sync(0xffffffffu, dl1, 2);
   const long long row = ((long long)b * p.H + h) * p.Sq;
-  if (c == 0) {  // stored now: nothing of it stays live through the key loop
+  if (c == 0) {
     if (ok_r0) p.delta[row + r0] = dl0;
     if (ok_r1) p.delta[row + r1] = dl1;
-  }
-
-  uint32_t qf[KSTEPS][4];
-  load_a<KSTEPS>(qf, p.q + qoff, qrs, r0, ok_r0, ok_r1, c);
-  const float sl2 = p.scale * kLog2e;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  auto load_tile = [&](int n0, int st) {
-    bf16* ks = Ks + st * TILE;
-    for (int i = tid; i < BN * D / 8; i += kThreads) {
-      const int row = i / (D / 8), cc = (i % (D / 8)) * 8;
-      const int n = n0 + row;
-      cp_async16(ks + row * LD + cc, Kg + (n < p.Skv ? n * kvrs + cc : 0), n < p.Skv);
-    }
-    if (tid < BN) {
-      const int n = n0 + tid;
-      kvp_s[st * BN + tid] = n < p.Skv ? p.kvpos[b * p.kvpos_bs + n] : kPadPos;
-    }
-  };
-
-  const int ntiles = flash::live_tiles<kRows, BN, kThreads>(
-      p.qpos + b * p.qpos_bs, blockIdx.x * kRows, p.Sq, p.kvpos + b * p.kvpos_bs, p.Skv,
-      p.causal, p.window, live, live + (p.Skv + BN - 1) / BN);
-  if (ntiles > 0) load_tile((live[0] >> 1) * BN, 0);
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < ntiles) load_tile((live[t + 1] >> 1) * BN, st ^ 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const bool full = !(live[t] & 1);
-    const int* kvp = kvp_s + st * BN;
-    float s[NB][4];
-    mul_rows_t<NB, KSTEPS, LD>(s, qf, Ks + st * TILE, lane);
-    float mx0 = m0, mx1 = m1;
-    bool ok[NB][4];
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (full) {
-          ok[nb][j] = ok[nb][2 + j] = true;
-        } else {
-          const int kp = kvp[nb * 8 + 2 * c + j];
-          ok[nb][j] = attend(qp0, kp, p.causal, p.window);
-          ok[nb][2 + j] = attend(qp1, kp, p.causal, p.window);
-          if (!ok[nb][j]) s[nb][j] = kNegInf;
-          if (!ok[nb][2 + j]) s[nb][2 + j] = kNegInf;
-        }
-        mx0 = fmaxf(mx0, s[nb][j]);
-        mx1 = fmaxf(mx1, s[nb][2 + j]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        sum0 += ok[nb][j] ? exp2_approx((s[nb][j] - mx0) * sl2) : 0.f;
-        sum1 += ok[nb][2 + j] ? exp2_approx((s[nb][2 + j] - mx1) * sl2) : 0.f;
-      }
-    }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-    l0 = l0 * exp2_approx((m0 - mx0) * sl2) + sum0;
-    l1 = l1 * exp2_approx((m1 - mx1) * sl2) + sum1;
-    m0 = mx0;
-    m1 = mx1;
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
-  }
-  if (c == 0) {
-    if (ok_r0) p.lse[row + r0] = l0 > 0.f ? m0 * sl2 + __log2f(l0) : INFINITY;
-    if (ok_r1) p.lse[row + r1] = l1 > 0.f ? m1 * sl2 + __log2f(l1) : INFINITY;
   }
 }
 
@@ -485,9 +263,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv(Params p) {
   }
   const float sl2 = p.scale * kLog2e;
 
-  const int nlive = live_q_tiles<BQ, kRows>(qpos, p.Sq, p.kvpos + b * p.kvpos_bs, k0, p.Skv,
-                                            p.causal, p.window, live,
-                                            live + (p.Sq + BQ - 1) / BQ);
+  const int nlive = flash::live_q_tiles<BQ, kRows, kThreads>(
+      qpos, p.Sq, p.kvpos + b * p.kvpos_bs, k0, p.Skv, p.causal, p.window, live,
+      live + (p.Sq + BQ - 1) / BQ);
   const int steps = G * nlive;  // every head of the group, every live query tile
   auto load_tile = [&](int i, int st) {
     const int h = hk * G + i / nlive, q0 = (live[i % nlive] >> 1) * BQ;
@@ -693,7 +471,7 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, const Params& p, cudaStre
 template <int D>
 cudaError_t launch_all(const Params& p, cudaStream_t st) {
   const dim3 qgrid((p.Sq + kRows - 1) / kRows, p.H, p.B);
-  cudaError_t e = launch(bwd_prep<D>, qgrid, prep_smem_bytes<D>() + list_bytes(p.Skv, kBN), p, st);
+  cudaError_t e = launch(bwd_prep<D>, qgrid, 0, p, st);
   if (e != cudaSuccess) return e;
   e = launch(bwd_dkdv<D>, dim3((p.Skv + kRows - 1) / kRows, p.KV, p.B),
              dkdv_smem_bytes<D>() + list_bytes(p.Sq, DkdvTile<D>::BQ), p, st);
@@ -704,12 +482,14 @@ cudaError_t launch_all(const Params& p, cudaStream_t st) {
 }  // namespace
 
 // q, out, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Skv, KV, D); all bf16 and
-// contiguous.  lse and delta: f32 workspaces of B * H * Sq each.  dtype: 1 =
-// bfloat16.  Returns cudaGetLastError() after the launches, or -1 for a dtype
-// / head dim this file has no kernel for.
+// contiguous.  lse: the forward's f32 (B, H, Sq) log-sum-exp; delta: an f32
+// workspace of B * H * Sq.  dtype: 1 = bfloat16.  Returns cudaGetLastError()
+// after the launches, or -1 for a dtype / head dim this file has no kernel
+// for.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* qpos, const void* kvpos,
-                                   void* lse, void* delta, void* dq, void* dk, void* dv, int B,
+                                   const void* lse, void* delta, void* dq, void* dk, void* dv,
+                                   int B,
                                    int Sq, int Skv, int H, int KV, int D, long long qpos_bs,
                                    long long kvpos_bs, int causal, int window, int dtype,
                                    void* stream) {
@@ -717,7 +497,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   Params p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
            static_cast<const bf16*>(v), static_cast<const bf16*>(out),
            static_cast<const bf16*>(dout), static_cast<const int*>(qpos),
-           static_cast<const int*>(kvpos), static_cast<float*>(lse), static_cast<float*>(delta),
+           static_cast<const int*>(kvpos), static_cast<const float*>(lse),
+           static_cast<float*>(delta),
            static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
            B, Sq, Skv, H, KV, qpos_bs, kvpos_bs, causal, window, 1.0f / sqrtf((float)D)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

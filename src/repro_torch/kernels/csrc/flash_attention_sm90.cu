@@ -1,11 +1,13 @@
-// Flash attention for Hopper with wgmma and TMA: bf16, head dim 80 or 128,
-// sm_90a.
+// Flash attention for Hopper with wgmma and TMA: bf16, head dim 64, 80 or
+// 128, sm_90a.
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention (the
 // Pallas TPU kernel) for bf16 at D = 128, the video DiT's self- and
-// cross-attention, and at D = 80 for the hybrid LM's prefill (ops.py's
+// cross-attention, at D = 80 for the hybrid LM's prefill and at D = 64 for
+// the dense LM's training forward (granite), from 128 queries up (ops.py's
 // flash_kernel routes by dtype, head dim and query count);
-// flash_attention.cu keeps D 64, the D-80 decode step and f32.
+// flash_attention.cu keeps D 64 and 80 below 128 queries and f32,
+// flash_decode.cu the decode step.
 //
 // Same function as flash_attention.cu: scores q.k / sqrt(D) in f32; a key
 // is attended when its position is not int32-max, and, if asked, causal
@@ -65,14 +67,26 @@
 //    which is not a canonical layout, or n128 on 48 zero columns (37% of
 //    P.V wasted).  The split boxes also take 40 KB a K/V stage (64 KB at
 //    D 128) and 20 KB for Q: 141 KB of shared memory against 225 KB.
+//  - D 64: one 64-column box with the 128-byte swizzle and no tail; Q.K^T
+//    is 4 k-steps as at D 128, P.V one m64n64k16 per 16 keys on a
+//    32-register accumulator (the first half of D 80's P.V).  16 KB K/V
+//    tiles; the ring keeps 3 stages, as at D 80 and 128: a deeper one left
+//    the time unchanged (tools/flash_sm90_ablation.py, stages5).
+//  - An optional f32 output of each row's log-sum-exp, (B, H, Sq), for the
+//    backward (flash_attention_bwd_sm90.cu, flash_attention_bwd.cu): the
+//    epilogue writes it from the m and l it already holds, in the units of
+//    kernels/ref.py: flash_attention_lse_ref (log2 of the sum of exp of the
+//    scaled scores, +inf on a row that attends no key).  A null pointer
+//    writes nothing, as the serving paths pass.
 //  - Tensor maps are 3-D, {heads * D, S, B}, so the rows past S of a
 //    ragged last tile are zero-filled and never the next batch's keys;
 //    the mask drops them by position (int32-max) in any case.
 //  - Only listed tiles are visited, and only the tiles with a masked pair
 //    pay for the per-element mask.
-//  - The tensor-map encoder is fetched with cudaGetDriverEntryPoint, so
-//    the build needs no -lcuda; the maps are encoded on the host for each
-//    call and passed as __grid_constant__ parameters.
+//  - The tensor-map encoder (flash_common.cuh: encoder) is fetched with
+//    cudaGetDriverEntryPoint, so the build needs no -lcuda; the maps are
+//    encoded on the host for each call and passed as __grid_constant__
+//    parameters.
 // Written in plain PTX (no CuTe), which keeps the nvcc build at seconds.
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -86,13 +100,27 @@
 namespace {
 
 using flash::attend;
+using flash::desc;
+using flash::desc_bits;
+using flash::exp2_approx;
 using flash::kPadPos;
+using flash::mbar_arrive;
+using flash::mbar_expect_tx;
+using flash::mbar_init;
+using flash::mbar_wait;
+using flash::pack_a;
+using flash::pin;
+using flash::smem_u32;
+using flash::tma_load;
+using flash::wg_commit;
+using flash::wg_fence;
+using flash::wg_wait;
+using flash::wgmma_rs;
 
 constexpr int kBM = 128;        // query rows per block: two warpgroups of 64
 constexpr int kBN = 128;        // keys per tile
 constexpr int kConsumers = 2;   // consumer warpgroups of 64 query rows
 constexpr int kThreads = 128 * (kConsumers + 1);  // + one producer warpgroup
-constexpr int kStages = 3;      // K/V ring
 constexpr int kScanThreads = 256;                 // the live-tile pre-pass
 
 // Shared memory of the head dim kD, from a 1024-byte aligned base (the
@@ -104,7 +132,10 @@ template <int kD>
 struct Smem {
   static constexpr int kBoxes = kD / 64;                  // 64-column boxes
   static constexpr int kTail = kD % 64;                   // 16 at D 80, else 0
-  static_assert(kTail == 0 || kTail == 16, "head dim 80 or 128");
+  static_assert(kTail == 0 || kTail == 16, "head dim 64, 80 or 128");
+  // the K/V ring, at D 64 too: a deeper ring, which D 64's 16 KB tiles
+  // would leave room for, bought nothing (tools/flash_sm90_ablation.py)
+  static constexpr int kStages = 3;
   static constexpr int kQBox = 64 * 64 * 2;               // 64 rows x 64 dims
   static constexpr int kQBytes = kBM * kD * 2;
   static constexpr int kQTail = kConsumers * kBoxes * kQBox;  // + wg * 64 rows * 32 B
@@ -125,78 +156,12 @@ struct Params {
   const int* kvpos;
   const int* lists;  // (B, q blocks, ntiles + 1) from the pre-pass
   void* out;
+  float* lse;        // (B, H, Sq) or null: each row's log-sum-exp (kernels/ref.py)
   int Sq, Skv, H, KV, ntiles;
   long long qpos_bs, kvpos_bs;
   int causal, window;
   float sl2;  // log2(e) / sqrt(D)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// until the phase of parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptors; bits 62-63 name the swizzle
-// (1: 128-byte, 3: 32-byte)
-__device__ __forceinline__ uint64_t desc_bits(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
-}
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return desc_bits(addr, lbo, sbo) | (1ull << 62);
-}
-// the 16-column box of D 80: rows of 32 bytes, 8-row groups 256 bytes apart
-__device__ __forceinline__ uint64_t desc32(uint32_t addr) {
-  return desc_bits(addr, 16, 256) | (3ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed groups of this warpgroup's wgmma are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // named barriers 1 and 2: the two consumer warpgroups take turns to issue
 __device__ __forceinline__ void bar_sync(int id) {
@@ -206,18 +171,9 @@ __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(256) : "memory");
 }
 
-// keep the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the fence / wait that guards them
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t (&a)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+// the 16-column box of D 80: rows of 32 bytes, 8-row groups 256 bytes apart
+__device__ __forceinline__ uint64_t desc32(uint32_t addr) {
+  return desc_bits(addr, 16, 256) | (3ull << 62);
 }
 
 #define D64_REGS                                                                           \
@@ -237,17 +193,6 @@ __device__ __forceinline__ void pin(uint32_t (&a)[8][4]) {
       "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),        \
       "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-#define D32_REGS                                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define D32_OPS                                                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
-
 // d (+)= A B, 64 x 128 x 16; A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
                                          int accumulate) {
@@ -277,24 +222,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4],
                                          uint64_t dbt) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " D32_REGS
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_D32_REGS
       ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
       " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"
       " {%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %46, p, 1, 1, 1;\n}\n"
-      : D32_OPS, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+      : FLASH_D32_OPS, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
         "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "l"(dbt));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The online softmax of one tile's scores ``s`` (two rows per thread: g
@@ -380,16 +314,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[kD / 2], const uint32_t (&pa
   }
 }
 
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&s)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
 // The pre-pass: block (q block, batch) writes its list of live key tiles
 // (entries in key order, -1 after them, the count at [ntiles]).
 __global__ void __launch_bounds__(kScanThreads)
@@ -420,8 +344,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t bar_full = base + L::kBarOff;           // [kStages]
-  const uint32_t bar_empty = bar_full + 8 * kStages;     // [kStages]
-  const uint32_t bar_q = bar_empty + 8 * kStages;
+  const uint32_t bar_empty = bar_full + 8 * L::kStages;  // [kStages]
+  const uint32_t bar_q = bar_empty + 8 * L::kStages;
 
   const int tid = threadIdx.x, wg = tid >> 7;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (p.H / p.KV);
@@ -432,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int* live = p.lists + ((long long)b * gridDim.x + blockIdx.x) * (p.ntiles + 1);
 
   if (tid == 0) {
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < L::kStages; ++st) {
       mbar_init(bar_full + 8 * st, 1);
       mbar_init(bar_empty + 8 * st, kConsumers);  // one arrival per consumer warpgroup
     }
@@ -458,8 +382,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == 128 * kConsumers) {
       for (int i = 0; i < ntiles; ++i) {
-        const int st = i % kStages, key0 = (__ldg(live + i) >> 1) * kBN;
-        if (i >= kStages) mbar_wait(bar_empty + 8 * st, (i / kStages - 1) & 1);
+        const int st = i % L::kStages, key0 = (__ldg(live + i) >> 1) * kBN;
+        if (i >= L::kStages) mbar_wait(bar_empty + 8 * st, (i / L::kStages - 1) & 1);
         const uint32_t full = bar_full + 8 * st, ks = base + L::kKOff + st * 2 * L::kTileBytes;
         const uint32_t vs = ks + L::kTileBytes;
         mbar_expect_tx(full, 2 * L::kTileBytes);
@@ -484,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int qp0 = r0 < p.Sq ? qpos[r0] : 0, qp1 = r1 < p.Sq ? qpos[r1] : 0;
     const uint32_t qs = base + wg * L::kBoxes * L::kQBox, qt = base + L::kQTail + wg * 64 * 32;
     float o[kD / 2], s[64];
-    uint32_t pa[8][4];
+    uint32_t pa[kBN / 16][4];
 #pragma unroll
     for (int x = 0; x < kD / 2; ++x) o[x] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, corr0 = 1.f, corr1 = 1.f;
@@ -495,8 +419,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // 128-byte swizzled row, then D 80's 32-byte row), issued and
     // committed, not waited for
     auto issue_s = [&](int i) {
-      const uint32_t ks = base + L::kKOff + (i % kStages) * 2 * L::kTileBytes;
-      mbar_wait(bar_full + 8 * (i % kStages), (i / kStages) & 1);
+      const uint32_t ks = base + L::kKOff + (i % L::kStages) * 2 * L::kTileBytes;
+      mbar_wait(bar_full + 8 * (i % L::kStages), (i / L::kStages) & 1);
       __syncwarp();
 #pragma unroll
       for (int x = 0; x < 64; ++x) s[x] = 0.f;
@@ -509,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wg_commit();
     };
     auto vs_of = [&](int i) {
-      return base + L::kKOff + (i % kStages) * 2 * L::kTileBytes + L::kTileBytes;
+      return base + L::kKOff + (i % L::kStages) * 2 * L::kTileBytes + L::kTileBytes;
     };
     // The warpgroups take turns to issue their products (warpgroup w waits
     // on barrier 1 + w, then lets the other go), so one's softmax runs
@@ -528,7 +452,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       int entry = __ldg(live);
       softmax_tile(s, entry, (entry >> 1) * kBN, c, qp0, qp1, p, kvpos, m0, m1, l0, l1, corr0,
                    corr1);
-      pack_p(pa, s);
+      pack_a(pa, s);
       for (int i = 1; i < ntiles; ++i) {
         bar_sync(mine);
         issue_s(i);
@@ -547,8 +471,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         pin(o);
         pin(pa);
         // tile i-1's stage is free once both warpgroups are done with it
-        if ((tid & 127) == 0) mbar_arrive(bar_empty + 8 * ((i - 1) % kStages));
-        pack_p(pa, s);
+        if ((tid & 127) == 0) mbar_arrive(bar_empty + 8 * ((i - 1) % L::kStages));
+        pack_a(pa, s);
       }
       bar_sync(mine);
       rescale(o, corr0, corr1);
@@ -560,6 +484,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       pin(o);
     }
 
+    // each row's log-sum-exp (log2 units, +inf on a row that attends no
+    // key), when asked: m and l are whole in every lane of the row's quad
+    if (p.lse != nullptr && c == 0) {
+      float* lse = p.lse + ((long long)b * p.H + h) * p.Sq;
+      if (r0 < p.Sq) lse[r0] = l0 > 0.f ? fmaf(m0, p.sl2, __log2f(l0)) : INFINITY;
+      if (r1 < p.Sq) lse[r1] = l1 > 0.f ? fmaf(m1, p.sl2, __log2f(l1)) : INFINITY;
+    }
     // the accumulator's 8-column block nb holds columns nb * 8 + 2c, + 1
     // (at D 80 blocks 8 and 9 are the 16-column product's)
     const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
@@ -579,40 +510,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 (B, S, heads, D) tensor as the 3-D map {heads * D, S, B}, read in
-// boxes of ``cols`` dims x ``rows`` rows: 64 columns with the 128-byte
-// swizzle, 16 with the 32-byte one; rows past S read as zeros.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int heads, int D, int S, int B,
-            int cols, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)heads * D, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)heads * D * 2, (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 cudaError_t launch_live_tiles(const void* qpos, const void* kvpos, void* lists, int B, int Sq,
                               int Skv, long long qpos_bs, long long kvpos_bs, int causal,
                               int window, cudaStream_t stream) {
@@ -625,9 +522,12 @@ cudaError_t launch_live_tiles(const void* qpos, const void* kvpos, void* lists, 
 
 template <int kD>
 int launch(const void* q, const void* k, const void* v, const void* qpos, const void* kvpos,
-           void* lists, void* out, int B, int Sq, int Skv, int H, int KV, long long qpos_bs,
-           long long kvpos_bs, int causal, int window, cudaStream_t stream) {
-  EncodeTiled fn = encoder();
+           void* lists, void* out, void* lse, int B, int Sq, int Skv, int H, int KV,
+           long long qpos_bs, long long kvpos_bs, int causal, int window, cudaStream_t stream) {
+  using flash::encode;
+  cudaError_t e = flash::current_context();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash::EncodeTiled fn = flash::encoder();
   if (fn == nullptr) return -3;
   CUtensorMap tmQ, tmK, tmV, tmQt, tmKt, tmVt;
   if (!encode(fn, &tmQ, q, H, kD, Sq, B, 64, 64) || !encode(fn, &tmK, k, KV, kD, Skv, B, 64, kBN) ||
@@ -642,11 +542,12 @@ int launch(const void* q, const void* k, const void* v, const void* qpos, const 
              !encode(fn, &tmVt, v, KV, kD, Skv, B, 16, kBN)) {
     return -2;
   }
-  cudaError_t e = launch_live_tiles(qpos, kvpos, lists, B, Sq, Skv, qpos_bs, kvpos_bs, causal,
-                                    window, stream);
+  e = launch_live_tiles(qpos, kvpos, lists, B, Sq, Skv, qpos_bs, kvpos_bs, causal, window,
+                        stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   Params p{static_cast<const int*>(qpos), static_cast<const int*>(kvpos),
-           static_cast<const int*>(lists), out, Sq, Skv, H, KV, (Skv + kBN - 1) / kBN,
+           static_cast<const int*>(lists), out, static_cast<float*>(lse), Sq, Skv, H, KV,
+           (Skv + kBN - 1) / kBN,
            qpos_bs, kvpos_bs, causal, window, 1.4426950408889634f / sqrtf((float)kD)};
   e = cudaFuncSetAttribute(flash_fwd_sm90<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            Smem<kD>::kBytes);
@@ -660,22 +561,26 @@ int launch(const void* q, const void* k, const void* v, const void* qpos, const 
 }  // namespace
 
 // bf16 q (B, Sq, H, D), k and v (B, Skv, KV, D), all contiguous and 16-byte
-// aligned, D 80 or 128; ``lists`` an int32 buffer of B * ceil(Sq / 128) *
-// (ceil(Skv / 128) + 1) for the pre-pass.  Returns cudaGetLastError()
-// after the launches, -1 for another head dim, -2 if a tensor map could
-// not be encoded, -3 if the driver has no tensor-map encoder.
+// aligned, D 64, 80 or 128; ``lists`` an int32 buffer of B * ceil(Sq / 128)
+// * (ceil(Skv / 128) + 1) for the pre-pass; ``lse`` an f32 (B, H, Sq) buffer
+// for each row's log-sum-exp, or null for none.  Returns cudaGetLastError()
+// after the launches, -1 for another head dim, -2 if a tensor map could not
+// be encoded, -3 if the driver has no tensor-map encoder.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
                                         const void* qpos, const void* kvpos, void* lists,
-                                        void* out, int B, int Sq, int Skv, int H, int KV, int D,
-                                        long long qpos_bs, long long kvpos_bs, int causal,
-                                        int window, void* stream) {
+                                        void* out, void* lse, int B, int Sq, int Skv, int H,
+                                        int KV, int D, long long qpos_bs, long long kvpos_bs,
+                                        int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return launch<128>(q, k, v, qpos, kvpos, lists, out, B, Sq, Skv, H, KV, qpos_bs, kvpos_bs,
-                       causal, window, st);
+    return launch<128>(q, k, v, qpos, kvpos, lists, out, lse, B, Sq, Skv, H, KV, qpos_bs,
+                       kvpos_bs, causal, window, st);
   if (D == 80)
-    return launch<80>(q, k, v, qpos, kvpos, lists, out, B, Sq, Skv, H, KV, qpos_bs, kvpos_bs,
-                      causal, window, st);
+    return launch<80>(q, k, v, qpos, kvpos, lists, out, lse, B, Sq, Skv, H, KV, qpos_bs,
+                      kvpos_bs, causal, window, st);
+  if (D == 64)
+    return launch<64>(q, k, v, qpos, kvpos, lists, out, lse, B, Sq, Skv, H, KV, qpos_bs,
+                      kvpos_bs, causal, window, st);
   return -1;
 }
 
@@ -690,7 +595,7 @@ extern "C" int flash_attention_sm90_live_tiles(const void* qpos, const void* kvp
 }
 
 extern "C" const char* flash_attention_sm90_error_string(int code) {
-  if (code == -1) return "unsupported head dim (80 or 128)";
+  if (code == -1) return "unsupported head dim (64, 80 or 128)";
   if (code == -2) return "tensor map encoding failed (shape, stride or alignment)";
   if (code == -3) return "the driver has no cuTensorMapEncodeTiled";
   return cudaGetErrorString(static_cast<cudaError_t>(code));

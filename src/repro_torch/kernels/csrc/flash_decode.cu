@@ -61,7 +61,16 @@
 namespace {
 
 using flash::attend;
+using flash::cp_async16;
+using flash::cp_async_commit;
+using flash::cp_async_wait_one;
+using flash::exp2_approx;
 using flash::kPadPos;
+using flash::ldsm_x2;
+using flash::ldsm_x4;
+using flash::ldsm_x4_trans;
+using flash::mma_bf16;
+using flash::pack_bf16;
 
 constexpr int kThreads = 128, kWarps = kThreads / 32;
 constexpr int kRows = 16;              // (query, head) rows a pass: one m16 tile
@@ -99,57 +108,6 @@ struct Smem {
   int warp_sum[kWarps];
   int last;
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without a register round trip; zero-filled
-// when ``valid`` is false (``src`` must still be a mapped address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Four (two) 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
 
 // positions of keys k0 .. k0+3 (k0 a multiple of 4); int32-max past hi
 __device__ __forceinline__ int4 load_pos4(const int* kvpos, int k0, int hi, int vec) {
@@ -359,10 +317,10 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(Params p) {
           }
           // O += P V, P as the A operand straight from the S registers
           uint32_t a[4];
-          a[0] = pack_f32(s[0][0], s[0][1]);
-          a[1] = pack_f32(s[0][2], s[0][3]);
-          a[2] = pack_f32(s[1][0], s[1][1]);
-          a[3] = pack_f32(s[1][2], s[1][3]);
+          a[0] = pack_bf16(s[0][0], s[0][1]);
+          a[1] = pack_bf16(s[0][2], s[0][3]);
+          a[2] = pack_bf16(s[1][0], s[1][1]);
+          a[3] = pack_bf16(s[1][2], s[1][3]);
           // matrices: (keys +0, dims db), (keys +8, db), (+0, db+1), (+8, db+1)
           const __nv_bfloat16* vrow =
               vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;

@@ -8,8 +8,8 @@ show that the main path went through the kernels.
 No wrapper takes part in autograd: under grad mode, an input that
 requires grad is refused before anything runs (a kernel's output would
 reach autograd as a constant).  ``FlashAttention`` is the one route that
-differentiates: its forward launches ``flash_attention`` and its backward
-``flash_attention_bwd``.
+differentiates: its forward launches a flash kernel that writes each row's
+log-sum-exp, and its backward ``flash_attention_bwd``, which reads it.
 """
 from __future__ import annotations
 
@@ -59,12 +59,13 @@ def _stream(device: torch.device) -> int:
 
 
 # Which flash kernel computes what.  bf16 at head dim 128 (the video DiT's
-# self- and cross-attention) and bf16 at head dim 80 with at least
-# SM90_MIN_QUERIES queries (the hybrid LM's prefill) run on the wgmma + TMA
-# kernel of csrc/flash_attention_sm90.cu; bf16 at head dims 64 and 80 with
-# at most DECODE_MAX_QUERIES queries (the hybrid LM's decode step) on the
-# split-KV kernel of csrc/flash_decode.cu; every other case on
-# csrc/flash_attention.cu.
+# self- and cross-attention), and bf16 at head dims 64 and 80 with at least
+# SM90_MIN_QUERIES queries (the dense LM's training forward, the hybrid LM's
+# prefill) run on the wgmma + TMA kernel of csrc/flash_attention_sm90.cu;
+# bf16 at head dims 64 and 80 with at most DECODE_MAX_QUERIES queries (the
+# LM decode steps) on the split-KV kernel of csrc/flash_decode.cu; every
+# other case on csrc/flash_attention.cu.  A forward that must write the
+# log-sum-exp (return_lse, FlashAttention) never takes flash_decode.cu.
 FLASH_KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode")
 _SM90_TILE = 128                     # flash_attention_sm90.cu: kBM query rows, kBN keys
 SM90_MIN_QUERIES = _SM90_TILE
@@ -72,9 +73,10 @@ DECODE_MAX_QUERIES = 8
 _DECODE_CHUNK = 64                   # flash_decode.cu: kChunk keys, the unit of a split
 _FLASH_TAKES = {                     # kernel -> {dtype: head dims it is built for}
     "flash_attention": {torch.bfloat16: (64, 80), torch.float32: (64, 80, 128)},
-    "flash_attention_sm90": {torch.bfloat16: (80, 128)},
+    "flash_attention_sm90": {torch.bfloat16: (64, 80, 128)},
     "flash_decode": {torch.bfloat16: (64, 80)},
 }
+_LSE_KERNELS = ("flash_attention", "flash_attention_sm90")   # write the log-sum-exp (bf16)
 
 
 def flash_kernel(dtype: torch.dtype, head_dim: int, q_len: int) -> str:
@@ -82,16 +84,17 @@ def flash_kernel(dtype: torch.dtype, head_dim: int, q_len: int) -> str:
     ``q_len`` queries per batch row.
 
     bf16 at D 128 goes to ``flash_attention_sm90`` (``wgmma`` + TMA) for
-    any query count.  bf16 at D 80 goes there too when ``q_len >=
+    any query count.  bf16 at D 64 and 80 goes there too when ``q_len >=
     SM90_MIN_QUERIES`` (128: one full block of its 128 query rows), as in
-    a prefill.  bf16 at D 64 and 80 with ``q_len <= DECODE_MAX_QUERIES``,
-    as in a decode step (one query per request), goes to ``flash_decode``
-    (split-KV over the attendable keys only, ``mma.sync`` bf16 products
-    with f32 accumulators, one 16-row tile a warp).  Everything else
-    (bf16 D 64 and 80 in between, f32) runs on ``flash_attention``.
+    a prefill or granite's training forward.  bf16 at D 64 and 80 with
+    ``q_len <= DECODE_MAX_QUERIES``, as in a decode step (one query per
+    request), goes to ``flash_decode`` (split-KV over the attendable keys
+    only, ``mma.sync`` bf16 products with f32 accumulators, one 16-row
+    tile a warp).  Everything else (bf16 D 64 and 80 with 9-127 queries,
+    f32) runs on ``flash_attention``.
     """
     if dtype == torch.bfloat16 and (head_dim == 128
-                                    or (head_dim == 80 and q_len >= SM90_MIN_QUERIES)):
+                                    or (head_dim in (64, 80) and q_len >= SM90_MIN_QUERIES)):
         return "flash_attention_sm90"
     if dtype == torch.bfloat16 and head_dim in (64, 80) and q_len <= DECODE_MAX_QUERIES:
         return "flash_decode"
@@ -146,18 +149,24 @@ def _lists_shape(B: int, Sq: int, Skv: int):
 
 
 def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
-                    window: int = 0, kv_len=None, kernel=None) -> torch.Tensor:
+                    window: int = 0, kv_len=None, kernel=None, return_lse: bool = False):
     """Softmax attention: q ``(B,Sq,H,D)``, k/v ``(B,Skv,KV,D)``, int
     positions ``(B,S)`` (int32-max marks a padded kv slot); ``kv_len``
-    ``(B,)`` masks keys at positions ``>= kv_len``.
+    ``(B,)`` masks keys at positions ``>= kv_len``.  ``return_lse``: return
+    ``(out, lse)``, ``lse`` each row's log-sum-exp, f32 ``(B, H, Sq)`` in
+    the units of ``ref.flash_attention_lse_ref`` (the backward's input).
 
     CUDA: ``flash_kernel(dtype, D, Sq)`` names the kernel, or ``kernel``
     (one of ``FLASH_KERNELS``) forces one; it raises on a dtype and head
-    dim it is not built for.  No gradient: see ``flash_attention_autograd``.  ``csrc/flash_attention_sm90.cu`` (``wgmma``
-    + TMA) takes bf16 at D 80 and 128 and any key count: its live-tile
-    lists go to a global buffer allocated here.  ``csrc/flash_attention.cu``
-    takes bf16 at D 64 and 80 (``mma.sync``) and f32 at D 64, 80 and 128
-    (FMA).  Both skip key tiles that hold no attendable pair.
+    dim it is not built for.  With ``return_lse`` (bf16 only) a choice of
+    ``flash_decode``, which writes no log-sum-exp, becomes
+    ``flash_attention``.  No gradient: see ``flash_attention_autograd``.
+    ``csrc/flash_attention_sm90.cu`` (``wgmma`` + TMA) takes bf16 at D 64,
+    80 and 128 and any key count: its live-tile lists go to a global buffer
+    allocated here.  ``csrc/flash_attention.cu`` takes bf16 at D 64 and 80
+    (``mma.sync``) and f32 at D 64, 80 and 128 (FMA).  Both skip key tiles
+    that hold no attendable pair, and their bf16 kernels write the
+    log-sum-exp into a buffer allocated here when asked.
     ``csrc/flash_decode.cu`` takes bf16 at D 64 and 80 and any query count
     (rows in passes of 16): ``decode_split`` key splits, their partials in
     a workspace allocated here, merged by the last block of each (batch
@@ -172,12 +181,18 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
         if q.shape[-1] not in takes.get(q.dtype, ()):
             raise ValueError(f"flash_attention: {kernel} is not built for {q.dtype} at head "
                              f"dim {q.shape[-1]} (takes {takes})")
+        if return_lse and kernel not in _LSE_KERNELS:
+            raise ValueError(f"flash_attention: {kernel} writes no log-sum-exp "
+                             f"({_LSE_KERNELS} do)")
     if q.device.type == "cpu":
         if kv_len is not None:
             kv_positions = torch.where(kv_positions < kv_len[:, None], kv_positions,
                                        INT32_MAX)
-        return ref.flash_attention_ref(q, k, v, q_positions, kv_positions,
-                                       causal, window)
+        out = ref.flash_attention_ref(q, k, v, q_positions, kv_positions, causal, window)
+        if return_lse:
+            return out, ref.flash_attention_lse_ref(q, k, q_positions, kv_positions, causal,
+                                                    window)
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     B, Sq, H, D = q.shape
@@ -192,8 +207,13 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k and v must share one dtype")
     code = _dtype_code(q, "flash_attention")
+    if return_lse and q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention: no kernel writes the log-sum-exp for {q.dtype} "
+                        "(bfloat16)")
     if kernel is None:
         kernel = flash_kernel(q.dtype, D, Sq)
+        if return_lse and kernel == "flash_decode":
+            kernel = "flash_attention"
     if kv_len is not None:
         if kv_len.shape != (B,):
             raise ValueError(f"flash_attention: kv_len {tuple(kv_len.shape)} must be ({B},)")
@@ -213,16 +233,18 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     if kp.stride(1) != 1:
         kp = kp.contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     _require_device({"k": k, "v": v, "q_positions": qp, "kv_positions": kp}, q.device)
     _require_aligned({"q": q, "k": k, "v": v, "out": out})
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
+    lse_ptr = None if lse is None else lse.data_ptr()
     lib = build.library(kernel)
     if kernel == "flash_attention_sm90":
         lists = torch.empty(_lists_shape(B, Sq, Skv), dtype=torch.int32, device=q.device)
         rc = lib.flash_attention_sm90_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
-            lists.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0),
+            lists.data_ptr(), out.data_ptr(), lse_ptr, B, Sq, Skv, H, KV, D, qp.stride(0),
             kp.stride(0), int(bool(causal)), int(window), _stream(q.device),
         )
     elif kernel == "flash_decode":
@@ -239,25 +261,26 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     else:
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(),
-            out.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0), kp.stride(0),
+            out.data_ptr(), lse_ptr, B, Sq, Skv, H, KV, D, qp.stride(0), kp.stride(0),
             int(bool(causal)), int(window), code, _stream(q.device),
         )
     build.check(kernel, rc)
     WRAPPERS[kernel].launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 
 
 def flash_attention_sm90(q, k, v, q_positions, kv_positions, *, causal: bool = True,
-                         window: int = 0, kv_len=None) -> torch.Tensor:
+                         window: int = 0, kv_len=None, return_lse: bool = False):
     """``flash_attention`` on the ``wgmma`` + TMA kernel
     (``csrc/flash_attention_sm90.cu``) whatever the query count: bf16 at
-    head dim 80 or 128; raises on others.  Its ``launches`` count that
+    head dim 64, 80 or 128; raises on others.  Its ``launches`` count that
     kernel's launches, whichever wrapper made them."""
     return flash_attention(q, k, v, q_positions, kv_positions, causal=causal,
-                           window=window, kv_len=kv_len, kernel="flash_attention_sm90")
+                           window=window, kv_len=kv_len, kernel="flash_attention_sm90",
+                           return_lse=return_lse)
 
 
 flash_attention_sm90.launches = 0
@@ -305,27 +328,47 @@ def flash_live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
     return lists
 
 
-# The backward kernel (csrc/flash_attention_bwd.cu): bf16 at the head dims of
-# flash_attention.cu's mma.sync kernel.
-_BWD_TAKES = {torch.bfloat16: (64, 80)}
+# The backward kernels: csrc/flash_attention_bwd_sm90.cu (wgmma + TMA) at bf16
+# D 64, csrc/flash_attention_bwd.cu (mma.sync) at bf16 D 64 and 80.
+BWD_KERNELS = ("flash_attention_bwd", "flash_attention_bwd_sm90")
+_BWD_TAKES = {"flash_attention_bwd_sm90": {torch.bfloat16: (64,)},
+              "flash_attention_bwd": {torch.bfloat16: (64, 80)}}
 
 
-def flash_attention_bwd(q, k, v, out, dout, q_positions, kv_positions, *,
-                        causal: bool = True, window: int = 0):
+def bwd_kernel(dtype: torch.dtype, head_dim: int):
+    """The backward kernel that ``flash_attention_bwd`` runs for ``dtype``
+    at ``head_dim``, or None: bf16 D 64 on ``flash_attention_bwd_sm90``
+    (granite's training attention), bf16 D 80 on ``flash_attention_bwd``
+    (``mma.sync``)."""
+    if dtype == torch.bfloat16 and head_dim == 64:
+        return "flash_attention_bwd_sm90"
+    if dtype == torch.bfloat16 and head_dim == 80:
+        return "flash_attention_bwd"
+    return None
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, q_positions, kv_positions, *,
+                        causal: bool = True, window: int = 0, kernel=None):
     """Gradients ``(dq, dk, dv)`` of ``flash_attention`` at ``(q, k, v)``
-    for the output gradient ``dout``; ``out`` is the forward's output there.
+    for the output gradient ``dout``; ``out`` and ``lse`` are the forward's
+    output and log-sum-exp there (``flash_attention(..., return_lse=True)``;
+    f32 ``(B, H, Sq)``, the units of ``ref.flash_attention_lse_ref``).
     Shapes and masks as ``flash_attention`` (int32-max marks a padded key;
     fold a ``kv_len`` into the positions first).  A query row that attends
     no key gets zero gradients; with GQA dk and dv sum over the heads of a
-    group.  Results in the dtypes of q, k and v.
+    group.  Results in the dtypes of q, k and v.  On CPU tensors the plain
+    ``ref.flash_attention_bwd_ref``, which derives its own softmax (``lse``
+    may be None there).
 
-    CUDA: ``csrc/flash_attention_bwd.cu``, bf16 at head dims 64 and 80
-    (raises on the rest), deterministic: three launches (each row's
-    log-sum-exp and ``Delta = rowsum(dout o out)`` into f32 workspaces
-    allocated here, then dk and dv per key tile, then dq per query tile),
-    counted as one.
+    CUDA: ``bwd_kernel(dtype, D)`` names the kernel, or ``kernel`` (one of
+    ``BWD_KERNELS``) forces one; it raises on what no kernel takes.  Both
+    are deterministic and launch three kernels, counted as one: ``Delta =
+    rowsum(dout o out)`` into an f32 workspace allocated here, then dk and
+    dv per key block, then dq per query block, each reading ``lse``.
     """
     _refuse_grad("flash_attention_bwd", q, k, v, out, dout)
+    if kernel is not None and kernel not in _BWD_TAKES:
+        raise ValueError(f"flash_attention_bwd: no backward kernel {kernel!r} ({BWD_KERNELS})")
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, dout, q_positions, kv_positions,
                                            causal, window)
@@ -342,57 +385,80 @@ def flash_attention_bwd(q, k, v, out, dout, q_positions, kv_positions, *,
         raise ValueError(f"flash_attention_bwd: {H} heads not divisible by {KV} kv heads")
     if any(t.dtype != q.dtype for t in (k, v, out, dout)):
         raise TypeError("flash_attention_bwd: q, k, v, out and dout must share one dtype")
-    if D not in _BWD_TAKES.get(q.dtype, ()):
+    kernel = kernel or bwd_kernel(q.dtype, D)
+    if kernel is None or D not in _BWD_TAKES[kernel].get(q.dtype, ()):
         raise ValueError(f"flash_attention_bwd: no kernel for {q.dtype} at head dim {D} "
                          f"(takes {_BWD_TAKES})")
     if q_positions.shape != (B, Sq) or kv_positions.shape != (B, Skv):
         raise ValueError("flash_attention_bwd: positions must be (B, Sq) and (B, Skv)")
+    if lse is None or lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        got = None if lse is None else (lse.dtype, tuple(lse.shape))
+        raise ValueError(f"flash_attention_bwd: lse must be the forward's float32 "
+                         f"{(B, H, Sq)} log-sum-exp, got {got}")
     qp = q_positions.to(torch.int32)
     kp = kv_positions.to(torch.int32)
     if qp.stride(1) != 1:
         qp = qp.contiguous()
     if kp.stride(1) != 1:
         kp = kp.contiguous()
-    _require_device({"k": k, "v": v, "out": out, "dout": dout, "q_positions": qp,
+    _require_device({"k": k, "v": v, "out": out, "dout": dout, "lse": lse, "q_positions": qp,
                      "kv_positions": kp}, q.device)
-    _require_aligned({"q": q, "k": k, "v": v, "out": out, "dout": dout})
+    _require_aligned({"q": q, "k": k, "v": v, "out": out, "dout": dout, "lse": lse})
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    rc = build.library("flash_attention_bwd").flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        qp.data_ptr(), kp.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0), kp.stride(0),
-        int(bool(causal)), int(window), _DTYPE_CODES[q.dtype], _stream(q.device),
-    )
-    build.check("flash_attention_bwd", rc)
-    flash_attention_bwd.launches += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            qp.data_ptr(), kp.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KV, D, qp.stride(0), kp.stride(0),
+            int(bool(causal)), int(window))
+    lib = build.library(kernel)
+    if kernel == "flash_attention_bwd_sm90":
+        rc = lib.flash_attention_bwd_sm90(*args, _stream(q.device))
+    else:
+        rc = lib.flash_attention_bwd(*args, _DTYPE_CODES[q.dtype], _stream(q.device))
+    build.check(kernel, rc)
+    WRAPPERS[kernel].launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 
 
+def flash_attention_bwd_sm90(q, k, v, out, dout, lse, q_positions, kv_positions, *,
+                             causal: bool = True, window: int = 0):
+    """``flash_attention_bwd`` on the ``wgmma`` + TMA kernel
+    (``csrc/flash_attention_bwd_sm90.cu``): bf16 at head dim 64; raises on
+    others.  Its ``launches`` count that kernel's launches, whichever
+    wrapper made them."""
+    return flash_attention_bwd(q, k, v, out, dout, lse, q_positions, kv_positions,
+                               causal=causal, window=window, kernel="flash_attention_bwd_sm90")
+
+
+flash_attention_bwd_sm90.launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
-    """Flash attention with a gradient: the forward on ``flash_attention``
-    (the kernel ``flash_kernel`` names), the backward on
-    ``flash_attention_bwd``.  It saves q, k, v, the output and the
-    positions; under activation checkpointing the forward runs (and
-    launches) again in the backward pass and saves them anew."""
+    """Flash attention with a gradient: the forward on the flash kernel
+    ``flash_kernel`` names, writing each row's log-sum-exp (never
+    ``flash_decode``, which writes none), the backward on
+    ``flash_attention_bwd``, which reads it.  It saves q, k, v, the output,
+    the log-sum-exp and the positions; under activation checkpointing the
+    forward runs (and launches) again in the backward pass and saves them
+    anew."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_positions, kv_positions, causal, window):
-        out = flash_attention(q, k, v, q_positions, kv_positions, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out, q_positions, kv_positions)
+        out, lse = flash_attention(q, k, v, q_positions, kv_positions, causal=causal,
+                                   window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_positions)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, qp, kp = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), qp, kp,
+        q, k, v, out, lse, qp, kp = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, qp, kp,
                                          causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None, None, None
 
@@ -401,10 +467,10 @@ def flash_attention_autograd(q, k, v, q_positions, kv_positions, *, causal: bool
                              window: int = 0, kv_len=None) -> torch.Tensor:
     """``flash_attention`` that autograd differentiates (``FlashAttention``);
     ``kv_len`` is folded into the key positions.  On CUDA it raises before
-    any launch for a dtype and head dim the backward kernel does not take."""
+    any launch for a dtype and head dim no backward kernel takes."""
     if kv_len is not None:
         kv_positions = torch.where(kv_positions < kv_len[:, None], kv_positions, INT32_MAX)
-    if q.device.type == "cuda" and q.shape[-1] not in _BWD_TAKES.get(q.dtype, ()):
+    if q.device.type == "cuda" and bwd_kernel(q.dtype, q.shape[-1]) is None:
         raise ValueError(f"flash_attention_autograd: no backward kernel for {q.dtype} at "
                          f"head dim {q.shape[-1]} (takes {_BWD_TAKES})")
     return FlashAttention.apply(q, k, v, q_positions, kv_positions, causal, window)
@@ -660,7 +726,7 @@ guidance_update.launches = 0
 
 WRAPPERS = {"flash_attention": flash_attention, "flash_attention_sm90": flash_attention_sm90,
             "flash_decode": flash_decode, "flash_attention_bwd": flash_attention_bwd,
-            "latent_blend": latent_blend,
+            "flash_attention_bwd_sm90": flash_attention_bwd_sm90, "latent_blend": latent_blend,
             "int8_quantize": int8_quantize, "dequant_blend": dequant_blend,
             "mamba_ssd": mamba_ssd, "guidance_update": guidance_update}
 

@@ -110,6 +110,81 @@ def flash_bf16_tolerance(q, k, v, q_positions, kv_positions, causal: bool,
     return 1.01 * (2.0 ** -8 * mean_abs_v + 2.0 ** -7 * plain.float().abs()) + 1e-6
 
 
+LOG2E = 1.4426950408889634
+
+
+def flash_attention_lse_ref(q, k, q_positions, kv_positions, causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+    """Each query row's log-sum-exp, as the flash forward kernels write it
+    for the backward (``csrc/flash_attention_sm90.cu``, ``csrc/
+    flash_attention.cu``) and both backward kernels read it: f32 ``(B, H,
+    Sq)``.
+
+    The one convention: log2 units of the scaled scores, ``lse_i = log2
+    sum_j exp(q_i.k_j / sqrt(D))`` over the keys row i attends (masks as
+    ``attention_mask``), i.e. the natural log-sum-exp times log2(e), so
+    that ``P_ij = exp2(q_i.k_j log2(e) / sqrt(D) - lse_i)``; ``+inf`` on a
+    row that attends no key, whose P is then 0.  f32, one batch row at a
+    time."""
+    B, Sq, H, D = q.shape
+    G = H // k.shape[2]
+    ok_all = attention_mask(q_positions, kv_positions, causal, window)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        qb = q[b].float().transpose(0, 1)                          # (H, Sq, D)
+        kb = k[b].float().transpose(0, 1).repeat_interleave(G, 0)  # (H, Skv, D)
+        s = torch.matmul(qb, kb.transpose(1, 2)) / math.sqrt(D)
+        ok = ok_all[b][None]
+        s = torch.where(ok, s, -math.inf)
+        lse[b] = torch.where(ok.any(-1), torch.logsumexp(s, -1) * LOG2E, math.inf)
+    return lse
+
+
+def flash_lse_tolerance(q, k, q_positions, kv_positions, causal: bool, window: int,
+                        plain: torch.Tensor) -> torch.Tensor:
+    """Per-row limit ``(B, H, Sq)`` on ``|kernel log-sum-exp - plain|`` (log2
+    units, ``plain`` from ``flash_attention_lse_ref``); rows that attend no
+    key must be +inf in both, exactly.
+
+    Derived as ``flash_bf16_tolerance`` derives the output's.  A kernel's
+    value differs from the plain one through (a) its scores, f32 sums of D
+    bf16 products on the tensor cores (<= 2^-16 of ``sum_d |q_d k_jd|``, the
+    bound ``flash_bwd_bf16_tolerance`` takes for D-term sums), which move a
+    log-sum-exp by at most ``log2(e) / sqrt(D)`` times the largest such
+    error over the attended keys; (b) its sum ``l`` of approximate exp2
+    terms (relative error <= 2^-21), added in f32 (<= n 2^-24 for the n
+    attended keys) and rescaled once a key tile by an approximate exp2 and
+    a product (<= 2^-20 a tile, T tiles of 32 keys bounding the kernels'
+    32- and 128-key tiles), which moves ``log2 l`` by its relative error
+    over ln 2; (c) the f32 arguments of those exp2s, rounded at the size of
+    the largest scaled score M of the row (<= 2^-23 M each, the terms' and
+    the T rescales'), and the final ``m log2(e) / sqrt(D) + log2 l`` (one
+    rounding, <= 2^-22 |lse|, and ``lg2.approx``'s 2^-22).  Hence
+    ``|lse - plain| <= 2^-16 log2(e)/sqrt(D) max_j sum_d |q_d k_jd| +
+    (2^-21 + n 2^-24 + T 2^-20) / ln 2 + (T + 1) 2^-23 M + 2^-22 (1 +
+    |plain|)``; the factor 1.01 and 1e-6 cover the f32 arithmetic of the
+    plain version.
+    """
+    B, Sq, H, D = q.shape
+    G = H // k.shape[2]
+    sl2 = LOG2E / math.sqrt(D)
+    T = -(-k.shape[1] // 32)
+    ok_all = attention_mask(q_positions, kv_positions, causal, window)
+    lim = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        qb = q[b].float().transpose(0, 1)
+        kb = k[b].float().transpose(0, 1).repeat_interleave(G, 0)
+        ok = ok_all[b][None]
+        n = ok.sum(-1).float()
+        abs_dot = torch.where(ok, torch.matmul(qb.abs(), kb.abs().transpose(1, 2)), 0.0)
+        M = torch.where(ok, torch.matmul(qb, kb.transpose(1, 2)).abs() * sl2, 0.0).amax(-1)
+        lim[b] = (2.0 ** -16 * sl2 * abs_dot.amax(-1)
+                  + (2.0 ** -21 + n * 2.0 ** -24 + T * 2.0 ** -20) / math.log(2.0)
+                  + (T + 1) * 2.0 ** -23 * M)
+    finite = torch.where(torch.isfinite(plain), plain.abs(), 0.0)
+    return 1.01 * (lim + 2.0 ** -22 * (1.0 + finite)) + 1e-6
+
+
 def _softmax_grad_rows(q, k, v, out, dout, ok, b: int, G: int):
     """Batch row ``b`` of the flash function's softmax gradient, f32, each
     ``(H, Sq, Skv)``: ``P`` (the forward's probabilities, zero on masked
@@ -171,8 +246,9 @@ def flash_bwd_bf16_tolerance(q, k, v, out, dout, q_positions, kv_positions, caus
     sums of n terms add at most ``n 2^-24`` of their absolute sum (n the keys
     for dQ, the G x queries for dK and dV), and its ``dS`` carries the f32
     error of ``dP`` and ``Delta`` (D-term sums, <= 2^-16 of ``|dO| |V|^T``
-    and of ``rowsum |dO o O|``, which also covers ``P``'s recomputed
-    log-sum-exp).  Both results are rounded to bf16 (<= 2^-8 each).  Hence
+    and of ``rowsum |dO o O|``, which also covers ``P``'s log-sum-exp,
+    written by the forward kernel within ``flash_lse_tolerance``).  Both
+    results are rounded to bf16 (<= 2^-8 each).  Hence
     ``|dQ - plain| <= (2^-8 + Skv 2^-24) sqrt(D)^-1 |dS|' |K| + 2^-7 |plain|``,
     ``|dK - plain| <= (2^-8 + G Sq 2^-24) sqrt(D)^-1 |dS|'^T |Q| + ...`` and
     ``|dV - plain| <= (2^-8 + G Sq 2^-24) P^T |dO| + ...``, with ``|dS|' =

@@ -181,7 +181,7 @@ def test_cpu_path_never_launches_a_kernel():
     assert bool(torch.isfinite(eng.run()[0].latent).all())
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_sm90": 0,
                                    "flash_decode": 0, "flash_attention_bwd": 0,
-                                   "latent_blend": 0, "int8_quantize": 0,
+                                   "flash_attention_bwd_sm90": 0, "latent_blend": 0, "int8_quantize": 0,
                                    "dequant_blend": 0, "mamba_ssd": 0,
                                    "guidance_update": 0}
 
@@ -291,7 +291,9 @@ def _wrapper_calls(device, requires_grad):
         "flash_attention": lambda: ops.flash_attention(q, k, v, pos, pos),
         "flash_attention_sm90": lambda: ops.flash_attention_sm90(qw, kw, vw, pos, pos),
         "flash_decode": lambda: ops.flash_decode(qb, kb, vb, pos, pos),
-        "flash_attention_bwd": lambda: ops.flash_attention_bwd(q, k, v, o, o, pos, pos),
+        "flash_attention_bwd": lambda: ops.flash_attention_bwd(q, k, v, o, o, None, pos, pos),
+        "flash_attention_bwd_sm90": lambda: ops.flash_attention_bwd_sm90(qb, kb, vb, o, o, None,
+                                                                         pos, pos),
         "latent_blend": lambda: ops.latent_blend(t(2, 4, 3), w, z, [0, 2], 4, 6),
         "int8_quantize": lambda: ops.int8_quantize(t(2, 3, 4)),
         "dequant_blend": lambda: ops.dequant_blend(torch.ones(2, 4, 3, dtype=torch.int8)

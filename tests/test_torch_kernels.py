@@ -173,8 +173,8 @@ def test_blend_windows_matches_reference_engine(dim, K, r):
 
 
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_sm90": 0, "flash_decode": 0,
-               "flash_attention_bwd": 0, "latent_blend": 0, "int8_quantize": 0,
-               "dequant_blend": 0, "mamba_ssd": 0, "guidance_update": 0}
+               "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0, "latent_blend": 0,
+               "int8_quantize": 0, "dequant_blend": 0, "mamba_ssd": 0, "guidance_update": 0}
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
@@ -487,22 +487,24 @@ def test_flash_live_tiles_on_the_cpu_is_the_plain_version():
     (torch.bfloat16, 80, 8, "flash_decode"),                # DECODE_MAX_QUERIES
     (torch.bfloat16, 80, 9, "flash_attention"),
     (torch.bfloat16, 64, 1, "flash_decode"),
-    (torch.bfloat16, 64, 4096, "flash_attention"),
+    (torch.bfloat16, 64, 4096, "flash_attention_sm90"),     # granite's training forward
+    (torch.bfloat16, 64, 128, "flash_attention_sm90"),
+    (torch.bfloat16, 64, 127, "flash_attention"),
     (torch.float32, 80, 1, "flash_attention"),
     (torch.float32, 128, 4096, "flash_attention"),          # f32: the FMA kernel
     (torch.float32, 80, 4096, "flash_attention"),
 ])
 def test_flash_kernel_dispatch_rule(dtype, D, q_len, kernel):
-    """bf16 at D 128, and bf16 at D 80 with at least ``SM90_MIN_QUERIES``
-    (128) queries, go to the wgmma kernel; bf16 at D 64 and 80 with at
-    most ``DECODE_MAX_QUERIES`` (8) to the split-KV decode kernel; the
-    rest to flash_attention.cu."""
+    """bf16 at D 128, and bf16 at D 64 and 80 with at least
+    ``SM90_MIN_QUERIES`` (128) queries, go to the wgmma kernel; bf16 at D
+    64 and 80 with at most ``DECODE_MAX_QUERIES`` (8) to the split-KV
+    decode kernel; the rest to flash_attention.cu."""
     assert ops.SM90_MIN_QUERIES == 128 and ops.DECODE_MAX_QUERIES == 8
     assert ops.flash_kernel(dtype, D, q_len) == kernel
 
 
 @pytest.mark.parametrize("kernel,dtype,D", [("flash_attention_sm90", torch.float32, 128),
-                                            ("flash_attention_sm90", torch.bfloat16, 64),
+                                            ("flash_attention_sm90", torch.float32, 64),
                                             ("flash_attention", torch.bfloat16, 128),
                                             ("flash_decode", torch.float32, 80),
                                             ("flash_decode", torch.bfloat16, 128),
@@ -515,6 +517,112 @@ def test_flash_attention_refuses_a_kernel_not_built_for_the_inputs(kernel, dtype
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="not built for|no flash kernel"):
         ops.flash_attention(tq, tk, tv, *_t(qp, kp), kernel=kernel)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("dtype,D,kernel", [(torch.bfloat16, 64, "flash_attention_bwd_sm90"),
+                                            (torch.bfloat16, 80, "flash_attention_bwd"),
+                                            (torch.bfloat16, 128, None),
+                                            (torch.float32, 64, None),
+                                            (torch.float32, 80, None)])
+def test_backward_routing_by_head_dim(dtype, D, kernel):
+    """bf16 at D 64 (granite) goes to the wgmma + TMA backward, bf16 at D 80
+    to the mma.sync one, and no backward takes the rest (the autograd route
+    raises for them on the card before any launch); a forced kernel must be
+    one of ``BWD_KERNELS``."""
+    assert ops.bwd_kernel(dtype, D) == kernel
+    if kernel is not None:
+        assert kernel in ops.BWD_KERNELS and D in ops._BWD_TAKES[kernel][dtype]
+    q = torch.zeros((1, 8, 2, D), dtype=dtype)
+    p = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no backward kernel 'flash_mma'"):
+        ops.flash_attention_bwd(q, q, q, q, q, None, p, p, kernel="flash_mma")
+
+
+LSE_CASES = [
+    # B, Sq, Skv, H, KV, D, causal, window, padded keys, query offset
+    (2, 40, 40, 4, 4, 16, True, 0, 0, 0),
+    (2, 40, 56, 4, 2, 16, True, 12, 0, 16),
+    (1, 24, 64, 4, 1, 32, False, 0, 9, 40),
+    (2, 30, 50, 2, 2, 16, True, 0, 0, -8),          # queries 0 .. 7 attend no key
+]
+
+
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_lse_ref_matches_jax_logsumexp_of_masked_scores(case):
+    """``ref.flash_attention_lse_ref`` (the log-sum-exp the forward kernels
+    write and the backward kernels read) against ``jax.nn.logsumexp`` of
+    the reference's scores plus ``_mask_bias``, times log2(e): causal, a
+    window, padded keys; a row that attends no key is +inf (the JAX value
+    there is the bias, ~-1e30)."""
+    import jax
+
+    B, Sq, Skv, H, KV, D, causal, window, pad, off = case
+    q, k, _, _, kp, _ = _qkv(B, Sq, Skv, H, KV, D, seed=Sq + Skv)
+    qp = np.broadcast_to(np.arange(Sq, dtype=np.int32) + off, (B, Sq)).copy()
+    if pad:
+        kp[:, -pad:] = ref.INT32_MAX
+    G = H // KV
+    s = jnp.einsum("bqkgd,bskd->bkgqs", jnp.asarray(q).reshape(B, Sq, KV, G, D),
+                   jnp.asarray(k)) / np.sqrt(D)
+    s = s + jattn._mask_bias(jnp.asarray(qp), jnp.asarray(kp), causal, window)[:, None, None]
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(B, H, Sq) * np.log2(np.e)
+    tq, tk, tqp, tkp = _t(q, k, qp, kp)
+    got = ref.flash_attention_lse_ref(tq, tk, tqp, tkp, causal, window).numpy()
+    empty = ~ref.attention_mask(tqp, tkp, causal, window).any(-1).numpy()   # (B, Sq)
+    empty = np.broadcast_to(empty[:, None], got.shape)
+    assert got.dtype == np.float32 and got.shape == (B, H, Sq)
+    assert bool(np.isposinf(got[empty]).all()) and not np.isinf(got[~empty]).any()
+    np.testing.assert_allclose(got[~empty], want[~empty], rtol=1e-5, atol=1e-5)
+    assert bool((want[empty] < -1e29).all())
+    _, lse = ops.flash_attention(tq, tk, tk, tqp, tkp, causal=causal, window=window,
+                                 return_lse=True)
+    assert torch.equal(lse, torch.from_numpy(got))
+
+
+def _lse_kernel_emulation(q, k, fault, tile=128):
+    """What the flash forward kernels compute for the log-sum-exp, unmasked:
+    f32 scores of bf16 inputs, an online max and sum in base 2 over tiles of
+    ``tile`` keys, ``m sl2 + log2 l``; ``fault`` breaks it as a wrong kernel
+    would (the sum's log left out, the last tile dropped)."""
+    qf, kf = (x.float().transpose(1, 2) for x in (q, k))               # (B, H, S, D)
+    sl2 = ref.LOG2E / q.shape[-1] ** 0.5
+    s = torch.matmul(qf, kf.transpose(2, 3))
+    n = s.shape[-1] - (16 if fault == "drop_last_tile" else 0)
+    m = torch.full(s.shape[:-1], -np.inf)
+    l = torch.zeros(s.shape[:-1])
+    for a in range(0, n, tile):
+        t = s[..., a:min(a + tile, n)]
+        mx = torch.maximum(m, t.amax(-1))
+        l = l * torch.exp2((m - mx) * sl2) + torch.exp2(t * sl2 - (mx * sl2)[..., None]).sum(-1)
+        m = mx
+    return m * sl2 + (0.0 if fault == "no_log_sum" else torch.log2(l))
+
+
+@pytest.mark.parametrize("fault", [None, "no_log_sum", "drop_last_tile"])
+def test_flash_lse_tolerance_admits_the_kernels_sums_and_catches_faults(fault):
+    """The log-sum-exp's limit on the card holds for the kernels' own
+    online sum over 128-key tiles and fails one that drops the sum's log or
+    a 16-key last tile; 1040 keys at granite's head dim."""
+    q, k, _, _, kp, _ = _qkv(1, 256, 1040, 2, 2, 64, seed=4)
+    tq, tk = (x.bfloat16() for x in _t(q, k))
+    tqp, tkp = _t(np.arange(256, dtype=np.int32)[None], kp)
+    plain = ref.flash_attention_lse_ref(tq, tk, tqp, tkp, False, 0)
+    limit = ref.flash_lse_tolerance(tq, tk, tqp, tkp, False, 0, plain)
+    err = (_lse_kernel_emulation(tq, tk, fault) - plain).abs()
+    assert bool((err <= limit).all()) == (fault is None), float((err / limit).max())
+
+
+def test_return_lse_refuses_the_decode_kernel_and_f32_on_the_card():
+    """``flash_decode`` writes no log-sum-exp: forcing it with ``return_lse``
+    raises, on the CPU as on the card; nothing launches."""
+    q, k, v, qp, kp, _ = _qkv(1, 2, 8, 2, 2, 64)
+    tq, tk, tv = (x.bfloat16() for x in _t(q, k, v))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="writes no log-sum-exp"):
+        ops.flash_attention(tq, tk, tv, *_t(qp, kp), kernel="flash_decode", return_lse=True)
+    out, lse = ops.flash_attention(tq, tk, tv, *_t(qp, kp), return_lse=True)
+    assert lse.shape == (1, 2, 2) and lse.dtype == torch.float32
     assert ops.launch_counts() == before
 
 

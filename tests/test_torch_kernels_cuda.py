@@ -15,8 +15,11 @@ split-KV decode kernel, whose P stays f32), f32 flash 1e-4
 guidance_update exact (the same f32 operations in the same order);
 mamba_ssd ``5e-4 + 5e-4 |plain|``, the reference's own SSD tolerance
 (f32 throughout, sums in another order); the flash backward (bf16, D 64
-and 80) within ``ref.flash_bwd_bf16_tolerance`` (P and dS rounded to bf16
-for the products that take them, f32 sums, the bf16 results).
+on the wgmma + TMA kernel, D 80 on mma.sync, each fed the forward's
+log-sum-exp) within ``ref.flash_bwd_bf16_tolerance`` (P and dS rounded to
+bf16 for the products that take them, f32 sums, the bf16 results); each
+forward's log-sum-exp within ``ref.flash_lse_tolerance`` (its scores' f32
+sums, its online sum of approximate exp2 terms and their f32 arguments).
 """
 import numpy as np
 import pytest
@@ -100,12 +103,13 @@ def _flash_checked(q, k, v, qp, kp, causal, window, kv_len=None, kernel=None):
     return out, plain
 
 
-# (kernel, dtype, head dim): bf16 at D 128 and 80 on the wgmma kernel, bf16
-# at D 80 (Zamba2) on mma.sync too, bf16 at D 80 and 64 on the split-KV
+# (kernel, dtype, head dim): bf16 at D 128, 80 and 64 on the wgmma kernel,
+# bf16 at D 80 (Zamba2) on mma.sync too, bf16 at D 80 and 64 on the split-KV
 # decode kernel (Zamba2's decode step; forced here at any query count),
 # f32 on the FMA kernel of flash_attention.cu
 KERNEL_CASES = [("flash_attention_sm90", torch.bfloat16, 128),
                 ("flash_attention_sm90", torch.bfloat16, 80),
+                ("flash_attention_sm90", torch.bfloat16, 64),
                 ("flash_attention", torch.bfloat16, 80), ("flash_attention", torch.float32, 128),
                 ("flash_decode", torch.bfloat16, 80), ("flash_decode", torch.bfloat16, 64)]
 
@@ -253,7 +257,7 @@ SM90_CASES = [
 ]
 
 
-@pytest.mark.parametrize("D", [128, 80])
+@pytest.mark.parametrize("D", [128, 80, 64])
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,causal,window", SM90_CASES)
 def test_sm90_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, H, KV, causal, window, D):
     q, k, v, qp, kp, _ = _inputs(B, Sq, Skv, H, KV, D, seed=Sq + Skv)
@@ -291,7 +295,7 @@ def test_sm90_d80_reads_the_16_column_box(cuda_device):
 
 def test_sm90_flash_kernel_refuses_other_types_and_dims(cuda_device):
     p = torch.zeros((1, 8), device=cuda_device, dtype=torch.int32)
-    for dtype, D in ((torch.float32, 128), (torch.bfloat16, 64), (torch.float32, 80)):
+    for dtype, D in ((torch.float32, 128), (torch.bfloat16, 32), (torch.float32, 64)):
         q = torch.zeros((1, 8, 2, D), device=cuda_device, dtype=dtype)
         with pytest.raises(ValueError, match="flash_attention_sm90 is not built for"):
             ops.flash_attention_sm90(q, q, q, p, p)
@@ -699,11 +703,11 @@ def test_guidance_update_kernel_refuses_mixed_inputs(cuda_device):
 
 # the flash backward: B, Sq, Skv, H, KV, D, causal, window, padded keys
 BWD_CASES = [
-    (2, 40, 40, 4, 4, 64, True, 0, 0),
+    (2, 40, 40, 4, 4, 64, True, 0, 0),              # below 128 queries: flash_attention.cu's lse
     (2, 130, 190, 8, 2, 64, True, 50, 5),           # GQA, window, a ragged tile
     (2, 77, 150, 4, 1, 64, False, 0, 9),            # one kv head, no causal mask
     (1, 512, 512, 8, 2, 64, True, 0, 0),            # whole tiles: the unmasked path
-    (2, 300, 300, 4, 2, 80, True, 0, 0),            # Zamba2's head dim
+    (2, 300, 300, 4, 2, 80, True, 0, 0),            # Zamba2's head dim: mma.sync
     (2, 100, 333, 8, 2, 80, True, 96, 5),
 ]
 
@@ -719,10 +723,14 @@ def _bwd_inputs(cuda_device, B, Sq, Skv, H, KV, D, pad, seed=0):
     return q, k, v, do, qp, kp
 
 
-def _bwd_checked(q, k, v, out, do, qp, kp, causal, window):
-    before = ops.flash_attention_bwd.launches
-    got = ops.flash_attention_bwd(q, k, v, out, do, qp, kp, causal=causal, window=window)
-    assert ops.flash_attention_bwd.launches == before + 1
+def _bwd_checked(q, k, v, out, lse, do, qp, kp, causal, window):
+    """One launch of the backward kernel ``ops.bwd_kernel`` names, held to the
+    plain backward; returns the gradients."""
+    kernel = ops.bwd_kernel(q.dtype, q.shape[-1])
+    before = ops.launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, qp, kp, causal=causal, window=window)
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {n: int(n == kernel) for n in after}
     plain = ref.flash_attention_bwd_ref(q, k, v, out, do, qp, kp, causal, window)
     limits = ref.flash_bwd_bf16_tolerance(q, k, v, out, do, qp, kp, causal, window, plain)
     for name, g, p, lim in zip(("dq", "dk", "dv"), got, plain, limits):
@@ -732,36 +740,77 @@ def _bwd_checked(q, k, v, out, do, qp, kp, causal, window):
     return got
 
 
+def _forward(q, k, v, qp, kp, causal, window):
+    with torch.no_grad():
+        return ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window,
+                                   return_lse=True)
+
+
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_backward_kernel_matches_plain(cuda_device, case):
     B, Sq, Skv, H, KV, D, causal, window, pad = case
     q, k, v, do, qp, kp = _bwd_inputs(cuda_device, B, Sq, Skv, H, KV, D, pad)
-    with torch.no_grad():
-        out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window)
-    got = _bwd_checked(q, k, v, out, do, qp, kp, causal, window)
-    again = ops.flash_attention_bwd(q, k, v, out, do, qp, kp, causal=causal, window=window)
+    out, lse = _forward(q, k, v, qp, kp, causal, window)
+    got = _bwd_checked(q, k, v, out, lse, do, qp, kp, causal, window)
+    again = ops.flash_attention_bwd(q, k, v, out, do, lse, qp, kp, causal=causal,
+                                    window=window)
     for a, b in zip(got, again):                      # deterministic: no atomics
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D", [64, 80])
 @pytest.mark.parametrize("case", ref.SKIP_EDGE_CASES)
-def test_flash_backward_kernel_on_skip_edges(cuda_device, case):
+def test_flash_backward_kernel_on_skip_edges(cuda_device, case, D):
     """Positions in any order, padded interior tiles, and queries that
-    attend no key (zero gradients)."""
+    attend no key (zero gradients), on both backward kernels."""
     qp, kp, causal, window = ref.skip_edge_positions(case, 2, 300, 333, seed=5)
-    q, k, v, do, _, _ = _bwd_inputs(cuda_device, 2, 300, 333, 4, 2, 64, 0, seed=5)
+    q, k, v, do, _, _ = _bwd_inputs(cuda_device, 2, 300, 333, 4, 2, D, 0, seed=5)
     qp, kp = torch.from_numpy(qp).to(cuda_device), torch.from_numpy(kp).to(cuda_device)
-    with torch.no_grad():
-        out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window)
-    dq, _, _ = _bwd_checked(q, k, v, out, do, qp, kp, causal, window)
+    out, lse = _forward(q, k, v, qp, kp, causal, window)
+    dq, _, _ = _bwd_checked(q, k, v, out, lse, do, qp, kp, causal, window)
     if case == "causal_first_key":
         assert float(dq[:, :127].float().abs().max()) == 0.0
 
 
+LSE_WRITERS = [("flash_attention_sm90", 64, 300), ("flash_attention_sm90", 80, 300),
+               ("flash_attention_sm90", 128, 300), ("flash_attention", 64, 100),
+               ("flash_attention", 80, 100)]
+
+
+@pytest.mark.parametrize("kernel,D,Sq", LSE_WRITERS)
+@pytest.mark.parametrize("edge", [None, "causal_first_key"])
+def test_forward_log_sum_exp_matches_plain(cuda_device, kernel, D, Sq, edge):
+    """Each writer's log-sum-exp against ``ref.flash_attention_lse_ref``
+    within ``ref.flash_lse_tolerance``, causal with a window and padded keys
+    (or queries that attend no key, +inf in both); its output against the
+    plain flash."""
+    q, k, v, qp, kp, _ = _inputs(2, Sq, 333, 8, 2, D, seed=D + Sq)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    qp, kp = qp.to(cuda_device), kp.to(cuda_device)
+    causal, window = True, 96
+    kp[:, -5:] = ref.INT32_MAX
+    if edge is not None:                            # queries 0 .. 126 attend no key
+        q = q.repeat(1, 3, 1, 1)[:, :300].contiguous()
+        qp, kp, causal, window = ref.skip_edge_positions(edge, 2, 300, 333, seed=5)
+        qp, kp = torch.from_numpy(qp).to(cuda_device), torch.from_numpy(kp).to(cuda_device)
+    out, lse = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kernel=kernel,
+                                   return_lse=True)
+    plain_out = ref.flash_attention_ref(q, k, v, qp, kp, causal, window)
+    limit = ref.flash_bf16_tolerance(q, k, v, qp, kp, causal, window, plain_out)
+    assert bool(((out.float() - plain_out.float()).abs() <= limit).all())
+    plain = ref.flash_attention_lse_ref(q, k, qp, kp, causal, window)
+    empty = torch.isinf(plain)
+    assert lse.shape == plain.shape and torch.equal(torch.isposinf(lse), empty)
+    assert bool(empty.any()) == (edge is not None)
+    lim = ref.flash_lse_tolerance(q, k, qp, kp, causal, window, plain)
+    err = (lse - plain).abs()[~empty]
+    assert bool((err <= lim[~empty]).all()), float((err / lim[~empty]).max())
+
+
 def test_flash_autograd_function_runs_both_kernels(cuda_device):
     """Gradcheck-style agreement of ``ops.flash_attention_autograd``: its
-    output is ``flash_attention``'s and its gradients are
-    ``flash_attention_bwd``'s on that output, bit for bit; those are within
+    output is the wgmma forward's and its gradients are the wgmma + TMA
+    backward's on that output and log-sum-exp, bit for bit; those are within
     the stated limit of the plain backward.  Under ``no_grad`` the
     dispatcher of the models launches the forward alone."""
     from repro_torch.models.attention import attention
@@ -772,15 +821,47 @@ def test_flash_autograd_function_runs_both_kernels(cuda_device):
     out = attention(*leaves, qp, kp, causal=True)
     grads = torch.autograd.grad(out, leaves, do)
     after = ops.launch_counts()
-    assert after["flash_attention"] - before["flash_attention"] == 1
-    assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n in ("flash_attention_sm90", "flash_attention_bwd_sm90")) for n in after}
     with torch.no_grad():
-        direct = ops.flash_attention(q, k, v, qp, kp, causal=True)
+        direct, lse = ops.flash_attention(q, k, v, qp, kp, causal=True, return_lse=True)
         assert torch.equal(attention(*leaves, qp, kp, causal=True), direct)
     assert torch.equal(out.detach(), direct)
-    want = _bwd_checked(q, k, v, direct, do, qp, kp, True, 0)
+    want = _bwd_checked(q, k, v, direct, lse, do, qp, kp, True, 0)
     for g, w in zip(grads, want):
         assert torch.equal(g, w)
+
+
+def test_tma_kernels_launch_from_a_fresh_thread(cuda_device):
+    """The wgmma kernels encode their tensor maps with the driver, which
+    needs a current context.  A thread that has made no CUDA runtime call
+    yet has none (autograd's backward thread, when the flash backward is
+    its first CUDA work), so each launcher makes it current first.  Each
+    kernel runs on a thread of its own and gives what it gives here."""
+    import threading
+
+    q, k, v, do, qp, kp = _bwd_inputs(cuda_device, 2, 256, 256, 8, 2, 64, 0, seed=3)
+    out, lse = _forward(q, k, v, qp, kp, True, 0)
+    grads = ops.flash_attention_bwd(q, k, v, out, do, lse, qp, kp, causal=True)
+    got = {}
+
+    def run(name, fn):
+        try:
+            got[name] = fn()
+        except Exception as e:                         # re-raised below, on this thread
+            got[name] = e
+
+    for name, fn in (("forward", lambda: _forward(q, k, v, qp, kp, True, 0)),
+                     ("backward", lambda: ops.flash_attention_bwd(q, k, v, out, do, lse, qp,
+                                                                  kp, causal=True))):
+        worker = threading.Thread(target=run, args=(name, fn))
+        worker.start()
+        worker.join()
+        if isinstance(got[name], Exception):
+            raise got[name]
+    torch.cuda.synchronize()
+    for a, b in zip(got["forward"] + got["backward"], (out, lse) + tuple(grads)):
+        assert torch.equal(a, b)
 
 
 def test_flash_backward_refuses_what_it_has_no_kernel_for(cuda_device):
@@ -789,5 +870,12 @@ def test_flash_backward_refuses_what_it_has_no_kernel_for(cuda_device):
         q = torch.zeros((1, 8, 2, D), device=cuda_device, dtype=dtype, requires_grad=True)
         with pytest.raises(ValueError, match="no backward kernel"):
             ops.flash_attention_autograd(q, q, q, p, p)
+        lse = torch.zeros((1, 2, 8), device=cuda_device)
         with pytest.raises(ValueError, match="no kernel for"):
-            ops.flash_attention_bwd(*(x.detach() for x in (q, q, q, q, q)), p, p)
+            ops.flash_attention_bwd(*(x.detach() for x in (q, q, q, q, q)), lse, p, p)
+    q = torch.zeros((1, 8, 2, 80), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel for"):   # the wgmma backward is D 64 only
+        ops.flash_attention_bwd_sm90(q, q, q, q, q, torch.zeros((1, 2, 8), device=cuda_device),
+                                     p, p)
+    with pytest.raises(ValueError, match="lse must be"):
+        ops.flash_attention_bwd(q, q, q, q, q, None, p, p)

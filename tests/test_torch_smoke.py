@@ -278,7 +278,9 @@ def test_expected_train_launches_count_a_train_step(smoke, monkeypatch, k, remat
     """The flash forward and backward launches of 2 train steps of the
     reduced dense model, counted by stand-ins for the two wrappers on the
     CPU (forward through ``FlashAttention``, remat's recompute included),
-    equal ``expected_train_launches``."""
+    equal ``expected_train_launches`` (on the card the forward's kernel is
+    ``flash_attention_sm90`` and the backward's ``flash_attention_bwd_sm90``
+    at granite's widths)."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
@@ -311,7 +313,10 @@ def test_expected_train_launches_count_a_train_step(smoke, monkeypatch, k, remat
     data = SyntheticLMStream(cfg, batch=2, seq_len=8, device="cpu")
     for s in range(2):
         params, opt, _ = step_fn(params, opt, data.batch_at(s), s)
-    assert counts == smoke.expected_train_launches(cfg.num_layers, k, remat != "none", 2)
+    want = smoke.expected_train_launches(cfg.num_layers, k, remat != "none", 2)
+    assert sorted(want) == ["flash_attention_bwd_sm90", "flash_attention_sm90"]
+    assert counts == {"flash_attention": want["flash_attention_sm90"],
+                      "flash_attention_bwd": want["flash_attention_bwd_sm90"]}
 
 
 @pytest.mark.parametrize("steps,every,fail_at", [(6, 2, (3,)), (6, 2, ()), (25, 5, (7, 13)),
@@ -337,10 +342,33 @@ def test_flash_bwd_work_and_bound(smoke):
     flops, nbytes = smoke.flash_bwd_work(2, 2048, 2048, 32, 8, 64, pairs)
     assert flops == 2.5 * 4 * pairs * 32 * 64
     q, kv = 2 * 2048 * 32 * 64, 2 * 2048 * 8 * 64
-    assert nbytes == (4 * q + 4 * kv) * 2 + 2 * 2 * 2048 * 4
+    # bf16 q, out, dout, dq, k, v, dk, dv; int32 positions; the f32 log-sum-exp
+    assert nbytes == (4 * q + 4 * kv) * 2 + 2 * 2 * 2048 * 4 + 2 * 32 * 2048 * 4
     ms, by = smoke.bound(flops, nbytes)
     assert by == "operations" and ms == pytest.approx(flops / 989e12 * 1e3)
     assert smoke.bound(1.0, 3.35e9) == (pytest.approx(1.0), "bytes")
+
+
+def test_device_split_puts_both_backwards_under_flash(smoke):
+    """The profiled train step's split: both backward files' kernels (the
+    wgmma one's ``bwd_delta`` included) under ``flash_bwd``, the wgmma
+    forward and its pre-pass under ``flash_fwd``."""
+    import torch
+    from types import SimpleNamespace
+
+    cuda = torch.autograd.DeviceType.CUDA
+    names = {"(anonymous namespace)::bwd_delta(...)": 1.0,
+             "(anonymous namespace)::bwd_dkdv(CUtensorMap_st, ...)": 2.0,
+             "(anonymous namespace)::bwd_dq(CUtensorMap_st, ...)": 4.0,
+             "void (anonymous namespace)::bwd_prep<80>(...)": 8.0,
+             "void (anonymous namespace)::flash_fwd_sm90<64>(...)": 16.0,
+             "(anonymous namespace)::live_tiles_pass(...)": 32.0,
+             "nvjet_hsh_128x256_64x4": 64.0, "void at::native::elementwise_kernel": 128.0}
+    prof = SimpleNamespace(key_averages=lambda: [
+        SimpleNamespace(key=k, self_device_time_total=us, device_type=cuda)
+        for k, us in names.items()])
+    assert smoke._device_split(prof) == {"flash_fwd": 48.0, "flash_bwd": 15.0, "matmul": 64.0,
+                                         "other": 128.0}
 
 
 def test_train_flops(smoke):

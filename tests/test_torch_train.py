@@ -109,8 +109,10 @@ def test_flash_autograd_function_on_the_cpu_is_the_plain_gradient():
     """``ops.flash_attention_autograd`` on CPU tensors: the forward is the
     plain flash function, the backward ``flash_attention_bwd``'s plain
     version; both equal autograd through the plain forward, rows that
-    attend no key (zero gradients) and ``kv_len`` included.  No kernel
-    counter moves."""
+    attend no key (zero gradients) and ``kv_len`` included.  The function
+    saves the forward's log-sum-exp (``ref.flash_attention_lse_ref``, +inf
+    on the rows with no key) for the backward kernels.  No kernel counter
+    moves."""
     q, k, v, do, qp, kp = _bwd_inputs(2, 10, 14, 4, 2, 8, 0, seed=3)
     qp = qp - 6                                      # queries 0 .. 1 attend no key
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
@@ -118,9 +120,12 @@ def test_flash_autograd_function_on_the_cpu_is_the_plain_gradient():
     before = ops.launch_counts()
     out = ops.flash_attention_autograd(tq, tk, tv, torch.from_numpy(qp), torch.from_numpy(kp),
                                        causal=True, kv_len=lens)
-    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
     kp_eff = torch.where(torch.from_numpy(kp) < lens[:, None], torch.from_numpy(kp),
                          ref.INT32_MAX)
+    saved_lse = out.grad_fn.saved_tensors[4]
+    want_lse = ref.flash_attention_lse_ref(tq, tk, torch.from_numpy(qp), kp_eff, True, 0)
+    assert torch.equal(saved_lse, want_lse) and bool(torch.isposinf(saved_lse[:, :, :2]).all())
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
     want_out = ref.flash_attention_ref(tq, tk, tv, torch.from_numpy(qp), kp_eff, True, 0)
     want = torch.autograd.grad(want_out, (tq, tk, tv), torch.from_numpy(do))
     torch.testing.assert_close(out, want_out, rtol=0, atol=0)

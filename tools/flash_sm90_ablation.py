@@ -7,15 +7,18 @@ Builds copies of ``csrc/flash_attention_sm90.cu`` with one part taken
 out, serves each in place of the kernel and times it (CUDA events, 20
 calls after 3) against the kernel as it is, in turns (as is, each copy,
 each copy in reverse order, as is), at the D-80 causal prefill (2, 4096,
-32 x 80) and the video self- (16, 3120, 12 x 128) and cross-attention
-(16, 3120 x 512).  The copies compute wrong answers: they are for timing
-only, and the kernel as it is is checked against its plain version.
+32 x 80), the video self- (16, 3120, 12 x 128) and cross-attention
+(16, 3120 x 512) and granite's training forward (2, 2048, 32 / 8 x 64,
+causal, writing the log-sum-exp).  The copies compute wrong answers: they
+are for timing only, and the kernel as it is is checked against its plain
+version; ``stages5`` alone computes the right answer.
 
   no_exp         the softmax's exp2 left out (the multiply-add kept)
   no_pv          no O += P V product
   no_softmax     the online softmax left out (P = the raw scores)
   one_hot_tile   every listed tile read from keys 0 .. 127 (memory traffic
                  out of the way; the same products)
+  stages5        a K/V ring of 5 stages, not 3 (D 64's tiles leave the room)
 
 Prints one line per timing and writes chiprun_out/flash_sm90_ablation.json.
 """
@@ -43,6 +46,8 @@ ABLATIONS = {
                    "                                             float& corr1) {\n"
                    "  return;\n  if (entry & 1) {"),
     "one_hot_tile": (SRC, "key0 = (__ldg(live + i) >> 1) * kBN;", "key0 = 0;"),
+    "stages5": (SRC, "static constexpr int kStages = 3;",
+                "static constexpr int kStages = kD == 64 ? 5 : 3;"),
 }
 
 
@@ -70,7 +75,9 @@ def main() -> int:
         cases = {"prefill_d80": cs.flash_inputs(2, 4096, 4096, 32, 32, 80, torch.bfloat16,
                                                 causal=True),
                  "self_d128": cs.flash_inputs(16, 3120, 3120, 12, 12, 128, torch.bfloat16),
-                 "cross_d128": cs.flash_inputs(16, 3120, 512, 12, 12, 128, torch.bfloat16)}
+                 "cross_d128": cs.flash_inputs(16, 3120, 512, 12, 12, 128, torch.bfloat16),
+                 "granite_d64": cs.flash_inputs(2, 2048, 2048, 32, 8, 64, torch.bfloat16,
+                                                causal=True)}
         for name, (args, causal, window) in cases.items():
             q, k, v, qp, kp, _ = args
             out = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window,
@@ -85,7 +92,8 @@ def main() -> int:
                     q, k, v, qp, kp, _ = args
                     t = cs.time_ms(lambda: ops.flash_attention(
                         q, k, v, qp, kp, causal=causal, window=window,
-                        kernel="flash_attention_sm90"), 20, warmup=3)
+                        kernel="flash_attention_sm90",
+                        return_lse=name == "granite_d64"), 20, warmup=3)
                     ms.setdefault(variant, {}).setdefault(name, []).append(t)
                     print(f"variant={variant} case={name} ms={t:.4f}", flush=True)
     finally:

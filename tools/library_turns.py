@@ -18,7 +18,11 @@ spread ((max - min) / median), the gap (library median / kernel median -
 1) and a verdict: ``kernel ahead`` or ``kernel behind`` where the gap is
 larger than both spreads, ``unresolved`` otherwise.
 
-Cases: Zamba2-2.7B's prefill (2 x 4096 tokens, 32 x 80 heads, causal);
+Cases: granite-3-2b's training attention (a microbatch of 2 x 2048
+tokens, 32 / 8 x 64 heads, causal): the forward (the wgmma kernel, which
+writes the log-sum-exp) against SDPA, and the backward (the wgmma + TMA
+backward, fed that log-sum-exp) against the backward of SDPA's autograd
+graph; Zamba2-2.7B's prefill (2 x 4096 tokens, 32 x 80 heads, causal);
 the video DiT's self- and cross-attention at B 16 (3120 tokens, 12 x 128
 heads; 512 context tokens); a hybrid rank's (B 2, 3510 tokens) and a
 K-2 survivor's (B 2, 5070 tokens) self-attention, and the rank's
@@ -40,6 +44,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 BF16_CASES = (   # name, (B, Sq, Skv, H, KV, D), causal
+    ("granite_fwd_d64_causal", (2, 2048, 2048, 32, 8, 64), True),
+    ("granite_bwd_d64_causal", (2, 2048, 2048, 32, 8, 64), True),
     ("prefill_d80_causal", (2, 4096, 4096, 32, 32, 80), True),
     ("self_b16_d128", (16, 3120, 3120, 12, 12, 128), False),
     ("cross_b16_d128", (16, 3120, 512, 12, 12, 128), False),
@@ -71,22 +77,40 @@ def main() -> int:
     from repro_torch.kernels import build, ops
 
     smi = cs.nvidia_smi_line()
-    build.build(("flash_attention_sm90", "flash_decode"))
+    build.build(("flash_attention_sm90", "flash_decode", "flash_attention_bwd_sm90"))
     timer = "events" if args.events else "device_ms"
     report = {"nvidia_smi": smi, "turns": args.turns, "timer": timer, "cases": {}}
     for name, shape, causal in BF16_CASES:
         (q, k, v, qp, kp, _), causal, window = cs.flash_inputs(*shape, torch.bfloat16,
                                                                causal=causal)
         kernel = ops.flash_kernel(q.dtype, shape[5], shape[1])
-        out = ops.flash_attention(q, k, v, qp, kp, causal=causal, kernel=kernel)
-        err, share, ok = cs.flash_agrees(out, (q, k, v, qp, kp, None), causal, window)
+        gqa = shape[3] != shape[4]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if "_bwd_" in name:
+            kernel = ops.bwd_kernel(q.dtype, shape[5])
+            dout = torch.randn_like(q)
+            out, lse, grads = cs.flash_fwd_bwd(q, k, v, dout, qp, kp, causal, window, kernel)
+            err, share, ok = cs.flash_bwd_agrees(grads, (q, k, v, out, dout, qp, kp), causal,
+                                                 window)
+            qg, kg, vg = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=gqa)
+            do_t = dout.transpose(1, 2)
+            sides = {"kernel": lambda: ops.flash_attention_bwd(
+                         q, k, v, out, dout, lse, qp, kp, causal=causal, kernel=kernel),
+                     "library": lambda: torch.autograd.grad(o, (qg, kg, vg), do_t,
+                                                            retain_graph=True)}
+        else:
+            # granite's forward writes the log-sum-exp, as the training step runs it
+            lse = name.startswith("granite")
+            out = ops.flash_attention(q, k, v, qp, kp, causal=causal, kernel=kernel)
+            err, share, ok = cs.flash_agrees(out, (q, k, v, qp, kp, None), causal, window)
+            sides = {"kernel": lambda: ops.flash_attention(q, k, v, qp, kp, causal=causal,
+                                                           kernel=kernel, return_lse=lse),
+                     "library": lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                       is_causal=causal,
+                                                                       enable_gqa=gqa)}
         cs.check(ok, f"{name}: {kernel} disagrees with its plain version (max abs err "
                      f"{err:.3e}, {share:.2f} of the limit)")
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sides = {"kernel": lambda: ops.flash_attention(q, k, v, qp, kp, causal=causal,
-                                                       kernel=kernel),
-                 "library": lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                                   is_causal=causal)}
         ms = {"kernel": [], "library": []}
         for turn in range(args.turns):
             for side in (("kernel", "library") if turn % 2 == 0 else ("library", "kernel")):

@@ -92,7 +92,7 @@ VARIANTS = {
                  "    const long long per = 0;"),
 }
 WRONG = ("no_divide", "no_arith", "skeleton")     # for timing only
-DQ, FD = "dequant_blend.cu", "flash_decode.cu"
+DQ, FD, HDR = "dequant_blend.cu", "flash_decode.cu", "flash_common.cuh"
 PARTS = {
     "decode:no_tail": (FD, "\n  // the last split of (b, kv head)",
                        "\n  return;\n  // the last split of (b, kv head)"),
@@ -100,9 +100,10 @@ PARTS = {
                      "  if (p.B > 0) return;\n"
                      "  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;"),
     "decode:no_products": (FD, "if (jw < n) {", "if (jw < 0) {"),
-    "decode:no_kv_loads": (FD, "  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16, %2;"
-                               "\\n\"\n               ::\"r\"(smem_addr(dst)), \"l\"(src), "
-                               "\"r\"(valid ? 16 : 0));",
+    # cp_async16 is flash_common.cuh's, shared with flash_attention*.cu
+    "decode:no_kv_loads": (HDR, "  asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                                "\\n\"\n               ::\"r\"(smem_u32(dst)), \"l\"(src), "
+                                "\"r\"(valid ? 16 : 0));",
                            "  (void)dst; (void)src; (void)valid;"),
     "dequant:loads4": (DQ, "if (F % 16 == 0 && a % 16 == 0 && o % 16 == 0 &&", "if (false &&"),
     "dequant:loads16": (DQ, "static_cast<long long>(E) * (F / 16) >= "
@@ -205,17 +206,17 @@ def time_parts(cs, build, ops, ref):
     import torch
 
     mutants = dict(PARTS)
-    skel = (build.CSRC / FD).read_text()
+    skel = {f: (build.CSRC / f).read_text() for f in (FD, HDR)}
     for m in ("decode:no_tail", "decode:no_products", "decode:no_kv_loads"):
-        skel = skel.replace(PARTS[m][1], PARTS[m][2])
-    tmp, built = cs.build_mutants("redesign_parts_", mutants, (DQ, FD, "flash_common.cuh"),
+        f, old, new = PARTS[m]
+        skel[f] = skel[f].replace(old, new)
+    tmp, built = cs.build_mutants("redesign_parts_", mutants, (DQ, FD, HDR),
                                   {m: (m.split(":")[0].replace("decode", "flash_decode")
                                        .replace("dequant", "dequant_blend"),) for m in mutants})
     try:
         (tmp / "skeleton").mkdir()
-        (tmp / "skeleton" / FD).write_text(skel)
-        (tmp / "skeleton" / "flash_common.cuh").write_text(
-            (build.CSRC / "flash_common.cuh").read_text())
+        for f, text in skel.items():
+            (tmp / "skeleton" / f).write_text(text)
         so = tmp / "skeleton" / "libflash_decode.so"
         proc = __import__("subprocess").run(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(tmp / "skeleton" / FD)],
