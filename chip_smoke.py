@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
 
 Phases, one line each (any failed check exits non-zero):
-  1. device  — the card, the toolchain, the ten kernels' build from csrc/.
+  1. device  — the card, the toolchain, the eleven kernels' build from csrc/.
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card at the serving paths' shapes (WAN and Zamba2),
                with kernel, plain, library and bound times (and the
@@ -22,9 +22,10 @@ Phases, one line each (any failed check exits non-zero):
                (bit-equal, f32 and bf16 out; its yardstick two calls,
                wire.float() and the banded matmul with the scales folded
                in) also at the 480p latent (21, 60, 104) with a cold L2;
-               the ptxas lines of those three and of every flash library
+               the ptxas lines of those three, of every flash library
                (flash_attention.cu, the wgmma forward, flash_decode.cu and
-               both backwards) must show no spill.  Then broken copies, built outside the
+               both backwards) and of both SSD libraries must show no
+               spill.  Then broken copies, built outside the
                checkout, must each fail a check: three of mamba_ssd.cu (no
                +-60 clip, no state reset, one TF32 pass instead of
                3xTF32; each one's share of the limit is printed per case),
@@ -57,7 +58,20 @@ Phases, one line each (any failed check exits non-zero):
                log of its sum in each forward, and four of the mma.sync
                backward (caught at D 80).  Granite's forward (the wgmma
                kernel at 2 x 2048, D 64) is timed beside flash_attention.cu
-               and SDPA.
+               and SDPA; Zamba2's training attention (2 x 2048, 32 x 80,
+               causal) forward on the wgmma kernel and backward on
+               mma.sync, each beside SDPA.  The SSD scan's backward
+               (mamba_ssd_bwd.cu, f32 FMA, deterministic) against
+               ref.mamba_ssd_bwd_plain at Zamba2's training microbatch (2
+               x 2048, 80 x 64 heads, state 64, chunk 64), with steep
+               decays that reach the clip, a ragged length and p = n =
+               16, each gradient within 1e-4 of its max-abs (plus 1e-4 of
+               the element), two calls bit-equal, no spill; three broken
+               copies (the inter-chunk carry dropped, the clip's gradient
+               mask dropped, the chunks swept forwards) must each fail a
+               case; the forward's state-writing entry against the plain
+               states, its y bit-equal to the serving entry's, and no
+               spill in any instantiation of mamba_ssd.cu.
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -133,7 +147,18 @@ Phases, one line each (any failed check exits non-zero):
                Adafactor, 6 steps, a checkpoint every 2, a failure at step
                3: one restart, losses and final state bit-equal to a clean
                run); then a greedy decode from the trained parameters (40
-               flash_decode launches a step).
+               flash_decode launches a step).  (d) zamba2-2.7b at its
+               published widths and depth (54 Mamba2 blocks, 9 shared
+               attentions of 32 x 80 heads with LoRA, bf16, random
+               weights) at the same batch and settings: a warm-up step, 3
+               timed steps (finite losses and grad norms; 216 mamba_ssd,
+               108 mamba_ssd_bwd, 36 flash_attention_sm90 and 18
+               flash_attention_bwd launches a step, nothing else), one
+               profiled (SSD forward and backward, flash forward and
+               backward, matmul, other); then its restart drill at one
+               group (6 blocks and one shared attention, Adafactor, a
+               failure at step 3 of 6, bit-equal) in a process of its own
+               (``--train-drill hybrid``).
   8. guidance — the fused CFG + Euler entry point ops.guidance_update
                (no path of the reference calls it) driven over the 4-step
                schedule on the 480p latent (1, 13, 60, 104, 16), f32 and
@@ -149,8 +174,8 @@ Phases, one line each (any failed check exits non-zero):
 Then one JSON line of every kernel (flash_attention.cu's and
 flash_attention_bwd.cu's rows, on no path now, on granite's training case
 forced onto them), the card's name and power limit, and the result line.
-``python3 chip_smoke.py --train-drill`` is phase train's drill alone, as the
-phase runs it.  Detailed numbers go to chiprun_out/chip_smoke.json.
+``python3 chip_smoke.py --train-drill [hybrid]`` is phase train's drill
+(granite's, or Zamba2's) alone, as the phase runs it.  Detailed numbers go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -343,6 +368,27 @@ TRAIN_LR = 3e-4
 # 0.65 GB, not the full model's 26 GB with AdamW), Adafactor
 DRILL = dict(layers=2, optimizer="adafactor", steps=6, ckpt_every=2, fail_at=(3,), lr=1e-2)
 TRAIN_DECODE = (4, 16, 16, 64)  # (c): requests, prompt tokens, generated, cache slots
+# (d) the hybrid LM, zamba2-2.7b at its published widths and depth
+# (arXiv:2411.15242: 54 Mamba2 blocks, d_model 2560, state 64, head dim 64,
+# 9 shared-attention invocations of 32 x 80 heads with per-invocation LoRA),
+# on granite's batch and ParallelConfig; its drill at one group (6 blocks
+# and one shared attention) with Adafactor
+HYBRID_TRAIN_ARCH = "zamba2-2.7b"
+HYBRID_TRAIN_DRILL = dict(DRILL, layers=6)
+# mamba_ssd_bwd: each gradient within SSD_BWD_TOL of its plain version's
+# max-abs, plus SSD_BWD_TOL of the element (f32 FMA sums in another order,
+# on the forward kernel's 3xTF32 states)
+SSD_BWD_TOL = 1e-4
+# broken copies of mamba_ssd_bwd.cu: each must fail the check on a case
+SSD_BWD_MUTANTS = {
+    # the inter-chunk carry: dS not passed on (decayed) to the chunk before
+    "no_carry": ("[&](int i, int c, float v) { dss[i * XP + c] = et * dss[i * XP + c] + v; });",
+                 "[&](int i, int c, float v) { dss[i * XP + c] = v; });"),
+    # the clip's mask: gradient through the clipped exponents too
+    "no_clip_mask": ("return (v >= -kClip && v <= kClip) ? 1.f : 0.f;", "return 1.f;"),
+    # the chunks swept first to last
+    "forward_sweep": ("const int ch = p.nch - 1 - k;", "const int ch = k;"),
+}
 NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
 
 
@@ -824,6 +870,126 @@ def ssd_mutants(kept):
             check(caught[m], f"mutant {m} of mamba_ssd.cu passed every check")
         ops.mamba_ssd.launches = before
         return caught, shares
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ssd_bwd_agrees(got, plain):
+    """Each gradient of ``mamba_ssd_bwd`` against its plain version: (max
+    abs err, largest share of the limit ``SSD_BWD_TOL (max|plain| +
+    |plain|)``, every element within it and finite)."""
+    import torch
+
+    errs = [max_err(g, w, SSD_BWD_TOL * (w.abs().max() + w.abs())) for g, w in zip(got, plain)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            all(e[2] for e in errs) and finite)
+
+
+def ssd_bwd_work(b, s, h, p, n, chunk):
+    """Multiply-adds and bytes of one SSD backward.  Per (batch, head,
+    chunk): the causal G (u x), G^T (ai dy) and dG, the causal dG B and
+    dG^T C, and C S, B dS, dy S^T, x dS^T and C^T (ec dy); per (batch,
+    chunk) the causal Gram.  Bytes: x, dy and the states read, dx written
+    (f32), the decays, scales, B, C read and their gradients written once."""
+    nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
+    macs = b * h * nc * (3 * tri * p + 2 * tri * n + 5 * chunk * n * p) + b * nc * tri * n
+    nbytes = 4 * (3 * b * s * h * p + b * nc * h * n * p + 4 * b * s * h + 4 * b * s * n)
+    return macs, nbytes
+
+
+def ssd_bwd_case(name, b, s, h, p, n, chunk, seed, steep=False, reps=5):
+    """``mamba_ssd_bwd`` against ``ref.mamba_ssd_bwd_plain`` on the same
+    inputs (the states from the forward's state-writing entry, a random
+    output gradient), two calls bit-equal; kernel, plain and bound times
+    (no PyTorch call computes it: library none).  Returns the record and
+    (name, inputs, plain gradients, chunk) for the mutation checks."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    args = ssd_inputs(b, s, h, p, n, seed, steep)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn((b, s, h, p), generator=g, device="cuda")
+    before = (ops.mamba_ssd.launches, ops.mamba_ssd_bwd.launches)
+    _, states = ops.mamba_ssd(*args, chunk=chunk, return_states=True)
+    got = ops.mamba_ssd_bwd(*args, dy, states, chunk=chunk)
+    plain = ref.mamba_ssd_bwd_plain(*args, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    err, share, ok = ssd_bwd_agrees(got, plain)
+    check(ok, f"{name}: mamba_ssd_bwd disagrees with its plain version (max abs err "
+              f"{err:.3e}, {share:.2f} of the limit)")
+    again = ops.mamba_ssd_bwd(*args, dy, states, chunk=chunk)
+    check(all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+          f"{name}: two calls of mamba_ssd_bwd differ (it must be deterministic)")
+    kernel_ms = time_ms(lambda: ops.mamba_ssd_bwd(*args, dy, states, chunk=chunk), reps)
+    plain_ms = time_ms(lambda: ref.mamba_ssd_bwd_plain(*args, dy, chunk=chunk), 1)
+    ops.mamba_ssd.launches, ops.mamba_ssd_bwd.launches = before
+    macs, nbytes = ssd_bwd_work(b, s, h, p, n, chunk)
+    # the bound as the forward's: the products in 3xTF32 on the tensor cores
+    b_ms, b_by = bound(2.0 * macs * SSD_PASSES, nbytes, H100_TF32_FLOPS)
+    return {
+        "case": name, "shape": [b, s, h, p, n], "chunk": chunk, "steep": steep,
+        "max_abs_err": err, "tol": f"{SSD_BWD_TOL} (max|plain| + |plain|) per gradient",
+        "err_share_of_limit": share, "ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "tflops": 2.0 * macs / kernel_ms / 1e9, "profiler_short": False,
+    }, (name, (*args, dy, states), plain, chunk)
+
+
+def ssd_states_case(name, b, s, h, p, n, chunk, seed, steep=False):
+    """The forward's state-writing entry: its states against the plain
+    scan's (``SSD_TOL``), its y bit-equal to the serving entry's, and
+    both entries timed.  Returns the record."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    args = ssd_inputs(b, s, h, p, n, seed, steep)
+    before = ops.mamba_ssd.launches
+    y, states = ops.mamba_ssd(*args, chunk=chunk, return_states=True)
+    _, want = ref.mamba_ssd_plain(*args, chunk=chunk, return_states=True)
+    torch.cuda.synchronize()
+    err, share, ok = ssd_agrees(states, want)
+    check(ok and torch.equal(y, ops.mamba_ssd(*args, chunk=chunk)),
+          f"{name}: the state-writing entry's states ({err:.3e}, {share:.2f} of the limit) "
+          "or its y (against the serving entry's) are wrong")
+    states_ms = time_ms(lambda: ops.mamba_ssd(*args, chunk=chunk, return_states=True), 5)
+    serving_ms = time_ms(lambda: ops.mamba_ssd(*args, chunk=chunk), 5)
+    ops.mamba_ssd.launches = before
+    rec = {"case": name, "shape": [b, s, h, p, n], "chunk": chunk, "steep": steep,
+           "max_abs_err": err, "err_share_of_limit": share, "states_entry_ms": states_ms,
+           "serving_entry_ms": serving_ms, "y_bit_equal": True}
+    print(f"phase=kernels states={name} max_abs_err={err:.3e} share_of_limit={share:.3f} "
+          f"states_entry_ms={states_ms:.4f} serving_entry_ms={serving_ms:.4f} "
+          "y_bit_equal=True", flush=True)
+    return rec
+
+
+def ssd_bwd_mutants(kept):
+    """Build each broken copy of mamba_ssd_bwd.cu outside the checkout,
+    serve it in place of the kernel, and require that the backward's
+    check fails on at least one of the ``kept`` cases.  Returns, per
+    mutant, the cases that caught it."""
+    import torch
+    from repro_torch.kernels import build, ops
+
+    mutants = {m: ("mamba_ssd_bwd.cu", old, new) for m, (old, new) in SSD_BWD_MUTANTS.items()}
+    tmp, built = build_mutants("mamba_ssd_bwd_mutants_", mutants, ("mamba_ssd_bwd.cu",),
+                               {m: ("mamba_ssd_bwd",) for m in mutants})
+    try:
+        before, caught = ops.mamba_ssd_bwd.launches, {}
+        for m, sos in built.items():
+            caught[m] = []
+            with build.substituted("mamba_ssd_bwd",
+                                   build.load("mamba_ssd_bwd", sos["mamba_ssd_bwd"])):
+                for name, args, plain, chunk in kept:
+                    got = ops.mamba_ssd_bwd(*args, chunk=chunk)
+                    torch.cuda.synchronize()
+                    err, share, ok = ssd_bwd_agrees(got, plain)
+                    if not ok:
+                        caught[m].append(f"{name} ({share:.3g} of the limit)")
+            check(caught[m], f"mutant {m} of mamba_ssd_bwd.cu passed every check")
+        ops.mamba_ssd_bwd.launches = before
+        return caught
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2596,6 +2762,22 @@ def expected_train_launches(num_layers: int, microbatch: int, remat: bool, steps
             "flash_attention_bwd_sm90": num_layers * microbatch * steps}
 
 
+def expected_hybrid_train_launches(num_layers: int, attn_every: int, microbatch: int,
+                                   remat: bool, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps of the hybrid LM (Zamba2, D
+    80, 2048 tokens): per microbatch one ``mamba_ssd`` forward (its
+    state-writing entry) a Mamba2 block and one wgmma flash forward (writing
+    the log-sum-exp) a shared-attention invocation, each once more under
+    remat (the group recomputed in the backward pass); one ``mamba_ssd_bwd``
+    a block and one flash backward (``mma.sync`` at D 80) an invocation."""
+    again = 2 if remat else 1
+    groups = num_layers // attn_every
+    return {"mamba_ssd": num_layers * microbatch * again * steps,
+            "mamba_ssd_bwd": num_layers * microbatch * steps,
+            "flash_attention_sm90": groups * microbatch * again * steps,
+            "flash_attention_bwd": groups * microbatch * steps}
+
+
 def drill_steps(num_steps: int, ckpt_every: int, fail_at) -> int:
     """Train steps a ``run_training`` run takes: each failure at step f
     replays from the last checkpoint at or below f (``ckpt_every``
@@ -2618,15 +2800,21 @@ def train_flops(n_matmul: int, tokens: int, pairs: int, layers: int, heads: int,
 
 def _device_split(prof):
     """Device time (us) of a profiled window by kind: the flash forward and
-    backward kernels, cuBLAS products and the rest."""
+    backward kernels, the SSD scan's forward and backward kernels, cuBLAS
+    products and the rest."""
     import torch
 
-    split = {"flash_fwd": 0.0, "flash_bwd": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {"flash_fwd": 0.0, "flash_bwd": 0.0, "ssd_fwd": 0.0, "ssd_bwd": 0.0,
+             "matmul": 0.0, "other": 0.0}
     for e in prof.key_averages():
         us = e.self_device_time_total
         if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if any(k in e.key for k in ("bwd_delta", "bwd_prep", "bwd_dkdv", "bwd_dq")):
+        if "mamba_ssd_bwd" in e.key:
+            split["ssd_bwd"] += us
+        elif "mamba_ssd" in e.key:
+            split["ssd_fwd"] += us
+        elif any(k in e.key for k in ("bwd_delta", "bwd_prep", "bwd_dkdv", "bwd_dq")):
             split["flash_bwd"] += us
         elif "flash_fwd" in e.key or "live_tiles" in e.key:
             split["flash_fwd"] += us
@@ -2637,13 +2825,15 @@ def _device_split(prof):
     return split
 
 
-def train_drill() -> int:
+def train_drill(hybrid: bool = False) -> int:
     """Phase train (b), run by ``chip_smoke.py --train-drill`` in a process
     of its own with ``CUBLAS_WORKSPACE_CONFIG`` set before the first cuBLAS
     call and deterministic algorithms on: granite-3-2b at its published
     widths cut to ``DRILL["layers"]`` layers, Adafactor, ``run_training`` for
     ``DRILL["steps"]`` steps with a checkpoint every ``DRILL["ckpt_every"]``,
-    once clean and once with ``FailureInjector(fail_at=DRILL["fail_at"])``.
+    once clean and once with ``FailureInjector(fail_at=DRILL["fail_at"])``;
+    ``hybrid`` (``--train-drill hybrid``, phase train (d)): zamba2-2.7b cut
+    to ``HYBRID_TRAIN_DRILL["layers"]`` blocks (one group) the same way.
     Prints one ``DRILL {json}`` line: restarts, final step, whether the
     losses and the final parameters and optimizer state are bit-equal, the
     launch counts of both runs."""
@@ -2663,11 +2853,13 @@ def train_drill() -> int:
           "the drill needs CUBLAS_WORKSPACE_CONFIG=:4096:8 before its first cuBLAS call")
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=DRILL["layers"])
+    drill = HYBRID_TRAIN_DRILL if hybrid else DRILL
+    cfg = dataclasses.replace(get_config(HYBRID_TRAIN_ARCH if hybrid else TRAIN_ARCH),
+                              num_layers=drill["layers"])
     model = models.build(cfg, "cuda")
     step_fn = make_train_step(model, ParallelConfig(**{**TRAIN_PARALLEL,
-                                                       "optimizer": DRILL["optimizer"]}),
-                              peak_lr=DRILL["lr"], total_steps=DRILL["steps"])
+                                                       "optimizer": drill["optimizer"]}),
+                              peak_lr=drill["lr"], total_steps=drill["steps"])
     data = SyntheticLMStream(cfg, batch=TRAIN_B, seq_len=TRAIN_S, device="cuda")
 
     def init_state():
@@ -2675,7 +2867,7 @@ def train_drill() -> int:
         return p, step_fn.opt_init(p)
 
     runs = {}
-    for name, injector in (("clean", None), ("faulty", FailureInjector(fail_at=DRILL["fail_at"]))):
+    for name, injector in (("clean", None), ("faulty", FailureInjector(fail_at=drill["fail_at"]))):
         last = {}
 
         def step(params, opt_state, batch, s):
@@ -2687,8 +2879,8 @@ def train_drill() -> int:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         try:
-            rep = run_training(step, init_state, data.batch_at, DRILL["steps"], ckpt_dir,
-                               ckpt_every=DRILL["ckpt_every"], injector=injector)
+            rep = run_training(step, init_state, data.batch_at, drill["steps"], ckpt_dir,
+                               ckpt_every=drill["ckpt_every"], injector=injector)
         finally:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
         torch.cuda.synchronize()
@@ -2707,49 +2899,38 @@ def train_drill() -> int:
     return 0
 
 
-def train_phase():
-    """Phase train: granite-3-2b at its published widths and depth in bf16
+def train_steps(cfg, want: dict, run: str):
+    """Phase train's timed run of ``cfg`` at its published widths in bf16
     (random weights from seed 0) through ``make_train_step`` with
-    ``ParallelConfig(**TRAIN_PARALLEL)`` on ``SyntheticLMStream`` batches of
-    ``TRAIN_B`` x ``TRAIN_S`` tokens: (a) one warm-up step, then
+    ``ParallelConfig(**TRAIN_PARALLEL)`` on ``SyntheticLMStream`` batches
+    of ``TRAIN_B`` x ``TRAIN_S`` tokens: one warm-up step, then
     ``TRAIN_STEPS`` timed steps whose losses and gradient norms must be
-    finite and whose flash launches must be ``expected_train_launches``,
-    one more step profiled for the device split; (b) the restart drill in a
-    process of its own (``train_drill``); (c) a greedy decode from (a)'s
-    parameters through the dense ``decode_step`` (``flash_decode`` 40
-    times a step and nothing else).  Returns the record and the launch
-    counts of (a), (b) and (c), each set to 0 just before it and read just
-    after."""
-    import os
+    finite and whose launches must be ``want`` (and nothing else), one
+    more step profiled for the device split.  Returns the record, the
+    launch counts (set to 0 just before the timed steps, read just after),
+    and the model, its trained parameters and the data stream."""
     import torch
     from repro_torch import models, tree
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
     from repro_torch.data.pipeline import SyntheticLMStream
     from repro_torch.kernels import ops
     from repro_torch.train.loop import make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
-    parallel = ParallelConfig(**TRAIN_PARALLEL)
-    check(ops.flash_kernel(torch.bfloat16, cfg.head_dim, TRAIN_S) == "flash_attention_sm90"
-          and ops.bwd_kernel(torch.bfloat16, cfg.head_dim) == "flash_attention_bwd_sm90",
-          "granite's training attention is not on flash_attention_sm90.cu and "
-          "flash_attention_bwd_sm90.cu")
     t0 = time.perf_counter()
     model = models.build(cfg, "cuda")
     params = model.init(0)
-    step_fn = make_train_step(model, parallel, peak_lr=TRAIN_LR, total_steps=100)
+    step_fn = make_train_step(model, ParallelConfig(**TRAIN_PARALLEL), peak_lr=TRAIN_LR,
+                              total_steps=100)
     opt_state = step_fn.opt_init(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves, paths = tree.flatten(params)
-    n_params = sum(p.numel() for p in leaves)
+    n_params = sum(p.numel() for p in tree.flatten(params)[0])
     n_matmul = n_params - params["embed"]["emb"].numel()
     data = SyntheticLMStream(cfg, batch=TRAIN_B, seq_len=TRAIN_S, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, opt_state, m = step_fn(params, opt_state, data.batch_at(0), 0)    # warm-up
-    warm_loss = float(m["loss"])
+    warm_loss, warm_gnorm = float(m["loss"]), float(m["grad_norm"])
     warmup_s = time.perf_counter() - t0
     ops.reset_launch_counts()
     walls, losses, gnorms = [], [], []
@@ -2764,14 +2945,13 @@ def train_phase():
         gnorms.append(float(m["grad_norm"]))
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    want = expected_train_launches(cfg.num_layers, parallel.microbatch,
-                                   parallel.remat != "none", TRAIN_STEPS)
     check(counts == {**{k: 0 for k in counts}, **want},
-          f"train launches {counts}, expected {want} and no other kernel")
-    check(all(math.isfinite(x) for x in losses + gnorms + [warm_loss]),
-          f"train: losses {losses} or grad norms {gnorms} not finite")
+          f"{run} train launches {counts}, expected {want} and no other kernel")
+    check(all(math.isfinite(x) for x in losses + gnorms + [warm_loss, warm_gnorm]),
+          f"{run} train: losses {[warm_loss] + losses} or grad norms "
+          f"{[warm_gnorm] + gnorms} not finite")
     check(all(bool(torch.isfinite(p.float()).all()) for p in tree.flatten(params)[0]),
-          "train: parameters not finite after the steps")
+          f"{run} train: parameters not finite after the steps")
     # one more step, profiled: where the device time goes, and the busy share
     batch = data.batch_at(TRAIN_STEPS + 1)
     torch.cuda.synchronize()
@@ -2783,60 +2963,97 @@ def train_phase():
         traced_s = time.perf_counter() - t0
     split = _device_split(prof)
     device_s = sum(split.values()) / 1e6
-    check(device_s > 0, "the traced train step shows no device time")
+    check(device_s > 0, f"the traced {run} train step shows no device time")
     wall = sorted(walls)[len(walls) // 2]
     tokens = TRAIN_B * TRAIN_S
-    pairs = TRAIN_B * TRAIN_S * (TRAIN_S + 1) // 2                 # causal, per layer
-    flops = train_flops(n_matmul, tokens, pairs, cfg.num_layers, cfg.num_heads, cfg.head_dim)
-    rec = {"arch": cfg.name, "params": n_params, "params_matmul": n_matmul,
+    attn_layers = cfg.num_layers // cfg.attn_every if cfg.attn_every else cfg.num_layers
+    pairs = TRAIN_B * TRAIN_S * (TRAIN_S + 1) // 2                 # causal, per attention
+    flops = train_flops(n_matmul, tokens, pairs, attn_layers, cfg.num_heads, cfg.head_dim)
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "attention_layers": attn_layers,
+           "params": n_params, "params_matmul": n_matmul,
            "batch": [TRAIN_B, TRAIN_S], "parallel": TRAIN_PARALLEL, "lr": TRAIN_LR,
            "init_s": init_s, "warmup_step_s": warmup_s, "step_s": walls,
            "step_s_median": wall, "tokens_per_s": tokens / wall, "model_flops": flops,
            "share_of_bf16_peak": flops / wall / H100_BF16_FLOPS, "peak_gb": peak_gb,
-           "losses": [warm_loss] + losses, "grad_norms": gnorms, "launches": counts,
-           "traced_s": traced_s, "device_s": device_s, "device_busy": device_s / traced_s,
+           "losses": [warm_loss] + losses, "grad_norms": [warm_gnorm] + gnorms,
+           "launches": counts, "traced_s": traced_s, "device_s": device_s,
+           "device_busy": device_s / traced_s,
            "device_split_s": {k: v / 1e6 for k, v in split.items()}}
-    print(f"phase=train run=full_width arch={cfg.name} layers={cfg.num_layers} "
+    print(f"phase=train run={run} arch={cfg.name} layers={cfg.num_layers} "
           f"params={n_params} batch={TRAIN_B}x{TRAIN_S} {TRAIN_PARALLEL} init_s={init_s:.1f} "
           f"warmup_step_s={warmup_s:.3f} step_s={[round(w, 4) for w in walls]} "
           f"tokens_per_s={tokens / wall:.0f} share_of_bf16_peak="
           f"{rec['share_of_bf16_peak']:.4f} peak_mem_gb={peak_gb:.2f} "
           f"losses={[round(x, 4) for x in rec['losses']]} grad_norms="
-          f"{[round(x, 4) for x in gnorms]} launches={want}", flush=True)
-    print(f"phase=train traced_step_s={traced_s:.3f} device_s={device_s:.3f} "
+          f"{[round(x, 4) for x in rec['grad_norms']]} launches={want}", flush=True)
+    print(f"phase=train run={run} traced_step_s={traced_s:.3f} device_s={device_s:.3f} "
           f"device_busy={device_s / traced_s:.3f} device_share: "
           + " ".join(f"{k}={v / 1e6 / device_s:.3f}" for k, v in split.items()), flush=True)
-    del opt_state, m, batch
-    torch.cuda.empty_cache()
+    return rec, counts, (model, params, data)
 
-    # (b) the restart drill, deterministic, in a process of its own
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-drill"],
+
+def train_drill_run(run: str, drill_cfg: dict, expected, *args):
+    """Phase train's restart drill: ``chip_smoke.py --train-drill *args``
+    in a process of its own (``CUBLAS_WORKSPACE_CONFIG`` set before its
+    first cuBLAS call), its clean and faulty runs' launches held to
+    ``expected(steps)``, one restart, the final step reached, losses and
+    final state bit-equal, deterministic algorithms on.  Returns its record
+    and the launch counts of both runs summed."""
+    import os
+
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-drill", *args],
                           capture_output=True, text=True, timeout=900,
                           env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
     lines = [l for l in proc.stdout.splitlines() if l.startswith("DRILL ")]
     check(proc.returncode == 0 and len(lines) == 1,
-          f"the train drill failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+          f"the {run} drill failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
     drill = json.loads(lines[0][len("DRILL "):])
-    ran = drill_steps(DRILL["steps"], DRILL["ckpt_every"], DRILL["fail_at"])
-    drill_want = {"clean": expected_train_launches(DRILL["layers"], parallel.microbatch, True,
-                                                   DRILL["steps"]),
-                  "faulty": expected_train_launches(DRILL["layers"], parallel.microbatch,
-                                                    True, ran)}
-    for run_name, want_run in drill_want.items():
-        got = drill["launches"][run_name]
-        check(got == {**{k: 0 for k in got}, **want_run},
-              f"drill {run_name} launches {got}, expected {want_run}")
-    check(drill["restarts"] == 1 and drill["final_step"] == DRILL["steps"]
+    ran = drill_steps(drill_cfg["steps"], drill_cfg["ckpt_every"], drill_cfg["fail_at"])
+    for run_name, n in (("clean", drill_cfg["steps"]), ("faulty", ran)):
+        got, want = drill["launches"][run_name], expected(n)
+        check(got == {**{k: 0 for k in got}, **want},
+              f"{run} {run_name} launches {got}, expected {want}")
+    check(drill["restarts"] == 1 and drill["final_step"] == drill_cfg["steps"]
           and drill["losses_bit_equal"] and drill["state_bit_equal"]
-          and drill["deterministic"],
-          f"train drill: {drill}")
-    rec["drill"] = {**drill, "steps_run_faulty": ran, **{k: DRILL[k] for k in DRILL}}
-    print(f"phase=train run=drill layers={DRILL['layers']} optimizer={DRILL['optimizer']} "
-          f"steps={DRILL['steps']} ckpt_every={DRILL['ckpt_every']} fail_at={DRILL['fail_at']} "
+          and drill["deterministic"], f"{run}: {drill}")
+    print(f"phase=train run={run} layers={drill_cfg['layers']} "
+          f"optimizer={drill_cfg['optimizer']} steps={drill_cfg['steps']} "
+          f"ckpt_every={drill_cfg['ckpt_every']} fail_at={drill_cfg['fail_at']} "
           f"restarts={drill['restarts']} final_step={drill['final_step']} losses_bit_equal="
           f"{drill['losses_bit_equal']} state_bit_equal={drill['state_bit_equal']} "
           f"({drill['leaves']} leaves) clean_s={drill['clean_s']:.1f} faulty_s="
           f"{drill['faulty_s']:.1f} launches={drill['launches']['faulty']}", flush=True)
+    counts = {k: v + drill["launches"]["clean"][k]
+              for k, v in drill["launches"]["faulty"].items()}
+    return {**drill, "steps_run_faulty": ran, **drill_cfg}, counts
+
+
+def train_phase():
+    """Phase train: granite-3-2b at its published widths and depth: (a)
+    ``train_steps`` (its flash launches ``expected_train_launches``); (b)
+    the restart drill in a process of its own (``train_drill``); (c) a
+    greedy decode from (a)'s parameters through the dense ``decode_step``
+    (``flash_decode`` 40 times a step and nothing else).  Returns the
+    record and the launch counts of (a), (b) and (c), each set to 0 just
+    before it and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config(TRAIN_ARCH)
+    mb = TRAIN_PARALLEL["microbatch"]
+    check(ops.flash_kernel(torch.bfloat16, cfg.head_dim, TRAIN_S) == "flash_attention_sm90"
+          and ops.bwd_kernel(torch.bfloat16, cfg.head_dim) == "flash_attention_bwd_sm90",
+          "granite's training attention is not on flash_attention_sm90.cu and "
+          "flash_attention_bwd_sm90.cu")
+    want = expected_train_launches(cfg.num_layers, mb, TRAIN_PARALLEL["remat"] != "none",
+                                   TRAIN_STEPS)
+    rec, counts, (model, params, data) = train_steps(cfg, want, "full_width")
+    torch.cuda.empty_cache()
+
+    # (b) the restart drill, deterministic, in a process of its own
+    rec["drill"], drill_counts = train_drill_run(
+        "drill", DRILL, lambda n: expected_train_launches(DRILL["layers"], mb, True, n))
 
     # (c) a greedy decode from the trained parameters
     n_req, prompt, gen, max_len = TRAIN_DECODE
@@ -2873,9 +3090,35 @@ def train_phase():
           flush=True)
     del params, cache, model
     torch.cuda.empty_cache()
-    drill_counts = {k: v + drill["launches"]["clean"][k]
-                    for k, v in drill["launches"]["faulty"].items()}
     return rec, counts, drill_counts, decode_counts
+
+
+def hybrid_train_phase():
+    """Phase train (d): zamba2-2.7b at its published widths and depth
+    through ``train_steps`` (its launches ``expected_hybrid_train_launches``),
+    then the restart drill at one group (``--train-drill hybrid``).
+    Returns the record and the launch counts of the timed steps and of the
+    drill, each set to 0 just before it and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config(HYBRID_TRAIN_ARCH)
+    mb, remat = TRAIN_PARALLEL["microbatch"], TRAIN_PARALLEL["remat"] != "none"
+    check(ops.flash_kernel(torch.bfloat16, cfg.head_dim, TRAIN_S) == "flash_attention_sm90"
+          and ops.bwd_kernel(torch.bfloat16, cfg.head_dim) == "flash_attention_bwd",
+          "Zamba2's training attention is not on flash_attention_sm90.cu and "
+          "flash_attention_bwd.cu")
+    want = expected_hybrid_train_launches(cfg.num_layers, cfg.attn_every, mb, remat,
+                                          TRAIN_STEPS)
+    rec, counts, trained = train_steps(cfg, want, "hybrid")
+    del trained
+    torch.cuda.empty_cache()
+    rec["drill"], drill_counts = train_drill_run(
+        "hybrid_drill", HYBRID_TRAIN_DRILL,
+        lambda n: expected_hybrid_train_launches(HYBRID_TRAIN_DRILL["layers"], cfg.attn_every,
+                                                 mb, True, n), "hybrid")
+    return rec, counts, drill_counts
 
 
 def psnr_db(a, b) -> float:
@@ -3185,7 +3428,8 @@ def run() -> int:
                 print(f"  ptxas {name}: {line.split('ptxas info    :')[-1].strip()}")
     for name in ("int8_quantize", "latent_blend", "dequant_blend",     # no local memory
                  "flash_attention", "flash_attention_sm90", "flash_decode",
-                 "flash_attention_bwd", "flash_attention_bwd_sm90"):
+                 "flash_attention_bwd", "flash_attention_bwd_sm90", "mamba_ssd",
+                 "mamba_ssd_bwd"):
         spills = [l for l in reports[name].splitlines() if "spill" in l]
         check(spills and all(NO_SPILL in l for l in spills), f"{name} spills: {spills}")
 
@@ -3304,6 +3548,10 @@ def run() -> int:
         (("flash_train_granite_causal_bf16_mma", TRAIN_B // TRAIN_PARALLEL["microbatch"],
           TRAIN_S, TRAIN_S, 32, 8, 64, torch.bfloat16),
          dict(causal=True, library=True, reps=5, kernel="flash_attention")),
+        # Zamba2's training attention (a microbatch of 2 x 2048, 32 x 80,
+        # causal): the wgmma kernel at D 80, phase train (d)'s forward
+        (("flash_train_zamba_causal_bf16", TRAIN_B // TRAIN_PARALLEL["microbatch"], TRAIN_S,
+          TRAIN_S, lH, lH, lD, torch.bfloat16), dict(causal=True, library=True, reps=5)),
         (("flash_masked_gqa_bf16_d64_wgmma", 2, 200, 333, 8, 2, 64, torch.bfloat16),
          dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3,
               kernel="flash_attention_sm90")),
@@ -3343,6 +3591,9 @@ def run() -> int:
                       dict(edge=e, seed=5, timed=False)) for e in SKIP_EDGE_CASES)),
                   (("flash_bwd_masked_gqa_d80", 2, 300, 333, 8, 2, 80),
                    dict(causal=True, window=96, pad_kv=5)),
+                  # Zamba2's training attention: D 80 on mma.sync, phase train (d)'s backward
+                  (("flash_bwd_zamba_causal_d80", gB, TRAIN_S, TRAIN_S, lH, lH, lD),
+                   dict(causal=True, library=True)),
                   (("flash_bwd_edge_causal_first_key_d80", 2, 300, 333, 4, 2, 80),
                    dict(edge="causal_first_key", seed=5, timed=False))):
         rec, kept = flash_bwd_case(*a, **kw)
@@ -3388,8 +3639,23 @@ def run() -> int:
         rec, kept = ssd_case(*args)
         ssd.append(rec)
         ssd_kept.append(kept)
-    record["kernels"] = flash + bwd + blend + quant + dequant + ssd + guidance
-    for c in flash + bwd + blend + quant + dequant + ssd + guidance:
+    # the scan's backward at Zamba2's training microbatch (2 x 2048, 80 heads x
+    # 64, state 64, chunk 64), there with steep decays that reach the clip, a
+    # ragged length (a padded last chunk), and p = n = 16; the forward's
+    # state-writing entry at the first two against the plain states
+    record["ssd_states"] = [
+        ssd_states_case("mamba_ssd_states_train", gB, TRAIN_S, lm_heads, 64, 64, 64, 11),
+        ssd_states_case("mamba_ssd_states_steep", gB, 512, lm_heads, 64, 64, 64, 12, True)]
+    ssd_bwd, ssd_bwd_kept = [], []
+    for args in (("mamba_ssd_bwd_train", gB, TRAIN_S, lm_heads, 64, 64, 64, 11),
+                 ("mamba_ssd_bwd_steep", gB, 512, lm_heads, 64, 64, 64, 12, True),
+                 ("mamba_ssd_bwd_ragged", gB, 2000, lm_heads, 64, 64, 64, 13),
+                 ("mamba_ssd_bwd_p16", 2, 200, 160, 16, 16, 32, 14)):
+        rec, kept = ssd_bwd_case(*args)
+        ssd_bwd.append(rec)
+        ssd_bwd_kept.append(kept)
+    record["kernels"] = flash + bwd + blend + quant + dequant + ssd + ssd_bwd + guidance
+    for c in flash + bwd + blend + quant + dequant + ssd + ssd_bwd + guidance:
         lib = num(c["library_ms"])
         earlier = f" earlier_ms={c['earlier_ms']}" if c.get("earlier_ms") else ""
         if "events_ms" in c and c["events_ms"] != c["ms"]:
@@ -3411,7 +3677,8 @@ def run() -> int:
     caught.update({f"flash:{m}": v for m, v in flash_mutants(flash_kept).items()})
     caught.update(quant_blend_mutants(quant_kept, blend_kept, dequant_kept))
     caught.update({f"flash_bwd:{m}": v for m, v in flash_bwd_mutants(bwd_kept).items()})
-    del ssd_kept, flash_kept, quant_kept, blend_kept, dequant_kept, bwd_kept
+    caught.update({f"mamba_ssd_bwd:{m}": v for m, v in ssd_bwd_mutants(ssd_bwd_kept).items()})
+    del ssd_kept, flash_kept, quant_kept, blend_kept, dequant_kept, bwd_kept, ssd_bwd_kept
     record["mutants"] = caught
     for m, cases in caught.items():
         print(f"phase=kernels mutant={m} caught_by={'; '.join(cases)}", flush=True)
@@ -3654,8 +3921,12 @@ def run() -> int:
     # ------------------------------------------------------------- 7b. train
     t_train = time.perf_counter()
     record["train"], train_counts, drill_counts, train_decode_counts = train_phase()
+    t_hybrid = time.perf_counter()
+    record["train_hybrid"], hybrid_train_counts, hybrid_drill_counts = hybrid_train_phase()
+    record["train_hybrid"]["phase_s"] = time.perf_counter() - t_hybrid
     record["train"]["phase_s"] = time.perf_counter() - t_train
-    print(f"phase=train phase_s={record['train']['phase_s']:.1f}", flush=True)
+    print(f"phase=train phase_s={record['train']['phase_s']:.1f} hybrid_s="
+          f"{record['train_hybrid']['phase_s']:.1f}", flush=True)
 
     # ---------------------------------------------------------- 8. guidance
     record["guidance"], guidance_counts = guidance_path()
@@ -3733,16 +4004,20 @@ def run() -> int:
     check(named["flash_lm_prefill_causal_bf16"]["kernel"] == "flash_attention_sm90"
           and named["flash_lm_decode_bf16"]["kernel"] == "flash_decode"
           and named["flash_train_granite_causal_bf16"]["kernel"] == "flash_attention_sm90"
-          and named_bwd["flash_bwd_granite_causal"]["kernel"] == "flash_attention_bwd_sm90",
+          and named["flash_train_zamba_causal_bf16"]["kernel"] == "flash_attention_sm90"
+          and named_bwd["flash_bwd_granite_causal"]["kernel"] == "flash_attention_bwd_sm90"
+          and named_bwd["flash_bwd_zamba_causal_d80"]["kernel"] == "flash_attention_bwd",
           "the prefill, decode and training cases ran other kernels than their paths'")
     path_counts = {"serve": main_counts, "lm_serve:prefill": lm_prefill_counts,
                    "lm_serve:decode": lm_decode_counts, "train": train_counts,
                    "train:drill": drill_counts, "train:decode": train_decode_counts,
+                   "train:hybrid": hybrid_train_counts, "train:hybrid_drill": hybrid_drill_counts,
                    "coded_stitch": stitch_counts,
                    "guidance": guidance_counts, "serve_policy": policy_counts,
                    **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts,
                    **fleet_counts}
     train_paths = {k: path_counts[k] for k in ("train", "train:drill")}
+    hybrid_paths = {k: path_counts[k] for k in ("train:hybrid", "train:hybrid_drill")}
     line = {"kernels": [
         kernel_row("flash_attention_sm90_d128", "src/repro/kernels/flash_attention.py:101",
                    named["flash_self_Twindow_bf16"],
@@ -3760,6 +4035,10 @@ def run() -> int:
                    named["flash_train_granite_causal_bf16"],
                    {k: train_paths[k]["flash_attention_sm90"] for k in train_paths},
                    source="flash_attention_sm90"),
+        kernel_row("flash_attention_sm90_d80_train", "src/repro/kernels/flash_attention.py:101",
+                   named["flash_train_zamba_causal_bf16"],
+                   {k: hybrid_paths[k]["flash_attention_sm90"] for k in hybrid_paths},
+                   source="flash_attention_sm90"),
         kernel_row("flash_decode", "src/repro/kernels/flash_attention.py:101",
                    named["flash_lm_decode_bf16"],
                    {"lm_serve:decode": lm_decode_counts["flash_decode"],
@@ -3775,11 +4054,14 @@ def run() -> int:
          "note": "no Pallas kernel: the reference trains through XLA's gradient of "
                  "attention_chunked"},
         {**kernel_row("flash_attention_bwd", "src/repro/models/attention.py:81",
-                      named_bwd["flash_bwd_granite_causal_mma"],
-                      {k: n["flash_attention_bwd"] for k, n in path_counts.items()},
+                      named_bwd["flash_bwd_zamba_causal_d80"],
+                      {k: n["flash_attention_bwd"] for k, n in path_counts.items()}),
+         "note": "no Pallas kernel: D 80, Zamba2's training backward (phase train (d))"},
+        {**kernel_row("flash_attention_bwd_d64_forced", "src/repro/models/attention.py:81",
+                      named_bwd["flash_bwd_granite_causal_mma"], {}, source="flash_attention_bwd",
                       on_path=False),
-         "note": "on no path: granite's backward (D 64) moved to flash_attention_bwd_sm90; "
-                 "it keeps D 80, which no training path runs yet"},
+         "note": "granite's layer (D 64) forced onto flash_attention_bwd.cu: on no path, "
+                 "D 64 runs on flash_attention_bwd_sm90"},
         kernel_row("latent_blend", "src/repro/kernels/latent_blend.py:63", blend[0],
                    {"serve": main_counts["latent_blend"],
                     **{k: n["latent_blend"] for k, n in fleet_counts.items()}}),
@@ -3791,8 +4073,13 @@ def run() -> int:
         kernel_row("dequant_blend", "src/repro/kernels/wire_codec.py:131", dequant[0],
                    {"coded_stitch": stitch_counts["dequant_blend"]}),
         {**kernel_row("mamba_ssd", "src/repro/kernels/mamba_ssd.py:111", ssd[0],
-                      {"lm_serve:prefill": lm_prefill_counts["mamba_ssd"]}),
+                      {"lm_serve:prefill": lm_prefill_counts["mamba_ssd"],
+                       **{k: hybrid_paths[k]["mamba_ssd"] for k in hybrid_paths}}),
          "precision": f"{SSD_PASSES}xtf32", "work_split": SSD_SPLIT},
+        {**kernel_row("mamba_ssd_bwd", "src/repro/models/ssm.py:54", ssd_bwd[0],
+                      {k: hybrid_paths[k]["mamba_ssd_bwd"] for k in hybrid_paths}),
+         "precision": "f32 fma", "note": "no Pallas kernel: the reference trains through "
+                                         "XLA's gradient of gated_linear_scan"},
         kernel_row("guidance_update", "src/repro/kernels/guidance_update.py:31", guidance[0],
                    {"guidance": guidance_counts["guidance_update"]}),
     ]}
@@ -3809,8 +4096,8 @@ def run() -> int:
 
 def main() -> int:
     try:
-        if sys.argv[1:] == ["--train-drill"]:      # phase train (b), in its own process
-            return train_drill()
+        if sys.argv[1:2] == ["--train-drill"]:     # phase train (b) or (d), in its own process
+            return train_drill(sys.argv[2:] == ["hybrid"])
         return run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

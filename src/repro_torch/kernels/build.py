@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode", "flash_attention_bwd",
            "flash_attention_bwd_sm90", "latent_blend", "int8_quantize", "dequant_blend",
-           "mamba_ssd", "guidance_update")
+           "mamba_ssd", "mamba_ssd_bwd", "guidance_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -96,9 +96,22 @@ _SIGNATURES = {
     "mamba_ssd": {
         # x, log_decay, scale, B, C, y, scratch, b, s, h, p, n, chunk, stream
         "mamba_ssd_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        # the same with the states entering each chunk (b, chunks, h, n, p)
+        # after scratch: x, log_decay, scale, B, C, y, scratch, states, ...
+        "mamba_ssd_fwd_states": ([_P] * 8 + [_I] * 6 + [_P], _I),
         # b, s, h, n, chunk -> bytes of scratch (each chunk's Gram, B^T, scalars)
         "mamba_ssd_scratch_bytes": ([_I, _I, _I, _I, _I], _L),
         "mamba_ssd_error_string": ([_I], ctypes.c_char_p),
+    },
+    "mamba_ssd_bwd": {
+        # x, log_decay, scale, B, C, dy, states, dx, dlog_decay, dscale, dB, dC,
+        # scratch, b, s, h, p, n, chunk, stream
+        "mamba_ssd_bwd": ([_P] * 13 + [_I] * 6 + [_P], _I),
+        # b, s, h, n -> bytes of scratch (each head's share of dB and dC)
+        "mamba_ssd_bwd_scratch_bytes": ([_I, _I, _I, _I], _L),
+        # n, p, chunk -> bytes of shared memory a block takes
+        "mamba_ssd_bwd_smem_bytes": ([_I, _I, _I], _L),
+        "mamba_ssd_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "guidance_update": {
         # z, cond, uncond, out, elements, w, dt, dtype (0 f32, 1 bf16), stream

@@ -90,6 +90,9 @@ struct Params {
   int tasks;         // b * per_b
   int umax;          // unit slots per block (blockDim.x / 128)
   int stages;        // 2: the next chunk loads while this one runs; 1: not
+  float* states;     // (b, chunks, h, n, p): the state entering each chunk
+                     // (the state-writing entry only; last, so the serving
+                     // kernel's parameters keep their offsets)
 };
 
 // Shared memory of the scan, in floats.  Rows read as A fragments
@@ -317,8 +320,10 @@ __global__ void __launch_bounds__(kPrepThreads) mamba_ssd_prep(Params p) {
 }
 
 // ---------------------------------------------------------------- the scan
-// QN: chunk and state size known when compiling (64, Zamba2's), or 0
-template <int QN>
+// QN: chunk and state size known when compiling (64, Zamba2's), or 0.
+// kStates: also write the state entering each chunk (for the backward,
+// mamba_ssd_bwd.cu); the serving instantiation has no such store.
+template <int QN, bool kStates>
 __global__ void __launch_bounds__(kMaxUnits * kUnitThreads) mamba_ssd_kernel(Params p) {
   extern __shared__ __align__(16) float sm[];
   constexpr int PS = kSlice, NT = PS / 8;  // 8-column tiles of a slice
@@ -457,6 +462,12 @@ __global__ void __launch_bounds__(kMaxUnits * kUnitThreads) mamba_ssd_kernel(Par
           }
         }
       }
+      if constexpr (kStates) {  // the state entering chunk ch, from shared memory
+        const int w = nct * 8;
+        float* so = p.states + (((long long)bb * nch + ch) * p.h + hh) * N * p.p + c0;
+        for (int i = ut; i < N * w; i += kUnitThreads)
+          so[(long long)(i / w) * p.p + i % w] = ss[i / w * XP + i % w];
+      }
       unit_barrier(unit);  // every strip has read S
 
       // -------- S = exp(total) S + B^T (wj x), f32 in the registers of the warp
@@ -524,17 +535,16 @@ extern "C" long long mamba_ssd_scratch_bytes(int b, int s, int h, int n, int chu
               (long long)b * nch * h * 4 * chunk);
 }
 
-// All tensors f32 and contiguous; scratch holds mamba_ssd_scratch_bytes.
-// Returns cudaGetLastError() after the launches, or -1 for a shape this
-// kernel does not take (p, n and chunk multiples of 16 in [16, 128]; one
-// unit's shared memory within 227 KB).
-extern "C" int mamba_ssd_fwd(const void* x, const void* a, const void* dt, const void* B,
-                             const void* C, void* y, void* scratch, int b, int s, int h, int p,
-                             int n, int chunk, void* stream) {
+namespace {
+
+int launch(const void* x, const void* a, const void* dt, const void* B, const void* C, void* y,
+           void* scratch, float* states, int b, int s, int h, int p, int n, int chunk,
+           void* stream) {
   if (!shape_ok(p) || !shape_ok(n) || !shape_ok(chunk) || b < 1 || s < 1 || h < 1) return -1;
   const bool fixed = chunk == 64 && n == 64;
   auto prep = fixed ? mamba_ssd_prep<64> : mamba_ssd_prep<0>;
-  auto kernel = fixed ? mamba_ssd_kernel<64> : mamba_ssd_kernel<0>;
+  auto kernel = states ? (fixed ? mamba_ssd_kernel<64, true> : mamba_ssd_kernel<0, true>)
+                       : (fixed ? mamba_ssd_kernel<64, false> : mamba_ssd_kernel<0, false>);
   const int nch = (s + chunk - 1) / chunk;
   Params prm{static_cast<const float*>(x), static_cast<const float*>(a),
              static_cast<const float*>(dt), static_cast<const float*>(B),
@@ -543,6 +553,7 @@ extern "C" int mamba_ssd_fwd(const void* x, const void* a, const void* dt, const
              static_cast<float*>(scratch) + gram_floats(b, nch, chunk),
              static_cast<float*>(scratch) + gram_floats(b, nch, chunk) + bt_floats(b, nch, chunk, n),
              b, s, h, p, n, chunk};
+  prm.states = states;
   prm.slices = (p + kSlice - 1) / kSlice;
   prm.units = h * prm.slices;
   // each batch row gets its share of the SMs, the units spread evenly over
@@ -583,6 +594,28 @@ extern "C" int mamba_ssd_fwd(const void* x, const void* a, const void* dt, const
   const int grid = (int)std::min<long long>(prm.tasks, slots);
   kernel<<<grid, threads, smem, st>>>(prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// All tensors f32 and contiguous; scratch holds mamba_ssd_scratch_bytes.
+// Returns cudaGetLastError() after the launches, or -1 for a shape this
+// kernel does not take (p, n and chunk multiples of 16 in [16, 128]; one
+// unit's shared memory within 227 KB).
+extern "C" int mamba_ssd_fwd(const void* x, const void* a, const void* dt, const void* B,
+                             const void* C, void* y, void* scratch, int b, int s, int h, int p,
+                             int n, int chunk, void* stream) {
+  return launch(x, a, dt, B, C, y, scratch, nullptr, b, s, h, p, n, chunk, stream);
+}
+
+// mamba_ssd_fwd that also writes the state entering each chunk into
+// states, f32 (b, ceil(s / chunk), h, n, p) contiguous: what the backward
+// (mamba_ssd_bwd.cu) reads.
+extern "C" int mamba_ssd_fwd_states(const void* x, const void* a, const void* dt, const void* B,
+                                    const void* C, void* y, void* scratch, void* states, int b,
+                                    int s, int h, int p, int n, int chunk, void* stream) {
+  return launch(x, a, dt, B, C, y, scratch, static_cast<float*>(states), b, s, h, p, n, chunk,
+                stream);
 }
 
 extern "C" const char* mamba_ssd_error_string(int code) {

@@ -7,9 +7,11 @@ show that the main path went through the kernels.
 
 No wrapper takes part in autograd: under grad mode, an input that
 requires grad is refused before anything runs (a kernel's output would
-reach autograd as a constant).  ``FlashAttention`` is the one route that
-differentiates: its forward launches a flash kernel that writes each row's
-log-sum-exp, and its backward ``flash_attention_bwd``, which reads it.
+reach autograd as a constant).  Two routes differentiate:
+``FlashAttention``, whose forward launches a flash kernel that writes each
+row's log-sum-exp and whose backward ``flash_attention_bwd`` reads it, and
+``MambaSSD``, whose forward launches ``mamba_ssd``'s state-writing entry
+and whose backward ``mamba_ssd_bwd`` reads the states.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from . import build, ref
 INT32_MAX = ref.INT32_MAX
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_PARTITIONS = 32                 # latent_blend.cu: kMaxK
+_SMEM_MAX = 232448                   # bytes of shared memory a block may use
 
 
 def _dtype_code(t: torch.Tensor, what: str) -> int:
@@ -51,7 +54,8 @@ def _refuse_grad(what: str, *tensors) -> None:
         raise RuntimeError(
             f"{what}: an input requires grad, and this kernel has no backward: its output "
             "would reach autograd as a constant.  Call it under torch.no_grad(), or, for "
-            "attention, through ops.flash_attention_autograd")
+            "attention, through ops.flash_attention_autograd (the SSD scan: "
+            "ops.mamba_ssd_autograd)")
 
 
 def _stream(device: torch.device) -> int:
@@ -627,60 +631,165 @@ def dequant_blend(wire: torch.Tensor, scales: torch.Tensor, weights: torch.Tenso
 
 dequant_blend.launches = 0
 
+def _ssd_shapes(what: str, x, log_decay, scale, B, C, chunk: int):
+    """Check the scan's inputs on the card: shapes, f32, p / n / chunk."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if log_decay.shape != (b, s, h) or scale.shape != (b, s, h):
+        raise ValueError(f"{what}: log_decay {tuple(log_decay.shape)} and scale "
+                         f"{tuple(scale.shape)} must be {(b, s, h)}")
+    if B.shape != (b, s, n) or C.shape != (b, s, n):
+        raise ValueError(f"{what}: B {tuple(B.shape)} and C {tuple(C.shape)} must be "
+                         f"(b, s, n) with b, s of x {tuple(x.shape)} (ssm_groups 1)")
+    for name, t in {"x": x, "log_decay": log_decay, "scale": scale, "B": B, "C": C}.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} dtype {t.dtype} not supported (float32)")
+    for name, v in (("head dim p", p), ("state n", n), ("chunk", chunk)):
+        if not (16 <= v <= 128 and v % 16 == 0):
+            raise ValueError(f"{what}: {name} {v} not supported (a multiple of 16 "
+                             "in [16, 128])")
+    return b, s, h, p, n
+
+
 def mamba_ssd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
-              B: torch.Tensor, C: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+              B: torch.Tensor, C: torch.Tensor, chunk: int = 64, return_states: bool = False):
     """Chunked Mamba2/SSD scan for ``ssm_groups == 1``: x ``(b, s, h, p)``,
     log_decay and scale ``(b, s, h)``, B and C ``(b, s, n)``; returns y
     ``(b, s, h, p)`` in x's dtype.  ``S_t = exp(log_decay_t) S_{t-1} +
     scale_t B_t (x) x_t``, ``y_t = C_t . S_t``, computed in chunks of
     ``chunk`` tokens in the factorized form of
     ``models/ssm.gated_linear_scan`` (centred exponents clipped to +-60),
-    so ``chunk`` changes the result in the last bits.
+    so ``chunk`` changes the result in the last bits.  ``return_states``
+    also returns the f32 state entering each chunk, ``(b, ceil(s /
+    chunk), h, n, p)``, for ``mamba_ssd_bwd``.
 
     CUDA: ``csrc/mamba_ssd.cu`` (3xTF32 tensor-core products), f32, p, n
     and chunk multiples of 16 in [16, 128] whose block fits the card's
     shared memory (the launcher refuses the rest).  A scratch buffer of the
     chunks' Gram matrices and per-head decay scalars, written by the
-    kernel's pre-pass, is allocated here.
+    kernel's pre-pass, is allocated here.  ``return_states`` runs the
+    kernel's state-writing entry (``mamba_ssd_fwd_states``), the same
+    launch with one more store.
     """
     _refuse_grad("mamba_ssd", x, log_decay, scale, B, C)
     if x.device.type == "cpu":
-        return ref.mamba_ssd_plain(x, log_decay, scale, B, C, chunk)
+        return ref.mamba_ssd_plain(x, log_decay, scale, B, C, chunk, return_states)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_ssd: no kernel for device {x.device}")
-    b, s, h, p = x.shape
-    n = B.shape[-1]
-    if log_decay.shape != (b, s, h) or scale.shape != (b, s, h):
-        raise ValueError(f"mamba_ssd: log_decay {tuple(log_decay.shape)} and scale "
-                         f"{tuple(scale.shape)} must be {(b, s, h)}")
-    if B.shape != (b, s, n) or C.shape != (b, s, n):
-        raise ValueError(f"mamba_ssd: B {tuple(B.shape)} and C {tuple(C.shape)} must be "
-                         f"(b, s, n) with b, s of x {tuple(x.shape)} (ssm_groups 1)")
+    b, s, h, p, n = _ssd_shapes("mamba_ssd", x, log_decay, scale, B, C, chunk)
     tensors = {"x": x, "log_decay": log_decay, "scale": scale, "B": B, "C": C}
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"mamba_ssd: {name} dtype {t.dtype} not supported (float32)")
-    for what, v in (("head dim p", p), ("state n", n), ("chunk", chunk)):
-        if not (16 <= v <= 128 and v % 16 == 0):
-            raise ValueError(f"mamba_ssd: {what} {v} not supported (a multiple of 16 "
-                             "in [16, 128])")
     y = torch.empty_like(x)
+    states = torch.empty((b, -(-s // chunk), h, n, p), dtype=torch.float32,
+                         device=x.device) if return_states else None
     _require_device(tensors, x.device)
     _require_aligned({**tensors, "y": y})
     if y.numel() == 0:
-        return y
+        return (y, states) if return_states else y
     lib = build.library("mamba_ssd")
     scratch = torch.empty(lib.mamba_ssd_scratch_bytes(b, s, h, n, int(chunk)) // 4,
                           dtype=torch.float32, device=x.device)
-    rc = lib.mamba_ssd_fwd(x.data_ptr(), log_decay.data_ptr(), scale.data_ptr(),
-                           B.data_ptr(), C.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-                           b, s, h, p, n, int(chunk), _stream(x.device))
+    args = (x.data_ptr(), log_decay.data_ptr(), scale.data_ptr(), B.data_ptr(), C.data_ptr(),
+            y.data_ptr(), scratch.data_ptr())
+    if return_states:
+        rc = lib.mamba_ssd_fwd_states(*args, states.data_ptr(), b, s, h, p, n, int(chunk),
+                                      _stream(x.device))
+    else:
+        rc = lib.mamba_ssd_fwd(*args, b, s, h, p, n, int(chunk), _stream(x.device))
     build.check("mamba_ssd", rc)
     mamba_ssd.launches += 1
-    return y
+    return (y, states) if return_states else y
 
 
 mamba_ssd.launches = 0
+
+
+def mamba_ssd_bwd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor, states: torch.Tensor,
+                  chunk: int = 64):
+    """Gradients ``(dx, dlog_decay, dscale, dB, dC)`` of ``mamba_ssd`` at
+    its inputs for the output gradient ``dy`` ``(b, s, h, p)``; ``states``
+    are the forward's (``mamba_ssd(..., return_states=True)``).  f32, the
+    inputs' shapes.  The function differentiated is autograd's of
+    ``ref.ssd_scan`` (the clip passes no gradient where it bites, the centre
+    passes its share to the tied extremes, the padding of a ragged chunk
+    takes none).  On CPU tensors the plain ``ref.mamba_ssd_bwd_plain``,
+    which derives the states itself (``states`` may be None there).
+
+    CUDA: ``csrc/mamba_ssd_bwd.cu``, deterministic (each head's share of
+    dB and dC goes to a scratch buffer allocated here, summed over the
+    heads in order by a second launch, counted with the first as one);
+    the shapes of ``mamba_ssd`` whose tiles fit 227 KB (p, n, chunk 64 take
+    155 KB); it raises on the rest.
+    """
+    _refuse_grad("mamba_ssd_bwd", x, log_decay, scale, B, C, dy)
+    if x.device.type == "cpu":
+        return ref.mamba_ssd_bwd_plain(x, log_decay, scale, B, C, dy, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba_ssd_bwd: no kernel for device {x.device}")
+    b, s, h, p, n = _ssd_shapes("mamba_ssd_bwd", x, log_decay, scale, B, C, chunk)
+    nc = -(-s // chunk)
+    if dy.shape != x.shape or dy.dtype != torch.float32:
+        raise ValueError(f"mamba_ssd_bwd: dy {dy.dtype} {tuple(dy.shape)} must be float32 "
+                         f"{tuple(x.shape)}")
+    if states is None or states.shape != (b, nc, h, n, p) or states.dtype != torch.float32:
+        got = None if states is None else (states.dtype, tuple(states.shape))
+        raise ValueError(f"mamba_ssd_bwd: states must be the forward's float32 "
+                         f"{(b, nc, h, n, p)}, got {got}")
+    tensors = {"x": x, "log_decay": log_decay, "scale": scale, "B": B, "C": C, "dy": dy,
+               "states": states}
+    _require_device(tensors, x.device)
+    _require_aligned(tensors)
+    outs = [torch.empty_like(t) for t in (x, log_decay, scale, B, C)]
+    if x.numel() == 0 or B.numel() == 0:
+        return tuple(o.zero_() for o in outs)
+    lib = build.library("mamba_ssd_bwd")
+    scratch = torch.empty(lib.mamba_ssd_bwd_scratch_bytes(b, s, h, n) // 4,
+                          dtype=torch.float32, device=x.device)
+    rc = lib.mamba_ssd_bwd(*(t.data_ptr() for t in tensors.values()),
+                           *(o.data_ptr() for o in outs), scratch.data_ptr(), b, s, h, p, n,
+                           int(chunk), _stream(x.device))
+    build.check("mamba_ssd_bwd", rc)
+    mamba_ssd_bwd.launches += 1
+    return tuple(outs)
+
+
+mamba_ssd_bwd.launches = 0
+
+
+class MambaSSD(torch.autograd.Function):
+    """The SSD scan with a gradient: the forward on ``mamba_ssd``'s
+    state-writing entry, the backward on ``mamba_ssd_bwd``, which reads
+    the states.  It saves the inputs and the states; under activation
+    checkpointing the forward runs (and launches) again in the backward
+    pass and saves them anew."""
+
+    @staticmethod
+    def forward(ctx, x, log_decay, scale, B, C, chunk):
+        y, states = mamba_ssd(x, log_decay, scale, B, C, chunk=chunk, return_states=True)
+        ctx.save_for_backward(x, log_decay, scale, B, C, states)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, log_decay, scale, B, C, states = ctx.saved_tensors
+        grads = mamba_ssd_bwd(x, log_decay, scale, B, C, dy.float().contiguous(), states,
+                              chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def mamba_ssd_autograd(x, log_decay, scale, B, C, chunk: int = 64) -> torch.Tensor:
+    """``mamba_ssd`` that autograd differentiates (``MambaSSD``), f32 in and
+    out.  On CUDA it raises before any launch for a shape the backward
+    kernel does not take."""
+    if x.device.type == "cuda":
+        _ssd_shapes("mamba_ssd_autograd", x, log_decay, scale, B, C, chunk)
+        lib = build.library("mamba_ssd_bwd")
+        if lib.mamba_ssd_bwd_smem_bytes(B.shape[-1], x.shape[-1], int(chunk)) > _SMEM_MAX:
+            raise ValueError(f"mamba_ssd_autograd: no backward kernel for p {x.shape[-1]}, "
+                             f"n {B.shape[-1]}, chunk {chunk} (its tiles exceed 227 KB)")
+    return MambaSSD.apply(x, log_decay, scale, B, C, chunk)
+
 
 def guidance_update(z: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor,
                     w: float, dt: float) -> torch.Tensor:
@@ -728,7 +837,8 @@ WRAPPERS = {"flash_attention": flash_attention, "flash_attention_sm90": flash_at
             "flash_decode": flash_decode, "flash_attention_bwd": flash_attention_bwd,
             "flash_attention_bwd_sm90": flash_attention_bwd_sm90, "latent_blend": latent_blend,
             "int8_quantize": int8_quantize, "dequant_blend": dequant_blend,
-            "mamba_ssd": mamba_ssd, "guidance_update": guidance_update}
+            "mamba_ssd": mamba_ssd, "mamba_ssd_bwd": mamba_ssd_bwd,
+            "guidance_update": guidance_update}
 
 
 def launch_counts() -> Dict[str, int]:

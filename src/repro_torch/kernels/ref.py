@@ -463,7 +463,7 @@ def plant_halfway_inputs(slab: torch.Tensor, qmax: int) -> int:
 
 
 def ssd_scan(x, log_decay, scale, B, C, chunk: int = 64,
-             factorized: bool = True) -> torch.Tensor:
+             factorized: bool = True, return_states: bool = False):
     """Chunked scan of the gated linear recurrence, in f32 (a port of
     ``repro/models/ssm.py:gated_linear_scan``, the same formulas in the
     same order)::
@@ -479,6 +479,8 @@ def ssd_scan(x, log_decay, scale, B, C, chunk: int = 64,
     group-level C.B Gram; ``factorized=False`` is the textbook form with
     the per-head decay matrix.  The inter-chunk ``pscan`` is a loop over
     chunks.  A ragged last chunk is padded with zero decay and input.
+    ``return_states`` also returns the state entering each chunk, f32
+    ``(b, nc, h, n, p)`` (what ``mamba_ssd``'s state-writing entry writes).
     """
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -525,15 +527,140 @@ def ssd_scan(x, log_decay, scale, B, C, chunk: int = 64,
         S = torch.exp(total[:, c])[..., None, None] * S + state_c[:, c]
     S_in = torch.stack(s_in, dim=1)                                  # (b, nc, g, rep, n, p)
     y_inter = torch.einsum("bcign,bcgrnp->bcigrp", Cq, S_in) * torch.exp(cum)[..., None]
-    y = (y_intra + y_inter).reshape(b, nc * chunk, h, p)
-    return y[:, :s]
+    y = (y_intra + y_inter).reshape(b, nc * chunk, h, p)[:, :s]
+    if return_states:
+        return y, S_in.reshape(b, nc, h, n, p)
+    return y
 
 
-def mamba_ssd_plain(x, log_decay, scale, B, C, chunk: int = 64) -> torch.Tensor:
+def mamba_ssd_plain(x, log_decay, scale, B, C, chunk: int = 64,
+                    return_states: bool = False):
     """The ``mamba_ssd`` kernel's function: ``ssd_scan(factorized=True)``
-    with B and C ``(b, s, n)`` given one group axis; y in x's dtype."""
-    return ssd_scan(x, log_decay, scale, B[:, :, None, :], C[:, :, None, :],
-                    chunk, True).to(x.dtype)
+    with B and C ``(b, s, n)`` given one group axis; y in x's dtype
+    (and, with ``return_states``, the f32 states entering each chunk,
+    ``(b, nc, h, n, p)``)."""
+    out = ssd_scan(x, log_decay, scale, B[:, :, None, :], C[:, :, None, :], chunk, True,
+                   return_states)
+    if return_states:
+        return out[0].to(x.dtype), out[1]
+    return out.to(x.dtype)
+
+
+def ssd_scan_bwd(x, log_decay, scale, B, C, dy, chunk: int = 64):
+    """Gradients ``(dx, dlog_decay, dscale, dB, dC)`` of
+    ``ssd_scan(factorized=True)`` for ``ssm_groups == 1`` at the output
+    gradient ``dy``, in f32 and the inputs' shapes: the chunked formulas
+    ``mamba_ssd_bwd`` computes, in its order.  The function differentiated
+    is autograd's of ``ssd_scan``: the +-60 clamp passes no gradient
+    outside its range, the centre ``(max cum + min cum) / 2`` passes its
+    gradient to the tied maxima and minima in equal shares, and the
+    padding of a ragged last chunk takes no gradient.
+
+    Per (batch, head) and chunk, with ``ai = exp(clip(cum - c))``, ``bj =
+    exp(clip(c - cum))``, ``u = dt bj``, ``w = exp(total - cum)``, ``z = w
+    dt``, ``ec = exp(cum)``, ``G`` the causal C.B^T, ``S`` the state
+    entering the chunk and ``dS`` the gradient of the state leaving it (a
+    sweep over the chunks in reverse carries it)::
+
+        P = G^T (ai dy),  R = B dS,  dx = u P + z R
+        dG = (ai dy)(u x)^T on j <= i
+        dC = dG B + ec (dy S^T),  dB = dG^T C + z (x dS^T)   (summed over heads)
+        dS <- exp(total) dS + C^T (ec dy)
+
+    then the scalars' chain to dt and to ``cum`` (through ai, bj, w, ec,
+    exp(total) and the centre), and ``dlog_decay`` is the reverse cumulative
+    sum of ``dcum`` within the chunk."""
+    if B.shape[2] != 1 or C.shape[2] != 1:
+        raise NotImplementedError(f"ssd_scan_bwd: ssm_groups {B.shape[2]} (only 1)")
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    F = torch.nn.functional
+
+    def per_head(t):                    # (b, s, h, ...) -> (b, nc, h, Q, ...)
+        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        t = t.reshape(b, nc, chunk, *t.shape[2:])
+        return t.permute(0, 1, 3, 2, *range(4, t.dim()))
+
+    xq, dyq = per_head(x), per_head(dy)                      # (b, nc, h, Q, p)
+    a, dt = per_head(log_decay), per_head(scale)             # (b, nc, h, Q)
+    Bq = F.pad(B[:, :, 0].float(), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+    Cq = F.pad(C[:, :, 0].float(), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+    cum = torch.cumsum(a, dim=-1)
+    total = cum[..., -1]
+    mx = cum.amax(dim=-1, keepdim=True)
+    mn = cum.amin(dim=-1, keepdim=True)
+    center = 0.5 * (mx + mn)
+    ea, eb = cum - center, center - cum
+    ma = (ea >= -60.0) & (ea <= 60.0)
+    mb = (eb >= -60.0) & (eb <= 60.0)
+    ai = torch.exp(torch.clamp(ea, -60.0, 60.0))
+    bj = torch.exp(torch.clamp(eb, -60.0, 60.0))
+    w = torch.exp(total[..., None] - cum)
+    ec, et = torch.exp(cum), torch.exp(total)
+    u, z = dt * bj, w * dt
+    tie_max = (cum == mx).float()
+    tie_max = tie_max / tie_max.sum(-1, keepdim=True)
+    tie_min = (cum == mn).float()
+    tie_min = tie_min / tie_min.sum(-1, keepdim=True)
+    lmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    G = torch.where(lmask, Cq @ Bq.transpose(-1, -2), 0.0)[:, :, None]   # (b, nc, 1, Q, Q)
+    Bh, Ch = Bq[:, :, None], Cq[:, :, None]                                # (b, nc, 1, Q, n)
+    # the forward's states entering each chunk
+    S = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    S_in = []
+    for c in range(nc):
+        S_in.append(S)
+        S = et[:, c, :, None, None] * S + Bh[:, c].transpose(-1, -2) @ (z[:, c, ..., None]
+                                                                         * xq[:, c])
+    dS = torch.zeros_like(S)
+    dxs, das, ddts, dBs, dCs = [], [], [], [], []
+    for c in reversed(range(nc)):
+        X, DY, Sc = xq[:, c], dyq[:, c], S_in[c]
+        V = u[:, c, ..., None] * X
+        AD = ai[:, c, ..., None] * DY
+        dai = (DY * (G[:, c] @ V)).sum(-1)
+        dec = (DY * (Ch[:, c] @ Sc)).sum(-1)
+        P = G[:, c].transpose(-1, -2) @ AD
+        R = Bh[:, c] @ dS
+        dxs.append(u[:, c, ..., None] * P + z[:, c, ..., None] * R)
+        du, dz = (X * P).sum(-1), (X * R).sum(-1)
+        dG = torch.where(lmask, AD @ V.transpose(-1, -2), 0.0)
+        dCs.append((dG @ Bh[:, c] + ec[:, c, ..., None] * (DY @ Sc.transpose(-1, -2))).sum(1))
+        dBs.append((dG.transpose(-1, -2) @ Ch[:, c]
+                    + z[:, c, ..., None] * (X @ dS.transpose(-1, -2))).sum(1))
+        det = (dS * Sc).sum((-1, -2))
+        dS = et[:, c, :, None, None] * dS + Ch[:, c].transpose(-1, -2) @ (ec[:, c, ..., None]
+                                                                          * DY)
+        # the scalars: dt, then cum through ai, bj, w, ec, exp(total) and the centre
+        aic, bjc, wc = ai[:, c], bj[:, c], w[:, c]
+        ddts.append(bjc * du + wc * dz)
+        dbj, dw = dt[:, c] * du, dt[:, c] * dz
+        ga, gb = dai * aic * ma[:, c], dbj * bjc * mb[:, c]
+        dcum = ga - gb - dw * wc + dec * ec[:, c]
+        dcen = (gb - ga).sum(-1, keepdim=True)
+        dcum[..., -1] += (dw * wc).sum(-1) + det * et[:, c]
+        dcum = dcum + 0.5 * dcen * (tie_max[:, c] + tie_min[:, c])
+        das.append(torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1]))
+
+    def tokens(parts, heads=True):      # per-chunk parts, last chunk first -> (b, s, ...)
+        t = torch.stack(parts[::-1], dim=1)
+        if heads:                       # (b, nc, h, Q, ...) -> (b, nc, Q, h, ...)
+            t = t.transpose(2, 3)
+        return t.reshape(b, nc * chunk, *t.shape[3:])[:, :s]
+
+    return (tokens(dxs), tokens(das), tokens(ddts), tokens(dBs, False)[:, :, None],
+            tokens(dCs, False)[:, :, None])
+
+
+def mamba_ssd_bwd_plain(x, log_decay, scale, B, C, dy, chunk: int = 64):
+    """The ``mamba_ssd_bwd`` kernel's function: ``ssd_scan_bwd`` with B
+    and C ``(b, s, n)``; f32 ``(dx, dlog_decay, dscale, dB, dC)``.  It
+    derives the states itself (the kernel reads the forward's)."""
+    dx, da, ddt, dB, dC = ssd_scan_bwd(x, log_decay, scale, B[:, :, None, :],
+                                       C[:, :, None, :], dy, chunk)
+    return dx, da, ddt, dB[:, :, 0], dC[:, :, 0]
 
 
 def round_tf32(t: torch.Tensor) -> torch.Tensor:

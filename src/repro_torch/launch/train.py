@@ -3,15 +3,17 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
       --steps 100 --batch 8 --seq 128 [--reduced] [--ckpt-dir DIR] [--device cuda|cpu]
 
+``--arch`` takes either LM family: ``granite-3-2b`` (dense) or
+``zamba2-2.7b`` (hybrid).
 Synthetic data (``data/pipeline.SyntheticLMStream``), AdamW, the
 fault-tolerant restart loop and async checkpoints (``runtime/``).  As in
 the reference, ``--reduced`` cannot be turned off (``store_true`` with a
 default of True), so the CLI trains the reduced config.  ``--device``
-defaults to ``cuda`` and raises without a card.  The reduced config's head
-dim of 32 has no flash kernel, so on the card it fails at the first
-attention; the full width trains through ``make_train_step`` and
-``run_training`` as this CLI wires them (``chip_smoke.py`` phase
-``train``).
+defaults to ``cuda`` and raises without a card.  The reduced configs'
+head dim of 32 has no flash kernel, so on the card either family fails at
+its first attention; the full widths train through ``make_train_step``
+and ``run_training`` as this CLI wires them (``chip_smoke.py`` phase
+``train``: granite-3-2b in (a), zamba2-2.7b in (d)).
 """
 from __future__ import annotations
 

@@ -14,8 +14,9 @@
 Families: ``dense`` (granite) and ``hybrid`` (Zamba2), both
 ``transformer``, and ``vdm`` (``dit``, whose params are the ``DiT``
 module).  The other LM families are not ported (ROADMAP Queue 1 item 12).
-On the card the hybrid loss cannot be differentiated yet: ``mamba_ssd``
-has no backward kernel and refuses to run under grad.
+On the card both LM losses differentiate through hand-written kernels:
+attention through ``kernels.ops.FlashAttention``, the hybrid family's SSD
+scan through ``kernels.ops.MambaSSD`` (``mamba_ssd_bwd``).
 """
 from __future__ import annotations
 

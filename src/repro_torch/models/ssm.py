@@ -7,7 +7,8 @@ Per head h (P = headdim, N = state size):
 
 On CUDA tensors the scan runs in the hand-written ``mamba_ssd`` kernel
 (``kernels/csrc/mamba_ssd.cu``), as the DiT's attention runs in the flash
-kernel; on CPU tensors it runs the plain ``kernels/ref.ssd_scan``.  The
+kernel, and under grad its gradient in ``kernels/csrc/mamba_ssd_bwd.cu``;
+on CPU tensors it runs the plain ``kernels/ref.ssd_scan``.  The
 reference's rounding points are kept: ``dense`` casts to x's dtype after
 an f32 accumulate, the scan takes and returns f32, and y is cast back only
 after ``+ D x``.  The reference's ``REPRO_SSD_NAIVE`` switch (an A/B knob
@@ -63,10 +64,13 @@ def gated_linear_scan(x, log_decay, scale, B, C, chunk: int = 64,
     ``y_t = C_t . S_t``.  x ``(b, s, h, p)``, log_decay/scale ``(b, s, h)``,
     B, C ``(b, s, g, n)`` with ``g | h``; returns f32 ``(b, s, h, p)``.
 
-    CPU tensors: ``kernels/ref.ssd_scan`` (both forms, any g).  CUDA
-    tensors: the ``mamba_ssd`` kernel on the f32 views the reference
-    takes, for ``g == 1`` and ``factorized=True`` only; anything else on
-    the card raises (ROADMAP Queue 1 item 12: no path of the port needs it).
+    CPU tensors: ``kernels/ref.ssd_scan`` (both forms, any g; autograd
+    differentiates it).  CUDA tensors: the ``mamba_ssd`` kernel on the f32
+    views the reference takes, for ``g == 1`` and ``factorized=True`` only;
+    with grad enabled and an input that requires grad, through
+    ``ops.mamba_ssd_autograd`` (its backward the ``mamba_ssd_bwd``
+    kernel); anything else on the card raises (ROADMAP Queue 1 item 12: no
+    path of the port needs it).
     """
     if not x.is_cuda:
         return kernel_ref.ssd_scan(x, log_decay, scale, B, C, chunk, factorized)
@@ -74,10 +78,12 @@ def gated_linear_scan(x, log_decay, scale, B, C, chunk: int = 64,
         raise NotImplementedError(
             f"gated_linear_scan on CUDA: ssm_groups {B.shape[2]}, factorized={factorized} "
             "has no kernel; only groups 1, factorized (ROADMAP Queue 1 item 12)")
-    return kernel_ops.mamba_ssd(
-        x.float().contiguous(), log_decay.float().contiguous(),
-        scale.float().contiguous(), B[:, :, 0].float().contiguous(),
-        C[:, :, 0].float().contiguous(), chunk=chunk)
+    args = (x.float().contiguous(), log_decay.float().contiguous(),
+            scale.float().contiguous(), B[:, :, 0].float().contiguous(),
+            C[:, :, 0].float().contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, log_decay, scale, B, C)):
+        return kernel_ops.mamba_ssd_autograd(*args, chunk=chunk)
+    return kernel_ops.mamba_ssd(*args, chunk=chunk)
 
 
 def _split_proj(proj: torch.Tensor, d_inner: int, gn: int):

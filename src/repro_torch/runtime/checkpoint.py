@@ -19,7 +19,10 @@ either package reads the other's checkpoint of such a tree.  A bf16 leaf
 (numpy has no bf16) is written as its 2-byte pattern (int16) with
 ``bfloat16`` in ``meta["dtypes"]`` and restored bit for bit; a reference
 checkpoint's bf16 leaf (stored as ``|V2``) is read the same way.  The
-reference cannot restore bf16 leaves itself.
+reference cannot restore bf16 leaves itself.  Both LM families' train
+states round-trip bit for bit: the dense stack and the hybrid one (its
+stacked Mamba2 leaves, the shared block, the LoRA stacks, f32 ``A_log`` /
+``D`` / ``dt_bias`` beside bf16 weights) with their optimizer state.
 """
 from __future__ import annotations
 

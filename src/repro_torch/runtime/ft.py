@@ -11,8 +11,9 @@ restart logic runs end to end.  ``run_training`` guarantees:
   * the checkpoint cadence bounds lost work to ``ckpt_every`` steps.
 
 On the card a recovered run equals a clean one bit for bit only where
-every kernel of the step is deterministic: the port's flash kernels are,
-and ``torch.use_deterministic_algorithms(True)`` makes PyTorch's own
+every kernel of the step is deterministic: the port's flash kernels and
+the SSD scan's forward and backward (``mamba_ssd``, ``mamba_ssd_bwd``)
+are, and ``torch.use_deterministic_algorithms(True)`` makes PyTorch's own
 (the embedding's gradient) so.
 """
 from __future__ import annotations

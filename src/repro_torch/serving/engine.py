@@ -53,8 +53,12 @@ hook, which runs before any collective of its step.  The survivors make
 a new lp group (``launch/mesh.shrink_hybrid_group``) and re-bind the
 step; on the ranks of the evicted group ``run`` raises
 ``runtime/faults.GroupEvicted`` and they leave.  Times fed through
-:meth:`LPServingEngine.observe_group_times` must therefore be the same
-on every rank.
+:meth:`LPServingEngine.observe_group_times` are agreed before the
+monitor sees them (the reference's one controller reaches one verdict,
+``engine.py:687-695``): each group's time is the MAX over the ranks (a
+group is as slow as the slowest rank that saw it; a rank that saw no
+report wins), by one all-reduce over the lp group and one over the tp
+group, outside the byte counter.
 
 Step policy (``engine.py:313-367``): ``codec_schedule`` takes an explicit
 spec (``"int8-residual@0.85,int8@0.6,bf16"``) or ``"auto"``, resolved by
@@ -99,6 +103,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 from collections import defaultdict
 from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Tuple
@@ -188,16 +193,29 @@ def _agree(mesh, digest: str) -> None:
                                f"{seen}; a plan must be a function of its inputs alone")
 
 
-def _slowest_wall(mesh, wall: float) -> float:
-    """The batch's wall as its slowest rank measured it: a MAX all-reduce of
-    one scalar over the lp group, then over the tp group of a 2-D mesh (not
-    through the byte counter).  Every rank of the batch gets the same value."""
+def _max_over_mesh(mesh, values: List[float]) -> List[float]:
+    """Elementwise MAX of ``values`` over the ranks of ``mesh``: one f64
+    all-reduce over the lp group, then one over the tp group of a 2-D mesh
+    (not through the byte counter).  Every rank gets the same list."""
     lp = lp_axis(mesh)
-    t = torch.tensor([wall], dtype=torch.float64,
+    t = torch.tensor(values, dtype=torch.float64,
                      device=mesh.device if lp.backend == "nccl" else "cpu")
     for g in [lp] + ([mesh.tp] if isinstance(mesh, HybridGroup) else []):
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g.group)
-    return float(t.item())
+    return t.tolist()
+
+
+def _slowest_wall(mesh, wall: float) -> float:
+    """The batch's wall as its slowest rank measured it."""
+    return _max_over_mesh(mesh, [wall])[0]
+
+
+def _slowest_times(mesh, step_times) -> List[Optional[float]]:
+    """Each LP group's step time as its slowest observer saw it: a missing
+    time (``None``, NaN, +inf) goes in as +inf, so it wins the MAX, and
+    comes back as ``None``, which the health monitor counts as a miss."""
+    t = [math.inf if x is None or math.isnan(float(x)) else float(x) for x in step_times]
+    return [None if x == math.inf else x for x in _max_over_mesh(mesh, t)]
 
 
 class LPServingEngine:
@@ -535,9 +553,12 @@ class LPServingEngine:
         """Feed per-LP-group step times (seconds; None or inf for a group
         that did not report) into the health monitor, the ``elastic=True``
         data source; the step hook reads its verdict at the next step.  On
-        a mesh, every rank must be fed the same times before the same step:
-        ranks that disagree reach different proposals, some leave the ring
-        and the others' next collective fails at the group timeout."""
+        a mesh the ranks first agree the times (:func:`_slowest_times`: an
+        elementwise MAX over every rank, a miss wins), so ranks fed
+        different times still reach one verdict; the call is a collective,
+        so every rank makes it as often."""
+        if self.mesh is not None:
+            step_times = _slowest_times(self.mesh, step_times)
         self.health.observe(step_times)
 
     def set_psnr_floor(self, floor: Optional[float]) -> bool:

@@ -3,9 +3,11 @@ accumulation, remat, optimizer update (``repro/train/loop.py``).
 
 There is no ``jit``: the step runs eagerly.  On the card every attention
 of the forward runs the hand-written flash kernel and its gradient the
-hand-written backward kernel (``kernels/ops.FlashAttention``); with remat
-each layer's forward, its flash launch included, runs again in the
-backward pass.  The optimizer writes the new parameters and state into
+hand-written backward kernel (``kernels/ops.FlashAttention``), and every
+SSD scan of the hybrid family the ``mamba_ssd`` kernel's state-writing
+entry and its gradient ``mamba_ssd_bwd`` (``kernels/ops.MambaSSD``); with
+remat each layer's (dense) or group's (hybrid) forward, its launches
+included, runs again in the backward pass.  The optimizer writes the new parameters and state into
 the tensors it is given (``optim``).
 """
 from __future__ import annotations

@@ -182,7 +182,7 @@ def test_cpu_path_never_launches_a_kernel():
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_sm90": 0,
                                    "flash_decode": 0, "flash_attention_bwd": 0,
                                    "flash_attention_bwd_sm90": 0, "latent_blend": 0, "int8_quantize": 0,
-                                   "dequant_blend": 0, "mamba_ssd": 0,
+                                   "dequant_blend": 0, "mamba_ssd": 0, "mamba_ssd_bwd": 0,
                                    "guidance_update": 0}
 
 
@@ -300,6 +300,9 @@ def _wrapper_calls(device, requires_grad):
                                                    .to(device), t(2), w, z, [0, 2], 4, 6),
         "mamba_ssd": lambda: ops.mamba_ssd(t(1, 8, 2, 16), t(1, 8, 2), t(1, 8, 2),
                                            t(1, 8, 16), t(1, 8, 16), chunk=16),
+        "mamba_ssd_bwd": lambda: ops.mamba_ssd_bwd(t(1, 8, 2, 16), t(1, 8, 2), t(1, 8, 2),
+                                                   t(1, 8, 16), t(1, 8, 16), t(1, 8, 2, 16),
+                                                   None, chunk=16),
         "guidance_update": lambda: ops.guidance_update(t(2, 3), t(2, 3), t(2, 3), 5.0, 0.1),
     }
 

@@ -174,7 +174,8 @@ def test_blend_windows_matches_reference_engine(dim, K, r):
 
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_sm90": 0, "flash_decode": 0,
                "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0, "latent_blend": 0,
-               "int8_quantize": 0, "dequant_blend": 0, "mamba_ssd": 0, "guidance_update": 0}
+               "int8_quantize": 0, "dequant_blend": 0, "mamba_ssd": 0, "mamba_ssd_bwd": 0,
+               "guidance_update": 0}
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
@@ -187,6 +188,9 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
     ops.dequant_blend(wire, scales, torch.ones(2, 4), torch.full((6,), 2.0), (0, 2), 4, 6)
     ops.mamba_ssd(torch.ones((1, 5, 2, 4)), -torch.ones((1, 5, 2)), torch.ones((1, 5, 2)),
                   torch.ones((1, 5, 3)), torch.ones((1, 5, 3)), chunk=4)
+    ops.mamba_ssd_bwd(torch.ones((1, 5, 2, 4)), -torch.ones((1, 5, 2)), torch.ones((1, 5, 2)),
+                      torch.ones((1, 5, 3)), torch.ones((1, 5, 3)), torch.ones((1, 5, 2, 4)),
+                      None, chunk=4)
     q, k, v, qp, kp, _ = _qkv(1, 8, 8, 2, 2, 128)
     ops.flash_attention_sm90(*(t.bfloat16() for t in _t(q, k, v)), *_t(qp, kp))
     q, k, v, qp, kp, lens = _qkv(2, 1, 40, 2, 2, 80)

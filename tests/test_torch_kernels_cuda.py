@@ -14,7 +14,9 @@ split-KV decode kernel, whose P stays f32), f32 flash 1e-4
 (summation order only); blend, int8 quantize, dequant-blend and
 guidance_update exact (the same f32 operations in the same order);
 mamba_ssd ``5e-4 + 5e-4 |plain|``, the reference's own SSD tolerance
-(f32 throughout, sums in another order); the flash backward (bf16, D 64
+(f32 throughout, sums in another order), and its states alike;
+mamba_ssd_bwd each gradient within ``1e-4 max|plain| + 1e-4 |plain|``
+(f32 FMA sums in another order, on the forward kernel's states); the flash backward (bf16, D 64
 on the wgmma + TMA kernel, D 80 on mma.sync, each fed the forward's
 log-sum-exp) within ``ref.flash_bwd_bf16_tolerance`` (P and dS rounded to
 bf16 for the products that take them, f32 sums, the bf16 results); each
@@ -657,6 +659,85 @@ def test_mamba_ssd_kernel_refuses_what_it_has_no_kernel_for(cuda_device):
         ops.mamba_ssd(x, a, dt, B8, C8)
 
 
+# the backward: b, s, h, p, n, chunk, steep
+SSD_BWD_CASES = [
+    (2, 200, 8, 16, 16, 64, False),
+    (2, 100, 16, 32, 16, 32, False),    # ragged: a padded last chunk
+    (1, 64, 8, 16, 16, 16, False),
+    (2, 300, 6, 64, 64, 64, False),     # Zamba2's p, n and chunk, ragged s
+    (2, 300, 6, 64, 64, 64, True),      # the clip bites
+    (1, 150, 4, 16, 16, 32, True),
+    (2, 2048, 80, 64, 64, 64, False),   # Zamba2-2.7B's training microbatch
+]
+
+
+def _ssd_bwd_close(got, want):
+    """Each gradient within 1e-4 of its plain version's max-abs, plus
+    1e-4 of the element (f32 sums in another order; the kernel reads the
+    forward kernel's 3xTF32 states)."""
+    for name, g, w in zip(("dx", "dlog_decay", "dscale", "dB", "dC"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert bool(torch.isfinite(g).all()), name
+        err = (g - w).abs()
+        lim = 1e-4 * float(w.abs().max()) + 1e-4 * w.abs()
+        assert bool((err <= lim).all()), f"{name}: max err {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,steep", SSD_BWD_CASES)
+def test_mamba_ssd_states_entry_writes_the_plain_states(cuda_device, b, s, h, p, n, chunk,
+                                                        steep):
+    args = [t.to(cuda_device) for t in _ssd_inputs(b, s, h, p, n, s + h, steep)]
+    y, states = ops.mamba_ssd(*args, chunk=chunk, return_states=True)
+    want_y, want = ref.mamba_ssd_plain(*args, chunk=chunk, return_states=True)
+    assert torch.equal(y, ops.mamba_ssd(*args, chunk=chunk))      # the serving entry's y
+    assert states.shape == want.shape == (b, -(-s // chunk), h, n, p)
+    err = (states - want).abs()
+    assert bool((err <= 5e-4 + 5e-4 * want.abs()).all()), f"max err {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,steep", SSD_BWD_CASES)
+def test_mamba_ssd_bwd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk, steep):
+    args = [t.to(cuda_device) for t in _ssd_inputs(b, s, h, p, n, s + h, steep)]
+    dy = torch.randn((b, s, h, p), generator=torch.Generator("cuda").manual_seed(s),
+                     device=cuda_device)
+    _, states = ops.mamba_ssd(*args, chunk=chunk, return_states=True)
+    before = ops.mamba_ssd_bwd.launches
+    got = ops.mamba_ssd_bwd(*args, dy, states, chunk=chunk)
+    assert ops.mamba_ssd_bwd.launches == before + 1
+    _ssd_bwd_close(got, ref.mamba_ssd_bwd_plain(*args, dy, chunk=chunk))
+    again = ops.mamba_ssd_bwd(*args, dy, states, chunk=chunk)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))      # deterministic
+
+
+def test_mamba_ssd_autograd_runs_both_kernels(cuda_device):
+    """``ops.mamba_ssd_autograd`` under autograd: the forward's
+    state-writing entry and the backward kernel each launch once, and the
+    gradients equal autograd's of the plain scan."""
+    args = [t.to(cuda_device) for t in _ssd_inputs(2, 150, 4, 16, 16, 3, True)]
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = (ops.mamba_ssd.launches, ops.mamba_ssd_bwd.launches)
+    out = ops.mamba_ssd_autograd(*leaves, chunk=32)
+    dy = torch.randn_like(out)
+    grads = torch.autograd.grad(out, leaves, dy)
+    assert (ops.mamba_ssd.launches, ops.mamba_ssd_bwd.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    plain = [t.clone().requires_grad_() for t in args]
+    want = torch.autograd.grad(ref.mamba_ssd_plain(*plain, chunk=32), plain, dy)
+    _ssd_bwd_close(grads, want)
+
+
+def test_mamba_ssd_bwd_refuses_what_it_has_no_kernel_for(cuda_device):
+    x, a, dt, B, C = (t.to(cuda_device) for t in _ssd_inputs(1, 40, 2, 16, 16, 0))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.mamba_ssd(x.requires_grad_(), a, dt, B, C)
+    x = x.detach()
+    with pytest.raises(ValueError, match="states"):
+        ops.mamba_ssd_bwd(x, a, dt, B, C, torch.zeros_like(x), None)
+    xw, aw, dw, Bw, Cw = (t.to(cuda_device) for t in _ssd_inputs(1, 40, 2, 128, 128, 0))
+    with pytest.raises(ValueError, match="227 KB"):
+        ops.mamba_ssd_autograd(xw.requires_grad_(), aw, dw, Bw, Cw, chunk=128)
+
+
 GUIDANCE_SHAPES = [(4, 8, 8, 4), (1, 13, 60, 104, 16), (3, 7, 11)]
 
 
@@ -879,3 +960,24 @@ def test_flash_backward_refuses_what_it_has_no_kernel_for(cuda_device):
                                      p, p)
     with pytest.raises(ValueError, match="lse must be"):
         ops.flash_attention_bwd(q, q, q, q, q, None, p, p)
+
+
+def test_gated_linear_scan_under_grad_runs_the_backward_kernel(cuda_device):
+    """The model's scan on the card: under grad with an input that requires
+    grad it goes through ``MambaSSD`` (the state-writing forward, then
+    ``mamba_ssd_bwd``); under ``no_grad`` through the serving entry alone."""
+    from repro_torch.models import ssm
+
+    x, a, dt, B, C = (t.to(cuda_device) for t in _ssd_inputs(1, 100, 4, 16, 16, 9))
+    x.requires_grad_()
+    before = (ops.mamba_ssd.launches, ops.mamba_ssd_bwd.launches)
+    y = ssm.gated_linear_scan(x, a, dt, B[:, :, None], C[:, :, None], chunk=32)
+    (dx,) = torch.autograd.grad(y.sum(), (x,))
+    assert (ops.mamba_ssd.launches, ops.mamba_ssd_bwd.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    plain = ref.mamba_ssd_bwd_plain(x.detach(), a, dt, B, C, torch.ones_like(y), chunk=32)[0]
+    assert bool(((dx - plain).abs() <= 1e-4 * plain.abs().max() + 1e-4 * plain.abs()).all())
+    with torch.no_grad():
+        ssm.gated_linear_scan(x, a, dt, B[:, :, None], C[:, :, None], chunk=32)
+    assert (ops.mamba_ssd.launches, ops.mamba_ssd_bwd.launches) == (before[0] + 2,
+                                                                   before[1] + 1)

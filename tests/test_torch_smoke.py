@@ -5,17 +5,19 @@
   than ``reps`` times one call's records is taken again; one still
   short after 3 tries gives no number (None), and ``timed_case`` flags
   the case with ``profiler_short`` and writes its time as JSON null.
-* Phases ``lp_ranks`` and ``hybrid_ranks`` (their scheduled requests
-  included) at a reduced size on gloo worlds of CPU ranks, and phases
-  ``serve_policy`` and ``serve_fleet`` in one process (the plain versions,
-  the reduced DiT in f32; the fleet's arrival rates raised to the CPU's
-  walls): their checks hold there too.
+* Phase ``serve_fleet`` in one process (the plain versions, the reduced
+  DiT in f32; the fleet's arrival rates raised to the CPU's walls): its
+  checks hold there too.  Phases ``lp_ranks``, ``hybrid_ranks`` and
+  ``serve_policy`` are in files of their own
+  (``test_torch_smoke_<phase>.py``), so that ``--dist loadfile`` spreads
+  them over the workers.
 * ``same_report`` holds an offline SLO report to the live one byte for
   byte, apart from the load-test CLI's notes on the live serve.
-* Phase ``train``'s arithmetic: the flash launches a train step makes
-  (counted on the CPU by stand-in wrappers), the steps ``run_training``
-  runs around an injected failure (counted on a real run), the backward
-  kernel's work and bound, and the model operations of a step.
+* Phase ``train``'s arithmetic: the flash launches a train step makes,
+  and the hybrid model's SSD scan launches beside them (counted on the
+  CPU by stand-in wrappers), the steps ``run_training`` runs around an
+  injected failure (counted on a real run), the flash and SSD backward
+  kernels' work and bound, and the model operations of a step.
 """
 import importlib
 import json
@@ -104,93 +106,6 @@ def test_kernel_union_counts_overlapping_spans_once(smoke):
     union_s, sum_s = smoke.kernel_union_s(spans)
     assert union_s == pytest.approx(31e-9) and sum_s == pytest.approx(41e-9)
     assert smoke.kernel_union_s([]) == (0.0, 0.0)
-
-
-def test_lp_ranks_phase_on_the_cpu(smoke, tmp_path, monkeypatch):
-    """The phase's checks (each rank bit-equal to the one-process run, the
-    bytes of the model, the launch counts: none on the CPU) on the
-    reduced DiT, at a latent with all three dims usable at K 4."""
-    from repro_torch.configs import get_config
-    from repro_torch.device import generator
-    from repro_torch.models import dit
-
-    monkeypatch.setattr(smoke, "ROOT", tmp_path)          # the worlds' rendezvous files
-    cfg = get_config("wan21-dit-1.3b").reduced()
-    model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
-    rec, counts = smoke.lp_ranks(cfg, model, device="cpu", latent=(9, 8, 12))
-    runs, scheduled = rec["runs"], rec["scheduled"]
-    assert len(runs) == 2 * sum(len(r) for r in smoke.LP_WORLDS.values())
-    assert all(r["bit_equal"] and r["bytes"] == r["model_bytes"] and r["bytes_ok"]
-               and r["step_payloads_ok"] for r in runs)
-    # the scheduled, recorded request of the K-4 world
-    assert scheduled["run"] == "lp_ranks" and scheduled["spec"] == smoke.SCHEDULE
-    assert scheduled["bit_equal"] and scheduled["bytes_ok"] and scheduled["same_plan"]
-    assert scheduled["recorder_equals_counter"]
-    assert sorted(counts) == sorted([f"lp_ranks:{n}" for w in smoke.LP_WORLDS.values()
-                                     for n, _ in w] + ["lp_ranks:scheduled"])
-    assert not any(v for c in counts.values() for v in c.values())
-
-
-def test_hybrid_ranks_phase_on_the_cpu(smoke, tmp_path, monkeypatch):
-    """The phase's checks (a 3 x 2 world bit-equal to the one-process run,
-    the sharded wire to the unsharded one, the bytes of the model per tier,
-    the eviction drill's outcome and latents, launches: none on the CPU)
-    on the reduced DiT, at a latent with all three dims usable at K 3."""
-    from repro_torch.configs import get_config
-    from repro_torch.device import generator
-    from repro_torch.models import dit
-
-    monkeypatch.setattr(smoke, "ROOT", tmp_path)
-    cfg = get_config("wan21-dit-1.3b").reduced()
-    model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
-    rec, counts = smoke.hybrid_ranks(cfg, model, device="cpu", latent=(9, 8, 12))
-    runs, scheduled = rec["runs"], rec["scheduled"]
-    assert len(runs) == 2 * len(smoke.HYBRID_RUNS)
-    assert all(r["bit_equal"] and r["bytes_ok"] and r["step_payloads_ok"] for r in runs)
-    assert scheduled["bit_equal"] and scheduled["recorder_equals_counter"]
-    assert scheduled["lp_impl"] == "halo_hybrid" and scheduled["wire_shard"] is True
-    assert scheduled["sent"]["intra"] > 0
-    assert [r["sharded_equals_unsharded"] for r in rec["runs"] if r["run"] == "fp32-shard"] \
-        == [True, True]
-    drill = rec["drill"]
-    assert drill["left"] == [2, 3] and drill["bit_equal"] and drill["second_request_ok"]
-    assert drill["outcome"][0][:3] == (1, 2, (2, 2)) and drill["ran_ok"]
-    assert sorted(counts) == sorted([f"hybrid_ranks:{n}" for n, _, _ in smoke.HYBRID_RUNS]
-                                    + ["hybrid_ranks:drill", "hybrid_ranks:scheduled"])
-    assert not any(v for c in counts.values() for v in c.values())
-
-
-def test_serve_policy_phase_on_the_cpu(smoke):
-    """Phase serve_policy's checks (the explicit schedule's misses, trace,
-    per-step wire bytes, serve counters and reconciliation; the
-    single-segment schedule bit-equal to the fixed ``int8`` wire; ``auto``
-    at 40 dB; launches: none on the CPU) on the reduced DiT, at a latent
-    with all three dims usable at K 4."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.device import generator
-    from repro_torch.models import dit, frontends
-    from repro_torch.serving.engine import LPServingEngine, VideoRequest
-
-    cfg = get_config("wan21-dit-1.3b").reduced()
-    model = dit.init_params(cfg, generator(0, "cpu"), "cpu")
-    latent = (9, 8, 12)
-    reqs = [VideoRequest(i, frontends.text_context(generator(100 + i, "cpu"), 1, cfg, "cpu"),
-                         latent, seed=i) for i in range(2)]
-    fixed = LPServingEngine(model, cfg, num_partitions=smoke.K, overlap_ratio=smoke.R,
-                            num_steps=smoke.STEPS, max_batch=2, device="cpu", wire_codec="int8")
-    for r in reqs:
-        fixed.submit(dataclasses.replace(r))
-    int8 = {r.request_id: r.latent for r in fixed.run()}
-    rec, counts = smoke.serve_policy(cfg, model, reqs, int8, device="cpu", latent=latent)
-    ex = rec["explicit"]
-    assert ex["step_codecs"] == list(smoke.SCHEDULE_CODECS) and ex["step_cache_misses"] == 4
-    assert ex["wire_steps_ok"] and ex["serve_counters_ok"] and ex["reconciliation_ok"]
-    assert ex["trace_errors"] == [] and ex["wire_bytes"] < ex["fp32_halo_bytes"]
-    assert rec["single_segment_bit_equal"] and rec["auto"]["spec"] != smoke.SCHEDULE
-    assert rec["spans"]["flash_kernels"] == 0 and not any(counts.values())
-    assert len(rec["recorder_cost_wall_s"]["bare"]) == 2
 
 
 def test_rank_kernel_shapes_are_what_a_rank_passes(smoke, tmp_path):
@@ -319,6 +234,61 @@ def test_expected_train_launches_count_a_train_step(smoke, monkeypatch, k, remat
                       "flash_attention_bwd": want["flash_attention_bwd_sm90"]}
 
 
+@pytest.mark.parametrize("k,remat", [(1, "none"), (2, "full")])
+def test_expected_hybrid_train_launches_count_a_train_step(smoke, monkeypatch, k, remat):
+    """The kernel launches of 2 train steps of the reduced hybrid model,
+    counted by stand-ins for the four wrappers on the CPU (the scan through
+    ``MambaSSD``, attention through ``FlashAttention``; remat's recompute
+    included), equal ``expected_hybrid_train_launches`` (on the card the
+    forward flash is ``flash_attention_sm90`` and the backward
+    ``flash_attention_bwd`` at Zamba2's D 80)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, ssm
+    from repro_torch.train.loop import make_train_step
+
+    names = ("flash_attention", "flash_attention_bwd", "mamba_ssd", "mamba_ssd_bwd")
+    counts = dict.fromkeys(names, 0)
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for name in names:
+        monkeypatch.setattr(ops, name, counted(name, getattr(ops, name)))
+    # the CPU's attention and scan run their plain functions: send them
+    # through the autograd functions the card takes
+    monkeypatch.setattr(attention, "attention_chunked",
+                        lambda q, k_, v, qp, kp, causal, window, kv_len, kv_chunk:
+                        ops.flash_attention_autograd(q, k_, v, qp, kp, causal=causal,
+                                                     window=window, kv_len=kv_len))
+    monkeypatch.setattr(ssm, "gated_linear_scan",
+                        lambda x, a, dt, B, C, chunk, factorized:
+                        ops.mamba_ssd_autograd(x.float(), a.float(), dt.float(),
+                                               B[:, :, 0].float(), C[:, :, 0].float(), chunk))
+    cfg = get_config("zamba2-2.7b").reduced()
+    model = models.build(cfg, "cpu")
+    step_fn = make_train_step(model, ParallelConfig(remat=remat, microbatch=k))
+    params = model.init(0)
+    opt = step_fn.opt_init(params)
+    data = SyntheticLMStream(cfg, batch=2, seq_len=8, device="cpu")
+    for s in range(2):
+        params, opt, _ = step_fn(params, opt, data.batch_at(s), s)
+    want = smoke.expected_hybrid_train_launches(cfg.num_layers, cfg.attn_every, k,
+                                                remat != "none", 2)
+    assert sorted(want) == ["flash_attention_bwd", "flash_attention_sm90", "mamba_ssd",
+                            "mamba_ssd_bwd"]
+    assert counts == {"flash_attention": want["flash_attention_sm90"],
+                      "flash_attention_bwd": want["flash_attention_bwd"],
+                      "mamba_ssd": want["mamba_ssd"], "mamba_ssd_bwd": want["mamba_ssd_bwd"]}
+    assert counts["mamba_ssd_bwd"] == cfg.num_layers * k * 2
+
+
 @pytest.mark.parametrize("steps,every,fail_at", [(6, 2, (3,)), (6, 2, ()), (25, 5, (7, 13)),
                                                  (6, 3, (3,))])
 def test_drill_steps_counts_what_run_training_runs(smoke, tmp_path, steps, every, fail_at):
@@ -352,7 +322,9 @@ def test_flash_bwd_work_and_bound(smoke):
 def test_device_split_puts_both_backwards_under_flash(smoke):
     """The profiled train step's split: both backward files' kernels (the
     wgmma one's ``bwd_delta`` included) under ``flash_bwd``, the wgmma
-    forward and its pre-pass under ``flash_fwd``."""
+    forward and its pre-pass under ``flash_fwd``; the SSD scan's forward
+    (both entries and its pre-pass) under ``ssd_fwd``, its backward's two
+    kernels under ``ssd_bwd``."""
     import torch
     from types import SimpleNamespace
 
@@ -363,14 +335,35 @@ def test_device_split_puts_both_backwards_under_flash(smoke):
              "void (anonymous namespace)::bwd_prep<80>(...)": 8.0,
              "void (anonymous namespace)::flash_fwd_sm90<64>(...)": 16.0,
              "(anonymous namespace)::live_tiles_pass(...)": 32.0,
-             "nvjet_hsh_128x256_64x4": 64.0, "void at::native::elementwise_kernel": 128.0}
+             "nvjet_hsh_128x256_64x4": 64.0, "void at::native::elementwise_kernel": 128.0,
+             "void (anonymous namespace)::mamba_ssd_kernel<64, true>(...)": 256.0,
+             "void (anonymous namespace)::mamba_ssd_prep<64>(...)": 512.0,
+             "(anonymous namespace)::mamba_ssd_bwd_kernel(...)": 1024.0,
+             "(anonymous namespace)::mamba_ssd_bwd_heads(...)": 2048.0}
     prof = SimpleNamespace(key_averages=lambda: [
         SimpleNamespace(key=k, self_device_time_total=us, device_type=cuda)
         for k, us in names.items()])
-    assert smoke._device_split(prof) == {"flash_fwd": 48.0, "flash_bwd": 15.0, "matmul": 64.0,
+    assert smoke._device_split(prof) == {"flash_fwd": 48.0, "flash_bwd": 15.0,
+                                         "ssd_fwd": 768.0, "ssd_bwd": 3072.0, "matmul": 64.0,
                                          "other": 128.0}
 
 
 def test_train_flops(smoke):
     assert smoke.train_flops(10, 3, 0, 4, 2, 8) == 180.0
     assert smoke.train_flops(0, 0, 5, 4, 2, 8) == 12 * 5 * 2 * 8 * 4
+
+
+def test_ssd_bwd_work_and_bound(smoke):
+    """The SSD backward's work at Zamba2's training microbatch (2 x 2048, 80
+    heads x 64, state 64, chunk 64): 10.13 G multiply-adds (nine products
+    per (batch, head, chunk), the causal ones on their triangle, and the
+    Gram per (batch, chunk)) and 345 MB (x, dy, dx and the states in f32,
+    the rest small).  In 3xTF32 the products take 0.123 ms, the bytes
+    0.103 ms: the operations bound it."""
+    macs, nbytes = smoke.ssd_bwd_work(2, 2048, 80, 64, 64, 64)
+    assert macs == 2 * 80 * 32 * (3 * 2080 * 64 + 2 * 2080 * 64 + 5 * 64 ** 3) \
+        + 2 * 32 * 2080 * 64 == 10_127_278_080
+    assert nbytes == 4 * (3 * 2 * 2048 * 80 * 64 + 2 * 32 * 80 * 64 * 64 + 4 * 2 * 2048 * 80
+                          + 4 * 2 * 2048 * 64) == 344_981_504
+    ms, by = smoke.bound(2.0 * macs * smoke.SSD_PASSES, nbytes, smoke.H100_TF32_FLOPS)
+    assert by == "operations" and ms == pytest.approx(0.12276, rel=1e-3)

@@ -354,22 +354,30 @@ def mirror_run(case: dict, K: int):
     return outs, states, dims
 
 
-def diverging_monitor(group, slow_group: int, num_steps: int) -> None:
+def agreed_monitor(group, slow_group: int, num_steps: int, latent) -> dict:
     """An elastic engine whose health monitor is fed different step times
-    on rank 0 (``slow_group`` far slower) than on the other ranks."""
+    on every rank: each rank's times carry its own jitter, and world rank
+    0 alone sees ``slow_group`` far slower.  The engine agrees the times
+    (the elementwise MAX over the ranks) before its monitor sees them, so
+    every rank evicts ``slow_group`` in the same step hook; its ranks raise
+    ``GroupEvicted``, the survivors finish the request.  Returns the
+    survivor's record and the agreed times it was fed."""
     from repro_torch.configs import get_config
-    from repro_torch.serving.engine import VideoRequest
+    from repro_torch.serving.engine import VideoRequest, _slowest_times
 
     cfg = get_config("wan21-dit-1.3b").reduced()
     eng = _engine(group, exact_dit, cfg, num_steps, elastic=True)
-    times = [1.0] * group.size
-    if group.rank == 0:
+    rank = torch.distributed.get_rank()
+    times = [1.0 + 0.01 * rank] * group.size
+    if rank == 0:
         times[slow_group] = 9.0
+    agreed = _slowest_times(group, times)
     for _ in range(5):
         eng.observe_group_times(times)
     eng.submit(VideoRequest(0, torch.zeros((1, cfg.context_len, cfg.context_dim)),
-                            (9, 8, 12), seed=0))
-    eng.run()
+                            latent, seed=0))
+    res = eng.run()
+    return {**_record(eng, group, res[0]), "agreed": agreed}
 
 
 def fleet_replay(group, mix: str, rate: float, num_requests: int, num_steps: int,
