@@ -48,27 +48,31 @@ Phases, one line each (any failed check exits non-zero):
                on the same inputs and SDPA's autograd beside it), a window,
                an odd length with padded keys, no mask, 100 queries (the
                log-sum-exp from flash_attention.cu) and every skip edge; at
-               D 80 on flash_attention_bwd.cu (mma.sync).  Each writer's log-sum-exp (the wgmma kernel at D 64,
+               D 80 on the same kernel (its split boxes) at Zamba2's layer
+               (2 x 2048, 32 x 80, causal; flash_attention_bwd.cu, mma.sync,
+               on the same inputs and SDPA beside it), GQA with every mask,
+               100 queries and the causal edge.  Each writer's log-sum-exp (the wgmma kernel at D 64,
                80 and 128, flash_attention.cu at 64 and 80) against
                ref.flash_attention_lse_ref within ref.flash_lse_tolerance.
-               Eleven broken copies must each fail a case: five of the new
-               backward (Delta left out, a group's last head dropped, the
-               transposed live-tile test with < for <=, dK unscaled, dQ
-               reading the previous stage's K), the log-sum-exp without the
-               log of its sum in each forward, and four of the mma.sync
-               backward (caught at D 80).  Granite's forward (the wgmma
-               kernel at 2 x 2048, D 64) is timed beside flash_attention.cu
-               and SDPA; Zamba2's training attention (2 x 2048, 32 x 80,
-               causal) forward on the wgmma kernel and backward on
-               mma.sync, each beside SDPA.  The SSD scan's backward
-               (mamba_ssd_bwd.cu, f32 FMA, deterministic) against
+               Twelve broken copies must each fail a case: five of the
+               wgmma backward (Delta left out, a group's last head dropped,
+               the transposed live-tile test with < for <=, dK unscaled, dQ
+               reading the previous stage's K), one of its D-80 tail (dK's
+               16-column product reading dO's tail), the log-sum-exp
+               without the log of its sum in each forward, and four of the
+               mma.sync backward (caught at D 80 by its forced cases).
+               Granite's forward (the wgmma kernel at 2 x 2048, D 64) is
+               timed beside flash_attention.cu and SDPA; Zamba2's training
+               attention (2 x 2048, 32 x 80, causal) forward and backward
+               on the wgmma kernels, each beside SDPA.  The SSD scan's
+               backward (mamba_ssd_bwd.cu, 3xTF32, deterministic) against
                ref.mamba_ssd_bwd_plain at Zamba2's training microbatch (2
                x 2048, 80 x 64 heads, state 64, chunk 64), with steep
                decays that reach the clip, a ragged length and p = n =
                16, each gradient within 1e-4 of its max-abs (plus 1e-4 of
                the element), two calls bit-equal, no spill; three broken
-               copies (the inter-chunk carry dropped, the clip's gradient
-               mask dropped, the chunks swept forwards) must each fail a
+               copies (the carry not decayed, the clip's gradient mask
+               dropped, the carry swept forwards) must each fail a
                case; the forward's state-writing entry against the plain
                states, its y bit-equal to the serving entry's, and no
                spill in any instantiation of mamba_ssd.cu.
@@ -153,7 +157,7 @@ Phases, one line each (any failed check exits non-zero):
                weights) at the same batch and settings: a warm-up step, 3
                timed steps (finite losses and grad norms; 216 mamba_ssd,
                108 mamba_ssd_bwd, 36 flash_attention_sm90 and 18
-               flash_attention_bwd launches a step, nothing else), one
+               flash_attention_bwd_sm90 launches a step, nothing else), one
                profiled (SSD forward and backward, flash forward and
                backward, matmul, other); then its restart drill at one
                group (6 blocks and one shared attention, Adafactor, a
@@ -172,7 +176,7 @@ Phases, one line each (any failed check exits non-zero):
                LoRA, card against CPU on prefill and 8 decode steps, and
                the card's prefill against its own stepped decode.
 Then one JSON line of every kernel (flash_attention.cu's and
-flash_attention_bwd.cu's rows, on no path now, on granite's training case
+flash_attention_bwd.cu's rows, on no path now, on the training cases
 forced onto them), the card's name and power limit, and the result line.
 ``python3 chip_smoke.py --train-drill [hybrid]`` is phase train's drill
 (granite's, or Zamba2's) alone, as the phase runs it.  Detailed numbers go to chiprun_out/chip_smoke.json.
@@ -219,12 +223,14 @@ GUIDANCE_W = 5.0
 # the earlier kernel times of the cases whose kernel changed (PERF.md's
 # kernel table, on an H100 80GB HBM3 at 700 W): the wgmma kernel with its
 # list in shared memory, mma.sync at the D-80 prefill and at the decode
-# step, the f32-FMA mamba_ssd, the two-kernel int8_quantize, and the
+# step, the f32-FMA mamba_ssd and mamba_ssd_bwd, the two-kernel int8_quantize, and the
 # one-load-at-a-time latent_blend and dequant_blend (the 480p and full-cache
 # cases: tools/quant_blend_times.py on those kernels' sources, the mean of
 # its two turns beside the new ones)
 EARLIER_MS = {"flash_self_Twindow_bf16": 1.671, "flash_cross_bf16": 0.442,
               "flash_lm_prefill_causal_bf16": 1.100, "mamba_ssd_prefill": 1.411,
+              "mamba_ssd_bwd_train": 4.3394, "mamba_ssd_bwd_steep": 1.1384,
+              "mamba_ssd_bwd_ragged": 4.3570, "mamba_ssd_bwd_p16": 0.2473,
               "blend_dim0": 0.0120, "quant_T_transfer": 0.0069,
               "blend_dim0_480p": 0.1080, "quant_T_cores_480p": 0.0223,
               "flash_lm_decode_bf16": 0.0113, "flash_lm_decode_fullcache_bf16": 0.1219,
@@ -235,15 +241,18 @@ LATENT_480P = (21, 60, 104)     # vdm_5s (81 frames at 480p): the kernels' bandw
 K, R, STEPS = 4, 0.5, 4
 PREFILL_B, PREFILL_S = 2, 4096  # phase lm_serve: 2 prompts of 4096 tokens
 DECODE_B, PROMPT, GEN, MAX_LEN = 4, 32, 32, 4096    # 4 requests, 32 + 32 tokens, cache 4096
-# broken copies of mamba_ssd.cu (source text -> replacement), built outside the
-# checkout: each must fail the kernel's check on at least one case
+# broken copies of mamba_ssd.cu and of the header it shares with the backward
+# (file, source text, replacement), built outside the checkout: each must
+# fail the kernel's check on at least one case
 SSD_MUTANTS = {
-    "no_clip": ("__device__ __forceinline__ float clip60(float v) { return fminf(fmaxf(v, -kClip), kClip); }",
+    "no_clip": ("ssd_common.cuh",
+                "__device__ __forceinline__ float clip60(float v) { return fminf(fmaxf(v, -kClip), kClip); }",
                 "__device__ __forceinline__ float clip60(float v) { return v; }"),
-    "no_state_reset": ("    if (active) for (int i = ut; i < N * XP; i += kUnitThreads) ss[i] = 0.f;  "
+    "no_state_reset": ("mamba_ssd.cu",
+                       "    if (active) for (int i = ut; i < N * XP; i += kUnitThreads) ss[i] = 0.f;  "
                        "// S = 0 for every (batch, head, slice)\n", ""),
     # 1xTF32: the two products of the low halves left out
-    "one_pass_tf32": ("  mma(small, alo, bhi);\n  mma(small, ahi, blo);\n", ""),
+    "one_pass_tf32": ("ssd_common.cuh", "  mma(small, alo, bhi);\n  mma(small, ahi, blo);\n", ""),
 }
 # broken copies of the flash sources: (file, source text, replacement); each
 # must fail the flash check on at least one case
@@ -252,7 +261,7 @@ FLASH_MUTANTS = {
                         "if (causal) live = live && kmin < qhi;"),
     "no_rescale": ("flash_attention_sm90.cu", "o[x] *= (x & 2) ? corr1 : corr0;", ";"),
     # D 80's 16-column box read as if it had the 128-byte swizzle
-    "d80_tail_swizzle": ("flash_attention_sm90.cu",
+    "d80_tail_swizzle": ("flash_common.cuh",
                          "return desc_bits(addr, 16, 256) | (3ull << 62);",
                          "return desc_bits(addr, 16, 256) | (1ull << 62);"),
 }
@@ -325,9 +334,13 @@ BWD_MUTANTS = {
                              "__floats2bfloat162_rn(dk[4 * nb], dk[4 * nb + 1]);"),
     # dQ's product reading K's tile of the previous ring stage
     "bwd_sm90:dq_stale_stage": ("flash_attention_bwd_sm90.cu",
-                                "wgmma_rs(dq, pd[kk], desc(ks + kk * 2048, kBox, 1024));",
-                                "wgmma_rs(dq, pd[kk], desc(base + L::kStage + ((t + kStages - 1)"
-                                " % kStages) * 2 * kBox + kk * 2048, kBox, 1024));"),
+                                "issue_rows<kD>(dq, pd[kk], kk, ks, ks + kBox);",
+                                "issue_rows<kD>(dq, pd[kk], kk, base + L::kStage + ((t + kStages"
+                                " - 1) % kStages) * 2 * kT, ks + kBox);"),
+    # D 80: dK's 16-column product reading dO's tail box in place of Q's
+    "bwd_sm90_d80:dk_tail_from_dout": ("flash_attention_bwd_sm90.cu",
+                                       "issue_rows<kD>(dk, pd[kk], kk, qs, qs + kBox);",
+                                       "issue_rows<kD>(dk, pd[kk], kk, qs, dos + kBox);"),
     # the log-sum-exp written without the log of its sum (the scaled row max
     # alone): the wgmma forward's (D 64 from 128 queries) and, moved from the
     # mma.sync backward's former recomputation, flash_attention.cu's (below
@@ -338,7 +351,7 @@ BWD_MUTANTS = {
     "lse:mma_without_log_sum": ("flash_attention.cu",
                                 "lse[r0] = l0 > 0.f ? fmaf(m0, sl2, __log2f(l0)) : INFINITY;",
                                 "lse[r0] = l0 > 0.f ? m0 * sl2 : INFINITY;"),
-    # the mma.sync backward (D 80): Delta left out of half the keys of a warp
+    # the mma.sync backward (forced, D 80): Delta left out of half the keys of a warp
     "bwd:no_delta": ("flash_attention_bwd.cu", "pt[nb][j] *= dpt[nb][j] - d;",
                      "pt[nb][j] *= dpt[nb][j];"),
     "bwd:dk_unscaled": ("flash_attention_bwd.cu",
@@ -354,9 +367,10 @@ BWD_MUTANTS = {
 # cases must have
 BWD_MUTANT_LIBS = {m: ("flash_attention_sm90",) if m.startswith("lse:sm90")
                    else ("flash_attention",) if m.startswith("lse:mma")
-                   else ("flash_attention_bwd_sm90",) if m.startswith("bwd_sm90:")
+                   else ("flash_attention_bwd_sm90",) if m.startswith("bwd_sm90")
                    else ("flash_attention_bwd",) for m in BWD_MUTANTS}
-BWD_MUTANT_CATCHER = {m: 80 if m.startswith("bwd:") else 64 for m in BWD_MUTANTS}
+BWD_MUTANT_CATCHER = {m: 80 if m.startswith(("bwd:", "bwd_sm90_d80:")) else 64
+                      for m in BWD_MUTANTS}
 # phase train: granite-3-2b at its published widths (hf:ibm-granite/granite-3.0-2b-base:
 # 40 layers, d_model 2048, 32 x 64 query heads, 8 kv heads, d_ff 8192, bf16)
 TRAIN_ARCH = "granite-3-2b"
@@ -376,18 +390,22 @@ TRAIN_DECODE = (4, 16, 16, 64)  # (c): requests, prompt tokens, generated, cache
 HYBRID_TRAIN_ARCH = "zamba2-2.7b"
 HYBRID_TRAIN_DRILL = dict(DRILL, layers=6)
 # mamba_ssd_bwd: each gradient within SSD_BWD_TOL of its plain version's
-# max-abs, plus SSD_BWD_TOL of the element (f32 FMA sums in another order,
-# on the forward kernel's 3xTF32 states)
+# max-abs, plus SSD_BWD_TOL of the element (3xTF32 products and f32 sums in
+# another order, on the forward kernel's 3xTF32 states)
 SSD_BWD_TOL = 1e-4
+SSD_BWD_SPLIT = ("(a) the local state terms per (batch, chunk, head), 4 warps a head; (b) their "
+                 "carry over the chunks in reverse, a thread per 4 state elements; (c) the "
+                 "chunk-local gradients per (batch, chunk, 8 heads), 16 warps sharing C, B and the "
+                 "Gram; then the head groups' dB / dC summed in order")
 # broken copies of mamba_ssd_bwd.cu: each must fail the check on a case
 SSD_BWD_MUTANTS = {
-    # the inter-chunk carry: dS not passed on (decayed) to the chunk before
-    "no_carry": ("[&](int i, int c, float v) { dss[i * XP + c] = et * dss[i * XP + c] + v; });",
-                 "[&](int i, int c, float v) { dss[i * XP + c] = v; });"),
+    # the carry: dS passed on to the chunk before without exp(total)'s decay
+    # (one component of each 4)
+    "carry_not_decayed": ("run.x = e[k] * run.x + l[k].x;", "run.x = run.x + l[k].x;"),
     # the clip's mask: gradient through the clipped exponents too
     "no_clip_mask": ("return (v >= -kClip && v <= kClip) ? 1.f : 0.f;", "return 1.f;"),
-    # the chunks swept first to last
-    "forward_sweep": ("const int ch = p.nch - 1 - k;", "const int ch = k;"),
+    # the carry swept from the first chunk to the last
+    "carry_swept_forward": ("{ return nch - 1 - j; }", "{ return j; }"),
 }
 NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
 
@@ -850,9 +868,9 @@ def ssd_mutants(kept):
     import torch
     from repro_torch.kernels import build, ops
 
-    mutants = {m: ("mamba_ssd.cu", old, new) for m, (old, new) in SSD_MUTANTS.items()}
-    tmp, built = build_mutants("mamba_ssd_mutants_", mutants, ("mamba_ssd.cu",),
-                               {m: ("mamba_ssd",) for m in mutants})
+    tmp, built = build_mutants("mamba_ssd_mutants_", SSD_MUTANTS,
+                               ("mamba_ssd.cu", "ssd_common.cuh"),
+                               {m: ("mamba_ssd",) for m in SSD_MUTANTS})
     try:
         before, caught, shares = ops.mamba_ssd.launches, {}, {}
         for m, sos in built.items():
@@ -887,13 +905,16 @@ def ssd_bwd_agrees(got, plain):
 
 
 def ssd_bwd_work(b, s, h, p, n, chunk):
-    """Multiply-adds and bytes of one SSD backward.  Per (batch, head,
-    chunk): the causal G (u x), G^T (ai dy) and dG, the causal dG B and
-    dG^T C, and C S, B dS, dy S^T, x dS^T and C^T (ec dy); per (batch,
-    chunk) the causal Gram.  Bytes: x, dy and the states read, dx written
-    (f32), the decays, scales, B, C read and their gradients written once."""
+    """Multiply-adds and bytes of one SSD backward, as the fewest products
+    compute it (ref.mamba_ssd_bwd_tf32, the kernel's split).  Per (batch,
+    head, chunk): the causal dy x^T and A2^T dy, the causal dG B and dG^T
+    C, and B dS, dy S^T, x dS^T and C^T (ec dy) in full (dy . G (u x), dy .
+    C S, x . G^T (ai dy) and x . B dS come from these, elementwise); per
+    (batch, chunk) the causal Gram.  Bytes: x, dy and the states read, dx
+    written (f32), the decays, scales, B, C read and their gradients
+    written once."""
     nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
-    macs = b * h * nc * (3 * tri * p + 2 * tri * n + 5 * chunk * n * p) + b * nc * tri * n
+    macs = b * h * nc * (2 * tri * p + 2 * tri * n + 4 * chunk * n * p) + b * nc * tri * n
     nbytes = 4 * (3 * b * s * h * p + b * nc * h * n * p + 4 * b * s * h + 4 * b * s * n)
     return macs, nbytes
 
@@ -930,8 +951,8 @@ def ssd_bwd_case(name, b, s, h, p, n, chunk, seed, steep=False, reps=5):
     return {
         "case": name, "shape": [b, s, h, p, n], "chunk": chunk, "steep": steep,
         "max_abs_err": err, "tol": f"{SSD_BWD_TOL} (max|plain| + |plain|) per gradient",
-        "err_share_of_limit": share, "ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "err_share_of_limit": share, "ms": kernel_ms, "earlier_ms": EARLIER_MS.get(name),
+        "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "tflops": 2.0 * macs / kernel_ms / 1e9, "profiler_short": False,
     }, (name, (*args, dy, states), plain, chunk)
 
@@ -973,7 +994,8 @@ def ssd_bwd_mutants(kept):
     from repro_torch.kernels import build, ops
 
     mutants = {m: ("mamba_ssd_bwd.cu", old, new) for m, (old, new) in SSD_BWD_MUTANTS.items()}
-    tmp, built = build_mutants("mamba_ssd_bwd_mutants_", mutants, ("mamba_ssd_bwd.cu",),
+    tmp, built = build_mutants("mamba_ssd_bwd_mutants_", mutants,
+                               ("mamba_ssd_bwd.cu", "ssd_common.cuh"),
                                {m: ("mamba_ssd_bwd",) for m in mutants})
     try:
         before, caught = ops.mamba_ssd_bwd.launches, {}
@@ -2769,13 +2791,14 @@ def expected_hybrid_train_launches(num_layers: int, attn_every: int, microbatch:
     state-writing entry) a Mamba2 block and one wgmma flash forward (writing
     the log-sum-exp) a shared-attention invocation, each once more under
     remat (the group recomputed in the backward pass); one ``mamba_ssd_bwd``
-    a block and one flash backward (``mma.sync`` at D 80) an invocation."""
+    a block and one flash backward (the wgmma + TMA one, at D 80) an
+    invocation."""
     again = 2 if remat else 1
     groups = num_layers // attn_every
     return {"mamba_ssd": num_layers * microbatch * again * steps,
             "mamba_ssd_bwd": num_layers * microbatch * steps,
             "flash_attention_sm90": groups * microbatch * again * steps,
-            "flash_attention_bwd": groups * microbatch * steps}
+            "flash_attention_bwd_sm90": groups * microbatch * steps}
 
 
 def drill_steps(num_steps: int, ckpt_every: int, fail_at) -> int:
@@ -3106,9 +3129,9 @@ def hybrid_train_phase():
     cfg = get_config(HYBRID_TRAIN_ARCH)
     mb, remat = TRAIN_PARALLEL["microbatch"], TRAIN_PARALLEL["remat"] != "none"
     check(ops.flash_kernel(torch.bfloat16, cfg.head_dim, TRAIN_S) == "flash_attention_sm90"
-          and ops.bwd_kernel(torch.bfloat16, cfg.head_dim) == "flash_attention_bwd",
+          and ops.bwd_kernel(torch.bfloat16, cfg.head_dim) == "flash_attention_bwd_sm90",
           "Zamba2's training attention is not on flash_attention_sm90.cu and "
-          "flash_attention_bwd.cu")
+          "flash_attention_bwd_sm90.cu")
     want = expected_hybrid_train_launches(cfg.num_layers, cfg.attn_every, mb, remat,
                                           TRAIN_STEPS)
     rec, counts, trained = train_steps(cfg, want, "hybrid")
@@ -3573,13 +3596,16 @@ def run() -> int:
     # autograd backward beside it; then at D 64 a window, an odd length with
     # padded keys, rows that attend no key, no mask, a query count below 128
     # (the log-sum-exp from flash_attention.cu) and every skip edge; D 80 on
-    # mma.sync with every mask and the causal edge
+    # the same kernel with every mask, below 128 queries and the causal
+    # edge, and at Zamba2's layer beside mma.sync and SDPA.  The cases
+    # forced onto mma.sync at D 80 are mutant cases too (they catch the
+    # broken copies of flash_attention_bwd.cu); granite's twin is not
     gB = TRAIN_B // TRAIN_PARALLEL["microbatch"]
     bwd, bwd_kept = [], []
     for a, kw in ((("flash_bwd_granite_causal", gB, TRAIN_S, TRAIN_S, 32, 8, 64),
                    dict(causal=True, library=True)),
                   (("flash_bwd_granite_causal_mma", gB, TRAIN_S, TRAIN_S, 32, 8, 64),
-                   dict(causal=True, library=True, kernel="flash_attention_bwd")),
+                   dict(causal=True, library=True, kernel="flash_attention_bwd", kept=False)),
                   (("flash_bwd_window", gB, 1024, 1024, 32, 8, 64), dict(causal=True, window=256)),
                   (("flash_bwd_odd_padded", gB, 777, 777, 32, 8, 64),
                    dict(causal=True, pad_kv=37)),
@@ -3591,20 +3617,29 @@ def run() -> int:
                       dict(edge=e, seed=5, timed=False)) for e in SKIP_EDGE_CASES)),
                   (("flash_bwd_masked_gqa_d80", 2, 300, 333, 8, 2, 80),
                    dict(causal=True, window=96, pad_kv=5)),
-                  # Zamba2's training attention: D 80 on mma.sync, phase train (d)'s backward
+                  (("flash_bwd_below_128_queries_d80", 2, 100, 333, 8, 2, 80),
+                   dict(causal=True, window=96, pad_kv=5)),
+                  # Zamba2's training attention: phase train (d)'s backward,
+                  # and the mma.sync kernel that ran it before on the same inputs
                   (("flash_bwd_zamba_causal_d80", gB, TRAIN_S, TRAIN_S, lH, lH, lD),
                    dict(causal=True, library=True)),
+                  (("flash_bwd_zamba_causal_d80_mma", gB, TRAIN_S, TRAIN_S, lH, lH, lD),
+                   dict(causal=True, kernel="flash_attention_bwd")),
                   (("flash_bwd_edge_causal_first_key_d80", 2, 300, 333, 4, 2, 80),
-                   dict(edge="causal_first_key", seed=5, timed=False))):
+                   dict(edge="causal_first_key", seed=5, timed=False)),
+                  (("flash_bwd_edge_causal_first_key_d80_mma", 2, 300, 333, 4, 2, 80),
+                   dict(edge="causal_first_key", seed=5, timed=False,
+                        kernel="flash_attention_bwd"))):
+        kept_case = kw.pop("kept", True)
         rec, kept = flash_bwd_case(*a, **kw)
         bwd.append(rec)
-        if kw.get("kernel") is None:          # the mma.sync timing twin is not a mutant case
+        if kept_case:
             bwd_kept.append(kept)
-    # granite's forward and backward against the mma.sync kernels they
-    # replace: each one's earlier time is its twin's, on the same inputs in
-    # this run
+    # granite's forward and both training backwards against the mma.sync
+    # kernels they replace: each one's earlier time is its twin's, on the
+    # same inputs in this run
     for cases, case in ((flash, "flash_train_granite_causal_bf16"),
-                        (bwd, "flash_bwd_granite_causal")):
+                        (bwd, "flash_bwd_granite_causal"), (bwd, "flash_bwd_zamba_causal_d80")):
         by_case = {c["case"]: c for c in cases}
         by_case[case]["earlier_ms"] = by_case[f"{case}_mma"]["ms"]
     # the log-sum-exp of each writer against its plain version: the wgmma
@@ -3993,12 +4028,13 @@ def run() -> int:
 
     # launches: each kernel's count from the runs of the paths it serves, each
     # path's counts set to 0 just before it and read just after
-    # (the wgmma kernel's three instantiations get a row each: D 128 on the
-    # video paths, D 80 on the LM prefill, D 64 on the training forward;
-    # flash_decode serves the LM decode steps; flash_attention_bwd_sm90 the
-    # training backward; flash_attention.cu (mma.sync, FMA) and
-    # flash_attention_bwd.cu (mma.sync, D 80) are on no path now, and their
-    # rows carry their forced cases at granite's layer)
+    # (the wgmma kernel's instantiations get a row each: D 128 on the video
+    # paths, D 80 on the LM prefill and Zamba2's training forward, D 64 on
+    # granite's; flash_decode serves the LM decode steps;
+    # flash_attention_bwd_sm90 both training backwards, a row for each head
+    # dim; flash_attention.cu (mma.sync, FMA) and flash_attention_bwd.cu
+    # (mma.sync) are on no path now, and their rows carry their forced
+    # cases at the training layers)
     named = {c["case"]: c for c in flash}
     named_bwd = {c["case"]: c for c in bwd}
     check(named["flash_lm_prefill_causal_bf16"]["kernel"] == "flash_attention_sm90"
@@ -4006,7 +4042,7 @@ def run() -> int:
           and named["flash_train_granite_causal_bf16"]["kernel"] == "flash_attention_sm90"
           and named["flash_train_zamba_causal_bf16"]["kernel"] == "flash_attention_sm90"
           and named_bwd["flash_bwd_granite_causal"]["kernel"] == "flash_attention_bwd_sm90"
-          and named_bwd["flash_bwd_zamba_causal_d80"]["kernel"] == "flash_attention_bwd",
+          and named_bwd["flash_bwd_zamba_causal_d80"]["kernel"] == "flash_attention_bwd_sm90",
           "the prefill, decode and training cases ran other kernels than their paths'")
     path_counts = {"serve": main_counts, "lm_serve:prefill": lm_prefill_counts,
                    "lm_serve:decode": lm_decode_counts, "train": train_counts,
@@ -4053,10 +4089,17 @@ def run() -> int:
                       {k: train_paths[k]["flash_attention_bwd_sm90"] for k in train_paths}),
          "note": "no Pallas kernel: the reference trains through XLA's gradient of "
                  "attention_chunked"},
-        {**kernel_row("flash_attention_bwd", "src/repro/models/attention.py:81",
+        {**kernel_row("flash_attention_bwd_sm90_d80", "src/repro/models/attention.py:81",
                       named_bwd["flash_bwd_zamba_causal_d80"],
-                      {k: n["flash_attention_bwd"] for k, n in path_counts.items()}),
+                      {k: hybrid_paths[k]["flash_attention_bwd_sm90"] for k in hybrid_paths},
+                      source="flash_attention_bwd_sm90"),
          "note": "no Pallas kernel: D 80, Zamba2's training backward (phase train (d))"},
+        {**kernel_row("flash_attention_bwd", "src/repro/models/attention.py:81",
+                      named_bwd["flash_bwd_zamba_causal_d80_mma"],
+                      {k: n["flash_attention_bwd"] for k, n in path_counts.items()},
+                      on_path=False),
+         "note": "Zamba2's layer (D 80) forced onto flash_attention_bwd.cu: on no path, "
+                 "D 80 runs on flash_attention_bwd_sm90"},
         {**kernel_row("flash_attention_bwd_d64_forced", "src/repro/models/attention.py:81",
                       named_bwd["flash_bwd_granite_causal_mma"], {}, source="flash_attention_bwd",
                       on_path=False),
@@ -4078,8 +4121,9 @@ def run() -> int:
          "precision": f"{SSD_PASSES}xtf32", "work_split": SSD_SPLIT},
         {**kernel_row("mamba_ssd_bwd", "src/repro/models/ssm.py:54", ssd_bwd[0],
                       {k: hybrid_paths[k]["mamba_ssd_bwd"] for k in hybrid_paths}),
-         "precision": "f32 fma", "note": "no Pallas kernel: the reference trains through "
-                                         "XLA's gradient of gated_linear_scan"},
+         "precision": f"{SSD_PASSES}xtf32", "work_split": SSD_BWD_SPLIT,
+         "note": "no Pallas kernel: the reference trains through XLA's gradient of "
+                 "gated_linear_scan"},
         kernel_row("guidance_update", "src/repro/kernels/guidance_update.py:31", guidance[0],
                    {"guidance": guidance_counts["guidance_update"]}),
     ]}

@@ -69,7 +69,7 @@ _SIGNATURES = {
         "flash_attention_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention_bwd_sm90": {
-        # the arguments of flash_attention_bwd without the dtype (bf16, D 64)
+        # the arguments of flash_attention_bwd without the dtype (bf16, D 64 or 80)
         "flash_attention_bwd_sm90": ([_P] * 12 + [_I] * 6 + [_L, _L] + [_I] * 2 + [_P], _I),
         "flash_attention_bwd_sm90_error_string": ([_I], ctypes.c_char_p),
     },
@@ -107,9 +107,10 @@ _SIGNATURES = {
         # x, log_decay, scale, B, C, dy, states, dx, dlog_decay, dscale, dB, dC,
         # scratch, b, s, h, p, n, chunk, stream
         "mamba_ssd_bwd": ([_P] * 13 + [_I] * 6 + [_P], _I),
-        # b, s, h, n -> bytes of scratch (each head's share of dB and dC)
-        "mamba_ssd_bwd_scratch_bytes": ([_I, _I, _I, _I], _L),
-        # n, p, chunk -> bytes of shared memory a block takes
+        # b, s, h, p, n, chunk -> bytes of scratch (L / dS, exp(total), each
+        # head group's share of dB and dC)
+        "mamba_ssd_bwd_scratch_bytes": ([_I] * 6, _L),
+        # n, p, chunk -> bytes of shared memory the widest block takes (one stage)
         "mamba_ssd_bwd_smem_bytes": ([_I, _I, _I], _L),
         "mamba_ssd_bwd_error_string": ([_I], ctypes.c_char_p),
     },

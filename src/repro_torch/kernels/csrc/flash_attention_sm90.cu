@@ -101,7 +101,7 @@ namespace {
 
 using flash::attend;
 using flash::desc;
-using flash::desc_bits;
+using flash::desc32;
 using flash::exp2_approx;
 using flash::kPadPos;
 using flash::mbar_arrive;
@@ -171,11 +171,6 @@ __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(256) : "memory");
 }
 
-// the 16-column box of D 80: rows of 32 bytes, 8-row groups 256 bytes apart
-__device__ __forceinline__ uint64_t desc32(uint32_t addr) {
-  return desc_bits(addr, 16, 256) | (3ull << 62);
-}
-
 #define D64_REGS                                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
@@ -212,23 +207,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : D64_OPS
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D 80: d[0:32] += A B (64 x 64 x 16) and d[32:40] += A B' (64 x 16 x 16);
-// A in registers, B and B' MN-major in shared memory.  One asm statement,
-// so that nothing is scheduled between the two products (ptxas would
-// fence the registers of A again)
-__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
-                                         uint64_t dbt) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_D32_REGS
-      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
-      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"
-      " {%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %46, p, 1, 1, 1;\n}\n"
-      : FLASH_D32_OPS, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "l"(dbt));
 }
 
 // The online softmax of one tile's scores ``s`` (two rows per thread: g

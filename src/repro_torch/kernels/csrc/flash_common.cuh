@@ -13,8 +13,8 @@
 //    flash_attention_bwd.cu): m16n8k16 bf16 products, ldmatrix, cp.async;
 //  - the Hopper helpers of the two wgmma + TMA files
 //    (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers, TMA
-//    loads, wgmma descriptors and products, the host-side tensor-map
-//    encoder.
+//    loads, wgmma descriptors (D 80's 32-byte swizzled tail box too) and
+//    products, the host-side tensor-map encoder.
 #pragma once
 
 #include <cuda.h>
@@ -317,6 +317,11 @@ __device__ __forceinline__ uint64_t desc_bits(uint32_t addr, uint32_t lbo, uint3
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return desc_bits(addr, lbo, sbo) | (1ull << 62);
 }
+// D 80's 16-column box: rows of 32 bytes with the 32-byte swizzle, 8-row
+// groups 256 bytes apart (K-major, and MN-major with N 16)
+__device__ __forceinline__ uint64_t desc32(uint32_t addr) {
+  return desc_bits(addr, 16, 256) | (3ull << 62);
+}
 
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -376,6 +381,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : FLASH_D32_OPS
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D 80: d[0:32] += A B (64 x 64 x 16) and d[32:40] += A B' (64 x 16 x 16);
+// A in registers, B and B' MN-major in shared memory.  One asm statement,
+// so that nothing is scheduled between the two products (ptxas would
+// fence the registers of A again)
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
+                                         uint64_t dbt) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_D32_REGS
+      ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16"
+      " {%32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %46, p, 1, 1, 1;\n}\n"
+      : FLASH_D32_OPS, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "l"(dbt));
 }
 
 // A operands of K = 16 kk .. 16 kk + 15 from an f32 accumulator fragment of

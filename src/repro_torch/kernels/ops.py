@@ -333,21 +333,19 @@ def flash_live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
 
 
 # The backward kernels: csrc/flash_attention_bwd_sm90.cu (wgmma + TMA) at bf16
-# D 64, csrc/flash_attention_bwd.cu (mma.sync) at bf16 D 64 and 80.
+# D 64 and 80, csrc/flash_attention_bwd.cu (mma.sync) at bf16 D 64 and 80, on no
+# path (reached only through ``kernel=``: the same-run timing twin).
 BWD_KERNELS = ("flash_attention_bwd", "flash_attention_bwd_sm90")
-_BWD_TAKES = {"flash_attention_bwd_sm90": {torch.bfloat16: (64,)},
+_BWD_TAKES = {"flash_attention_bwd_sm90": {torch.bfloat16: (64, 80)},
               "flash_attention_bwd": {torch.bfloat16: (64, 80)}}
 
 
 def bwd_kernel(dtype: torch.dtype, head_dim: int):
     """The backward kernel that ``flash_attention_bwd`` runs for ``dtype``
-    at ``head_dim``, or None: bf16 D 64 on ``flash_attention_bwd_sm90``
-    (granite's training attention), bf16 D 80 on ``flash_attention_bwd``
-    (``mma.sync``)."""
-    if dtype == torch.bfloat16 and head_dim == 64:
+    at ``head_dim``, or None: bf16 D 64 (granite's training attention) and
+    D 80 (Zamba2's) on ``flash_attention_bwd_sm90``."""
+    if dtype == torch.bfloat16 and head_dim in (64, 80):
         return "flash_attention_bwd_sm90"
-    if dtype == torch.bfloat16 and head_dim == 80:
-        return "flash_attention_bwd"
     return None
 
 
@@ -432,8 +430,8 @@ flash_attention_bwd.launches = 0
 def flash_attention_bwd_sm90(q, k, v, out, dout, lse, q_positions, kv_positions, *,
                              causal: bool = True, window: int = 0):
     """``flash_attention_bwd`` on the ``wgmma`` + TMA kernel
-    (``csrc/flash_attention_bwd_sm90.cu``): bf16 at head dim 64; raises on
-    others.  Its ``launches`` count that kernel's launches, whichever
+    (``csrc/flash_attention_bwd_sm90.cu``): bf16 at head dim 64 or 80;
+    raises on others.  Its ``launches`` count that kernel's launches, whichever
     wrapper made them."""
     return flash_attention_bwd(q, k, v, out, dout, lse, q_positions, kv_positions,
                                causal=causal, window=window, kernel="flash_attention_bwd_sm90")
@@ -715,11 +713,13 @@ def mamba_ssd_bwd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
     takes none).  On CPU tensors the plain ``ref.mamba_ssd_bwd_plain``,
     which derives the states itself (``states`` may be None there).
 
-    CUDA: ``csrc/mamba_ssd_bwd.cu``, deterministic (each head's share of
-    dB and dC goes to a scratch buffer allocated here, summed over the
-    heads in order by a second launch, counted with the first as one);
-    the shapes of ``mamba_ssd`` whose tiles fit 227 KB (p, n, chunk 64 take
-    155 KB); it raises on the rest.
+    CUDA: ``csrc/mamba_ssd_bwd.cu`` (3xTF32 tensor-core products),
+    deterministic: four launches, counted as one (the local state terms
+    per chunk and head, their carry over the chunks in reverse, the
+    chunk-local gradients per (chunk, head group), the head groups' shares
+    of dB and dC summed in order), with a scratch buffer allocated here
+    (``mamba_ssd_bwd_scratch_bytes``); the shapes of ``mamba_ssd`` whose
+    tiles fit 227 KB (p, n, chunk 64 take 205 KB); it raises on the rest.
     """
     _refuse_grad("mamba_ssd_bwd", x, log_decay, scale, B, C, dy)
     if x.device.type == "cpu":
@@ -743,7 +743,7 @@ def mamba_ssd_bwd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
     if x.numel() == 0 or B.numel() == 0:
         return tuple(o.zero_() for o in outs)
     lib = build.library("mamba_ssd_bwd")
-    scratch = torch.empty(lib.mamba_ssd_bwd_scratch_bytes(b, s, h, n) // 4,
+    scratch = torch.empty(lib.mamba_ssd_bwd_scratch_bytes(b, s, h, p, n, int(chunk)) // 4,
                           dtype=torch.float32, device=x.device)
     rc = lib.mamba_ssd_bwd(*(t.data_ptr() for t in tensors.values()),
                            *(o.data_ptr() for o in outs), scratch.data_ptr(), b, s, h, p, n,

@@ -729,6 +729,103 @@ def mamba_ssd_tf32(x, log_decay, scale, B, C, chunk: int = 64,
     return y[:, :s]
 
 
+def mamba_ssd_bwd_tf32(x, log_decay, scale, B, C, dy, chunk: int = 64,
+                       passes: int = 3):
+    """The ``mamba_ssd_bwd`` kernel's pass split and arithmetic on the CPU:
+    the function of ``mamba_ssd_bwd_plain`` (B and C ``(b, s, n)``; f32
+    ``(dx, dlog_decay, dscale, dB, dC)``), with every product in
+    ``tf32_matmul`` of ``passes``.  Per (batch, chunk, head), with the
+    scalars of ``ssd_scan_bwd`` and S the forward's state entering the
+    chunk (derived here by ``ssd_scan``):
+
+    (a) the local term ``L = C^T (ec dy)``;
+    (b) the carry, a sweep over the chunks in reverse: ``dS`` (the gradient
+        of the state leaving chunk c) is 0 at the last chunk and
+        ``exp(total_{c+1}) dS_{c+1} + L_{c+1}`` before it;
+    (c) the chunk-local rest: ``M = dy x^T`` and ``G = C B^T`` on ``j <= i``;
+        ``dG = ai_i u_j M``, ``A2 = ai_i u_j G``; ``dx = A2^T dy + z (B dS)``;
+        ``E = dy S^T``, ``F = x dS^T``; each head's ``dC = dG B + ec E`` and
+        ``dB = dG^T C + z F``; and the scalars' reductions from those
+        (``dai = sum_j G u M``, ``du = sum_i G ai M``, ``dec = sum C E``,
+        ``dz = sum B F``, ``<dS, S>``), then the chain of ``ssd_scan_bwd``.
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    F = torch.nn.functional
+
+    def per_head(t):                    # (b, s, h, ...) -> (b, nc, h, Q, ...)
+        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        t = t.reshape(b, nc, chunk, *t.shape[2:])
+        return t.permute(0, 1, 3, 2, *range(4, t.dim()))
+
+    def mm(u, v):
+        return tf32_matmul(u, v, passes)
+
+    xq, dyq = per_head(x), per_head(dy)                      # (b, nc, h, Q, p)
+    a, dt = per_head(log_decay), per_head(scale)             # (b, nc, h, Q)
+    Bq = F.pad(B.float(), (0, 0, 0, pad)).reshape(b, nc, 1, chunk, n)
+    Cq = F.pad(C.float(), (0, 0, 0, pad)).reshape(b, nc, 1, chunk, n)
+    cum = torch.cumsum(a, dim=-1)
+    total = cum[..., -1]
+    mx = cum.amax(dim=-1, keepdim=True)
+    mn = cum.amin(dim=-1, keepdim=True)
+    center = 0.5 * (mx + mn)
+    ea, eb = cum - center, center - cum
+    ma = (ea >= -60.0) & (ea <= 60.0)
+    mb = (eb >= -60.0) & (eb <= 60.0)
+    ai = torch.exp(torch.clamp(ea, -60.0, 60.0))
+    bj = torch.exp(torch.clamp(eb, -60.0, 60.0))
+    w = torch.exp(total[..., None] - cum)
+    ec, et = torch.exp(cum), torch.exp(total)
+    u, z = dt * bj, w * dt
+    tie_max = (cum == mx).float()
+    tie_max = tie_max / tie_max.sum(-1, keepdim=True)
+    tie_min = (cum == mn).float()
+    tie_min = tie_min / tie_min.sum(-1, keepdim=True)
+    _, S = ssd_scan(x, log_decay, scale, B[:, :, None], C[:, :, None], chunk, True, True)
+    S = S.reshape(b, nc, h, n, p)
+    # (a) and (b)
+    L = mm(Cq.transpose(-1, -2), ec[..., None] * dyq)                    # (b, nc, h, n, p)
+    dS = torch.zeros_like(L)
+    for c in range(nc - 2, -1, -1):
+        dS[:, c] = et[:, c + 1, :, None, None] * dS[:, c + 1] + L[:, c + 1]
+    # (c)
+    lmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    G = torch.where(lmask, mm(Cq, Bq.transpose(-1, -2)), 0.0)            # (b, nc, 1, Q, Q)
+    M = torch.where(lmask, mm(dyq, xq.transpose(-1, -2)), 0.0)           # (b, nc, h, Q, Q)
+    # ai_i u_j <= dt_j on j <= i; above the diagonal it may overflow, so it
+    # is never formed there
+    au = torch.where(lmask, ai[..., :, None] * u[..., None, :], 0.0)
+    dG, A2 = au * M, au * G
+    dai = (G * u[..., None, :] * M).sum(-1)
+    du = (G * ai[..., :, None] * M).sum(-2)
+    dx = mm(A2.transpose(-1, -2), dyq) + z[..., None] * mm(Bq, dS)
+    E = mm(dyq, S.transpose(-1, -2))
+    Fm = mm(xq, dS.transpose(-1, -2))
+    dC = (mm(dG, Bq) + ec[..., None] * E).sum(2)                          # (b, nc, Q, n)
+    dB = (mm(dG.transpose(-1, -2), Cq) + z[..., None] * Fm).sum(2)
+    dec, dz = (Cq * E).sum(-1), (Bq * Fm).sum(-1)
+    det = (dS * S).sum((-1, -2))
+    # the scalars' chain (ssd_scan_bwd's)
+    ddt = bj * du + w * dz
+    dbj, dw = dt * du, dt * dz
+    ga, gb = dai * ai * ma, dbj * bj * mb
+    dcum = ga - gb - dw * w + dec * ec
+    dcen = (gb - ga).sum(-1, keepdim=True)
+    dcum[..., -1] += (dw * w).sum(-1) + det * et
+    dcum = dcum + 0.5 * dcen * (tie_max + tie_min)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+
+    def tokens(t):                      # (b, nc, h, Q, ...) -> (b, s, h, ...)
+        t = t.transpose(2, 3)
+        return t.reshape(b, nc * chunk, *t.shape[3:])[:, :s]
+
+    return (tokens(dx), tokens(da), tokens(ddt), dB.reshape(b, nc * chunk, n)[:, :s],
+            dC.reshape(b, nc * chunk, n)[:, :s])
+
+
 def mamba_ssd_ref(x, log_decay, scale, B, C) -> torch.Tensor:
     """The textbook SSD oracle of the reference's tests
     (``repro/kernels/ref.py:mamba_ssd_ref``): ``factorized=False`` at

@@ -95,6 +95,49 @@ def test_ssd_scan_bwd_matches_autograd_and_jax_vjp(case):
     _close([g.numpy() for g in got], vjp(jnp.asarray(arrays[5])), "jax.vjp")
 
 
+# b, s, h, p, n, chunk, steep: Zamba2's p = n = chunk = 64 at a ragged
+# length, steep decays with the clip active, p = n = 16, and p != n
+TF32_BWD_CASES = {
+    "zamba_ragged": (1, 150, 2, 64, 64, 64, False),
+    "steep_clipped": (1, 150, 2, 16, 16, 32, True),
+    "p16_n16": (2, 70, 3, 16, 16, 16, False),
+    "p32_n16": (1, 64, 2, 32, 16, 32, False),
+}
+
+
+def _ssd_bwd_shares(got, want):
+    """Each gradient's largest share of the card's limit for
+    ``mamba_ssd_bwd`` (``test_torch_kernels_cuda._ssd_bwd_close``): 1e-4 of
+    the gradient's max-abs plus 1e-4 of the element."""
+    shares = []
+    for g, w in zip(got, want):
+        g, w = np.asarray(g, dtype=np.float64), np.asarray(w, dtype=np.float64)
+        assert g.shape == w.shape and np.isfinite(g).all()
+        shares.append(float((np.abs(g - w) / (1e-4 * np.abs(w).max() + 1e-4 * np.abs(w))).max()))
+    return shares
+
+
+@pytest.mark.parametrize("case", sorted(TF32_BWD_CASES))
+def test_ssd_bwd_pass_split_in_3xtf32_matches_plain_and_jax_vjp(case):
+    """``ref.mamba_ssd_bwd_tf32`` (the kernel's passes: the local terms, the
+    carry, the chunk-local rest, every product in 3xTF32) within the card's
+    tolerance of ``ref.ssd_scan_bwd`` and of ``jax.vjp`` of the reference's
+    ``gated_linear_scan``; one TF32 pass misses it."""
+    b, s, h, p, n, chunk, steep = TF32_BWD_CASES[case]
+    arrays = _scan_inputs(b, s, h, p, n, steep, seed=len(case) + 7)
+    x, a, dt, Bm, Cm, dy = (torch.from_numpy(v) for v in arrays)
+    args = (x, a, dt, Bm[:, :, 0], Cm[:, :, 0], dy, chunk)
+    got = ref.mamba_ssd_bwd_tf32(*args)
+    plain = ref.mamba_ssd_bwd_plain(*args)
+    assert max(_ssd_bwd_shares(got, plain)) <= 1.0
+    _, vjp = jax.vjp(lambda *t: jssm.gated_linear_scan(*t, chunk=chunk, factorized=True),
+                     *(jnp.asarray(v) for v in arrays[:5]))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(arrays[5]))]
+    want[3], want[4] = want[3][:, :, 0], want[4][:, :, 0]
+    assert max(_ssd_bwd_shares(got, want)) <= 1.0
+    assert max(_ssd_bwd_shares(ref.mamba_ssd_bwd_tf32(*args, passes=1), plain)) > 1.0
+
+
 def test_mamba_ssd_autograd_function_on_the_cpu_is_the_plain_gradient():
     x, a, dt, Bm, Cm, dy = (torch.from_numpy(v) for v in _scan_inputs(2, 37, 3, 16, 16, True,
                                                                         seed=3))

@@ -525,15 +525,16 @@ def test_flash_attention_refuses_a_kernel_not_built_for_the_inputs(kernel, dtype
 
 
 @pytest.mark.parametrize("dtype,D,kernel", [(torch.bfloat16, 64, "flash_attention_bwd_sm90"),
-                                            (torch.bfloat16, 80, "flash_attention_bwd"),
+                                            (torch.bfloat16, 80, "flash_attention_bwd_sm90"),
                                             (torch.bfloat16, 128, None),
                                             (torch.float32, 64, None),
                                             (torch.float32, 80, None)])
 def test_backward_routing_by_head_dim(dtype, D, kernel):
-    """bf16 at D 64 (granite) goes to the wgmma + TMA backward, bf16 at D 80
-    to the mma.sync one, and no backward takes the rest (the autograd route
-    raises for them on the card before any launch); a forced kernel must be
-    one of ``BWD_KERNELS``."""
+    """bf16 at D 64 (granite) and D 80 (Zamba2) go to the wgmma + TMA
+    backward (the mma.sync one is reached only by ``kernel=``, as a timing
+    twin), and no backward takes the rest (the autograd route raises for
+    them on the card before any launch); a forced kernel must be one of
+    ``BWD_KERNELS``."""
     assert ops.bwd_kernel(dtype, D) == kernel
     if kernel is not None:
         assert kernel in ops.BWD_KERNELS and D in ops._BWD_TAKES[kernel][dtype]

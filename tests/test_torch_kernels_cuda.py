@@ -16,8 +16,9 @@ guidance_update exact (the same f32 operations in the same order);
 mamba_ssd ``5e-4 + 5e-4 |plain|``, the reference's own SSD tolerance
 (f32 throughout, sums in another order), and its states alike;
 mamba_ssd_bwd each gradient within ``1e-4 max|plain| + 1e-4 |plain|``
-(f32 FMA sums in another order, on the forward kernel's states); the flash backward (bf16, D 64
-on the wgmma + TMA kernel, D 80 on mma.sync, each fed the forward's
+(3xTF32 products and f32 sums in another order, on the forward kernel's
+states); the flash backward (bf16, D 64 and 80 on the wgmma + TMA kernel,
+and forced onto mma.sync, each fed the forward's
 log-sum-exp) within ``ref.flash_bwd_bf16_tolerance`` (P and dS rounded to
 bf16 for the products that take them, f32 sums, the bf16 results); each
 forward's log-sum-exp within ``ref.flash_lse_tolerance`` (its scores' f32
@@ -668,13 +669,17 @@ SSD_BWD_CASES = [
     (2, 300, 6, 64, 64, 64, True),      # the clip bites
     (1, 150, 4, 16, 16, 32, True),
     (2, 2048, 80, 64, 64, 64, False),   # Zamba2-2.7B's training microbatch
+    # more blocks than the card holds at once (pass (c): 3 chunks x 64 rows
+    # x 2 head groups, the second of 4 heads), so a head group's share of
+    # dB / dC not started afresh, or a carry not reset, shows
+    (64, 40, 12, 16, 16, 16, False),
 ]
 
 
 def _ssd_bwd_close(got, want):
     """Each gradient within 1e-4 of its plain version's max-abs, plus
-    1e-4 of the element (f32 sums in another order; the kernel reads the
-    forward kernel's 3xTF32 states)."""
+    1e-4 of the element (3xTF32 products and f32 sums in another order;
+    the kernel reads the forward kernel's 3xTF32 states)."""
     for name, g, w in zip(("dx", "dlog_decay", "dscale", "dB", "dC"), got, want):
         assert g.shape == w.shape and g.dtype == torch.float32, name
         assert bool(torch.isfinite(g).all()), name
@@ -707,6 +712,34 @@ def test_mamba_ssd_bwd_kernel_matches_plain(cuda_device, b, s, h, p, n, chunk, s
     _ssd_bwd_close(got, ref.mamba_ssd_bwd_plain(*args, dy, chunk=chunk))
     again = ops.mamba_ssd_bwd(*args, dy, states, chunk=chunk)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))      # deterministic
+
+
+def _fma_kernel_smem_bytes(Q, n, p):
+    """Shared memory the f32-FMA backward (the kernel before the 3xTF32
+    redesign) took at (chunk Q, n, p); it refused the shapes above 232448."""
+    return 4 * (2 * Q * (p + 1) + 2 * Q * (n + 1) + 2 * n * (p + 1) + Q * (Q + 1)
+                + 2 * Q * (max(p, n) + 1) + 16 * Q + 264)
+
+
+def test_mamba_ssd_bwd_takes_every_shape_the_fma_kernel_took(cuda_device):
+    """Every (chunk, p, n) the f32-FMA backward took fits the redesigned
+    kernel's blocks, and the three that take the most shared memory run
+    within the tolerance."""
+    from repro_torch.kernels import build
+
+    lib = build.library("mamba_ssd_bwd")
+    sizes = range(16, 129, 16)
+    took = [(Q, p, n) for Q in sizes for p in sizes for n in sizes
+            if _fma_kernel_smem_bytes(Q, n, p) <= 232448]
+    need = {s: lib.mamba_ssd_bwd_smem_bytes(s[2], s[1], s[0]) for s in took}
+    assert len(took) == 315 and max(need.values()) <= 232448
+    for chunk, p, n in sorted(need, key=need.get)[-3:]:
+        args = [t.to(cuda_device) for t in _ssd_inputs(1, 2 * chunk + 5, 3, p, n, chunk + p)]
+        dy = torch.randn((1, 2 * chunk + 5, 3, p), generator=torch.Generator("cuda").manual_seed(p),
+                         device=cuda_device)
+        _, states = ops.mamba_ssd(*args, chunk=chunk, return_states=True)
+        _ssd_bwd_close(ops.mamba_ssd_bwd(*args, dy, states, chunk=chunk),
+                       ref.mamba_ssd_bwd_plain(*args, dy, chunk=chunk))
 
 
 def test_mamba_ssd_autograd_runs_both_kernels(cuda_device):
@@ -788,8 +821,11 @@ BWD_CASES = [
     (2, 130, 190, 8, 2, 64, True, 50, 5),           # GQA, window, a ragged tile
     (2, 77, 150, 4, 1, 64, False, 0, 9),            # one kv head, no causal mask
     (1, 512, 512, 8, 2, 64, True, 0, 0),            # whole tiles: the unmasked path
-    (2, 300, 300, 4, 2, 80, True, 0, 0),            # Zamba2's head dim: mma.sync
-    (2, 100, 333, 8, 2, 80, True, 96, 5),
+    (2, 300, 300, 4, 2, 80, True, 0, 0),            # Zamba2's head dim: the split boxes
+    (2, 100, 333, 8, 2, 80, True, 96, 5),           # D 80 below 128 queries, GQA, window
+    (2, 77, 150, 4, 1, 80, False, 0, 9),            # D 80, one kv head, no causal mask
+    (2, 130, 190, 8, 2, 80, True, 50, 5),           # D 80 GQA, a ragged tile
+    (1, 512, 512, 8, 2, 80, True, 0, 0),            # D 80 whole tiles
 ]
 
 
@@ -843,7 +879,8 @@ def test_flash_backward_kernel_matches_plain(cuda_device, case):
 @pytest.mark.parametrize("case", ref.SKIP_EDGE_CASES)
 def test_flash_backward_kernel_on_skip_edges(cuda_device, case, D):
     """Positions in any order, padded interior tiles, and queries that
-    attend no key (zero gradients), on both backward kernels."""
+    attend no key (zero gradients), at both head dims of the wgmma
+    backward."""
     qp, kp, causal, window = ref.skip_edge_positions(case, 2, 300, 333, seed=5)
     q, k, v, do, _, _ = _bwd_inputs(cuda_device, 2, 300, 333, 4, 2, D, 0, seed=5)
     qp, kp = torch.from_numpy(qp).to(cuda_device), torch.from_numpy(kp).to(cuda_device)
@@ -851,6 +888,26 @@ def test_flash_backward_kernel_on_skip_edges(cuda_device, case, D):
     dq, _, _ = _bwd_checked(q, k, v, out, lse, do, qp, kp, causal, window)
     if case == "causal_first_key":
         assert float(dq[:, :127].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("D", [64, 80])
+def test_forced_mma_backward_still_matches_plain(cuda_device, D):
+    """``flash_attention_bwd.cu`` (mma.sync), on no path and kept as the
+    wgmma backward's timing twin, reached through ``kernel=``: within the
+    stated limit and deterministic at both head dims."""
+    q, k, v, do, qp, kp = _bwd_inputs(cuda_device, 2, 300, 333, 8, 2, D, 5, seed=D)
+    out, lse = _forward(q, k, v, qp, kp, True, 96)
+    before = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, out, do, lse, qp, kp, causal=True, window=96,
+                                  kernel="flash_attention_bwd")
+    assert ops.flash_attention_bwd.launches == before + 1
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, do, qp, kp, True, 96)
+    limits = ref.flash_bwd_bf16_tolerance(q, k, v, out, do, qp, kp, True, 96, plain)
+    for g, w, lim in zip(got, plain, limits):
+        assert bool(((g.float() - w.float()).abs() <= lim).all())
+    again = ops.flash_attention_bwd(q, k, v, out, do, lse, qp, kp, causal=True, window=96,
+                                    kernel="flash_attention_bwd")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 LSE_WRITERS = [("flash_attention_sm90", 64, 300), ("flash_attention_sm90", 80, 300),
@@ -888,15 +945,17 @@ def test_forward_log_sum_exp_matches_plain(cuda_device, kernel, D, Sq, edge):
     assert bool((err <= lim[~empty]).all()), float((err / lim[~empty]).max())
 
 
-def test_flash_autograd_function_runs_both_kernels(cuda_device):
+@pytest.mark.parametrize("D", [64, 80])
+def test_flash_autograd_function_runs_both_kernels(cuda_device, D):
     """Gradcheck-style agreement of ``ops.flash_attention_autograd``: its
     output is the wgmma forward's and its gradients are the wgmma + TMA
     backward's on that output and log-sum-exp, bit for bit; those are within
     the stated limit of the plain backward.  Under ``no_grad`` the
-    dispatcher of the models launches the forward alone."""
+    dispatcher of the models launches the forward alone.  Granite's head
+    dim and Zamba2's."""
     from repro_torch.models.attention import attention
 
-    q, k, v, do, qp, kp = _bwd_inputs(cuda_device, 2, 256, 256, 8, 2, 64, 0, seed=3)
+    q, k, v, do, qp, kp = _bwd_inputs(cuda_device, 2, 256, 256, 8, 2, D, 0, seed=3)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     before = ops.launch_counts()
     out = attention(*leaves, qp, kp, causal=True)
@@ -954,10 +1013,11 @@ def test_flash_backward_refuses_what_it_has_no_kernel_for(cuda_device):
         lse = torch.zeros((1, 2, 8), device=cuda_device)
         with pytest.raises(ValueError, match="no kernel for"):
             ops.flash_attention_bwd(*(x.detach() for x in (q, q, q, q, q)), lse, p, p)
-    q = torch.zeros((1, 8, 2, 80), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="no kernel for"):   # the wgmma backward is D 64 only
+    q = torch.zeros((1, 8, 2, 32), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel for"):   # the wgmma backward: D 64 and 80
         ops.flash_attention_bwd_sm90(q, q, q, q, q, torch.zeros((1, 2, 8), device=cuda_device),
                                      p, p)
+    q = torch.zeros((1, 8, 2, 80), device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="lse must be"):
         ops.flash_attention_bwd(q, q, q, q, q, None, p, p)
 

@@ -241,7 +241,7 @@ def test_expected_hybrid_train_launches_count_a_train_step(smoke, monkeypatch, k
     ``MambaSSD``, attention through ``FlashAttention``; remat's recompute
     included), equal ``expected_hybrid_train_launches`` (on the card the
     forward flash is ``flash_attention_sm90`` and the backward
-    ``flash_attention_bwd`` at Zamba2's D 80)."""
+    ``flash_attention_bwd_sm90`` at Zamba2's D 80)."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ParallelConfig
@@ -281,10 +281,12 @@ def test_expected_hybrid_train_launches_count_a_train_step(smoke, monkeypatch, k
         params, opt, _ = step_fn(params, opt, data.batch_at(s), s)
     want = smoke.expected_hybrid_train_launches(cfg.num_layers, cfg.attn_every, k,
                                                 remat != "none", 2)
-    assert sorted(want) == ["flash_attention_bwd", "flash_attention_sm90", "mamba_ssd",
+    assert sorted(want) == ["flash_attention_bwd_sm90", "flash_attention_sm90", "mamba_ssd",
                             "mamba_ssd_bwd"]
+    assert ops.bwd_kernel(torch.bfloat16, get_config("zamba2-2.7b").head_dim) \
+        == "flash_attention_bwd_sm90"
     assert counts == {"flash_attention": want["flash_attention_sm90"],
-                      "flash_attention_bwd": want["flash_attention_bwd"],
+                      "flash_attention_bwd": want["flash_attention_bwd_sm90"],
                       "mamba_ssd": want["mamba_ssd"], "mamba_ssd_bwd": want["mamba_ssd_bwd"]}
     assert counts["mamba_ssd_bwd"] == cfg.num_layers * k * 2
 
@@ -321,30 +323,33 @@ def test_flash_bwd_work_and_bound(smoke):
 
 def test_device_split_puts_both_backwards_under_flash(smoke):
     """The profiled train step's split: both backward files' kernels (the
-    wgmma one's ``bwd_delta`` included) under ``flash_bwd``, the wgmma
-    forward and its pre-pass under ``flash_fwd``; the SSD scan's forward
-    (both entries and its pre-pass) under ``ssd_fwd``, its backward's two
-    kernels under ``ssd_bwd``."""
+    wgmma one's ``bwd_delta``, ``bwd_dkdv`` and ``bwd_dq`` at either head dim
+    included) under ``flash_bwd``, the wgmma forward and its pre-pass under
+    ``flash_fwd``; the SSD scan's forward (both entries and its pre-pass)
+    under ``ssd_fwd``, its backward's four kernels (the local terms, the
+    carry, the chunk-local pass, the head groups' sum) under ``ssd_bwd``."""
     import torch
     from types import SimpleNamespace
 
     cuda = torch.autograd.DeviceType.CUDA
-    names = {"(anonymous namespace)::bwd_delta(...)": 1.0,
-             "(anonymous namespace)::bwd_dkdv(CUtensorMap_st, ...)": 2.0,
-             "(anonymous namespace)::bwd_dq(CUtensorMap_st, ...)": 4.0,
+    names = {"void (anonymous namespace)::bwd_delta<80>(...)": 1.0,
+             "void (anonymous namespace)::bwd_dkdv<80>(CUtensorMap_st, ...)": 2.0,
+             "void (anonymous namespace)::bwd_dq<64>(CUtensorMap_st, ...)": 4.0,
              "void (anonymous namespace)::bwd_prep<80>(...)": 8.0,
              "void (anonymous namespace)::flash_fwd_sm90<64>(...)": 16.0,
              "(anonymous namespace)::live_tiles_pass(...)": 32.0,
              "nvjet_hsh_128x256_64x4": 64.0, "void at::native::elementwise_kernel": 128.0,
              "void (anonymous namespace)::mamba_ssd_kernel<64, true>(...)": 256.0,
              "void (anonymous namespace)::mamba_ssd_prep<64>(...)": 512.0,
-             "(anonymous namespace)::mamba_ssd_bwd_kernel(...)": 1024.0,
-             "(anonymous namespace)::mamba_ssd_bwd_heads(...)": 2048.0}
+             "(anonymous namespace)::mamba_ssd_bwd_local(...)": 1024.0,
+             "(anonymous namespace)::mamba_ssd_bwd_carry(...)": 2048.0,
+             "void (anonymous namespace)::mamba_ssd_bwd_chunk<64>(...)": 4096.0,
+             "(anonymous namespace)::mamba_ssd_bwd_heads(...)": 8192.0}
     prof = SimpleNamespace(key_averages=lambda: [
         SimpleNamespace(key=k, self_device_time_total=us, device_type=cuda)
         for k, us in names.items()])
     assert smoke._device_split(prof) == {"flash_fwd": 48.0, "flash_bwd": 15.0,
-                                         "ssd_fwd": 768.0, "ssd_bwd": 3072.0, "matmul": 64.0,
+                                         "ssd_fwd": 768.0, "ssd_bwd": 15360.0, "matmul": 64.0,
                                          "other": 128.0}
 
 
@@ -355,15 +360,35 @@ def test_train_flops(smoke):
 
 def test_ssd_bwd_work_and_bound(smoke):
     """The SSD backward's work at Zamba2's training microbatch (2 x 2048, 80
-    heads x 64, state 64, chunk 64): 10.13 G multiply-adds (nine products
+    heads x 64, state 64, chunk 64): 8.10 G multiply-adds (eight products
     per (batch, head, chunk), the causal ones on their triangle, and the
-    Gram per (batch, chunk)) and 345 MB (x, dy, dx and the states in f32,
-    the rest small).  In 3xTF32 the products take 0.123 ms, the bytes
-    0.103 ms: the operations bound it."""
+    Gram per (batch, chunk): the kernel's split, whose elementwise sums
+    stand for the two further products per reduction the plain formulas
+    run) and 345 MB (x, dy, dx and the states in f32, the rest small).  In
+    3xTF32 the products take 0.098 ms, the bytes 0.103 ms: the bytes bound
+    it."""
     macs, nbytes = smoke.ssd_bwd_work(2, 2048, 80, 64, 64, 64)
-    assert macs == 2 * 80 * 32 * (3 * 2080 * 64 + 2 * 2080 * 64 + 5 * 64 ** 3) \
-        + 2 * 32 * 2080 * 64 == 10_127_278_080
+    assert macs == 2 * 80 * 32 * (2 * 2080 * 64 + 2 * 2080 * 64 + 4 * 64 ** 3) \
+        + 2 * 32 * 2080 * 64 == 8_103_526_400
     assert nbytes == 4 * (3 * 2 * 2048 * 80 * 64 + 2 * 32 * 80 * 64 * 64 + 4 * 2 * 2048 * 80
                           + 4 * 2 * 2048 * 64) == 344_981_504
     ms, by = smoke.bound(2.0 * macs * smoke.SSD_PASSES, nbytes, smoke.H100_TF32_FLOPS)
-    assert by == "operations" and ms == pytest.approx(0.12276, rel=1e-3)
+    assert by == "bytes" and ms == pytest.approx(0.10298, rel=1e-3)
+    ops_ms = 2.0 * macs * smoke.SSD_PASSES / smoke.H100_TF32_FLOPS * 1e3
+    assert ops_ms == pytest.approx(0.09822, rel=1e-3)
+
+
+@pytest.mark.parametrize("table", ["FLASH_MUTANTS", "BWD_MUTANTS", "QB_MUTANTS", "SSD_MUTANTS",
+                                   "SSD_BWD_MUTANTS"])
+def test_every_mutant_finds_its_source_text_once(smoke, table):
+    """Each broken copy ``chip_smoke.py`` builds replaces a text that occurs
+    exactly once in the source it names (``build_mutants`` refuses any
+    other count on the card), and the replacement differs from it."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    mutants = getattr(smoke, table)
+    assert mutants
+    for name, spec in mutants.items():
+        fname, old, new = spec if len(spec) == 3 else ("mamba_ssd_bwd.cu", *spec)
+        assert (csrc / fname).read_text().count(old) == 1, (name, fname)
+        assert old != new, name
+

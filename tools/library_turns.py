@@ -22,7 +22,10 @@ Cases: granite-3-2b's training attention (a microbatch of 2 x 2048
 tokens, 32 / 8 x 64 heads, causal): the forward (the wgmma kernel, which
 writes the log-sum-exp) against SDPA, and the backward (the wgmma + TMA
 backward, fed that log-sum-exp) against the backward of SDPA's autograd
-graph; Zamba2-2.7B's prefill (2 x 4096 tokens, 32 x 80 heads, causal);
+graph; Zamba2-2.7B's training attention's backward (a microbatch of 2 x
+2048 tokens, 32 x 80 heads, causal; the same wgmma + TMA backward at D
+80, fed the D-80 forward's log-sum-exp) against SDPA's autograd backward;
+Zamba2-2.7B's prefill (2 x 4096 tokens, 32 x 80 heads, causal);
 the video DiT's self- and cross-attention at B 16 (3120 tokens, 12 x 128
 heads; 512 context tokens); a hybrid rank's (B 2, 3510 tokens) and a
 K-2 survivor's (B 2, 5070 tokens) self-attention, and the rank's
@@ -46,6 +49,7 @@ ROOT = Path(__file__).resolve().parents[1]
 BF16_CASES = (   # name, (B, Sq, Skv, H, KV, D), causal
     ("granite_fwd_d64_causal", (2, 2048, 2048, 32, 8, 64), True),
     ("granite_bwd_d64_causal", (2, 2048, 2048, 32, 8, 64), True),
+    ("zamba_bwd_d80_causal", (2, 2048, 2048, 32, 32, 80), True),
     ("prefill_d80_causal", (2, 4096, 4096, 32, 32, 80), True),
     ("self_b16_d128", (16, 3120, 3120, 12, 12, 128), False),
     ("cross_b16_d128", (16, 3120, 512, 12, 12, 128), False),

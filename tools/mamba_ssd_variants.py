@@ -3,7 +3,8 @@
 
     python3 tools/mamba_ssd_variants.py
 
-Builds copies of ``csrc/mamba_ssd.cu`` with one choice changed, serves
+Builds copies of ``csrc/mamba_ssd.cu`` (and of ``csrc/ssd_common.cuh``,
+its TF32 helpers) with one choice changed, serves
 each in place of the kernel and times it (CUDA events, 20 calls after 3)
 against the kernel as it is, in turns (as is, each copy, each copy in
 reverse order, as is), at Zamba2-2.7B's prefill scan (x (2, 4096, 80,
@@ -37,19 +38,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = "mamba_ssd.cu"
+HDR = "ssd_common.cuh"   # the TF32 helpers it shares with the backward
 VARIANTS = {
     "slice32": (SRC, "constexpr int kSlice = 16;", "constexpr int kSlice = 32;"),
     "one_unit": (SRC, "constexpr int kMaxUnits = kSlice == 16 ? 5 : 3;",
                  "constexpr int kMaxUnits = 1;"),
     "one_stage": (SRC, "for (int st = 2; st >= 1", "for (int st = 1; st >= 1"),
-    "one_pass_tf32": (SRC, "  mma(small, alo, bhi);\n  mma(small, ahi, blo);\n", ""),
-    "cvt_rna": (SRC, "  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
+    "one_pass_tf32": (HDR, "  mma(small, alo, bhi);\n  mma(small, ahi, blo);\n", ""),
+    "cvt_rna": (HDR, "  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
                      "  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;\n",
                 r'''  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
   const float r = v - __uint_as_float(hi);
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
 '''),
-    "lo_unrounded": (SRC, "  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;\n",
+    "lo_unrounded": (HDR, "  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;\n",
                      "  lo = __float_as_uint(v - __uint_as_float(hi));\n"),
     "no_prep": (SRC, "  prep<<<dim3(nch, b), kPrepThreads, prep_smem, st>>>(prm);\n", ""),
     "no_state_update": (SRC, "        if (n0 >= N) break;", "        break;"),
@@ -76,7 +78,7 @@ def main() -> int:
 
     smi = cs.nvidia_smi_line()
     print(build.build(("mamba_ssd",))["mamba_ssd"], flush=True)
-    tmp, built = cs.build_mutants("mamba_ssd_variants_", VARIANTS, (SRC,),
+    tmp, built = cs.build_mutants("mamba_ssd_variants_", VARIANTS, (SRC, HDR),
                                   {m: ("mamba_ssd",) for m in VARIANTS})
     result = {"nvidia_smi": smi, "shape": SHAPE, "chunk": CHUNK, "share_of_limit": {},
               "ms": {}}
