@@ -16,7 +16,10 @@ Phases, one line each (any failed check exits non-zero):
                480p latent.  The LM decode step's flash (flash_decode.cu)
                at Zamba2's decode cache (63 of 4096 slots valid) and a
                full one, each beside the mma.sync kernel it replaced on
-               that path, timed in the same run.  latent_blend (bit-equal;
+               that path, timed in the same run; at D 128 (the new LMs'
+               decode step) at internvl2's shape (4 x 48 / 8 x 128, 63
+               and 4096 of 4096 slots valid) and llama3's group of 16,
+               SDPA beside each with a boolean mask.  latent_blend (bit-equal;
                its library yardstick a banded torch.matmul), int8_quantize
                (bit-equal; one kernel a call, no memset) and dequant_blend
                (bit-equal, f32 and bf16 out; its yardstick two calls,
@@ -35,7 +38,9 @@ Phases, one line each (any failed check exits non-zero):
                swizzle), each caught by a case of the D-80 wgmma kernel,
                three of flash_decode.cu (the split merge without its
                rescale; the last split dropped; kv_len taken as one more
-               key), each caught by a case of flash_decode, two of
+               key), each caught by a case of flash_decode, one more of
+               it (P.V over the first 80 dims only) that only a D-128
+               decode case may catch, two of
                int8_quantize.cu (a block-local max with no exchange
                between a slab's blocks; a reciprocal multiply), two of
                latent_blend.cu and three of dequant_blend.cu (the k order
@@ -54,7 +59,9 @@ Phases, one line each (any failed check exits non-zero):
                100 queries and the causal edge.  Each writer's log-sum-exp (the wgmma kernel at D 64,
                80 and 128, flash_attention.cu at 64 and 80) against
                ref.flash_attention_lse_ref within ref.flash_lse_tolerance.
-               Twelve broken copies must each fail a case: five of the
+               Granite-moe's layer (2 x 2048, 24 / 8 x 64, causal: groups
+               of 3) forward and backward on the wgmma kernels, each beside
+               SDPA.  Twelve broken copies must each fail a case: five of the
                wgmma backward (Delta left out, a group's last head dropped,
                the transposed live-tile test with < for <=, dK unscaled, dQ
                reading the previous stage's K), one of its D-80 tail (dK's
@@ -141,6 +148,22 @@ Phases, one line each (any failed check exits non-zero):
                and make_decode_step (4 requests, 32 prompt tokens
                teacher-forced, 32 generated greedily, cache 4096: 9
                flash_decode launches and nothing else per step).
+  7a. lm_families — the MoE, VLM and remaining dense configs at their
+               published widths, bf16, random weights, through the serve
+               steps: granite-moe-3b-a800m (32 layers, 2 x 4096 prefill,
+               4 requests x 32 + 32 tokens), internvl2-26b (48 layers,
+               1 x 4096 with 256 vision tokens, 4 x 8 steps),
+               h2o-danube-1.8b (24 layers, a 6144-token prompt past its
+               4096-key window, decode from 6144 in an 8192-slot cache),
+               minitron-4b (32 layers, decode after a 4096-token prompt),
+               llama3-405b and llama4-maverick-400b-a17b at one layer (1 x
+               2048, 4 x 8 steps): each prefill exactly num_layers
+               flash_attention_sm90 launches and each decode step num_layers
+               flash_decode launches, nothing else; finite logits; the MoE
+               routing of the first layer card vs CPU (tokens whose top-k
+               sets differ); for danube and minitron the decode's logits
+               against a forward over the same tokens (bf16 gap measured,
+               the same weights in f32 held to 3e-2).
   7b. train — granite-3-2b (40 layers, d_model 2048, 32 / 8 x 64 heads,
                bf16, random weights) through make_train_step (remat full,
                2 microbatches, AdamW) on SyntheticLMStream batches of 4 x
@@ -162,7 +185,13 @@ Phases, one line each (any failed check exits non-zero):
                backward, matmul, other); then its restart drill at one
                group (6 blocks and one shared attention, Adafactor, a
                failure at step 3 of 6, bit-equal) in a process of its own
-               (``--train-drill hybrid``).
+               (``--train-drill hybrid``).  (e) granite-moe-3b-a800m at its
+               published widths and depth (32 layers of 40 experts padded to
+               48, top 8, bf16, random weights) at the same batch and
+               settings: a warm-up step, 3 timed steps (384
+               flash_attention_sm90 and 192 flash_attention_bwd_sm90
+               launches, nothing else), one profiled; its drill at 2 layers
+               (``--train-drill moe``, bit-equal).
   8. guidance — the fused CFG + Euler entry point ops.guidance_update
                (no path of the reference calls it) driven over the 4-step
                schedule on the 480p latent (1, 13, 60, 104, 16), f32 and
@@ -178,8 +207,8 @@ Phases, one line each (any failed check exits non-zero):
 Then one JSON line of every kernel (flash_attention.cu's and
 flash_attention_bwd.cu's rows, on no path now, on the training cases
 forced onto them), the card's name and power limit, and the result line.
-``python3 chip_smoke.py --train-drill [hybrid]`` is phase train's drill
-(granite's, or Zamba2's) alone, as the phase runs it.  Detailed numbers go to chiprun_out/chip_smoke.json.
+``python3 chip_smoke.py --train-drill [hybrid|moe]`` is phase train's drill
+(granite's, Zamba2's or granite-moe's) alone, as the phase runs it.  Detailed numbers go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -274,17 +303,25 @@ FLASH_MUTANTS.update({
     "decode:last_split_dropped": ("flash_decode.cu", "s0 + u < p.splits && ml[u].y > 0.f",
                                   "s0 + u < p.splits - 1 && ml[u].y > 0.f"),
     "decode:kv_len_off_by_one": ("flash_decode.cu", "kp[e] < kl", "kp[e] <= kl"),
+    # P.V over the first 80 dims only (D 80's 10 dim blocks): at D 128 the
+    # output's dims 80-127 stay zero; D 64 and 80 are untouched
+    "decode:pv_first_80_dims": ("flash_decode.cu", "for (int db = 0; db < DB; db += 2) {",
+                                "for (int db = 0; db < (DB < 10 ? DB : 10); db += 2) {"),
 })
 FLASH_MUTANT_LIBS = {"skip_off_by_one": ("flash_attention", "flash_attention_sm90"),
                      "no_rescale": ("flash_attention_sm90",),
                      "d80_tail_swizzle": ("flash_attention_sm90",),
                      "decode:merge_skips_rescale": ("flash_decode",),
                      "decode:last_split_dropped": ("flash_decode",),
-                     "decode:kv_len_off_by_one": ("flash_decode",)}
+                     "decode:kv_len_off_by_one": ("flash_decode",),
+                     "decode:pv_first_80_dims": ("flash_decode",)}
 FLASH_SOURCES = ("flash_attention", "flash_attention_sm90", "flash_decode")
 # each flash mutant must fail a case of this kernel at this head dim
 MUTANT_CATCHER = {m: ("flash_decode", 80) if m.startswith("decode:")
                   else ("flash_attention_sm90", 80) for m in FLASH_MUTANTS}
+MUTANT_CATCHER["decode:pv_first_80_dims"] = ("flash_decode", 128)
+# mutants that only cases of their catcher's kernel and head dim may catch
+MUTANT_ONLY = ("decode:pv_first_80_dims",)
 # broken copies of the wire quantize and the stitch: (file, source text,
 # replacement); each must fail its kernel's check on at least one case
 QB_MUTANTS = {
@@ -407,6 +444,30 @@ SSD_BWD_MUTANTS = {
     # the carry swept from the first chunk to the last
     "carry_swept_forward": ("{ return nch - 1 - j; }", "{ return j; }"),
 }
+# (e) the MoE LM, granite-moe-3b-a800m at its published widths and depth
+# (hf:ibm-granite/granite-3.0-1b-a400m-base as the reference configures it: 32
+# layers, d_model 1536, 24 / 8 x 64 heads, 40 experts of d_ff 512 padded to
+# 48, top 8), on granite's batch and ParallelConfig; its drill at 2 layers
+MOE_TRAIN_ARCH = "granite-moe-3b-a800m"
+MOE_TRAIN_DRILL = dict(DRILL)
+# phase lm_families: (arch, layers (None: published depth), prefill (B, S),
+# decode (requests, teacher-forced prompt tokens, generated tokens, cache
+# slots, start position), consistency: greedy decode against a forward over
+# the same tokens).  llama3-405b (126 layers, ~3.2 B parameters a layer) and
+# llama4-maverick (48 layers of 128 experts, 32.2 GB of experts a layer) do
+# not fit the card's 80 GB at depth: one layer each, at full width.
+# h2o-danube's prompt of 6144 passes its 4096-key window, and its decode
+# runs from there; minitron's decode follows its 4096-token prompt.
+FAMILY_RUNS = (
+    ("granite-moe-3b-a800m", dict(layers=None, prefill=(2, 4096), decode=(4, 32, 32, 4096, 0))),
+    ("internvl2-26b", dict(layers=None, prefill=(1, 4096), decode=(4, 1, 8, 4096, 0))),
+    ("h2o-danube-1.8b", dict(layers=None, prefill=(1, 6144), decode=(4, 1, 8, 8192, 6144),
+                             consistency=True)),
+    ("minitron-4b", dict(layers=None, prefill=(1, 4096), decode=(4, 1, 8, 8192, 4096),
+                         consistency=True)),
+    ("llama3-405b", dict(layers=1, prefill=(1, 2048), decode=(4, 1, 8, 4096, 0))),
+    ("llama4-maverick-400b-a17b", dict(layers=1, prefill=(1, 2048), decode=(4, 1, 8, 4096, 0))),
+)
 NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
 
 
@@ -626,7 +687,7 @@ def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
         if lens is not None:
             mask = (kp_eff != ref.INT32_MAX)[:, None, None, :]
             library_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask), reps)
+                qt, kt, vt, attn_mask=mask, enable_gqa=H != KV), reps)
         else:
             library_ms = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=H != KV), reps)
@@ -696,7 +757,7 @@ def flash_mutants(kept):
     try:
         before, caught = ops.launch_counts(), {}
         for m, sos in built.items():
-            caught[m], by_catcher = [], False
+            caught[m], by_catcher, others = [], False, []
             with contextlib.ExitStack() as stack:
                 for lib, so in sos.items():
                     stack.enter_context(build.substituted(lib, build.load(lib, so)))
@@ -711,7 +772,11 @@ def flash_mutants(kept):
                     if not ok:
                         caught[m].append(f"{name} [{kernel}] ({share:.3g} of the limit)")
                         by_catcher |= (kernel, q.shape[-1]) == MUTANT_CATCHER[m]
+                        if (kernel, q.shape[-1]) != MUTANT_CATCHER[m]:
+                            others.append(name)
             check(caught[m], f"mutant {m} of the flash sources passed every check")
+            check(m not in MUTANT_ONLY or not others, f"mutant {m} was caught by cases other "
+                                                       f"than {MUTANT_CATCHER[m]}: {others}")
             check(by_catcher, f"mutant {m} passed every case of {MUTANT_CATCHER[m][0]} at D "
                               f"{MUTANT_CATCHER[m][1]} (caught by {caught[m]})")
         for n, v in before.items():
@@ -2848,15 +2913,17 @@ def _device_split(prof):
     return split
 
 
-def train_drill(hybrid: bool = False) -> int:
+def train_drill(family: str = "dense") -> int:
     """Phase train (b), run by ``chip_smoke.py --train-drill`` in a process
     of its own with ``CUBLAS_WORKSPACE_CONFIG`` set before the first cuBLAS
     call and deterministic algorithms on: granite-3-2b at its published
     widths cut to ``DRILL["layers"]`` layers, Adafactor, ``run_training`` for
     ``DRILL["steps"]`` steps with a checkpoint every ``DRILL["ckpt_every"]``,
     once clean and once with ``FailureInjector(fail_at=DRILL["fail_at"])``;
-    ``hybrid`` (``--train-drill hybrid``, phase train (d)): zamba2-2.7b cut
-    to ``HYBRID_TRAIN_DRILL["layers"]`` blocks (one group) the same way.
+    ``family`` "hybrid" (``--train-drill hybrid``, phase train (d)):
+    zamba2-2.7b cut to ``HYBRID_TRAIN_DRILL["layers"]`` blocks (one group)
+    the same way; "moe" (``--train-drill moe``, phase train (e)):
+    granite-moe-3b-a800m cut to ``MOE_TRAIN_DRILL["layers"]`` layers.
     Prints one ``DRILL {json}`` line: restarts, final step, whether the
     losses and the final parameters and optimizer state are bit-equal, the
     launch counts of both runs."""
@@ -2876,9 +2943,9 @@ def train_drill(hybrid: bool = False) -> int:
           "the drill needs CUBLAS_WORKSPACE_CONFIG=:4096:8 before its first cuBLAS call")
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    drill = HYBRID_TRAIN_DRILL if hybrid else DRILL
-    cfg = dataclasses.replace(get_config(HYBRID_TRAIN_ARCH if hybrid else TRAIN_ARCH),
-                              num_layers=drill["layers"])
+    drill, arch = {"dense": (DRILL, TRAIN_ARCH), "hybrid": (HYBRID_TRAIN_DRILL, HYBRID_TRAIN_ARCH),
+                   "moe": (MOE_TRAIN_DRILL, MOE_TRAIN_ARCH)}[family]
+    cfg = dataclasses.replace(get_config(arch), num_layers=drill["layers"])
     model = models.build(cfg, "cuda")
     step_fn = make_train_step(model, ParallelConfig(**{**TRAIN_PARALLEL,
                                                        "optimizer": drill["optimizer"]}),
@@ -2949,6 +3016,10 @@ def train_steps(cfg, want: dict, run: str):
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree.flatten(params)[0])
     n_matmul = n_params - params["embed"]["emb"].numel()
+    if cfg.is_moe:           # the experts' parameters that multiply a token: top_k of them
+        experts = params["layers"]["moe"]
+        n_matmul -= sum(experts[w]["w"].numel() for w in ("wi", "wg", "wo"))
+        n_matmul += cfg.num_layers * cfg.experts_top_k * 3 * cfg.d_model * cfg.d_ff_expert
     data = SyntheticLMStream(cfg, batch=TRAIN_B, seq_len=TRAIN_S, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3142,6 +3213,264 @@ def hybrid_train_phase():
         lambda n: expected_hybrid_train_launches(HYBRID_TRAIN_DRILL["layers"], cfg.attn_every,
                                                  mb, True, n), "hybrid")
     return rec, counts, drill_counts
+
+
+def moe_train_phase():
+    """Phase train (e): granite-moe-3b-a800m at its published widths and
+    depth through ``train_steps`` (the flash launches of granite's D 64,
+    here GQA 24 / 8: ``expected_train_launches``), then its restart drill
+    at 2 layers (``--train-drill moe``).  Returns the record and the
+    launch counts of the timed steps and of the drill, each set to 0 just
+    before it and read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    mb, remat = TRAIN_PARALLEL["microbatch"], TRAIN_PARALLEL["remat"] != "none"
+    check(ops.flash_kernel(torch.bfloat16, cfg.head_dim, TRAIN_S) == "flash_attention_sm90"
+          and ops.bwd_kernel(torch.bfloat16, cfg.head_dim) == "flash_attention_bwd_sm90",
+          "granite-moe's training attention is not on flash_attention_sm90.cu and "
+          "flash_attention_bwd_sm90.cu")
+    want = expected_train_launches(cfg.num_layers, mb, remat, TRAIN_STEPS)
+    rec, counts, trained = train_steps(cfg, want, "moe")
+    del trained
+    torch.cuda.empty_cache()
+    rec["drill"], drill_counts = train_drill_run(
+        "moe_drill", MOE_TRAIN_DRILL,
+        lambda n: expected_train_launches(MOE_TRAIN_DRILL["layers"], mb, True, n), "moe")
+    return rec, counts, drill_counts
+
+
+def _family_cfg(arch: str, layers):
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else dc.replace(cfg, num_layers=layers)
+
+
+def fill_cache(cfg, params, tokens, cache):
+    """A dense stack's prompt written into its decode cache: the layers run
+    over ``tokens (B, S)`` as the forward does, each layer's roped k and v
+    stored at slots 0 .. S - 1 (what S decode steps would store).  Returns
+    the last position's logits.  A helper of this phase: the serve steps
+    have no prefill that fills a cache."""
+    import torch
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import apply_rope, dense, embed, rmsnorm
+
+    B, S = tokens.shape
+    KV, D = cfg.num_kv_heads, cfg.head_dim
+    x = embed(params["embed"]["emb"], tokens)
+    pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    for li, layer in enumerate(tr._unbind(params["layers"])):
+        xn = rmsnorm(x, cfg.norm_eps, layer["attn_norm"]["scale"])
+        k = dense(layer["attn"]["k"]["w"], xn).reshape(B, S, KV, D)
+        cache["k"][li, :, :S] = apply_rope(k, pos, cfg.rope_theta)
+        cache["v"][li, :, :S] = dense(layer["attn"]["v"]["w"], xn).reshape(B, S, KV, D)
+        x, _ = tr.lm_block_apply(cfg, layer, x, pos)
+    h = rmsnorm(x[:, -1:], cfg.norm_eps, params["final_norm"]["scale"])
+    return tr.logits_fn(params, h, cfg)
+
+
+def routing_vs_cpu(cfg, params, tokens) -> dict:
+    """The MoE routing of the first layer on the card against the CPU on the
+    same inputs: the card's input of that layer's router (the prompt through
+    its attention half), routed on both; the tokens whose top-k expert sets
+    differ, and the smallest gap between a token's k-th and (k+1)-th
+    probability on the card (a tie there is where the two may differ)."""
+    import torch
+    from repro_torch.models import moe, transformer as tr
+    from repro_torch.models.attention import gqa_apply
+    from repro_torch.models.layers import embed, rmsnorm
+
+    layer = tr._unbind(params["layers"])[0]
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = embed(params["embed"]["emb"], tokens)
+    x = x + gqa_apply(layer["attn"], rmsnorm(x, cfg.norm_eps, layer["attn_norm"]["scale"]), pos,
+                      cfg.rope_theta, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    xin = rmsnorm(x, cfg.norm_eps, layer["mlp_norm"]["scale"]).reshape(B * S, -1)
+    router = {"router": {"w": layer["moe"]["router"]["w"]}}
+    card = moe.router_probs(router, xin, cfg.num_experts)
+    cpu = moe.router_probs({"router": {"w": router["router"]["w"].cpu()}}, xin.cpu(),
+                           cfg.num_experts)
+    k = cfg.experts_top_k
+    sets = [torch.topk(pr, k, dim=-1)[1].sort(dim=-1)[0].cpu() for pr in (card, cpu)]
+    srt = card.sort(dim=-1, descending=True)[0]
+    return {"tokens": B * S, "top_k_sets_differ": int((sets[0] != sets[1]).any(-1).sum()),
+            "min_kth_gap": float((srt[:, k - 1] - srt[:, k]).min())}
+
+
+def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
+    """Phase lm_families, one config at its published widths (depth cut to
+    ``spec["layers"]`` where given), bf16, random weights from seed 0,
+    through the LM serve steps.  Prefill of ``spec["prefill"]`` tokens (a
+    VLM's batch with ``vision_patches``), cold then warm, each exactly
+    ``num_layers`` flash_attention_sm90 launches and no other kernel.  Then
+    ``spec["decode"]`` = (requests, teacher-forced prompt tokens, generated
+    tokens, cache slots, start position): each step exactly ``num_layers``
+    flash_decode launches and nothing else; a start past 0 first fills the
+    cache with prompts of that length (``fill_cache``, request 0's the
+    prefill's prompt).  With ``spec["consistency"]``, the greedy decode's
+    logits against a forward over the prompts and the fed tokens: measured
+    in bf16, and held within ``LM_CONSISTENCY_TOL`` with the same weights in
+    f32 (the same steps again, on the f32 flash kernel; bf16 rounds the two
+    orders of work apart by ~0.1 at full width, granite-3-2b's gap too).  Returns the record and the launch counts of the
+    prefills and of the decode, each set to 0 just before and read just
+    after.  ``device`` and ``cfg`` let a CPU run check the phase at a
+    reduced config (no kernel launches there, so none is expected)."""
+    import torch
+    from repro_torch import models
+    from repro_torch.kernels import ops
+    from repro_torch.models import frontends
+    from repro_torch.models.dit import _map_tree
+    from repro_torch.models.transformer import logits_fn
+    from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
+
+    cfg = cfg or _family_cfg(arch, spec["layers"])
+    L = cfg.num_layers
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = models.build(cfg, device)
+    params = lm.init(0)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(_leaves(_map_tree(lambda t: t.numel(), params)))
+    prefill, decode = make_prefill_step(lm, cfg), make_decode_step(lm, cfg)
+    g = torch.Generator(device=device).manual_seed(11)
+    pB, pS = spec["prefill"]
+    tokens = torch.randint(0, cfg.vocab_size, (pB, pS), generator=g, device=device)
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = frontends.vision_patches(g, pB, cfg, device)
+    pre_flash = ops.flash_kernel(torch.bfloat16, cfg.head_dim, pS)
+    dec_flash = ops.flash_kernel(torch.bfloat16, cfg.head_dim, 1)
+    check(not on_card or (pre_flash == "flash_attention_sm90" and dec_flash == "flash_decode"),
+          f"{arch}: prefill on {pre_flash}, decode on {dec_flash}")
+    want_pre, want_dec = ({pre_flash: L}, {dec_flash: L}) if on_card else ({}, {})
+    ops.reset_launch_counts()
+    walls, logits = [], []
+    for _ in range(2):                                  # cold, warm
+        before = ops.launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = prefill(params, batch)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == {**{k: 0 for k in got}, **want_pre},
+              f"{arch} prefill launches {got}, expected {want_pre} and no other kernel")
+        logits.append(out)
+    prefill_counts = ops.launch_counts()
+    check(tuple(logits[1].shape) == (pB, 1, cfg.padded_vocab_size)
+          and bool(torch.isfinite(logits[1]).all()), f"{arch}: prefill logits "
+          f"{tuple(logits[1].shape)} not finite or misshapen")
+    rec = {"arch": arch, "layers": L, "params": n_params, "init_s": init_s,
+           "prefill": [pB, pS], "prefill_cold_s": walls[0], "prefill_warm_s": walls[1],
+           "prefill_tokens_per_s": pB * pS / walls[1],
+           "cold_vs_warm_max_diff": float((logits[0] - logits[1]).abs().max())}
+    if cfg.is_moe:
+        rec["routing_vs_cpu"] = routing_vs_cpu(cfg, params, tokens)
+
+    n_req, prompt, gen, max_len, start = spec["decode"]
+    cache = lm.init_cache(n_req, max_len)
+    prompts = torch.randint(0, cfg.vocab_size, (n_req, max(start, 1) + prompt), generator=g,
+                            device=device)
+    if start:
+        prompts[0, :pS] = tokens[0, :pS]
+        first = fill_cache(cfg, params, prompts[:, :start], cache)
+        prompts[:, start] = first[:, -1].argmax(-1)      # the greedy token after each prompt
+    ops.reset_launch_counts()
+    tok, fed, outs, step_s = prompts[:, start:start + 1], [], [], []
+    for t in range(prompt + gen - 1):
+        pos = torch.full((n_req,), start + t, dtype=torch.int32, device=device)
+        before = ops.launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        lg, cache = decode(params, {"token": tok, "position": pos}, cache)
+        nxt = lg[:, -1].argmax(dim=-1, keepdim=True)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        got = {k: after[k] - before[k] for k in after}
+        check(got == {**{k: 0 for k in got}, **want_dec},
+              f"{arch} decode step {t}: launches {got}, expected {want_dec} and nothing else")
+        check(bool(torch.isfinite(lg).all()), f"{arch} decode step {t}: logits not finite")
+        fed.append(tok)
+        outs.append(lg)
+        tok = prompts[:, start + t + 1:start + t + 2] if t + 1 < prompt else nxt
+    decode_counts = ops.launch_counts()
+    warm = sorted(step_s[1:])
+    rec.update({"decode": list(spec["decode"]), "decode_step_s": step_s,
+                "decode_step_ms_median": 1e3 * warm[len(warm) // 2],
+                "peak_gb": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+                "launches": {"prefill": prefill_counts, "decode": decode_counts}})
+    if spec.get("consistency"):
+        # the same tokens teacher-forced through one forward: its logits at the
+        # positions of the decode steps against theirs.  In bf16 the gap is
+        # measured (bf16 roundings of the two orders of work); the same weights
+        # in f32, the cache filled and the same tokens stepped again, are held
+        # to LM_CONSISTENCY_TOL, as the CPU tests hold the reduced f32 model
+        seq = torch.cat([prompts[:, :start]] + fed, dim=1)
+        hidden, _ = lm.forward(params, {"tokens": seq})
+        gap_bf16 = float((logits_fn(params, hidden[:, start:], cfg)
+                          - torch.cat(outs, dim=1)).abs().max())
+        del hidden, cache
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        lm32, p32 = models.build(cfg32, device), _map_tree(lambda x: x.float(), params)
+        cache = lm32.init_cache(n_req, max_len)
+        fill_cache(cfg32, p32, prompts[:, :start], cache)
+        outs = []
+        for t, tk in enumerate(fed):
+            pos = torch.full((n_req,), start + t, dtype=torch.int32, device=device)
+            outs.append(lm32.decode(p32, tk, cache, pos)[0])
+        full = logits_fn(p32, lm32.forward(p32, {"tokens": seq})[0][:, start:], cfg32)
+        stepped = torch.cat(outs, dim=1)
+        gap = float((full - stepped).abs().max())
+        rec["prefill_vs_decode_max_abs"] = {"bf16": gap_bf16, "f32": gap}
+        check(bool(torch.allclose(full, stepped, rtol=LM_CONSISTENCY_TOL,
+                                  atol=LM_CONSISTENCY_TOL)),
+              f"{arch}: f32 decode steps from position {start} disagree with the forward over "
+              f"the same tokens (max abs {gap:.3e}, allclose {LM_CONSISTENCY_TOL})")
+        del lm32, p32, full, stepped
+    routing = rec.get("routing_vs_cpu")
+    print(f"phase=lm_families arch={arch} layers={L} params={n_params} init_s={init_s:.1f} "
+          f"prefill={pB}x{pS} cold_s={walls[0]:.4f} warm_s={walls[1]:.4f} "
+          f"tokens_per_s={pB * pS / walls[1]:.0f} {pre_flash}_per_prefill={L} "
+          f"decode={spec['decode']} step_ms_median={rec['decode_step_ms_median']:.2f} "
+          f"{dec_flash}_per_step={L} peak_mem_gb={num(rec['peak_gb'], '.2f')}"
+          + (f" prefill_vs_decode_max_abs_bf16={rec['prefill_vs_decode_max_abs']['bf16']:.3e} "
+             f"(measured) f32={rec['prefill_vs_decode_max_abs']['f32']:.3e} (allclose "
+             f"{LM_CONSISTENCY_TOL})" if spec.get("consistency") else "")
+          + (f" routing_vs_cpu={routing}" if routing else "") + f" card=[{smi}]", flush=True)
+    del params, cache, lm, logits, out
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec, prefill_counts, decode_counts
+
+
+def lm_families(smi: str):
+    """Phase lm_families: every config of ``FAMILY_RUNS`` through
+    ``lm_family``.  Returns the records and the launch counts by path
+    (``lm_families:<arch>:prefill`` / ``:decode``)."""
+    recs, counts = {}, {}
+    t0 = time.perf_counter()
+    for arch, spec in FAMILY_RUNS:
+        recs[arch], counts[f"lm_families:{arch}:prefill"], \
+            counts[f"lm_families:{arch}:decode"] = lm_family(arch, spec, smi)
+    recs["phase_s"] = time.perf_counter() - t0
+    print(f"phase=lm_families phase_s={recs['phase_s']:.1f}", flush=True)
+    return recs, counts
 
 
 def psnr_db(a, b) -> float:
@@ -3584,6 +3913,22 @@ def run() -> int:
          dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
         (("flash_masked_gqa_bf16_d64_decode", 2, 3, 333, 8, 4, 64, torch.bfloat16),
          dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
+        # the D-128 LMs' decode step on flash_decode: internvl2's (4 requests,
+        # 48 / 8 x 128 heads, a 4096-slot cache with 63 and then 4096 valid
+        # keys) and llama3's group of 16 (128 / 8 heads); SDPA beside each
+        # with the valid keys as a boolean mask
+        *(((f"flash_decode_d128_{name}{'_fullcache' if n == MAX_LEN else ''}_bf16", DECODE_B,
+            1, MAX_LEN, h, 8, 128, torch.bfloat16),
+           dict(kv_len=[n] * DECODE_B, library=True, reps=20, short=True))
+          for name, h in (("internvl2", 48), ("llama3", 128)) for n in (PROMPT + GEN - 1, MAX_LEN)),
+        # the D-128 decode through the masked path with GQA 6 and part passes
+        (("flash_masked_gqa_bf16_d128_decode", 2, 3, 333, 12, 2, 128, torch.bfloat16),
+         dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
+        # granite-moe's training attention (a microbatch of 2 x 2048, 24 / 8 x
+        # 64, causal): the wgmma kernel at D 64 with groups of 3, phase train (e)'s
+        # forward
+        (("flash_train_granite_moe_causal_bf16", TRAIN_B // TRAIN_PARALLEL["microbatch"],
+          TRAIN_S, TRAIN_S, 24, 8, 64, torch.bfloat16), dict(causal=True, library=True, reps=5)),
     ]
     flash, flash_kept = [], []
     for a, kw in flash_specs:
@@ -3603,6 +3948,9 @@ def run() -> int:
     gB = TRAIN_B // TRAIN_PARALLEL["microbatch"]
     bwd, bwd_kept = [], []
     for a, kw in ((("flash_bwd_granite_causal", gB, TRAIN_S, TRAIN_S, 32, 8, 64),
+                   dict(causal=True, library=True)),
+                  # granite-moe's layer: groups of 3 (24 / 8 heads), phase train (e)
+                  (("flash_bwd_granite_moe_causal", gB, TRAIN_S, TRAIN_S, 24, 8, 64),
                    dict(causal=True, library=True)),
                   (("flash_bwd_granite_causal_mma", gB, TRAIN_S, TRAIN_S, 32, 8, 64),
                    dict(causal=True, library=True, kernel="flash_attention_bwd", kept=False)),
@@ -3953,15 +4301,22 @@ def run() -> int:
     lm_record, lm_prefill_counts, lm_decode_counts = lm_serve(lm_cfg)
     record["lm_serve"] = lm_record
 
+    # ------------------------------------------------------ 7a. lm_families
+    record["lm_families"], family_counts = lm_families(smi)
+
     # ------------------------------------------------------------- 7b. train
     t_train = time.perf_counter()
     record["train"], train_counts, drill_counts, train_decode_counts = train_phase()
     t_hybrid = time.perf_counter()
     record["train_hybrid"], hybrid_train_counts, hybrid_drill_counts = hybrid_train_phase()
     record["train_hybrid"]["phase_s"] = time.perf_counter() - t_hybrid
+    t_moe = time.perf_counter()
+    record["train_moe"], moe_train_counts, moe_drill_counts = moe_train_phase()
+    record["train_moe"]["phase_s"] = time.perf_counter() - t_moe
     record["train"]["phase_s"] = time.perf_counter() - t_train
     print(f"phase=train phase_s={record['train']['phase_s']:.1f} hybrid_s="
-          f"{record['train_hybrid']['phase_s']:.1f}", flush=True)
+          f"{record['train_hybrid']['phase_s']:.1f} moe_s={record['train_moe']['phase_s']:.1f}",
+          flush=True)
 
     # ---------------------------------------------------------- 8. guidance
     record["guidance"], guidance_counts = guidance_path()
@@ -4042,18 +4397,30 @@ def run() -> int:
           and named["flash_train_granite_causal_bf16"]["kernel"] == "flash_attention_sm90"
           and named["flash_train_zamba_causal_bf16"]["kernel"] == "flash_attention_sm90"
           and named_bwd["flash_bwd_granite_causal"]["kernel"] == "flash_attention_bwd_sm90"
-          and named_bwd["flash_bwd_zamba_causal_d80"]["kernel"] == "flash_attention_bwd_sm90",
+          and named_bwd["flash_bwd_zamba_causal_d80"]["kernel"] == "flash_attention_bwd_sm90"
+          and named["flash_decode_d128_internvl2_bf16"]["kernel"] == "flash_decode"
+          and named["flash_train_granite_moe_causal_bf16"]["kernel"] == "flash_attention_sm90"
+          and named_bwd["flash_bwd_granite_moe_causal"]["kernel"] == "flash_attention_bwd_sm90",
           "the prefill, decode and training cases ran other kernels than their paths'")
+    # phase lm_families' launches by the head dim of each config
+    fam_dims = {arch: _family_cfg(arch, spec["layers"]).head_dim for arch, spec in FAMILY_RUNS}
+
+    def fam(step, kernel, dims):
+        return {k: n[kernel] for k, n in family_counts.items()
+                if k.endswith(step) and fam_dims[k.split(":")[1]] in dims}
     path_counts = {"serve": main_counts, "lm_serve:prefill": lm_prefill_counts,
                    "lm_serve:decode": lm_decode_counts, "train": train_counts,
                    "train:drill": drill_counts, "train:decode": train_decode_counts,
                    "train:hybrid": hybrid_train_counts, "train:hybrid_drill": hybrid_drill_counts,
+                   "train:moe": moe_train_counts, "train:moe_drill": moe_drill_counts,
+                   **family_counts,
                    "coded_stitch": stitch_counts,
                    "guidance": guidance_counts, "serve_policy": policy_counts,
                    **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts,
                    **fleet_counts}
     train_paths = {k: path_counts[k] for k in ("train", "train:drill")}
     hybrid_paths = {k: path_counts[k] for k in ("train:hybrid", "train:hybrid_drill")}
+    moe_paths = {k: path_counts[k] for k in ("train:moe", "train:moe_drill")}
     line = {"kernels": [
         kernel_row("flash_attention_sm90_d128", "src/repro/kernels/flash_attention.py:101",
                    named["flash_self_Twindow_bf16"],
@@ -4061,15 +4428,22 @@ def run() -> int:
                     **{f"serve_codec:{c}": n[vid_flash] for c, n in coded_counts.items()},
                     "serve_policy": policy_counts[vid_flash],
                     **{k: n[vid_flash] for k, n in lp_counts.items()},
-                    **{k: n[vid_flash] for k, n in fleet_counts.items()}},
+                    **{k: n[vid_flash] for k, n in fleet_counts.items()},
+                    **fam(":prefill", "flash_attention_sm90", (128,))},
                    source="flash_attention_sm90"),
         kernel_row("flash_attention_sm90_d80", "src/repro/kernels/flash_attention.py:101",
                    named["flash_lm_prefill_causal_bf16"],
-                   {"lm_serve:prefill": lm_prefill_counts["flash_attention_sm90"]},
+                   {"lm_serve:prefill": lm_prefill_counts["flash_attention_sm90"],
+                    **fam(":prefill", "flash_attention_sm90", (80,))},
                    source="flash_attention_sm90"),
         kernel_row("flash_attention_sm90_d64", "src/repro/kernels/flash_attention.py:101",
                    named["flash_train_granite_causal_bf16"],
                    {k: train_paths[k]["flash_attention_sm90"] for k in train_paths},
+                   source="flash_attention_sm90"),
+        kernel_row("flash_attention_sm90_d64_gqa3", "src/repro/kernels/flash_attention.py:101",
+                   named["flash_train_granite_moe_causal_bf16"],
+                   {**{k: moe_paths[k]["flash_attention_sm90"] for k in moe_paths},
+                    **fam(":prefill", "flash_attention_sm90", (64,))},
                    source="flash_attention_sm90"),
         kernel_row("flash_attention_sm90_d80_train", "src/repro/kernels/flash_attention.py:101",
                    named["flash_train_zamba_causal_bf16"],
@@ -4078,7 +4452,11 @@ def run() -> int:
         kernel_row("flash_decode", "src/repro/kernels/flash_attention.py:101",
                    named["flash_lm_decode_bf16"],
                    {"lm_serve:decode": lm_decode_counts["flash_decode"],
-                    "train:decode": train_decode_counts["flash_decode"]}),
+                    "train:decode": train_decode_counts["flash_decode"],
+                    **fam(":decode", "flash_decode", (64, 80))}),
+        kernel_row("flash_decode_d128", "src/repro/kernels/flash_attention.py:101",
+                   named["flash_decode_d128_internvl2_bf16"],
+                   fam(":decode", "flash_decode", (128,)), source="flash_decode"),
         {**kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
                       named["flash_train_granite_causal_bf16_mma"],
                       {k: n["flash_attention"] for k, n in path_counts.items()}, on_path=False),
@@ -4089,6 +4467,12 @@ def run() -> int:
                       {k: train_paths[k]["flash_attention_bwd_sm90"] for k in train_paths}),
          "note": "no Pallas kernel: the reference trains through XLA's gradient of "
                  "attention_chunked"},
+        {**kernel_row("flash_attention_bwd_sm90_gqa3", "src/repro/models/attention.py:81",
+                      named_bwd["flash_bwd_granite_moe_causal"],
+                      {k: moe_paths[k]["flash_attention_bwd_sm90"] for k in moe_paths},
+                      source="flash_attention_bwd_sm90"),
+         "note": "no Pallas kernel: D 64 with groups of 3, granite-moe's training backward "
+                 "(phase train (e))"},
         {**kernel_row("flash_attention_bwd_sm90_d80", "src/repro/models/attention.py:81",
                       named_bwd["flash_bwd_zamba_causal_d80"],
                       {k: hybrid_paths[k]["flash_attention_bwd_sm90"] for k in hybrid_paths},
@@ -4140,8 +4524,8 @@ def run() -> int:
 
 def main() -> int:
     try:
-        if sys.argv[1:2] == ["--train-drill"]:     # phase train (b) or (d), in its own process
-            return train_drill(sys.argv[2:] == ["hybrid"])
+        if sys.argv[1:2] == ["--train-drill"]:     # phase train (b), (d) or (e), in its own process
+            return train_drill(sys.argv[2] if len(sys.argv) > 2 else "dense")
         return run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -4,11 +4,12 @@
 Each host draws only its shard of the global batch, seeded by
 ``(seed, step, host_id)``, so a restart replays the same batches and the
 tokens equal the reference's bit for bit.  Token streams follow a
-Zipf(1.2) unigram draw.  Not copied: the reference's extra draws for the
-VLM and audio families (vision embeddings, audio frames), which go with
-those families, and ``latent_noise`` (``jax.random`` noise for video
-generation), which nothing on the training path calls (ROADMAP Queue 1
-item 12).
+Zipf(1.2) unigram draw; a VLM batch also carries ``vision_embeds``, drawn
+from the same generator after the tokens (N(0, 0.02^2) in f32, cast to the
+model dtype), as the reference draws them.  Not copied yet: the audio
+family's frames, which go with that family, and ``latent_noise``
+(``jax.random`` noise for video generation), which nothing on the
+training path calls (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.dit import model_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +58,12 @@ class SyntheticLMStream:
         V = max(self.cfg.vocab_size, 2)
         toks = rng.zipf(self.data_cfg.zipf_a, size=(self.local_batch, self.seq_len + 1))
         toks = np.minimum(toks - 1, V - 1).astype(np.int32)
-        return {"tokens": self._put(toks[:, :-1]), "labels": self._put(toks[:, 1:])}
+        batch = {"tokens": self._put(toks[:, :-1]), "labels": self._put(toks[:, 1:])}
+        if self.cfg.family == "vlm":
+            vis = rng.normal(0, 0.02, (self.local_batch, self.cfg.num_vision_tokens,
+                                       self.cfg.d_model)).astype(np.float32)
+            batch["vision_embeds"] = self._put(vis).to(model_dtype(self.cfg))
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         step = 0

@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels of the port, for Hopper (``sm_90a``).
 
   flash_attention — DiT and LM attention: ``csrc/flash_attention_sm90.cu``
-                    (wgmma + TMA, bf16 at head dim 128, the video DiT, and
-                    at 80 from 128 queries up, the LM prefill),
-                    ``csrc/flash_decode.cu`` (split-KV, bf16 at 64 and 80 up
-                    to 8 queries, the LM decode step) and
+                    (wgmma + TMA, bf16 at head dim 128, the video DiT and
+                    the D-128 LMs' prefill, and at 64 and 80 from 128
+                    queries up, the LM prefill and training forward),
+                    ``csrc/flash_decode.cu`` (split-KV, bf16 at 64, 80 and
+                    128 up to 8 queries, the LM decode step) and
                     ``csrc/flash_attention.cu`` (mma.sync for bf16 at 64 and
                     80 in between, FMA for f32; on no serving path); all
                     share ``csrc/flash_common.cuh``; their training

@@ -55,7 +55,7 @@ _SIGNATURES = {
     "flash_decode": {
         # q, k, v, q_pos, kv_pos, kv_len (or null), out, partial (m, l), partial
         # acc, tickets, B, Sq, Skv, H, KV, D, q_pos batch stride, kv_pos batch
-        # stride, causal, window, splits, split length, stream (bf16, D 64 or 80)
+        # stride, causal, window, splits, split length, stream (bf16, D 64, 80, 128)
         "flash_decode_fwd": ([_P] * 10 + [_I] * 6 + [_L, _L] + [_I] * 4 + [_P], _I),
         # D -> resident blocks an SM
         "flash_decode_blocks_per_sm": ([_I], _I),

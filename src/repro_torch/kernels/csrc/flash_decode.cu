@@ -3,8 +3,8 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention, the
 // Pallas TPU kernel (grid (B, H, q blocks, kv blocks) with the kv axis run
-// in order and m, l, acc carried in VMEM scratch), for bf16 at head dims 64
-// and 80 with few queries; flash_attention.cu and flash_attention_sm90.cu
+// in order and m, l, acc carried in VMEM scratch), for bf16 at head dims 64,
+// 80 and 128 with few queries; flash_attention.cu and flash_attention_sm90.cu
 // compute the same function for the other cases.
 //
 // Same function: scores q.k in f32 (softmax scale 1/sqrt(D), taken in base
@@ -47,8 +47,11 @@
 // row, kv head) to finish, told so by a ticket counter that it resets to
 // zero for the next call, merges the partials in split order (4 splits'
 // loads in flight at a time), so the result does not depend on which block
-// came last.  Under 48 KB of static shared memory a block: no
-// cudaFuncSetAttribute, no memset.
+// came last.  No memset.  The block's shared memory is dynamic: at D 64
+// and 80 it is under 48 KB; at D 128 the two stages of K and V alone take
+// 68 KB, so that instantiation is allowed 73 KB by cudaFuncSetAttribute
+// (before its occupancy query and its launches) and holds three blocks an
+// SM, with the registers that three blocks leave (at most 168).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +80,11 @@ constexpr int kRows = 16;              // (query, head) rows a pass: one m16 til
 constexpr int kChunk = 16 * kWarps;    // keys a stage: 16 a warp
 constexpr int kScan = 4 * kThreads;    // key positions a window: one int4 a thread
 constexpr float kNegInf = -1.0e30f;    // the running max of a row with no key yet
+constexpr int kStaticSmem = 48 * 1024; // shared memory a block gets without the attribute
+
+// resident blocks an SM that each head dim's launch bounds ask for
+template <int D>
+constexpr int min_blocks() { return D == 128 ? 3 : 4; }
 
 struct Params {
   const __nv_bfloat16* q;
@@ -144,12 +152,13 @@ __device__ __forceinline__ void issue_chunk(Smem<D>& sm, const __nv_bfloat16* Kg
 // C (16x8) c0,c1 (g, 2cq..), c2,c3 (g+8, 2cq..).  A warp's S (16 rows x its
 // 16 keys) in C layout is P's A layout for P.V, so P stays in registers.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, min_blocks<D>()) flash_decode_kernel(Params p) {
   constexpr int KSTEPS = D / 16, DB = D / 8, DP = D / 2;
   static_assert(D % 16 == 0 && DB % 2 == 0, "k-steps of 16 dims, P.V dim blocks in pairs");
   static_assert(sizeof(Smem<D>::k) >= sizeof(float) * kWarps * kRows * D, "O partials fit");
   using S = Smem<D>;
-  __shared__ __align__(16) S sm;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S& sm = *reinterpret_cast<S*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, cq = lane & 3;
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = p.H / p.KV, rows = p.Sq * G;
@@ -415,27 +424,42 @@ __global__ void __launch_bounds__(kThreads, 4) flash_decode_kernel(Params p) {
   if (tid == 0) p.tickets[bk] = 0;  // zero again for the next call on this stream
 }
 
+// the dynamic shared memory of the instantiation at D, allowed past 48 KB
+template <int D>
+cudaError_t allow_smem() {
+  if (sizeof(Smem<D>) <= kStaticSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(flash_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(sizeof(Smem<D>)));
+}
+
 template <int D>
 cudaError_t launch(const Params& p, cudaStream_t st) {
+  cudaError_t e = allow_smem<D>();
+  if (e != cudaSuccess) return e;
   const dim3 grid(p.splits, p.KV, p.B);
-  flash_decode_kernel<D><<<grid, kThreads, 0, st>>>(p);
+  flash_decode_kernel<D><<<grid, kThreads, sizeof(Smem<D>), st>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+int blocks_per_sm() {
+  int n = 0;
+  cudaError_t e = allow_smem<D>();
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_decode_kernel<D>, kThreads,
+                                                      sizeof(Smem<D>));
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // namespace
 
-// Resident blocks an SM of the kernel at head dim D (64 or 80), for the
-// wrapper's choice of the split count; -1 for another head dim.
+// Resident blocks an SM of the kernel at head dim D (64, 80 or 128), for
+// the wrapper's choice of the split count; -1 for another head dim.
 extern "C" int flash_decode_blocks_per_sm(int D) {
-  int n = 0;
-  cudaError_t e;
-  if (D == 80)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_decode_kernel<80>, kThreads, 0);
-  else if (D == 64)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flash_decode_kernel<64>, kThreads, 0);
-  else
-    return -1;
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+  if (D == 64) return blocks_per_sm<64>();
+  if (D == 80) return blocks_per_sm<80>();
+  if (D == 128) return blocks_per_sm<128>();
+  return -1;
 }
 
 // bf16 q (B, Sq, H, D), k and v (B, Skv, KV, D); int32 positions with batch
@@ -451,7 +475,7 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, con
                                 int KV, int D, long long qpos_bs, long long kvpos_bs,
                                 int causal, int window, int splits, int split_len,
                                 void* stream) {
-  if ((D != 64 && D != 80) || B < 1 || B > 65535 || KV < 1 || KV > 65535 || H % KV ||
+  if ((D != 64 && D != 80 && D != 128) || B < 1 || B > 65535 || KV < 1 || KV > 65535 || H % KV ||
       splits < 1 || split_len < kChunk || split_len % kChunk ||
       static_cast<long long>(splits - 1) * split_len >= (Skv > 0 ? Skv : 1) ||
       !ws_ml || !ws_acc || !tickets)
@@ -465,7 +489,8 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, con
            B, Sq, Skv, H, KV, qpos_bs, kvpos_bs, causal, window,
            1.4426950408889634f / sqrtf(static_cast<float>(D)), splits, split_len, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(D == 80 ? launch<80>(p, st) : launch<64>(p, st));
+  return static_cast<int>(D == 128 ? launch<128>(p, st)
+                          : D == 80 ? launch<80>(p, st) : launch<64>(p, st));
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

@@ -62,14 +62,15 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-# Which flash kernel computes what.  bf16 at head dim 128 (the video DiT's
-# self- and cross-attention), and bf16 at head dims 64 and 80 with at least
-# SM90_MIN_QUERIES queries (the dense LM's training forward, the hybrid LM's
-# prefill) run on the wgmma + TMA kernel of csrc/flash_attention_sm90.cu;
-# bf16 at head dims 64 and 80 with at most DECODE_MAX_QUERIES queries (the
-# LM decode steps) on the split-KV kernel of csrc/flash_decode.cu; every
-# other case on csrc/flash_attention.cu.  A forward that must write the
-# log-sum-exp (return_lse, FlashAttention) never takes flash_decode.cu.
+# Which flash kernel computes what.  bf16 at head dims 64, 80 and 128 with at
+# most DECODE_MAX_QUERIES queries (the LM decode steps) run on the split-KV
+# kernel of csrc/flash_decode.cu; bf16 at head dim 128 with more queries (the
+# video DiT's self- and cross-attention, the D-128 LMs' prefill), and bf16 at
+# head dims 64 and 80 with at least SM90_MIN_QUERIES queries (the dense LM's
+# training forward, the LM prefill) on the wgmma + TMA kernel of
+# csrc/flash_attention_sm90.cu; every other case on csrc/flash_attention.cu.
+# A forward that must write the log-sum-exp (return_lse, FlashAttention)
+# never takes flash_decode.cu.
 FLASH_KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode")
 _SM90_TILE = 128                     # flash_attention_sm90.cu: kBM query rows, kBN keys
 SM90_MIN_QUERIES = _SM90_TILE
@@ -78,7 +79,7 @@ _DECODE_CHUNK = 64                   # flash_decode.cu: kChunk keys, the unit of
 _FLASH_TAKES = {                     # kernel -> {dtype: head dims it is built for}
     "flash_attention": {torch.bfloat16: (64, 80), torch.float32: (64, 80, 128)},
     "flash_attention_sm90": {torch.bfloat16: (64, 80, 128)},
-    "flash_decode": {torch.bfloat16: (64, 80)},
+    "flash_decode": {torch.bfloat16: (64, 80, 128)},
 }
 _LSE_KERNELS = ("flash_attention", "flash_attention_sm90")   # write the log-sum-exp (bf16)
 
@@ -87,21 +88,21 @@ def flash_kernel(dtype: torch.dtype, head_dim: int, q_len: int) -> str:
     """The flash kernel that computes ``dtype`` at ``head_dim`` for
     ``q_len`` queries per batch row.
 
-    bf16 at D 128 goes to ``flash_attention_sm90`` (``wgmma`` + TMA) for
-    any query count.  bf16 at D 64 and 80 goes there too when ``q_len >=
-    SM90_MIN_QUERIES`` (128: one full block of its 128 query rows), as in
-    a prefill or granite's training forward.  bf16 at D 64 and 80 with
-    ``q_len <= DECODE_MAX_QUERIES``, as in a decode step (one query per
-    request), goes to ``flash_decode`` (split-KV over the attendable keys
-    only, ``mma.sync`` bf16 products with f32 accumulators, one 16-row
-    tile a warp).  Everything else (bf16 D 64 and 80 with 9-127 queries,
-    f32) runs on ``flash_attention``.
+    bf16 at D 64, 80 and 128 with ``q_len <= DECODE_MAX_QUERIES``, as in
+    a decode step (one query per request), goes to ``flash_decode``
+    (split-KV over the attendable keys only, ``mma.sync`` bf16 products
+    with f32 accumulators, one 16-row tile a warp).  bf16 at D 128 with
+    more queries goes to ``flash_attention_sm90`` (``wgmma`` + TMA); bf16
+    at D 64 and 80 goes there too when ``q_len >= SM90_MIN_QUERIES`` (128:
+    one full block of its 128 query rows), as in a prefill or granite's
+    training forward.  Everything else (bf16 D 64 and 80 with 9-127
+    queries, f32) runs on ``flash_attention``.
     """
+    if dtype == torch.bfloat16 and head_dim in (64, 80, 128) and q_len <= DECODE_MAX_QUERIES:
+        return "flash_decode"
     if dtype == torch.bfloat16 and (head_dim == 128
                                     or (head_dim in (64, 80) and q_len >= SM90_MIN_QUERIES)):
         return "flash_attention_sm90"
-    if dtype == torch.bfloat16 and head_dim in (64, 80) and q_len <= DECODE_MAX_QUERIES:
-        return "flash_decode"
     return "flash_attention"
 
 
@@ -164,14 +165,14 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     (one of ``FLASH_KERNELS``) forces one; it raises on a dtype and head
     dim it is not built for.  With ``return_lse`` (bf16 only) a choice of
     ``flash_decode``, which writes no log-sum-exp, becomes
-    ``flash_attention``.  No gradient: see ``flash_attention_autograd``.
+    ``flash_attention`` (``flash_attention_sm90`` at D 128).  No gradient: see ``flash_attention_autograd``.
     ``csrc/flash_attention_sm90.cu`` (``wgmma`` + TMA) takes bf16 at D 64,
     80 and 128 and any key count: its live-tile lists go to a global buffer
     allocated here.  ``csrc/flash_attention.cu`` takes bf16 at D 64 and 80
     (``mma.sync``) and f32 at D 64, 80 and 128 (FMA).  Both skip key tiles
     that hold no attendable pair, and their bf16 kernels write the
     log-sum-exp into a buffer allocated here when asked.
-    ``csrc/flash_decode.cu`` takes bf16 at D 64 and 80 and any query count
+    ``csrc/flash_decode.cu`` takes bf16 at D 64, 80 and 128 and any query count
     (rows in passes of 16): ``decode_split`` key splits, their partials in
     a workspace allocated here, merged by the last block of each (batch
     row, kv head) through ticket counters kept per device and stream; it
@@ -217,7 +218,7 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     if kernel is None:
         kernel = flash_kernel(q.dtype, D, Sq)
         if return_lse and kernel == "flash_decode":
-            kernel = "flash_attention"
+            kernel = "flash_attention_sm90" if D == 128 else "flash_attention"
     if kv_len is not None:
         if kv_len.shape != (B,):
             raise ValueError(f"flash_attention: kv_len {tuple(kv_len.shape)} must be ({B},)")
@@ -293,7 +294,7 @@ flash_attention_sm90.launches = 0
 def flash_decode(q, k, v, q_positions, kv_positions, *, causal: bool = True,
                  window: int = 0, kv_len=None) -> torch.Tensor:
     """``flash_attention`` on the split-KV kernel (``csrc/flash_decode.cu``)
-    whatever the query count: bf16 at head dim 64 or 80; raises on others.
+    whatever the query count: bf16 at head dim 64, 80 or 128; raises on others.
     Its ``launches`` count that kernel's launches, whichever wrapper made
     them."""
     return flash_attention(q, k, v, q_positions, kv_positions, causal=causal,

@@ -3,17 +3,21 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
       --steps 100 --batch 8 --seq 128 [--reduced] [--ckpt-dir DIR] [--device cuda|cpu]
 
-``--arch`` takes either LM family: ``granite-3-2b`` (dense) or
-``zamba2-2.7b`` (hybrid).
+``--arch`` takes every LM config of the port: ``granite-3-2b``,
+``h2o-danube-1.8b``, ``minitron-4b`` and ``llama3-405b`` (dense),
+``granite-moe-3b-a800m`` and ``llama4-maverick-400b-a17b`` (MoE; the loss
+adds 0.01 times the Switch auxiliary loss), ``internvl2-26b`` (VLM; its
+batches carry vision embeddings) and ``zamba2-2.7b`` (hybrid).
 Synthetic data (``data/pipeline.SyntheticLMStream``), AdamW, the
 fault-tolerant restart loop and async checkpoints (``runtime/``).  As in
 the reference, ``--reduced`` cannot be turned off (``store_true`` with a
 default of True), so the CLI trains the reduced config.  ``--device``
 defaults to ``cuda`` and raises without a card.  The reduced configs'
-head dim of 32 has no flash kernel, so on the card either family fails at
+head dim of 32 has no flash kernel, so on the card every family fails at
 its first attention; the full widths train through ``make_train_step``
 and ``run_training`` as this CLI wires them (``chip_smoke.py`` phase
-``train``: granite-3-2b in (a), zamba2-2.7b in (d)).
+``train``: granite-3-2b in (a), zamba2-2.7b in (d), granite-moe-3b-a800m
+in (e)).
 """
 from __future__ import annotations
 

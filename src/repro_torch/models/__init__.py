@@ -1,4 +1,4 @@
-"""Models of the port: the video DiT and the dense and hybrid LMs.
+"""Models of the port: the video DiT and the dense, MoE, VLM and hybrid LMs.
 
 ``build(cfg, device=None)`` returns a ``Model`` with the reference's API
 (``repro/models/__init__.py``), bound to one device (``None`` means
@@ -7,14 +7,17 @@
   init(key)                          -> params   (key: an int seed or a
                                                   torch.Generator on the device)
   forward(params, batch, **kw)       -> (hidden or noise-pred, aux)
-  loss(params, batch, remat, kv_chunk) -> scalar NLL + 0.01 aux (LM)
+  loss(params, batch, remat, kv_chunk) -> scalar NLL + 0.01 aux (LM; aux is
+                                          the MoE layers' Switch loss, else 0)
   init_cache(batch, max_len)         -> decode cache (LM)
   decode(params, token, cache, pos)  -> (logits, cache) (LM)
 
-Families: ``dense`` (granite) and ``hybrid`` (Zamba2), both
-``transformer``, and ``vdm`` (``dit``, whose params are the ``DiT``
-module).  The other LM families are not ported (ROADMAP Queue 1 item 12).
-On the card both LM losses differentiate through hand-written kernels:
+Families: ``dense`` (granite, h2o-danube, minitron, llama3), ``moe``
+(granite-moe, llama4), ``vlm`` (internvl2: a batch carries
+``vision_embeds``) and ``hybrid`` (Zamba2), all ``transformer``, and
+``vdm`` (``dit``, whose params are the ``DiT`` module).  The xLSTM
+(``ssm``) and audio families are not ported (ROADMAP Queue 1 item 12).
+On the card the LM losses differentiate through hand-written kernels:
 attention through ``kernels.ops.FlashAttention``, the hybrid family's SSD
 scan through ``kernels.ops.MambaSSD`` (``mamba_ssd_bwd``).
 """
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, generator as make_generator, resolve_device
-from . import attention, dit, frontends, layers, ssm, transformer  # noqa: F401
+from . import attention, dit, frontends, layers, moe, ssm, transformer  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +51,7 @@ def _generator(key: Union[int, torch.Generator], device: torch.device) -> torch.
 def build(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     device = resolve_device(device)
     fam = cfg.family
-    if fam in ("dense", "hybrid"):
+    if fam in transformer._PORTED:
         def loss_fn(params, batch, remat=False, kv_chunk=2048):
             hidden, aux = transformer.forward(
                 params, batch["tokens"], cfg, vision_embeds=batch.get("vision_embeds"),
@@ -74,4 +77,4 @@ def build(cfg: ArchConfig, device: DeviceLike = None) -> Model:
                 torch.zeros((), dtype=torch.float32, device=device)),
         )
     raise NotImplementedError(
-        f"build: family {fam!r} is not ported (ROADMAP Queue 1 item 12)")
+        f"build: family {fam!r} is not ported (xLSTM and audio: ROADMAP Queue 1 item 12)")

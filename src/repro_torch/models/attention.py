@@ -148,17 +148,15 @@ def decode_attention(params, x_t: torch.Tensor, cache_k: torch.Tensor,
     which returns new arrays, the caches are updated in place and returned
     as they are.  A position outside ``[0, S_max)`` writes the slot the
     reference's ``dynamic_update_slice`` writes (a negative one counted
-    from the end, then clamped into the cache).  The query attends every slot below ``position + 1``
-    (the full-cache branch); the reference's sliding-window branch
-    (``0 < window < S_max``) is not ported and raises (ROADMAP Queue 1
-    item 12).
+    from the end, then clamped into the cache).  The query attends the
+    slots below ``position + 1``: with a sliding window shorter than the
+    cache (``0 < window < S_max``) only the ``window`` slots from
+    ``clip(position + 1 - window, 0, S_max - window)``, gathered out of
+    the cache per batch row (the reference's sliding-window branch, which
+    reads O(window) keys), else the whole cache.
     """
     B = x_t.shape[0]
     S_max = cache_k.shape[1]
-    if 0 < window < S_max:
-        raise NotImplementedError(
-            "decode_attention: the sliding-window branch is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
     q = dense(params["q"]["w"], x_t).reshape(B, 1, num_heads, head_dim)
     k = dense(params["k"]["w"], x_t).reshape(B, 1, num_kv_heads, head_dim)
     v = dense(params["v"]["w"], x_t).reshape(B, 1, num_kv_heads, head_dim)
@@ -175,8 +173,15 @@ def decode_attention(params, x_t: torch.Tensor, cache_k: torch.Tensor,
     slots = torch.where(slots < 0, slots + S_max, slots).clamp(0, S_max - 1)
     cache_k[rows, slots] = k[:, 0]
     cache_v[rows, slots] = v[:, 0]
-    kv_pos = torch.arange(S_max, device=x_t.device)[None, :].expand(B, S_max)
-    out = attention(q, cache_k, cache_v, pos2d, kv_pos, causal=False, window=window,
-                    kv_len=position + 1, kv_chunk=kv_chunk)
+    if 0 < window < S_max:
+        start = (position.long() + 1 - window).clamp(0, S_max - window)
+        kv_pos = start[:, None] + torch.arange(window, device=x_t.device)[None, :]
+        win_k, win_v = cache_k[rows[:, None], kv_pos], cache_v[rows[:, None], kv_pos]
+        out = attention(q, win_k, win_v, pos2d, kv_pos, causal=False, window=window,
+                        kv_len=position + 1, kv_chunk=kv_chunk)
+    else:
+        kv_pos = torch.arange(S_max, device=x_t.device)[None, :].expand(B, S_max)
+        out = attention(q, cache_k, cache_v, pos2d, kv_pos, causal=False, window=window,
+                        kv_len=position + 1, kv_chunk=kv_chunk)
     y = dense(params["o"]["w"], out.reshape(B, 1, num_heads * head_dim))
     return y, cache_k, cache_v

@@ -1,9 +1,16 @@
-"""Decoder-LM stacks of the port: the dense family (granite) and the hybrid
-family (Zamba2).
+"""Decoder-LM stacks of the port: the dense, MoE and VLM families (granite,
+h2o-danube, minitron, llama3; granite-moe, llama4; internvl2) and the
+hybrid family (Zamba2).
 
-A port of the dense and hybrid branches of ``repro/models/transformer.py``.
-Dense: ``num_layers`` pre-norm blocks of GQA attention (full or sliding
-window) and a SwiGLU MLP.  Hybrid: groups of ``attn_every`` Mamba2 blocks,
+A port of the dense, MoE, VLM and hybrid branches of
+``repro/models/transformer.py``.  Dense: ``num_layers`` pre-norm blocks of
+GQA attention (full or sliding window) and a SwiGLU MLP.  MoE: the same
+blocks with a top-k mixture of SwiGLU experts (``models/moe.py``) in place
+of the MLP, the experts padded up to a multiple of 16 (``_ep_padding``);
+``forward`` returns the Switch auxiliary loss summed over the layers.
+VLM: a dense stack whose first ``num_vision_tokens`` positions take
+projected patch embeddings (``_merge_vision``).  Hybrid: groups of
+``attn_every`` Mamba2 blocks,
 each group followed by one *shared* attention + MLP block whose q/k/v
 projections are adapted per invocation with LoRA.  Parameters are the
 reference's tree as nested dicts of tensors, stacked layers included
@@ -13,7 +20,7 @@ with ``(groups, attn_every)``, ``lora`` leaves with ``(groups,)``), so
 reference's ``scan`` over stacked layers is a loop over the leaves
 unbound once a forward.  ``forward(remat=True)`` checkpoints each scan
 body as the reference's ``jax.checkpoint`` does; ``cross_entropy_chunked``
-is the training loss.  The other families (MoE, VLM, xLSTM) raise
+is the training loss.  The xLSTM (``ssm``) family raises
 ``NotImplementedError`` (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
@@ -28,20 +35,21 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, generator as make_generator, resolve_device
 from .attention import decode_attention, gqa_apply, gqa_init
 from .dit import _map_tree, _to_tensor, model_dtype
-from .layers import (dense_init, embed, embedding_init, mlp, mlp_init, rmsnorm, rmsnorm_init,
-                     unembed)
+from .layers import (dense, dense_init, embed, embedding_init, mlp, mlp_init, rmsnorm,
+                     rmsnorm_init, unembed)
+from .moe import moe_apply, moe_init
 from .ssm import mamba2_apply, mamba2_decode, mamba2_init, mamba2_init_cache
 
 
-_PORTED = ("dense", "hybrid")
+_PORTED = ("dense", "moe", "vlm", "hybrid")
+_BLOCK_FAMILIES = ("dense", "moe", "vlm")     # stacks of lm_block_* layers
 
 
 def _require_ported(cfg: ArchConfig, what: str) -> None:
     if cfg.family not in _PORTED:
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} is not ported; the port's LM stacks are the "
-            f"{' and '.join(_PORTED)} families (MoE, VLM, xLSTM and audio: ROADMAP Queue 1 "
-            "item 12)")
+            f"{', '.join(_PORTED)} families (xLSTM and audio: ROADMAP Queue 1 item 12)")
 
 
 def _unbind(tree):
@@ -69,18 +77,32 @@ def _layer_loop(fn, carry, layer_trees, remat: bool):
     return carry
 
 
-# ============================================================= dense
+# ======================================================= dense / moe / vlm
+def _ep_padding(cfg: ArchConfig, ep_degree: int = 16) -> int:
+    """Padding experts that round the expert count up to a multiple of the
+    reference's expert-parallel axis (granite-moe's 40 -> 48)."""
+    if cfg.num_experts % ep_degree == 0:
+        return 0
+    return ep_degree - cfg.num_experts % ep_degree
+
+
 def lm_block_init(cfg: ArchConfig, generator: torch.Generator, device=None):
-    """One dense block (``repro/models/transformer.py:lm_block_init``,
-    without MoE): norms, GQA projections, SwiGLU MLP, drawn in that order."""
+    """One block (``repro/models/transformer.py:lm_block_init``): norms,
+    GQA projections, then the SwiGLU MLP or, MoE, the router and experts,
+    drawn in that order."""
     dt = model_dtype(cfg)
-    return {
+    p = {
         "attn_norm": rmsnorm_init(cfg.d_model, device=device),
         "attn": gqa_init(cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                          generator, dt, device=device),
         "mlp_norm": rmsnorm_init(cfg.d_model, device=device),
-        "mlp": mlp_init(cfg.d_model, cfg.d_ff, generator, dt, device=device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_init(cfg.d_model, cfg.d_ff_expert, cfg.num_experts, generator, dt,
+                            num_padding_experts=_ep_padding(cfg), device=device)
+    else:
+        p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, generator, dt, device=device)
+    return p
 
 
 def _mlp(cfg: ArchConfig, block, x: torch.Tensor) -> torch.Tensor:
@@ -89,29 +111,44 @@ def _mlp(cfg: ArchConfig, block, x: torch.Tensor) -> torch.Tensor:
                rmsnorm(x, cfg.norm_eps, block["mlp_norm"]["scale"]))
 
 
+def _ffn(cfg: ArchConfig, block, x: torch.Tensor):
+    """The block's feed-forward half on ``x`` (before its residual) ->
+    (output, aux loss): the MoE layer, or the MLP with aux None."""
+    if not cfg.is_moe:
+        return _mlp(cfg, block, x), None
+    return moe_apply(block["moe"], rmsnorm(x, cfg.norm_eps, block["mlp_norm"]["scale"]),
+                     cfg.num_experts, cfg.experts_top_k, cfg.capacity_factor)
+
+
 def _window(cfg: ArchConfig) -> int:
     return cfg.window if cfg.attn_type == "swa" else 0
 
 
 def lm_block_apply(cfg: ArchConfig, params, x: torch.Tensor, positions: torch.Tensor,
                    kv_chunk: int = 2048):
-    """Pre-norm attention and MLP with residuals -> (x, aux 0)."""
+    """Pre-norm attention and MLP (or MoE) with residuals -> (x, aux: the
+    MoE layer's, 0 for an MLP)."""
     h = gqa_apply(params["attn"], rmsnorm(x, cfg.norm_eps, params["attn_norm"]["scale"]),
                   positions, cfg.rope_theta, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                   causal=True, window=_window(cfg), kv_chunk=kv_chunk)
     x = x + h
-    return x + _mlp(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = _ffn(cfg, params, x)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def lm_block_decode(cfg: ArchConfig, params, x_t: torch.Tensor, cache, position: torch.Tensor):
-    """One decode token through a dense block; ``cache`` ``{"k", "v"}`` of
-    this layer, written in place at ``position`` and returned."""
+    """One decode token through a block; ``cache`` ``{"k", "v"}`` of this
+    layer, written in place at ``position`` and returned.  A MoE block
+    routes the step's B tokens alone (capacity from T = B, as in the
+    reference), and its aux loss is dropped."""
     h, ck, cv = decode_attention(
         params["attn"], rmsnorm(x_t, cfg.norm_eps, params["attn_norm"]["scale"]),
         cache["k"], cache["v"], position, cfg.rope_theta, cfg.num_heads, cfg.num_kv_heads,
         cfg.head_dim, window=_window(cfg))
     x_t = x_t + h
-    return x_t + _mlp(cfg, params, x_t), {"k": ck, "v": cv}
+    return x_t + _ffn(cfg, params, x_t)[0], {"k": ck, "v": cv}
 
 
 # ============================================================ hybrid
@@ -127,6 +164,30 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _stack_layers(n: int, make):
+    """``n`` trees from ``make()``, stacked leaf by leaf on a new leading
+    axis as ``_stack`` does, but filled a tree at a time into the stack
+    (one layer of a 26 B model's weights in memory beside its stack, not
+    all of them twice); one tree is a view with the new axis."""
+    first = make()
+    if n == 1:
+        return _map_tree(lambda t: t.unsqueeze(0), first)
+    out = _map_tree(lambda t: t.new_empty((n, *t.shape)), first)
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, make(), i)
+    return out
 
 
 def _index(tree, *idx):
@@ -187,9 +248,10 @@ def zamba_group_apply(cfg: ArchConfig, mamba_stack, shared, lora_g, x: torch.Ten
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """Random weights from the reference's distributions
-    (``repro/models/transformer.py:init_params``, dense and hybrid
-    families).  ``generator`` must live on ``device``; by default one
-    seeded with 0."""
+    (``repro/models/transformer.py:init_params``, dense, MoE, VLM and
+    hybrid families): the embedding, the layers (a VLM's ``vision_proj``
+    after them), the output table.  ``generator`` must live on ``device``;
+    by default one seeded with 0."""
     _require_ported(cfg, "init_params")
     device = resolve_device(device)
     if generator is None:
@@ -200,9 +262,12 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                                         device)},
         "final_norm": rmsnorm_init(cfg.d_model, device=device),
     }
-    if cfg.family == "dense":
-        params["layers"] = _stack([lm_block_init(cfg, generator, device)
-                                   for _ in range(cfg.num_layers)])
+    if cfg.family in _BLOCK_FAMILIES:
+        params["layers"] = _stack_layers(cfg.num_layers,
+                                         lambda: lm_block_init(cfg, generator, device))
+        if cfg.family == "vlm":
+            params["vision_proj"] = {"w": dense_init(cfg.d_model, cfg.d_model, generator, dt,
+                                                     device=device)}
     else:
         groups = _zamba_groups(cfg)
         layers = [mamba2_init(cfg.d_model, cfg.ssm_state, cfg.ssm_headdim, generator,
@@ -229,21 +294,41 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ArchConfig,
     return _map_tree(lambda a: _to_tensor(np.asarray(a), device), tree)
 
 
+def _merge_vision(params, x: torch.Tensor, vision_embeds: torch.Tensor) -> torch.Tensor:
+    """The VLM's stub frontend: projected patch embeddings ``(B, N_vis, d)``
+    replace the first ``N_vis`` positions of the token stream."""
+    v = dense(params["vision_proj"]["w"], vision_embeds).to(x.dtype)
+    return torch.cat([v, x[:, v.shape[1]:, :]], dim=1)
+
+
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
             vision_embeds: Optional[torch.Tensor] = None, kv_chunk: int = 2048,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (final hidden ``(B, S, d)``, aux loss 0).
-    ``remat``: each layer (dense) or group (hybrid) under activation
-    checkpointing, recomputed in the backward pass."""
+    """Full-sequence forward -> (final hidden ``(B, S, d)``, aux loss: the
+    MoE layers' summed, else 0).  A VLM needs ``vision_embeds``; the other
+    families take none.  ``remat``: each layer (dense, MoE, VLM) or group
+    (hybrid) under activation checkpointing, recomputed in the backward
+    pass."""
     _require_ported(cfg, "forward")
-    if vision_embeds is not None:
+    if cfg.family == "vlm" and vision_embeds is None:
+        raise ValueError("forward: the vlm family needs vision_embeds")
+    if cfg.family != "vlm" and vision_embeds is not None:
         raise ValueError(f"forward: the {cfg.family} family takes no vision_embeds")
     B, S = tokens.shape
     # the reference's actctx.shard_* calls (here and in the blocks) are
     # identities off a mesh; the port leaves them out
     x = embed(params["embed"]["emb"], tokens)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    if cfg.family == "dense":
+    if cfg.family == "vlm":
+        x = _merge_vision(params, x, vision_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.is_moe:
+        def body(carry, layer):
+            h, a = lm_block_apply(cfg, layer, carry[0], positions, kv_chunk)
+            return h, carry[1] + a
+
+        x, aux = _layer_loop(body, (x, aux), _unbind(params["layers"]), remat)
+    elif cfg.family in _BLOCK_FAMILIES:
         def body(h, layer):
             return lm_block_apply(cfg, layer, h, positions, kv_chunk)[0]
 
@@ -255,7 +340,6 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
 
         x = _layer_loop(body, x, zip(_unbind(params["mamba"]), _unbind(params["lora"])),
                         remat)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rmsnorm(x, cfg.norm_eps, params["final_norm"]["scale"]), aux
 
 
@@ -305,13 +389,13 @@ def cross_entropy_chunked(params, hidden: torch.Tensor, labels: torch.Tensor,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Zeroed decode cache: the attention k/v ``(batch, max_len, KV, D)``
-    of every dense layer, or, hybrid, per Mamba2 block its conv and SSM
+    of every dense, MoE or VLM layer, or, hybrid, per Mamba2 block its conv and SSM
     states (f32) and per group the shared attention's k/v."""
     _require_ported(cfg, "init_cache")
     device = resolve_device(device)
     dt = model_dtype(cfg)
     kv = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.family == "dense":
+    if cfg.family in _BLOCK_FAMILIES:
         return {"k": torch.zeros((cfg.num_layers, *kv), dtype=dt, device=device),
                 "v": torch.zeros((cfg.num_layers, *kv), dtype=dt, device=device)}
     g = _zamba_groups(cfg)
@@ -328,11 +412,12 @@ def decode_step(params, token: torch.Tensor, cache: Dict[str, Any], position: to
                 cfg: ArchConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step -> (logits ``(B, 1, V)`` f32, cache).  The cache is
     updated in place and returned (the reference returns new arrays): each
-    layer's (dense) or group's (hybrid) k/v are written at ``position``,
+    layer's (dense, MoE, VLM) or group's (hybrid) k/v are written at
+    ``position``,
     each Mamba2 block's conv/SSM state overwritten with its new value."""
     _require_ported(cfg, "decode_step")
     x = embed(params["embed"]["emb"], token)
-    if cfg.family == "dense":
+    if cfg.family in _BLOCK_FAMILIES:
         for li, layer in enumerate(_unbind(params["layers"])):
             x, _ = lm_block_decode(cfg, layer, x, {"k": cache["k"][li], "v": cache["v"][li]},
                                    position)

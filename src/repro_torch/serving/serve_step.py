@@ -1,7 +1,9 @@
 """Serve-step factories of the LM: prefill (full-sequence forward ->
 last-token logits) and decode (one token against the KV/state cache).
-A port of the LM branch of ``repro/serving/serve_step.py``; the audio
-(encoder-decoder) branch is not ported (ROADMAP Queue 1 item 12).
+A port of the LM branch of ``repro/serving/serve_step.py`` for the dense,
+MoE, VLM (the prefill batch carries ``vision_embeds``) and hybrid
+families; the audio (encoder-decoder) branch is not ported (ROADMAP Queue
+1 item 12).
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ def _require_lm(cfg: ArchConfig) -> None:
 
 
 def make_prefill_step(model, cfg: ArchConfig) -> Callable:
-    """``prefill(params, {"tokens": (B, S)}) -> logits (B, 1, V)`` in f32."""
+    """``prefill(params, {"tokens": (B, S)[, "vision_embeds": (B, N_vis,
+    d)]}) -> logits (B, 1, V)`` in f32 (a VLM needs ``vision_embeds``)."""
     _require_lm(cfg)
 
     def prefill(params, batch):

@@ -5,9 +5,10 @@ There is no ``jit``: the step runs eagerly.  On the card every attention
 of the forward runs the hand-written flash kernel and its gradient the
 hand-written backward kernel (``kernels/ops.FlashAttention``), and every
 SSD scan of the hybrid family the ``mamba_ssd`` kernel's state-writing
-entry and its gradient ``mamba_ssd_bwd`` (``kernels/ops.MambaSSD``); with
-remat each layer's (dense) or group's (hybrid) forward, its launches
-included, runs again in the backward pass.  The optimizer writes the new parameters and state into
+entry and its gradient ``mamba_ssd_bwd`` (``kernels/ops.MambaSSD``); a
+MoE layer's dispatch and combine are gathers both ways, so its step is
+deterministic too; with remat each layer's (dense, MoE, VLM) or group's
+(hybrid) forward, its launches included, runs again in the backward pass.  The optimizer writes the new parameters and state into
 the tensors it is given (``optim``).
 """
 from __future__ import annotations

@@ -482,8 +482,10 @@ def test_flash_live_tiles_on_the_cpu_is_the_plain_version():
 
 
 @pytest.mark.parametrize("dtype,D,q_len,kernel", [
-    (torch.bfloat16, 128, 1, "flash_attention_sm90"),       # the video DiT, any query count
+    (torch.bfloat16, 128, 9, "flash_attention_sm90"),       # the video DiT, past 8 queries
     (torch.bfloat16, 128, 3120, "flash_attention_sm90"),
+    (torch.bfloat16, 128, 1, "flash_decode"),               # the D-128 LMs' decode step
+    (torch.bfloat16, 128, 8, "flash_decode"),
     (torch.bfloat16, 80, 4096, "flash_attention_sm90"),     # the LM prefill
     (torch.bfloat16, 80, 128, "flash_attention_sm90"),      # one full 128-row block
     (torch.bfloat16, 80, 127, "flash_attention"),
@@ -499,10 +501,10 @@ def test_flash_live_tiles_on_the_cpu_is_the_plain_version():
     (torch.float32, 80, 4096, "flash_attention"),
 ])
 def test_flash_kernel_dispatch_rule(dtype, D, q_len, kernel):
-    """bf16 at D 128, and bf16 at D 64 and 80 with at least
-    ``SM90_MIN_QUERIES`` (128) queries, go to the wgmma kernel; bf16 at D
-    64 and 80 with at most ``DECODE_MAX_QUERIES`` (8) to the split-KV
-    decode kernel; the rest to flash_attention.cu."""
+    """bf16 at D 64, 80 and 128 with at most ``DECODE_MAX_QUERIES`` (8)
+    queries go to the split-KV decode kernel; bf16 at D 128 with more, and
+    bf16 at D 64 and 80 with at least ``SM90_MIN_QUERIES`` (128) queries, to
+    the wgmma kernel; the rest to flash_attention.cu."""
     assert ops.SM90_MIN_QUERIES == 128 and ops.DECODE_MAX_QUERIES == 8
     assert ops.flash_kernel(dtype, D, q_len) == kernel
 
@@ -511,7 +513,7 @@ def test_flash_kernel_dispatch_rule(dtype, D, q_len, kernel):
                                             ("flash_attention_sm90", torch.float32, 64),
                                             ("flash_attention", torch.bfloat16, 128),
                                             ("flash_decode", torch.float32, 80),
-                                            ("flash_decode", torch.bfloat16, 128),
+                                            ("flash_decode", torch.bfloat16, 32),
                                             ("flash_mma", torch.bfloat16, 64)])
 def test_flash_attention_refuses_a_kernel_not_built_for_the_inputs(kernel, dtype, D):
     """A forced kernel must be built for the dtype and head dim, on the CPU

@@ -107,14 +107,15 @@ def _flash_checked(q, k, v, qp, kp, causal, window, kv_len=None, kernel=None):
 
 
 # (kernel, dtype, head dim): bf16 at D 128, 80 and 64 on the wgmma kernel,
-# bf16 at D 80 (Zamba2) on mma.sync too, bf16 at D 80 and 64 on the split-KV
-# decode kernel (Zamba2's decode step; forced here at any query count),
-# f32 on the FMA kernel of flash_attention.cu
+# bf16 at D 80 (Zamba2) on mma.sync too, bf16 at D 80, 64 and 128 on the
+# split-KV decode kernel (the LM decode steps; forced here at any query
+# count), f32 on the FMA kernel of flash_attention.cu
 KERNEL_CASES = [("flash_attention_sm90", torch.bfloat16, 128),
                 ("flash_attention_sm90", torch.bfloat16, 80),
                 ("flash_attention_sm90", torch.bfloat16, 64),
                 ("flash_attention", torch.bfloat16, 80), ("flash_attention", torch.float32, 128),
-                ("flash_decode", torch.bfloat16, 80), ("flash_decode", torch.bfloat16, 64)]
+                ("flash_decode", torch.bfloat16, 80), ("flash_decode", torch.bfloat16, 64),
+                ("flash_decode", torch.bfloat16, 128)]
 
 
 @pytest.mark.parametrize("kernel,dtype,D", KERNEL_CASES)
@@ -181,6 +182,22 @@ def test_flash_decode_on_a_full_cache(cuda_device, B, H, KV, D):
     q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
     qp = torch.full((B, 1), 4095, dtype=torch.int32, device=cuda_device)
     _flash_checked(q, k, v, qp, kp.to(cuda_device), True, 0, kernel="flash_decode")
+
+
+@pytest.mark.parametrize("G,KV", [(3, 8), (5, 8), (6, 8), (16, 8)])
+@pytest.mark.parametrize("valid", [63, 4096])
+def test_flash_decode_d128_at_the_configs_groups(cuda_device, G, KV, valid):
+    """bf16 D 128, one query per request (the routing's own choice, no
+    kernel forced), at the group sizes of the D-128 LMs (granite-moe's 3,
+    minitron's 3, internvl2's 6, llama4's 5, llama3's 16 query heads a kv
+    head): a ragged cache (63 of 4096 slots valid) and a full one."""
+    B, Skv = 4, 4096
+    assert ops.flash_kernel(torch.bfloat16, 128, 1) == "flash_decode"
+    q, k, v, _, kp, _ = _inputs(B, 1, Skv, G * KV, KV, 128, seed=G * 10 + valid)
+    q, k, v = (x.to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    qp = torch.full((B, 1), valid - 1, dtype=torch.int32, device=cuda_device)
+    lens = torch.full((B,), valid, dtype=torch.int32, device=cuda_device)
+    _flash_checked(q, k, v, qp, kp.to(cuda_device), False, 0, kv_len=lens)
 
 
 @pytest.mark.parametrize("valid", [63, 4096])
@@ -1041,3 +1058,48 @@ def test_gated_linear_scan_under_grad_runs_the_backward_kernel(cuda_device):
         ssm.gated_linear_scan(x, a, dt, B[:, :, None], C[:, :, None], chunk=32)
     assert (ops.mamba_ssd.launches, ops.mamba_ssd_bwd.launches) == (before[0] + 2,
                                                                    before[1] + 1)
+
+
+def _moe_case(dtype, device, seed=0):
+    """A MoE layer at a reduced width (d 256, d_ff 128, 40 experts padded
+    to 48, top 8), its weights and input drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    d, f, E, pad = 256, 128, 40, 8
+    params = {"router": {"w": rng.normal(0, d ** -0.5, size=(d, E + pad))},
+              "wi": {"w": rng.normal(0, d ** -0.5, size=(E + pad, d, f))},
+              "wg": {"w": rng.normal(0, d ** -0.5, size=(E + pad, d, f))},
+              "wo": {"w": rng.normal(0, f ** -0.5, size=(E + pad, f, d))}}
+    params = {n: {"w": torch.from_numpy(v["w"].astype(np.float32)).to(
+        device, torch.float32 if n == "router" else dtype)} for n, v in params.items()}
+    x = torch.from_numpy(rng.normal(size=(2, 64, d)).astype(np.float32)).to(device, dtype)
+    r = torch.from_numpy(rng.normal(size=(2, 64, d)).astype(np.float32)).to(device)
+    return params, x, r, E
+
+
+def _moe_run(params, x, r, E):
+    """The layer's output, aux loss and the gradients of sum(y * r) + aux."""
+    from repro_torch.models import moe
+
+    leaves = {n: v["w"].clone().requires_grad_() for n, v in params.items()}
+    xg = x.clone().requires_grad_()
+    y, aux = moe.moe_apply({n: {"w": w} for n, w in leaves.items()}, xg, E, 8)
+    ((y.float() * r).sum() + aux).backward()
+    return [y.detach(), aux.detach(), xg.grad] + [leaves[n].grad for n in sorted(leaves)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_on_the_card_is_deterministic_and_matches_the_cpu(cuda_device, dtype):
+    """Forward and backward twice on the card, bit-equal (gathers only, no
+    float atomics); against the CPU on the same weights: f32 within 2e-4 +
+    2e-4 |cpu| (the same products, sums in another order); bf16 within 2e-2
+    + 2e-2 |cpu| (the expert products' f32 sums in another order, then the
+    hidden state's one rounding to bf16 between two products)."""
+    params, x, r, E = _moe_case(dtype, cuda_device)
+    a, b = _moe_run(params, x, r, E), _moe_run(params, x, r, E)
+    assert all(torch.equal(u, w) for u, w in zip(a, b))
+    cpu = _moe_run({n: {"w": v["w"].cpu()} for n, v in params.items()}, x.cpu(), r.cpu(), E)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(a, cpu):
+        assert bool(torch.isfinite(got.float()).all())
+        err = (got.float().cpu() - want.float()).abs()
+        assert bool((err <= tol + tol * want.float().abs()).all()), float(err.max())

@@ -155,17 +155,14 @@ def test_gqa_and_decode_attention_match_reference(window_branch):
     cv = rng.normal(size=(B, 16, KV, D)).astype(np.float32)
     position = np.array([3, 9], np.int32)
     xt = x[:, :1]
-    if window_branch:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tattn.decode_attention(tp, torch.from_numpy(xt), torch.from_numpy(ck),
-                                   torch.from_numpy(cv), torch.from_numpy(position),
-                                   1e4, H, KV, D, window=4)
-        return
+    # the window branch: 4 of the 16 slots, from clip(position - 3, 0, 12)
+    window = 4 if window_branch else 0
     jy, jk, jv = jattn.decode_attention(p, jnp.asarray(xt), jnp.asarray(ck), jnp.asarray(cv),
-                                        jnp.asarray(position), 1e4, H, KV, D)
+                                        jnp.asarray(position), 1e4, H, KV, D, window=window)
     tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
     ty, tk2, tv2 = tattn.decode_attention(tp, torch.from_numpy(xt), tk, tv,
-                                          torch.from_numpy(position), 1e4, H, KV, D)
+                                          torch.from_numpy(position), 1e4, H, KV, D,
+                                          window=window)
     assert tk2 is tk and tv2 is tv                   # updated in place
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)

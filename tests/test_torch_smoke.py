@@ -392,3 +392,53 @@ def test_every_mutant_finds_its_source_text_once(smoke, table):
         assert (csrc / fname).read_text().count(old) == 1, (name, fname)
         assert old != new, name
 
+
+
+def test_family_runs_cover_the_configs_at_their_widths(smoke):
+    """Phase lm_families' configs: each at its published widths, the depth
+    cut only for llama3 and llama4; every decode stays inside its cache;
+    danube's prompt passes its window; consistency is checked on the two
+    dense configs whose decode follows a prompt."""
+    from repro_torch.configs import get_config
+
+    dims = {}
+    for arch, spec in smoke.FAMILY_RUNS:
+        cfg = smoke._family_cfg(arch, spec["layers"])
+        full = get_config(arch)
+        assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads) == \
+            (full.d_model, full.num_heads, full.num_kv_heads)
+        assert cfg.num_layers == (1 if arch in ("llama3-405b", "llama4-maverick-400b-a17b")
+                                  else full.num_layers)
+        n_req, prompt, gen, max_len, start = spec["decode"]
+        assert start + prompt + gen - 1 <= max_len
+        assert bool(spec.get("consistency")) == (start > 0)
+        dims[arch] = cfg.head_dim
+    assert dims == {"granite-moe-3b-a800m": 64, "internvl2-26b": 128, "h2o-danube-1.8b": 80,
+                    "minitron-4b": 128, "llama3-405b": 128, "llama4-maverick-400b-a17b": 128}
+    danube = dict(smoke.FAMILY_RUNS)["h2o-danube-1.8b"]
+    assert danube["prefill"][1] > get_config("h2o-danube-1.8b").window
+
+
+@pytest.mark.parametrize("arch,spec", [
+    ("granite-moe-3b-a800m", dict(layers=None, prefill=(2, 24), decode=(2, 3, 3, 16, 0))),
+    ("internvl2-26b", dict(layers=None, prefill=(1, 20), decode=(2, 1, 3, 16, 0))),
+    ("h2o-danube-1.8b", dict(layers=None, prefill=(1, 24), decode=(2, 1, 4, 32, 24),
+                             consistency=True)),
+])
+def test_lm_families_phase_on_the_cpu(smoke, arch, spec):
+    """Phase lm_families' run of one config on the CPU at its reduced
+    config (f32, the plain versions, so no launch is expected): the
+    prefill, the cache filled from the prompts (danube: 24 tokens past its
+    window of 16), the decode, the consistency check and the MoE routing
+    against the CPU (here the same device: no set differs)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    rec, pre, dec = smoke.lm_family(arch, spec, "cpu", device="cpu", cfg=cfg)
+    assert rec["layers"] == cfg.num_layers and len(rec["decode_step_s"]) == sum(
+        spec["decode"][1:3]) - 1
+    assert not any(pre.values()) and not any(dec.values())
+    if cfg.is_moe:
+        assert rec["routing_vs_cpu"]["top_k_sets_differ"] == 0
+    if spec.get("consistency"):
+        assert max(rec["prefill_vs_decode_max_abs"].values()) < 3e-2

@@ -221,9 +221,15 @@ def test_cross_entropy_chunked_matches_reference_on_a_ragged_length(pair):
 
 
 def test_unported_families_name_what_is_missing():
-    cfg = dataclasses.replace(tconfigs.get_config(ARCH).reduced(), family="moe")
-    with pytest.raises(NotImplementedError, match="dense and hybrid.*item 12"):
+    """The xLSTM (``ssm``) family stays unported: its stack, its model and
+    its config name the roadmap item."""
+    cfg = dataclasses.replace(tconfigs.get_config(ARCH).reduced(), family="ssm")
+    with pytest.raises(NotImplementedError, match="dense, moe, vlm, hybrid.*xLSTM.*item 12"):
         ttr.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="xLSTM and audio.*item 12"):
+        tmodels.build(cfg, device="cpu")
+    with pytest.raises(KeyError, match="item 12"):
+        tconfigs.get_config("xlstm-1.3b")
 
 
 # ------------------------------------------------------------- optimizers
