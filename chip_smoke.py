@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
 
 Phases, one line each (any failed check exits non-zero):
-  1. device  — the card, the toolchain, the eleven kernels' build from csrc/.
+  1. device  — the card, the toolchain, the twelve kernels' build from csrc/.
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card at the serving paths' shapes (WAN and Zamba2),
                with kernel, plain, library and bound times (and the
@@ -27,7 +27,7 @@ Phases, one line each (any failed check exits non-zero):
                in) also at the 480p latent (21, 60, 104) with a cold L2;
                the ptxas lines of those three, of every flash library
                (flash_attention.cu, the wgmma forward, flash_decode.cu and
-               both backwards) and of both SSD libraries must show no
+               both backwards) and of the three SSD libraries must show no
                spill.  Then broken copies, built outside the
                checkout, must each fail a check: three of mamba_ssd.cu (no
                +-60 clip, no state reset, one TF32 pass instead of
@@ -82,7 +82,15 @@ Phases, one line each (any failed check exits non-zero):
                dropped, the carry swept forwards) must each fail a
                case; the forward's state-writing entry against the plain
                states, its y bit-equal to the serving entry's, and no
-               spill in any instantiation of mamba_ssd.cu.
+               spill in any instantiation of mamba_ssd.cu.  The grouped,
+               wide-head scan (mamba_ssd_wide.cu, 3xTF32) against
+               ref.ssd_scan within SSD_TOL, two calls bit-equal: the
+               xLSTM prefill's value scan (2 x 4096, 4 heads x 1024,
+               state 1024, chunk 128) and its normaliser (p = 1), a
+               ragged steep case with g < h, a ragged p tile, one group
+               at p 30; three broken copies (the head-to-group map, the
+               inter-chunk term dropped, the states' p-tail mask dropped)
+               must each fail the case named for it.
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -164,7 +172,22 @@ Phases, one line each (any failed check exits non-zero):
                sets differ); for danube and minitron the decode's logits
                against a forward over the same tokens (bf16 gap measured,
                the same weights in f32 held to 3e-2).
-  7b. train — granite-3-2b (40 layers, d_model 2048, 32 / 8 x 64 heads,
+  7b. lm_xlstm — xlstm-1.3b at its published widths and depth (48
+               blocks: 6 groups of 7 mLSTM + 1 sLSTM, bf16, random
+               weights) through the serve steps as lm_families runs a
+               config: make_prefill_step (2 x 4096, cold and warm: 84
+               mamba_ssd_wide launches each and nothing else) and
+               make_decode_step (4 requests x (32 teacher-forced + 32
+               greedy) from an empty cache, no launch a step; the bf16 gap
+               to a forward over the same tokens measured, the same weights
+               in f32 held to 3e-2 at full depth); peak memory above what
+               the phase found allocated.  Then one prefill traced for the
+               device split (the scan, the sLSTM loop's kernels, cuBLAS,
+               other) and one group (8 blocks) at full width: its forward
+               against its stepped decode over 64 tokens in bf16 (measured)
+               and in f32 (3e-2), and its f32 prefill logits on 1 x 512
+               tokens against the CPU's (relative L2 within 1e-3).
+  7c. train — granite-3-2b (40 layers, d_model 2048, 32 / 8 x 64 heads,
                bf16, random weights) through make_train_step (remat full,
                2 microbatches, AdamW) on SyntheticLMStream batches of 4 x
                2048 tokens: a warm-up step, 3 timed steps (finite losses and
@@ -468,6 +491,37 @@ FAMILY_RUNS = (
     ("llama3-405b", dict(layers=1, prefill=(1, 2048), decode=(4, 1, 8, 4096, 0))),
     ("llama4-maverick-400b-a17b", dict(layers=1, prefill=(1, 2048), decode=(4, 1, 8, 4096, 0))),
 )
+# phase lm_xlstm: xlstm-1.3b at its published widths and depth (arXiv:2405.04517:
+# 48 blocks as 6 groups of 7 mLSTM + 1 sLSTM, d_model 2048, 4 heads; the mLSTM's
+# scans at p = n = 1024), bf16, random weights from seed 0
+XLSTM_ARCH = "xlstm-1.3b"
+# prefill 2 x 4096; decode 4 requests x (32 teacher-forced + 32 greedy tokens)
+# from an empty cache; the bf16 gap to a forward over the same tokens measured,
+# the same weights in f32 held to LM_CONSISTENCY_TOL (lm_family)
+XLSTM_RUN = dict(layers=None, prefill=(2, 4096), decode=(4, 32, 32, 64, 0), consistency=True)
+XLSTM_CHECK = (1, 512)          # one group at full width in f32: the card against the CPU
+XLSTM_GAP_TOKENS = 64           # that group's prefill against its stepped decode, bf16 and f32
+WIDE_SPLIT = ("three launches: the causal Gram and decay scalars per (chunk, batch, group); "
+              "the states swept over the chunks per (batch, head, 64 x 64 tile of n x p); the "
+              "output per (batch, chunk, head, 64 columns of p), a warp per 16 rows")
+# broken copies of mamba_ssd_wide.cu: each must fail the check on a case
+WIDE_MUTANTS = {
+    # head i reads group i % g, not i // (h / g)
+    "group_map": ("mamba_ssd_wide.cu", "return hh / (h / g); }", "return hh % g; }"),
+    # C . S_in left out of every chunk
+    "no_inter_chunk": ("mamba_ssd_wide.cu",
+                       "const int nsl = ch > 0 ? (p.n + kSlabN - 1) / kSlabN : 0;",
+                       "const int nsl = 0;"),
+    # the states' p-tail mask dropped: a tile's columns past p written over
+    # the next state rows
+    "p_tail_unmasked": ("mamba_ssd_wide.cu",
+                        "            if (col + 1 < pw) d[1] = S[c][2 * half + 1];",
+                        "            d[1] = S[c][2 * half + 1];"),
+}
+# which case must catch each broken copy (it may fail others too)
+WIDE_MUTANT_CATCHER = {"group_map": "mamba_ssd_wide_ragged_steep_g2",
+                       "no_inter_chunk": "mamba_ssd_wide_xlstm_prefill",
+                       "p_tail_unmasked": "mamba_ssd_wide_normaliser"}
 NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
 
 
@@ -882,7 +936,7 @@ def ssd_inputs(b, s, h, p, n, seed, steep=False):
 
 
 def ssd_agrees(out, plain):
-    limit = SSD_TOL[0] + SSD_TOL[1] * plain.abs()
+    limit = SSD_TOL[0] + SSD_TOL[1] * plain.float().abs()
     err, share, ok = max_err(out, plain, limit)
     import torch
 
@@ -1076,6 +1130,117 @@ def ssd_bwd_mutants(kept):
                         caught[m].append(f"{name} ({share:.3g} of the limit)")
             check(caught[m], f"mutant {m} of mamba_ssd_bwd.cu passed every check")
         ops.mamba_ssd_bwd.launches = before
+        return caught
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def wide_work(b, s, h, g, p, n, chunk):
+    """Multiply-adds and bytes of the grouped scan: per (batch, head, chunk)
+    the causal G.x, C.S and the state update, per (batch, group, chunk) the
+    causal Gram; x, log_decay, scale, B, C read once and y written once, f32."""
+    nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
+    macs = b * h * nc * (tri * p + 2 * chunk * n * p) + b * g * nc * tri * n
+    return macs, 4 * (2 * b * s * h * p + 2 * b * s * h + 2 * b * s * g * n)
+
+
+def wide_inputs(b, s, h, g, p, n, seed, steep=False, device="cuda"):
+    """x, log_decay, scale, B, C as an mLSTM feeds its scans: log_decay =
+    logsigmoid(f) with f around the forget-gate bias (3 ... 6 over the
+    heads), scale = exp(clip(i, -10, 10)), B a key scaled by 1 / sqrt(n).
+    ``steep`` decays (-2 ... -6 per token) take |cum - centre| past 60
+    inside a chunk, where the +-60 clip decides the result."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device=device)
+    f = torch.randn((b, s, h), generator=gen, device=device) \
+        + torch.linspace(3.0, 6.0, h, device=device)
+    a = torch.nn.functional.logsigmoid(f)
+    if steep:
+        a = -(torch.rand((b, s, h), generator=gen, device=device) * 4.0 + 2.0)
+    dt = torch.exp(torch.clamp(torch.randn((b, s, h), generator=gen, device=device), -10, 10))
+    B = torch.randn((b, s, g, n), generator=gen, device=device) / math.sqrt(n)
+    C = torch.randn((b, s, g, n), generator=gen, device=device)
+    return [x, a, dt, B, C]
+
+
+def wide_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=5):
+    """mamba_ssd_wide vs its plain version (``ref.ssd_scan``) on the same
+    inputs within ``SSD_TOL``, two calls bit-equal; the kernel's device
+    time by the profiler (its three launches), the plain version's by
+    events.  The plain version is evaluated in float64 on the inputs: in
+    f32 its own in-chunk sums of steep decays (|cum| in the hundreds at
+    chunk 128) round the clipped weights apart by more than ``SSD_TOL``
+    (its f32 run's share of the limit against that is printed beside).
+    Returns the record and (inputs, plain output) for the mutation
+    checks."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    args = wide_inputs(b, s, h, g, p, n, seed, steep)
+    before = ops.mamba_ssd_wide.launches
+    out = ops.mamba_ssd_wide(*args, chunk=chunk)
+    plain = ref.ssd_scan(*(t.double() for t in args), chunk)
+    plain32 = ref.ssd_scan(*args, chunk)
+    torch.cuda.synchronize()
+    err, share, ok = ssd_agrees(out, plain)
+    share32 = ssd_agrees(plain32, plain)[1]
+    del plain32
+    check(ok, f"{name}: kernel disagrees with plain version (max abs err {err:.3e}, "
+              f"{share:.2f} of the limit {SSD_TOL[0]} + {SSD_TOL[1]} |plain|)")
+    check(torch.equal(out, ops.mamba_ssd_wide(*args, chunk=chunk)),
+          f"{name}: two calls differ")
+    kernel_ms = device_ms(lambda: ops.mamba_ssd_wide(*args, chunk=chunk), reps)
+    plain_ms = time_ms(lambda: ref.ssd_scan(*args, chunk), 2)
+    # the three launches' device times (one call, profiled)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ops.mamba_ssd_wide(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    parts = {part: sum(e.self_device_time_total for e in prof.key_averages()
+                       if f"wide_{part}" in e.key) / 1e3 for part in ("prep", "states", "out")}
+    ops.mamba_ssd_wide.launches = before       # comparison launches do not count
+    macs, nbytes = wide_work(b, s, h, g, p, n, chunk)
+    bound_ms, bound_by = bound(2.0 * macs * SSD_PASSES, nbytes, H100_TF32_FLOPS)
+    return timed_case({
+        "case": name, "kernel": "mamba_ssd_wide", "shape": [b, s, h, g, p, n], "chunk": chunk,
+        "steep": steep, "max_abs_err": err, "tol": SSD_TOL, "err_share_of_limit": share,
+        "plain_f32_share_of_limit": share32, "parts_ms": parts,
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+        "bound_by": bound_by, "tflops": None if kernel_ms is None else 2.0 * macs / kernel_ms / 1e9,
+    }, ("ms",)), (name, args, plain, chunk)
+
+
+def wide_mutants(kept):
+    """Build each broken copy of mamba_ssd_wide.cu outside the checkout (in
+    parallel), serve it in place of the kernel, and require that the check
+    fails on the case ``WIDE_MUTANT_CATCHER`` names (and print its share of
+    the limit on every case).  Returns, per mutant, the cases that caught
+    it."""
+    import torch
+    from repro_torch.kernels import build, ops
+
+    tmp, built = build_mutants("mamba_ssd_wide_mutants_", WIDE_MUTANTS,
+                               ("mamba_ssd_wide.cu", "ssd_common.cuh"),
+                               {m: ("mamba_ssd_wide",) for m in WIDE_MUTANTS})
+    try:
+        before, caught = ops.mamba_ssd_wide.launches, {}
+        for m, sos in built.items():
+            caught[m], shares = [], {}
+            with build.substituted("mamba_ssd_wide",
+                                   build.load("mamba_ssd_wide", sos["mamba_ssd_wide"])):
+                for name, args, plain, chunk in kept:
+                    out = ops.mamba_ssd_wide(*args, chunk=chunk)
+                    torch.cuda.synchronize()
+                    err, share, ok = ssd_agrees(out, plain)
+                    shares[name] = share
+                    if not ok:
+                        caught[m].append(f"{name} ({share:.3g} of the limit)")
+            print(f"phase=kernels mutant=mamba_ssd_wide:{m} share_of_limit="
+                  + ",".join(f"{c}:{v:.3g}" for c, v in shares.items()), flush=True)
+            check(any(c.startswith(WIDE_MUTANT_CATCHER[m] + " ") for c in caught[m]),
+                  f"mutant {m} of mamba_ssd_wide.cu passed {WIDE_MUTANT_CATCHER[m]}")
+        ops.mamba_ssd_wide.launches = before
         return caught
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3303,24 +3468,47 @@ def routing_vs_cpu(cfg, params, tokens) -> dict:
             "min_kth_gap": float((srt[:, k - 1] - srt[:, k]).min())}
 
 
+def lm_launches(cfg, prefill_tokens: int):
+    """The kernel launches of one bf16 prefill of ``prefill_tokens`` tokens
+    and of one decode step of ``cfg`` on the card: an xLSTM's two
+    ``mamba_ssd_wide`` scans an mLSTM block (the values, then the normaliser
+    at p = 1) and none a decode step (its mLSTM and sLSTM steps are plain
+    PyTorch, as the reference leaves them to XLA); an attention family's
+    ``flash_attention_sm90`` and ``flash_decode`` once a layer each."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import _xlstm_groups
+
+    if cfg.family == "ssm":
+        n_s, n_m = _xlstm_groups(cfg)
+        return {"mamba_ssd_wide": 2 * n_s * n_m}, {}
+    pre = ops.flash_kernel(torch.bfloat16, cfg.head_dim, prefill_tokens)
+    dec = ops.flash_kernel(torch.bfloat16, cfg.head_dim, 1)
+    check(pre == "flash_attention_sm90" and dec == "flash_decode",
+          f"{cfg.name}: prefill on {pre}, decode on {dec}")
+    return {pre: cfg.num_layers}, {dec: cfg.num_layers}
+
+
 def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
     """Phase lm_families, one config at its published widths (depth cut to
     ``spec["layers"]`` where given), bf16, random weights from seed 0,
     through the LM serve steps.  Prefill of ``spec["prefill"]`` tokens (a
-    VLM's batch with ``vision_patches``), cold then warm, each exactly
-    ``num_layers`` flash_attention_sm90 launches and no other kernel.  Then
+    VLM's batch with ``vision_patches``), cold then warm, each exactly the
+    launches ``lm_launches`` names and no other kernel.  Then
     ``spec["decode"]`` = (requests, teacher-forced prompt tokens, generated
-    tokens, cache slots, start position): each step exactly ``num_layers``
-    flash_decode launches and nothing else; a start past 0 first fills the
-    cache with prompts of that length (``fill_cache``, request 0's the
-    prefill's prompt).  With ``spec["consistency"]``, the greedy decode's
-    logits against a forward over the prompts and the fed tokens: measured
-    in bf16, and held within ``LM_CONSISTENCY_TOL`` with the same weights in
-    f32 (the same steps again, on the f32 flash kernel; bf16 rounds the two
-    orders of work apart by ~0.1 at full width, granite-3-2b's gap too).  Returns the record and the launch counts of the
-    prefills and of the decode, each set to 0 just before and read just
-    after.  ``device`` and ``cfg`` let a CPU run check the phase at a
-    reduced config (no kernel launches there, so none is expected)."""
+    tokens, cache slots, start position): each step exactly ``lm_launches``'
+    and nothing else; a start past 0 first fills the cache with prompts of
+    that length (``fill_cache``, request 0's the prefill's prompt).  Peak
+    memory of the prefills and of the decode, each above what was allocated
+    when the call began (printed beside it: what earlier phases left).  With ``spec["consistency"]``, the greedy decode's logits
+    against a forward over the prompts and the fed tokens: measured in
+    bf16, and held within ``LM_CONSISTENCY_TOL`` with the same weights in
+    f32 (the same steps again, on the f32 kernels; bf16 rounds the two
+    orders of work apart by ~0.1 at full width on the dense configs).
+    Returns the record and the launch counts of the prefills and of the
+    decode, each set to 0 just before and read just after.  ``device`` and
+    ``cfg`` let a CPU run check the phase at a reduced config (no kernel
+    launches there, so none is expected)."""
     import torch
     from repro_torch import models
     from repro_torch.kernels import ops
@@ -3337,6 +3525,15 @@ def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
         if on_card:
             torch.cuda.synchronize()
 
+    def peak_gb():
+        """GiB allocated at most since the last reset, above ``resident``."""
+        if not on_card:
+            return None
+        gb = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        return gb
+
+    resident = torch.cuda.memory_allocated() if on_card else 0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3352,11 +3549,7 @@ def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
     batch = {"tokens": tokens}
     if cfg.family == "vlm":
         batch["vision_embeds"] = frontends.vision_patches(g, pB, cfg, device)
-    pre_flash = ops.flash_kernel(torch.bfloat16, cfg.head_dim, pS)
-    dec_flash = ops.flash_kernel(torch.bfloat16, cfg.head_dim, 1)
-    check(not on_card or (pre_flash == "flash_attention_sm90" and dec_flash == "flash_decode"),
-          f"{arch}: prefill on {pre_flash}, decode on {dec_flash}")
-    want_pre, want_dec = ({pre_flash: L}, {dec_flash: L}) if on_card else ({}, {})
+    want_pre, want_dec = lm_launches(cfg, pS) if on_card else ({}, {})
     ops.reset_launch_counts()
     walls, logits = [], []
     for _ in range(2):                                  # cold, warm
@@ -3373,12 +3566,14 @@ def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
         logits.append(out)
     prefill_counts = ops.launch_counts()
     check(tuple(logits[1].shape) == (pB, 1, cfg.padded_vocab_size)
-          and bool(torch.isfinite(logits[1]).all()), f"{arch}: prefill logits "
-          f"{tuple(logits[1].shape)} not finite or misshapen")
+          and logits[1].dtype == torch.float32 and bool(torch.isfinite(logits[1]).all()),
+          f"{arch}: prefill logits {tuple(logits[1].shape)} {logits[1].dtype} not finite or "
+          "misshapen")
     rec = {"arch": arch, "layers": L, "params": n_params, "init_s": init_s,
            "prefill": [pB, pS], "prefill_cold_s": walls[0], "prefill_warm_s": walls[1],
            "prefill_tokens_per_s": pB * pS / walls[1],
-           "cold_vs_warm_max_diff": float((logits[0] - logits[1]).abs().max())}
+           "cold_vs_warm_max_diff": float((logits[0] - logits[1]).abs().max()),
+           "resident_gb": resident / 2**30, "prefill_peak_gb": peak_gb()}
     if cfg.is_moe:
         rec["routing_vs_cpu"] = routing_vs_cpu(cfg, params, tokens)
 
@@ -3392,7 +3587,7 @@ def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
         prompts[:, start] = first[:, -1].argmax(-1)      # the greedy token after each prompt
     ops.reset_launch_counts()
     tok, fed, outs, step_s = prompts[:, start:start + 1], [], [], []
-    for t in range(prompt + gen - 1):
+    for t in range(prompt + gen - 1):              # the last generated token is not fed back
         pos = torch.full((n_req,), start + t, dtype=torch.int32, device=device)
         before = ops.launch_counts()
         sync()
@@ -3413,7 +3608,7 @@ def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
     warm = sorted(step_s[1:])
     rec.update({"decode": list(spec["decode"]), "decode_step_s": step_s,
                 "decode_step_ms_median": 1e3 * warm[len(warm) // 2],
-                "peak_gb": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+                "decode_peak_gb": peak_gb(),
                 "launches": {"prefill": prefill_counts, "decode": decode_counts}})
     if spec.get("consistency"):
         # the same tokens teacher-forced through one forward: its logits at the
@@ -3423,13 +3618,14 @@ def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
         # to LM_CONSISTENCY_TOL, as the CPU tests hold the reduced f32 model
         seq = torch.cat([prompts[:, :start]] + fed, dim=1)
         hidden, _ = lm.forward(params, {"tokens": seq})
-        gap_bf16 = float((logits_fn(params, hidden[:, start:], cfg)
-                          - torch.cat(outs, dim=1)).abs().max())
+        full16, stepped16 = logits_fn(params, hidden[:, start:], cfg), torch.cat(outs, dim=1)
+        gap_bf16 = float((full16 - stepped16).abs().max())
         del hidden, cache
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         lm32, p32 = models.build(cfg32, device), _map_tree(lambda x: x.float(), params)
         cache = lm32.init_cache(n_req, max_len)
-        fill_cache(cfg32, p32, prompts[:, :start], cache)
+        if start:
+            fill_cache(cfg32, p32, prompts[:, :start], cache)
         outs = []
         for t, tk in enumerate(fed):
             pos = torch.full((n_req,), start + t, dtype=torch.int32, device=device)
@@ -3438,20 +3634,30 @@ def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
         stepped = torch.cat(outs, dim=1)
         gap = float((full - stepped).abs().max())
         rec["prefill_vs_decode_max_abs"] = {"bf16": gap_bf16, "f32": gap}
+        # each bf16 order of work against its own f32 twin: rounding moves both
+        rec["bf16_vs_f32_max_abs"] = {"forward": float((full16 - full).abs().max()),
+                                      "decode": float((stepped16 - stepped).abs().max()),
+                                      "f32_logit_max": float(full[..., :cfg.vocab_size]
+                                                             .abs().max())}
         check(bool(torch.allclose(full, stepped, rtol=LM_CONSISTENCY_TOL,
                                   atol=LM_CONSISTENCY_TOL)),
               f"{arch}: f32 decode steps from position {start} disagree with the forward over "
               f"the same tokens (max abs {gap:.3e}, allclose {LM_CONSISTENCY_TOL})")
-        del lm32, p32, full, stepped
+        del lm32, p32, full, stepped, full16, stepped16
     routing = rec.get("routing_vs_cpu")
-    print(f"phase=lm_families arch={arch} layers={L} params={n_params} init_s={init_s:.1f} "
+    phase = "lm_xlstm" if cfg.family == "ssm" else "lm_families"
+    print(f"phase={phase} arch={arch} layers={L} params={n_params} init_s={init_s:.1f} "
           f"prefill={pB}x{pS} cold_s={walls[0]:.4f} warm_s={walls[1]:.4f} "
-          f"tokens_per_s={pB * pS / walls[1]:.0f} {pre_flash}_per_prefill={L} "
+          f"tokens_per_s={pB * pS / walls[1]:.0f} launches_per_prefill={want_pre} "
           f"decode={spec['decode']} step_ms_median={rec['decode_step_ms_median']:.2f} "
-          f"{dec_flash}_per_step={L} peak_mem_gb={num(rec['peak_gb'], '.2f')}"
+          f"launches_per_step={want_dec} resident_gb={resident / 2**30:.2f} peak_mem_gb_above_"
+          f"it: prefill={num(rec['prefill_peak_gb'], '.2f')} "
+          f"decode={num(rec['decode_peak_gb'], '.2f')}"
           + (f" prefill_vs_decode_max_abs_bf16={rec['prefill_vs_decode_max_abs']['bf16']:.3e} "
              f"(measured) f32={rec['prefill_vs_decode_max_abs']['f32']:.3e} (allclose "
-             f"{LM_CONSISTENCY_TOL})" if spec.get("consistency") else "")
+             f"{LM_CONSISTENCY_TOL}) bf16_vs_f32_max_abs: "
+             + " ".join(f"{k}={v:.3e}" for k, v in rec["bf16_vs_f32_max_abs"].items())
+             if spec.get("consistency") else "")
           + (f" routing_vs_cpu={routing}" if routing else "") + f" card=[{smi}]", flush=True)
     del params, cache, lm, logits, out
     if on_card:
@@ -3471,6 +3677,184 @@ def lm_families(smi: str):
     recs["phase_s"] = time.perf_counter() - t0
     print(f"phase=lm_families phase_s={recs['phase_s']:.1f}", flush=True)
     return recs, counts
+
+
+MARKER_KERNEL = "spin_kernel"     # torch.cuda._sleep's kernel: brackets the sLSTM loops
+
+
+def xlstm_device_split(kernels) -> dict:
+    """Device time (us) of a profiled xLSTM prefill from its kernels ``(name,
+    us)`` in stream order, each sLSTM loop bracketed by two marker kernels
+    (``MARKER_KERNEL``, not counted): the scan's kernels
+    (``mamba_ssd_wide``), the sLSTM loop's kernels (its batched recurrent
+    product and elementwise chain, with its state set-up and the stack of
+    its outputs), cuBLAS outside the loop, and the rest; the loop's own
+    cuBLAS part beside them."""
+    def is_gemm(name):
+        return any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass", "gemv"))
+
+    split = dict.fromkeys(("mamba_ssd_wide", "slstm_loop", "cublas", "other",
+                           "slstm_loop_cublas"), 0.0)
+    in_loop, markers = False, 0
+    for name, us in kernels:
+        if MARKER_KERNEL in name:
+            in_loop, markers = not in_loop, markers + 1
+        elif in_loop:
+            split["slstm_loop"] += us
+            split["slstm_loop_cublas"] += us if is_gemm(name) else 0.0
+        elif "wide_" in name:
+            split["mamba_ssd_wide"] += us
+        else:
+            split["cublas" if is_gemm(name) else "other"] += us
+    split["markers"] = markers
+    return split
+
+
+def profiled_kernels(fn):
+    """The device kernels ``fn`` launches, ``(name, us)`` in start order,
+    from a ``torch.profiler`` window of CUDA activity only, read from its
+    kineto events (a prefill launches ~350 k kernels: building the
+    profiler's per-event Python objects would take minutes)."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA]
+    ev.sort(key=lambda e: e.start_ns())
+    return [(e.name(), e.duration_ns() / 1e3) for e in ev]
+
+
+def stepped_gap(lm, params, cfg, tokens) -> float:
+    """Max abs between the logits of one forward over ``tokens (B, S)`` and
+    those of S decode steps over the same tokens from an empty cache."""
+    import torch
+    from repro_torch.models.transformer import logits_fn
+
+    B, S = tokens.shape
+    full = logits_fn(params, lm.forward(params, {"tokens": tokens})[0], cfg)
+    cache, steps = lm.init_cache(B, S), []
+    for t in range(S):
+        pos = torch.full((B,), t, dtype=torch.int32, device=tokens.device)
+        steps.append(lm.decode(params, tokens[:, t:t + 1], cache, pos)[0])
+    return float((full - torch.cat(steps, dim=1)).abs().max())
+
+
+def lm_xlstm(smi: str):
+    """Phase lm_xlstm: xlstm-1.3b at its published widths and depth (48
+    blocks: 6 groups of 7 mLSTM + 1 sLSTM), bf16, random weights from seed
+    0, through the LM serve steps by ``lm_family`` (``XLSTM_RUN``: each
+    prefill exactly 84 ``mamba_ssd_wide`` launches and nothing else, no
+    launch a decode step; the bf16 gap between the stepped decode and a
+    forward over the same tokens measured, and the same weights in f32 held
+    to ``LM_CONSISTENCY_TOL`` at full depth).  Then the xLSTM's own parts:
+    one prefill profiled (the weights drawn again from seed 0; the kernels
+    warm from ``lm_family``'s prefills), its device time split into the
+    scan, the sLSTM loop's kernels, cuBLAS and the rest; and one group (7
+    mLSTM + 1 sLSTM blocks) at full width from seed 2: its forward against
+    its stepped decode over ``XLSTM_GAP_TOKENS`` tokens in bf16 (measured)
+    and, the same weights in f32, held to ``LM_CONSISTENCY_TOL``; the card's
+    f32 prefill logits on ``XLSTM_CHECK`` tokens against the CPU's plain
+    path within ``LM_CARD_VS_CPU_REL_L2`` (f32 on both sides; the card's
+    scan products in 3xTF32, sums in other orders).  Returns the record and
+    ``lm_family``'s launch counts of the prefills and of the decode."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import xlstm
+    from repro_torch.models.dit import _map_tree
+    from repro_torch.models.transformer import _xlstm_groups, logits_fn
+    from repro_torch.serving.serve_step import make_prefill_step
+
+    t_phase = time.perf_counter()
+    rec, prefill_counts, decode_counts = lm_family(XLSTM_ARCH, XLSTM_RUN, smi)
+    cfg = get_config(XLSTM_ARCH)
+    n_s, n_m = _xlstm_groups(cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    # where one prefill spends its device time: each sLSTM loop bracketed by
+    # two marker kernels, so that its kernels can be told apart
+    lm = models.build(cfg, "cuda")
+    params, prefill = lm.init(0), make_prefill_step(lm, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, XLSTM_RUN["prefill"], generator=g, device="cuda")
+    weights, ffn = xlstm._recurrent_weights, xlstm._slstm_ffn
+
+    def marked_weights(rec):
+        out = weights(rec)
+        torch.cuda._sleep(1)
+        return out
+
+    def marked_ffn(*a):
+        torch.cuda._sleep(1)
+        return ffn(*a)
+
+    xlstm._recurrent_weights, xlstm._slstm_ffn = marked_weights, marked_ffn
+    try:
+        t0 = time.perf_counter()
+        kernels = profiled_kernels(lambda: prefill(params, {"tokens": tokens}))
+        traced_s = time.perf_counter() - t0
+    finally:
+        xlstm._recurrent_weights, xlstm._slstm_ffn = weights, ffn
+    split = xlstm_device_split(kernels)
+    device_s = sum(split[k] for k in ("mamba_ssd_wide", "slstm_loop", "cublas", "other")) / 1e6
+    check(split["markers"] == 2 * n_s and device_s > 0 and split["mamba_ssd_wide"] > 0
+          and split["slstm_loop"] > 0, f"the traced xlstm prefill's split {split}")
+    n_kernels = len(kernels) - split["markers"]
+    warm_s = rec["prefill_warm_s"]
+    rec.update({"prefill_traced_s": traced_s, "prefill_device_s": device_s,
+                "prefill_kernels": n_kernels,
+                "prefill_split_s": {k: v / 1e6 for k, v in split.items() if k != "markers"}})
+    print(f"phase=lm_xlstm traced_prefill_s={traced_s:.3f} (with the profiler's reading) "
+          f"kernels={n_kernels} device_s={device_s:.3f} "
+          f"device_busy_of_warm_wall={device_s / warm_s:.3f} device_share: "
+          + " ".join(f"{k}={split[k] / 1e6 / device_s:.3f}"
+                     for k in ("mamba_ssd_wide", "slstm_loop", "cublas", "other",
+                               "slstm_loop_cublas"))
+          + " (slstm_loop_cublas is part of slstm_loop)", flush=True)
+    del params, lm, prefill, kernels
+    torch.cuda.empty_cache()
+
+    # one group at full width: its forward against its stepped decode in
+    # bf16 and, the same weights in f32, held; the card against the CPU
+    gcfg = dataclasses.replace(cfg, num_layers=cfg.slstm_every)
+    g32 = dataclasses.replace(gcfg, dtype="float32")
+    card = models.build(gcfg, "cuda")
+    p16 = card.init(2)
+    gtok = torch.randint(0, cfg.vocab_size, (XLSTM_CHECK[0], XLSTM_GAP_TOKENS), generator=g,
+                         device="cuda")
+    gap_bf16 = stepped_gap(card, p16, gcfg, gtok)
+    card32, cpu = models.build(g32, "cuda"), models.build(g32, "cpu")
+    p32 = _map_tree(lambda t: t.float(), p16)
+    gap_f32 = stepped_gap(card32, p32, g32, gtok)
+    ctok = torch.randint(0, cfg.vocab_size, XLSTM_CHECK, generator=g, device="cuda")
+    before = ops.mamba_ssd_wide.launches
+    full = logits_fn(p32, card32.forward(p32, {"tokens": ctok})[0], g32)
+    check(ops.mamba_ssd_wide.launches - before == 2 * n_m,
+          "the one-group check's prefill did not run on mamba_ssd_wide")
+    p_cpu = _map_tree(lambda t: t.cpu(), p32)
+    V = cfg.vocab_size                          # the padded columns are -1e30 in both
+    want = logits_fn(p_cpu, cpu.forward(p_cpu, {"tokens": ctok.cpu()})[0], g32)[..., :V]
+    rel = float((full.cpu()[..., :V] - want).norm() / want.norm())
+    rec["group_check"] = {"layers": gcfg.num_layers, "seed": 2, "tokens": list(XLSTM_CHECK),
+                          "rel_l2_card_vs_cpu": rel, "gap_tokens": XLSTM_GAP_TOKENS,
+                          "prefill_vs_decode_max_abs": {"bf16": gap_bf16, "f32": gap_f32}}
+    print(f"phase=lm_xlstm group_check layers={gcfg.num_layers} seed=2 "
+          f"prefill_vs_decode_max_abs over {XLSTM_GAP_TOKENS} tokens: bf16={gap_bf16:.3e} "
+          f"(measured) f32={gap_f32:.3e} (allclose {LM_CONSISTENCY_TOL}) f32 tokens="
+          f"{XLSTM_CHECK[0]}x{XLSTM_CHECK[1]} prefill_rel_l2_card_vs_cpu={rel:.3e} "
+          f"(limit {LM_CARD_VS_CPU_REL_L2})", flush=True)
+    check(bool(torch.isfinite(full).all()) and rel < LM_CARD_VS_CPU_REL_L2,
+          f"xlstm group check: the card disagrees with the CPU (rel L2 {rel:.3e})")
+    check(gap_f32 <= LM_CONSISTENCY_TOL,
+          f"xlstm group check: f32 stepped decode disagrees with the forward "
+          f"(max abs {gap_f32:.3e})")
+    del card, card32, cpu, p16, p32, p_cpu, full, want
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase=lm_xlstm phase_s={rec['phase_s']:.1f} card=[{smi}]", flush=True)
+    return rec, prefill_counts, decode_counts
 
 
 def psnr_db(a, b) -> float:
@@ -3781,7 +4165,7 @@ def run() -> int:
     for name in ("int8_quantize", "latent_blend", "dequant_blend",     # no local memory
                  "flash_attention", "flash_attention_sm90", "flash_decode",
                  "flash_attention_bwd", "flash_attention_bwd_sm90", "mamba_ssd",
-                 "mamba_ssd_bwd"):
+                 "mamba_ssd_bwd", "mamba_ssd_wide"):
         spills = [l for l in reports[name].splitlines() if "spill" in l]
         check(spills and all(NO_SPILL in l for l in spills), f"{name} spills: {spills}")
 
@@ -4037,12 +4421,34 @@ def run() -> int:
         rec, kept = ssd_bwd_case(*args)
         ssd_bwd.append(rec)
         ssd_bwd_kept.append(kept)
-    record["kernels"] = flash + bwd + blend + quant + dequant + ssd + ssd_bwd + guidance
-    for c in flash + bwd + blend + quant + dequant + ssd + ssd_bwd + guidance:
+    # the grouped, wide-head scan (mamba_ssd_wide.cu): the xLSTM prefill's value
+    # scan (2 x 4096, 4 heads x 1024, state 1024, chunk 128: g = h) and its
+    # normaliser (p = 1), a ragged steep case with g < h (head i reads group
+    # i // 2), a ragged p tile with a half state slab, and one group at a p
+    # mamba_ssd does not take
+    wide, wide_kept = [], []
+    xcfg = get_config(XLSTM_ARCH)
+    xdh, xpre = 2 * xcfg.d_model // xcfg.num_heads, XLSTM_RUN["prefill"]
+    for args in (("mamba_ssd_wide_xlstm_prefill", *xpre, xcfg.num_heads,
+                  xcfg.num_heads, xdh, xdh, 128, 21),
+                 ("mamba_ssd_wide_normaliser", *xpre, xcfg.num_heads, xcfg.num_heads,
+                  1, xdh, 128, 22),
+                 ("mamba_ssd_wide_ragged_steep_g2", 1, 1000, 4, 2, 256, 256, 128, 23, True),
+                 ("mamba_ssd_wide_odd_tiles", 2, 300, 6, 3, 100, 48, 48, 24),
+                 ("mamba_ssd_wide_p30_g1", 1, 130, 2, 1, 30, 16, 16, 25, True)):
+        rec, kept = wide_case(*args)
+        wide.append(rec)
+        wide_kept.append(kept)
+    record["kernels"] = flash + bwd + blend + quant + dequant + ssd + ssd_bwd + wide + guidance
+    for c in flash + bwd + blend + quant + dequant + ssd + ssd_bwd + wide + guidance:
         lib = num(c["library_ms"])
         earlier = f" earlier_ms={c['earlier_ms']}" if c.get("earlier_ms") else ""
         if "events_ms" in c and c["events_ms"] != c["ms"]:
             earlier += f" events_ms={c['events_ms']:.4f}"
+        if "plain_f32_share_of_limit" in c:
+            earlier += (f" plain_is_f64 plain_f32_share_of_limit="
+                        f"{c['plain_f32_share_of_limit']:.3f} parts_ms="
+                        + ",".join(f"{k}:{v:.4f}" for k, v in c["parts_ms"].items()))
         if "bf16_out_ms" in c:
             earlier += f" bf16_out_ms={num(c['bf16_out_ms'], '.5f')}"
         if "yardstick_ms" in c:
@@ -4061,7 +4467,9 @@ def run() -> int:
     caught.update(quant_blend_mutants(quant_kept, blend_kept, dequant_kept))
     caught.update({f"flash_bwd:{m}": v for m, v in flash_bwd_mutants(bwd_kept).items()})
     caught.update({f"mamba_ssd_bwd:{m}": v for m, v in ssd_bwd_mutants(ssd_bwd_kept).items()})
+    caught.update({f"mamba_ssd_wide:{m}": v for m, v in wide_mutants(wide_kept).items()})
     del ssd_kept, flash_kept, quant_kept, blend_kept, dequant_kept, bwd_kept, ssd_bwd_kept
+    del wide_kept
     record["mutants"] = caught
     for m, cases in caught.items():
         print(f"phase=kernels mutant={m} caught_by={'; '.join(cases)}", flush=True)
@@ -4294,7 +4702,9 @@ def run() -> int:
     record["quality"] = {"psnr_lp_vs_centralized_db": psnr, "centralized_s": central_s}
     print(f"phase=quality psnr_lp_vs_centralized_db={psnr:.2f} "
           f"centralized_s={central_s:.3f}", flush=True)
-    del model, eng, results, z_c
+    # the video model (``den`` holds it too) and the latents of phases 3-6:
+    # the LM phases measure their peak memory above what stays allocated
+    del model, eng, results, z_c, den, r0, z_T, reqs, stitch_inputs, preds, p, plain, out
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 7. lm_serve
@@ -4304,7 +4714,10 @@ def run() -> int:
     # ------------------------------------------------------ 7a. lm_families
     record["lm_families"], family_counts = lm_families(smi)
 
-    # ------------------------------------------------------------- 7b. train
+    # --------------------------------------------------------- 7b. lm_xlstm
+    record["lm_xlstm"], xlstm_prefill_counts, xlstm_decode_counts = lm_xlstm(smi)
+
+    # ------------------------------------------------------------- 7c. train
     t_train = time.perf_counter()
     record["train"], train_counts, drill_counts, train_decode_counts = train_phase()
     t_hybrid = time.perf_counter()
@@ -4413,7 +4826,8 @@ def run() -> int:
                    "train:drill": drill_counts, "train:decode": train_decode_counts,
                    "train:hybrid": hybrid_train_counts, "train:hybrid_drill": hybrid_drill_counts,
                    "train:moe": moe_train_counts, "train:moe_drill": moe_drill_counts,
-                   **family_counts,
+                   **family_counts, "lm_xlstm:prefill": xlstm_prefill_counts,
+                   "lm_xlstm:decode": xlstm_decode_counts,
                    "coded_stitch": stitch_counts,
                    "guidance": guidance_counts, "serve_policy": policy_counts,
                    **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts,
@@ -4508,6 +4922,13 @@ def run() -> int:
          "precision": f"{SSD_PASSES}xtf32", "work_split": SSD_BWD_SPLIT,
          "note": "no Pallas kernel: the reference trains through XLA's gradient of "
                  "gated_linear_scan"},
+        {**kernel_row("mamba_ssd_wide", "src/repro/kernels/mamba_ssd.py:111", wide[0],
+                      {k: path_counts[k]["mamba_ssd_wide"] for k in
+                       ("lm_xlstm:prefill", "lm_xlstm:decode")}),
+         "precision": f"{SSD_PASSES}xtf32", "work_split": WIDE_SPLIT,
+         "note": "the Pallas mamba_ssd takes groups 1 only; the reference runs the mLSTM's "
+                 "scans through the jnp gated_linear_scan (src/repro/models/ssm.py:62) under "
+                 "XLA.  Groups g | h, n and p past 128, p = 1"},
         kernel_row("guidance_update", "src/repro/kernels/guidance_update.py:31", guidance[0],
                    {"guidance": guidance_counts["guidance_update"]}),
     ]}

@@ -5,9 +5,9 @@ model (``wan21-dit-1.3b``) and of the LM architectures the port runs:
 the hybrid ``zamba2-2.7b``, the dense ``granite-3-2b``,
 ``h2o-danube-1.8b`` (sliding-window attention), ``minitron-4b`` and
 ``llama3-405b``, the MoE ``granite-moe-3b-a800m`` and
-``llama4-maverick-400b-a17b``, and the VLM ``internvl2-26b``.  The
-reference registry's ``xlstm-1.3b`` and ``whisper-small`` are not ported
-yet (ROADMAP Queue 1 item 12); asking for them raises ``KeyError``.
+``llama4-maverick-400b-a17b``, the VLM ``internvl2-26b`` and the xLSTM
+``xlstm-1.3b``.  The reference registry's ``whisper-small`` is not
+ported yet (ROADMAP Queue 1 item 12); asking for it raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -20,11 +20,12 @@ from .llama3_405b import CONFIG as _LLAMA3
 from .llama4_maverick_400b_a17b import CONFIG as _LLAMA4
 from .minitron_4b import CONFIG as _MINITRON
 from .wan21_dit_1p3b import CONFIG as _WAN21
+from .xlstm_1p3b import CONFIG as _XLSTM
 from .zamba2_2p7b import CONFIG as _ZAMBA2
 
 _CONFIGS = {c.name: c for c in (_WAN21, _ZAMBA2, _GRANITE, _GRANITE_MOE, _LLAMA4, _INTERNVL2,
-                                _DANUBE, _MINITRON, _LLAMA3)}
-_UNPORTED = ("xlstm-1.3b", "whisper-small")
+                                _DANUBE, _MINITRON, _LLAMA3, _XLSTM)}
+_UNPORTED = ("whisper-small",)
 
 
 def get_config(arch: str) -> ArchConfig:

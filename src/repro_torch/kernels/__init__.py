@@ -21,6 +21,8 @@
                     state entering each chunk, for the backward)
   mamba_ssd_bwd   — the scan's gradient, the hybrid LM's training path
                     (``csrc/mamba_ssd_bwd.cu``; no Pallas counterpart)
+  mamba_ssd_wide  — the scan with B and C in groups, widths past 128 and
+                    p = 1: the xLSTM's mLSTM (``csrc/mamba_ssd_wide.cu``)
   guidance_update — fused CFG combine + Euler step, an entry point of its
                     own (``csrc/guidance_update.cu``)
 

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode", "flash_attention_bwd",
            "flash_attention_bwd_sm90", "latent_blend", "int8_quantize", "dequant_blend",
-           "mamba_ssd", "mamba_ssd_bwd", "guidance_update")
+           "mamba_ssd", "mamba_ssd_bwd", "mamba_ssd_wide", "guidance_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -113,6 +113,14 @@ _SIGNATURES = {
         # n, p, chunk -> bytes of shared memory the widest block takes (one stage)
         "mamba_ssd_bwd_smem_bytes": ([_I, _I, _I], _L),
         "mamba_ssd_bwd_error_string": ([_I], ctypes.c_char_p),
+    },
+    "mamba_ssd_wide": {
+        # x, log_decay, scale, B, C, y, scratch, b, s, h, g, p, n, chunk, stream
+        "mamba_ssd_wide_fwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
+        # b, s, h, g, p, n, chunk -> bytes of scratch (the states entering each
+        # chunk, each chunk's Gram per group, the decay scalars per head)
+        "mamba_ssd_wide_scratch_bytes": ([_I] * 7, _L),
+        "mamba_ssd_wide_error_string": ([_I], ctypes.c_char_p),
     },
     "guidance_update": {
         # z, cond, uncond, out, elements, w, dt, dtype (0 f32, 1 bf16), stream

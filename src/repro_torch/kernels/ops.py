@@ -792,6 +792,77 @@ def mamba_ssd_autograd(x, log_decay, scale, B, C, chunk: int = 64) -> torch.Tens
     return MambaSSD.apply(x, log_decay, scale, B, C, chunk)
 
 
+def ssd_kernel(groups: int, p: int, n: int, chunk: int) -> str:
+    """The kernel that runs the SSD scan on the card: ``mamba_ssd`` for one
+    group with p, n and chunk multiples of 16 in [16, 128] (Zamba2's
+    shapes), ``mamba_ssd_wide`` for the rest (groups g | h, widths past
+    128, p = 1: the mLSTM's scans)."""
+    fits = all(16 <= v <= 128 and v % 16 == 0 for v in (p, n, chunk))
+    return "mamba_ssd" if groups == 1 and fits else "mamba_ssd_wide"
+
+
+def mamba_ssd_wide(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+    """The chunked scan of ``models/ssm.gated_linear_scan(factorized=True)``
+    with B and C in groups: x ``(b, s, h, p)``, log_decay and scale ``(b,
+    s, h)``, B and C ``(b, s, g, n)`` with ``g | h`` (head ``i`` reads group
+    ``i // (h / g)``); returns f32 y ``(b, s, h, p)``.  Its plain version
+    is ``ref.ssd_scan``.
+
+    CUDA: ``csrc/mamba_ssd_wide.cu`` (3xTF32 tensor-core products), f32,
+    any p (p = 1 included), n a multiple of 16, chunk a multiple of 16 in
+    [16, 128]; it raises on the rest.  Three launches, counted as one: the
+    Gram and decay scalars, the sweep of the states over the chunks, the
+    output; a scratch buffer (the states entering each chunk, f32 ``(b,
+    chunks, h, n, p)``, then the Grams and scalars) is allocated here.
+    """
+    _refuse_grad("mamba_ssd_wide", x, log_decay, scale, B, C)
+    if x.device.type == "cpu":
+        return ref.ssd_scan(x, log_decay, scale, B, C, chunk, True)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba_ssd_wide: no kernel for device {x.device}")
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"mamba_ssd_wide: x {tuple(x.shape)} must be (b, s, h, p) and B "
+                         f"{tuple(B.shape)} (b, s, g, n)")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if log_decay.shape != (b, s, h) or scale.shape != (b, s, h):
+        raise ValueError(f"mamba_ssd_wide: log_decay {tuple(log_decay.shape)} and scale "
+                         f"{tuple(scale.shape)} must be {(b, s, h)}")
+    if B.shape[:2] != (b, s) or C.shape != B.shape or g < 1 or h % g:
+        raise ValueError(f"mamba_ssd_wide: B {tuple(B.shape)} and C {tuple(C.shape)} must be "
+                         f"(b, s, g, n) with g dividing h {h}")
+    tensors = {"x": x, "log_decay": log_decay, "scale": scale, "B": B, "C": C}
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"mamba_ssd_wide: {name} dtype {t.dtype} not supported (float32)")
+    if n < 16 or n % 16:
+        raise ValueError(f"mamba_ssd_wide: state n {n} not supported (a multiple of 16)")
+    if not (16 <= chunk <= 128 and chunk % 16 == 0):
+        raise ValueError(f"mamba_ssd_wide: chunk {chunk} not supported (a multiple of 16 in "
+                         "[16, 128])")
+    y = torch.empty_like(x)
+    _require_device(tensors, x.device)
+    _require_aligned({**tensors, "y": y})
+    if y.numel() == 0:
+        return y
+    lib = build.library("mamba_ssd_wide")
+    nbytes = lib.mamba_ssd_wide_scratch_bytes(b, s, h, g, p, n, int(chunk))
+    if nbytes <= 0:
+        raise ValueError(f"mamba_ssd_wide: shape {(b, s, h, g, p, n)} at chunk {chunk} not "
+                         "supported (batch x chunks and batch x groups <= 65535)")
+    scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
+    rc = lib.mamba_ssd_wide_fwd(*(t.data_ptr() for t in tensors.values()), y.data_ptr(),
+                                scratch.data_ptr(), b, s, h, g, p, n, int(chunk),
+                                _stream(x.device))
+    build.check("mamba_ssd_wide", rc)
+    mamba_ssd_wide.launches += 1
+    return y
+
+
+mamba_ssd_wide.launches = 0
+
+
 def guidance_update(z: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor,
                     w: float, dt: float) -> torch.Tensor:
     """Fused CFG combine + flow-matching Euler step: ``z + dt * (u + w *
@@ -839,7 +910,7 @@ WRAPPERS = {"flash_attention": flash_attention, "flash_attention_sm90": flash_at
             "flash_attention_bwd_sm90": flash_attention_bwd_sm90, "latent_blend": latent_blend,
             "int8_quantize": int8_quantize, "dequant_blend": dequant_blend,
             "mamba_ssd": mamba_ssd, "mamba_ssd_bwd": mamba_ssd_bwd,
-            "guidance_update": guidance_update}
+            "mamba_ssd_wide": mamba_ssd_wide, "guidance_update": guidance_update}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -472,7 +472,10 @@ def ssd_scan(x, log_decay, scale, B, C, chunk: int = 64,
         y_t = C_t . S_t
 
     x ``(b, s, h, p)``, log_decay and scale ``(b, s, h)``, B and C
-    ``(b, s, g, n)`` with ``g | h``; returns f32 ``(b, s, h, p)``.
+    ``(b, s, g, n)`` with ``g | h``; returns f32 ``(b, s, h, p)`` (f64 for
+    an f64 x: the same formulas in double, what the card's checks hold the
+    grouped scan kernel to where f32 rounding of the in-chunk sums decides
+    the result).
     ``factorized=True`` splits ``exp(cum_i - cum_j)`` at the per-chunk
     centre, ``exp(clip(cum_i - c)) * exp(clip(c - cum_j))`` with the
     exponents clipped to +-60, so the ``(i, j)`` coupling is the
@@ -493,11 +496,12 @@ def ssd_scan(x, log_decay, scale, B, C, chunk: int = 64,
         scale = torch.nn.functional.pad(scale, (0, 0, 0, pad))
         B = torch.nn.functional.pad(B, (0, 0, 0, 0, 0, pad))
         C = torch.nn.functional.pad(C, (0, 0, 0, 0, 0, pad))
-    xq = x.reshape(b, nc, chunk, g, rep, p).float()
-    dtq = scale.reshape(b, nc, chunk, g, rep).float()
-    Bq = B.reshape(b, nc, chunk, g, n).float()
-    Cq = C.reshape(b, nc, chunk, g, n).float()
-    a = log_decay.reshape(b, nc, chunk, g, rep).float()
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xq = x.reshape(b, nc, chunk, g, rep, p).to(ct)
+    dtq = scale.reshape(b, nc, chunk, g, rep).to(ct)
+    Bq = B.reshape(b, nc, chunk, g, n).to(ct)
+    Cq = C.reshape(b, nc, chunk, g, n).to(ct)
+    a = log_decay.reshape(b, nc, chunk, g, rep).to(ct)
     cum = torch.cumsum(a, dim=2)                    # within-chunk cumulative
     total = cum[:, :, -1]                           # (b, nc, g, rep)
 
@@ -520,7 +524,7 @@ def ssd_scan(x, log_decay, scale, B, C, chunk: int = 64,
     w = torch.exp(total[:, :, None] - cum)                           # (b, nc, Q, g, rep)
     state_c = torch.einsum("bcjgn,bcjgr,bcjgrp->bcgrnp", Bq, w * dtq, xq)
     # inter-chunk recurrence: the state entering chunk c
-    S = torch.zeros((b, g, rep, n, p), dtype=torch.float32, device=x.device)
+    S = torch.zeros((b, g, rep, n, p), dtype=ct, device=x.device)
     s_in = []
     for c in range(nc):
         s_in.append(S)

@@ -1,4 +1,5 @@
-"""Models of the port: the video DiT and the dense, MoE, VLM and hybrid LMs.
+"""Models of the port: the video DiT and the dense, MoE, VLM, hybrid and
+xLSTM LMs.
 
 ``build(cfg, device=None)`` returns a ``Model`` with the reference's API
 (``repro/models/__init__.py``), bound to one device (``None`` means
@@ -14,12 +15,14 @@
 
 Families: ``dense`` (granite, h2o-danube, minitron, llama3), ``moe``
 (granite-moe, llama4), ``vlm`` (internvl2: a batch carries
-``vision_embeds``) and ``hybrid`` (Zamba2), all ``transformer``, and
-``vdm`` (``dit``, whose params are the ``DiT`` module).  The xLSTM
-(``ssm``) and audio families are not ported (ROADMAP Queue 1 item 12).
+``vision_embeds``), ``hybrid`` (Zamba2) and ``ssm`` (xLSTM), all
+``transformer``, and ``vdm`` (``dit``, whose params are the ``DiT``
+module).  The audio family is not ported (ROADMAP Queue 1 item 12).
 On the card the LM losses differentiate through hand-written kernels:
 attention through ``kernels.ops.FlashAttention``, the hybrid family's SSD
-scan through ``kernels.ops.MambaSSD`` (``mamba_ssd_bwd``).
+scan through ``kernels.ops.MambaSSD`` (``mamba_ssd_bwd``); the xLSTM
+family's scan (``mamba_ssd_wide``) has no backward yet, so its loss
+raises under grad on the card (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -77,4 +80,4 @@ def build(cfg: ArchConfig, device: DeviceLike = None) -> Model:
                 torch.zeros((), dtype=torch.float32, device=device)),
         )
     raise NotImplementedError(
-        f"build: family {fam!r} is not ported (xLSTM and audio: ROADMAP Queue 1 item 12)")
+        f"build: family {fam!r} is not ported (audio: ROADMAP Queue 1 item 12)")

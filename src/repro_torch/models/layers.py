@@ -60,6 +60,13 @@ def rmsnorm_init(d: int, dtype=torch.float32,
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
+def layernorm_init(d: int, dtype=torch.float32,
+                   device: Optional[torch.device] = None):
+    """``{"scale": ones (d,), "bias": zeros (d,)}`` (f32)."""
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
 def mlp_init(d: int, ff: int, generator: torch.Generator, dtype=torch.bfloat16,
              device: Optional[torch.device] = None):
     """SwiGLU weights ``{"wi" | "wg": {"w": (d, ff)}, "wo": {"w": (ff, d)}}``,

@@ -5,10 +5,13 @@ Per head h (P = headdim, N = state size):
     S_t = exp(A * dt_t) S_{t-1} + dt_t * B_t (x) x_t         (state update)
     y_t = C_t . S_t + D * x_t                                 (readout)
 
-On CUDA tensors the scan runs in the hand-written ``mamba_ssd`` kernel
-(``kernels/csrc/mamba_ssd.cu``), as the DiT's attention runs in the flash
-kernel, and under grad its gradient in ``kernels/csrc/mamba_ssd_bwd.cu``;
-on CPU tensors it runs the plain ``kernels/ref.ssd_scan``.  The
+On CUDA tensors the scan runs in a hand-written kernel, as the DiT's
+attention runs in the flash kernel: ``mamba_ssd`` (``kernels/csrc/
+mamba_ssd.cu``) for Zamba2's shapes, under grad with its gradient in
+``kernels/csrc/mamba_ssd_bwd.cu``, and ``mamba_ssd_wide``
+(``kernels/csrc/mamba_ssd_wide.cu``) for B and C in groups, widths past
+128 and p = 1 (the xLSTM's mLSTM, ``models/xlstm.py``); on CPU tensors it
+runs the plain ``kernels/ref.ssd_scan``.  The
 reference's rounding points are kept: ``dense`` casts to x's dtype after
 an f32 accumulate, the scan takes and returns f32, and y is cast back only
 after ``+ D x``.  The reference's ``REPRO_SSD_NAIVE`` switch (an A/B knob
@@ -65,25 +68,38 @@ def gated_linear_scan(x, log_decay, scale, B, C, chunk: int = 64,
     B, C ``(b, s, g, n)`` with ``g | h``; returns f32 ``(b, s, h, p)``.
 
     CPU tensors: ``kernels/ref.ssd_scan`` (both forms, any g; autograd
-    differentiates it).  CUDA tensors: the ``mamba_ssd`` kernel on the f32
-    views the reference takes, for ``g == 1`` and ``factorized=True`` only;
-    with grad enabled and an input that requires grad, through
-    ``ops.mamba_ssd_autograd`` (its backward the ``mamba_ssd_bwd``
-    kernel); anything else on the card raises (ROADMAP Queue 1 item 12: no
+    differentiates it).  CUDA tensors, ``factorized=True``, on the f32
+    views the reference takes (``ops.ssd_kernel`` picks the kernel): one
+    group with p, n and chunk multiples of 16 in [16, 128] on ``mamba_ssd``,
+    with grad enabled and an input that requires grad through
+    ``ops.mamba_ssd_autograd`` (its backward the ``mamba_ssd_bwd`` kernel);
+    the rest on ``mamba_ssd_wide``, which has no backward yet: under grad
+    it raises (xLSTM training, ROADMAP Queue 1 item 3).
+    ``factorized=False`` on the card raises (ROADMAP Queue 1 item 12: no
     path of the port needs it).
     """
     if not x.is_cuda:
         return kernel_ref.ssd_scan(x, log_decay, scale, B, C, chunk, factorized)
-    if B.shape[2] != 1 or not factorized:
+    if not factorized:
         raise NotImplementedError(
-            f"gated_linear_scan on CUDA: ssm_groups {B.shape[2]}, factorized={factorized} "
-            "has no kernel; only groups 1, factorized (ROADMAP Queue 1 item 12)")
-    args = (x.float().contiguous(), log_decay.float().contiguous(),
-            scale.float().contiguous(), B[:, :, 0].float().contiguous(),
-            C[:, :, 0].float().contiguous())
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, log_decay, scale, B, C)):
-        return kernel_ops.mamba_ssd_autograd(*args, chunk=chunk)
-    return kernel_ops.mamba_ssd(*args, chunk=chunk)
+            "gated_linear_scan on CUDA: factorized=False has no kernel; only the factorized "
+            "form (ROADMAP Queue 1 item 12)")
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, log_decay, scale, B, C))
+    kernel = kernel_ops.ssd_kernel(B.shape[2], x.shape[-1], B.shape[-1], chunk)
+    scalars = (x.float().contiguous(), log_decay.float().contiguous(),
+               scale.float().contiguous())
+    if kernel == "mamba_ssd":
+        args = (*scalars, B[:, :, 0].float().contiguous(), C[:, :, 0].float().contiguous())
+        if grad:
+            return kernel_ops.mamba_ssd_autograd(*args, chunk=chunk)
+        return kernel_ops.mamba_ssd(*args, chunk=chunk)
+    if grad:
+        raise NotImplementedError(
+            f"gated_linear_scan on CUDA under grad: ssm_groups {B.shape[2]}, p {x.shape[-1]}, "
+            f"n {B.shape[-1]} run on mamba_ssd_wide, which has no backward kernel yet (xLSTM "
+            "training, ROADMAP Queue 1 item 3)")
+    return kernel_ops.mamba_ssd_wide(*scalars, B.float().contiguous(), C.float().contiguous(),
+                                     chunk=chunk)
 
 
 def _split_proj(proj: torch.Tensor, d_inner: int, gn: int):

@@ -1,8 +1,8 @@
 """Decoder-LM stacks of the port: the dense, MoE and VLM families (granite,
-h2o-danube, minitron, llama3; granite-moe, llama4; internvl2) and the
-hybrid family (Zamba2).
+h2o-danube, minitron, llama3; granite-moe, llama4; internvl2), the
+hybrid family (Zamba2) and the xLSTM family (xlstm-1.3b).
 
-A port of the dense, MoE, VLM and hybrid branches of
+A port of the dense, MoE, VLM, hybrid and ``ssm`` (xLSTM) branches of
 ``repro/models/transformer.py``.  Dense: ``num_layers`` pre-norm blocks of
 GQA attention (full or sliding window) and a SwiGLU MLP.  MoE: the same
 blocks with a top-k mixture of SwiGLU experts (``models/moe.py``) in place
@@ -12,16 +12,19 @@ VLM: a dense stack whose first ``num_vision_tokens`` positions take
 projected patch embeddings (``_merge_vision``).  Hybrid: groups of
 ``attn_every`` Mamba2 blocks,
 each group followed by one *shared* attention + MLP block whose q/k/v
-projections are adapted per invocation with LoRA.  Parameters are the
-reference's tree as nested dicts of tensors, stacked layers included
-(dense ``layers`` leaves lead with ``(num_layers,)``, ``mamba`` leaves
-with ``(groups, attn_every)``, ``lora`` leaves with ``(groups,)``), so
+projections are adapted per invocation with LoRA.  xLSTM: groups of
+``slstm_every - 1`` mLSTM blocks and one sLSTM block (``models/xlstm.py``).
+Parameters are the reference's tree as nested dicts of tensors, stacked
+layers included (dense ``layers`` leaves lead with ``(num_layers,)``,
+``mamba`` leaves with ``(groups, attn_every)``, ``lora`` leaves with
+``(groups,)``, ``mlstm`` leaves with ``(groups, slstm_every - 1)``,
+``slstm`` leaves with ``(groups,)``), so
 ``params_from_numpy`` carries a reference tree over as it is; the
 reference's ``scan`` over stacked layers is a loop over the leaves
 unbound once a forward.  ``forward(remat=True)`` checkpoints each scan
 body as the reference's ``jax.checkpoint`` does; ``cross_entropy_chunked``
-is the training loss.  The xLSTM (``ssm``) family raises
-``NotImplementedError`` (ROADMAP Queue 1 item 12).
+is the training loss.  The audio family raises ``NotImplementedError``
+(ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -39,9 +42,11 @@ from .layers import (dense, dense_init, embed, embedding_init, mlp, mlp_init, rm
                      rmsnorm_init, unembed)
 from .moe import moe_apply, moe_init
 from .ssm import mamba2_apply, mamba2_decode, mamba2_init, mamba2_init_cache
+from .xlstm import (mlstm_apply, mlstm_decode, mlstm_init, mlstm_init_cache, slstm_apply,
+                    slstm_decode, slstm_init, slstm_init_cache)
 
 
-_PORTED = ("dense", "moe", "vlm", "hybrid")
+_PORTED = ("dense", "moe", "vlm", "hybrid", "ssm")
 _BLOCK_FAMILIES = ("dense", "moe", "vlm")     # stacks of lm_block_* layers
 
 
@@ -49,7 +54,7 @@ def _require_ported(cfg: ArchConfig, what: str) -> None:
     if cfg.family not in _PORTED:
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} is not ported; the port's LM stacks are the "
-            f"{', '.join(_PORTED)} families (xLSTM and audio: ROADMAP Queue 1 item 12)")
+            f"{', '.join(_PORTED)} families (audio: ROADMAP Queue 1 item 12)")
 
 
 def _unbind(tree):
@@ -245,12 +250,30 @@ def zamba_group_apply(cfg: ArchConfig, mamba_stack, shared, lora_g, x: torch.Ten
     return x + _mlp(cfg, shared, x)
 
 
+# ============================================================ xLSTM
+def _xlstm_groups(cfg: ArchConfig) -> Tuple[int, int]:
+    """(groups, mLSTM blocks a group): ``num_layers / slstm_every`` groups of
+    ``slstm_every - 1`` mLSTM blocks and one sLSTM block."""
+    if cfg.slstm_every < 2 or cfg.num_layers % cfg.slstm_every:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not group by "
+                         f"slstm_every {cfg.slstm_every}")
+    return cfg.num_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
+def xlstm_group_apply(cfg: ArchConfig, mlstm_stack, slstm_layer,
+                      x: torch.Tensor) -> torch.Tensor:
+    """A group's mLSTM blocks (each with its residual), then its sLSTM block."""
+    for layer in _unbind(mlstm_stack):
+        x = mlstm_apply(layer, x, cfg.num_heads)
+    return slstm_apply(slstm_layer, x, cfg.num_heads)
+
+
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """Random weights from the reference's distributions
-    (``repro/models/transformer.py:init_params``, dense, MoE, VLM and
-    hybrid families): the embedding, the layers (a VLM's ``vision_proj``
-    after them), the output table.  ``generator`` must live on ``device``;
+    (``repro/models/transformer.py:init_params``, dense, MoE, VLM, hybrid
+    and xLSTM families): the embedding, the layers (a VLM's
+    ``vision_proj`` after them), the output table.  ``generator`` must live on ``device``;
     by default one seeded with 0."""
     _require_ported(cfg, "init_params")
     device = resolve_device(device)
@@ -268,6 +291,13 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         if cfg.family == "vlm":
             params["vision_proj"] = {"w": dense_init(cfg.d_model, cfg.d_model, generator, dt,
                                                      device=device)}
+    elif cfg.family == "ssm":
+        n_s, n_m = _xlstm_groups(cfg)
+        mlstm = _stack_layers(n_s * n_m, lambda: mlstm_init(cfg.d_model, cfg.num_heads,
+                                                            generator, dt, device))
+        params["mlstm"] = _map_tree(lambda t: t.view(n_s, n_m, *t.shape[1:]), mlstm)
+        params["slstm"] = _stack_layers(n_s, lambda: slstm_init(cfg.d_model, cfg.num_heads,
+                                                                generator, dt, device))
     else:
         groups = _zamba_groups(cfg)
         layers = [mamba2_init(cfg.d_model, cfg.ssm_state, cfg.ssm_headdim, generator,
@@ -307,8 +337,8 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
     """Full-sequence forward -> (final hidden ``(B, S, d)``, aux loss: the
     MoE layers' summed, else 0).  A VLM needs ``vision_embeds``; the other
     families take none.  ``remat``: each layer (dense, MoE, VLM) or group
-    (hybrid) under activation checkpointing, recomputed in the backward
-    pass."""
+    (hybrid, xLSTM) under activation checkpointing, recomputed in the
+    backward pass."""
     _require_ported(cfg, "forward")
     if cfg.family == "vlm" and vision_embeds is None:
         raise ValueError("forward: the vlm family needs vision_embeds")
@@ -333,6 +363,12 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
             return lm_block_apply(cfg, layer, h, positions, kv_chunk)[0]
 
         x = _layer_loop(body, x, _unbind(params["layers"]), remat)
+    elif cfg.family == "ssm":
+        def body(h, group):
+            return xlstm_group_apply(cfg, group[0], group[1], h)
+
+        x = _layer_loop(body, x, zip(_unbind(params["mlstm"]), _unbind(params["slstm"])),
+                        remat)
     else:
         def body(h, group):
             return zamba_group_apply(cfg, group[0], params["shared"], group[1], h,
@@ -390,7 +426,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Zeroed decode cache: the attention k/v ``(batch, max_len, KV, D)``
     of every dense, MoE or VLM layer, or, hybrid, per Mamba2 block its conv and SSM
-    states (f32) and per group the shared attention's k/v."""
+    states (f32) and per group the shared attention's k/v, or, xLSTM, per
+    mLSTM block its conv state, matrix memory C, normalizer n and
+    stabilizer m, per sLSTM block its c, n, m and h (f32; ``max_len`` is
+    not used)."""
     _require_ported(cfg, "init_cache")
     device = resolve_device(device)
     dt = model_dtype(cfg)
@@ -398,6 +437,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     if cfg.family in _BLOCK_FAMILIES:
         return {"k": torch.zeros((cfg.num_layers, *kv), dtype=dt, device=device),
                 "v": torch.zeros((cfg.num_layers, *kv), dtype=dt, device=device)}
+    if cfg.family == "ssm":
+        n_s, n_m = _xlstm_groups(cfg)
+        mc = mlstm_init_cache(batch, cfg.d_model, cfg.num_heads, device=device)
+        sc = slstm_init_cache(batch, cfg.d_model, cfg.num_heads, device=device)
+        return {"mlstm": {k: v[None, None].repeat(n_s, n_m, *([1] * v.ndim))
+                          for k, v in mc.items()},
+                "slstm": {k: v[None].repeat(n_s, *([1] * v.ndim)) for k, v in sc.items()}}
     g = _zamba_groups(cfg)
     m = mamba2_init_cache(batch, cfg, device=device)
     return {
@@ -413,14 +459,26 @@ def decode_step(params, token: torch.Tensor, cache: Dict[str, Any], position: to
     """One decode step -> (logits ``(B, 1, V)`` f32, cache).  The cache is
     updated in place and returned (the reference returns new arrays): each
     layer's (dense, MoE, VLM) or group's (hybrid) k/v are written at
-    ``position``,
-    each Mamba2 block's conv/SSM state overwritten with its new value."""
+    ``position``, each Mamba2, mLSTM and sLSTM block's states overwritten
+    with their new values (xLSTM takes no positions)."""
     _require_ported(cfg, "decode_step")
     x = embed(params["embed"]["emb"], token)
     if cfg.family in _BLOCK_FAMILIES:
         for li, layer in enumerate(_unbind(params["layers"])):
             x, _ = lm_block_decode(cfg, layer, x, {"k": cache["k"][li], "v": cache["v"][li]},
                                    position)
+    elif cfg.family == "ssm":
+        n_s, n_m = _xlstm_groups(cfg)
+        for gi in range(n_s):
+            for li in range(n_m):
+                mc = _index(cache["mlstm"], gi, li)
+                x, new = mlstm_decode(_index(params["mlstm"], gi, li), x, mc, cfg.num_heads)
+                for k in mc:
+                    mc[k].copy_(new[k])
+            sc = _index(cache["slstm"], gi)
+            x, new = slstm_decode(_index(params["slstm"], gi), x, sc, cfg.num_heads)
+            for k in sc:
+                sc[k].copy_(new[k])
     else:
         shared = params["shared"]
         for gi in range(_zamba_groups(cfg)):

@@ -1,9 +1,9 @@
 """Serve-step factories of the LM: prefill (full-sequence forward ->
 last-token logits) and decode (one token against the KV/state cache).
 A port of the LM branch of ``repro/serving/serve_step.py`` for the dense,
-MoE, VLM (the prefill batch carries ``vision_embeds``) and hybrid
-families; the audio (encoder-decoder) branch is not ported (ROADMAP Queue
-1 item 12).
+MoE, VLM (the prefill batch carries ``vision_embeds``), hybrid and ssm
+(xLSTM) families; the audio (encoder-decoder) branch is not ported
+(ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 

@@ -72,7 +72,7 @@ def test_configs_equal():
         tb = dataclasses.asdict(tconfigs.get_shape(name))
         assert {k: ja[k] for k in tb} == tb
     with pytest.raises(KeyError):          # an architecture the port has not taken yet
-        tconfigs.get_config("xlstm-1.3b")
+        tconfigs.get_config("whisper-small")
 
 
 @pytest.mark.parametrize("K,r", [(2, 0.5), (3, 1.0), (4, 0.25)])

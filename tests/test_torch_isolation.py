@@ -183,7 +183,7 @@ def test_cpu_path_never_launches_a_kernel():
                                    "flash_decode": 0, "flash_attention_bwd": 0,
                                    "flash_attention_bwd_sm90": 0, "latent_blend": 0, "int8_quantize": 0,
                                    "dequant_blend": 0, "mamba_ssd": 0, "mamba_ssd_bwd": 0,
-                                   "guidance_update": 0}
+                                   "mamba_ssd_wide": 0, "guidance_update": 0}
 
 
 def test_lm_entry_points_raise_without_cuda(monkeypatch):
@@ -303,6 +303,8 @@ def _wrapper_calls(device, requires_grad):
         "mamba_ssd_bwd": lambda: ops.mamba_ssd_bwd(t(1, 8, 2, 16), t(1, 8, 2), t(1, 8, 2),
                                                    t(1, 8, 16), t(1, 8, 16), t(1, 8, 2, 16),
                                                    None, chunk=16),
+        "mamba_ssd_wide": lambda: ops.mamba_ssd_wide(t(1, 8, 4, 1), t(1, 8, 4), t(1, 8, 4),
+                                                     t(1, 8, 2, 16), t(1, 8, 2, 16), chunk=16),
         "guidance_update": lambda: ops.guidance_update(t(2, 3), t(2, 3), t(2, 3), 5.0, 0.1),
     }
 

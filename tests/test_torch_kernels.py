@@ -175,7 +175,7 @@ def test_blend_windows_matches_reference_engine(dim, K, r):
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_sm90": 0, "flash_decode": 0,
                "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0, "latent_blend": 0,
                "int8_quantize": 0, "dequant_blend": 0, "mamba_ssd": 0, "mamba_ssd_bwd": 0,
-               "guidance_update": 0}
+               "mamba_ssd_wide": 0, "guidance_update": 0}
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():

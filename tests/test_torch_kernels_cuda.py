@@ -13,8 +13,10 @@ for the three flash kernels (``mma.sync``, ``wgmma`` + TMA and the
 split-KV decode kernel, whose P stays f32), f32 flash 1e-4
 (summation order only); blend, int8 quantize, dequant-blend and
 guidance_update exact (the same f32 operations in the same order);
-mamba_ssd ``5e-4 + 5e-4 |plain|``, the reference's own SSD tolerance
-(f32 throughout, sums in another order), and its states alike;
+mamba_ssd and mamba_ssd_wide ``5e-4 + 5e-4 |plain|``, the reference's own
+SSD tolerance (f32 throughout, sums in another order), and its states
+alike; the reduced xLSTM's hidden states card against CPU ``1e-3 +
+1e-3 |cpu|`` (3xTF32 scans, f32 sums in another order through 4 blocks);
 mamba_ssd_bwd each gradient within ``1e-4 max|plain| + 1e-4 |plain|``
 (3xTF32 products and f32 sums in another order, on the forward kernel's
 states); the flash backward (bf16, D 64 and 80 on the wgmma + TMA kernel,
@@ -1103,3 +1105,112 @@ def test_moe_layer_on_the_card_is_deterministic_and_matches_the_cpu(cuda_device,
         assert bool(torch.isfinite(got.float()).all())
         err = (got.float().cpu() - want.float()).abs()
         assert bool((err <= tol + tol * want.float().abs()).all()), float(err.max())
+
+
+# the grouped, wide-head scan (mamba_ssd_wide.cu): b, s, h, g, p, n, chunk, steep
+SSD_WIDE_CASES = [
+    (2, 300, 4, 4, 64, 64, 128, False),     # g = h, a ragged last chunk
+    (1, 1000, 4, 2, 256, 256, 128, True),   # g < h (head i reads group i // 2), steep, ragged
+    (2, 200, 4, 4, 1, 128, 64, False),      # p = 1: the mLSTM's normaliser
+    (2, 300, 6, 3, 100, 48, 48, False),     # a ragged p tile (36 of 64), a half state slab
+    (1, 130, 2, 1, 30, 16, 16, True),       # one group at a p mamba_ssd does not take
+    (2, 40, 2, 2, 128, 128, 128, False),    # the reduced xLSTM's scan
+    (1, 512, 4, 4, 1024, 1024, 128, False), # xlstm-1.3b's widths
+]
+
+
+def _wide_inputs(b, s, h, g, p, n, seed, steep=False):
+    """mLSTM-like inputs: log_decay = logsigmoid(f) with f around the
+    forget-gate bias (3 ... 6), scale = exp(clip(i, -10, 10)), B scaled by
+    1 / sqrt(n); ``steep`` decays (-2 ... -6 per token) reach the clip."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, h, p))
+    f = rng.normal(size=(b, s, h)) + np.linspace(3.0, 6.0, h)
+    a = -rng.uniform(2.0, 6.0, size=(b, s, h)) if steep else -np.logaddexp(0.0, -f)
+    dt = np.exp(np.clip(rng.normal(size=(b, s, h)), -10, 10))
+    B = rng.normal(size=(b, s, g, n)) / np.sqrt(n)
+    C = rng.normal(size=(b, s, g, n))
+    return [torch.from_numpy(v.astype(np.float32)) for v in (x, a, dt, B, C)]
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk,steep", SSD_WIDE_CASES)
+def test_mamba_ssd_wide_kernel_matches_plain(cuda_device, b, s, h, g, p, n, chunk, steep):
+    """Within the reference's SSD tolerance 5e-4 + 5e-4 |plain| (3xTF32
+    products, f32 sums in another order) of the plain version evaluated in
+    float64 (in f32 the plain scan's own in-chunk sums of steep decays at
+    chunk 128 round its clipped weights apart by more than that); two calls
+    bit-equal (no atomics)."""
+    args = [t.to(cuda_device) for t in _wide_inputs(b, s, h, g, p, n, s + p, steep)]
+    before = ops.mamba_ssd_wide.launches
+    out = ops.mamba_ssd_wide(*args, chunk=chunk)
+    assert ops.mamba_ssd_wide.launches == before + 1
+    plain = ref.ssd_scan(*(t.double() for t in args), chunk)
+    assert out.shape == (b, s, h, p) and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    err = (out - plain).abs()
+    assert bool((err <= 5e-4 + 5e-4 * plain.abs()).all()), f"max err {float(err.max()):.3e}"
+    assert torch.equal(out, ops.mamba_ssd_wide(*args, chunk=chunk))
+
+
+def test_mamba_ssd_wide_refuses_what_it_has_no_kernel_for(cuda_device):
+    x, a, dt, B, C = (t.to(cuda_device) for t in _wide_inputs(1, 40, 4, 2, 16, 16, 0))
+    with pytest.raises(TypeError, match="not supported"):
+        ops.mamba_ssd_wide(x.bfloat16(), a, dt, B, C)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.mamba_ssd_wide(x, a, dt, B, C, chunk=24)
+    _, _, _, B3, C3 = (t.to(cuda_device) for t in _wide_inputs(1, 40, 4, 3, 16, 16, 0))
+    with pytest.raises(ValueError, match="dividing h"):
+        ops.mamba_ssd_wide(x, a, dt, B3, C3)
+    _, _, _, B8, C8 = (t.to(cuda_device) for t in _wide_inputs(1, 40, 4, 2, 16, 8, 0))
+    with pytest.raises(ValueError, match="state n"):
+        ops.mamba_ssd_wide(x, a, dt, B8, C8)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.mamba_ssd_wide(x.clone().requires_grad_(), a, dt, B, C)
+
+
+def test_gated_linear_scan_routes_each_shape_to_its_kernel(cuda_device):
+    """Zamba2's shape launches mamba_ssd, the mLSTM's two scans
+    mamba_ssd_wide; a wide shape under grad raises (no backward kernel yet:
+    xLSTM training), and nothing falls back to the plain scan."""
+    from repro_torch.models.ssm import gated_linear_scan
+
+    zx, za, zdt, zB, zC = (t.to(cuda_device) for t in _ssd_inputs(1, 100, 4, 64, 64, 1))
+    before = ops.launch_counts()
+    gated_linear_scan(zx, za, zdt, zB[:, :, None], zC[:, :, None], chunk=64)
+    x, a, dt, B, C = (t.to(cuda_device) for t in _wide_inputs(1, 100, 4, 4, 128, 128, 2))
+    gated_linear_scan(x, a, dt, B, C, chunk=128)
+    gated_linear_scan(x[..., :1], a, dt, B, C, chunk=128)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        **{k: 0 for k in after}, "mamba_ssd": 1, "mamba_ssd_wide": 2}
+    with pytest.raises(NotImplementedError, match="xLSTM training.*Queue 1 item 3"):
+        gated_linear_scan(x.clone().requires_grad_(), a, dt, B, C, chunk=128)
+    with pytest.raises(NotImplementedError, match="factorized=False"):
+        gated_linear_scan(x, a, dt, B, C, chunk=128, factorized=False)
+    assert ops.launch_counts() == after
+
+
+def test_reduced_xlstm_on_the_card_matches_the_cpu(cuda_device):
+    """The reduced xLSTM (f32) on the card against the CPU on the same
+    weights: the forward's hidden states within 1e-3 + 1e-3 |cpu| (3xTF32
+    scans, f32 sums in another order through 4 blocks), 4 mamba_ssd_wide
+    launches (2 mLSTM blocks x 2 scans), and 4 decode steps with none."""
+    from repro_torch import configs, models
+    from repro_torch.models.dit import _map_tree
+
+    cfg = configs.get_config("xlstm-1.3b").reduced()
+    card, cpu = models.build(cfg, cuda_device), models.build(cfg, "cpu")
+    params = card.init(0)
+    params_cpu = _map_tree(lambda t: t.cpu(), params)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 150)))
+    before = ops.mamba_ssd_wide.launches
+    got, _ = card.forward(params, {"tokens": tok.to(cuda_device)})
+    assert ops.mamba_ssd_wide.launches == before + 4
+    want, _ = cpu.forward(params_cpu, {"tokens": tok})
+    err = (got.cpu() - want).abs()
+    assert bool((err <= 1e-3 + 1e-3 * want.abs()).all()), float(err.max())
+    cache, counts = card.init_cache(2, 4), ops.launch_counts()
+    for t in range(4):
+        card.decode(params, tok[:, t:t + 1].to(cuda_device), cache,
+                    torch.full((2,), t, device=cuda_device))
+    assert ops.launch_counts() == counts

@@ -19,6 +19,7 @@
   injected failure (counted on a real run), the flash and SSD backward
   kernels' work and bound, and the model operations of a step.
 """
+import dataclasses
 import importlib
 import json
 import sys
@@ -379,7 +380,7 @@ def test_ssd_bwd_work_and_bound(smoke):
 
 
 @pytest.mark.parametrize("table", ["FLASH_MUTANTS", "BWD_MUTANTS", "QB_MUTANTS", "SSD_MUTANTS",
-                                   "SSD_BWD_MUTANTS"])
+                                   "SSD_BWD_MUTANTS", "WIDE_MUTANTS"])
 def test_every_mutant_finds_its_source_text_once(smoke, table):
     """Each broken copy ``chip_smoke.py`` builds replaces a text that occurs
     exactly once in the source it names (``build_mutants`` refuses any
@@ -442,3 +443,64 @@ def test_lm_families_phase_on_the_cpu(smoke, arch, spec):
         assert rec["routing_vs_cpu"]["top_k_sets_differ"] == 0
     if spec.get("consistency"):
         assert max(rec["prefill_vs_decode_max_abs"].values()) < 3e-2
+
+
+def test_wide_scan_work_and_bound(smoke):
+    """The grouped scan at xlstm-1.3b's prefill (2 x 4096, h = g = 4, p = n
+    = 1024, chunk 128): 73.0 G multiply-adds, 146 GFLOP issued three times
+    over in 3xTF32, 0.886 ms at 495 TFLOP/s against 0.160 ms for its 537 MB:
+    operations bound it.  The normaliser (p = 1) is bound by its 268 MB of
+    B and C: 0.080 ms."""
+    macs, nbytes = smoke.wide_work(2, 4096, 4, 4, 1024, 1024, 128)
+    assert macs == 256 * (8256 * 1024 + 2 * 128 * 1024 * 1024) + 256 * 8256 * 1024
+    assert macs == pytest.approx(73.0e9, rel=2e-3) and nbytes == pytest.approx(537e6, rel=1e-3)
+    ms, by = smoke.bound(2.0 * macs * smoke.SSD_PASSES, nbytes, smoke.H100_TF32_FLOPS)
+    assert by == "operations" and ms == pytest.approx(0.886, rel=1e-3)
+    macs1, nbytes1 = smoke.wide_work(2, 4096, 4, 4, 1, 1024, 128)
+    ms1, by1 = smoke.bound(2.0 * macs1 * smoke.SSD_PASSES, nbytes1, smoke.H100_TF32_FLOPS)
+    assert by1 == "bytes" and ms1 == pytest.approx(0.080, rel=2e-2)
+
+
+def test_wide_mutants_each_name_a_case_the_kernels_phase_runs(smoke):
+    assert set(smoke.WIDE_MUTANT_CATCHER) == set(smoke.WIDE_MUTANTS)
+    src = (ROOT / "chip_smoke.py").read_text()
+    for case in smoke.WIDE_MUTANT_CATCHER.values():
+        assert src.count(f'("{case}",') == 1, case
+
+
+def test_lm_xlstm_phase_on_the_cpu(smoke):
+    """Phase lm_xlstm's run through ``lm_family`` on the CPU at the reduced
+    config (f32, the plain scan, so no launch is expected): the cold and
+    warm prefill, the decode of 2 requests x (3 + 3) tokens from an empty
+    cache, the consistency check (f32 on both sides here: the reference's
+    own small gap); then the one group's gap through ``stepped_gap``."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs import get_config
+
+    # a vocabulary short of its padding, as xlstm-1.3b's 50,304 of 50,432
+    cfg = dataclasses.replace(get_config(smoke.XLSTM_ARCH).reduced(), vocab_size=500)
+    assert cfg.padded_vocab_size > cfg.vocab_size
+    spec = dict(smoke.XLSTM_RUN, prefill=(1, 24), decode=(2, 3, 3, 6, 0))
+    rec, pre, dec = smoke.lm_family(smoke.XLSTM_ARCH, spec, "cpu", device="cpu", cfg=cfg)
+    assert rec["layers"] == cfg.num_layers and len(rec["decode_step_s"]) == 5
+    assert not any(pre.values()) and not any(dec.values())
+    assert max(rec["prefill_vs_decode_max_abs"].values()) < 1e-4
+    assert max(rec["bf16_vs_f32_max_abs"]["forward"], rec["bf16_vs_f32_max_abs"]["decode"]) < 1e-4
+    assert 0 < rec["bf16_vs_f32_max_abs"]["f32_logit_max"] < 1e3     # the padded columns left out
+    lm = models.build(cfg, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8), generator=torch.Generator().manual_seed(3))
+    assert smoke.stepped_gap(lm, lm.init(2), cfg, tokens) < 1e-4
+
+
+@pytest.mark.parametrize("arch,tokens,want", [
+    ("xlstm-1.3b", 4096, ({"mamba_ssd_wide": 84}, {})),
+    ("granite-moe-3b-a800m", 4096, ({"flash_attention_sm90": 32}, {"flash_decode": 32})),
+])
+def test_lm_launches_follow_the_family(smoke, arch, tokens, want):
+    """The launches ``lm_family`` holds a prefill and a decode step to: the
+    xLSTM's two scans an mLSTM block (6 groups x 7) and none a step; an
+    attention family's flash kernels once a layer."""
+    from repro_torch.configs import get_config
+
+    assert smoke.lm_launches(get_config(arch), tokens) == want
