@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # all phases, one card
 
 Phases, one line each (any failed check exits non-zero):
-  1. device  — the card, the toolchain, the twelve kernels' build from csrc/.
+  1. device  — the card, the toolchain, the fourteen kernels' build from csrc/.
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card at the serving paths' shapes (WAN and Zamba2),
                with kernel, plain, library and bound times (and the
@@ -90,7 +90,23 @@ Phases, one line each (any failed check exits non-zero):
                ragged steep case with g < h, a ragged p tile, one group
                at p 30; three broken copies (the head-to-group map, the
                inter-chunk term dropped, the states' p-tail mask dropped)
-               must each fail the case named for it.
+               must each fail the case named for it.  This slice's kernels:
+               the f32 flash at head dim 32 (the reduced configs the train
+               CLI trains) causal (SDPA beside it), at reduced
+               h2o-danube's window 16, with padded keys and GQA under
+               every mask, its log-sum-exp write against
+               ref.flash_attention_lse_ref (output bit-equal to the entry
+               without it); the f32 backward (flash_attention_bwd_f32.cu,
+               FMA) at D 32, 64 and 128 under the same masks, fed that
+               log-sum-exp, within FLASH_BWD_F32_TOL of
+               ref.flash_attention_bwd_ref, two calls bit-equal;
+               mamba_ssd_wide_bwd.cu at the xLSTM training microbatch's
+               value scan (2 x 2048, 4 heads x 1024, state 1024, chunk
+               128) and normaliser (p = 1) and a steep ragged case with g
+               < h, against ref.ssd_scan_bwd in float64, two calls
+               bit-equal; four broken copies of the f32 pair and three of
+               the wide backward, built while the cases run, must each
+               fail the case named for it.
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -214,7 +230,19 @@ Phases, one line each (any failed check exits non-zero):
                settings: a warm-up step, 3 timed steps (384
                flash_attention_sm90 and 192 flash_attention_bwd_sm90
                launches, nothing else), one profiled; its drill at 2 layers
-               (``--train-drill moe``, bit-equal).
+               (``--train-drill moe``, bit-equal).  (f) xlstm-1.3b at its
+               published widths and depth (48 blocks, bf16, random
+               weights) on XLSTM_TRAIN_B x XLSTM_TRAIN_S tokens in one
+               microbatch, remat, AdamW: a warm-up step, 2 timed steps
+               (168 mamba_ssd_wide and 84 mamba_ssd_wide_bwd launches a
+               step, nothing else), one profiled; no drill.
+  7d. train_cli — launch.train.main --device cuda with the arguments of
+               test_torch_checkpoint.py::test_train_cli_on_the_cpu for
+               granite-3-2b, h2o-danube-1.8b, granite-moe-3b-a800m,
+               internvl2-26b, zamba2-2.7b and xlstm-1.3b (reduced: f32,
+               head dim 32), then on the CPU from the same weights: each
+               step's loss within TRAIN_CLI_TOL, the f32 flash pair (and
+               the scans' kernels) launched, nothing on the CPU.
   8. guidance — the fused CFG + Euler entry point ops.guidance_update
                (no path of the reference calls it) driven over the 4-step
                schedule on the 480p latent (1, 13, 60, 104, 16), f32 and
@@ -239,6 +267,7 @@ import contextlib
 import copy
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import shutil
@@ -522,6 +551,75 @@ WIDE_MUTANTS = {
 WIDE_MUTANT_CATCHER = {"group_map": "mamba_ssd_wide_ragged_steep_g2",
                        "no_inter_chunk": "mamba_ssd_wide_xlstm_prefill",
                        "p_tail_unmasked": "mamba_ssd_wide_normaliser"}
+# the f32 flash at head dim 32 (the reduced configs the train CLI trains) and
+# the f32 backward: f32 throughout, summation order only
+FLASH_BWD_F32_TOL = (1e-4, 1e-4)    # |kernel - plain| <= a + r |plain|, each of dq, dk, dv
+LSE_F32_TOL = (1e-4, 1e-4)          # the f32 forward's log-sum-exp (log2 units)
+# broken copies of the f32 forward's log-sum-exp write and of the f32
+# backward: each must fail the case F32_MUTANT_CATCHER names
+F32_MUTANTS = {
+    # the log-sum-exp without the log of its sum: P unnormalised
+    "lse_f32:no_log_sum": ("flash_attention.cu",
+                           "l > 0.f ? fmaf(m, kLog2e, __log2f(l)) : INFINITY;",
+                           "l > 0.f ? m * kLog2e : INFINITY;"),
+    # dS^T without Delta in dK
+    "bwd_f32:no_delta": ("flash_attention_bwd_f32.cu",
+                         "axpy<D>(dk, pij * (dp - dl_s[i]), Qs[i], j);",
+                         "axpy<D>(dk, pij * dp, Qs[i], j);"),
+    # dK and dV leave out the last head of a kv head's group
+    "bwd_f32:group_head_dropped": ("flash_attention_bwd_f32.cu",
+                                   "for (int hh = 0; hh < G; ++hh) {",
+                                   "for (int hh = 0; hh + 1 < G; ++hh) {"),
+    # dQ without its 1 / sqrt(D)
+    "bwd_f32:dq_unscaled": ("flash_attention_bwd_f32.cu",
+                            "store_row<D>(p.dq + qoff + r * qrs, dq, p.scale, j);",
+                            "store_row<D>(p.dq + qoff + r * qrs, dq, 1.f, j);"),
+}
+F32_MUTANT_LIBS = {m: ("flash_attention",) if m.startswith("lse") else ("flash_attention_bwd_f32",)
+                   for m in F32_MUTANTS}
+F32_MUTANT_CATCHER = {"lse_f32:no_log_sum": "flash_bwd_f32_d32_causal",
+                      "bwd_f32:no_delta": "flash_bwd_f32_d32_causal",
+                      "bwd_f32:group_head_dropped": "flash_bwd_f32_d32_masked_gqa",
+                      "bwd_f32:dq_unscaled": "flash_bwd_f32_d32_window16"}
+WIDE_BWD_TOL = SSD_BWD_TOL          # each gradient: 1e-4 (max|plain| + |plain|), plain in f64
+WIDE_BWD_SPLIT = ("six launches: the Gram and decay scalars per (chunk, batch, group); dS swept "
+                  "over the chunks in reverse per (batch, head, 64 x 64 tile of n x p); the "
+                  "Q x Q terms per (batch, chunk, head); dx per (batch, chunk, head, 64 columns "
+                  "of p); dB and dC per (batch, chunk, group, 64 columns of n), the heads in "
+                  "order; the scalars' chain a warp per (batch, chunk, head)")
+WIDE_BWD_PARTS = ("prep", "sweep", "qq", "dx", "dbc", "chain")
+# broken copies of mamba_ssd_wide_bwd.cu: each must fail the case named for it
+WIDE_BWD_MUTANTS = {
+    # dS carried to the chunk before without exp(total)
+    "carry_not_decayed": ("mamba_ssd_wide_bwd.cu", "S[c][e] = et * S[c][e] + acc[c][e];",
+                          "S[c][e] = S[c][e] + acc[c][e];"),
+    # the clip's gradient mask dropped
+    "clip_mask_dropped": ("mamba_ssd_wide_bwd.cu", "so[kMA * Q + j] = in_clip(ea);",
+                          "so[kMA * Q + j] = 1.f;"),
+    # dB and dC from the first head of each group only
+    "group_sum_first_head": ("mamba_ssd_wide_bwd.cu", "for (int r = 0; r < rep; ++r) {",
+                             "for (int r = 0; r < 1; ++r) {"),
+}
+WIDE_BWD_MUTANT_CATCHER = {"carry_not_decayed": "mamba_ssd_wide_bwd_train_value",
+                           "clip_mask_dropped": "mamba_ssd_wide_bwd_steep_g2",
+                           "group_sum_first_head": "mamba_ssd_wide_bwd_steep_g2"}
+# phase train (f): xlstm-1.3b at its published widths and depth, remat,
+# AdamW, one warm-up and two timed steps on 2 x 2048 tokens in one
+# microbatch (the sLSTM's token loop paces the host: ~3 ms a token and
+# sLSTM layer under remat)
+XLSTM_TRAIN_B, XLSTM_TRAIN_S = 2, 2048
+XLSTM_TRAIN_PARALLEL = dict(remat="full", microbatch=1, optimizer="adamw")
+XLSTM_TRAIN_STEPS = 2
+# phase train_cli: launch.train.main on the card with the arguments of
+# tests/test_torch_checkpoint.py::test_train_cli_on_the_cpu, one arch of each
+# family, against the same run on the CPU from the same weights
+TRAIN_CLI_ARCHS = ("granite-3-2b", "h2o-danube-1.8b", "granite-moe-3b-a800m", "internvl2-26b",
+                   "zamba2-2.7b", "xlstm-1.3b")
+TRAIN_CLI_ARGS = ("--steps", "4", "--batch", "2", "--seq", "16", "--ckpt-every", "2")
+# a sequence longer than the reduced h2o-danube's window of 16, so that the
+# window masks keys on the CLI path (at 16 tokens it covers every causal pair)
+TRAIN_CLI_SEQ = {"h2o-danube-1.8b": 48}
+TRAIN_CLI_TOL = 1e-4             # each step's loss, card against CPU, relative (f32, TF32 off)
 NO_SPILL = "0 bytes spill stores, 0 bytes spill loads"
 
 
@@ -604,6 +702,35 @@ def timed_case(rec: dict, device_timed=("ms", "plain_ms")) -> dict:
     among ``device_timed`` came back short (None, written as null)."""
     rec["profiler_short"] = any(rec.get(k) is None for k in device_timed)
     return rec
+
+
+def profiled_parts(fn, parts, reps: int = 3) -> dict:
+    """Device ms of one call of ``fn`` per kernel part: {part: the time of
+    the kernels whose names contain it}, summed by ``torch.profiler`` over
+    ``reps`` calls.  The profiler now and then drops a window's first
+    kernel record, so each window opens with a marker kernel
+    (``MARKER_KERNEL``, not counted).  A window in which a part's kernels
+    are not ``reps`` times one call's is taken again (3 tries, as
+    ``device_ms``); a part still short gives None."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    got = {}
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        for part in parts:
+            mine = [e for e in ev if part in e.key]
+            if part not in got and mine and all(e.count == reps for e in mine):
+                got[part] = sum(e.self_device_time_total for e in mine) / 1e3 / reps
+        if len(got) == len(parts):
+            break
+    return {part: got.get(part) for part in parts}
 
 
 def num(x, spec: str = ".4f") -> str:
@@ -742,6 +869,10 @@ def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
             mask = (kp_eff != ref.INT32_MAX)[:, None, None, :]
             library_ms = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=H != KV), reps)
+        elif window or pad_kv or edge is not None:     # the whole mask, as a boolean one
+            mask = ref.attention_mask(qp, kp_eff, causal, window)[:, None]
+            library_ms = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=H != KV), reps)
         else:
             library_ms = timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=H != KV), reps)
@@ -770,30 +901,8 @@ def build_mutants(prefix, mutants, sources, lib_names):
     ``sources`` into a temporary directory outside the checkout and build
     the libraries ``lib_names[m]`` of mutant m, all in parallel.  Returns
     the directory and, per mutant, {library name: .so path}."""
-    from repro_torch.kernels import build
-
-    tmp = Path(tempfile.mkdtemp(prefix=prefix))
-    procs = {}
-    for m, (fname, old, new) in mutants.items():
-        d = tmp / m
-        d.mkdir()
-        for f in sources:
-            text = (build.CSRC / f).read_text()
-            if f == fname:
-                check(text.count(old) == 1, f"mutant {m}: its source line is not in {f} once")
-                text = text.replace(old, new)
-            (d / f).write_text(text)
-        for lib in lib_names[m]:
-            so = d / f"lib{lib}.so"
-            procs[(m, lib)] = (so, subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(d / f"{lib}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    built = {m: {} for m in mutants}
-    for (m, lib), (so, proc) in procs.items():
-        log, _ = proc.communicate(timeout=600)
-        check(proc.returncode == 0, f"mutant {m} ({lib}) did not build:\n{log[-2000:]}")
-        built[m][lib] = so
-    return tmp, built
+    return finish_mutant_builds(start_mutant_builds(prefix, mutants, sources, lib_names),
+                                mutants)
 
 
 def flash_mutants(kept):
@@ -1168,8 +1277,9 @@ def wide_inputs(b, s, h, g, p, n, seed, steep=False, device="cuda"):
 def wide_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=5):
     """mamba_ssd_wide vs its plain version (``ref.ssd_scan``) on the same
     inputs within ``SSD_TOL``, two calls bit-equal; the kernel's device
-    time by the profiler (its three launches), the plain version's by
-    events.  The plain version is evaluated in float64 on the inputs: in
+    time by the profiler (its three launches), or by events where the
+    profiler came back short (``timed_by`` says which, ``profiler_short``
+    true then), the plain version's by events.  The plain version is evaluated in float64 on the inputs: in
     f32 its own in-chunk sums of steep decays (|cum| in the hundreds at
     chunk 128) round the clipped weights apart by more than ``SSD_TOL``
     (its f32 run's share of the limit against that is printed beside).
@@ -1192,23 +1302,26 @@ def wide_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=5):
     check(torch.equal(out, ops.mamba_ssd_wide(*args, chunk=chunk)),
           f"{name}: two calls differ")
     kernel_ms = device_ms(lambda: ops.mamba_ssd_wide(*args, chunk=chunk), reps)
+    events_ms = time_ms(lambda: ops.mamba_ssd_wide(*args, chunk=chunk), reps)
+    timed_by = "profiler"
+    if kernel_ms is None:       # the profiler dropped records: events time it, and the
+        kernel_ms, timed_by = events_ms, "events"    # record and its row say so
     plain_ms = time_ms(lambda: ref.ssd_scan(*args, chunk), 2)
-    # the three launches' device times (one call, profiled)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        ops.mamba_ssd_wide(*args, chunk=chunk)
-        torch.cuda.synchronize()
-    parts = {part: sum(e.self_device_time_total for e in prof.key_averages()
-                       if f"wide_{part}" in e.key) / 1e3 for part in ("prep", "states", "out")}
+    # the three launches' device times
+    parts = profiled_parts(lambda: ops.mamba_ssd_wide(*args, chunk=chunk),
+                           ["wide_prep", "wide_states", "wide_out"])
+    parts = {k[len("wide_"):]: v for k, v in parts.items()}
     ops.mamba_ssd_wide.launches = before       # comparison launches do not count
     macs, nbytes = wide_work(b, s, h, g, p, n, chunk)
     bound_ms, bound_by = bound(2.0 * macs * SSD_PASSES, nbytes, H100_TF32_FLOPS)
-    return timed_case({
+    return {
         "case": name, "kernel": "mamba_ssd_wide", "shape": [b, s, h, g, p, n], "chunk": chunk,
         "steep": steep, "max_abs_err": err, "tol": SSD_TOL, "err_share_of_limit": share,
         "plain_f32_share_of_limit": share32, "parts_ms": parts,
-        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-        "bound_by": bound_by, "tflops": None if kernel_ms is None else 2.0 * macs / kernel_ms / 1e9,
-    }, ("ms",)), (name, args, plain, chunk)
+        "ms": kernel_ms, "timed_by": timed_by, "profiler_short": timed_by == "events",
+        "events_ms": events_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+        "bound_by": bound_by, "tflops": 2.0 * macs / kernel_ms / 1e9,
+    }, (name, args, plain, chunk)
 
 
 def wide_mutants(kept):
@@ -1244,6 +1357,165 @@ def wide_mutants(kept):
         return caught
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def wide_bwd_work(b, s, h, g, p, n, chunk):
+    """Multiply-adds and bytes of one grouped-scan backward, as the fewest
+    products compute it: per (batch, head, chunk) the four Q x n x p
+    products (C^T (ec dy), B dS, dy S^T, x dS^T) and the causal dy x^T and
+    A2^T dy over p and dG B and dG^T C over n, per (batch, group, chunk) the
+    causal Gram; x, dy and the states read, dx written, the decays, scales,
+    B and C read and their gradients written once (f32)."""
+    nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
+    macs = b * h * nc * (4 * chunk * n * p + 2 * tri * p + 2 * tri * n) + b * g * nc * tri * n
+    nbytes = 4 * (3 * b * s * h * p + b * nc * h * n * p + 4 * b * s * g * n + 4 * b * s * h)
+    return macs, nbytes
+
+
+def wide_bwd_agrees(got, plain):
+    """Each gradient of ``mamba_ssd_wide_bwd`` against its plain version in
+    float64: (max abs err, largest share of the limit ``WIDE_BWD_TOL
+    (max|plain| + |plain|)``, every element within it and finite)."""
+    import torch
+
+    errs = [max_err(gv.double(), w, WIDE_BWD_TOL * (w.abs().max() + w.abs()))
+            for gv, w in zip(got, plain)]
+    finite = all(bool(torch.isfinite(gv).all()) for gv in got)
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            all(e[2] for e in errs) and finite)
+
+
+def wide_bwd_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=3):
+    """``mamba_ssd_wide_bwd`` against ``ref.ssd_scan_bwd`` evaluated in float64
+    on the same inputs (the states from ``mamba_ssd_wide(...,
+    return_states=True)``, a random output gradient), within WIDE_BWD_TOL, two
+    calls bit-equal; the kernel's time by events and its six launches' by
+    the profiler, the plain version's (f32, on the card) by events, the
+    bound.  Returns the record and (name, inputs, plain gradients, chunk)
+    for the mutation checks."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    args = wide_inputs(b, s, h, g, p, n, seed, steep)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda")
+    before = ops.launch_counts()
+    _, states = ops.mamba_ssd_wide(*args, chunk=chunk, return_states=True)
+    got = ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk)
+    check(ops.mamba_ssd_wide_bwd.launches == before["mamba_ssd_wide_bwd"] + 1,
+          f"{name}: mamba_ssd_wide_bwd did not launch")
+    plain = ref.ssd_scan_bwd(*(t.double() for t in args), dy.double(), chunk)
+    torch.cuda.synchronize()
+    err, share, ok = wide_bwd_agrees(got, plain)
+    check(ok, f"{name}: mamba_ssd_wide_bwd disagrees with its plain version (max abs err "
+              f"{err:.3e}, {share:.2f} of the limit)")
+    again = ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk)
+    check(all(torch.equal(u, v) for u, v in zip(got, again)),
+          f"{name}: two calls of mamba_ssd_wide_bwd differ (it must be deterministic)")
+    del again
+    kernel_ms = time_ms(lambda: ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk), reps)
+    plain_ms = time_ms(lambda: ref.ssd_scan_bwd(*args, dy, chunk), 1)
+    parts = profiled_parts(lambda: ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk),
+                           [f"mamba_ssd_wide_bwd_{part}" for part in WIDE_BWD_PARTS])
+    parts = {k[len("mamba_ssd_wide_bwd_"):]: v for k, v in parts.items()}
+    for k, v in before.items():                # comparison launches do not count
+        ops.WRAPPERS[k].launches = v
+    macs, nbytes = wide_bwd_work(b, s, h, g, p, n, chunk)
+    b_ms, b_by = bound(2.0 * macs * SSD_PASSES, nbytes, H100_TF32_FLOPS)
+    return {
+        "case": name, "kernel": "mamba_ssd_wide_bwd", "shape": [b, s, h, g, p, n],
+        "chunk": chunk, "steep": steep, "max_abs_err": err,
+        "tol": f"{WIDE_BWD_TOL} (max|plain| + |plain|) per gradient, plain in float64",
+        "err_share_of_limit": share, "parts_ms": parts, "ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "tflops": 2.0 * macs / kernel_ms / 1e9, "profiler_short": False,
+    }, (name, (*args, dy, states), plain, chunk)
+
+
+def start_mutant_builds(prefix, mutants, sources, lib_names):
+    """``build_mutants``' first half: its nvcc processes start and run while
+    the caller goes on; ``finish_mutant_builds`` waits for them."""
+    from repro_torch.kernels import build
+
+    tmp = Path(tempfile.mkdtemp(prefix=prefix))
+    procs = {}
+    for m, (fname, old, new) in mutants.items():
+        d = tmp / m.replace(":", "_")
+        d.mkdir()
+        for f in sources:
+            text = (build.CSRC / f).read_text()
+            if f == fname:
+                check(text.count(old) == 1, f"mutant {m}: its source line is not in {f} once")
+                text = text.replace(old, new)
+            (d / f).write_text(text)
+        for lib in lib_names[m]:
+            so = d / f"lib{lib}.so"
+            procs[(m, lib)] = (so, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so), str(d / f"{lib}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return tmp, procs
+
+
+def finish_mutant_builds(started, mutants):
+    tmp, procs = started
+    built = {m: {} for m in mutants}
+    for (m, lib), (so, proc) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"mutant {m} ({lib}) did not build:\n{log[-2000:]}")
+        built[m][lib] = so
+    return tmp, built
+
+
+def new_kernel_mutants(f32_started, wide_started, f32_kept, wide_kept):
+    """Serve each broken copy of the f32 log-sum-exp write, of the f32
+    backward (F32_MUTANTS) and of mamba_ssd_wide_bwd.cu (WIDE_BWD_MUTANTS)
+    in place of its kernel, rerun the kept cases of that kernel (the f32
+    forward with its log-sum-exp and the backward that reads it; the wide
+    backward on its states) and require that the case named for each
+    (F32_MUTANT_CATCHER, WIDE_BWD_MUTANT_CATCHER) fails.  Returns, per
+    mutant, the cases that caught it."""
+    import torch
+    from repro_torch.kernels import build, ops
+
+    caught = {}
+    for started, mutants, catcher, kept in ((f32_started, F32_MUTANTS, F32_MUTANT_CATCHER,
+                                             f32_kept),
+                                            (wide_started, WIDE_BWD_MUTANTS,
+                                             WIDE_BWD_MUTANT_CATCHER, wide_kept)):
+        tmp, built = finish_mutant_builds(started, mutants)
+        try:
+            before = ops.launch_counts()
+            for m, sos in built.items():
+                (lib, so), = sos.items()
+                key = m if ":" in m else f"mamba_ssd_wide_bwd:{m}"
+                caught[key], shares = [], {}
+                with build.substituted(lib, build.load(lib, so)):
+                    for item in kept:
+                        if mutants is F32_MUTANTS:
+                            (name, (q, k, v, dout, qp, kp), causal, window), kernel = item
+                            with torch.no_grad():
+                                out, _, grads = flash_fwd_bwd(q, k, v, dout, qp, kp, causal,
+                                                              window, kernel)
+                            torch.cuda.synchronize()
+                            _, share, ok = flash_bwd_agrees(grads, (q, k, v, out, dout, qp, kp),
+                                                            causal, window)
+                        else:
+                            name, args, plain, chunk = item
+                            got = ops.mamba_ssd_wide_bwd(*args, chunk=chunk)
+                            torch.cuda.synchronize()
+                            _, share, ok = wide_bwd_agrees(got, plain)
+                        shares[name] = share
+                        if not ok:
+                            caught[key].append(f"{name} ({share:.3g} of the limit)")
+                print(f"phase=kernels mutant={key} share_of_limit="
+                      + ",".join(f"{c}:{v:.3g}" for c, v in shares.items()), flush=True)
+                check(any(c.startswith(catcher[m] + " ") for c in caught[key]),
+                      f"mutant {key} passed {catcher[m]}")
+            for k, v in before.items():
+                ops.WRAPPERS[k].launches = v
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return caught
 
 
 def device_ops(fn) -> dict:
@@ -2842,14 +3114,18 @@ def flash_bwd_work(B, Sq, Skv, H, KV, D, pairs: int, elem: int = 2):
 
 
 def flash_bwd_agrees(grads, inputs, causal, window):
-    """|kernel - plain| of dq, dk and dv against the stated limit
-    (``ref.flash_bwd_bf16_tolerance``) on the same inputs: (max abs err,
-    largest share of the limit, every element within it and finite)."""
+    """|kernel - plain| of dq, dk and dv against the stated limit on the same
+    inputs (bf16: ``ref.flash_bwd_bf16_tolerance``; f32: FLASH_BWD_F32_TOL):
+    (max abs err, largest share of the limit, every element within it and
+    finite)."""
     import torch
     from repro_torch.kernels import ref
 
     plain = ref.flash_attention_bwd_ref(*inputs, causal, window)
-    limits = ref.flash_bwd_bf16_tolerance(*inputs, causal, window, plain)
+    if inputs[0].dtype == torch.float32:
+        limits = [FLASH_BWD_F32_TOL[0] + FLASH_BWD_F32_TOL[1] * p.abs() for p in plain]
+    else:
+        limits = ref.flash_bwd_bf16_tolerance(*inputs, causal, window, plain)
     torch.cuda.synchronize()
     errs = [max_err(g, p, l) for g, p, l in zip(grads, plain, limits)]
     finite = all(bool(torch.isfinite(g.float()).all()) for g in grads)
@@ -2872,9 +3148,10 @@ def flash_fwd_bwd(q, k, v, dout, qp, kp, causal, window, kernel=None):
 
 
 def flash_bwd_case(name, B, Sq, Skv, H, KV, D, causal=False, window=0, pad_kv=0, edge=None,
-                   reps=5, library=False, seed=0, kernel=None, timed=True):
-    """One check of ``flash_attention_bwd`` (bf16, the kernel ``kernel`` or
-    ``ops.bwd_kernel``'s choice): the kernel against
+                   reps=5, library=False, seed=0, kernel=None, timed=True,
+                   dtype=None):
+    """One check of ``flash_attention_bwd`` (bf16, or ``dtype``; the kernel
+    ``kernel`` or ``ops.bwd_kernel``'s choice): the kernel against
     ``ref.flash_attention_bwd_ref`` on the same inputs (the forward's output
     and log-sum-exp from ``flash_attention(..., return_lse=True)``, a random
     output gradient), two calls bit-equal, with kernel, plain, library
@@ -2885,8 +3162,9 @@ def flash_bwd_case(name, B, Sq, Skv, H, KV, D, causal=False, window=0, pad_kv=0,
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
+    dtype = dtype or torch.bfloat16
     (q, k, v, qp, kp, _), causal, window = flash_inputs(
-        B, Sq, Skv, H, KV, D, torch.bfloat16, causal, window, pad_kv, False, edge, seed)
+        B, Sq, Skv, H, KV, D, dtype, causal, window, pad_kv, False, edge, seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
     kernel = kernel or ops.bwd_kernel(q.dtype, D)
@@ -2912,45 +3190,62 @@ def flash_bwd_case(name, B, Sq, Skv, H, KV, D, causal=False, window=0, pad_kv=0,
         ops.WRAPPERS[n].launches = c
     if library:
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=H != KV)
+        # a window, padded keys or an edge case: the whole mask, as a boolean one
+        mask = (ref.attention_mask(qp, kp, causal, window)[:, None]
+                if window or pad_kv or edge is not None else None)
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           is_causal=causal and mask is None, enable_gqa=H != KV)
         library_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dout.transpose(1, 2),
                                                          retain_graph=True), reps)
         del o
     pairs = attended_pairs(qp, kp, causal, window)
-    b_ms, b_by = bound(*flash_bwd_work(B, Sq, Skv, H, KV, D, pairs))
+    f32 = dtype == torch.float32
+    work = flash_bwd_work(B, Sq, Skv, H, KV, D, pairs, elem=q.element_size())
+    b_ms, b_by = bound(*work, peak=H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
     return timed_case({
         "case": name, "kernel": kernel, "shape": [B, Sq, Skv, H, KV, D],
-        "dtype": "torch.bfloat16", "causal": causal, "window": window, "edge": edge,
-        "max_abs_err": err, "tol": "ref.flash_bwd_bf16_tolerance",
+        "dtype": str(dtype), "causal": causal, "window": window, "edge": edge,
+        "max_abs_err": err,
+        "tol": FLASH_BWD_F32_TOL if f32 else "ref.flash_bwd_bf16_tolerance",
         "err_share_of_limit": share, "ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "tflops": None if kernel_ms is None
-        else flash_bwd_work(B, Sq, Skv, H, KV, D, pairs)[0] / kernel_ms / 1e9,
+        "tflops": None if kernel_ms is None else work[0] / kernel_ms / 1e9,
     }, ("ms", "plain_ms") if timed else ()), ((name, (q, k, v, dout, qp, kp), causal, window),
                                               kernel)
 
 
 def lse_case(name, B, Sq, Skv, H, KV, D, kernel, causal=False, window=0, pad_kv=0, edge=None,
-             seed=0):
+             seed=0, dtype=None):
     """The log-sum-exp that ``kernel`` writes (``return_lse``) against
-    ``ref.flash_attention_lse_ref`` within ``ref.flash_lse_tolerance``; rows
-    that attend no key must be +inf in both.  The forward's output is held
-    to its plain version too.  Returns the record."""
+    ``ref.flash_attention_lse_ref`` within ``ref.flash_lse_tolerance`` (bf16)
+    or LSE_F32_TOL (``dtype`` f32); rows that attend no key must be +inf in
+    both.  The forward's output is held to its plain version too, and, in
+    f32, to the output of the entry without the log-sum-exp bit for bit.
+    Returns the record."""
     import torch
     from repro_torch.kernels import ops, ref
 
+    dtype = dtype or torch.bfloat16
     (q, k, v, qp, kp, _), causal, window = flash_inputs(
-        B, Sq, Skv, H, KV, D, torch.bfloat16, causal, window, pad_kv, False, edge, seed)
+        B, Sq, Skv, H, KV, D, dtype, causal, window, pad_kv, False, edge, seed)
     before = ops.launch_counts()
     out, lse = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window, kernel=kernel,
                                    return_lse=True)
     check(ops.WRAPPERS[kernel].launches == before[kernel] + 1, f"{name}: {kernel} did not launch")
-    ops.WRAPPERS[kernel].launches = before[kernel]
     o_err, o_share, o_ok = flash_agrees(out, (q, k, v, qp, kp, None), causal, window)
     check(o_ok, f"{name}: {kernel}'s output disagrees with its plain version ({o_share:.2f} "
                 "of the limit)")
+    if dtype == torch.float32:
+        check(torch.equal(out, ops.flash_attention(q, k, v, qp, kp, causal=causal,
+                                                   window=window, kernel=kernel)),
+              f"{name}: the f32 entries with and without the log-sum-exp differ")
+    ops.WRAPPERS[kernel].launches = before[kernel]
     plain = ref.flash_attention_lse_ref(q, k, qp, kp, causal, window)
-    limit = ref.flash_lse_tolerance(q, k, qp, kp, causal, window, plain)
+    if dtype == torch.float32:
+        limit = LSE_F32_TOL[0] + LSE_F32_TOL[1] * torch.where(torch.isinf(plain), 0.0,
+                                                              plain.abs())
+    else:
+        limit = ref.flash_lse_tolerance(q, k, qp, kp, causal, window, plain)
     empty = torch.isinf(plain)
     check(bool(torch.equal(torch.isposinf(lse), empty)),
           f"{name}: {kernel}'s log-sum-exp is +inf on other rows than the rows with no key")
@@ -2960,7 +3255,8 @@ def lse_case(name, B, Sq, Skv, H, KV, D, kernel, causal=False, window=0, pad_kv=
               f"(max abs err {err:.3e}, {share:.2f} of ref.flash_lse_tolerance)")
     rec = {"case": name, "kernel": kernel, "shape": [B, Sq, Skv, H, KV, D], "causal": causal,
            "window": window, "edge": edge, "max_abs_err": err, "err_share_of_limit": share,
-           "rows_without_key": int(empty.sum()), "tol": "ref.flash_lse_tolerance"}
+           "rows_without_key": int(empty.sum()), "dtype": str(dtype),
+           "tol": LSE_F32_TOL if dtype == torch.float32 else "ref.flash_lse_tolerance"}
     print(f"phase=kernels lse={name} kernel={kernel} max_abs_err={err:.3e} "
           f"share_of_limit={share:.3f} rows_without_key={rec['rows_without_key']}", flush=True)
     return rec
@@ -3051,27 +3347,27 @@ def train_flops(n_matmul: int, tokens: int, pairs: int, layers: int, heads: int,
     return 6.0 * n_matmul * tokens + 3 * 4.0 * pairs * heads * head_dim * layers
 
 
-def _device_split(prof):
-    """Device time (us) of a profiled window by kind: the flash forward and
-    backward kernels, the SSD scan's forward and backward kernels, cuBLAS
-    products and the rest."""
-    import torch
-
+def _split_kernels(kernels):
+    """Device time (us) of kernels ``(name, us)`` by kind: the flash forward
+    and backward kernels, the SSD scans' forward and backward kernels (the
+    grouped scan's ``wide_*`` and ``mamba_ssd_wide_bwd_*`` among them),
+    cuBLAS products and the rest."""
     split = {"flash_fwd": 0.0, "flash_bwd": 0.0, "ssd_fwd": 0.0, "ssd_bwd": 0.0,
              "matmul": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        us = e.self_device_time_total
-        if us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+    for name, us in kernels:
+        if us <= 0:
             continue
-        if "mamba_ssd_bwd" in e.key:
+        if "mamba_ssd_bwd" in name or "mamba_ssd_wide_bwd" in name:
             split["ssd_bwd"] += us
-        elif "mamba_ssd" in e.key:
+        elif "mamba_ssd" in name or any(k in name for k in ("wide_prep", "wide_states",
+                                                             "wide_out")):
             split["ssd_fwd"] += us
-        elif any(k in e.key for k in ("bwd_delta", "bwd_prep", "bwd_dkdv", "bwd_dq")):
+        elif any(k in name for k in ("bwd_delta", "bwd_prep", "bwd_dkdv", "bwd_dq",
+                                     "bwd_f32_")):
             split["flash_bwd"] += us
-        elif "flash_fwd" in e.key or "live_tiles" in e.key:
+        elif "flash_fwd" in name or "live_tiles" in name:
             split["flash_fwd"] += us
-        elif any(k in e.key for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        elif any(k in name for k in ("gemm", "nvjet", "xmma", "cutlass")):
             split["matmul"] += us
         else:
             split["other"] += us
@@ -3154,16 +3450,19 @@ def train_drill(family: str = "dense") -> int:
     return 0
 
 
-def train_steps(cfg, want: dict, run: str):
+def train_steps(cfg, want: dict, run: str, batch=(None, None), parallel=None, steps=None):
     """Phase train's timed run of ``cfg`` at its published widths in bf16
     (random weights from seed 0) through ``make_train_step`` with
-    ``ParallelConfig(**TRAIN_PARALLEL)`` on ``SyntheticLMStream`` batches
-    of ``TRAIN_B`` x ``TRAIN_S`` tokens: one warm-up step, then
-    ``TRAIN_STEPS`` timed steps whose losses and gradient norms must be
-    finite and whose launches must be ``want`` (and nothing else), one
-    more step profiled for the device split.  Returns the record, the
-    launch counts (set to 0 just before the timed steps, read just after),
-    and the model, its trained parameters and the data stream."""
+    ``ParallelConfig(**parallel)`` (default TRAIN_PARALLEL) on
+    ``SyntheticLMStream`` batches of ``batch`` tokens (default ``TRAIN_B`` x
+    ``TRAIN_S``): one warm-up step, then ``steps`` (default ``TRAIN_STEPS``)
+    timed steps whose losses and gradient norms must be finite and whose
+    launches must be ``want`` (and nothing else), one more step profiled
+    by ``profiled_kernels`` for the device split (``_split_kernels``).
+    Returns the
+    record, the launch counts (set to 0 just before the timed steps, read
+    just after), and the model, its trained parameters and the data
+    stream."""
     import torch
     from repro_torch import models, tree
     from repro_torch.configs.base import ParallelConfig
@@ -3171,10 +3470,12 @@ def train_steps(cfg, want: dict, run: str):
     from repro_torch.kernels import ops
     from repro_torch.train.loop import make_train_step
 
+    tb, ts = batch[0] or TRAIN_B, batch[1] or TRAIN_S
+    parallel, steps = parallel or TRAIN_PARALLEL, steps or TRAIN_STEPS
     t0 = time.perf_counter()
     model = models.build(cfg, "cuda")
     params = model.init(0)
-    step_fn = make_train_step(model, ParallelConfig(**TRAIN_PARALLEL), peak_lr=TRAIN_LR,
+    step_fn = make_train_step(model, ParallelConfig(**parallel), peak_lr=TRAIN_LR,
                               total_steps=100)
     opt_state = step_fn.opt_init(params)
     torch.cuda.synchronize()
@@ -3185,7 +3486,7 @@ def train_steps(cfg, want: dict, run: str):
         experts = params["layers"]["moe"]
         n_matmul -= sum(experts[w]["w"].numel() for w in ("wi", "wg", "wo"))
         n_matmul += cfg.num_layers * cfg.experts_top_k * 3 * cfg.d_model * cfg.d_ff_expert
-    data = SyntheticLMStream(cfg, batch=TRAIN_B, seq_len=TRAIN_S, device="cuda")
+    data = SyntheticLMStream(cfg, batch=tb, seq_len=ts, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, opt_state, m = step_fn(params, opt_state, data.batch_at(0), 0)    # warm-up
@@ -3193,7 +3494,7 @@ def train_steps(cfg, want: dict, run: str):
     warmup_s = time.perf_counter() - t0
     ops.reset_launch_counts()
     walls, losses, gnorms = [], [], []
-    for s in range(1, TRAIN_STEPS + 1):
+    for s in range(1, steps + 1):
         batch = data.batch_at(s)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3212,25 +3513,30 @@ def train_steps(cfg, want: dict, run: str):
     check(all(bool(torch.isfinite(p.float()).all()) for p in tree.flatten(params)[0]),
           f"{run} train: parameters not finite after the steps")
     # one more step, profiled: where the device time goes, and the busy share
-    batch = data.batch_at(TRAIN_STEPS + 1)
+    batch = data.batch_at(steps + 1)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    traced = []
+
+    def traced_step():
         t0 = time.perf_counter()
-        params, opt_state, m = step_fn(params, opt_state, batch, TRAIN_STEPS + 1)
+        traced.append(step_fn(params, opt_state, batch, steps + 1))
         torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    split = _device_split(prof)
+        traced.append(time.perf_counter() - t0)
+
+    split = _split_kernels(profiled_kernels(traced_step))
+    (params, opt_state, m), traced_s = traced
     device_s = sum(split.values()) / 1e6
     check(device_s > 0, f"the traced {run} train step shows no device time")
     wall = sorted(walls)[len(walls) // 2]
-    tokens = TRAIN_B * TRAIN_S
-    attn_layers = cfg.num_layers // cfg.attn_every if cfg.attn_every else cfg.num_layers
-    pairs = TRAIN_B * TRAIN_S * (TRAIN_S + 1) // 2                 # causal, per attention
+    tokens = tb * ts
+    # the xLSTM has no attention (its scans' work is not in model_flops)
+    attn_layers = 0 if cfg.family == "ssm" else (
+        cfg.num_layers // cfg.attn_every if cfg.attn_every else cfg.num_layers)
+    pairs = tb * ts * (ts + 1) // 2                                 # causal, per attention
     flops = train_flops(n_matmul, tokens, pairs, attn_layers, cfg.num_heads, cfg.head_dim)
     rec = {"arch": cfg.name, "layers": cfg.num_layers, "attention_layers": attn_layers,
            "params": n_params, "params_matmul": n_matmul,
-           "batch": [TRAIN_B, TRAIN_S], "parallel": TRAIN_PARALLEL, "lr": TRAIN_LR,
+           "batch": [tb, ts], "parallel": parallel, "lr": TRAIN_LR,
            "init_s": init_s, "warmup_step_s": warmup_s, "step_s": walls,
            "step_s_median": wall, "tokens_per_s": tokens / wall, "model_flops": flops,
            "share_of_bf16_peak": flops / wall / H100_BF16_FLOPS, "peak_gb": peak_gb,
@@ -3239,7 +3545,7 @@ def train_steps(cfg, want: dict, run: str):
            "device_busy": device_s / traced_s,
            "device_split_s": {k: v / 1e6 for k, v in split.items()}}
     print(f"phase=train run={run} arch={cfg.name} layers={cfg.num_layers} "
-          f"params={n_params} batch={TRAIN_B}x{TRAIN_S} {TRAIN_PARALLEL} init_s={init_s:.1f} "
+          f"params={n_params} batch={tb}x{ts} {parallel} init_s={init_s:.1f} "
           f"warmup_step_s={warmup_s:.3f} step_s={[round(w, 4) for w in walls]} "
           f"tokens_per_s={tokens / wall:.0f} share_of_bf16_peak="
           f"{rec['share_of_bf16_peak']:.4f} peak_mem_gb={peak_gb:.2f} "
@@ -3405,6 +3711,143 @@ def moe_train_phase():
         "moe_drill", MOE_TRAIN_DRILL,
         lambda n: expected_train_launches(MOE_TRAIN_DRILL["layers"], mb, True, n), "moe")
     return rec, counts, drill_counts
+
+
+def expected_xlstm_train_launches(cfg, microbatch: int, remat: bool, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps of the xLSTM: per microbatch
+    two ``mamba_ssd_wide`` (its state-writing call) an mLSTM block (the
+    values and the normaliser), each once more under remat (the group
+    recomputed in the backward pass), and two ``mamba_ssd_wide_bwd``; the
+    sLSTM blocks launch no kernel of the port."""
+    mlstm = cfg.num_layers - cfg.num_layers // cfg.slstm_every
+    return {"mamba_ssd_wide": 2 * mlstm * microbatch * (2 if remat else 1) * steps,
+            "mamba_ssd_wide_bwd": 2 * mlstm * microbatch * steps}
+
+
+def xlstm_train_phase():
+    """Phase train (f): xlstm-1.3b at its published widths and depth (48
+    blocks, bf16, random weights) through ``train_steps`` on
+    XLSTM_TRAIN_B x XLSTM_TRAIN_S tokens in one microbatch, remat, AdamW
+    (its launches ``expected_xlstm_train_launches``).  No restart drill: its machinery is
+    family-independent, and (b), (d) and (e) run it.  Returns the record
+    and the launch counts of the timed steps, set to 0 just before them and
+    read just after."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config(XLSTM_ARCH)
+    dh = 2 * cfg.d_model // cfg.num_heads
+    check(ops.ssd_kernel(cfg.num_heads, dh, dh, 128) == "mamba_ssd_wide"
+          and ops.ssd_kernel(cfg.num_heads, 1, dh, 128) == "mamba_ssd_wide",
+          "the mLSTM's scans are not on mamba_ssd_wide")
+    want = expected_xlstm_train_launches(cfg, XLSTM_TRAIN_PARALLEL["microbatch"],
+                                         XLSTM_TRAIN_PARALLEL["remat"] != "none",
+                                         XLSTM_TRAIN_STEPS)
+    rec, counts, trained = train_steps(cfg, want, "xlstm", batch=(XLSTM_TRAIN_B, XLSTM_TRAIN_S),
+                                       parallel=XLSTM_TRAIN_PARALLEL, steps=XLSTM_TRAIN_STEPS)
+    del trained
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+@contextlib.contextmanager
+def cpu_drawn_init():
+    """Inside the block ``models.build(...).init`` draws the weights on the
+    CPU and moves them to the model's device: the card's and the CPU's
+    generators differ, so a CLI run on each starts from the same weights."""
+    from repro_torch import models
+    from repro_torch.tree import map_tree
+
+    build = models.build
+
+    def build_cpu_init(cfg, device=None):
+        model, cpu = build(cfg, device), build(cfg, "cpu")
+        return dataclasses.replace(
+            model, init=lambda key: map_tree(lambda t: t.to(model.device), cpu.init(key)))
+
+    models.build = build_cpu_init
+    try:
+        yield
+    finally:
+        models.build = build
+
+
+def expected_cli_launches(cfg, steps: int) -> dict:
+    """Kernel launches of the train CLI's ``steps`` steps of a reduced config
+    (f32, head dim 32, ``ParallelConfig()``: one microbatch, no remat): one
+    f32 flash forward (``flash_attention``, writing the log-sum-exp) and one
+    ``flash_attention_bwd_f32`` an attention layer, and for the hybrid
+    family one ``mamba_ssd`` and one ``mamba_ssd_bwd`` a Mamba2 block; for
+    the xLSTM two ``mamba_ssd_wide`` and two ``mamba_ssd_wide_bwd`` an
+    mLSTM block."""
+    if cfg.family == "ssm":
+        return expected_xlstm_train_launches(cfg, 1, False, steps)
+    attn = cfg.num_layers // cfg.attn_every if cfg.attn_every else cfg.num_layers
+    want = {"flash_attention": attn * steps, "flash_attention_bwd_f32": attn * steps}
+    if cfg.family == "hybrid":
+        want.update(mamba_ssd=cfg.num_layers * steps, mamba_ssd_bwd=cfg.num_layers * steps)
+    return want
+
+
+def train_cli_phase():
+    """Phase train_cli: ``launch.train.main`` with ``--device cuda`` and the
+    arguments of ``test_torch_checkpoint.py::test_train_cli_on_the_cpu``
+    (TRAIN_CLI_ARGS) for one arch of each family (TRAIN_CLI_ARCHS: the
+    reduced configs, f32 at head dim 32; h2o-danube's window 16 at the
+    longer TRAIN_CLI_SEQ, where it masks keys), then the same on the CPU, both from the same weights (``cpu_drawn_init``): each
+    step's loss card against CPU within TRAIN_CLI_TOL relative (TF32 off, as
+    ``run()`` sets it), the card's launches ``expected_cli_launches`` and
+    nothing else, none on the CPU.  Returns the record and each arch's card
+    launches (set to 0 just before its run, read just after)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.transformer import _window
+
+    rec, counts = {}, {}
+    for arch in TRAIN_CLI_ARCHS:
+        cfg = get_config(arch).reduced()
+        args = list(TRAIN_CLI_ARGS)
+        seq = TRAIN_CLI_SEQ.get(arch, int(args[args.index("--seq") + 1]))
+        args[args.index("--seq") + 1] = str(seq)
+        check(not _window(cfg) or _window(cfg) < seq,
+              f"train_cli {arch}: window {_window(cfg)} covers all {seq} tokens")
+        losses, launches, walls = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            ckpt_dir = tempfile.mkdtemp(prefix="train_cli_")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                with cpu_drawn_init(), contextlib.redirect_stdout(io.StringIO()):
+                    report = train_cli.main(["--arch", arch, *args, "--ckpt-dir",
+                                             ckpt_dir, "--device", dev])
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+            walls[dev] = time.perf_counter() - t0
+            launches[dev] = ops.launch_counts()
+            check(report.final_step == 4 and report.restarts == 0
+                  and sorted(report.losses) == [0, 1, 2, 3],
+                  f"train_cli {arch} on {dev}: {report}")
+            losses[dev] = [float(report.losses[i]) for i in range(4)]
+        want = expected_cli_launches(cfg, 4)
+        check(launches["cuda"] == {**{k: 0 for k in launches["cuda"]}, **want},
+              f"train_cli {arch}: card launches {launches['cuda']}, expected {want}")
+        check(not any(launches["cpu"].values()), f"train_cli {arch}: CPU launches")
+        rel = max(abs(c - p) / abs(p) for c, p in zip(losses["cuda"], losses["cpu"]))
+        check(all(math.isfinite(x) for x in losses["cuda"]) and rel <= TRAIN_CLI_TOL,
+              f"train_cli {arch}: card losses {losses['cuda']} vs CPU {losses['cpu']} "
+              f"(relative {rel:.3e}, limit {TRAIN_CLI_TOL})")
+        counts[f"train_cli:{arch}"] = launches["cuda"]
+        rec[arch] = {"losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+                     "max_rel": rel, "wall_s": walls, "launches": want, "seq": seq,
+                     "head_dim": cfg.head_dim, "window": _window(cfg)}
+        print(f"phase=train_cli arch={arch} head_dim={cfg.head_dim} window={_window(cfg)} "
+              f"seq={seq} "
+              f"losses_card={[round(x, 6) for x in losses['cuda']]} max_rel_vs_cpu={rel:.3e} "
+              f"(limit {TRAIN_CLI_TOL}) card_s={walls['cuda']:.1f} cpu_s={walls['cpu']:.1f} "
+              f"launches={want}", flush=True)
+    return rec, counts
 
 
 def _family_cfg(arch: str, layers):
@@ -4164,10 +4607,18 @@ def run() -> int:
                 print(f"  ptxas {name}: {line.split('ptxas info    :')[-1].strip()}")
     for name in ("int8_quantize", "latent_blend", "dequant_blend",     # no local memory
                  "flash_attention", "flash_attention_sm90", "flash_decode",
-                 "flash_attention_bwd", "flash_attention_bwd_sm90", "mamba_ssd",
-                 "mamba_ssd_bwd", "mamba_ssd_wide"):
+                 "flash_attention_bwd", "flash_attention_bwd_sm90", "flash_attention_bwd_f32",
+                 "mamba_ssd", "mamba_ssd_bwd", "mamba_ssd_wide", "mamba_ssd_wide_bwd"):
         spills = [l for l in reports[name].splitlines() if "spill" in l]
         check(spills and all(NO_SPILL in l for l in spills), f"{name} spills: {spills}")
+    # the broken copies of this slice's kernels build while the cases run
+    f32_mutant_builds = start_mutant_builds(
+        "f32_mutants_", F32_MUTANTS, ("flash_common.cuh", "flash_attention.cu",
+                                      "flash_attention_bwd_f32.cu"), F32_MUTANT_LIBS)
+    wide_bwd_mutant_builds = start_mutant_builds(
+        "mamba_ssd_wide_bwd_mutants_", WIDE_BWD_MUTANTS, ("mamba_ssd_wide_bwd.cu",
+                                                          "ssd_common.cuh"),
+        {m: ("mamba_ssd_wide_bwd",) for m in WIDE_BWD_MUTANTS})
 
     # ----------------------------------------------------------- 2. kernels
     cfg = get_config("wan21-dit-1.3b")
@@ -4201,6 +4652,17 @@ def run() -> int:
         (("flash_masked_gqa_f32", 2, 200, 333, 8, 2, 64, torch.float32),
          dict(causal=True, window=96, pad_kv=5, kv_len=True, reps=3)),
         (("flash_self_f32_d128", 2, 300, 300, 4, 4, 128, torch.float32), dict(reps=3)),
+        # f32 at head dim 32, the reduced configs the train CLI trains: a
+        # causal layer (SDPA beside it), reduced h2o-danube's window 16,
+        # padded keys with kv_len, and GQA under every mask
+        (("flash_f32_d32_causal", 2, 2048, 2048, 4, 4, 32, torch.float32),
+         dict(causal=True, library=True, reps=3)),
+        (("flash_f32_d32_window16", 2, 512, 512, 4, 4, 32, torch.float32),
+         dict(causal=True, window=16, library=True, reps=3)),
+        (("flash_f32_d32_padded", 2, 300, 333, 4, 4, 32, torch.float32),
+         dict(pad_kv=5, kv_len=True, library=True, reps=3)),
+        (("flash_f32_d32_masked_gqa", 2, 200, 333, 8, 2, 32, torch.float32),
+         dict(causal=True, window=96, pad_kv=5, library=True, reps=3)),
     ]
     # what one rank of phase lp_ranks (K 4) and of phase hybrid_ranks (K 3, and
     # K 2 after its drill's eviction) gives the wgmma kernel: one window's CFG
@@ -4386,7 +4848,28 @@ def run() -> int:
     lse += [lse_case(f"lse_{kern}_d64_causal_first_key", 2, sq, 333, 4, 2, 64, kern,
                      edge="causal_first_key", seed=5)
             for kern, sq in (("flash_attention_sm90", 300), ("flash_attention", 100))]
+    # the f32 writer at D 32 (and its output bit-equal to the entry without it)
+    lse += [lse_case("lse_flash_attention_f32_d32", 2, 300, 333, 8, 2, 32, "flash_attention",
+                     causal=True, window=16, pad_kv=5, dtype=torch.float32),
+            lse_case("lse_flash_attention_f32_d32_causal_first_key", 2, 300, 333, 4, 2, 32,
+                     "flash_attention", edge="causal_first_key", seed=5, dtype=torch.float32)]
     record["lse"] = lse
+    # the f32 backward (flash_attention_bwd_f32.cu), fed the f32 forward's
+    # log-sum-exp: at D 32 a causal layer, the window 16, GQA under every
+    # mask; at D 64 and 128 under masks; SDPA's autograd beside each
+    bwd_f32, bwd_f32_kept = [], []
+    for a, kw in ((("flash_bwd_f32_d32_causal", 2, 2048, 2048, 4, 4, 32), dict(causal=True)),
+                  (("flash_bwd_f32_d32_window16", 2, 512, 512, 4, 4, 32),
+                   dict(causal=True, window=16)),
+                  (("flash_bwd_f32_d32_masked_gqa", 2, 200, 333, 8, 2, 32),
+                   dict(causal=True, window=96, pad_kv=5)),
+                  (("flash_bwd_f32_d64_masked_gqa", 2, 200, 333, 8, 2, 64),
+                   dict(causal=True, window=96, pad_kv=5)),
+                  (("flash_bwd_f32_d128_padded_gqa", 1, 256, 300, 4, 2, 128), dict(pad_kv=9))):
+        rec, kept = flash_bwd_case(*a, dtype=torch.float32, reps=3, library=True, **kw)
+        check(rec["kernel"] == "flash_attention_bwd_f32", f"{a[0]} ran {rec['kernel']}")
+        bwd_f32.append(rec)
+        bwd_f32_kept.append(kept)
     # the Mamba2 scan at Zamba2's prefill (d_inner 5120 = 80 heads x 64,
     # state 64, chunk 64), there with steep decays that reach the clip, a
     # ragged length, a short 16/16 shape, steep decays on a short prompt,
@@ -4439,16 +4922,36 @@ def run() -> int:
         rec, kept = wide_case(*args)
         wide.append(rec)
         wide_kept.append(kept)
-    record["kernels"] = flash + bwd + blend + quant + dequant + ssd + ssd_bwd + wide + guidance
-    for c in flash + bwd + blend + quant + dequant + ssd + ssd_bwd + wide + guidance:
+    # the grouped scan's backward (mamba_ssd_wide_bwd.cu): phase train (f)'s
+    # microbatch of 2 x 2048, its value scan (4 heads x 1024, state 1024,
+    # chunk 128: g = h) and its normaliser (p = 1), and a small steep ragged
+    # case with g < h; each against the plain backward in float64
+    wide_bwd, wide_bwd_kept = [], []
+    for args in (("mamba_ssd_wide_bwd_train_value", 2, 2048, xcfg.num_heads, xcfg.num_heads,
+                  xdh, xdh, 128, 31),
+                 ("mamba_ssd_wide_bwd_train_normaliser", 2, 2048, xcfg.num_heads,
+                  xcfg.num_heads, 1, xdh, 128, 32),
+                 ("mamba_ssd_wide_bwd_steep_g2", 1, 1000, 4, 2, 256, 256, 128, 33, True)):
+        rec, kept = wide_bwd_case(*args)
+        wide_bwd.append(rec)
+        wide_bwd_kept.append(kept)
+    new_cases = bwd_f32 + wide_bwd
+    record["kernels"] = (flash + bwd + blend + quant + dequant + ssd + ssd_bwd + wide + guidance
+                         + new_cases)
+    for c in (flash + bwd + blend + quant + dequant + ssd + ssd_bwd + wide + guidance
+              + new_cases):
         lib = num(c["library_ms"])
         earlier = f" earlier_ms={c['earlier_ms']}" if c.get("earlier_ms") else ""
         if "events_ms" in c and c["events_ms"] != c["ms"]:
             earlier += f" events_ms={c['events_ms']:.4f}"
+        if c.get("timed_by") == "events":
+            earlier += " timed_by=events"
         if "plain_f32_share_of_limit" in c:
             earlier += (f" plain_is_f64 plain_f32_share_of_limit="
                         f"{c['plain_f32_share_of_limit']:.3f} parts_ms="
-                        + ",".join(f"{k}:{v:.4f}" for k, v in c["parts_ms"].items()))
+                        + ",".join(f"{k}:{num(v)}" for k, v in c["parts_ms"].items()))
+        elif "parts_ms" in c:
+            earlier += " parts_ms=" + ",".join(f"{k}:{num(v)}" for k, v in c["parts_ms"].items())
         if "bf16_out_ms" in c:
             earlier += f" bf16_out_ms={num(c['bf16_out_ms'], '.5f')}"
         if "yardstick_ms" in c:
@@ -4468,8 +4971,10 @@ def run() -> int:
     caught.update({f"flash_bwd:{m}": v for m, v in flash_bwd_mutants(bwd_kept).items()})
     caught.update({f"mamba_ssd_bwd:{m}": v for m, v in ssd_bwd_mutants(ssd_bwd_kept).items()})
     caught.update({f"mamba_ssd_wide:{m}": v for m, v in wide_mutants(wide_kept).items()})
+    caught.update(new_kernel_mutants(f32_mutant_builds, wide_bwd_mutant_builds, bwd_f32_kept,
+                                     wide_bwd_kept))
     del ssd_kept, flash_kept, quant_kept, blend_kept, dequant_kept, bwd_kept, ssd_bwd_kept
-    del wide_kept
+    del wide_kept, bwd_f32_kept, wide_bwd_kept
     record["mutants"] = caught
     for m, cases in caught.items():
         print(f"phase=kernels mutant={m} caught_by={'; '.join(cases)}", flush=True)
@@ -4726,10 +5231,19 @@ def run() -> int:
     t_moe = time.perf_counter()
     record["train_moe"], moe_train_counts, moe_drill_counts = moe_train_phase()
     record["train_moe"]["phase_s"] = time.perf_counter() - t_moe
+    t_xlstm = time.perf_counter()
+    record["train_xlstm"], xlstm_train_counts = xlstm_train_phase()
+    record["train_xlstm"]["phase_s"] = time.perf_counter() - t_xlstm
     record["train"]["phase_s"] = time.perf_counter() - t_train
     print(f"phase=train phase_s={record['train']['phase_s']:.1f} hybrid_s="
-          f"{record['train_hybrid']['phase_s']:.1f} moe_s={record['train_moe']['phase_s']:.1f}",
-          flush=True)
+          f"{record['train_hybrid']['phase_s']:.1f} moe_s={record['train_moe']['phase_s']:.1f} "
+          f"xlstm_s={record['train_xlstm']['phase_s']:.1f}", flush=True)
+
+    # -------------------------------------------------------- 7d. train_cli
+    t_cli = time.perf_counter()
+    record["train_cli"], cli_counts = train_cli_phase()
+    record["train_cli_phase_s"] = time.perf_counter() - t_cli
+    print(f"phase=train_cli phase_s={record['train_cli_phase_s']:.1f}", flush=True)
 
     # ---------------------------------------------------------- 8. guidance
     record["guidance"], guidance_counts = guidance_path()
@@ -4791,6 +5305,7 @@ def run() -> int:
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "profiler_short": case["profiler_short"], "earlier_ms": case.get("earlier_ms"),
+                **({"timed_by": case["timed_by"]} if "timed_by" in case else {}),
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
 
@@ -4831,10 +5346,14 @@ def run() -> int:
                    "coded_stitch": stitch_counts,
                    "guidance": guidance_counts, "serve_policy": policy_counts,
                    **{f"serve_codec:{c}": n for c, n in coded_counts.items()}, **lp_counts,
-                   **fleet_counts}
+                   **fleet_counts, "train:xlstm": xlstm_train_counts, **cli_counts}
     train_paths = {k: path_counts[k] for k in ("train", "train:drill")}
     hybrid_paths = {k: path_counts[k] for k in ("train:hybrid", "train:hybrid_drill")}
     moe_paths = {k: path_counts[k] for k in ("train:moe", "train:moe_drill")}
+    named_f32_bwd = {c["case"]: c for c in bwd_f32}
+
+    def cli(kernel):
+        return {k: n[kernel] for k, n in cli_counts.items()}
     line = {"kernels": [
         kernel_row("flash_attention_sm90_d128", "src/repro/kernels/flash_attention.py:101",
                    named["flash_self_Twindow_bf16"],
@@ -4873,9 +5392,20 @@ def run() -> int:
                    fam(":decode", "flash_decode", (128,)), source="flash_decode"),
         {**kernel_row("flash_attention", "src/repro/kernels/flash_attention.py:101",
                       named["flash_train_granite_causal_bf16_mma"],
-                      {k: n["flash_attention"] for k, n in path_counts.items()}, on_path=False),
-         "note": "on no path: granite's training forward moved to flash_attention_sm90 "
-                 "(D 64); it serves bf16 D 64 / 80 with 9-127 queries and f32"},
+                      {k: n["flash_attention"] for k, n in path_counts.items()
+                       if k not in cli_counts}, on_path=False),
+         "note": "bf16 (mma.sync) on no path: granite's training forward moved to "
+                 "flash_attention_sm90 (D 64); it serves bf16 D 64 / 80 with 9-127 queries "
+                 "and f32 (the row flash_attention_f32_d32)"},
+        {**kernel_row("flash_attention_f32_d32", "src/repro/kernels/flash_attention.py:101",
+                      named["flash_f32_d32_causal"], cli("flash_attention"),
+                      source="flash_attention"),
+         "note": "f32 FMA at head dim 32, writing the log-sum-exp: the train CLI's reduced "
+                 "configs (phase train_cli)"},
+        {**kernel_row("flash_attention_bwd_f32", "src/repro/models/attention.py:81",
+                      named_f32_bwd["flash_bwd_f32_d32_causal"], cli("flash_attention_bwd_f32")),
+         "note": "no Pallas kernel: the f32 backward (FMA, D 32 / 64 / 80 / 128) of the train "
+                 "CLI's reduced configs (phase train_cli)"},
         {**kernel_row("flash_attention_bwd_sm90", "src/repro/models/attention.py:81",
                       named_bwd["flash_bwd_granite_causal"],
                       {k: train_paths[k]["flash_attention_bwd_sm90"] for k in train_paths}),
@@ -4915,20 +5445,29 @@ def run() -> int:
                    {"coded_stitch": stitch_counts["dequant_blend"]}),
         {**kernel_row("mamba_ssd", "src/repro/kernels/mamba_ssd.py:111", ssd[0],
                       {"lm_serve:prefill": lm_prefill_counts["mamba_ssd"],
-                       **{k: hybrid_paths[k]["mamba_ssd"] for k in hybrid_paths}}),
+                       **{k: hybrid_paths[k]["mamba_ssd"] for k in hybrid_paths},
+                       **cli("mamba_ssd")}),
          "precision": f"{SSD_PASSES}xtf32", "work_split": SSD_SPLIT},
         {**kernel_row("mamba_ssd_bwd", "src/repro/models/ssm.py:54", ssd_bwd[0],
-                      {k: hybrid_paths[k]["mamba_ssd_bwd"] for k in hybrid_paths}),
+                      {**{k: hybrid_paths[k]["mamba_ssd_bwd"] for k in hybrid_paths},
+                       **cli("mamba_ssd_bwd")}),
          "precision": f"{SSD_PASSES}xtf32", "work_split": SSD_BWD_SPLIT,
          "note": "no Pallas kernel: the reference trains through XLA's gradient of "
                  "gated_linear_scan"},
         {**kernel_row("mamba_ssd_wide", "src/repro/kernels/mamba_ssd.py:111", wide[0],
-                      {k: path_counts[k]["mamba_ssd_wide"] for k in
-                       ("lm_xlstm:prefill", "lm_xlstm:decode")}),
+                      {**{k: path_counts[k]["mamba_ssd_wide"] for k in
+                          ("lm_xlstm:prefill", "lm_xlstm:decode", "train:xlstm")},
+                       **cli("mamba_ssd_wide")}),
          "precision": f"{SSD_PASSES}xtf32", "work_split": WIDE_SPLIT,
          "note": "the Pallas mamba_ssd takes groups 1 only; the reference runs the mLSTM's "
                  "scans through the jnp gated_linear_scan (src/repro/models/ssm.py:62) under "
                  "XLA.  Groups g | h, n and p past 128, p = 1"},
+        {**kernel_row("mamba_ssd_wide_bwd", "src/repro/models/ssm.py:54", wide_bwd[0],
+                      {"train:xlstm": xlstm_train_counts["mamba_ssd_wide_bwd"],
+                       **cli("mamba_ssd_wide_bwd")}),
+         "precision": f"{SSD_PASSES}xtf32", "work_split": WIDE_BWD_SPLIT,
+         "note": "no Pallas kernel: the reference trains the xLSTM through XLA's gradient of "
+                 "gated_linear_scan"},
         kernel_row("guidance_update", "src/repro/kernels/guidance_update.py:31", guidance[0],
                    {"guidance": guidance_counts["guidance_update"]}),
     ]}

@@ -22,8 +22,9 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode", "flash_attention_bwd",
-           "flash_attention_bwd_sm90", "latent_blend", "int8_quantize", "dequant_blend",
-           "mamba_ssd", "mamba_ssd_bwd", "mamba_ssd_wide", "guidance_update")
+           "flash_attention_bwd_sm90", "flash_attention_bwd_f32", "latent_blend",
+           "int8_quantize", "dequant_blend", "mamba_ssd", "mamba_ssd_bwd", "mamba_ssd_wide",
+           "mamba_ssd_wide_bwd", "guidance_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -73,6 +74,12 @@ _SIGNATURES = {
         "flash_attention_bwd_sm90": ([_P] * 12 + [_I] * 6 + [_L, _L] + [_I] * 2 + [_P], _I),
         "flash_attention_bwd_sm90_error_string": ([_I], ctypes.c_char_p),
     },
+    "flash_attention_bwd_f32": {
+        # the arguments of flash_attention_bwd without the dtype (f32, D 32,
+        # 64, 80 or 128)
+        "flash_attention_bwd_f32": ([_P] * 12 + [_I] * 6 + [_L, _L] + [_I] * 2 + [_P], _I),
+        "flash_attention_bwd_f32_error_string": ([_I], ctypes.c_char_p),
+    },
     "latent_blend": {
         # preds, weights, normalizer, out, starts (host int[K]), K, W, E, F,
         # stream
@@ -121,6 +128,15 @@ _SIGNATURES = {
         # chunk, each chunk's Gram per group, the decay scalars per head)
         "mamba_ssd_wide_scratch_bytes": ([_I] * 7, _L),
         "mamba_ssd_wide_error_string": ([_I], ctypes.c_char_p),
+    },
+    "mamba_ssd_wide_bwd": {
+        # x, log_decay, scale, B, C, dy, states, dx, dlog_decay, dscale, dB, dC,
+        # scratch, b, s, h, g, p, n, chunk, stream
+        "mamba_ssd_wide_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
+        # b, s, h, g, p, n, chunk -> bytes of scratch (dS and the chunk-local
+        # terms), 0 for a shape it does not take
+        "mamba_ssd_wide_bwd_scratch_bytes": ([_I] * 7, _L),
+        "mamba_ssd_wide_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "guidance_update": {
         # z, cond, uncond, out, elements, w, dt, dtype (0 f32, 1 bf16), stream

@@ -19,9 +19,11 @@
 // for 9-127 queries (ops.py: flash_kernel) and for the training forward's
 // few-query calls (FlashAttention never takes flash_decode.cu, which writes
 // no log-sum-exp); from 128 queries up, and at D = 128, bf16 runs on
-// flash_attention_sm90.cu (wgmma + TMA); f32 at 64, 80 and 128.  The bf16
-// kernel writes each row's log-sum-exp when given a buffer (the backward's
-// input: kernels/ref.py: flash_attention_lse_ref).  D = 80 keeps the
+// flash_attention_sm90.cu (wgmma + TMA); f32 at 32 (the reduced configs'
+// head dim, which the CLI trains), 64, 80 and 128.  Both kernels write each
+// row's log-sum-exp when given a buffer (the backward's input:
+// kernels/ref.py: flash_attention_lse_ref; f32's for
+// flash_attention_bwd_f32.cu).  D = 80 keeps the
 // design: 5 k-steps of 16 dims for Q.K^T (the odd last one reads its K
 // fragment with ldmatrix.x2), 10 8-dim blocks for P.V (paired by
 // ldmatrix.x4.trans), and shared-memory rows of 88 bf16 (176 B, a
@@ -59,6 +61,7 @@ using flash::cp_async16;
 using flash::cp_async_commit;
 using flash::cp_async_wait_one;
 using flash::exp2_approx;
+using flash::kLog2e;
 using flash::kPadPos;
 using flash::ldsm_x2;
 using flash::ldsm_x4;
@@ -75,7 +78,7 @@ struct Params {
   const int* qpos;
   const int* kvpos;
   void* out;
-  float* lse;  // (B, H, Sq) or null: each row's log-sum-exp (bf16 kernel only)
+  float* lse;  // (B, H, Sq) or null: each row's log-sum-exp
   int B, Sq, Skv, H, KV;
   long long qpos_bs, kvpos_bs;  // batch strides of the position arrays
   int causal, window;
@@ -330,9 +333,11 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_bf16_lse(Params p) {
 // ----------------------------------------------------------------- f32
 // Four threads per query row, each owning D/4 dims (interleaved by 4 so
 // a quad reads 64 contiguous bytes of a K/V row); dot products are
-// finished with two quad shuffles.  32 rows and 32 keys per tile.
-template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
+// finished with two quad shuffles.  32 rows and 32 keys per tile.  One
+// block's work; kLse: also write each row's log-sum-exp (the f32 training
+// forward's entry, flash_fwd_f32_lse).
+template <int D, bool kLse>
+__device__ __forceinline__ void fwd_f32(const Params& p) {
   constexpr int BM = 32, BN = 32, DT = D / 4, DI = D / 16;
   static_assert(D % 16 == 0, "float4 groups of 4 lanes x 4 dims");
   __shared__ __align__(16) float Ks[BN][D];
@@ -433,7 +438,28 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
       *reinterpret_cast<float4*>(O + r * qrs + 16 * i + 4 * j) =
           make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv,
                       acc[4 * i + 3] * inv);
+    // the scores here are scaled, natural units: log2 units are
+    // m log2(e) + log2(l), +inf on a row that attends no key
+    // (kernels/ref.py: flash_attention_lse_ref)
+    if (kLse && j == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + r] =
+          l > 0.f ? fmaf(m, kLog2e, __log2f(l)) : INFINITY;
   }
+}
+
+// The entry without the log-sum-exp (its code as before the f32 training
+// entry existed).
+template <int D>
+__global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
+  fwd_f32<D, false>(p);
+}
+
+// The f32 training forward's entry.  At least 3 blocks an SM: without that
+// bound ptxas holds the D-80 instantiation to 128 registers and spills.
+constexpr int kF32LseBlocks = 3;
+template <int D>
+__global__ void __launch_bounds__(128, kF32LseBlocks) flash_fwd_f32_lse(Params p) {
+  fwd_f32<D, true>(p);
 }
 
 template <int D>
@@ -451,27 +477,26 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t st) {
 
 template <int D>
 cudaError_t launch_f32(const Params& p, cudaStream_t st) {
+  const auto kernel = p.lse != nullptr ? flash_fwd_f32_lse<D> : flash_fwd_f32<D>;
   const int smem = list_bytes(p.Skv, 32);
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Sq + 31) / 32, p.H, p.B);
-  flash_fwd_f32<D><<<grid, 128, smem, st>>>(p);
+  kernel<<<grid, 128, smem, st>>>(p);
   return cudaSuccess;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  ``lse``: an f32 (B, H, Sq) buffer for
-// each row's log-sum-exp (bf16 only), or null.  Returns cudaGetLastError()
-// after the launch, or -1 for a dtype / head dim this file has no kernel
-// for (or an lse buffer with f32).
+// each row's log-sum-exp, or null.  Returns cudaGetLastError() after the
+// launch, or -1 for a dtype / head dim this file has no kernel for.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* qpos, const void* kvpos, void* out, void* lse,
                                    int B, int Sq, int Skv, int H, int KV, int D,
                                    long long qpos_bs, long long kvpos_bs, int causal,
                                    int window, int dtype, void* stream) {
-  if (lse != nullptr && dtype != 1) return -1;
   Params p{q, k, v, static_cast<const int*>(qpos), static_cast<const int*>(kvpos), out,
            static_cast<float*>(lse), B, Sq, Skv, H, KV, qpos_bs, kvpos_bs, causal, window,
            1.0f / sqrtf((float)D)};
@@ -485,6 +510,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if (D == 128) e = launch_f32<128>(p, st);
     else if (D == 80) e = launch_f32<80>(p, st);
     else if (D == 64) e = launch_f32<64>(p, st);
+    else if (D == 32) e = launch_f32<32>(p, st);
     else return -1;
   } else {
     return -1;

@@ -7,11 +7,14 @@ show that the main path went through the kernels.
 
 No wrapper takes part in autograd: under grad mode, an input that
 requires grad is refused before anything runs (a kernel's output would
-reach autograd as a constant).  Two routes differentiate:
+reach autograd as a constant).  Three routes differentiate:
 ``FlashAttention``, whose forward launches a flash kernel that writes each
-row's log-sum-exp and whose backward ``flash_attention_bwd`` reads it, and
-``MambaSSD``, whose forward launches ``mamba_ssd``'s state-writing entry
-and whose backward ``mamba_ssd_bwd`` reads the states.
+row's log-sum-exp and whose backward ``flash_attention_bwd`` reads it (bf16
+at D 64 and 80, f32 at D 32, 64, 80 and 128); ``MambaSSD``, whose forward
+launches ``mamba_ssd``'s state-writing entry and whose backward
+``mamba_ssd_bwd`` reads the states; and ``MambaSSDWide``, the same for the
+grouped, wide-head scan (``mamba_ssd_wide(..., return_states=True)``, then
+``mamba_ssd_wide_bwd``).
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ def _refuse_grad(what: str, *tensors) -> None:
             f"{what}: an input requires grad, and this kernel has no backward: its output "
             "would reach autograd as a constant.  Call it under torch.no_grad(), or, for "
             "attention, through ops.flash_attention_autograd (the SSD scan: "
-            "ops.mamba_ssd_autograd)")
+            "ops.mamba_ssd_autograd or ops.mamba_ssd_wide_autograd)")
 
 
 def _stream(device: torch.device) -> int:
@@ -68,7 +71,8 @@ def _stream(device: torch.device) -> int:
 # video DiT's self- and cross-attention, the D-128 LMs' prefill), and bf16 at
 # head dims 64 and 80 with at least SM90_MIN_QUERIES queries (the dense LM's
 # training forward, the LM prefill) on the wgmma + TMA kernel of
-# csrc/flash_attention_sm90.cu; every other case on csrc/flash_attention.cu.
+# csrc/flash_attention_sm90.cu; every other case on csrc/flash_attention.cu
+# (f32 at head dims 32 - the reduced configs' - 64, 80 and 128 there).
 # A forward that must write the log-sum-exp (return_lse, FlashAttention)
 # never takes flash_decode.cu.
 FLASH_KERNELS = ("flash_attention", "flash_attention_sm90", "flash_decode")
@@ -77,11 +81,11 @@ SM90_MIN_QUERIES = _SM90_TILE
 DECODE_MAX_QUERIES = 8
 _DECODE_CHUNK = 64                   # flash_decode.cu: kChunk keys, the unit of a split
 _FLASH_TAKES = {                     # kernel -> {dtype: head dims it is built for}
-    "flash_attention": {torch.bfloat16: (64, 80), torch.float32: (64, 80, 128)},
+    "flash_attention": {torch.bfloat16: (64, 80), torch.float32: (32, 64, 80, 128)},
     "flash_attention_sm90": {torch.bfloat16: (64, 80, 128)},
     "flash_decode": {torch.bfloat16: (64, 80, 128)},
 }
-_LSE_KERNELS = ("flash_attention", "flash_attention_sm90")   # write the log-sum-exp (bf16)
+_LSE_KERNELS = ("flash_attention", "flash_attention_sm90")   # write the log-sum-exp
 
 
 def flash_kernel(dtype: torch.dtype, head_dim: int, q_len: int) -> str:
@@ -96,7 +100,8 @@ def flash_kernel(dtype: torch.dtype, head_dim: int, q_len: int) -> str:
     at D 64 and 80 goes there too when ``q_len >= SM90_MIN_QUERIES`` (128:
     one full block of its 128 query rows), as in a prefill or granite's
     training forward.  Everything else (bf16 D 64 and 80 with 9-127
-    queries, f32) runs on ``flash_attention``.
+    queries, f32 at D 32, 64, 80 and 128) runs on ``flash_attention``,
+    which raises on what it is not built for (bf16 D 32).
     """
     if dtype == torch.bfloat16 and head_dim in (64, 80, 128) and q_len <= DECODE_MAX_QUERIES:
         return "flash_decode"
@@ -163,15 +168,15 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
 
     CUDA: ``flash_kernel(dtype, D, Sq)`` names the kernel, or ``kernel``
     (one of ``FLASH_KERNELS``) forces one; it raises on a dtype and head
-    dim it is not built for.  With ``return_lse`` (bf16 only) a choice of
+    dim it is not built for.  With ``return_lse`` a choice of
     ``flash_decode``, which writes no log-sum-exp, becomes
     ``flash_attention`` (``flash_attention_sm90`` at D 128).  No gradient: see ``flash_attention_autograd``.
     ``csrc/flash_attention_sm90.cu`` (``wgmma`` + TMA) takes bf16 at D 64,
     80 and 128 and any key count: its live-tile lists go to a global buffer
     allocated here.  ``csrc/flash_attention.cu`` takes bf16 at D 64 and 80
-    (``mma.sync``) and f32 at D 64, 80 and 128 (FMA).  Both skip key tiles
-    that hold no attendable pair, and their bf16 kernels write the
-    log-sum-exp into a buffer allocated here when asked.
+    (``mma.sync``) and f32 at D 32, 64, 80 and 128 (FMA).  Both skip key
+    tiles that hold no attendable pair, and their kernels (bf16 and f32)
+    write the log-sum-exp into a buffer allocated here when asked.
     ``csrc/flash_decode.cu`` takes bf16 at D 64, 80 and 128 and any query count
     (rows in passes of 16): ``decode_split`` key splits, their partials in
     a workspace allocated here, merged by the last block of each (batch
@@ -207,18 +212,16 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
                          f"v {tuple(v.shape)} do not match")
     if H % KV:
         raise ValueError(f"flash_attention: {H} heads not divisible by {KV} kv heads")
-    if D not in (64, 80, 128):
-        raise ValueError(f"flash_attention: head dim {D} not supported (64, 80 or 128)")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k and v must share one dtype")
     code = _dtype_code(q, "flash_attention")
-    if return_lse and q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention: no kernel writes the log-sum-exp for {q.dtype} "
-                        "(bfloat16)")
     if kernel is None:
         kernel = flash_kernel(q.dtype, D, Sq)
         if return_lse and kernel == "flash_decode":
             kernel = "flash_attention_sm90" if D == 128 else "flash_attention"
+        if D not in _FLASH_TAKES[kernel].get(q.dtype, ()):
+            raise ValueError(f"flash_attention: no kernel for {q.dtype} at head dim {D} "
+                             f"(takes {_FLASH_TAKES})")
     if kv_len is not None:
         if kv_len.shape != (B,):
             raise ValueError(f"flash_attention: kv_len {tuple(kv_len.shape)} must be ({B},)")
@@ -334,19 +337,25 @@ def flash_live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
 
 
 # The backward kernels: csrc/flash_attention_bwd_sm90.cu (wgmma + TMA) at bf16
-# D 64 and 80, csrc/flash_attention_bwd.cu (mma.sync) at bf16 D 64 and 80, on no
-# path (reached only through ``kernel=``: the same-run timing twin).
-BWD_KERNELS = ("flash_attention_bwd", "flash_attention_bwd_sm90")
+# D 64 and 80, csrc/flash_attention_bwd_f32.cu (FMA) at f32 D 32, 64, 80 and 128
+# (the reduced configs' training and the checks), csrc/flash_attention_bwd.cu
+# (mma.sync) at bf16 D 64 and 80, on no path (reached only through ``kernel=``:
+# the same-run timing twin).
+BWD_KERNELS = ("flash_attention_bwd", "flash_attention_bwd_sm90", "flash_attention_bwd_f32")
 _BWD_TAKES = {"flash_attention_bwd_sm90": {torch.bfloat16: (64, 80)},
-              "flash_attention_bwd": {torch.bfloat16: (64, 80)}}
+              "flash_attention_bwd": {torch.bfloat16: (64, 80)},
+              "flash_attention_bwd_f32": {torch.float32: (32, 64, 80, 128)}}
 
 
 def bwd_kernel(dtype: torch.dtype, head_dim: int):
     """The backward kernel that ``flash_attention_bwd`` runs for ``dtype``
     at ``head_dim``, or None: bf16 D 64 (granite's training attention) and
-    D 80 (Zamba2's) on ``flash_attention_bwd_sm90``."""
+    D 80 (Zamba2's) on ``flash_attention_bwd_sm90``; f32 at D 32 (every
+    reduced config), 64, 80 and 128 on ``flash_attention_bwd_f32``."""
     if dtype == torch.bfloat16 and head_dim in (64, 80):
         return "flash_attention_bwd_sm90"
+    if dtype == torch.float32 and head_dim in _BWD_TAKES["flash_attention_bwd_f32"][dtype]:
+        return "flash_attention_bwd_f32"
     return None
 
 
@@ -364,7 +373,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_positions, kv_positions, *,
     may be None there).
 
     CUDA: ``bwd_kernel(dtype, D)`` names the kernel, or ``kernel`` (one of
-    ``BWD_KERNELS``) forces one; it raises on what no kernel takes.  Both
+    ``BWD_KERNELS``) forces one; it raises on what no kernel takes.  All
     are deterministic and launch three kernels, counted as one: ``Delta =
     rowsum(dout o out)`` into an f32 workspace allocated here, then dk and
     dv per key block, then dq per query block, each reading ``lse``.
@@ -418,6 +427,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_positions, kv_positions, *,
     lib = build.library(kernel)
     if kernel == "flash_attention_bwd_sm90":
         rc = lib.flash_attention_bwd_sm90(*args, _stream(q.device))
+    elif kernel == "flash_attention_bwd_f32":
+        rc = lib.flash_attention_bwd_f32(*args, _stream(q.device))
     else:
         rc = lib.flash_attention_bwd(*args, _DTYPE_CODES[q.dtype], _stream(q.device))
     build.check(kernel, rc)
@@ -439,6 +450,19 @@ def flash_attention_bwd_sm90(q, k, v, out, dout, lse, q_positions, kv_positions,
 
 
 flash_attention_bwd_sm90.launches = 0
+
+
+def flash_attention_bwd_f32(q, k, v, out, dout, lse, q_positions, kv_positions, *,
+                            causal: bool = True, window: int = 0):
+    """``flash_attention_bwd`` on the f32 FMA kernel
+    (``csrc/flash_attention_bwd_f32.cu``): f32 at head dim 32, 64, 80 or
+    128; raises on others.  Its ``launches`` count that kernel's launches,
+    whichever wrapper made them."""
+    return flash_attention_bwd(q, k, v, out, dout, lse, q_positions, kv_positions,
+                               causal=causal, window=window, kernel="flash_attention_bwd_f32")
+
+
+flash_attention_bwd_f32.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -801,13 +825,44 @@ def ssd_kernel(groups: int, p: int, n: int, chunk: int) -> str:
     return "mamba_ssd" if groups == 1 and fits else "mamba_ssd_wide"
 
 
+def _wide_shapes(what: str, x, log_decay, scale, B, C, chunk: int):
+    """Check the grouped scan's inputs on the card: shapes, f32, n, chunk
+    and the launch grid's limits (``mamba_ssd_wide_scratch_bytes``)."""
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"{what}: x {tuple(x.shape)} must be (b, s, h, p) and B "
+                         f"{tuple(B.shape)} (b, s, g, n)")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if log_decay.shape != (b, s, h) or scale.shape != (b, s, h):
+        raise ValueError(f"{what}: log_decay {tuple(log_decay.shape)} and scale "
+                         f"{tuple(scale.shape)} must be {(b, s, h)}")
+    if B.shape[:2] != (b, s) or C.shape != B.shape or g < 1 or h % g:
+        raise ValueError(f"{what}: B {tuple(B.shape)} and C {tuple(C.shape)} must be "
+                         f"(b, s, g, n) with g dividing h {h}")
+    for name, t in {"x": x, "log_decay": log_decay, "scale": scale, "B": B, "C": C}.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} dtype {t.dtype} not supported (float32)")
+    if n < 16 or n % 16:
+        raise ValueError(f"{what}: state n {n} not supported (a multiple of 16)")
+    if not (16 <= chunk <= 128 and chunk % 16 == 0):
+        raise ValueError(f"{what}: chunk {chunk} not supported (a multiple of 16 in "
+                         "[16, 128])")
+    if b * -(-s // chunk) > 65535 or b * g > 65535 or h > 65535:
+        raise ValueError(f"{what}: shape {(b, s, h, g, p, n)} at chunk {chunk} not "
+                         "supported (batch x chunks and batch x groups <= 65535)")
+    return b, s, h, g, p, n
+
+
 def mamba_ssd_wide(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
-                   B: torch.Tensor, C: torch.Tensor, chunk: int = 128) -> torch.Tensor:
+                   B: torch.Tensor, C: torch.Tensor, chunk: int = 128,
+                   return_states: bool = False):
     """The chunked scan of ``models/ssm.gated_linear_scan(factorized=True)``
     with B and C in groups: x ``(b, s, h, p)``, log_decay and scale ``(b,
     s, h)``, B and C ``(b, s, g, n)`` with ``g | h`` (head ``i`` reads group
     ``i // (h / g)``); returns f32 y ``(b, s, h, p)``.  Its plain version
-    is ``ref.ssd_scan``.
+    is ``ref.ssd_scan``.  ``return_states`` also returns the f32 state
+    entering each chunk, ``(b, ceil(s / chunk), h, n, p)``, for
+    ``mamba_ssd_wide_bwd``.
 
     CUDA: ``csrc/mamba_ssd_wide.cu`` (3xTF32 tensor-core products), f32,
     any p (p = 1 included), n a multiple of 16, chunk a multiple of 16 in
@@ -815,37 +870,23 @@ def mamba_ssd_wide(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor
     Gram and decay scalars, the sweep of the states over the chunks, the
     output; a scratch buffer (the states entering each chunk, f32 ``(b,
     chunks, h, n, p)``, then the Grams and scalars) is allocated here.
+    ``return_states`` returns a view of the scratch buffer's head, the
+    states the same launches write.
     """
     _refuse_grad("mamba_ssd_wide", x, log_decay, scale, B, C)
     if x.device.type == "cpu":
-        return ref.ssd_scan(x, log_decay, scale, B, C, chunk, True)
+        return ref.ssd_scan(x, log_decay, scale, B, C, chunk, True, return_states)
     if x.device.type != "cuda":
         raise ValueError(f"mamba_ssd_wide: no kernel for device {x.device}")
-    if x.dim() != 4 or B.dim() != 4:
-        raise ValueError(f"mamba_ssd_wide: x {tuple(x.shape)} must be (b, s, h, p) and B "
-                         f"{tuple(B.shape)} (b, s, g, n)")
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    if log_decay.shape != (b, s, h) or scale.shape != (b, s, h):
-        raise ValueError(f"mamba_ssd_wide: log_decay {tuple(log_decay.shape)} and scale "
-                         f"{tuple(scale.shape)} must be {(b, s, h)}")
-    if B.shape[:2] != (b, s) or C.shape != B.shape or g < 1 or h % g:
-        raise ValueError(f"mamba_ssd_wide: B {tuple(B.shape)} and C {tuple(C.shape)} must be "
-                         f"(b, s, g, n) with g dividing h {h}")
+    b, s, h, g, p, n = _wide_shapes("mamba_ssd_wide", x, log_decay, scale, B, C, chunk)
     tensors = {"x": x, "log_decay": log_decay, "scale": scale, "B": B, "C": C}
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"mamba_ssd_wide: {name} dtype {t.dtype} not supported (float32)")
-    if n < 16 or n % 16:
-        raise ValueError(f"mamba_ssd_wide: state n {n} not supported (a multiple of 16)")
-    if not (16 <= chunk <= 128 and chunk % 16 == 0):
-        raise ValueError(f"mamba_ssd_wide: chunk {chunk} not supported (a multiple of 16 in "
-                         "[16, 128])")
     y = torch.empty_like(x)
     _require_device(tensors, x.device)
     _require_aligned({**tensors, "y": y})
+    nc = -(-s // chunk)
     if y.numel() == 0:
-        return y
+        states = torch.zeros((b, nc, h, n, p), dtype=torch.float32, device=x.device)
+        return (y, states) if return_states else y
     lib = build.library("mamba_ssd_wide")
     nbytes = lib.mamba_ssd_wide_scratch_bytes(b, s, h, g, p, n, int(chunk))
     if nbytes <= 0:
@@ -857,10 +898,102 @@ def mamba_ssd_wide(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor
                                 _stream(x.device))
     build.check("mamba_ssd_wide", rc)
     mamba_ssd_wide.launches += 1
+    if return_states:
+        return y, scratch[:b * nc * h * n * p].view(b, nc, h, n, p)
     return y
 
 
 mamba_ssd_wide.launches = 0
+
+
+def mamba_ssd_wide_bwd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                       states: torch.Tensor, chunk: int = 128):
+    """Gradients ``(dx, dlog_decay, dscale, dB, dC)`` of ``mamba_ssd_wide``
+    at its inputs for the output gradient ``dy`` ``(b, s, h, p)``; ``states``
+    are the forward's (``mamba_ssd_wide(..., return_states=True)``).  f32,
+    the inputs' shapes; dB and dC ``(b, s, g, n)`` sum the shares of a
+    group's heads in head order.  The function differentiated is autograd's
+    of ``ref.ssd_scan`` (the clip passes no gradient where it bites, the
+    centre passes its share to the tied extremes, the padding of a ragged
+    chunk takes none).  On CPU tensors the plain ``ref.ssd_scan_bwd``, which
+    derives the states itself (``states`` may be None there).
+
+    CUDA: ``csrc/mamba_ssd_wide_bwd.cu`` (3xTF32 tensor-core products),
+    deterministic, every shape ``mamba_ssd_wide`` takes: six launches,
+    counted as one (the Gram and the decay scalars; the sweep of dS over the
+    chunks in reverse; the chunk-local Q x Q terms; dx; dB and dC per group;
+    the scalars' chain), with a scratch buffer allocated here
+    (``mamba_ssd_wide_bwd_scratch_bytes``, dS the bulk of it: the size of
+    the states).
+    """
+    _refuse_grad("mamba_ssd_wide_bwd", x, log_decay, scale, B, C, dy)
+    if x.device.type == "cpu":
+        return ref.ssd_scan_bwd(x, log_decay, scale, B, C, dy, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba_ssd_wide_bwd: no kernel for device {x.device}")
+    b, s, h, g, p, n = _wide_shapes("mamba_ssd_wide_bwd", x, log_decay, scale, B, C, chunk)
+    nc = -(-s // chunk)
+    if dy.shape != x.shape or dy.dtype != torch.float32:
+        raise ValueError(f"mamba_ssd_wide_bwd: dy {dy.dtype} {tuple(dy.shape)} must be float32 "
+                         f"{tuple(x.shape)}")
+    if states is None or states.shape != (b, nc, h, n, p) or states.dtype != torch.float32:
+        got = None if states is None else (states.dtype, tuple(states.shape))
+        raise ValueError(f"mamba_ssd_wide_bwd: states must be the forward's float32 "
+                         f"{(b, nc, h, n, p)}, got {got}")
+    tensors = {"x": x, "log_decay": log_decay, "scale": scale, "B": B, "C": C, "dy": dy,
+               "states": states}
+    _require_device(tensors, x.device)
+    _require_aligned(tensors)
+    outs = [torch.empty_like(t) for t in (x, log_decay, scale, B, C)]
+    if x.numel() == 0 or B.numel() == 0:
+        return tuple(o.zero_() for o in outs)
+    lib = build.library("mamba_ssd_wide_bwd")
+    nbytes = lib.mamba_ssd_wide_bwd_scratch_bytes(b, s, h, g, p, n, int(chunk))
+    if nbytes <= 0:
+        raise ValueError(f"mamba_ssd_wide_bwd: shape {(b, s, h, g, p, n)} at chunk {chunk} "
+                         "not supported")
+    scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
+    rc = lib.mamba_ssd_wide_bwd(*(t.data_ptr() for t in tensors.values()),
+                                *(o.data_ptr() for o in outs), scratch.data_ptr(), b, s, h, g,
+                                p, n, int(chunk), _stream(x.device))
+    build.check("mamba_ssd_wide_bwd", rc)
+    mamba_ssd_wide_bwd.launches += 1
+    return tuple(outs)
+
+
+mamba_ssd_wide_bwd.launches = 0
+
+
+class MambaSSDWide(torch.autograd.Function):
+    """The grouped, wide-head scan with a gradient: the forward on
+    ``mamba_ssd_wide(..., return_states=True)``, the backward on
+    ``mamba_ssd_wide_bwd``, which reads the states.  It saves the inputs and
+    the states; under activation checkpointing the forward runs (and
+    launches) again in the backward pass and saves them anew."""
+
+    @staticmethod
+    def forward(ctx, x, log_decay, scale, B, C, chunk):
+        y, states = mamba_ssd_wide(x, log_decay, scale, B, C, chunk=chunk, return_states=True)
+        ctx.save_for_backward(x, log_decay, scale, B, C, states)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, log_decay, scale, B, C, states = ctx.saved_tensors
+        grads = mamba_ssd_wide_bwd(x, log_decay, scale, B, C, dy.float().contiguous(), states,
+                                   chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def mamba_ssd_wide_autograd(x, log_decay, scale, B, C, chunk: int = 128) -> torch.Tensor:
+    """``mamba_ssd_wide`` that autograd differentiates (``MambaSSDWide``),
+    f32 in and out.  On CUDA it raises before any launch for a shape the
+    kernels do not take."""
+    if x.device.type == "cuda":
+        _wide_shapes("mamba_ssd_wide_autograd", x, log_decay, scale, B, C, chunk)
+    return MambaSSDWide.apply(x, log_decay, scale, B, C, chunk)
 
 
 def guidance_update(z: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor,
@@ -910,7 +1043,9 @@ WRAPPERS = {"flash_attention": flash_attention, "flash_attention_sm90": flash_at
             "flash_attention_bwd_sm90": flash_attention_bwd_sm90, "latent_blend": latent_blend,
             "int8_quantize": int8_quantize, "dequant_blend": dequant_blend,
             "mamba_ssd": mamba_ssd, "mamba_ssd_bwd": mamba_ssd_bwd,
-            "mamba_ssd_wide": mamba_ssd_wide, "guidance_update": guidance_update}
+            "mamba_ssd_wide": mamba_ssd_wide, "mamba_ssd_wide_bwd": mamba_ssd_wide_bwd,
+            "flash_attention_bwd_f32": flash_attention_bwd_f32,
+            "guidance_update": guidance_update}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -552,19 +552,23 @@ def mamba_ssd_plain(x, log_decay, scale, B, C, chunk: int = 64,
 
 def ssd_scan_bwd(x, log_decay, scale, B, C, dy, chunk: int = 64):
     """Gradients ``(dx, dlog_decay, dscale, dB, dC)`` of
-    ``ssd_scan(factorized=True)`` for ``ssm_groups == 1`` at the output
-    gradient ``dy``, in f32 and the inputs' shapes: the chunked formulas
-    ``mamba_ssd_bwd`` computes, in its order.  The function differentiated
-    is autograd's of ``ssd_scan``: the +-60 clamp passes no gradient
-    outside its range, the centre ``(max cum + min cum) / 2`` passes its
-    gradient to the tied maxima and minima in equal shares, and the
-    padding of a ragged last chunk takes no gradient.
+    ``ssd_scan(factorized=True)`` at the output gradient ``dy``, B and C
+    ``(b, s, g, n)`` in g groups with ``g | h`` (head i reads group ``i //
+    (h / g)``), in the inputs' shapes: the chunked formulas ``mamba_ssd_bwd``
+    and ``mamba_ssd_wide_bwd`` compute, in their order; f32 (f64 for an f64
+    x: the same formulas in double, what the card's checks hold the grouped
+    backward kernel to).  dB and dC sum the shares of a group's heads in
+    head order; every other gradient is per head.  The function
+    differentiated is autograd's of ``ssd_scan``: the +-60 clamp passes no
+    gradient outside its range, the centre ``(max cum + min cum) / 2``
+    passes its gradient to the tied maxima and minima in equal shares, and
+    the padding of a ragged last chunk takes no gradient.
 
     Per (batch, head) and chunk, with ``ai = exp(clip(cum - c))``, ``bj =
     exp(clip(c - cum))``, ``u = dt bj``, ``w = exp(total - cum)``, ``z = w
-    dt``, ``ec = exp(cum)``, ``G`` the causal C.B^T, ``S`` the state
-    entering the chunk and ``dS`` the gradient of the state leaving it (a
-    sweep over the chunks in reverse carries it)::
+    dt``, ``ec = exp(cum)``, ``G`` the causal C.B^T of the head's group,
+    ``S`` the state entering the chunk and ``dS`` the gradient of the state
+    leaving it (a sweep over the chunks in reverse carries it)::
 
         P = G^T (ai dy),  R = B dS,  dx = u P + z R
         dG = (ai dy)(u x)^T on j <= i
@@ -574,23 +578,30 @@ def ssd_scan_bwd(x, log_decay, scale, B, C, dy, chunk: int = 64):
     then the scalars' chain to dt and to ``cum`` (through ai, bj, w, ec,
     exp(total) and the centre), and ``dlog_decay`` is the reverse cumulative
     sum of ``dcum`` within the chunk."""
-    if B.shape[2] != 1 or C.shape[2] != 1:
-        raise NotImplementedError(f"ssd_scan_bwd: ssm_groups {B.shape[2]} (only 1)")
     b, s, h, p = x.shape
-    n = B.shape[-1]
+    g, n = B.shape[2], B.shape[-1]
+    if h % g or C.shape != B.shape:
+        raise ValueError(f"ssd_scan_bwd: B {tuple(B.shape)} and C {tuple(C.shape)} must be "
+                         f"(b, s, g, n) with g dividing h {h}")
+    rep = h // g
     nc = -(-s // chunk)
     pad = nc * chunk - s
     F = torch.nn.functional
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
 
-    def per_head(t):                    # (b, s, h, ...) -> (b, nc, h, Q, ...)
-        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+    def chunked(t):                     # (b, s, k, ...) -> (b, nc, k, Q, ...)
+        t = F.pad(t.to(ct), (0, 0) * (t.dim() - 2) + (0, pad))
         t = t.reshape(b, nc, chunk, *t.shape[2:])
         return t.permute(0, 1, 3, 2, *range(4, t.dim()))
 
-    xq, dyq = per_head(x), per_head(dy)                      # (b, nc, h, Q, p)
-    a, dt = per_head(log_decay), per_head(scale)             # (b, nc, h, Q)
-    Bq = F.pad(B[:, :, 0].float(), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
-    Cq = F.pad(C[:, :, 0].float(), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+    def per_head(t):                    # (b, s, h, ...) -> (b, nc, g, rep, Q, ...)
+        t = chunked(t)
+        return t.reshape(b, nc, g, rep, *t.shape[3:])
+
+    xq, dyq = per_head(x), per_head(dy)                      # (b, nc, g, rep, Q, p)
+    a, dt = per_head(log_decay), per_head(scale)             # (b, nc, g, rep, Q)
+    Bh = chunked(B)[:, :, :, None]                           # (b, nc, g, 1, Q, n)
+    Ch = chunked(C)[:, :, :, None]
     cum = torch.cumsum(a, dim=-1)
     total = cum[..., -1]
     mx = cum.amax(dim=-1, keepdim=True)
@@ -604,22 +615,28 @@ def ssd_scan_bwd(x, log_decay, scale, B, C, dy, chunk: int = 64):
     w = torch.exp(total[..., None] - cum)
     ec, et = torch.exp(cum), torch.exp(total)
     u, z = dt * bj, w * dt
-    tie_max = (cum == mx).float()
+    tie_max = (cum == mx).to(ct)
     tie_max = tie_max / tie_max.sum(-1, keepdim=True)
-    tie_min = (cum == mn).float()
+    tie_min = (cum == mn).to(ct)
     tie_min = tie_min / tie_min.sum(-1, keepdim=True)
     lmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    G = torch.where(lmask, Cq @ Bq.transpose(-1, -2), 0.0)[:, :, None]   # (b, nc, 1, Q, Q)
-    Bh, Ch = Bq[:, :, None], Cq[:, :, None]                                # (b, nc, 1, Q, n)
+    G = torch.where(lmask, Ch @ Bh.transpose(-1, -2), 0.0)                # (b, nc, g, 1, Q, Q)
     # the forward's states entering each chunk
-    S = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    S = torch.zeros((b, g, rep, n, p), dtype=ct, device=x.device)
     S_in = []
     for c in range(nc):
         S_in.append(S)
-        S = et[:, c, :, None, None] * S + Bh[:, c].transpose(-1, -2) @ (z[:, c, ..., None]
-                                                                         * xq[:, c])
+        S = et[:, c, ..., None, None] * S + Bh[:, c].transpose(-1, -2) @ (z[:, c, ..., None]
+                                                                          * xq[:, c])
     dS = torch.zeros_like(S)
     dxs, das, ddts, dBs, dCs = [], [], [], [], []
+
+    def group_sum(t):                   # (b, g, rep, Q, n) -> (b, Q, g, n), heads in order
+        acc = t[:, :, 0]
+        for r in range(1, rep):
+            acc = acc + t[:, :, r]
+        return acc.transpose(1, 2)
+
     for c in reversed(range(nc)):
         X, DY, Sc = xq[:, c], dyq[:, c], S_in[c]
         V = u[:, c, ..., None] * X
@@ -631,12 +648,12 @@ def ssd_scan_bwd(x, log_decay, scale, B, C, dy, chunk: int = 64):
         dxs.append(u[:, c, ..., None] * P + z[:, c, ..., None] * R)
         du, dz = (X * P).sum(-1), (X * R).sum(-1)
         dG = torch.where(lmask, AD @ V.transpose(-1, -2), 0.0)
-        dCs.append((dG @ Bh[:, c] + ec[:, c, ..., None] * (DY @ Sc.transpose(-1, -2))).sum(1))
-        dBs.append((dG.transpose(-1, -2) @ Ch[:, c]
-                    + z[:, c, ..., None] * (X @ dS.transpose(-1, -2))).sum(1))
+        dCs.append(group_sum(dG @ Bh[:, c] + ec[:, c, ..., None] * (DY @ Sc.transpose(-1, -2))))
+        dBs.append(group_sum(dG.transpose(-1, -2) @ Ch[:, c]
+                             + z[:, c, ..., None] * (X @ dS.transpose(-1, -2))))
         det = (dS * Sc).sum((-1, -2))
-        dS = et[:, c, :, None, None] * dS + Ch[:, c].transpose(-1, -2) @ (ec[:, c, ..., None]
-                                                                          * DY)
+        dS = et[:, c, ..., None, None] * dS + Ch[:, c].transpose(-1, -2) @ (ec[:, c, ..., None]
+                                                                            * DY)
         # the scalars: dt, then cum through ai, bj, w, ec, exp(total) and the centre
         aic, bjc, wc = ai[:, c], bj[:, c], w[:, c]
         ddts.append(bjc * du + wc * dz)
@@ -650,12 +667,11 @@ def ssd_scan_bwd(x, log_decay, scale, B, C, dy, chunk: int = 64):
 
     def tokens(parts, heads=True):      # per-chunk parts, last chunk first -> (b, s, ...)
         t = torch.stack(parts[::-1], dim=1)
-        if heads:                       # (b, nc, h, Q, ...) -> (b, nc, Q, h, ...)
-            t = t.transpose(2, 3)
+        if heads:                       # (b, nc, g, rep, Q, ...) -> (b, nc, Q, h, ...)
+            t = t.reshape(b, nc, h, *t.shape[4:]).transpose(2, 3)
         return t.reshape(b, nc * chunk, *t.shape[3:])[:, :s]
 
-    return (tokens(dxs), tokens(das), tokens(ddts), tokens(dBs, False)[:, :, None],
-            tokens(dCs, False)[:, :, None])
+    return (tokens(dxs), tokens(das), tokens(ddts), tokens(dBs, False), tokens(dCs, False))
 
 
 def mamba_ssd_bwd_plain(x, log_decay, scale, B, C, dy, chunk: int = 64):

@@ -7,17 +7,18 @@
 ``h2o-danube-1.8b``, ``minitron-4b`` and ``llama3-405b`` (dense),
 ``granite-moe-3b-a800m`` and ``llama4-maverick-400b-a17b`` (MoE; the loss
 adds 0.01 times the Switch auxiliary loss), ``internvl2-26b`` (VLM; its
-batches carry vision embeddings) and ``zamba2-2.7b`` (hybrid).
-Synthetic data (``data/pipeline.SyntheticLMStream``), AdamW, the
-fault-tolerant restart loop and async checkpoints (``runtime/``).  As in
-the reference, ``--reduced`` cannot be turned off (``store_true`` with a
-default of True), so the CLI trains the reduced config.  ``--device``
-defaults to ``cuda`` and raises without a card.  The reduced configs'
-head dim of 32 has no flash kernel, so on the card every family fails at
-its first attention; the full widths train through ``make_train_step``
-and ``run_training`` as this CLI wires them (``chip_smoke.py`` phase
-``train``: granite-3-2b in (a), zamba2-2.7b in (d), granite-moe-3b-a800m
-in (e)).
+batches carry vision embeddings), ``zamba2-2.7b`` (hybrid) and
+``xlstm-1.3b`` (xLSTM).  Synthetic data (``data/pipeline.SyntheticLMStream``),
+AdamW, the fault-tolerant restart loop and async checkpoints
+(``runtime/``).  As in the reference, ``--reduced`` cannot be turned off
+(``store_true`` with a default of True), so the CLI trains the reduced
+config.  ``--device`` defaults to ``cuda`` and raises without a card.  On
+the card every arch trains: the reduced configs are f32 at head dim 32,
+whose attention runs on ``flash_attention.cu``'s f32 kernel (writing the
+log-sum-exp) and ``flash_attention_bwd_f32.cu``; the hybrid's scans on
+``mamba_ssd`` / ``mamba_ssd_bwd``, the xLSTM's on ``mamba_ssd_wide`` /
+``mamba_ssd_wide_bwd`` (``chip_smoke.py`` phase ``train_cli`` holds each
+family's losses to the CPU's; phase ``train`` trains the full widths).
 """
 from __future__ import annotations
 

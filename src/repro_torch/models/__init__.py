@@ -20,9 +20,10 @@ Families: ``dense`` (granite, h2o-danube, minitron, llama3), ``moe``
 module).  The audio family is not ported (ROADMAP Queue 1 item 12).
 On the card the LM losses differentiate through hand-written kernels:
 attention through ``kernels.ops.FlashAttention``, the hybrid family's SSD
-scan through ``kernels.ops.MambaSSD`` (``mamba_ssd_bwd``); the xLSTM
-family's scan (``mamba_ssd_wide``) has no backward yet, so its loss
-raises under grad on the card (ROADMAP Queue 1 item 3).
+scan through ``kernels.ops.MambaSSD`` (``mamba_ssd_bwd``), the xLSTM
+family's grouped scans through ``kernels.ops.MambaSSDWide``
+(``mamba_ssd_wide_bwd``); its sLSTM loop through autograd of its plain
+PyTorch steps, as the reference's through XLA's gradient of its scan.
 """
 from __future__ import annotations
 

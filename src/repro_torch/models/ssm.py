@@ -10,7 +10,8 @@ attention runs in the flash kernel: ``mamba_ssd`` (``kernels/csrc/
 mamba_ssd.cu``) for Zamba2's shapes, under grad with its gradient in
 ``kernels/csrc/mamba_ssd_bwd.cu``, and ``mamba_ssd_wide``
 (``kernels/csrc/mamba_ssd_wide.cu``) for B and C in groups, widths past
-128 and p = 1 (the xLSTM's mLSTM, ``models/xlstm.py``); on CPU tensors it
+128 and p = 1 (the xLSTM's mLSTM, ``models/xlstm.py``), under grad with
+its gradient in ``kernels/csrc/mamba_ssd_wide_bwd.cu``; on CPU tensors it
 runs the plain ``kernels/ref.ssd_scan``.  The
 reference's rounding points are kept: ``dense`` casts to x's dtype after
 an f32 accumulate, the scan takes and returns f32, and y is cast back only
@@ -73,8 +74,10 @@ def gated_linear_scan(x, log_decay, scale, B, C, chunk: int = 64,
     group with p, n and chunk multiples of 16 in [16, 128] on ``mamba_ssd``,
     with grad enabled and an input that requires grad through
     ``ops.mamba_ssd_autograd`` (its backward the ``mamba_ssd_bwd`` kernel);
-    the rest on ``mamba_ssd_wide``, which has no backward yet: under grad
-    it raises (xLSTM training, ROADMAP Queue 1 item 3).
+    the rest on ``mamba_ssd_wide``, under grad through
+    ``ops.mamba_ssd_wide_autograd`` (its backward the ``mamba_ssd_wide_bwd``
+    kernel: the xLSTM's training).  The f32 casts are autograd's too, so
+    the gradient reaches bf16 inputs in their dtype.
     ``factorized=False`` on the card raises (ROADMAP Queue 1 item 12: no
     path of the port needs it).
     """
@@ -93,13 +96,10 @@ def gated_linear_scan(x, log_decay, scale, B, C, chunk: int = 64,
         if grad:
             return kernel_ops.mamba_ssd_autograd(*args, chunk=chunk)
         return kernel_ops.mamba_ssd(*args, chunk=chunk)
+    args = (*scalars, B.float().contiguous(), C.float().contiguous())
     if grad:
-        raise NotImplementedError(
-            f"gated_linear_scan on CUDA under grad: ssm_groups {B.shape[2]}, p {x.shape[-1]}, "
-            f"n {B.shape[-1]} run on mamba_ssd_wide, which has no backward kernel yet (xLSTM "
-            "training, ROADMAP Queue 1 item 3)")
-    return kernel_ops.mamba_ssd_wide(*scalars, B.float().contiguous(), C.float().contiguous(),
-                                     chunk=chunk)
+        return kernel_ops.mamba_ssd_wide_autograd(*args, chunk=chunk)
+    return kernel_ops.mamba_ssd_wide(*args, chunk=chunk)
 
 
 def _split_proj(proj: torch.Tensor, d_inner: int, gn: int):

@@ -225,8 +225,8 @@ def slstm_apply(params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     z = torch.zeros((h, b, dh), dtype=torch.float32, device=x.device)
     state = (z, z, torch.full((h, b), -1e30, device=x.device), z)
     hs = []
-    for t in range(s):
-        state = _slstm_cell(rw, xg[t], state)
+    for xt in xg.unbind(0):      # one gradient node for every step's slice
+        state = _slstm_cell(rw, xt, state)
         hs.append(state[3])
     y = torch.stack(hs).permute(2, 0, 1, 3).reshape(b, s, d).to(x.dtype)   # (b, s, h, dh)
     return _slstm_ffn(params, x, y)

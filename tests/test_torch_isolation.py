@@ -181,9 +181,11 @@ def test_cpu_path_never_launches_a_kernel():
     assert bool(torch.isfinite(eng.run()[0].latent).all())
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_sm90": 0,
                                    "flash_decode": 0, "flash_attention_bwd": 0,
-                                   "flash_attention_bwd_sm90": 0, "latent_blend": 0, "int8_quantize": 0,
+                                   "flash_attention_bwd_sm90": 0, "flash_attention_bwd_f32": 0,
+                                   "latent_blend": 0, "int8_quantize": 0,
                                    "dequant_blend": 0, "mamba_ssd": 0, "mamba_ssd_bwd": 0,
-                                   "mamba_ssd_wide": 0, "guidance_update": 0}
+                                   "mamba_ssd_wide": 0, "mamba_ssd_wide_bwd": 0,
+                                   "guidance_update": 0}
 
 
 def test_lm_entry_points_raise_without_cuda(monkeypatch):
@@ -294,6 +296,8 @@ def _wrapper_calls(device, requires_grad):
         "flash_attention_bwd": lambda: ops.flash_attention_bwd(q, k, v, o, o, None, pos, pos),
         "flash_attention_bwd_sm90": lambda: ops.flash_attention_bwd_sm90(qb, kb, vb, o, o, None,
                                                                          pos, pos),
+        "flash_attention_bwd_f32": lambda: ops.flash_attention_bwd_f32(q, k, v, o, o, None,
+                                                                       pos, pos),
         "latent_blend": lambda: ops.latent_blend(t(2, 4, 3), w, z, [0, 2], 4, 6),
         "int8_quantize": lambda: ops.int8_quantize(t(2, 3, 4)),
         "dequant_blend": lambda: ops.dequant_blend(torch.ones(2, 4, 3, dtype=torch.int8)
@@ -305,6 +309,9 @@ def _wrapper_calls(device, requires_grad):
                                                    None, chunk=16),
         "mamba_ssd_wide": lambda: ops.mamba_ssd_wide(t(1, 8, 4, 1), t(1, 8, 4), t(1, 8, 4),
                                                      t(1, 8, 2, 16), t(1, 8, 2, 16), chunk=16),
+        "mamba_ssd_wide_bwd": lambda: ops.mamba_ssd_wide_bwd(
+            t(1, 8, 4, 1), t(1, 8, 4), t(1, 8, 4), t(1, 8, 2, 16), t(1, 8, 2, 16),
+            t(1, 8, 4, 1), None, chunk=16),
         "guidance_update": lambda: ops.guidance_update(t(2, 3), t(2, 3), t(2, 3), 5.0, 0.1),
     }
 

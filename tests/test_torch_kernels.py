@@ -173,9 +173,10 @@ def test_blend_windows_matches_reference_engine(dim, K, r):
 
 
 NO_LAUNCHES = {"flash_attention": 0, "flash_attention_sm90": 0, "flash_decode": 0,
-               "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0, "latent_blend": 0,
-               "int8_quantize": 0, "dequant_blend": 0, "mamba_ssd": 0, "mamba_ssd_bwd": 0,
-               "mamba_ssd_wide": 0, "guidance_update": 0}
+               "flash_attention_bwd": 0, "flash_attention_bwd_sm90": 0,
+               "flash_attention_bwd_f32": 0, "latent_blend": 0, "int8_quantize": 0,
+               "dequant_blend": 0, "mamba_ssd": 0, "mamba_ssd_bwd": 0, "mamba_ssd_wide": 0,
+               "mamba_ssd_wide_bwd": 0, "guidance_update": 0}
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():
@@ -529,12 +530,17 @@ def test_flash_attention_refuses_a_kernel_not_built_for_the_inputs(kernel, dtype
 @pytest.mark.parametrize("dtype,D,kernel", [(torch.bfloat16, 64, "flash_attention_bwd_sm90"),
                                             (torch.bfloat16, 80, "flash_attention_bwd_sm90"),
                                             (torch.bfloat16, 128, None),
-                                            (torch.float32, 64, None),
-                                            (torch.float32, 80, None)])
+                                            (torch.bfloat16, 32, None),
+                                            (torch.float32, 32, "flash_attention_bwd_f32"),
+                                            (torch.float32, 64, "flash_attention_bwd_f32"),
+                                            (torch.float32, 80, "flash_attention_bwd_f32"),
+                                            (torch.float32, 128, "flash_attention_bwd_f32"),
+                                            (torch.float32, 48, None)])
 def test_backward_routing_by_head_dim(dtype, D, kernel):
     """bf16 at D 64 (granite) and D 80 (Zamba2) go to the wgmma + TMA
     backward (the mma.sync one is reached only by ``kernel=``, as a timing
-    twin), and no backward takes the rest (the autograd route raises for
+    twin), f32 at D 32 (the reduced configs'), 64, 80 and 128 to the FMA
+    backward, and no backward takes the rest (the autograd route raises for
     them on the card before any launch); a forced kernel must be one of
     ``BWD_KERNELS``."""
     assert ops.bwd_kernel(dtype, D) == kernel

@@ -24,7 +24,11 @@ and forced onto mma.sync, each fed the forward's
 log-sum-exp) within ``ref.flash_bwd_bf16_tolerance`` (P and dS rounded to
 bf16 for the products that take them, f32 sums, the bf16 results); each
 forward's log-sum-exp within ``ref.flash_lse_tolerance`` (its scores' f32
-sums, its online sum of approximate exp2 terms and their f32 arguments).
+sums, its online sum of approximate exp2 terms and their f32 arguments);
+the f32 flash forward (D 32 included), its log-sum-exp and the f32
+backward 1e-4 + 1e-4 |plain| (summation order only); mamba_ssd_wide_bwd
+as mamba_ssd_bwd, against the plain backward in float64; the train CLI's
+losses card against CPU from the same weights 1e-4 relative.
 """
 import numpy as np
 import pytest
@@ -1025,7 +1029,7 @@ def test_tma_kernels_launch_from_a_fresh_thread(cuda_device):
 
 def test_flash_backward_refuses_what_it_has_no_kernel_for(cuda_device):
     p = torch.zeros((1, 8), device=cuda_device, dtype=torch.int32)
-    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 128), (torch.bfloat16, 32)):
+    for dtype, D in ((torch.float32, 48), (torch.bfloat16, 128), (torch.bfloat16, 32)):
         q = torch.zeros((1, 8, 2, D), device=cuda_device, dtype=dtype, requires_grad=True)
         with pytest.raises(ValueError, match="no backward kernel"):
             ops.flash_attention_autograd(q, q, q, p, p)
@@ -1170,8 +1174,9 @@ def test_mamba_ssd_wide_refuses_what_it_has_no_kernel_for(cuda_device):
 
 def test_gated_linear_scan_routes_each_shape_to_its_kernel(cuda_device):
     """Zamba2's shape launches mamba_ssd, the mLSTM's two scans
-    mamba_ssd_wide; a wide shape under grad raises (no backward kernel yet:
-    xLSTM training), and nothing falls back to the plain scan."""
+    mamba_ssd_wide; a wide shape under grad runs mamba_ssd_wide's
+    state-writing call and, in the backward pass, mamba_ssd_wide_bwd; nothing
+    falls back to the plain scan."""
     from repro_torch.models.ssm import gated_linear_scan
 
     zx, za, zdt, zB, zC = (t.to(cuda_device) for t in _ssd_inputs(1, 100, 4, 64, 64, 1))
@@ -1183,11 +1188,15 @@ def test_gated_linear_scan_routes_each_shape_to_its_kernel(cuda_device):
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         **{k: 0 for k in after}, "mamba_ssd": 1, "mamba_ssd_wide": 2}
-    with pytest.raises(NotImplementedError, match="xLSTM training.*Queue 1 item 3"):
-        gated_linear_scan(x.clone().requires_grad_(), a, dt, B, C, chunk=128)
     with pytest.raises(NotImplementedError, match="factorized=False"):
         gated_linear_scan(x, a, dt, B, C, chunk=128, factorized=False)
     assert ops.launch_counts() == after
+    xg = x.clone().requires_grad_()
+    gated_linear_scan(xg, a, dt, B, C, chunk=128).sum().backward()
+    grown = ops.launch_counts()
+    assert {k: grown[k] - after[k] for k in grown} == {
+        **{k: 0 for k in grown}, "mamba_ssd_wide": 1, "mamba_ssd_wide_bwd": 1}
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
 
 
 def test_reduced_xlstm_on_the_card_matches_the_cpu(cuda_device):
@@ -1214,3 +1223,152 @@ def test_reduced_xlstm_on_the_card_matches_the_cpu(cuda_device):
         card.decode(params, tok[:, t:t + 1].to(cuda_device), cache,
                     torch.full((2,), t, device=cuda_device))
     assert ops.launch_counts() == counts
+
+
+# ------------------------------------- f32 at head dim 32 and its backward
+F32_CASES = [
+    # B, Sq, Skv, H, KV, D, causal, window, padded keys
+    (2, 16, 16, 4, 4, 32, True, 0, 0),              # the train CLI's reduced layer
+    (2, 77, 90, 4, 2, 32, True, 16, 5),             # GQA, reduced danube's window 16, padding
+    (2, 64, 64, 4, 1, 32, False, 0, 7),             # one kv head, no causal mask
+    (1, 200, 333, 8, 2, 64, True, 96, 5),           # the other head dims of the f32 kernels
+    (1, 130, 150, 4, 2, 80, True, 0, 3),
+    (1, 100, 120, 4, 4, 128, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_flash_forward_and_backward_match_plain(cuda_device, case):
+    """f32 flash at D 32 (and the f32 backward at every head dim it takes):
+    the forward with and without the log-sum-exp the same output, within
+    1e-4 + 1e-4 |plain| of ``ref.flash_attention_ref``, its log-sum-exp
+    within 1e-4 + 1e-4 |plain| of ``ref.flash_attention_lse_ref`` (+inf on
+    exactly the rows with no key), the backward within 1e-4 + 1e-4 |plain|
+    of ``ref.flash_attention_bwd_ref`` (f32 throughout: summation order
+    only), two backward calls bit-equal; one launch each of
+    flash_attention and flash_attention_bwd_f32."""
+    B, Sq, Skv, H, KV, D, causal, window, pad = case
+    q, k, v, qp, kp, _ = _inputs(B, Sq, Skv, H, KV, D, seed=3)
+    do = torch.from_numpy(np.random.default_rng(4).normal(size=(B, Sq, H, D)).astype(np.float32))
+    q, k, v, do, qp, kp = (t.to(cuda_device) for t in (q, k, v, do, qp, kp))
+    if pad:
+        kp[:, -pad:] = ref.INT32_MAX
+    before = ops.launch_counts()
+    out, lse = ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window,
+                                   return_lse=True)
+    grads = ops.flash_attention_bwd(q, k, v, out, do, lse, qp, kp, causal=causal, window=window)
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n in ("flash_attention", "flash_attention_bwd_f32")) for n in after}
+    assert torch.equal(out, ops.flash_attention(q, k, v, qp, kp, causal=causal, window=window))
+    plain = ref.flash_attention_ref(q, k, v, qp, kp, causal, window)
+    assert bool(((out - plain).abs() <= 1e-4 + 1e-4 * plain.abs()).all())
+    want = ref.flash_attention_lse_ref(q, k, qp, kp, causal, window)
+    empty = torch.isinf(want)
+    assert torch.equal(torch.isposinf(lse), empty)
+    assert bool(((lse - want).abs()[~empty] <= 1e-4 + 1e-4 * want.abs()[~empty]).all())
+    for name, g, p in zip(("dq", "dk", "dv"), grads,
+                          ref.flash_attention_bwd_ref(q, k, v, out, do, qp, kp, causal, window)):
+        err = (g - p).abs()
+        assert bool((err <= 1e-4 + 1e-4 * p.abs()).all()), f"{name}: {float(err.max()):.3e}"
+    again = ops.flash_attention_bwd(q, k, v, out, do, lse, qp, kp, causal=causal, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+WIDE_BWD_CASES = [
+    (2, 300, 4, 4, 64, 64, 128, False),     # g = h, a ragged last chunk
+    (1, 1000, 4, 2, 256, 256, 128, True),   # g < h, steep (the clip's gradient mask), ragged
+    (2, 200, 4, 4, 1, 128, 64, False),      # p = 1: the mLSTM's normaliser
+    (2, 300, 6, 3, 100, 48, 48, False),     # ragged p and n tiles, 4-byte copies
+    (1, 130, 2, 1, 30, 16, 16, True),       # one group, chunk 16
+    (2, 40, 2, 2, 128, 128, 128, False),    # the reduced xLSTM's scan
+]
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk,steep", WIDE_BWD_CASES)
+def test_mamba_ssd_wide_bwd_kernel_matches_plain(cuda_device, b, s, h, g, p, n, chunk, steep):
+    """Each gradient within ``1e-4 max|plain| + 1e-4 |plain|`` of
+    ``ref.ssd_scan_bwd`` evaluated in float64 (mamba_ssd_bwd's tolerance:
+    3xTF32 products and f32 sums in another order), on the forward kernel's
+    states; the states within the forward's 5e-4 + 5e-4 |plain|; two calls
+    bit-equal."""
+    args = [t.to(cuda_device) for t in _wide_inputs(b, s, h, g, p, n, s + p + 1, steep)]
+    dy = torch.from_numpy(np.random.default_rng(s).normal(size=(b, s, h, p)).astype(
+        np.float32)).to(cuda_device)
+    before = ops.launch_counts()
+    y, states = ops.mamba_ssd_wide(*args, chunk=chunk, return_states=True)
+    got = ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        **{k: 0 for k in after}, "mamba_ssd_wide": 1, "mamba_ssd_wide_bwd": 1}
+    assert torch.equal(y, ops.mamba_ssd_wide(*args, chunk=chunk))
+    _, want_states = ref.ssd_scan(*(t.double() for t in args), chunk, True, True)
+    assert bool(((states - want_states).abs() <= 5e-4 + 5e-4 * want_states.abs()).all())
+    want = ref.ssd_scan_bwd(*(t.double() for t in args), dy.double(), chunk)
+    for name, gv, w in zip(("dx", "dlog_decay", "dscale", "dB", "dC"), got, want):
+        assert gv.shape == w.shape and bool(torch.isfinite(gv).all()), name
+        err = (gv - w).abs()
+        assert bool((err <= 1e-4 * (w.abs().max() + w.abs())).all()), \
+            f"{name}: {float((err / (1e-4 * (w.abs().max() + w.abs()))).max()):.3f} of the limit"
+    again = ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+def test_mamba_ssd_wide_bwd_refuses_what_it_has_no_kernel_for(cuda_device):
+    x, a, dt, B, C = (t.to(cuda_device) for t in _wide_inputs(1, 40, 4, 2, 16, 16, 0))
+    _, states = ops.mamba_ssd_wide(x, a, dt, B, C, chunk=16, return_states=True)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="states must be"):
+        ops.mamba_ssd_wide_bwd(x, a, dt, B, C, x, states[:, :1], chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.mamba_ssd_wide_autograd(x.requires_grad_(), a, dt, B, C, chunk=24)
+    assert ops.launch_counts() == before
+
+
+TRAIN_CLI_ARCHS = ("granite-3-2b", "zamba2-2.7b", "xlstm-1.3b")
+TRAIN_CLI_TOL = 1e-4    # each step's loss, card against CPU: f32, sums in another order
+
+
+def _smoke():
+    """``chip_smoke`` (JAX-free), for its ``cpu_drawn_init``: the card's and
+    the CPU's generators differ, so both CLI runs draw their weights on the
+    CPU."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+
+@pytest.mark.parametrize("arch", TRAIN_CLI_ARCHS)
+def test_train_cli_on_the_card(cuda_device, tmp_path, arch):
+    """``launch.train.main`` on the card (the arguments of
+    ``test_torch_checkpoint.test_train_cli_on_the_cpu``) for one arch of the
+    dense, hybrid and xLSTM families: the f32 flash kernels at head dim 32
+    launched (the scans' kernels too where the family has them), each
+    step's loss within TRAIN_CLI_TOL relative of the CPU run from the same
+    weights."""
+    from repro_torch.launch import train as train_cli
+
+    losses, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        before = ops.launch_counts()
+        with _smoke().cpu_drawn_init():
+            rep = train_cli.main(["--arch", arch, "--steps", "4", "--batch", "2", "--seq",
+                                  "16", "--ckpt-every", "2", "--ckpt-dir",
+                                  str(tmp_path / dev), "--device", dev])
+        after = ops.launch_counts()
+        counts[dev] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        assert rep.final_step == 4 and rep.restarts == 0
+        losses[dev] = [rep.losses[i] for i in range(4)]
+    assert counts["cpu"] == {}
+    want = {"xlstm-1.3b": {"mamba_ssd_wide", "mamba_ssd_wide_bwd"},
+            "zamba2-2.7b": {"flash_attention", "flash_attention_bwd_f32", "mamba_ssd",
+                            "mamba_ssd_bwd"},
+            "granite-3-2b": {"flash_attention", "flash_attention_bwd_f32"}}[arch]
+    assert set(counts["cuda"]) == want
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=TRAIN_CLI_TOL)

@@ -17,7 +17,11 @@
   and the hybrid model's SSD scan launches beside them (counted on the
   CPU by stand-in wrappers), the steps ``run_training`` runs around an
   injected failure (counted on a real run), the flash and SSD backward
-  kernels' work and bound, and the model operations of a step.
+  kernels' work and bound, and the model operations of a step; the
+  xLSTM's grouped-scan launches a train step makes (train (f)) and the
+  train CLI's (phase ``train_cli``), the grouped backward's work and
+  bound, the device split's names of the new kernels, and the CLI's
+  weights drawn on the CPU for both devices.
 """
 import dataclasses
 import importlib
@@ -329,10 +333,6 @@ def test_device_split_puts_both_backwards_under_flash(smoke):
     ``flash_fwd``; the SSD scan's forward (both entries and its pre-pass)
     under ``ssd_fwd``, its backward's four kernels (the local terms, the
     carry, the chunk-local pass, the head groups' sum) under ``ssd_bwd``."""
-    import torch
-    from types import SimpleNamespace
-
-    cuda = torch.autograd.DeviceType.CUDA
     names = {"void (anonymous namespace)::bwd_delta<80>(...)": 1.0,
              "void (anonymous namespace)::bwd_dkdv<80>(CUtensorMap_st, ...)": 2.0,
              "void (anonymous namespace)::bwd_dq<64>(CUtensorMap_st, ...)": 4.0,
@@ -346,12 +346,9 @@ def test_device_split_puts_both_backwards_under_flash(smoke):
              "(anonymous namespace)::mamba_ssd_bwd_carry(...)": 2048.0,
              "void (anonymous namespace)::mamba_ssd_bwd_chunk<64>(...)": 4096.0,
              "(anonymous namespace)::mamba_ssd_bwd_heads(...)": 8192.0}
-    prof = SimpleNamespace(key_averages=lambda: [
-        SimpleNamespace(key=k, self_device_time_total=us, device_type=cuda)
-        for k, us in names.items()])
-    assert smoke._device_split(prof) == {"flash_fwd": 48.0, "flash_bwd": 15.0,
-                                         "ssd_fwd": 768.0, "ssd_bwd": 15360.0, "matmul": 64.0,
-                                         "other": 128.0}
+    assert smoke._split_kernels(names.items()) == {
+        "flash_fwd": 48.0, "flash_bwd": 15.0, "ssd_fwd": 768.0, "ssd_bwd": 15360.0,
+        "matmul": 64.0, "other": 128.0}
 
 
 def test_train_flops(smoke):
@@ -380,7 +377,8 @@ def test_ssd_bwd_work_and_bound(smoke):
 
 
 @pytest.mark.parametrize("table", ["FLASH_MUTANTS", "BWD_MUTANTS", "QB_MUTANTS", "SSD_MUTANTS",
-                                   "SSD_BWD_MUTANTS", "WIDE_MUTANTS"])
+                                   "SSD_BWD_MUTANTS", "WIDE_MUTANTS", "F32_MUTANTS",
+                                   "WIDE_BWD_MUTANTS"])
 def test_every_mutant_finds_its_source_text_once(smoke, table):
     """Each broken copy ``chip_smoke.py`` builds replaces a text that occurs
     exactly once in the source it names (``build_mutants`` refuses any
@@ -504,3 +502,125 @@ def test_lm_launches_follow_the_family(smoke, arch, tokens, want):
     from repro_torch.configs import get_config
 
     assert smoke.lm_launches(get_config(arch), tokens) == want
+
+
+def test_new_mutants_each_name_a_case_the_kernels_phase_runs(smoke):
+    assert set(smoke.F32_MUTANT_CATCHER) == set(smoke.F32_MUTANTS) == set(smoke.F32_MUTANT_LIBS)
+    assert set(smoke.WIDE_BWD_MUTANT_CATCHER) == set(smoke.WIDE_BWD_MUTANTS)
+    src = (ROOT / "chip_smoke.py").read_text()
+    for case in (*smoke.F32_MUTANT_CATCHER.values(), *smoke.WIDE_BWD_MUTANT_CATCHER.values()):
+        assert src.count(f'("{case}",') == 1, case
+
+
+def test_wide_bwd_work_and_bound(smoke):
+    """The grouped scan's backward at xlstm-1.3b's training microbatch (the
+    value scan: 2 x 2048, h = g = 4, p = n = 1024, chunk 128): 74.1 G
+    multiply-adds (four Q x n x p products and four causal Q^2 ones per
+    (batch, head, chunk), the Gram per (batch, group, chunk)), 0.90 ms in
+    3xTF32 at 495 TFLOP/s against 0.30 ms for its 1.01 GB: operations bound
+    it.  The normaliser (p = 1) is bound by its bytes."""
+    macs, nbytes = smoke.wide_bwd_work(2, 2048, 4, 4, 1024, 1024, 128)
+    assert macs == 128 * (4 * 128 * 1024 * 1024 + 4 * 8256 * 1024) + 128 * 8256 * 1024
+    assert macs == pytest.approx(74.1e9, rel=2e-3) and nbytes == pytest.approx(1.007e9, rel=1e-3)
+    ms, by = smoke.bound(2.0 * macs * smoke.SSD_PASSES, nbytes, smoke.H100_TF32_FLOPS)
+    assert by == "operations" and ms == pytest.approx(0.898, rel=2e-3)
+    ms1, by1 = smoke.bound(2.0 * smoke.SSD_PASSES * smoke.wide_bwd_work(
+        2, 2048, 4, 4, 1, 1024, 128)[0], smoke.wide_bwd_work(2, 2048, 4, 4, 1, 1024, 128)[1],
+        smoke.H100_TF32_FLOPS)
+    assert by1 == "bytes"
+
+
+def test_split_kernels_names_the_new_kernels(smoke):
+    """The device split of a train step: the grouped scan's forward
+    (``wide_*``) under ``ssd_fwd``, its backward's six kernels under
+    ``ssd_bwd``, the f32 flash backward's three under ``flash_bwd`` and the
+    f32 forward under ``flash_fwd``."""
+    names = {"(anonymous namespace)::wide_prep(Params)": 1.0,
+             "(anonymous namespace)::wide_states(Params)": 2.0,
+             "(anonymous namespace)::wide_out(Params)": 4.0,
+             **{f"(anonymous namespace)::mamba_ssd_wide_bwd_{part}(Params)": 8.0
+                for part in smoke.WIDE_BWD_PARTS},
+             "void (anonymous namespace)::bwd_f32_prep<32>(Params)": 100.0,
+             "void (anonymous namespace)::bwd_f32_dkdv<32>(Params)": 200.0,
+             "void (anonymous namespace)::bwd_f32_dq<32>(Params)": 400.0,
+             "void (anonymous namespace)::flash_fwd_f32<32, true>(Params)": 1000.0,
+             "void at::native::vectorized_elementwise_kernel": 5000.0}
+    assert smoke._split_kernels(names.items()) == {
+        "flash_fwd": 1000.0, "flash_bwd": 700.0, "ssd_fwd": 7.0, "ssd_bwd": 48.0,
+        "matmul": 0.0, "other": 5000.0}
+
+
+@pytest.mark.parametrize("k,remat", [(1, "none"), (2, "full")])
+def test_expected_xlstm_train_launches_count_a_train_step(smoke, monkeypatch, k, remat):
+    """The grouped scan's launches in 2 train steps of the reduced xLSTM,
+    counted on the CPU by stand-ins for the two wrappers (the scans sent
+    through ``MambaSSDWide``, as on the card), equal
+    ``expected_xlstm_train_launches``: two scans an mLSTM block, each once
+    more under remat, and two backward launches."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import xlstm
+    from repro_torch.train.loop import make_train_step
+
+    counts = {"mamba_ssd_wide": 0, "mamba_ssd_wide_bwd": 0}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for name in counts:
+        monkeypatch.setattr(ops, name, counted(name, getattr(ops, name)))
+    monkeypatch.setattr(xlstm, "gated_linear_scan", lambda x, a, dt, B, C, chunk:
+                        ops.mamba_ssd_wide_autograd(x.float(), a, dt, B.float(), C.float(),
+                                                    chunk=chunk))
+    cfg = get_config(smoke.XLSTM_ARCH).reduced()
+    model = models.build(cfg, "cpu")
+    step_fn = make_train_step(model, ParallelConfig(remat=remat, microbatch=k))
+    params = model.init(0)
+    opt = step_fn.opt_init(params)
+    data = SyntheticLMStream(cfg, batch=2, seq_len=8, device="cpu")
+    for s in range(2):
+        params, opt, _ = step_fn(params, opt, data.batch_at(s), s)
+    assert counts == smoke.expected_xlstm_train_launches(cfg, k, remat != "none", 2)
+    assert smoke.expected_xlstm_train_launches(get_config(smoke.XLSTM_ARCH), 1, True, 1) == {
+        "mamba_ssd_wide": 168, "mamba_ssd_wide_bwd": 84}
+
+
+def test_expected_cli_launches_follow_the_family(smoke):
+    """The train CLI's reduced configs (4 steps, no remat, one microbatch):
+    one f32 flash forward and backward an attention layer, the hybrid's
+    Mamba2 blocks one scan and one backward each, the xLSTM's mLSTM blocks
+    two of each."""
+    from repro_torch.configs import get_config
+
+    got = {a: smoke.expected_cli_launches(get_config(a).reduced(), 4)
+           for a in smoke.TRAIN_CLI_ARCHS}
+    dense = {"flash_attention": 8, "flash_attention_bwd_f32": 8}
+    assert got == {"granite-3-2b": dense, "h2o-danube-1.8b": dense,
+                   "granite-moe-3b-a800m": dense, "internvl2-26b": dense,
+                   "zamba2-2.7b": {**dense, "mamba_ssd": 16, "mamba_ssd_bwd": 16},
+                   "xlstm-1.3b": {"mamba_ssd_wide": 16, "mamba_ssd_wide_bwd": 16}}
+    assert {get_config(a).reduced().head_dim for a in smoke.TRAIN_CLI_ARCHS} == {32, 64}
+    assert get_config("h2o-danube-1.8b").reduced().window == 16
+
+
+def test_cpu_drawn_init_keeps_the_cpu_weights(smoke):
+    """Inside ``cpu_drawn_init`` a model's ``init`` draws on the CPU (the
+    weights the CPU run of the CLI starts from), and ``models.build`` is
+    restored after it."""
+    import torch
+    from repro_torch import models, tree
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite-3-2b").reduced()
+    build = models.build
+    want = tree.flatten(build(cfg, "cpu").init(0))[0]
+    with smoke.cpu_drawn_init():
+        got = tree.flatten(models.build(cfg, "cpu").init(0))[0]
+    assert models.build is build
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
