@@ -83,14 +83,21 @@ Phases, one line each (any failed check exits non-zero):
                case; the forward's state-writing entry against the plain
                states, its y bit-equal to the serving entry's, and no
                spill in any instantiation of mamba_ssd.cu.  The grouped,
-               wide-head scan (mamba_ssd_wide.cu, 3xTF32) against
-               ref.ssd_scan within SSD_TOL, two calls bit-equal: the
-               xLSTM prefill's value scan (2 x 4096, 4 heads x 1024,
-               state 1024, chunk 128) and its normaliser (p = 1), a
-               ragged steep case with g < h, a ragged p tile, one group
-               at p 30; three broken copies (the head-to-group map, the
-               inter-chunk term dropped, the states' p-tail mask dropped)
-               must each fail the case named for it.  This slice's kernels:
+               wide-head scan (mamba_ssd_wide.cu: 3xTF32 on wgmma, the
+               states on chip in clusters of 8 blocks; p <= 4 on its f32
+               narrow path) against ref.ssd_scan within SSD_TOL, two
+               calls bit-equal: the xLSTM prefill's value scan (2 x 4096,
+               4 heads x 1024, state 1024, chunk 128) and its normaliser
+               (p = 1), a ragged steep case with g < h, a ragged p tile,
+               one group at p 30; its states (return_states, on the scan
+               and at p = 1 on the narrow launch) against the plain
+               scan's; eight broken copies (the head-to-group map, the
+               inter-chunk term dropped, y's p-tail unmasked, one block's
+               partial dropped from the cluster's sum, the states written
+               mid-chunk; on the narrow launch a partial dropped, the
+               prefix not reset, stale states) must each fail the case
+               named for it.  The
+               earlier slice's kernels:
                the f32 flash at head dim 32 (the reduced configs the train
                CLI trains) causal (SDPA beside it), at reduced
                h2o-danube's window 16, with padded keys and GQA under
@@ -530,27 +537,52 @@ XLSTM_ARCH = "xlstm-1.3b"
 XLSTM_RUN = dict(layers=None, prefill=(2, 4096), decode=(4, 32, 32, 64, 0), consistency=True)
 XLSTM_CHECK = (1, 512)          # one group at full width in f32: the card against the CPU
 XLSTM_GAP_TOKENS = 64           # that group's prefill against its stepped decode, bf16 and f32
-WIDE_SPLIT = ("three launches: the causal Gram and decay scalars per (chunk, batch, group); "
-              "the states swept over the chunks per (batch, head, 64 x 64 tile of n x p); the "
-              "output per (batch, chunk, head, 64 columns of p), a warp per 16 rows")
+WIDE_SPLIT = ("two launches: the causal Gram and decay scalars per (chunk, batch, group); "
+              "then the scan, a cluster of 8 blocks per (batch, head, 128 columns of p), each "
+              "block a 128 x 128 slice of the state in registers over the chunks, 3xTF32 on "
+              "wgmma, the partials of C.S summed over the cluster through distributed shared "
+              "memory (p <= 4: the narrow launch, f32 FMA, no Gram)")
 # broken copies of mamba_ssd_wide.cu: each must fail the check on a case
 WIDE_MUTANTS = {
     # head i reads group i % g, not i // (h / g)
     "group_map": ("mamba_ssd_wide.cu", "return hh / (h / g); }", "return hh % g; }"),
-    # C . S_in left out of every chunk
+    # C . S_in left out of every chunk's y (the scan)
     "no_inter_chunk": ("mamba_ssd_wide.cu",
-                       "const int nsl = ch > 0 ? (p.n + kSlabN - 1) / kSlabN : 0;",
-                       "const int nsl = 0;"),
-    # the states' p-tail mask dropped: a tile's columns past p written over
-    # the next state rows
+                       "const float inter = ec[2 * c + e] * (e ? sum.y : sum.x);",
+                       "const float inter = 0.f;"),
+    # y's p-tail mask dropped: a strip's rows past p written over the next
+    # head's columns
     "p_tail_unmasked": ("mamba_ssd_wide.cu",
-                        "            if (col + 1 < pw) d[1] = S[c][2 * half + 1];",
-                        "            d[1] = S[c][2 * half + 1];"),
+                        "if (ic >= k.qs || pr >= k.pw || tok >= p.s) continue;",
+                        "if (ic >= k.qs || tok >= p.s) continue;"),
+    # the cluster's sum of the partials leaves out the last block's
+    "cluster_drops_a_partial": ("mamba_ssd_wide.cu",
+                                "v[r] = r < nranks ? ld_cluster2(la, r)",
+                                "v[r] = r < nranks - 1 ? ld_cluster2(la, r)"),
+    # with return_states, the state written after the chunk's first slab
+    # updated it (a state not written at all could pass on a stale buffer)
+    "states_mid_chunk": ("mamba_ssd_wide.cu",
+                         "if (j == 0 && p.states != nullptr && prod) {",
+                         "if (j == k.U1 + 1 && p.states != nullptr && prod) {"),
+    # the narrow launch (p <= 4): its cluster's sum leaves out the last
+    # block's partial
+    "narrow_drops_a_partial": ("mamba_ssd_wide.cu", "if (r < nranks) sum += vr[r];",
+                               "if (r < nranks - 1) sum += vr[r];"),
+    # the narrow launch's prefix R carried into the next chunk
+    "narrow_prefix_not_reset": ("mamba_ssd_wide.cu", "++c) R[c] = dS[c] = 0.f;",
+                                "++c) dS[c] = 0.f;"),
+    # the narrow launch's states: the last chunk's own state added twice
+    "narrow_states_stale": ("mamba_ssd_wide.cu", "so[c] = S[c];", "so[c] = S[c] + dS[c];"),
 }
 # which case must catch each broken copy (it may fail others too)
 WIDE_MUTANT_CATCHER = {"group_map": "mamba_ssd_wide_ragged_steep_g2",
                        "no_inter_chunk": "mamba_ssd_wide_xlstm_prefill",
-                       "p_tail_unmasked": "mamba_ssd_wide_normaliser"}
+                       "p_tail_unmasked": "mamba_ssd_wide_odd_tiles",
+                       "cluster_drops_a_partial": "mamba_ssd_wide_xlstm_prefill",
+                       "states_mid_chunk": "mamba_ssd_wide_states_g2",
+                       "narrow_drops_a_partial": "mamba_ssd_wide_normaliser",
+                       "narrow_prefix_not_reset": "mamba_ssd_wide_normaliser",
+                       "narrow_states_stale": "mamba_ssd_wide_states_p1"}
 # the f32 flash at head dim 32 (the reduced configs the train CLI trains) and
 # the f32 backward: f32 throughout, summation order only
 FLASH_BWD_F32_TOL = (1e-4, 1e-4)    # |kernel - plain| <= a + r |plain|, each of dq, dk, dv
@@ -1277,7 +1309,7 @@ def wide_inputs(b, s, h, g, p, n, seed, steep=False, device="cuda"):
 def wide_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=5):
     """mamba_ssd_wide vs its plain version (``ref.ssd_scan``) on the same
     inputs within ``SSD_TOL``, two calls bit-equal; the kernel's device
-    time by the profiler (its three launches), or by events where the
+    time by the profiler (its two launches), or by events where the
     profiler came back short (``timed_by`` says which, ``profiler_short``
     true then), the plain version's by events.  The plain version is evaluated in float64 on the inputs: in
     f32 its own in-chunk sums of steep decays (|cum| in the hundreds at
@@ -1307,9 +1339,8 @@ def wide_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=5):
     if kernel_ms is None:       # the profiler dropped records: events time it, and the
         kernel_ms, timed_by = events_ms, "events"    # record and its row say so
     plain_ms = time_ms(lambda: ref.ssd_scan(*args, chunk), 2)
-    # the three launches' device times
-    parts = profiled_parts(lambda: ops.mamba_ssd_wide(*args, chunk=chunk),
-                           ["wide_prep", "wide_states", "wide_out"])
+    # the launches' device times
+    parts = profiled_parts(lambda: ops.mamba_ssd_wide(*args, chunk=chunk), wide_parts(p, n))
     parts = {k[len("wide_"):]: v for k, v in parts.items()}
     ops.mamba_ssd_wide.launches = before       # comparison launches do not count
     macs, nbytes = wide_work(b, s, h, g, p, n, chunk)
@@ -1319,9 +1350,48 @@ def wide_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=5):
         "steep": steep, "max_abs_err": err, "tol": SSD_TOL, "err_share_of_limit": share,
         "plain_f32_share_of_limit": share32, "parts_ms": parts,
         "ms": kernel_ms, "timed_by": timed_by, "profiler_short": timed_by == "events",
-        "events_ms": events_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+        "events_ms": events_ms, "earlier_ms": EARLIER_MS.get(name), "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": bound_ms,
         "bound_by": bound_by, "tflops": 2.0 * macs / kernel_ms / 1e9,
     }, (name, args, plain, chunk)
+
+
+def wide_parts(p, n):
+    """The kernel names of mamba_ssd_wide's launches at p and n: the prep,
+    the scan (or, for p <= 4, the narrow launch) and, past n = 1024, the
+    clusters' sum."""
+    return ["wide_prep", "wide_scan" if p > 4 else "wide_narrow"] + (["wide_sum"] if n > 1024
+                                                                     else [])
+
+
+def wide_states_case(name, b, s, h, g, p, n, chunk, seed, steep=False):
+    """mamba_ssd_wide's ``return_states``: the state entering each chunk
+    against the plain scan's (``ref.ssd_scan`` in float64) within
+    ``SSD_TOL``, its y bit-equal to the call without states, both calls
+    timed.  Returns the record and (inputs, (plain y, plain states)) for
+    the mutation checks."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    args = wide_inputs(b, s, h, g, p, n, seed, steep)
+    before = ops.mamba_ssd_wide.launches
+    y, states = ops.mamba_ssd_wide(*args, chunk=chunk, return_states=True)
+    plain_y, plain = ref.ssd_scan(*(t.double() for t in args), chunk, True, True)
+    torch.cuda.synchronize()
+    err, share, ok = ssd_agrees(states, plain)
+    check(ok and torch.equal(y, ops.mamba_ssd_wide(*args, chunk=chunk)),
+          f"{name}: the states ({err:.3e}, {share:.2f} of the limit) or y (against the call "
+          "without states) are wrong")
+    states_ms = time_ms(lambda: ops.mamba_ssd_wide(*args, chunk=chunk, return_states=True), 3)
+    serving_ms = time_ms(lambda: ops.mamba_ssd_wide(*args, chunk=chunk), 3)
+    ops.mamba_ssd_wide.launches = before
+    rec = {"case": name, "shape": [b, s, h, g, p, n], "chunk": chunk, "steep": steep,
+           "max_abs_err": err, "err_share_of_limit": share, "states_call_ms": states_ms,
+           "serving_call_ms": serving_ms, "y_bit_equal": True}
+    print(f"phase=kernels states={name} max_abs_err={err:.3e} share_of_limit={share:.3f} "
+          f"states_call_ms={states_ms:.4f} serving_call_ms={serving_ms:.4f} y_bit_equal=True",
+          flush=True)
+    return rec, (name, args, (plain_y, plain), chunk)
 
 
 def wide_mutants(kept):
@@ -1343,9 +1413,16 @@ def wide_mutants(kept):
             with build.substituted("mamba_ssd_wide",
                                    build.load("mamba_ssd_wide", sos["mamba_ssd_wide"])):
                 for name, args, plain, chunk in kept:
-                    out = ops.mamba_ssd_wide(*args, chunk=chunk)
-                    torch.cuda.synchronize()
-                    err, share, ok = ssd_agrees(out, plain)
+                    if isinstance(plain, tuple):  # the states case: y and the states
+                        outs = ops.mamba_ssd_wide(*args, chunk=chunk, return_states=True)
+                        torch.cuda.synchronize()
+                        res = [ssd_agrees(o, w) for o, w in zip(outs, plain)]
+                        err, share = max(r[0] for r in res), max(r[1] for r in res)
+                        ok = all(r[2] for r in res)
+                    else:
+                        out = ops.mamba_ssd_wide(*args, chunk=chunk)
+                        torch.cuda.synchronize()
+                        err, share, ok = ssd_agrees(out, plain)
                     shares[name] = share
                     if not ok:
                         caught[m].append(f"{name} ({share:.3g} of the limit)")
@@ -3359,8 +3436,8 @@ def _split_kernels(kernels):
             continue
         if "mamba_ssd_bwd" in name or "mamba_ssd_wide_bwd" in name:
             split["ssd_bwd"] += us
-        elif "mamba_ssd" in name or any(k in name for k in ("wide_prep", "wide_states",
-                                                             "wide_out")):
+        elif "mamba_ssd" in name or any(k in name for k in ("wide_prep", "wide_scan",
+                                                             "wide_narrow", "wide_sum")):
             split["ssd_fwd"] += us
         elif any(k in name for k in ("bwd_delta", "bwd_prep", "bwd_dkdv", "bwd_dq",
                                      "bwd_f32_")):
@@ -4921,6 +4998,14 @@ def run() -> int:
                  ("mamba_ssd_wide_p30_g1", 1, 130, 2, 1, 30, 16, 16, 25, True)):
         rec, kept = wide_case(*args)
         wide.append(rec)
+        wide_kept.append(kept)
+    # its return_states against the plain states (steep, ragged, g < h), on
+    # the scan and on the narrow launch (p = 1)
+    record["wide_states"] = []
+    for args in (("mamba_ssd_wide_states_g2", 1, 1000, 4, 2, 256, 256, 128, 26, True),
+                 ("mamba_ssd_wide_states_p1", 1, 1000, 4, 2, 1, 256, 128, 27, True)):
+        rec, kept = wide_states_case(*args)
+        record["wide_states"].append(rec)
         wide_kept.append(kept)
     # the grouped scan's backward (mamba_ssd_wide_bwd.cu): phase train (f)'s
     # microbatch of 2 x 2048, its value scan (4 heads x 1024, state 1024,

@@ -122,11 +122,13 @@ _SIGNATURES = {
         "mamba_ssd_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "mamba_ssd_wide": {
-        # x, log_decay, scale, B, C, y, scratch, b, s, h, g, p, n, chunk, stream
-        "mamba_ssd_wide_fwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
-        # b, s, h, g, p, n, chunk -> bytes of scratch (the states entering each
-        # chunk, each chunk's Gram per group, the decay scalars per head)
-        "mamba_ssd_wide_scratch_bytes": ([_I] * 7, _L),
+        # x, log_decay, scale, B, C, y, scratch, b, s, h, g, p, n, chunk, states,
+        # stream
+        "mamba_ssd_wide_fwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
+        # b, s, h, g, p, n, chunk, states -> bytes of scratch (with states, the
+        # state entering each chunk; each chunk's Gram per group, the decay
+        # scalars per head, past n = 1024 each cluster's partial y)
+        "mamba_ssd_wide_scratch_bytes": ([_I] * 8, _L),
         "mamba_ssd_wide_error_string": ([_I], ctypes.c_char_p),
     },
     "mamba_ssd_wide_bwd": {

@@ -864,14 +864,16 @@ def mamba_ssd_wide(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor
     entering each chunk, ``(b, ceil(s / chunk), h, n, p)``, for
     ``mamba_ssd_wide_bwd``.
 
-    CUDA: ``csrc/mamba_ssd_wide.cu`` (3xTF32 tensor-core products), f32,
-    any p (p = 1 included), n a multiple of 16, chunk a multiple of 16 in
-    [16, 128]; it raises on the rest.  Three launches, counted as one: the
-    Gram and decay scalars, the sweep of the states over the chunks, the
-    output; a scratch buffer (the states entering each chunk, f32 ``(b,
-    chunks, h, n, p)``, then the Grams and scalars) is allocated here.
-    ``return_states`` returns a view of the scratch buffer's head, the
-    states the same launches write.
+    CUDA: ``csrc/mamba_ssd_wide.cu`` (3xTF32 products on ``wgmma``; p <= 4,
+    the normaliser, in f32 FMA), f32, any p (p = 1 included), n a multiple
+    of 16, chunk a multiple of 16 in [16, 128]; it raises on the rest.  Two
+    launches, counted as one (three past n = 1024): the Gram and decay
+    scalars, then the scan, a cluster of 8 blocks per (batch, head, 128
+    columns of p) keeping the state on chip over the chunks and writing y;
+    a scratch buffer (the Grams and scalars) is allocated here.
+    ``return_states`` has the scan also write the state entering each
+    chunk, f32 ``(b, chunks, h, n, p)``, at the head of the scratch buffer,
+    and returns a view of it.
     """
     _refuse_grad("mamba_ssd_wide", x, log_decay, scale, B, C)
     if x.device.type == "cpu":
@@ -888,14 +890,14 @@ def mamba_ssd_wide(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor
         states = torch.zeros((b, nc, h, n, p), dtype=torch.float32, device=x.device)
         return (y, states) if return_states else y
     lib = build.library("mamba_ssd_wide")
-    nbytes = lib.mamba_ssd_wide_scratch_bytes(b, s, h, g, p, n, int(chunk))
+    nbytes = lib.mamba_ssd_wide_scratch_bytes(b, s, h, g, p, n, int(chunk), int(return_states))
     if nbytes <= 0:
         raise ValueError(f"mamba_ssd_wide: shape {(b, s, h, g, p, n)} at chunk {chunk} not "
                          "supported (batch x chunks and batch x groups <= 65535)")
     scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
     rc = lib.mamba_ssd_wide_fwd(*(t.data_ptr() for t in tensors.values()), y.data_ptr(),
                                 scratch.data_ptr(), b, s, h, g, p, n, int(chunk),
-                                _stream(x.device))
+                                int(return_states), _stream(x.device))
     build.check("mamba_ssd_wide", rc)
     mamba_ssd_wide.launches += 1
     if return_states:

@@ -749,6 +749,129 @@ def mamba_ssd_tf32(x, log_decay, scale, B, C, chunk: int = 64,
     return y[:, :s]
 
 
+# mamba_ssd_wide.cu's scan: state rows a block (its slice of n), blocks a
+# cluster, n of one k-group of C.S, tokens of one k-group of the state
+# update and of the in-chunk term; p up to WIDE_NARROW_P runs its narrow
+# path (f32 FMA)
+WIDE_SLICE, WIDE_CLUSTER, WIDE_KGROUP, WIDE_SLAB, WIDE_NARROW_P = 128, 8, 16, 32, 4
+
+
+def mamba_ssd_wide_tf32(x, log_decay, scale, B, C, chunk: int = 128, passes: int = 3,
+                        return_states: bool = False):
+    """The ``mamba_ssd_wide`` kernel's passes and arithmetic on the CPU:
+    the function of ``ssd_scan`` (B and C ``(b, s, g, n)``, ``g | h``) with
+    every product in ``tf32_matmul`` of ``passes`` over one k-group, each
+    operand split once as the kernel stages it, and the sums in the
+    kernel's order.  f32 ``y`` (and, with ``return_states``, the f32 state
+    entering each chunk, ``(b, ceil(s / chunk), h, n, p)``).
+
+    The prep's scalars: the in-chunk prefix sums and the centre in double,
+    then the exps in f32 (``ai``, ``dtb``, ``wj``, ``ec``); the causal Gram
+    ``G = tril(C B^T)``.  Per chunk, with S the state entering it, for each
+    slice r of ``WIDE_SLICE`` state rows (a block):
+
+    (a) ``C.S`` over the slice, as k-groups of ``WIDE_KGROUP`` rows summed
+        in order (the block's partial);
+    (b) ``S <- exp(total) S``, then ``+= (wj B)^T x`` a slab of
+        ``WIDE_SLAB`` tokens at a time (``wj B`` rounded to f32 before its
+        split);
+    (c) the in-chunk term ``(G dtb) x`` a slab at a time (``G dtb`` rounded
+        to f32), and ``y = ai (G dtb x) + ec sum_r partial_r``, the partials
+        of a cluster of ``WIDE_CLUSTER`` slices summed in rank order; past
+        one cluster, each cluster's y (the first one's with the in-chunk
+        term) summed in cluster order.
+
+    For p up to ``WIDE_NARROW_P`` the narrow path, in f32 without TF32
+    (``passes`` has no effect): per slice and token the partial of
+    ``ai C_i . R_i + ec C_i . S`` with ``R_i = sum_{j<=i} dtb_j x_j B_j``
+    (the in-chunk term in prefix form, no Gram), the slices summed in rank
+    order; ``S <- exp(total) S + sum_j wj_j x_j B_j``.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    F = torch.nn.functional
+
+    def mm(u, v):
+        return tf32_matmul(u, v, passes)
+
+    xq = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nc, chunk, h, p).transpose(2, 3)
+    a = F.pad(log_decay.double(), (0, 0, 0, pad)).reshape(b, nc, chunk, h).transpose(2, 3)
+    dt = F.pad(scale.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, h).transpose(2, 3)
+    Bq = F.pad(B.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nc, chunk, g, n).transpose(2, 3)
+    Cq = F.pad(C.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nc, chunk, g, n).transpose(2, 3)
+    Bh = Bq.repeat_interleave(rep, dim=2)                 # (b, nc, h, Q, n): a head's group
+    Ch = Cq.repeat_interleave(rep, dim=2)
+    cum = torch.cumsum(a, dim=-1)                         # (b, nc, h, Q), double
+    total = cum[..., -1:]
+    center = 0.5 * (cum.amax(-1, keepdim=True) + cum.amin(-1, keepdim=True))
+    ai = torch.exp(torch.clamp((cum - center).float(), -60.0, 60.0))
+    dtb = dt * torch.exp(torch.clamp((center - cum).float(), -60.0, 60.0))
+    wj = torch.exp((total - cum).float()) * dt
+    ec = torch.exp(cum.float())
+    et = ec[..., -1]                                      # exp(total)
+    slices = [(r0, min(r0 + WIDE_SLICE, n)) for r0 in range(0, n, WIDE_SLICE)]
+    clusters = [slices[i:i + WIDE_CLUSTER] for i in range(0, len(slices), WIDE_CLUSTER)]
+    def narrow_chunk(c, S):             # p <= WIDE_NARROW_P: y of chunk c, the next state
+        X, Cc, Bc = xq[:, c], Ch[:, c], Bh[:, c]
+        R = torch.cumsum((dtb[:, c, ..., None] * X)[..., None, :] * Bc[..., None], dim=2)
+        v = (ai[:, c, :, :, None, None] * (Cc[..., None] * R)
+             + ec[:, c, :, :, None, None] * (Cc[..., None] * S[:, :, None]))
+        yc = None
+        for cl in clusters:
+            part = None
+            for r0, r1 in cl:
+                d = v[..., r0:r1, :].sum(-2)
+                part = d if part is None else part + d
+            yc = part if yc is None else yc + part
+        dS = ((wj[:, c, ..., None] * X)[..., None, :] * Bc[..., None]).sum(2)
+        return yc, et[:, c, :, None, None] * S + dS
+
+    def wide_chunk(c, S):
+        X, Cc, Bc = xq[:, c], Ch[:, c], Bh[:, c]
+        gd = gram[:, c] * dtb[:, c, :, None, :]           # (b, h, Q, Q), rounded to f32
+        yi = None
+        for j0, j1 in slabs:
+            d = mm(gd[..., j0:j1], X[..., j0:j1, :])
+            yi = d if yi is None else yi + d
+        yc = None
+        for ci, cl in enumerate(clusters):
+            part = None
+            for r0, r1 in cl:                             # a block: its slice's k-groups
+                acc = None
+                for k0 in range(r0, r1, WIDE_KGROUP):
+                    k1 = min(k0 + WIDE_KGROUP, r1)
+                    d = mm(Cc[..., k0:k1], S[..., k0:k1, :])
+                    acc = d if acc is None else acc + d
+                part = acc if part is None else part + acc
+            yk = ec[:, c, :, :, None] * part
+            if ci == 0:
+                yk = ai[:, c, :, :, None] * yi + yk
+            yc = yk if yc is None else yc + yk
+        S = et[:, c, :, None, None] * S
+        wB = wj[:, c, :, :, None] * Bc                    # (b, h, Q, n), rounded to f32
+        for j0, j1 in slabs:
+            S = S + mm(wB[..., j0:j1, :].transpose(-1, -2), X[..., j0:j1, :])
+        return yc, S
+
+    if p > WIDE_NARROW_P:
+        lmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+        gram = torch.where(lmask, mm(Cq, Bq.transpose(-1, -2)), 0.0).repeat_interleave(rep, 2)
+        slabs = [(j0, min(j0 + WIDE_SLAB, chunk)) for j0 in range(0, chunk, WIDE_SLAB)]
+    S = torch.zeros((b, h, n, p), dtype=torch.float32)
+    ys, states = [], []
+    for c in range(nc):
+        states.append(S)
+        yc, S = (narrow_chunk if p <= WIDE_NARROW_P else wide_chunk)(c, S)
+        ys.append(yc)
+    y = torch.stack(ys, dim=1).transpose(2, 3).reshape(b, nc * chunk, h, p)[:, :s]
+    if return_states:
+        return y, torch.stack(states, dim=1)
+    return y
+
+
 def mamba_ssd_bwd_tf32(x, log_decay, scale, B, C, dy, chunk: int = 64,
                        passes: int = 3):
     """The ``mamba_ssd_bwd`` kernel's pass split and arithmetic on the CPU:

@@ -1120,6 +1120,11 @@ SSD_WIDE_CASES = [
     (1, 130, 2, 1, 30, 16, 16, True),       # one group at a p mamba_ssd does not take
     (2, 40, 2, 2, 128, 128, 128, False),    # the reduced xLSTM's scan
     (1, 512, 4, 4, 1024, 1024, 128, False), # xlstm-1.3b's widths
+    (1, 200, 2, 1, 64, 1040, 64, False),    # n past a cluster's 8 x 128 rows: two clusters
+    (1, 256, 2, 2, 130, 256, 128, False),   # p just past a 128-column strip
+    (2, 160, 16, 8, 256, 128, 32, False),   # 64 clusters of 8 blocks: more than the card holds
+    (1, 300, 4, 2, 2, 256, 128, True),      # p = 2 on the narrow path, g < h, steep
+    (1, 200, 2, 2, 4, 1040, 32, False),     # p = 4, the narrow path's two clusters
 ]
 
 
@@ -1154,6 +1159,26 @@ def test_mamba_ssd_wide_kernel_matches_plain(cuda_device, b, s, h, g, p, n, chun
     err = (out - plain).abs()
     assert bool((err <= 5e-4 + 5e-4 * plain.abs()).all()), f"max err {float(err.max()):.3e}"
     assert torch.equal(out, ops.mamba_ssd_wide(*args, chunk=chunk))
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk,steep", [
+    (1, 1000, 4, 2, 256, 256, 128, True),   # the scan, g < h, steep, ragged
+    (2, 300, 6, 3, 100, 1040, 48, False),   # two clusters, a ragged p strip
+    (2, 200, 4, 4, 1, 128, 64, False),      # the narrow path (the normaliser)
+])
+def test_mamba_ssd_wide_states_match_plain(cuda_device, b, s, h, g, p, n, chunk, steep):
+    """``return_states``: the state entering each chunk, f32 ``(b, chunks, h,
+    n, p)``, within the SSD tolerance of the plain scan's in float64; y
+    bit-equal to the call without states; one launch each."""
+    args = [t.to(cuda_device) for t in _wide_inputs(b, s, h, g, p, n, s + n, steep)]
+    before = ops.mamba_ssd_wide.launches
+    y, states = ops.mamba_ssd_wide(*args, chunk=chunk, return_states=True)
+    assert ops.mamba_ssd_wide.launches == before + 1
+    _, plain = ref.ssd_scan(*(t.double() for t in args), chunk, True, True)
+    assert states.shape == (b, -(-s // chunk), h, n, p) and states.dtype == torch.float32
+    err = (states - plain).abs()
+    assert bool((err <= 5e-4 + 5e-4 * plain.abs()).all()), f"max err {float(err.max()):.3e}"
+    assert torch.equal(y, ops.mamba_ssd_wide(*args, chunk=chunk))
 
 
 def test_mamba_ssd_wide_refuses_what_it_has_no_kernel_for(cuda_device):

@@ -536,8 +536,8 @@ def test_split_kernels_names_the_new_kernels(smoke):
     ``ssd_bwd``, the f32 flash backward's three under ``flash_bwd`` and the
     f32 forward under ``flash_fwd``."""
     names = {"(anonymous namespace)::wide_prep(Params)": 1.0,
-             "(anonymous namespace)::wide_states(Params)": 2.0,
-             "(anonymous namespace)::wide_out(Params)": 4.0,
+             "(anonymous namespace)::wide_scan(Params)": 2.0,
+             "void (anonymous namespace)::wide_narrow<1>(Params)": 4.0,
              **{f"(anonymous namespace)::mamba_ssd_wide_bwd_{part}(Params)": 8.0
                 for part in smoke.WIDE_BWD_PARTS},
              "void (anonymous namespace)::bwd_f32_prep<32>(Params)": 100.0,

@@ -250,6 +250,55 @@ def test_ssd_scan_matches_jax_gated_linear_scan(case, steep):
                                               chunk=chunk), got)
 
 
+# the grouped scan kernel's arithmetic (ref.mamba_ssd_wide_tf32): b, s, h, g,
+# p, n, chunk; n past one 128-row slice (the cluster's rank-order sum), past
+# one cluster of 8 slices (1040: two clusters), p past one 128-column strip,
+# and p <= 4 (the narrow path)
+WIDE_TF32_CASES = {
+    "g_equals_h": (1, 70, 2, 2, 24, 272, 32),
+    "g_below_h_ragged": (1, 75, 4, 2, 16, 48, 16),
+    "two_clusters_two_strips": (1, 40, 2, 1, 130, 1040, 16),
+    "normaliser_p1": (2, 50, 2, 2, 1, 144, 32),
+    "narrow_p3_two_clusters": (1, 40, 2, 1, 3, 1040, 16),
+}
+SSD_TOL = dict(rtol=5e-4, atol=5e-4)   # the reference's own SSD tolerance
+
+
+@pytest.mark.parametrize("steep", [False, True])
+@pytest.mark.parametrize("case", sorted(WIDE_TF32_CASES))
+def test_mamba_ssd_wide_tf32_matches_jax_scan(case, steep):
+    """The kernel's passes and 3xTF32 splits (f32 FMA on the narrow path)
+    within the reference's SSD tolerance of ``gated_linear_scan(
+    factorized=True)``, steep decays (the clip) included; its states equal
+    ``ref.ssd_scan``'s within the same tolerance."""
+    b, s, h, g, p, n, chunk = WIDE_TF32_CASES[case]
+    args = _scan_inputs(b, s, h, g, p, n, seed=s + n + steep, steep=steep)
+    want = np.asarray(jssm.gated_linear_scan(*(jnp.asarray(a) for a in args), chunk=chunk,
+                                             factorized=True))
+    targs = [torch.from_numpy(a) for a in args]
+    got, states = ref.mamba_ssd_wide_tf32(*targs, chunk=chunk, return_states=True)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **SSD_TOL)
+    _, plain_states = ref.ssd_scan(*targs, chunk, True, True)
+    assert states.shape == plain_states.shape == (b, -(-s // chunk), h, n, p)
+    np.testing.assert_allclose(states.numpy(), plain_states.numpy(), **SSD_TOL)
+    assert torch.equal(ref.mamba_ssd_wide_tf32(*targs, chunk=chunk), got)
+
+
+@pytest.mark.parametrize("case", ["g_equals_h", "two_clusters_two_strips"])
+def test_one_tf32_pass_misses_the_scan_tolerance(case):
+    """3xTF32 is needed: with one TF32 pass (hi . hi) the same passes fall
+    outside the reference's SSD tolerance."""
+    b, s, h, g, p, n, chunk = WIDE_TF32_CASES[case]
+    args = [torch.from_numpy(a) for a in _scan_inputs(b, s, h, g, p, n, seed=s + n)]
+    want = ref.ssd_scan(*(t.double() for t in args), chunk)
+    one = ref.mamba_ssd_wide_tf32(*args, chunk=chunk, passes=1).double()
+    three = ref.mamba_ssd_wide_tf32(*args, chunk=chunk).double()
+    limit = SSD_TOL["atol"] + SSD_TOL["rtol"] * want.abs()
+    assert float(((three - want).abs() / limit).max()) < 1.0
+    assert float(((one - want).abs() / limit).max()) > 1.0
+
+
 def test_ssd_kernel_routes_by_shape():
     """Zamba2's scans stay on mamba_ssd; the mLSTM's (groups, widths past
     128, p = 1) and everything else go to mamba_ssd_wide."""
