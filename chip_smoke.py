@@ -98,22 +98,24 @@ Phases, one line each (any failed check exits non-zero):
                prefix not reset, stale states) must each fail the case
                named for it.  The
                earlier slice's kernels:
-               the f32 flash at head dim 32 (the reduced configs the train
-               CLI trains) causal (SDPA beside it), at reduced
-               h2o-danube's window 16, with padded keys and GQA under
-               every mask, its log-sum-exp write against
+               the f32 flash (3xTF32 mma.sync) at head dim 32 (the
+               reduced configs the train CLI trains) causal (SDPA beside
+               it), at reduced h2o-danube's window 16, with padded keys
+               and GQA under every mask, at D 80 on Zamba2's heads (2 x
+               512, causal), its log-sum-exp write against
                ref.flash_attention_lse_ref (output bit-equal to the entry
                without it); the f32 backward (flash_attention_bwd_f32.cu,
-               FMA) at D 32, 64 and 128 under the same masks, fed that
-               log-sum-exp, within FLASH_BWD_F32_TOL of
+               3xTF32 mma.sync) at D 32, 64 and 128 under the same masks,
+               fed that log-sum-exp, within FLASH_BWD_F32_TOL of
                ref.flash_attention_bwd_ref, two calls bit-equal;
                mamba_ssd_wide_bwd.cu at the xLSTM training microbatch's
                value scan (2 x 2048, 4 heads x 1024, state 1024, chunk
                128) and normaliser (p = 1) and a steep ragged case with g
                < h, against ref.ssd_scan_bwd in float64, two calls
-               bit-equal; four broken copies of the f32 pair and three of
-               the wide backward, built while the cases run, must each
-               fail the case named for it.
+               bit-equal; six broken copies of the f32 pair (one TF32
+               pass in each among them) and three of the wide backward,
+               built while the cases run, must each fail the case named
+               for it.
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -375,6 +377,9 @@ FLASH_MUTANT_LIBS = {"skip_off_by_one": ("flash_attention", "flash_attention_sm9
                      "decode:kv_len_off_by_one": ("flash_decode",),
                      "decode:pv_first_80_dims": ("flash_decode",)}
 FLASH_SOURCES = ("flash_attention", "flash_attention_sm90", "flash_decode")
+# the headers the flash sources include: every broken copy of a flash source
+# is built beside them
+FLASH_HEADERS = ("flash_common.cuh", "ssd_common.cuh", "flash_tf32.cuh")
 # each flash mutant must fail a case of this kernel at this head dim
 MUTANT_CATCHER = {m: ("flash_decode", 80) if m.startswith("decode:")
                   else ("flash_attention_sm90", 80) for m in FLASH_MUTANTS}
@@ -584,35 +589,48 @@ WIDE_MUTANT_CATCHER = {"group_map": "mamba_ssd_wide_ragged_steep_g2",
                        "narrow_prefix_not_reset": "mamba_ssd_wide_normaliser",
                        "narrow_states_stale": "mamba_ssd_wide_states_p1"}
 # the f32 flash at head dim 32 (the reduced configs the train CLI trains) and
-# the f32 backward: f32 throughout, summation order only
+# the f32 backward: 3xTF32 products (each drops only lo.lo, <= 2^-22 of
+# |a||b|) and f32 sums in another order
 FLASH_BWD_F32_TOL = (1e-4, 1e-4)    # |kernel - plain| <= a + r |plain|, each of dq, dk, dv
 LSE_F32_TOL = (1e-4, 1e-4)          # the f32 forward's log-sum-exp (log2 units)
-# broken copies of the f32 forward's log-sum-exp write and of the f32
-# backward: each must fail the case F32_MUTANT_CATCHER names
+F32_PASSES = 3                      # the f32 flash pair issues each product as 3 TF32 products
+# broken copies of the f32 forward and of the f32 backward: each must fail
+# the case F32_MUTANT_CATCHER names (the forward's output, its log-sum-exp
+# through the backward that reads it, or the backward's gradients)
 F32_MUTANTS = {
     # the log-sum-exp without the log of its sum: P unnormalised
     "lse_f32:no_log_sum": ("flash_attention.cu",
-                           "l > 0.f ? fmaf(m, kLog2e, __log2f(l)) : INFINITY;",
-                           "l > 0.f ? m * kLog2e : INFINITY;"),
+                           "l[i] > 0.f ? fmaf(m[i], sl2, __log2f(l[i])) : INFINITY;",
+                           "l[i] > 0.f ? m[i] * sl2 : INFINITY;"),
+    # 1xTF32: the products of the low halves left out (the header the pair
+    # shares), built into the forward only
+    "fwd_f32:one_pass_tf32": ("flash_tf32.cuh",
+                              "  ssd::mma(d, al, bh);\n  ssd::mma(d, ah, bl);\n", ""),
     # dS^T without Delta in dK
     "bwd_f32:no_delta": ("flash_attention_bwd_f32.cu",
-                         "axpy<D>(dk, pij * (dp - dl_s[i]), Qs[i], j);",
-                         "axpy<D>(dk, pij * dp, Qs[i], j);"),
+                         "pt[nb][e] *= dpt[nb][e] - dl[col];",
+                         "pt[nb][e] *= dpt[nb][e];"),
     # dK and dV leave out the last head of a kv head's group
     "bwd_f32:group_head_dropped": ("flash_attention_bwd_f32.cu",
                                    "for (int hh = 0; hh < G; ++hh) {",
                                    "for (int hh = 0; hh + 1 < G; ++hh) {"),
     # dQ without its 1 / sqrt(D)
     "bwd_f32:dq_unscaled": ("flash_attention_bwd_f32.cu",
-                            "store_row<D>(p.dq + qoff + r * qrs, dq, p.scale, j);",
-                            "store_row<D>(p.dq + qoff + r * qrs, dq, 1.f, j);"),
+                            "store_rows<D>(p.dq + qoff, qrs, row, p.Sq, dq, "
+                            "{p.scale, p.scale}, c);",
+                            "store_rows<D>(p.dq + qoff, qrs, row, p.Sq, dq, {1.f, 1.f}, c);"),
+    # the same, built into the backward only
+    "bwd_f32:one_pass_tf32": ("flash_tf32.cuh",
+                              "  ssd::mma(d, al, bh);\n  ssd::mma(d, ah, bl);\n", ""),
 }
-F32_MUTANT_LIBS = {m: ("flash_attention",) if m.startswith("lse") else ("flash_attention_bwd_f32",)
-                   for m in F32_MUTANTS}
+F32_MUTANT_LIBS = {m: ("flash_attention",) if m.startswith(("lse", "fwd"))
+                   else ("flash_attention_bwd_f32",) for m in F32_MUTANTS}
 F32_MUTANT_CATCHER = {"lse_f32:no_log_sum": "flash_bwd_f32_d32_causal",
+                      "fwd_f32:one_pass_tf32": "flash_bwd_f32_d32_causal",
                       "bwd_f32:no_delta": "flash_bwd_f32_d32_causal",
                       "bwd_f32:group_head_dropped": "flash_bwd_f32_d32_masked_gqa",
-                      "bwd_f32:dq_unscaled": "flash_bwd_f32_d32_window16"}
+                      "bwd_f32:dq_unscaled": "flash_bwd_f32_d32_window16",
+                      "bwd_f32:one_pass_tf32": "flash_bwd_f32_d32_causal"}
 WIDE_BWD_TOL = SSD_BWD_TOL          # each gradient: 1e-4 (max|plain| + |plain|), plain in f64
 WIDE_BWD_SPLIT = ("six launches: the Gram and decay scalars per (chunk, batch, group); dS swept "
                   "over the chunks in reverse per (batch, head, 64 x 64 tile of n x p); the "
@@ -914,8 +932,12 @@ def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
     keys = int((kp_eff != ref.INT32_MAX).sum())
     nbytes = (2 * q.numel() + 2 * keys * KV * D) * q.element_size() \
         + (qp.numel() + kp.numel()) * 4
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_S * 1e3
+    # f32: its products as F32_PASSES TF32 products on the tensor cores; the
+    # f32-FMA figure beside it
+    t_ops = (flops / H100_BF16_FLOPS if dtype == torch.bfloat16
+             else F32_PASSES * flops / H100_TF32_FLOPS) * 1e3
+    t_bytes = nbytes / H100_BYTES_S * 1e3
+    f32_fma = None if dtype == torch.bfloat16 else max(flops / H100_F32_FLOPS * 1e3, t_bytes)
     return timed_case({
         "case": name, "kernel": kernel, "shape": [B, Sq, Skv, H, KV, D], "dtype": str(dtype),
         "causal": causal, "window": window, "edge": edge, "max_abs_err": err, "tol": tol,
@@ -923,6 +945,7 @@ def flash_case(name, B, Sq, Skv, H, KV, D, dtype, causal=False, window=0,
         "earlier_ms": EARLIER_MS.get(name), "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_f32_fma_ms": f32_fma,
         "tflops": None if kernel_ms is None else flops / kernel_ms / 1e9,
     }, ("ms", "plain_ms") + (("library_ms",) if library and short else ())), \
         (name, kernel, args, causal, window)
@@ -947,7 +970,7 @@ def flash_mutants(kept):
     from repro_torch.kernels import build, ops
 
     tmp, built = build_mutants("flash_mutants_", FLASH_MUTANTS,
-                               ("flash_common.cuh",) + tuple(f"{n}.cu" for n in FLASH_SOURCES),
+                               FLASH_HEADERS + tuple(f"{n}.cu" for n in FLASH_SOURCES),
                                FLASH_MUTANT_LIBS)
     try:
         before, caught = ops.launch_counts(), {}
@@ -1576,6 +1599,10 @@ def new_kernel_mutants(f32_started, wide_started, f32_kept, wide_kept):
                             torch.cuda.synchronize()
                             _, share, ok = flash_bwd_agrees(grads, (q, k, v, out, dout, qp, kp),
                                                             causal, window)
+                            # the forward's output against its plain version too
+                            _, o_share, o_ok = flash_agrees(out, (q, k, v, qp, kp, None),
+                                                            causal, window)
+                            share, ok = max(share, o_share), ok and o_ok
                         else:
                             name, args, plain, chunk = item
                             got = ops.mamba_ssd_wide_bwd(*args, chunk=chunk)
@@ -3278,14 +3305,19 @@ def flash_bwd_case(name, B, Sq, Skv, H, KV, D, causal=False, window=0, pad_kv=0,
     pairs = attended_pairs(qp, kp, causal, window)
     f32 = dtype == torch.float32
     work = flash_bwd_work(B, Sq, Skv, H, KV, D, pairs, elem=q.element_size())
-    b_ms, b_by = bound(*work, peak=H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
+    # f32: its products as F32_PASSES TF32 products on the tensor cores; the
+    # f32-FMA figure beside it
+    b_ms, b_by = (bound(F32_PASSES * work[0], work[1], peak=H100_TF32_FLOPS) if f32
+                  else bound(*work))
+    f32_fma = bound(*work, peak=H100_F32_FLOPS)[0] if f32 else None
     return timed_case({
         "case": name, "kernel": kernel, "shape": [B, Sq, Skv, H, KV, D],
         "dtype": str(dtype), "causal": causal, "window": window, "edge": edge,
         "max_abs_err": err,
         "tol": FLASH_BWD_F32_TOL if f32 else "ref.flash_bwd_bf16_tolerance",
-        "err_share_of_limit": share, "ms": kernel_ms,
-        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "err_share_of_limit": share, "two_calls_bit_equal": True, "ms": kernel_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_f32_fma_ms": f32_fma,
         "tflops": None if kernel_ms is None else work[0] / kernel_ms / 1e9,
     }, ("ms", "plain_ms") if timed else ()), ((name, (q, k, v, dout, qp, kp), causal, window),
                                               kernel)
@@ -3348,8 +3380,8 @@ def flash_bwd_mutants(kept):
     import torch
     from repro_torch.kernels import build, ops
 
-    sources = ("flash_common.cuh", "flash_attention.cu", "flash_attention_sm90.cu",
-               "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu")
+    sources = FLASH_HEADERS + ("flash_attention.cu", "flash_attention_sm90.cu",
+                               "flash_attention_bwd.cu", "flash_attention_bwd_sm90.cu")
     tmp, built = build_mutants("flash_bwd_mutants_", BWD_MUTANTS, sources, BWD_MUTANT_LIBS)
     try:
         before, caught = ops.launch_counts(), {}
@@ -4141,6 +4173,7 @@ def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
         full16, stepped16 = logits_fn(params, hidden[:, start:], cfg), torch.cat(outs, dim=1)
         gap_bf16 = float((full16 - stepped16).abs().max())
         del hidden, cache
+        twin_before = ops.launch_counts()
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         lm32, p32 = models.build(cfg32, device), _map_tree(lambda x: x.float(), params)
         cache = lm32.init_cache(n_req, max_len)
@@ -4152,6 +4185,9 @@ def lm_family(arch: str, spec: dict, smi: str, device="cuda", cfg=None):
             outs.append(lm32.decode(p32, tk, cache, pos)[0])
         full = logits_fn(p32, lm32.forward(p32, {"tokens": seq})[0][:, start:], cfg32)
         stepped = torch.cat(outs, dim=1)
+        # the f32 forward's launches in this twin (outside every path's counts)
+        rec["f32_twin_flash_launches"] = (ops.launch_counts()["flash_attention"]
+                                          - twin_before["flash_attention"])
         gap = float((full - stepped).abs().max())
         rec["prefill_vs_decode_max_abs"] = {"bf16": gap_bf16, "f32": gap}
         # each bf16 order of work against its own f32 twin: rounding moves both
@@ -4621,6 +4657,7 @@ def small_lm_check(cfg):
     consistency = float((full_in[:, :steps] - dec_in).abs().max())
     consistent = bool(torch.allclose(full_in[:, :steps], dec_in, rtol=LM_CONSISTENCY_TOL,
                                      atol=LM_CONSISTENCY_TOL))
+    flash_launches = ops.launch_counts()["flash_attention"] - before["flash_attention"]
     print(f"phase=check small_lm layers={scfg.num_layers} d_model={scfg.d_model} f32 "
           f"prefill_rel_l2_cuda_vs_cpu={rel_prefill:.3e} decode8_rel_l2_cuda_vs_cpu="
           f"{rel_decode:.3e} (limit {LM_CARD_VS_CPU_REL_L2}) "
@@ -4632,7 +4669,7 @@ def small_lm_check(cfg):
     return {"prefill_rel_l2": rel_prefill, "decode_rel_l2": rel_decode,
             "card_prefill_vs_decode_max_abs": consistency,
             "as_initialized_prefill_vs_decode_max_abs": gap_as_init,
-            "as_initialized_max_dt_per_block": max_dt}
+            "as_initialized_max_dt_per_block": max_dt, "flash_launches": flash_launches}
 
 
 def run() -> int:
@@ -4690,8 +4727,8 @@ def run() -> int:
         check(spills and all(NO_SPILL in l for l in spills), f"{name} spills: {spills}")
     # the broken copies of this slice's kernels build while the cases run
     f32_mutant_builds = start_mutant_builds(
-        "f32_mutants_", F32_MUTANTS, ("flash_common.cuh", "flash_attention.cu",
-                                      "flash_attention_bwd_f32.cu"), F32_MUTANT_LIBS)
+        "f32_mutants_", F32_MUTANTS,
+        FLASH_HEADERS + ("flash_attention.cu", "flash_attention_bwd_f32.cu"), F32_MUTANT_LIBS)
     wide_bwd_mutant_builds = start_mutant_builds(
         "mamba_ssd_wide_bwd_mutants_", WIDE_BWD_MUTANTS, ("mamba_ssd_wide_bwd.cu",
                                                           "ssd_common.cuh"),
@@ -4740,6 +4777,10 @@ def run() -> int:
          dict(pad_kv=5, kv_len=True, library=True, reps=3)),
         (("flash_f32_d32_masked_gqa", 2, 200, 333, 8, 2, 32, torch.float32),
          dict(causal=True, window=96, pad_kv=5, library=True, reps=3)),
+        # f32 at D 80: Zamba2's heads (32 x 80, causal) on 2 x 512 tokens (the
+        # f32 group of check small_lm runs this head dim on 2 x 80)
+        (("flash_f32_d80_zamba_causal", 2, 512, 512, 32, 32, 80, torch.float32),
+         dict(causal=True, library=True, reps=3)),
     ]
     # what one rank of phase lp_ranks (K 4) and of phase hybrid_ranks (K 3, and
     # K 2 after its drill's eviction) gives the wgmma kernel: one window's CFG
@@ -4756,7 +4797,7 @@ def run() -> int:
                     for sq, skv in sorted(rank_attn)]
     # positions that put the skipping of masked key tiles at its edges,
     # through the wgmma kernel (bf16, D 128 and 80), mma.sync (bf16, D 80)
-    # and the FMA kernel (f32)
+    # and the 3xTF32 kernel (f32)
     from repro_torch.kernels.ref import SKIP_EDGE_CASES
     for edge in SKIP_EDGE_CASES:
         for dt, hd, kern in ((torch.bfloat16, 128, "flash_attention_sm90"),
@@ -5400,7 +5441,7 @@ def run() -> int:
     # paths, D 80 on the LM prefill and Zamba2's training forward, D 64 on
     # granite's; flash_decode serves the LM decode steps;
     # flash_attention_bwd_sm90 both training backwards, a row for each head
-    # dim; flash_attention.cu (mma.sync, FMA) and flash_attention_bwd.cu
+    # dim; flash_attention.cu (mma.sync, bf16 and 3xTF32) and flash_attention_bwd.cu
     # (mma.sync) are on no path now, and their rows carry their forced
     # cases at the training layers)
     named = {c["case"]: c for c in flash}
@@ -5485,12 +5526,19 @@ def run() -> int:
         {**kernel_row("flash_attention_f32_d32", "src/repro/kernels/flash_attention.py:101",
                       named["flash_f32_d32_causal"], cli("flash_attention"),
                       source="flash_attention"),
-         "note": "f32 FMA at head dim 32, writing the log-sum-exp: the train CLI's reduced "
-                 "configs (phase train_cli)"},
+         # the f32 forward in the f32 twins of checks, outside the paths' counts
+         "launches_in_checks": {
+             **{f"{a}:f32_twin": r["f32_twin_flash_launches"]
+                for a, r in record["lm_families"].items()
+                if isinstance(r, dict) and "f32_twin_flash_launches" in r},
+             "small_lm": record["check"]["small_lm"]["flash_launches"]},
+         "note": "f32 at head dim 32 on 3xTF32 mma.sync, writing the log-sum-exp: the train "
+                 "CLI's reduced configs (phase train_cli); bound_ms in 3xTF32 at 495 TFLOP/s, "
+                 "the f32-FMA figure in the case's bound_f32_fma_ms"},
         {**kernel_row("flash_attention_bwd_f32", "src/repro/models/attention.py:81",
                       named_f32_bwd["flash_bwd_f32_d32_causal"], cli("flash_attention_bwd_f32")),
-         "note": "no Pallas kernel: the f32 backward (FMA, D 32 / 64 / 80 / 128) of the train "
-                 "CLI's reduced configs (phase train_cli)"},
+         "note": "no Pallas kernel: the f32 backward (3xTF32 mma.sync, D 32 / 64 / 80 / 128) "
+                 "of the train CLI's reduced configs (phase train_cli); bound_ms in 3xTF32"},
         {**kernel_row("flash_attention_bwd_sm90", "src/repro/models/attention.py:81",
                       named_bwd["flash_bwd_granite_causal"],
                       {k: train_paths[k]["flash_attention_bwd_sm90"] for k in train_paths}),

@@ -7,10 +7,12 @@
                     ``csrc/flash_decode.cu`` (split-KV, bf16 at 64, 80 and
                     128 up to 8 queries, the LM decode step) and
                     ``csrc/flash_attention.cu`` (mma.sync for bf16 at 64 and
-                    80 in between, FMA for f32; on no serving path); all
-                    share ``csrc/flash_common.cuh``; their training
-                    backward ``csrc/flash_attention_bwd_sm90.cu`` (D 64)
-                    and ``csrc/flash_attention_bwd.cu`` (D 80)
+                    80 in between, 3xTF32 mma.sync for f32; on no serving
+                    path); all share ``csrc/flash_common.cuh``; their
+                    training backward ``csrc/flash_attention_bwd_sm90.cu``
+                    (bf16, D 64 and 80), ``csrc/flash_attention_bwd_f32.cu``
+                    (f32, 3xTF32) and ``csrc/flash_attention_bwd.cu``
+                    (mma.sync, on no path)
   latent_blend    — LP's position-aware reconstruction (``csrc/latent_blend.cu``)
   int8_quantize   — per-slab max-abs int8 quantize of wire messages
                     (``csrc/int8_quantize.cu``)

@@ -38,8 +38,11 @@
 // to bf16 in registers for the P.V product, K/V fragments read with
 // ldmatrix, and the next K/V tile loaded by cp.async while the current
 // one is multiplied.  The softmax's elementwise work competes with the
-// mma.sync issue slots, so a tile that needs no mask skips it.  f32
-// runs on a plain FMA kernel (the f32 path is for checks, not serving).
+// mma.sync issue slots, so a tile that needs no mask skips it.  f32 (the
+// reduced configs' training and the checks, not serving) runs the same
+// design on 3xTF32 mma.sync m16n8k8 products (the f32 section below):
+// 2 x 2048 tokens at D 32 take ~2.15 GFLOP over the causal pairs, three
+// TF32 products each, far above the card's operations per byte.
 //
 // Both kernels visit only the key tiles that may hold an attendable pair
 // for the block's queries (flash_common.cuh: live_tiles), judged from the
@@ -53,6 +56,7 @@
 #include <cmath>
 
 #include "flash_common.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -331,134 +335,177 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_bf16_lse(Params p) {
 }
 
 // ----------------------------------------------------------------- f32
-// Four threads per query row, each owning D/4 dims (interleaved by 4 so
-// a quad reads 64 contiguous bytes of a K/V row); dot products are
-// finished with two quad shuffles.  32 rows and 32 keys per tile.  One
-// block's work; kLse: also write each row's log-sum-exp (the f32 training
-// forward's entry, flash_fwd_f32_lse).
+// The bf16 kernel's design with every product in 3xTF32 on mma.sync
+// m16n8k8 (flash_tf32.cuh), each f32 operand split once: Q when the block
+// loads it, K and V as each tile is staged (the thread that copied a chunk
+// with cp.async splits it, then starts the next tile's copy into it, which
+// runs while this tile is multiplied), P in registers.  A block owns T
+// query rows (16 a warp) and walks the live key tiles of T keys (T:
+// f32_tile).  O = P V takes P from the S registers (flash_tf32.cuh:
+// tile_product), each key tile's product into a zeroed accumulator added
+// to the running O with one FFMA that also applies the softmax's rescale
+// (the tensor core's additions do not round to nearest).  The softmax runs
+// in base 2 on unscaled scores, as the bf16 kernel's; a tile that needs no
+// mask skips it.  The q tiles launch longest first (the grid's slowest
+// axis, reversed), so a causal prefill does not end on its longest blocks.
+
+// Rows of a block and keys of a tile: 64 up to D 64, 32 above (shared memory)
+template <int D>
+__host__ __device__ constexpr int f32_tile() { return D <= 64 ? 64 : 32; }
+
+// Q hi / lo, K hi / lo, V hi / lo and the raw K / V stage, each [T][D + 4]
+// f32, then the tiles' key positions [2][T]
+template <int D>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return (8 * f32_tile<D>() * (D + 4) + 2 * f32_tile<D>()) * 4;
+}
+
+// One block's work; kLse: also write each row's log-sum-exp to p.lse (the
+// training forward's entry, flash_fwd_f32_lse).
 template <int D, bool kLse>
 __device__ __forceinline__ void fwd_f32(const Params& p) {
-  constexpr int BM = 32, BN = 32, DT = D / 4, DI = D / 16;
-  static_assert(D % 16 == 0, "float4 groups of 4 lanes x 4 dims");
-  __shared__ __align__(16) float Ks[BN][D];
-  __shared__ __align__(16) float Vs[BN][D];
-  __shared__ int kvp_s[BN];
-  extern __shared__ int live[];  // [ntiles + 3]
+  constexpr int T = f32_tile<D>(), NT = 2 * T, LD = D + 4;
+  constexpr int NB = T / 8, DB = D / 8;  // key blocks of a tile, dim blocks
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(smem);  // [T][LD] each
+  uint32_t* Ql = Qh + T * LD;
+  uint32_t* Kh = Ql + T * LD;
+  uint32_t* Kl = Kh + T * LD;
+  uint32_t* Vh = Kl + T * LD;
+  uint32_t* Vl = Vh + T * LD;
+  float* Kr = reinterpret_cast<float*>(Vl + T * LD);  // the raw stage: Q, then K
+  float* Vr = Kr + T * LD;
+  int* kvp_s = reinterpret_cast<int*>(Vr + T * LD);   // [2][T]
+  int* live = kvp_s + 2 * T;                          // [ntiles + 3]
 
-  const int tid = threadIdx.x, row = tid >> 2, j = tid & 3;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y, qt = gridDim.z - 1 - blockIdx.z;
   const int hk = h / (p.H / p.KV);
   const long long qrs = (long long)p.H * D, kvrs = (long long)p.KV * D;
   const float* Q = static_cast<const float*>(p.q) + (long long)b * p.Sq * qrs + (long long)h * D;
-  const float* Kg = static_cast<const float*>(p.k) + (long long)b * p.Skv * kvrs + (long long)hk * D;
-  const float* Vg = static_cast<const float*>(p.v) + (long long)b * p.Skv * kvrs + (long long)hk * D;
-  const int r = blockIdx.x * BM + row;
-  const bool ok_r = r < p.Sq;
-  const int qp = ok_r ? p.qpos[b * p.qpos_bs + r] : 0;
-
-  float q[DT], acc[DT];
+  const float* Kg =
+      static_cast<const float*>(p.k) + (long long)b * p.Skv * kvrs + (long long)hk * D;
+  const float* Vg =
+      static_cast<const float*>(p.v) + (long long)b * p.Skv * kvrs + (long long)hk * D;
+  const int q0 = qt * T, wr = warp * 16;
+  int row[2], qp[2];
 #pragma unroll
-  for (int i = 0; i < DI; ++i) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ok_r) x = *reinterpret_cast<const float4*>(Q + r * qrs + 16 * i + 4 * j);
-    q[4 * i] = x.x; q[4 * i + 1] = x.y; q[4 * i + 2] = x.z; q[4 * i + 3] = x.w;
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + wr + g + 8 * i;
+    qp[i] = row[i] < p.Sq ? p.qpos[b * p.qpos_bs + row[i]] : 0;
   }
-#pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
 
-  const int ntiles = ntiles_live<BM, BN, 128>(p, b, live);
-  for (int t = 0; t < ntiles; ++t) {
-    const int n0 = (live[t] >> 1) * BN;
-    __syncthreads();
-    for (int i = tid; i < BN * D / 4; i += 128) {
-      const int kr = i / (D / 4), cc = (i % (D / 4)) * 4;
-      const int n = n0 + kr;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (n < p.Skv) {
-        kx = *reinterpret_cast<const float4*>(Kg + n * kvrs + cc);
-        vx = *reinterpret_cast<const float4*>(Vg + n * kvrs + cc);
-      }
-      *reinterpret_cast<float4*>(&Ks[kr][cc]) = kx;
-      *reinterpret_cast<float4*>(&Vs[kr][cc]) = vx;
-    }
-    if (tid < BN) {
+  flash_tf32::stage<D, T, NT>(Kr, Q, qrs, q0, p.Sq, tid);
+  cp_async_commit();
+  const int ntiles = flash::live_tiles<T, T, NT>(p.qpos + b * p.qpos_bs, q0, p.Sq,
+                                                 p.kvpos + b * p.kvpos_bs, p.Skv, p.causal,
+                                                 p.window, live, live + (p.Skv + T - 1) / T);
+  ssd::cp_async_wait_all();
+  flash_tf32::split_staged<D, T, NT>(Kr, Qh, Ql, tid);
+
+  auto load_tile = [&](int t) {
+    const int n0 = (live[t] >> 1) * T;
+    flash_tf32::stage<D, T, NT>(Kr, Kg, kvrs, n0, p.Skv, tid);
+    flash_tf32::stage<D, T, NT>(Vr, Vg, kvrs, n0, p.Skv, tid);
+    if (tid < T) {
       const int n = n0 + tid;
-      kvp_s[tid] = n < p.Skv ? p.kvpos[b * p.kvpos_bs + n] : kPadPos;
+      kvp_s[(t & 1) * T + tid] = n < p.Skv ? p.kvpos[b * p.kvpos_bs + n] : kPadPos;
     }
-    __syncthreads();
+  };
 
-    float s[BN];
-    unsigned okbits = 0u;
-    float mx = m;
+  float o[DB][4];
 #pragma unroll
-    for (int n = 0; n < BN; ++n) {
-      float part = 0.f;
+  for (int db = 0; db < DB; ++db) o[db][0] = o[db][1] = o[db][2] = o[db][3] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  if (ntiles > 0) load_tile(0);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    ssd::cp_async_wait_all();  // this thread's chunks of tile t
+    __syncthreads();           // every warp is done with tile t - 1's split operands
+    flash_tf32::split_staged<D, T, NT>(Kr, Kh, Kl, tid);
+    flash_tf32::split_staged<D, T, NT>(Vr, Vh, Vl, tid);
+    if (t + 1 < ntiles) load_tile(t + 1);  // into the chunks just split
+    cp_async_commit();
+    __syncthreads();
+    const bool full = !(live[t] & 1);
+    const int* kvp = kvp_s + (t & 1) * T;
+
+    // S = Q K^T, this warp's 16 rows x T keys
+    float s[NB][4];
+    flash_tf32::rows_dot<D, NB>(s, Qh, Ql, wr, Kh, Kl, lane);
+
+    // mask, row max (a row's T values live in the 4 lanes of a quad)
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < DI; ++i) {
-        const float4 kx = *reinterpret_cast<const float4*>(&Ks[n][16 * i + 4 * j]);
-        part += q[4 * i] * kx.x + q[4 * i + 1] * kx.y + q[4 * i + 2] * kx.z + q[4 * i + 3] * kx.w;
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const bool ok = attend(qp, kvp_s[n], p.causal, p.window);
-      okbits |= (ok ? 1u : 0u) << n;
-      s[n] = ok ? part * p.scale : kNegInf;
-      mx = fmaxf(mx, s[n]);
-    }
-    const float corr = expf(m - mx);
-    float sum = 0.f;
+    for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
-    for (int n = 0; n < BN; ++n) {
-      s[n] = (okbits >> n) & 1u ? expf(s[n] - mx) : 0.f;
-      sum += s[n];
-    }
-    l = l * corr + sum;
-    m = mx;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int n = 0; n < BN; ++n) {
-#pragma unroll
-      for (int i = 0; i < DI; ++i) {
-        const float4 vx = *reinterpret_cast<const float4*>(&Vs[n][16 * i + 4 * j]);
-        acc[4 * i] += s[n] * vx.x;
-        acc[4 * i + 1] += s[n] * vx.y;
-        acc[4 * i + 2] += s[n] * vx.z;
-        acc[4 * i + 3] += s[n] * vx.w;
+      for (int e = 0; e < 4; ++e) {
+        if (!full && !attend(qp[e >> 1], kvp[nb * 8 + 2 * c + (e & 1)], p.causal, p.window))
+          s[nb][e] = kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
       }
     }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2_approx((m[i] - mx[i]) * sl2);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        s[nb][e] = s[nb][e] > 0.5f * kNegInf ? exp2_approx(fmaf(s[nb][e], sl2, -m[i] * sl2))
+                                             : 0.f;
+        sum[i] += s[nb][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * corr[i] + sum[i];
+    }
+    flash_tf32::tile_product<D, NB>(o, s, Vh, Vl, g, c, corr);  // O = O corr + P V
   }
 
-  if (ok_r) {
-    const float inv = 1.f / fmaxf(l, 1e-37f);
-    float* O = static_cast<float*>(p.out) + (long long)b * p.Sq * qrs + (long long)h * D;
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-37f), 1.f / fmaxf(l[1], 1e-37f)};
+  flash_tf32::store_rows<D>(
+      static_cast<float*>(p.out) + (long long)b * p.Sq * qrs + (long long)h * D, qrs, row, p.Sq,
+      o, inv, c);
+  // log2 units, +inf on a row that attends no key (kernels/ref.py:
+  // flash_attention_lse_ref)
+  if (kLse && c == 0) {
 #pragma unroll
-    for (int i = 0; i < DI; ++i)
-      *reinterpret_cast<float4*>(O + r * qrs + 16 * i + 4 * j) =
-          make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv,
-                      acc[4 * i + 3] * inv);
-    // the scores here are scaled, natural units: log2 units are
-    // m log2(e) + log2(l), +inf on a row that attends no key
-    // (kernels/ref.py: flash_attention_lse_ref)
-    if (kLse && j == 0)
-      p.lse[((long long)b * p.H + h) * p.Sq + r] =
-          l > 0.f ? fmaf(m, kLog2e, __log2f(l)) : INFINITY;
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < p.Sq)
+        p.lse[((long long)b * p.H + h) * p.Sq + row[i]] =
+            l[i] > 0.f ? fmaf(m[i], sl2, __log2f(l[i])) : INFINITY;
   }
 }
 
-// The entry without the log-sum-exp (its code as before the f32 training
-// entry existed).
+// Blocks an SM each entry is built for: without a bound ptxas holds D 80's
+// log-sum-exp entry to 128 registers and spills (and at 168, 6 blocks of 64
+// threads, still does); 4 blocks of 64 threads leave it 255
 template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
+__host__ __device__ constexpr int f32_min_blocks() { return D == 80 ? 4 : 1; }
+
+// The entry without the log-sum-exp.
+template <int D>
+__global__ void __launch_bounds__(2 * f32_tile<D>(), f32_min_blocks<D>()) flash_fwd_f32(Params p) {
   fwd_f32<D, false>(p);
 }
 
-// The f32 training forward's entry.  At least 3 blocks an SM: without that
-// bound ptxas holds the D-80 instantiation to 128 registers and spills.
-constexpr int kF32LseBlocks = 3;
+// The f32 training forward's entry.
 template <int D>
-__global__ void __launch_bounds__(128, kF32LseBlocks) flash_fwd_f32_lse(Params p) {
+__global__ void __launch_bounds__(2 * f32_tile<D>(), f32_min_blocks<D>())
+    flash_fwd_f32_lse(Params p) {
   fwd_f32<D, true>(p);
 }
 
@@ -477,13 +524,16 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t st) {
 
 template <int D>
 cudaError_t launch_f32(const Params& p, cudaStream_t st) {
+  constexpr int T = f32_tile<D>();
   const auto kernel = p.lse != nullptr ? flash_fwd_f32_lse<D> : flash_fwd_f32<D>;
-  const int smem = list_bytes(p.Skv, 32);
+  const int smem = f32_smem_bytes<D>() + list_bytes(p.Skv, T);
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.Sq + 31) / 32, p.H, p.B);
-  kernel<<<grid, 128, smem, st>>>(p);
+  // q tiles on the slowest axis, walked in reverse by the blocks: the
+  // longest causal rows start first
+  const dim3 grid(p.H, p.B, (p.Sq + T - 1) / T);
+  kernel<<<grid, 2 * T, smem, st>>>(p);
   return cudaSuccess;
 }
 

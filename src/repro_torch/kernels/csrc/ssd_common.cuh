@@ -1,7 +1,8 @@
 // What the SSD scan's forward (mamba_ssd.cu) and backward (mamba_ssd_bwd.cu)
 // share: the +-60 clip of the factorized exponents, cp.async copies of f32
 // rows, and the 3xTF32 tensor-core products (the hi / lo split of an f32
-// operand, mma.sync m16n8k8 TF32 and its fragment loads from shared memory).
+// operand, mma.sync m16n8k8 TF32 and its fragment loads from shared memory);
+// the split and the product serve the f32 flash pair too (flash_tf32.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

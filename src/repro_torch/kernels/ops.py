@@ -174,9 +174,10 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     ``csrc/flash_attention_sm90.cu`` (``wgmma`` + TMA) takes bf16 at D 64,
     80 and 128 and any key count: its live-tile lists go to a global buffer
     allocated here.  ``csrc/flash_attention.cu`` takes bf16 at D 64 and 80
-    (``mma.sync``) and f32 at D 32, 64, 80 and 128 (FMA).  Both skip key
-    tiles that hold no attendable pair, and their kernels (bf16 and f32)
-    write the log-sum-exp into a buffer allocated here when asked.
+    (``mma.sync``) and f32 at D 32, 64, 80 and 128 (3xTF32 ``mma.sync``).
+    Both skip key tiles that hold no attendable pair, and their kernels
+    (bf16 and f32) write the log-sum-exp into a buffer allocated here when
+    asked.
     ``csrc/flash_decode.cu`` takes bf16 at D 64, 80 and 128 and any query count
     (rows in passes of 16): ``decode_split`` key splits, their partials in
     a workspace allocated here, merged by the last block of each (batch
@@ -337,8 +338,8 @@ def flash_live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
 
 
 # The backward kernels: csrc/flash_attention_bwd_sm90.cu (wgmma + TMA) at bf16
-# D 64 and 80, csrc/flash_attention_bwd_f32.cu (FMA) at f32 D 32, 64, 80 and 128
-# (the reduced configs' training and the checks), csrc/flash_attention_bwd.cu
+# D 64 and 80, csrc/flash_attention_bwd_f32.cu (3xTF32 mma.sync) at f32 D 32,
+# 64, 80 and 128 (the reduced configs' training and the checks), csrc/flash_attention_bwd.cu
 # (mma.sync) at bf16 D 64 and 80, on no path (reached only through ``kernel=``:
 # the same-run timing twin).
 BWD_KERNELS = ("flash_attention_bwd", "flash_attention_bwd_sm90", "flash_attention_bwd_f32")
@@ -374,9 +375,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_positions, kv_positions, *,
 
     CUDA: ``bwd_kernel(dtype, D)`` names the kernel, or ``kernel`` (one of
     ``BWD_KERNELS``) forces one; it raises on what no kernel takes.  All
-    are deterministic and launch three kernels, counted as one: ``Delta =
-    rowsum(dout o out)`` into an f32 workspace allocated here, then dk and
-    dv per key block, then dq per query block, each reading ``lse``.
+    are deterministic and launch three kernels (the f32 one at D 128 four:
+    dv and dk apart), counted as one: ``Delta = rowsum(dout o out)`` into
+    an f32 workspace allocated here, then dk and dv per key block, then dq
+    per query block, each reading ``lse``.
     """
     _refuse_grad("flash_attention_bwd", q, k, v, out, dout)
     if kernel is not None and kernel not in _BWD_TAKES:
@@ -454,7 +456,7 @@ flash_attention_bwd_sm90.launches = 0
 
 def flash_attention_bwd_f32(q, k, v, out, dout, lse, q_positions, kv_positions, *,
                             causal: bool = True, window: int = 0):
-    """``flash_attention_bwd`` on the f32 FMA kernel
+    """``flash_attention_bwd`` on the f32 3xTF32 kernel
     (``csrc/flash_attention_bwd_f32.cu``): f32 at head dim 32, 64, 80 or
     128; raises on others.  Its ``launches`` count that kernel's launches,
     whichever wrapper made them."""

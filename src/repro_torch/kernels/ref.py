@@ -709,6 +709,98 @@ def tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tens
     return al @ bh + ah @ bl + ah @ bh
 
 
+def flash_f32_tile(head_dim: int) -> int:
+    """The f32 flash kernels' tile (``csrc/flash_attention.cu``: f32_tile,
+    ``csrc/flash_attention_bwd_f32.cu``: tile): the query rows of a block
+    and the keys of a staged tile, 64 up to head dim 64 and 32 above."""
+    return 64 if head_dim <= 64 else 32
+
+
+def flash_f32_bwd_query_tile(head_dim: int) -> int:
+    """The queries of a staged tile in the f32 backward's dK / dV pass
+    (``csrc/flash_attention_bwd_f32.cu``: qtile): 64 at head dim 32, 32 at
+    64 and 80, 16 at 128."""
+    return {32: 64, 128: 16}.get(head_dim, 32)
+
+
+def flash_attention_tf32(q, k, v, q_positions, kv_positions, causal: bool = True,
+                         window: int = 0, passes: int = 3):
+    """The f32 flash kernel's arithmetic on the CPU (``csrc/
+    flash_attention.cu``'s f32 kernel): ``(out, lse)``, the function of
+    ``flash_attention_ref`` and ``flash_attention_lse_ref``.  S = Q K^T in
+    ``tf32_matmul`` of ``passes``; an online softmax in base 2 on unscaled
+    scores over key tiles of ``flash_f32_tile`` keys (masked scores
+    ``NEG_INF``, zero weight); each tile's P split for ``P V`` in
+    ``tf32_matmul`` into a zeroed sum, added to the running output after
+    its rescale; ``out = O / max(l, 1e-37)``, ``lse = m log2(e) / sqrt(D) +
+    log2 l`` (``+inf`` on a row that attends no key).  f32, out in q's
+    dtype."""
+    B, Sq, H, D = q.shape
+    Skv, G = k.shape[1], H // k.shape[2]
+    T = flash_f32_tile(D)
+    sl2 = LOG2E / math.sqrt(D)
+    ok = attention_mask(q_positions, kv_positions, causal, window)[:, None]   # (B, 1, Sq, Skv)
+    qf = q.float().transpose(1, 2)                                            # (B, H, Sq, D)
+    kf = k.float().transpose(1, 2).repeat_interleave(G, 1)                    # (B, H, Skv, D)
+    vf = v.float().transpose(1, 2).repeat_interleave(G, 1)
+    s = torch.where(ok, tf32_matmul(qf, kf.transpose(2, 3), passes), NEG_INF)
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    for a in range(0, Skv, T):
+        st, okt = s[..., a:a + T], ok[..., a:a + T]
+        mx = torch.maximum(m, st.amax(-1))
+        corr = torch.exp2((m - mx) * sl2)
+        p = torch.where(okt, torch.exp2(st * sl2 - (mx * sl2)[..., None]), 0.0)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + tf32_matmul(p, vf[:, :, a:a + T], passes)
+        m = mx
+    out = (o / l.clamp_min(1e-37)[..., None]).transpose(1, 2).to(q.dtype)
+    lse = torch.where(l > 0, m * sl2 + torch.log2(l), math.inf)
+    return out, lse
+
+
+def flash_attention_bwd_tf32(q, k, v, out, dout, lse, q_positions, kv_positions,
+                             causal: bool = True, window: int = 0, passes: int = 3):
+    """The f32 flash backward's arithmetic on the CPU (``csrc/
+    flash_attention_bwd_f32.cu``): ``(dq, dk, dv)``, the function of
+    ``flash_attention_bwd_ref``, with P from the forward's log-sum-exp
+    ``lse`` (``exp2(s log2(e) / sqrt(D) - lse)``, zero where masked),
+    ``Delta = rowsum(dO o O)`` in f32, and every product (S = Q K^T, dP = dO
+    V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K) in ``tf32_matmul`` of
+    ``passes``; dV and dK summed over the G heads of a group in order and,
+    for each, its query tiles of ``flash_f32_bwd_query_tile`` rows, dQ over
+    key tiles of ``flash_f32_tile`` keys, each tile's product added in f32.
+    Results in the dtypes of q, k and v."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G, T, TQ = H // KV, flash_f32_tile(D), flash_f32_bwd_query_tile(D)
+    scale = 1.0 / math.sqrt(D)
+    ok = attention_mask(q_positions, kv_positions, causal, window)[:, None]
+    qf, dof, of = (t.float().transpose(1, 2) for t in (q, dout, out))         # (B, H, Sq, D)
+    kf = k.float().transpose(1, 2).repeat_interleave(G, 1)                    # (B, H, Skv, D)
+    vf = v.float().transpose(1, 2).repeat_interleave(G, 1)
+    delta = (dof * of).sum(-1, keepdim=True)
+    s = tf32_matmul(qf, kf.transpose(2, 3), passes)
+    p = torch.where(ok, torch.exp2(s * (LOG2E * scale) - lse.float()[..., None]), 0.0)
+    ds = p * (tf32_matmul(dof, vf.transpose(2, 3), passes) - delta)
+    dq = torch.zeros_like(qf)
+    for a in range(0, Skv, T):
+        dq = dq + tf32_matmul(ds[..., a:a + T], kf[:, :, a:a + T], passes)
+    dk = torch.zeros((B, KV, Skv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    grouped = [t.reshape((B, KV, G) + t.shape[2:]) for t in (p, ds, qf, dof)]
+    for hh in range(G):
+        pg, dsg, qg, dog = (t[:, :, hh] for t in grouped)
+        for a in range(0, Sq, TQ):
+            dv = dv + tf32_matmul(pg[..., a:a + TQ, :].transpose(2, 3), dog[:, :, a:a + TQ],
+                                  passes)
+            dk = dk + tf32_matmul(dsg[..., a:a + TQ, :].transpose(2, 3), qg[:, :, a:a + TQ],
+                                  passes)
+    return ((dq * scale).transpose(1, 2).to(q.dtype), (dk * scale).transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
 def mamba_ssd_tf32(x, log_decay, scale, B, C, chunk: int = 64,
                    passes: int = 3) -> torch.Tensor:
     """The ``mamba_ssd`` kernel's arithmetic on the CPU: the function of

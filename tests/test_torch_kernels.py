@@ -498,7 +498,7 @@ def test_flash_live_tiles_on_the_cpu_is_the_plain_version():
     (torch.bfloat16, 64, 128, "flash_attention_sm90"),
     (torch.bfloat16, 64, 127, "flash_attention"),
     (torch.float32, 80, 1, "flash_attention"),
-    (torch.float32, 128, 4096, "flash_attention"),          # f32: the FMA kernel
+    (torch.float32, 128, 4096, "flash_attention"),          # f32: the 3xTF32 kernel
     (torch.float32, 80, 4096, "flash_attention"),
 ])
 def test_flash_kernel_dispatch_rule(dtype, D, q_len, kernel):
@@ -539,7 +539,7 @@ def test_flash_attention_refuses_a_kernel_not_built_for_the_inputs(kernel, dtype
 def test_backward_routing_by_head_dim(dtype, D, kernel):
     """bf16 at D 64 (granite) and D 80 (Zamba2) go to the wgmma + TMA
     backward (the mma.sync one is reached only by ``kernel=``, as a timing
-    twin), f32 at D 32 (the reduced configs'), 64, 80 and 128 to the FMA
+    twin), f32 at D 32 (the reduced configs'), 64, 80 and 128 to the 3xTF32
     backward, and no backward takes the rest (the autograd route raises for
     them on the card before any launch); a forced kernel must be one of
     ``BWD_KERNELS``."""
@@ -764,6 +764,104 @@ def test_split_tf32_recovers_the_f32_operand():
     err = (hi.double() + lo.double() - v.double()).abs()
     assert bool((err <= 2.0 ** -22 * v.double().abs()).all())
     assert not bool(((hi.double() - v.double()).abs() <= 2.0 ** -22 * v.double().abs()).all())
+
+
+# the f32 flash pair's stated limits on the card (chip_smoke.py: FLASH_F32_TOL,
+# LSE_F32_TOL, FLASH_BWD_F32_TOL), |kernel - reference| <= atol + rtol |reference|
+FLASH_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+LSE_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+FLASH_BWD_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+TF32_FLASH_CASES = {
+    # B, Sq, Skv, H, KV, D, causal, window, padded keys, kv_len
+    "d32_causal_gqa": (2, 100, 150, 4, 2, 32, True, 0, 0, False),
+    "d32_window16": (2, 90, 130, 4, 4, 32, True, 16, 0, False),
+    "d32_padded_kv_len": (2, 70, 140, 4, 2, 32, False, 0, 6, True),
+    "d80_causal": (1, 80, 110, 4, 2, 80, True, 0, 0, False),
+}
+
+
+def _tf32_flash_inputs(case):
+    """numpy inputs of a TF32_FLASH_CASES case, the positions with kv_len
+    folded in (as ``ops.flash_attention`` folds it), and the JAX reference's
+    kwargs."""
+    B, Sq, Skv, H, KV, D, causal, window, pad, use_len = TF32_FLASH_CASES[case]
+    q, k, v, qp, kp, lens = _qkv(B, Sq, Skv, H, KV, D, seed=Sq + D)
+    if pad:
+        kp[:, -pad:] = ref.INT32_MAX
+    kv_len = lens if use_len else None
+    kp_eff = kp if kv_len is None else np.where(kp < kv_len[:, None], kp, ref.INT32_MAX)
+    return (q, k, v, qp, kp, kp_eff.astype(np.int32), causal, window, kv_len)
+
+
+def _share(got, want, tol):
+    return float(np.max(np.abs(got - want) / (tol["atol"] + tol["rtol"] * np.abs(want))))
+
+
+@pytest.mark.parametrize("case", sorted(TF32_FLASH_CASES))
+def test_flash_attention_tf32_emulation_matches_jax(case):
+    """The f32 flash kernel's 3xTF32 arithmetic (``ref.flash_attention_tf32``:
+    key tiles of the kernel's width, P split for P.V, each tile's product
+    added in f32) within ``FLASH_F32_TOL`` of the Pallas kernel in interpret
+    mode and of ``attention_dense``, its log-sum-exp within ``LSE_F32_TOL``
+    of ``jax.nn.logsumexp`` of the reference's masked scores (times
+    log2(e)); one TF32 pass's share of the limit is printed, not
+    asserted."""
+    import jax
+
+    q, k, v, qp, kp, kp_eff, causal, window, kv_len = _tf32_flash_inputs(case)
+    jl = None if kv_len is None else jnp.asarray(kv_len)
+    pallas = np.asarray(jops.flash_attention(*map(jnp.asarray, (q, k, v, qp, kp)), causal=causal,
+                                             window=window, kv_len=jl, interpret=True))
+    dense = np.asarray(jattn.attention_dense(*map(jnp.asarray, (q, k, v, qp, kp)), causal,
+                                             window, jl))
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    s = jnp.einsum("bqkgd,bskd->bkgqs", jnp.asarray(q).reshape(B, Sq, KV, H // KV, D),
+                   jnp.asarray(k)) / np.sqrt(D)
+    s = s + jattn._mask_bias(jnp.asarray(qp), jnp.asarray(kp), causal, window, jl)[:, None, None]
+    want_lse = np.asarray(jax.nn.logsumexp(s, axis=-1)).reshape(B, H, Sq) * np.log2(np.e)
+    targs = _t(q, k, v, qp, kp_eff)
+    out, lse = ref.flash_attention_tf32(*targs, causal, window)
+    assert out.shape == q.shape and out.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    for want in (pallas, dense):
+        np.testing.assert_allclose(out.numpy(), want, **FLASH_F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, **LSE_F32_TOL)
+    one, _ = ref.flash_attention_tf32(*targs, causal, window, passes=1)
+    print(f"{case}: 1xTF32 share of the limit {_share(one.numpy(), dense, FLASH_F32_TOL):.3g}; "
+          f"3xTF32 {_share(out.numpy(), dense, FLASH_F32_TOL):.3g}")
+
+
+@pytest.mark.parametrize("case", sorted(TF32_FLASH_CASES))
+def test_flash_attention_bwd_tf32_emulation_matches_jax_vjp(case):
+    """The f32 flash backward's 3xTF32 arithmetic (``ref.
+    flash_attention_bwd_tf32``, fed ``ref.flash_attention_tf32``'s output
+    and log-sum-exp as the kernel is fed the forward kernel's) within
+    ``FLASH_BWD_F32_TOL`` of ``jax.vjp`` of ``attention_dense``, each of dq,
+    dk and dv; one TF32 pass's share of the limit is printed, not
+    asserted."""
+    import jax
+
+    q, k, v, qp, kp, kp_eff, causal, window, kv_len = _tf32_flash_inputs(case)
+    jl = None if kv_len is None else jnp.asarray(kv_len)
+    dout = np.random.default_rng(7).normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jattn.attention_dense(a, b, c, jnp.asarray(qp),
+                                                           jnp.asarray(kp), causal, window, jl),
+                     *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    tq, tk, tv, tqp, tkp = _t(q, k, v, qp, kp_eff)
+    out, lse = ref.flash_attention_tf32(tq, tk, tv, tqp, tkp, causal, window)
+    grads = ref.flash_attention_bwd_tf32(tq, tk, tv, out, torch.from_numpy(dout), lse, tqp, tkp,
+                                         causal, window)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **FLASH_BWD_F32_TOL)
+    one = ref.flash_attention_bwd_tf32(tq, tk, tv, out, torch.from_numpy(dout), lse, tqp, tkp,
+                                       causal, window, passes=1)
+    print(f"{case}: 1xTF32 share of the limit "
+          + ", ".join(f"{n} {_share(g.numpy(), w, FLASH_BWD_F32_TOL):.3g}"
+                      for n, g, w in zip(("dq", "dk", "dv"), one, want))
+          + "; 3xTF32 " + ", ".join(f"{n} {_share(g.numpy(), w, FLASH_BWD_F32_TOL):.3g}"
+                                    for n, g, w in zip(("dq", "dk", "dv"), grads, want)))
 
 
 SSD_TOL = dict(rtol=5e-4, atol=5e-4)   # the reference's own SSD tolerance

@@ -26,7 +26,8 @@ bf16 for the products that take them, f32 sums, the bf16 results); each
 forward's log-sum-exp within ``ref.flash_lse_tolerance`` (its scores' f32
 sums, its online sum of approximate exp2 terms and their f32 arguments);
 the f32 flash forward (D 32 included), its log-sum-exp and the f32
-backward 1e-4 + 1e-4 |plain| (summation order only); mamba_ssd_wide_bwd
+backward 1e-4 + 1e-4 |plain| (3xTF32 products, which drop only lo.lo,
+and f32 sums in another order); mamba_ssd_wide_bwd
 as mamba_ssd_bwd, against the plain backward in float64; the train CLI's
 losses card against CPU from the same weights 1e-4 relative.
 """
@@ -115,7 +116,7 @@ def _flash_checked(q, k, v, qp, kp, causal, window, kv_len=None, kernel=None):
 # (kernel, dtype, head dim): bf16 at D 128, 80 and 64 on the wgmma kernel,
 # bf16 at D 80 (Zamba2) on mma.sync too, bf16 at D 80, 64 and 128 on the
 # split-KV decode kernel (the LM decode steps; forced here at any query
-# count), f32 on the FMA kernel of flash_attention.cu
+# count), f32 on the 3xTF32 kernel of flash_attention.cu
 KERNEL_CASES = [("flash_attention_sm90", torch.bfloat16, 128),
                 ("flash_attention_sm90", torch.bfloat16, 80),
                 ("flash_attention_sm90", torch.bfloat16, 64),
@@ -1259,6 +1260,8 @@ F32_CASES = [
     (1, 200, 333, 8, 2, 64, True, 96, 5),           # the other head dims of the f32 kernels
     (1, 130, 150, 4, 2, 80, True, 0, 3),
     (1, 100, 120, 4, 4, 128, False, 0, 0),
+    (2, 512, 512, 32, 32, 80, True, 0, 0),          # Zamba2's heads in f32, causal
+    (2, 2048, 2048, 4, 4, 32, True, 0, 0),          # the CLI's layer at a training length
 ]
 
 
@@ -1269,8 +1272,8 @@ def test_f32_flash_forward_and_backward_match_plain(cuda_device, case):
     1e-4 + 1e-4 |plain| of ``ref.flash_attention_ref``, its log-sum-exp
     within 1e-4 + 1e-4 |plain| of ``ref.flash_attention_lse_ref`` (+inf on
     exactly the rows with no key), the backward within 1e-4 + 1e-4 |plain|
-    of ``ref.flash_attention_bwd_ref`` (f32 throughout: summation order
-    only), two backward calls bit-equal; one launch each of
+    of ``ref.flash_attention_bwd_ref`` (3xTF32 products, f32 sums in
+    another order), two backward calls bit-equal; one launch each of
     flash_attention and flash_attention_bwd_f32."""
     B, Sq, Skv, H, KV, D, causal, window, pad = case
     q, k, v, qp, kp, _ = _inputs(B, Sq, Skv, H, KV, D, seed=3)

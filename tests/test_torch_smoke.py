@@ -393,6 +393,26 @@ def test_every_mutant_finds_its_source_text_once(smoke, table):
 
 
 
+def test_flash_mutant_builds_copy_every_header_their_sources_include(smoke):
+    """A broken copy of a flash source is built in a directory that holds
+    only the files ``chip_smoke.py`` copies there: every header that a
+    flash source includes, and the headers those include, are in
+    ``FLASH_HEADERS``."""
+    import re
+
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+
+    def headers(name, seen):
+        for inc in re.findall(r'#include "([^"]+)"', (csrc / name).read_text()):
+            if inc not in seen:
+                seen.add(inc)
+                headers(inc, seen)
+        return seen
+
+    for src in sorted(csrc.glob("flash_*.cu")):
+        assert headers(src.name, set()) <= set(smoke.FLASH_HEADERS), src.name
+
+
 def test_family_runs_cover_the_configs_at_their_widths(smoke):
     """Phase lm_families' configs: each at its published widths, the depth
     cut only for llama3 and llama4; every decode stays inside its cache;
