@@ -110,12 +110,13 @@ Phases, one line each (any failed check exits non-zero):
                ref.flash_attention_bwd_ref, two calls bit-equal;
                mamba_ssd_wide_bwd.cu at the xLSTM training microbatch's
                value scan (2 x 2048, 4 heads x 1024, state 1024, chunk
-               128) and normaliser (p = 1) and a steep ragged case with g
-               < h, against ref.ssd_scan_bwd in float64, two calls
-               bit-equal; six broken copies of the f32 pair (one TF32
-               pass in each among them) and three of the wide backward,
-               built while the cases run, must each fail the case named
-               for it.
+               128) and normaliser (p = 1), a steep ragged case with g
+               < h and the train CLI's reduced shape, against
+               ref.ssd_scan_bwd in float64, two calls bit-equal, also
+               timed without dx; six broken copies of the f32 pair (one
+               TF32 pass in each among them) and seven of the wide
+               backward (one TF32 pass among them), built while the
+               cases run, must each fail the case named for it.
   3. serve   — LPServingEngine on the full-width wan21-dit-1.3b (bf16,
                random weights), K=4, r=0.5, 4 steps (dims T, H, W, T),
                3 requests at latent (13, 30, 52) in two batches; launch
@@ -242,9 +243,9 @@ Phases, one line each (any failed check exits non-zero):
                (``--train-drill moe``, bit-equal).  (f) xlstm-1.3b at its
                published widths and depth (48 blocks, bf16, random
                weights) on XLSTM_TRAIN_B x XLSTM_TRAIN_S tokens in one
-               microbatch, remat, AdamW: a warm-up step, 2 timed steps
-               (168 mamba_ssd_wide and 84 mamba_ssd_wide_bwd launches a
-               step, nothing else), one profiled; no drill.
+               microbatch, remat, AdamW: a warm-up step, a timed step
+               (168 mamba_ssd_wide and 84 mamba_ssd_wide_bwd launches,
+               nothing else), one profiled; no drill.
   7d. train_cli — launch.train.main --device cuda with the arguments of
                test_torch_checkpoint.py::test_train_cli_on_the_cpu for
                granite-3-2b, h2o-danube-1.8b, granite-moe-3b-a800m,
@@ -632,34 +633,66 @@ F32_MUTANT_CATCHER = {"lse_f32:no_log_sum": "flash_bwd_f32_d32_causal",
                       "bwd_f32:dq_unscaled": "flash_bwd_f32_d32_window16",
                       "bwd_f32:one_pass_tf32": "flash_bwd_f32_d32_causal"}
 WIDE_BWD_TOL = SSD_BWD_TOL          # each gradient: 1e-4 (max|plain| + |plain|), plain in f64
-WIDE_BWD_SPLIT = ("six launches: the Gram and decay scalars per (chunk, batch, group); dS swept "
-                  "over the chunks in reverse per (batch, head, 64 x 64 tile of n x p); the "
-                  "Q x Q terms per (batch, chunk, head); dx per (batch, chunk, head, 64 columns "
-                  "of p); dB and dC per (batch, chunk, group, 64 columns of n), the heads in "
-                  "order; the scalars' chain a warp per (batch, chunk, head)")
-WIDE_BWD_PARTS = ("prep", "sweep", "qq", "dx", "dbc", "chain")
-# broken copies of mamba_ssd_wide_bwd.cu: each must fail the case named for it
+WIDE_BWD_SPLIT = ("five launches: the Gram and decay scalars per (chunk, batch, group); the "
+                  "Q x Q terms and the in-chunk term A2^T dy of dx per (batch, chunk, head); "
+                  "dS swept over the chunks in reverse on wgmma by a cluster of ceil(n / 128) "
+                  "blocks per (batch, head, 128 columns of p), each block a 128 x 128 slice of "
+                  "dS in registers, writing dS once and adding z (B dS) to dx, the cluster's "
+                  "partials summed through distributed shared memory (p <= 4: the narrow "
+                  "launch, f32 FMA); dB and dC on wgmma per (batch, chunk, group, 64 columns "
+                  "of n), the heads in order; the scalars' chain a warp per (batch, chunk, "
+                  "head); past n = 1024 a sixth adds the clusters' shares of dx")
+WIDE_BWD_PARTS = ("prep", "qq", "sweep", "narrow", "sum", "dbc", "chain")
+# broken copies of mamba_ssd_wide_bwd.cu (and of the header it shares): each
+# must fail the case named for it
 WIDE_BWD_MUTANTS = {
     # dS carried to the chunk before without exp(total)
-    "carry_not_decayed": ("mamba_ssd_wide_bwd.cu", "S[c][e] = et * S[c][e] + acc[c][e];",
-                          "S[c][e] = S[c][e] + acc[c][e];"),
+    "carry_not_decayed": ("mamba_ssd_wide_bwd.cu", "for (int e = 0; e < 64; ++e) S[e] *= et;",
+                          "for (int e = 0; e < 64; ++e) S[e] *= 1.f;"),
     # the clip's gradient mask dropped
     "clip_mask_dropped": ("mamba_ssd_wide_bwd.cu", "so[kMA * Q + j] = in_clip(ea);",
                           "so[kMA * Q + j] = 1.f;"),
     # dB and dC from the first head of each group only
-    "group_sum_first_head": ("mamba_ssd_wide_bwd.cu", "for (int r = 0; r < rep; ++r) {",
-                             "for (int r = 0; r < 1; ++r) {"),
+    "group_sum_first_head": ("mamba_ssd_wide_bwd.cu", "k.nsteps = rep * k.per;",
+                             "k.nsteps = k.per;"),
+    # the cluster's sum of B dS for dx leaves out the last block's partial
+    "dx_drops_a_cluster_partial": ("mamba_ssd_wide_bwd.cu",
+                                   "r < k.nranks ? ld_cluster4(la, r)",
+                                   "r < k.nranks - 1 ? ld_cluster4(la, r)"),
+    # dS for dB written at the chunk's slabs, after the chunk's own term
+    # began to be added to it
+    "dS_written_after_update": ("mamba_ssd_wide_bwd.cu",
+                                "    const int g0 = j * 4 / nio, g1 = (j + 1) * 4 / nio;\n"
+                                "    const bool io = j < nio && live,",
+                                "    const int g0 = (j - k.spc + nio) * 4 / nio,"
+                                " g1 = (j - k.spc + nio + 1) * 4 / nio;\n"
+                                "    const bool io = j >= k.spc - nio && live,"),
+    # 1xTF32: every operand's low half zero, so each product is hi.hi alone
+    # (the header the backward shares, built into the backward only)
+    "one_pass_tf32": ("ssd_common.cuh",
+                      "lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;", "lo = 0u;"),
+    # the narrow launch (p <= 4): its cluster's sum of B dS leaves out the
+    # last block's partial
+    "narrow_drops_a_partial": ("mamba_ssd_wide_bwd.cu", "if (r < k.nranks) sum += vr[r];",
+                               "if (r < k.nranks - 1) sum += vr[r];"),
 }
 WIDE_BWD_MUTANT_CATCHER = {"carry_not_decayed": "mamba_ssd_wide_bwd_train_value",
                            "clip_mask_dropped": "mamba_ssd_wide_bwd_steep_g2",
-                           "group_sum_first_head": "mamba_ssd_wide_bwd_steep_g2"}
+                           "group_sum_first_head": "mamba_ssd_wide_bwd_steep_g2",
+                           "dx_drops_a_cluster_partial": "mamba_ssd_wide_bwd_steep_g2",
+                           "dS_written_after_update": "mamba_ssd_wide_bwd_steep_g2",
+                           "one_pass_tf32": "mamba_ssd_wide_bwd_train_value",
+                           "narrow_drops_a_partial": "mamba_ssd_wide_bwd_train_normaliser"}
+# the headers mamba_ssd_wide.cu and mamba_ssd_wide_bwd.cu include
+WIDE_HEADERS = ("ssd_common.cuh", "ssd_wgmma.cuh")
 # phase train (f): xlstm-1.3b at its published widths and depth, remat,
-# AdamW, one warm-up and two timed steps on 2 x 2048 tokens in one
-# microbatch (the sLSTM's token loop paces the host: ~3 ms a token and
-# sLSTM layer under remat)
+# AdamW, one warm-up and one timed step on 2 x 2048 tokens in one
+# microbatch, the kernel cases' shape (the sLSTM's token loop paces the
+# host: ~3 ms a token and sLSTM layer under remat, 34-54 s a step, so one
+# timed step keeps the smoke inside its time limit)
 XLSTM_TRAIN_B, XLSTM_TRAIN_S = 2, 2048
 XLSTM_TRAIN_PARALLEL = dict(remat="full", microbatch=1, optimizer="adamw")
-XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_STEPS = 1
 # phase train_cli: launch.train.main on the card with the arguments of
 # tests/test_torch_checkpoint.py::test_train_cli_on_the_cpu, one arch of each
 # family, against the same run on the CPU from the same weights
@@ -713,8 +746,10 @@ def device_ms(fn, reps: int, cold_l2: bool = False):
     calls time the host.  ``cold_l2``: before each call, 64 MB written
     outside ``fn`` evict its inputs from the 50 MB L2 (that fill kernel is
     not counted), so a call reads them from device memory.  The profiler
-    now and then drops kernel records (after a long traced window, one
-    call's worth), which reads low: a window that holds other than
+    now and then drops kernel records (a window's first, or after a long
+    traced window one call's worth), which reads low: each window opens
+    with a marker kernel (``MARKER_KERNEL``, not counted), and a window
+    that holds other than
     ``reps`` times the kernels of one profiled call is taken again (3
     tries), and one still short gives no number: None, reported on a line
     of its own (``timed_case`` flags the case).  A window with no device
@@ -725,13 +760,14 @@ def device_ms(fn, reps: int, cold_l2: bool = False):
 
     def profiled(n):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for _ in range(n):
                 if cold_l2:
                     flush.fill_(1)
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not (cold_l2 and "fill" in e.key.lower())]
+              and MARKER_KERNEL not in e.key and not (cold_l2 and "fill" in e.key.lower())]
         return sum(e.count for e in ev), sum(e.self_device_time_total for e in ev)
 
     fn()
@@ -1427,7 +1463,7 @@ def wide_mutants(kept):
     from repro_torch.kernels import build, ops
 
     tmp, built = build_mutants("mamba_ssd_wide_mutants_", WIDE_MUTANTS,
-                               ("mamba_ssd_wide.cu", "ssd_common.cuh"),
+                               ("mamba_ssd_wide.cu", *WIDE_HEADERS),
                                {m: ("mamba_ssd_wide",) for m in WIDE_MUTANTS})
     try:
         before, caught = ops.mamba_ssd_wide.launches, {}
@@ -1472,6 +1508,14 @@ def wide_bwd_work(b, s, h, g, p, n, chunk):
     return macs, nbytes
 
 
+def wide_bwd_parts(p, n):
+    """The kernel names of mamba_ssd_wide_bwd's launches at p and n: the
+    prep, qq, the sweep (or, for p <= 4, the narrow launch), past n = 1024
+    the clusters' sum, dbc and the chain."""
+    skip = {"narrow" if p > 4 else "sweep"} | (set() if n > 1024 else {"sum"})
+    return [part for part in WIDE_BWD_PARTS if part not in skip]
+
+
 def wide_bwd_agrees(got, plain):
     """Each gradient of ``mamba_ssd_wide_bwd`` against its plain version in
     float64: (max abs err, largest share of the limit ``WIDE_BWD_TOL
@@ -1489,10 +1533,11 @@ def wide_bwd_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=3):
     """``mamba_ssd_wide_bwd`` against ``ref.ssd_scan_bwd`` evaluated in float64
     on the same inputs (the states from ``mamba_ssd_wide(...,
     return_states=True)``, a random output gradient), within WIDE_BWD_TOL, two
-    calls bit-equal; the kernel's time by events and its six launches' by
-    the profiler, the plain version's (f32, on the card) by events, the
-    bound.  Returns the record and (name, inputs, plain gradients, chunk)
-    for the mutation checks."""
+    calls bit-equal; the kernel's time by events (also with ``need_dx=False``,
+    as the normaliser's gradient runs) and its launches' by the profiler,
+    the plain version's (f32, on the card) by events, the bound.  Returns
+    the record and (name, inputs, plain gradients, chunk) for the mutation
+    checks."""
     import torch
     from repro_torch.kernels import ops, ref
 
@@ -1514,9 +1559,11 @@ def wide_bwd_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=3):
           f"{name}: two calls of mamba_ssd_wide_bwd differ (it must be deterministic)")
     del again
     kernel_ms = time_ms(lambda: ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk), reps)
+    no_dx_ms = time_ms(lambda: ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk,
+                                                      need_dx=False), reps)
     plain_ms = time_ms(lambda: ref.ssd_scan_bwd(*args, dy, chunk), 1)
     parts = profiled_parts(lambda: ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk),
-                           [f"mamba_ssd_wide_bwd_{part}" for part in WIDE_BWD_PARTS])
+                           [f"mamba_ssd_wide_bwd_{part}" for part in wide_bwd_parts(p, n)])
     parts = {k[len("mamba_ssd_wide_bwd_"):]: v for k, v in parts.items()}
     for k, v in before.items():                # comparison launches do not count
         ops.WRAPPERS[k].launches = v
@@ -1526,7 +1573,8 @@ def wide_bwd_case(name, b, s, h, g, p, n, chunk, seed, steep=False, reps=3):
         "case": name, "kernel": "mamba_ssd_wide_bwd", "shape": [b, s, h, g, p, n],
         "chunk": chunk, "steep": steep, "max_abs_err": err,
         "tol": f"{WIDE_BWD_TOL} (max|plain| + |plain|) per gradient, plain in float64",
-        "err_share_of_limit": share, "parts_ms": parts, "ms": kernel_ms, "plain_ms": plain_ms,
+        "err_share_of_limit": share, "parts_ms": parts, "ms": kernel_ms, "no_dx_ms": no_dx_ms,
+        "earlier_ms": EARLIER_MS.get(name), "plain_ms": plain_ms,
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "tflops": 2.0 * macs / kernel_ms / 1e9, "profiler_short": False,
     }, (name, (*args, dy, states), plain, chunk)
@@ -4731,7 +4779,7 @@ def run() -> int:
         FLASH_HEADERS + ("flash_attention.cu", "flash_attention_bwd_f32.cu"), F32_MUTANT_LIBS)
     wide_bwd_mutant_builds = start_mutant_builds(
         "mamba_ssd_wide_bwd_mutants_", WIDE_BWD_MUTANTS, ("mamba_ssd_wide_bwd.cu",
-                                                          "ssd_common.cuh"),
+                                                          *WIDE_HEADERS),
         {m: ("mamba_ssd_wide_bwd",) for m in WIDE_BWD_MUTANTS})
 
     # ----------------------------------------------------------- 2. kernels
@@ -5050,14 +5098,17 @@ def run() -> int:
         wide_kept.append(kept)
     # the grouped scan's backward (mamba_ssd_wide_bwd.cu): phase train (f)'s
     # microbatch of 2 x 2048, its value scan (4 heads x 1024, state 1024,
-    # chunk 128: g = h) and its normaliser (p = 1), and a small steep ragged
-    # case with g < h; each against the plain backward in float64
+    # chunk 128: g = h) and its normaliser (p = 1), a small steep ragged
+    # case with g < h, and the reduced xlstm-1.3b the train CLI trains (2 x
+    # 16 tokens, 2 heads, p = n = 128: a cluster of one block); each against
+    # the plain backward in float64
     wide_bwd, wide_bwd_kept = [], []
     for args in (("mamba_ssd_wide_bwd_train_value", 2, 2048, xcfg.num_heads, xcfg.num_heads,
                   xdh, xdh, 128, 31),
                  ("mamba_ssd_wide_bwd_train_normaliser", 2, 2048, xcfg.num_heads,
                   xcfg.num_heads, 1, xdh, 128, 32),
-                 ("mamba_ssd_wide_bwd_steep_g2", 1, 1000, 4, 2, 256, 256, 128, 33, True)):
+                 ("mamba_ssd_wide_bwd_steep_g2", 1, 1000, 4, 2, 256, 256, 128, 33, True),
+                 ("mamba_ssd_wide_bwd_train_cli_reduced", 2, 16, 2, 2, 128, 128, 128, 34)):
         rec, kept = wide_bwd_case(*args)
         wide_bwd.append(rec)
         wide_bwd_kept.append(kept)
@@ -5078,6 +5129,8 @@ def run() -> int:
                         + ",".join(f"{k}:{num(v)}" for k, v in c["parts_ms"].items()))
         elif "parts_ms" in c:
             earlier += " parts_ms=" + ",".join(f"{k}:{num(v)}" for k, v in c["parts_ms"].items())
+        if "no_dx_ms" in c:
+            earlier += f" no_dx_ms={num(c['no_dx_ms'])}"
         if "bf16_out_ms" in c:
             earlier += f" bf16_out_ms={num(c['bf16_out_ms'], '.5f')}"
         if "yardstick_ms" in c:

@@ -132,9 +132,9 @@ _SIGNATURES = {
         "mamba_ssd_wide_error_string": ([_I], ctypes.c_char_p),
     },
     "mamba_ssd_wide_bwd": {
-        # x, log_decay, scale, B, C, dy, states, dx, dlog_decay, dscale, dB, dC,
-        # scratch, b, s, h, g, p, n, chunk, stream
-        "mamba_ssd_wide_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
+        # x, log_decay, scale, B, C, dy, states, dx (null without dx), dlog_decay,
+        # dscale, dB, dC, scratch, b, s, h, g, p, n, chunk, need_dx, stream
+        "mamba_ssd_wide_bwd": ([_P] * 13 + [_I] * 8 + [_P], _I),
         # b, s, h, g, p, n, chunk -> bytes of scratch (dS and the chunk-local
         # terms), 0 for a shape it does not take
         "mamba_ssd_wide_bwd_scratch_bytes": ([_I] * 7, _L),

@@ -912,7 +912,7 @@ mamba_ssd_wide.launches = 0
 
 def mamba_ssd_wide_bwd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Tensor,
                        B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
-                       states: torch.Tensor, chunk: int = 128):
+                       states: torch.Tensor, chunk: int = 128, need_dx: bool = True):
     """Gradients ``(dx, dlog_decay, dscale, dB, dC)`` of ``mamba_ssd_wide``
     at its inputs for the output gradient ``dy`` ``(b, s, h, p)``; ``states``
     are the forward's (``mamba_ssd_wide(..., return_states=True)``).  f32,
@@ -920,20 +920,26 @@ def mamba_ssd_wide_bwd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Te
     group's heads in head order.  The function differentiated is autograd's
     of ``ref.ssd_scan`` (the clip passes no gradient where it bites, the
     centre passes its share to the tied extremes, the padding of a ragged
-    chunk takes none).  On CPU tensors the plain ``ref.ssd_scan_bwd``, which
-    derives the states itself (``states`` may be None there).
+    chunk takes none).  ``need_dx=False`` returns None for dx and skips its
+    work (the other four are bit-equal either way).  On CPU tensors the
+    plain ``ref.ssd_scan_bwd``, which derives the states itself (``states``
+    may be None there).
 
     CUDA: ``csrc/mamba_ssd_wide_bwd.cu`` (3xTF32 tensor-core products),
-    deterministic, every shape ``mamba_ssd_wide`` takes: six launches,
-    counted as one (the Gram and the decay scalars; the sweep of dS over the
-    chunks in reverse; the chunk-local Q x Q terms; dx; dB and dC per group;
-    the scalars' chain), with a scratch buffer allocated here
+    deterministic, every shape ``mamba_ssd_wide`` takes: five launches,
+    counted as one (the Gram and the decay scalars; the chunk-local Q x Q
+    terms, and in blocks beside them the in-chunk term of dx; the sweep of
+    dS over the chunks in reverse, clusters of ceil(n / 128) blocks holding
+    it on chip and adding z (B dS) to dx, or for p <= 4 the narrow f32
+    launch; dB and dC per group; the scalars' chain; past n = 1024 a sixth
+    adds the clusters' shares of dx), with a scratch buffer allocated here
     (``mamba_ssd_wide_bwd_scratch_bytes``, dS the bulk of it: the size of
     the states).
     """
     _refuse_grad("mamba_ssd_wide_bwd", x, log_decay, scale, B, C, dy)
     if x.device.type == "cpu":
-        return ref.ssd_scan_bwd(x, log_decay, scale, B, C, dy, chunk)
+        grads = ref.ssd_scan_bwd(x, log_decay, scale, B, C, dy, chunk)
+        return grads if need_dx else (None, *grads[1:])
     if x.device.type != "cuda":
         raise ValueError(f"mamba_ssd_wide_bwd: no kernel for device {x.device}")
     b, s, h, g, p, n = _wide_shapes("mamba_ssd_wide_bwd", x, log_decay, scale, B, C, chunk)
@@ -949,9 +955,10 @@ def mamba_ssd_wide_bwd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Te
                "states": states}
     _require_device(tensors, x.device)
     _require_aligned(tensors)
-    outs = [torch.empty_like(t) for t in (x, log_decay, scale, B, C)]
+    outs = [torch.empty_like(t) if need_dx or i else None
+            for i, t in enumerate((x, log_decay, scale, B, C))]
     if x.numel() == 0 or B.numel() == 0:
-        return tuple(o.zero_() for o in outs)
+        return tuple(o if o is None else o.zero_() for o in outs)
     lib = build.library("mamba_ssd_wide_bwd")
     nbytes = lib.mamba_ssd_wide_bwd_scratch_bytes(b, s, h, g, p, n, int(chunk))
     if nbytes <= 0:
@@ -959,8 +966,9 @@ def mamba_ssd_wide_bwd(x: torch.Tensor, log_decay: torch.Tensor, scale: torch.Te
                          "not supported")
     scratch = torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
     rc = lib.mamba_ssd_wide_bwd(*(t.data_ptr() for t in tensors.values()),
-                                *(o.data_ptr() for o in outs), scratch.data_ptr(), b, s, h, g,
-                                p, n, int(chunk), _stream(x.device))
+                                *(0 if o is None else o.data_ptr() for o in outs),
+                                scratch.data_ptr(), b, s, h, g, p, n, int(chunk), int(need_dx),
+                                _stream(x.device))
     build.check("mamba_ssd_wide_bwd", rc)
     mamba_ssd_wide_bwd.launches += 1
     return tuple(outs)
@@ -987,7 +995,7 @@ class MambaSSDWide(torch.autograd.Function):
     def backward(ctx, dy):
         x, log_decay, scale, B, C, states = ctx.saved_tensors
         grads = mamba_ssd_wide_bwd(x, log_decay, scale, B, C, dy.float().contiguous(), states,
-                                   chunk=ctx.chunk)
+                                   chunk=ctx.chunk, need_dx=ctx.needs_input_grad[0])
         return (*grads, None)
 
 

@@ -1061,6 +1061,161 @@ def mamba_ssd_bwd_tf32(x, log_decay, scale, B, C, dy, chunk: int = 64,
             dC.reshape(b, nc * chunk, n)[:, :s])
 
 
+# mamba_ssd_wide_bwd.cu: state rows a sweep block (its slice of n), most
+# blocks a cluster, state rows of a k-group of B dS, tokens of a slab of the
+# update, K of a dbc step (p for E and F, tokens for dG B and dG^T C)
+WIDE_BWD_KGROUP, WIDE_BWD_SLAB, WIDE_BWD_DBC_K = 16, 32, 32
+
+
+def mamba_ssd_wide_bwd_tf32(x, log_decay, scale, B, C, dy, chunk: int = 128, passes: int = 3,
+                            need_dx: bool = True):
+    """The ``mamba_ssd_wide_bwd`` kernel's passes and arithmetic on the CPU:
+    the function of ``ssd_scan_bwd`` (B and C ``(b, s, g, n)``, ``g | h``;
+    f32 ``(dx, dlog_decay, dscale, dB, dC)``, dx None without
+    ``need_dx``) with every tensor-core product in ``tf32_matmul`` of
+    ``passes`` over one k-group, the operands as the kernel splits them and
+    the sums in its order.  The states are the forward kernel's
+    (``mamba_ssd_wide_tf32``).
+
+    The prep's scalars as the forward's (the prefix sums and the centre in
+    double, the exps in f32) and the causal Gram ``G``.  qq: ``M = dy x^T``,
+    ``dG = (ai_i u_j) M`` and ``A2 = (ai_i u_j) G`` on ``j <= i``, ``dai``,
+    ``du``, and with dx the in-chunk term ``A2^T dy``.  The sweep over the
+    chunks in reverse, ``dS`` the gradient of the state leaving chunk c:
+
+    (a) ``<dS, S>``, and ``dS`` kept for dbc;
+    (b) with dx, each slice's partial ``B dS`` over ``WIDE_SLICE`` state rows
+        in k-groups of ``WIDE_BWD_KGROUP`` summed in order, the partials of
+        a cluster (``ceil(n / WIDE_SLICE)`` slices, at most
+        ``WIDE_CLUSTER``) summed in rank order, and ``dx = A2^T dy + z
+        sum_0 (+ z sum_1 ...)`` cluster by cluster;
+    (c) ``dS <- exp(total) dS``, then ``+= (ec C)^T dy`` a slab of
+        ``WIDE_BWD_SLAB`` tokens at a time (``ec C`` rounded to f32).
+
+    For p up to ``WIDE_NARROW_P`` (b) and (c) in f32 without TF32: ``B dS``
+    and ``C^T (ec dy)``.  dbc, per group, the heads in order: ``E = dy
+    S^T`` (``F = x dS^T``) in k-groups of ``WIDE_BWD_DBC_K`` columns of p,
+    ``sum += ec E`` (``z F``), ``dec = sum C E`` (``dz = sum B F``), then
+    ``sum += dG B`` (``dG^T C``) a k-group of ``WIDE_BWD_DBC_K`` tokens at a
+    time.  Then the scalars' chain of ``ssd_scan_bwd``.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    F = torch.nn.functional
+
+    def mm(u, v):
+        return tf32_matmul(u, v, passes)
+
+    def per_head(t):                    # (b, s, h, ...) -> (b, nc, h, Q, ...)
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        t = t.reshape(b, nc, chunk, *t.shape[2:])
+        return t.permute(0, 1, 3, 2, *range(4, t.dim()))
+
+    xq, dyq = per_head(x.float()), per_head(dy.float())         # (b, nc, h, Q, p)
+    a, dt = per_head(log_decay.double()), per_head(scale.float())
+    Bq, Cq = per_head(B.float()), per_head(C.float())           # (b, nc, g, Q, n)
+    Bh, Ch = Bq.repeat_interleave(rep, 2), Cq.repeat_interleave(rep, 2)
+    cum = torch.cumsum(a, dim=-1)                               # double
+    total = cum[..., -1]
+    mx = cum.amax(-1, keepdim=True)
+    mn = cum.amin(-1, keepdim=True)
+    center = 0.5 * (mx + mn)
+    ea, eb = (cum - center).float(), (center - cum).float()
+    ai = torch.exp(torch.clamp(ea, -60.0, 60.0))
+    bj = torch.exp(torch.clamp(eb, -60.0, 60.0))
+    w = torch.exp((total[..., None] - cum).float())
+    ec, et = torch.exp(cum.float()), torch.exp(total.float())
+    u, z = dt * bj, w * dt
+    ma = ((ea >= -60.0) & (ea <= 60.0)).float()
+    mb = ((eb >= -60.0) & (eb <= 60.0)).float()
+    tmax, tmin = (cum == mx).float(), (cum == mn).float()
+    tw = 0.5 / tmax.sum(-1, keepdim=True) * tmax + 0.5 / tmin.sum(-1, keepdim=True) * tmin
+    lmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    G = torch.where(lmask, mm(Cq, Bq.transpose(-1, -2)), 0.0).repeat_interleave(rep, 2)
+    _, S = mamba_ssd_wide_tf32(x, log_decay, scale, B, C, chunk, passes, return_states=True)
+    # qq
+    M = mm(dyq, xq.transpose(-1, -2))
+    au = torch.where(lmask, ai[..., :, None] * u[..., None, :], 0.0)
+    dG, A2 = torch.where(lmask, au * M, 0.0), torch.where(lmask, au * G, 0.0)
+    dai = (G * u[..., None, :] * M).sum(-1)
+    du = (G * ai[..., :, None] * M).sum(-2)
+    dx = mm(A2.transpose(-1, -2), dyq) if need_dx else None
+    # the sweep
+    narrow = p <= WIDE_NARROW_P
+    slices = [(r0, min(r0 + WIDE_SLICE, n)) for r0 in range(0, n, WIDE_SLICE)]
+    csize = min(WIDE_CLUSTER, len(slices))
+    clusters = [slices[i:i + csize] for i in range(0, len(slices), csize)]
+    slabs = [(j0, min(j0 + WIDE_BWD_SLAB, chunk)) for j0 in range(0, chunk, WIDE_BWD_SLAB)]
+    dS = torch.zeros((b, h, n, p), dtype=torch.float32)
+    dS_out, det = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        dS_out[c], det[c] = dS, (dS * S[:, c]).sum((-1, -2))
+        Bc, Cc, Y = Bh[:, c], Ch[:, c], dyq[:, c]
+        if need_dx:
+            dxc = dx[:, c]
+            for cl in clusters:
+                part = None
+                for r0, r1 in cl:              # a block: its slice's partial
+                    if narrow:
+                        acc = Bc[..., r0:r1] @ dS[..., r0:r1, :]
+                    else:
+                        acc = None
+                        for k0 in range(r0, r1, WIDE_BWD_KGROUP):
+                            k1 = min(k0 + WIDE_BWD_KGROUP, r1)
+                            d = mm(Bc[..., k0:k1], dS[..., k0:k1, :])
+                            acc = d if acc is None else acc + d
+                    part = acc if part is None else part + acc
+                dxc = dxc + z[:, c, ..., None] * part
+            dx[:, c] = dxc
+        dS = et[:, c, :, None, None] * dS
+        eC = ec[:, c, ..., None] * Cc                           # (b, h, Q, n), rounded to f32
+        if narrow:
+            dS = dS + eC.transpose(-1, -2) @ Y
+        else:
+            for j0, j1 in slabs:
+                dS = dS + mm(eC[..., j0:j1, :].transpose(-1, -2), Y[..., j0:j1, :])
+    dS_out, det = torch.stack(dS_out, 1), torch.stack(det, 1)   # (b, nc, h, n, p), (b, nc, h)
+
+    # dbc: a group's heads in order
+    def dbc(A, St, scl, dGm, mat, other):
+        E = None
+        for k0 in range(0, p, WIDE_BWD_DBC_K):
+            k1 = min(k0 + WIDE_BWD_DBC_K, p)
+            d = mm(A[..., k0:k1], St[..., k0:k1].transpose(-1, -2))
+            E = d if E is None else E + d
+        dot = (mat * E).sum(-1)
+        E, dGm, scl = (t.reshape(b, nc, g, rep, *t.shape[3:]) for t in (E, dGm, scl))
+        acc = torch.zeros((b, nc, g, chunk, n), dtype=torch.float32)
+        for r in range(rep):
+            acc = acc + scl[:, :, :, r, :, None] * E[:, :, :, r]
+            for j0 in range(0, chunk, WIDE_BWD_DBC_K):
+                j1 = min(j0 + WIDE_BWD_DBC_K, chunk)
+                acc = acc + mm(dGm[:, :, :, r, :, j0:j1], other[..., j0:j1, :])
+        return acc, dot
+
+    dCq, dec = dbc(dyq, S, ec, dG, Ch, Bq)
+    dBq, dz = dbc(xq, dS_out, z, dG.transpose(-1, -2), Bh, Cq)
+    # the scalars' chain (ssd_scan_bwd's)
+    ddt = bj * du + w * dz
+    dbj, dw = dt * du, dt * dz
+    ga, gb = dai * ai * ma, dbj * bj * mb
+    dcum = ga - gb - dw * w + dec * ec
+    cen = (gb - ga).sum(-1, keepdim=True)
+    dcum[..., -1] += (dw * w).sum(-1) + det * et
+    dcum = dcum + cen * tw
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+
+    def tokens(t):                      # (b, nc, k, Q, ...) -> (b, s, k, ...)
+        t = t.transpose(2, 3)
+        return t.reshape(b, nc * chunk, *t.shape[3:])[:, :s]
+
+    return (tokens(dx) if need_dx else None, tokens(da), tokens(ddt), tokens(dBq),
+            tokens(dCq))
+
+
 def mamba_ssd_ref(x, log_decay, scale, B, C) -> torch.Tensor:
     """The textbook SSD oracle of the reference's tests
     (``repro/kernels/ref.py:mamba_ssd_ref``): ``factorized=False`` at

@@ -1310,6 +1310,14 @@ WIDE_BWD_CASES = [
     (2, 300, 6, 3, 100, 48, 48, False),     # ragged p and n tiles, 4-byte copies
     (1, 130, 2, 1, 30, 16, 16, True),       # one group, chunk 16
     (2, 40, 2, 2, 128, 128, 128, False),    # the reduced xLSTM's scan
+    (2, 300, 4, 2, 64, 144, 128, True),     # n 144: a cluster of two blocks, the second ragged
+    (1, 200, 2, 2, 129, 64, 64, False),     # p 129: two strips, the second one column wide
+    (1, 300, 4, 2, 2, 256, 128, True),      # p = 2 on the narrow path, g < h, steep
+    (2, 200, 2, 2, 4, 144, 32, False),      # p = 4 on the narrow path, a two-block cluster
+    (2, 200, 3, 1, 3, 144, 32, True),       # p = 3: narrow<4>, one column masked, steep
+    (2, 512, 2, 2, 256, 1024, 128, False),  # n 1024: a cluster of 8 blocks, two strips
+    (1, 200, 2, 2, 64, 1040, 32, False),    # n 1040: two clusters, their shares of dx summed
+    (1, 200, 2, 2, 4, 1040, 32, False),     # the same on the narrow path
 ]
 
 
@@ -1340,6 +1348,26 @@ def test_mamba_ssd_wide_bwd_kernel_matches_plain(cuda_device, b, s, h, g, p, n, 
             f"{name}: {float((err / (1e-4 * (w.abs().max() + w.abs()))).max()):.3f} of the limit"
     again = ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk)
     assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk,steep", [
+    (1, 300, 4, 2, 64, 144, 128, True), (2, 200, 2, 2, 1, 256, 64, False),
+    (1, 200, 2, 2, 64, 1040, 32, False)])
+def test_mamba_ssd_wide_bwd_without_dx_leaves_the_rest_bit_equal(cuda_device, b, s, h, g, p,
+                                                                    n, chunk, steep):
+    """``need_dx=False`` (the normaliser's constant x) returns None for dx
+    and the other four gradients bit-equal to the call with dx, on the
+    sweep, the narrow launch and past one cluster (n 1040)."""
+    args = [t.to(cuda_device) for t in _wide_inputs(b, s, h, g, p, n, s + n, steep)]
+    dy = torch.from_numpy(np.random.default_rng(n).normal(size=(b, s, h, p)).astype(
+        np.float32)).to(cuda_device)
+    _, states = ops.mamba_ssd_wide(*args, chunk=chunk, return_states=True)
+    full = ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk)
+    before = ops.mamba_ssd_wide_bwd.launches
+    part = ops.mamba_ssd_wide_bwd(*args, dy, states, chunk=chunk, need_dx=False)
+    assert ops.mamba_ssd_wide_bwd.launches == before + 1
+    assert part[0] is None and full[0] is not None
+    assert all(torch.equal(u, v) for u, v in zip(full[1:], part[1:]))
 
 
 def test_mamba_ssd_wide_bwd_refuses_what_it_has_no_kernel_for(cuda_device):

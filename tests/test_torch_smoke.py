@@ -47,12 +47,15 @@ def smoke():
 
 def _fake_profiler(monkeypatch, records_per_window):
     """``torch.profiler.profile`` replaced by a window whose kernel record
-    count is ``records_per_window(calls)``, 2 us of device time each."""
+    count is ``records_per_window(calls)``, 2 us of device time each, and
+    whose marker kernel (``torch.cuda._sleep``), where one was launched,
+    is a record of its own, 50 us long."""
     calls = []
 
     class Window:
         def __init__(self, activities):
             self.n = 0
+            self.marked = False
 
         def __enter__(self):
             calls.append(self)
@@ -63,14 +66,23 @@ def _fake_profiler(monkeypatch, records_per_window):
 
         def key_averages(self):
             count = records_per_window(self.n)
+            marker = [SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA,
+                                      key="void at::cuda::(anonymous namespace)::spin_kernel",
+                                      count=1, self_device_time_total=50.0)]
             return [SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, key="kernel",
-                                    count=count, self_device_time_total=2.0 * count)]
+                                    count=count, self_device_time_total=2.0 * count)] + \
+                (marker if self.marked else [])
 
     def fn():
         if calls:
             calls[-1].n += 1
 
+    def sleep(cycles):
+        if calls:
+            calls[-1].marked = True
+
     monkeypatch.setattr(torch.profiler, "profile", Window)
+    monkeypatch.setattr(torch.cuda, "_sleep", sleep)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     return fn, calls
 
@@ -532,6 +544,25 @@ def test_new_mutants_each_name_a_case_the_kernels_phase_runs(smoke):
         assert src.count(f'("{case}",') == 1, case
 
 
+def test_wide_bwd_mutants_each_name_a_case_the_kernels_phase_runs(smoke):
+    """Each broken copy of the grouped scan's backward replaces a text that
+    occurs once in its source (the kernel or the header it shares), is
+    caught by a case the kernels phase runs, and is built beside every
+    header those sources include (``WIDE_HEADERS``)."""
+    import re
+
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    assert set(smoke.WIDE_BWD_MUTANT_CATCHER) == set(smoke.WIDE_BWD_MUTANTS)
+    src = (ROOT / "chip_smoke.py").read_text()
+    for name, (fname, old, new) in smoke.WIDE_BWD_MUTANTS.items():
+        assert fname in ("mamba_ssd_wide_bwd.cu", *smoke.WIDE_HEADERS), name
+        assert (csrc / fname).read_text().count(old) == 1 and old != new, name
+        assert src.count(f'("{smoke.WIDE_BWD_MUTANT_CATCHER[name]}",') == 1, name
+    for f in ("mamba_ssd_wide.cu", "mamba_ssd_wide_bwd.cu", *smoke.WIDE_HEADERS):
+        for inc in re.findall(r'#include "([^"]+)"', (csrc / f).read_text()):
+            assert inc in smoke.WIDE_HEADERS, (f, inc)
+
+
 def test_wide_bwd_work_and_bound(smoke):
     """The grouped scan's backward at xlstm-1.3b's training microbatch (the
     value scan: 2 x 2048, h = g = 4, p = n = 1024, chunk 128): 74.1 G
@@ -552,21 +583,26 @@ def test_wide_bwd_work_and_bound(smoke):
 
 def test_split_kernels_names_the_new_kernels(smoke):
     """The device split of a train step: the grouped scan's forward
-    (``wide_*``) under ``ssd_fwd``, its backward's six kernels under
+    (``wide_*``) under ``ssd_fwd``, its backward's kernels (the sweep or the
+    narrow launch, the clusters' sum, dbc in either tile width) under
     ``ssd_bwd``, the f32 flash backward's three under ``flash_bwd`` and the
     f32 forward under ``flash_fwd``."""
     names = {"(anonymous namespace)::wide_prep(Params)": 1.0,
              "(anonymous namespace)::wide_scan(Params)": 2.0,
              "void (anonymous namespace)::wide_narrow<1>(Params)": 4.0,
              **{f"(anonymous namespace)::mamba_ssd_wide_bwd_{part}(Params)": 8.0
-                for part in smoke.WIDE_BWD_PARTS},
+                for part in smoke.WIDE_BWD_PARTS if part not in ("narrow", "dbc", "sum")},
+             "void (anonymous namespace)::mamba_ssd_wide_bwd_narrow<1>(Params)": 8.0,
+             "void (anonymous namespace)::mamba_ssd_wide_bwd_dbc<128>(Params)": 8.0,
+             "(anonymous namespace)::mamba_ssd_wide_bwd_sum(const float *, float *, long long, "
+             "int)": 8.0,
              "void (anonymous namespace)::bwd_f32_prep<32>(Params)": 100.0,
              "void (anonymous namespace)::bwd_f32_dkdv<32>(Params)": 200.0,
              "void (anonymous namespace)::bwd_f32_dq<32>(Params)": 400.0,
              "void (anonymous namespace)::flash_fwd_f32<32, true>(Params)": 1000.0,
              "void at::native::vectorized_elementwise_kernel": 5000.0}
     assert smoke._split_kernels(names.items()) == {
-        "flash_fwd": 1000.0, "flash_bwd": 700.0, "ssd_fwd": 7.0, "ssd_bwd": 48.0,
+        "flash_fwd": 1000.0, "flash_bwd": 700.0, "ssd_fwd": 7.0, "ssd_bwd": 56.0,
         "matmul": 0.0, "other": 5000.0}
 
 

@@ -126,6 +126,72 @@ def test_mamba_ssd_wide_autograd_function_on_the_cpu_is_the_plain_gradient():
     assert torch.equal(y2, y.detach()) and states.shape == (2, 3, 4, 16, 8)
 
 
+# b, s, h, g, p, n, chunk, steep: the wide backward's passes (ref.mamba_ssd_wide_bwd_tf32)
+TF32_CASES = {
+    "g_below_h_ragged": (2, 37, 4, 2, 8, 16, 16, False),
+    "steep_ragged_g2": (1, 75, 4, 2, 8, 16, 32, True),
+    "normaliser_p1": (2, 40, 2, 2, 1, 16, 16, False),
+    "narrow_p3_g1": (2, 37, 3, 1, 3, 32, 16, False),
+    "two_block_cluster_n144": (1, 70, 2, 2, 8, 144, 32, True),
+}
+
+
+def _jax_scan_vjp(arrays, chunk):
+    vjp = jax.jit(lambda args, ct: jax.vjp(
+        lambda *t: jssm.gated_linear_scan(*t, chunk=chunk, factorized=True), *args)[1](ct))
+    return vjp(tuple(jnp.asarray(v) for v in arrays[:5]), jnp.asarray(arrays[5]))
+
+
+@pytest.mark.parametrize("case", sorted(TF32_CASES))
+def test_wide_bwd_tf32_passes_match_jax_vjp(case):
+    """The kernel's arithmetic on the CPU (3xTF32 products over its
+    k-groups, the cluster's partials of B dS in rank order, f32 FMA on the
+    narrow path) against ``jax.vjp`` of the reference's scan, each
+    gradient within 1e-4 of its max-abs; without dx the other four are
+    bit-equal."""
+    b, s, h, g, p, n, chunk, steep = TF32_CASES[case]
+    arrays = _scan_inputs(b, s, h, g, p, n, steep, seed=len(case) + 7)
+    args = [torch.from_numpy(v) for v in arrays]
+    got = ref.mamba_ssd_wide_bwd_tf32(*args, chunk)
+    _close([t.numpy() for t in got], _jax_scan_vjp(arrays, chunk), f"tf32 {case}")
+    rest = ref.mamba_ssd_wide_bwd_tf32(*args, chunk, need_dx=False)
+    assert rest[0] is None and all(torch.equal(u, v) for u, v in zip(got[1:], rest[1:]))
+
+
+def test_one_tf32_pass_misses_the_wide_bwd_tolerance():
+    """One TF32 pass (hi.hi: what the kernel's broken copy `one_pass_tf32`
+    issues) takes some gradient past the 1e-4-of-max-abs tolerance that
+    three passes meet, on the value scan's path and on the narrow one."""
+    for case in ("g_below_h_ragged", "normaliser_p1"):
+        b, s, h, g, p, n, chunk, steep = TF32_CASES[case]
+        arrays = _scan_inputs(b, s, h, g, p, n, steep, seed=len(case) + 7)
+        want = _jax_scan_vjp(arrays, chunk)
+        got = ref.mamba_ssd_wide_bwd_tf32(*(torch.from_numpy(v) for v in arrays), chunk,
+                                          passes=1)
+        shares = [float(np.abs(np.asarray(gv) - np.asarray(w)).max() / (1e-4 * np.abs(
+            np.asarray(w)).max())) for gv, w in zip(got, want)]
+        assert max(shares) > 1.0, (case, shares)
+
+
+def test_mamba_ssd_wide_autograd_returns_no_dx_where_none_is_needed(monkeypatch):
+    """The normaliser's x is a constant: ``MambaSSDWide`` on CPU tensors
+    returns None for its gradient and the other four as with it."""
+    x, a, dt, Bm, Cm, dy = (torch.from_numpy(v)
+                            for v in _scan_inputs(2, 37, 4, 2, 1, 16, False, seed=5))
+    leaves = [t.clone().requires_grad_() for t in (a, dt, Bm, Cm)]
+    y = ops.mamba_ssd_wide_autograd(x, *leaves, chunk=16)
+    y.backward(dy)
+    assert x.grad is None
+    full = [t.clone().requires_grad_() for t in (x, a, dt, Bm, Cm)]
+    want = torch.autograd.grad(ops.mamba_ssd_wide_autograd(*full, chunk=16), full, dy)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want[1:]))
+    seen, real = [], ops.mamba_ssd_wide_bwd
+    monkeypatch.setattr(ops, "mamba_ssd_wide_bwd",
+                        lambda *args, **kw: seen.append(kw) or real(*args, **kw))
+    ops.mamba_ssd_wide_autograd(x, *leaves, chunk=16).backward(dy)
+    assert [kw["need_dx"] for kw in seen] == [False]
+
+
 # ---------------------------------------------------------------- the model
 @pytest.fixture(scope="module")
 def pair():
